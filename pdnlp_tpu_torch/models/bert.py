@@ -1,0 +1,192 @@
+"""BERT encoder + sequence-classification head, the PyTorch twin of
+``pdnlp_tpu/models/bert.py`` (deterministic forward: serving).
+
+Where the JAX package scans one step over ``[L, ...]``-stacked weights,
+this is an ``nn.ModuleList`` of layers run in a Python loop.  Parameter
+names follow the JAX tree (``embeddings.word``, ``layers.<i>.q``,
+``attn_ln.scale``, ...) so ``models.convert`` maps one onto the other
+leaf by leaf; dense layers are ``nn.Linear`` (weight ``[out, in]``, the
+transpose of the JAX ``[in, out]`` kernel).
+
+Precision follows the JAX policy: the compute dtype is the dtype the
+caller asks for, LayerNorm reduces in fp32 whatever it is, the embedding
+sum is taken in fp32 and then cast, and logits come back in fp32.  Dense
+weights are cast to the compute dtype at the matmul (a no-op once the
+serving engine has cast them).
+
+Not in this slice, and refused rather than approximated: MoE layers,
+sequence-parallel (ring) attention, rematerialization, dropout (the
+forward is deterministic) and the int8 ``qscale`` branch.
+"""
+from __future__ import annotations
+
+from typing import Dict, Optional
+
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+from pdnlp_tpu_torch.models.config import BertConfig
+from pdnlp_tpu_torch.ops.attention import dot_product_attention, mask_bias
+
+
+def _layer_norm(x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor,
+                eps: float) -> torch.Tensor:
+    """LayerNorm reduced in fp32 whatever the compute dtype (biased
+    variance, scale and shift in fp32, then cast back)."""
+    return F.layer_norm(x.to(torch.float32), x.shape[-1:], scale, bias,
+                        eps).to(x.dtype)
+
+
+def _gelu(x: torch.Tensor, form: str = "erf") -> torch.Tensor:
+    """GELU in ``cfg.gelu`` form: ``"erf"`` exact, ``"tanh"`` approximate."""
+    if form not in ("erf", "tanh"):
+        raise ValueError(f"gelu must be 'erf' or 'tanh', got {form!r}")
+    return F.gelu(x, approximate="tanh" if form == "tanh" else "none")
+
+
+def _dense(x: torch.Tensor, lin: nn.Linear) -> torch.Tensor:
+    return F.linear(x, lin.weight.to(x.dtype), lin.bias.to(x.dtype))
+
+
+class LayerNorm(nn.Module):
+    """The JAX ``{"scale", "bias"}`` LayerNorm leaf pair (kept fp32)."""
+
+    def __init__(self, width: int, device=None):
+        super().__init__()
+        self.scale = nn.Parameter(torch.ones(width, device=device))
+        self.bias = nn.Parameter(torch.zeros(width, device=device))
+
+
+class Embeddings(nn.Module):
+    def __init__(self, cfg: BertConfig, device=None):
+        super().__init__()
+        H = cfg.hidden_size
+        self.word = nn.Parameter(torch.empty(cfg.vocab_size, H, device=device))
+        self.position = nn.Parameter(
+            torch.empty(cfg.max_position, H, device=device))
+        self.token_type = nn.Parameter(
+            torch.empty(cfg.type_vocab_size, H, device=device))
+        self.ln = LayerNorm(H, device)
+
+
+class EncoderLayer(nn.Module):
+    def __init__(self, cfg: BertConfig, device=None):
+        super().__init__()
+        H, I = cfg.hidden_size, cfg.intermediate_size
+        self.q = nn.Linear(H, H, device=device)
+        self.k = nn.Linear(H, H, device=device)
+        self.v = nn.Linear(H, H, device=device)
+        self.o = nn.Linear(H, H, device=device)
+        self.attn_ln = LayerNorm(H, device)
+        self.up = nn.Linear(H, I, device=device)
+        self.down = nn.Linear(I, H, device=device)
+        self.mlp_ln = LayerNorm(H, device)
+
+
+class BertClassifier(nn.Module):
+    """BERT encoder, tanh pooler and classifier (``bert.classify``)."""
+
+    def __init__(self, cfg: BertConfig, *,
+                 generator: Optional[torch.Generator] = None,
+                 device: Optional[torch.device] = None):
+        super().__init__()
+        if cfg.moe_experts:
+            raise ValueError("MoE layers are not ported yet (ROADMAP A11)")
+        self.cfg = cfg
+        H = cfg.hidden_size
+        self.embeddings = Embeddings(cfg, device)
+        self.layers = nn.ModuleList(
+            EncoderLayer(cfg, device) for _ in range(cfg.num_layers))
+        self.pooler = nn.Linear(H, H, device=device)
+        self.classifier = nn.Linear(H, cfg.num_labels, device=device)
+        self.init_weights(generator)
+
+    @torch.no_grad()
+    def init_weights(self, generator: Optional[torch.Generator] = None):
+        """Truncated normal (+-2 std, std ``initializer_range``) for every
+        matrix, zeros for biases, ones/zeros for LayerNorm — the JAX
+        ``init_params`` scheme (different draws: the generators differ)."""
+        std = self.cfg.initializer_range
+        for name, p in self.named_parameters():
+            if name.endswith(".scale"):
+                p.fill_(1.0)
+            elif name.endswith(".bias"):
+                p.zero_()
+            else:
+                nn.init.trunc_normal_(p, std=std, a=-2 * std, b=2 * std,
+                                      generator=generator)
+
+    # ------------------------------------------------------------ forward
+    def embed(self, input_ids: torch.Tensor, token_type_ids: torch.Tensor,
+              dtype: torch.dtype,
+              position_ids: Optional[torch.Tensor] = None) -> torch.Tensor:
+        """Embedding sum (fp32) -> compute dtype -> LayerNorm.  Explicit
+        ``position_ids`` (packed rows restart per segment) carry their own
+        bound; row positions must fit the table."""
+        emb = self.embeddings
+        S = input_ids.shape[1]
+        if position_ids is None:
+            if S > self.cfg.max_position:
+                raise ValueError(
+                    f"sequence length {S} exceeds max_position "
+                    f"{self.cfg.max_position}")
+            pos = emb.position[:S][None]
+        else:
+            pos = emb.position[position_ids.long()]
+        x = (emb.word[input_ids.long()] + pos
+             + emb.token_type[token_type_ids.long()]).to(dtype)
+        return _layer_norm(x, emb.ln.scale, emb.ln.bias,
+                           self.cfg.layer_norm_eps)
+
+    def encode(self, input_ids, token_type_ids, attention_mask, *,
+               dtype: torch.dtype = torch.float32, attn_impl: str = "auto",
+               segment_ids: Optional[torch.Tensor] = None,
+               position_ids: Optional[torch.Tensor] = None) -> torch.Tensor:
+        """Hidden states ``[B, S, H]`` in ``dtype``.  ``segment_ids`` (packed
+        rows) carries the block-diagonal mask to attention; otherwise the
+        key mask comes from ``attention_mask``."""
+        cfg = self.cfg
+        B, S = input_ids.shape
+        N, D = cfg.num_heads, cfg.head_dim
+        x = self.embed(input_ids, token_type_ids, dtype, position_ids)
+        # fp32 whatever the compute dtype: the kernel adds the mask in fp32,
+        # and the plain path casts it to the scores' dtype
+        bias = None if segment_ids is not None else mask_bias(attention_mask)
+        for lp in self.layers:
+            q = _dense(x, lp.q).view(B, S, N, D)
+            k = _dense(x, lp.k).view(B, S, N, D)
+            v = _dense(x, lp.v).view(B, S, N, D)
+            attn = dot_product_attention(q, k, v, bias, impl=attn_impl,
+                                         segment_ids=segment_ids)
+            attn = _dense(attn.reshape(B, S, N * D), lp.o)
+            x = _layer_norm(x + attn, lp.attn_ln.scale, lp.attn_ln.bias,
+                            cfg.layer_norm_eps)
+            h = _dense(_gelu(_dense(x, lp.up), cfg.gelu), lp.down)
+            x = _layer_norm(x + h, lp.mlp_ln.scale, lp.mlp_ln.bias,
+                            cfg.layer_norm_eps)
+        return x
+
+    def pooled_logits(self, h0: torch.Tensor) -> torch.Tensor:
+        """[CLS] hidden rows ``[B, H]`` -> fp32 logits ``[B, num_labels]``."""
+        pooled = torch.tanh(_dense(h0, self.pooler))
+        return _dense(pooled, self.classifier).to(torch.float32)
+
+    def classify(self, batch: Dict[str, torch.Tensor], *,
+                 dtype: torch.dtype = torch.float32,
+                 attn_impl: str = "auto") -> torch.Tensor:
+        """fp32 logits: ``[B, num_labels]`` for a padded batch, or
+        ``[B, M, num_labels]`` per segment for a packed batch (one carrying
+        ``cls_positions``, ``segment_ids`` and ``position_ids``)."""
+        packed = "cls_positions" in batch
+        hidden = self.encode(
+            batch["input_ids"], batch["token_type_ids"],
+            batch["attention_mask"], dtype=dtype, attn_impl=attn_impl,
+            segment_ids=batch["segment_ids"] if packed else None,
+            position_ids=batch.get("position_ids") if packed else None)
+        if not packed:
+            return self.pooled_logits(hidden[:, 0, :])
+        pos = batch["cls_positions"].long()
+        hM = torch.take_along_dim(hidden, pos[..., None], dim=1)  # [B, M, H]
+        B, M, H = hM.shape
+        return self.pooled_logits(hM.reshape(B * M, H)).reshape(B, M, -1)

@@ -1,0 +1,93 @@
+"""The weight bridge between the JAX parameter tree and the port's
+``state_dict``.
+
+The JAX tree (``pdnlp_tpu/models/bert.py:init_params``) stacks every
+encoder-layer leaf on a leading ``[L, ...]`` axis and stores dense kernels
+as ``[in, out]``; :class:`~pdnlp_tpu_torch.models.bert.BertClassifier` has
+one module per layer and ``nn.Linear`` weights ``[out, in]``.  Both
+directions only transpose, split and stack, so a round trip is bitwise.
+The bridge speaks numpy on the JAX side, so it needs no JAX.
+"""
+from __future__ import annotations
+
+from typing import Any, Dict
+
+import numpy as np
+import torch
+
+_DENSE = ("q", "k", "v", "o", "up", "down")
+_LN = ("attn_ln", "mlp_ln")
+
+
+def num_layers(tree: Dict[str, Any]) -> int:
+    return int(np.asarray(tree["layers"]["q"]["kernel"]).shape[0])
+
+
+def _t(a) -> torch.Tensor:
+    """An owned, writable, C-ordered copy (JAX hands out read-only views)."""
+    return torch.from_numpy(np.array(a, order="C"))
+
+
+def from_jax_params(tree: Dict[str, Any]) -> Dict[str, torch.Tensor]:
+    """JAX parameter tree (numpy leaves) -> the port's ``state_dict``."""
+    emb = tree["embeddings"]
+    sd = {
+        "embeddings.word": _t(emb["word"]),
+        "embeddings.position": _t(emb["position"]),
+        "embeddings.token_type": _t(emb["token_type"]),
+        "embeddings.ln.scale": _t(emb["ln"]["scale"]),
+        "embeddings.ln.bias": _t(emb["ln"]["bias"]),
+    }
+    layers = tree["layers"]
+    if "gate" in layers:
+        raise ValueError("MoE parameter trees are not ported yet (ROADMAP A11)")
+    for i in range(num_layers(tree)):
+        for name in _DENSE:
+            sd[f"layers.{i}.{name}.weight"] = _t(
+                np.asarray(layers[name]["kernel"])[i].T)
+            sd[f"layers.{i}.{name}.bias"] = _t(
+                np.asarray(layers[name]["bias"])[i])
+        for name in _LN:
+            sd[f"layers.{i}.{name}.scale"] = _t(
+                np.asarray(layers[name]["scale"])[i])
+            sd[f"layers.{i}.{name}.bias"] = _t(
+                np.asarray(layers[name]["bias"])[i])
+    for name in ("pooler", "classifier"):
+        sd[f"{name}.weight"] = _t(np.asarray(tree[name]["kernel"]).T)
+        sd[f"{name}.bias"] = _t(tree[name]["bias"])
+    return sd
+
+
+def to_jax_params(state_dict: Dict[str, torch.Tensor]) -> Dict[str, Any]:
+    """The port's ``state_dict`` -> JAX parameter tree with numpy leaves."""
+    def a(key) -> np.ndarray:
+        return state_dict[key].detach().cpu().numpy()
+
+    L = 1 + max(int(k.split(".")[1]) for k in state_dict
+                if k.startswith("layers."))
+    layers: Dict[str, Any] = {}
+    for name in _DENSE:
+        layers[name] = {
+            "kernel": np.stack([a(f"layers.{i}.{name}.weight").T
+                                for i in range(L)]),
+            "bias": np.stack([a(f"layers.{i}.{name}.bias") for i in range(L)]),
+        }
+    for name in _LN:
+        layers[name] = {
+            "scale": np.stack([a(f"layers.{i}.{name}.scale")
+                               for i in range(L)]),
+            "bias": np.stack([a(f"layers.{i}.{name}.bias") for i in range(L)]),
+        }
+    return {
+        "embeddings": {
+            "word": a("embeddings.word"),
+            "position": a("embeddings.position"),
+            "token_type": a("embeddings.token_type"),
+            "ln": {"scale": a("embeddings.ln.scale"),
+                   "bias": a("embeddings.ln.bias")},
+        },
+        "layers": layers,
+        "pooler": {"kernel": a("pooler.weight").T, "bias": a("pooler.bias")},
+        "classifier": {"kernel": a("classifier.weight").T,
+                       "bias": a("classifier.bias")},
+    }

@@ -36,6 +36,10 @@ def pytest_configure(config):
         "markers",
         "slow: heavy real-process cases (chaos storms, subprocess servers) "
         "excluded from tier-1 (`-m 'not slow'`)")
+    config.addinivalue_line(
+        "markers",
+        "cuda: needs an NVIDIA card (the PyTorch port's CUDA kernels); "
+        "skips inside its fixture where there is none")
 
 
 @pytest.fixture(scope="session")
