@@ -3,21 +3,28 @@
 
     python3 chip_smoke.py          # from the root of a checkout
 
-It builds every CUDA kernel from the checkout's sources, holds each against
-its plain PyTorch version on the card, serves bert-base at full width
-(12 layers, 768 hidden, 12 heads of 64, vocab 21128; seeded random weights
-and a seeded synthetic vocab) through the port's own entry points, shows
-from the launch counters that the served path ran the kernels, times the
+It builds every CUDA kernel from the checkout's sources (K1 flash forward,
+K2/K3 flash backward, K4/K5 fused classifier CE), holds each against its
+plain PyTorch twin on the card, serves bert-base at full width (12 layers,
+768 hidden, 12 heads of 64, vocab 21128; seeded random weights and a
+seeded synthetic vocab) through the port's own entry points, trains it at
+full width on a seeded synthetic corpus — 20 steps on the kernel route
+against 20 on the plain route, fp32 and bf16, then the training entry
+point as a subprocess, whose checkpoint the serve engine loads — shows
+from the launch counters that each path ran its kernels, times the
 kernels beside their bounds, and checks the answers against the plain
-attention path on the same card.
+paths on the same card.
 
-Phases: 1 device, 2 build, 3 kernel vs plain, 4 main path (DynamicBatcher
-packed and padded, fp32 and bf16, and the CLI), 5 times.  Any failure
+Phases: 1 device, 2 build, 3 kernel vs plain (3b: the backward and the
+fused CE), 4 serving main path (DynamicBatcher packed and padded, fp32 and
+bf16, and the CLI), 5 times, 6 training main path (6a kernel route vs
+plain route, 6b ``python -m pdnlp_tpu_torch.train.single``).  Any failure
 raises and the script exits non-zero.  Without a card, or away from the
 repo, it prints no result and exits non-zero.  The line before the last is
 the ``{"kernels": [...]}`` record; the last is ``{"ok": true, ...}``.
 Numbers are printed beside the card's name and power limit.
 """
+import itertools
 import json
 import os
 import subprocess
@@ -37,9 +44,28 @@ KERNEL_ATOL = {"float32": 2e-5, "bfloat16": 1e-2}
 #: weights: fp32 through 12 layers; bf16 also rounds probabilities to bf16
 #: on the plain path only
 LOGIT_ATOL = {"float32": 1e-3, "bfloat16": 5e-2}
+#: K2/K3 vs twins on the same m, l, Di: fp32 sums over up to 512 keys in
+#: another order; bf16 adds the rounding of the gradients to bfloat16
+#: (values of a few units: half an ulp is ~1e-2)
+BWD_TOL = {"float32": (5e-5, 0.0), "bfloat16": (2e-2, 2e-2)}
+#: K4/K5 vs twins: fp32 sums over H = 768 and over the rows in another
+#: order; bf16 d(feats) is rounded to bfloat16
+CE_TOL = {"float32": (1e-5, 1e-5), "bfloat16": (1e-2, 1e-2)}
+#: training, kernel route vs plain route from the same weights and batches
+#: (dropout 0): per-step loss, fp32 rounding through 12 layers (fp32) or
+#: bf16 scores and probabilities on the plain route only (bf16)
+TRAIN_LOSS_ATOL = {"float32": 1e-3, "bfloat16": 5e-2}
+#: final params: an Adam update moves a weight by about lr per step
+#: whatever the gradient's size, so a gradient near 0 whose sign the two
+#: routes' rounding decides can differ by up to 2 * lr per step
+TRAIN_STEPS = 20
+LEARNING_RATE = 3e-5
+PARAM_ATOL = 2 * LEARNING_RATE * TRAIN_STEPS
 BUCKETS = (32, 64, 128)
 N_REQUESTS = 64
 SEED = 0
+CHARS = list("天地人你我他好坏大小上下来去爱恨喜怒哀乐高兴悲伤讨厌愤怒"
+             "春夏秋冬东南西北山水风雨花草树木日月星云")
 
 
 def fail(msg):
@@ -112,6 +138,154 @@ def kernel_cases(torch, flash, mask_bias, device):
                 fail(f"flash_fwd disagrees with its plain version "
                      f"({form}, S={S}, {dtype}): {err}")
             errs[dtype] = max(errs[dtype], err)
+    return errs
+
+
+# ---------------------------------------------------------------- phase 3b
+
+
+def _err(got, want, tol):
+    """(max abs error, within atol + rtol * |want| and finite?)."""
+    atol, rtol = tol
+    g, w = got.float(), want.float()
+    d = (g - w).abs()
+    return d.max().item(), bool((d <= atol + rtol * w.abs()).all()
+                                and g.isfinite().all())
+
+
+def backward_cases(torch, flash, mask_bias, device):
+    """K1's m and l against the twin's, then K2 and K3 on the same m, l
+    and Di against theirs: the training shape (32 x 128, N 12, padded keys,
+    a filler row), ragged widths, and packed rows with padding rows
+    (``pad_tail``) and without.  Returns the max error per kernel and
+    dtype."""
+    import numpy as np
+
+    rng = np.random.RandomState(SEED + 3)
+    errs = {k: {"float32": 0.0, "bfloat16": 0.0}
+            for k in ("stats", "flash_bwd_dq", "flash_bwd_dkv")}
+    cases = [("bias", 32, 128), ("bias", 4, 40), ("bias", 4, 200),
+             ("segments", 4, 128), ("pad_tail", 4, 512)]
+    for form, B, S in cases:
+        qkvd = [rng.randn(B, S, 12, 64).astype(np.float32) for _ in range(4)]
+        if form == "bias":
+            mask = np.zeros((B, S), np.int32)
+            for b in range(B - 1):
+                mask[b, : rng.randint(1, S + 1)] = 1     # padded keys
+            kw = {"bias": mask_bias(torch.from_numpy(mask).to(device))}
+            what = "padded keys, last row all-masked filler"
+        else:
+            seg = np.zeros((B, S), np.int32)
+            tail = 40 if form == "pad_tail" else 0
+            for b in range(B):
+                pos, sid = 0, 1
+                while pos < S - tail:
+                    n = rng.randint(5, 121)
+                    seg[b, pos: min(pos + n, S - tail)] = sid
+                    pos, sid = pos + n, sid + 1
+            kw = {"segment_ids": torch.from_numpy(seg).to(device)}
+            what = f"packed, {int((seg == 0).sum())} padding rows"
+        for dtype in ("float32", "bfloat16"):
+            q, k, v, do = (torch.from_numpy(a).to(device, getattr(torch, dtype))
+                           for a in qkvd)
+            o, m, l = flash.launch(q, k, v, with_stats=True, **kw)
+            di = (do.float() * o.float()).sum(-1).transpose(1, 2).contiguous()
+            dq = flash.launch_dq(q, k, v, do, m, l, di, **kw)
+            dk, dv = flash.launch_dkv(q, k, v, do, m, l, di, **kw)
+            torch.cuda.synchronize()
+            _, m_ref, l_ref = flash.flash_forward_reference(q, k, v, **kw)
+            e_m, ok_m = _err(m, m_ref, (1e-4, 1e-6))
+            e_l, ok_l = _err(l, l_ref, (1e-4, 1e-5))
+            ref_dq = flash.flash_bwd_dq_reference(q, k, v, do, m, l, di, **kw)
+            ref_dk, ref_dv = flash.flash_bwd_dkv_reference(q, k, v, do, m, l,
+                                                           di, **kw)
+            e_q, ok_q = _err(dq, ref_dq, BWD_TOL[dtype])
+            e_k, ok_k = _err(dk, ref_dk, BWD_TOL[dtype])
+            e_v, ok_v = _err(dv, ref_dv, BWD_TOL[dtype])
+            ok = ok_m and ok_l and ok_q and ok_k and ok_v
+            print(f"[kernel] flash_bwd {form:8s} {B}x{S:<4d} {dtype:8s} "
+                  f"m {e_m:.2e} l {e_l:.2e} dq {e_q:.2e} dk {e_k:.2e} "
+                  f"dv {e_v:.2e} (atol/rtol {BWD_TOL[dtype]}) {what}: "
+                  f"{'ok' if ok else 'FAIL'}")
+            if not ok:
+                fail(f"flash backward disagrees with its twins ({form}, "
+                     f"S={S}, {dtype})")
+            errs["stats"][dtype] = max(errs["stats"][dtype], e_m, e_l)
+            errs["flash_bwd_dq"][dtype] = max(errs["flash_bwd_dq"][dtype],
+                                              e_q)
+            errs["flash_bwd_dkv"][dtype] = max(errs["flash_bwd_dkv"][dtype],
+                                               e_k, e_v)
+    return errs
+
+
+def ce_inputs(torch, device, dtype, T, smoothing, seed, H=768, C=6):
+    """Pooled-like features, a classifier, labels and the objective's
+    cotangents (zero on a quarter of the rows: filler weights)."""
+    import numpy as np
+
+    rng = np.random.RandomState(seed)
+    dt = getattr(torch, dtype)
+    f = torch.from_numpy(np.tanh(rng.randn(T, H)).astype(np.float32))
+    W = torch.from_numpy((rng.randn(C, H) * 0.05).astype(np.float32))
+    b = torch.from_numpy((rng.randn(C) * 0.1).astype(np.float32))
+    lab = torch.from_numpy(rng.randint(0, C, T).astype(np.int32))
+    w = torch.from_numpy((rng.rand(T) > 0.25).astype(np.float32))
+    w[0] = 1.0
+    dce = w / w.sum() * (1 - smoothing)
+    dlpu = w / w.sum() * smoothing
+    return [x.to(device) for x in (f.to(dt), W.to(dt), b.to(dt), lab, dce,
+                                   dlpu)]
+
+
+def fused_ce_cases(torch, fused_ce, device):
+    """K4 and K5 against their twins: the train step's 32 x 768 x 6 and
+    other row counts, smoothing 0 and 0.1, filler weights, exact ties; K5
+    twice on the same inputs must give the same bits."""
+    errs = {k: {"float32": 0.0, "bfloat16": 0.0}
+            for k in ("fused_ce_fwd", "fused_ce_bwd")}
+    for T, smoothing in ((32, 0.0), (32, 0.1), (1, 0.0), (37, 0.1),
+                         (300, 0.1)):
+        for dtype in ("float32", "bfloat16"):
+            f, W, b, lab, dce, dlpu = ce_inputs(torch, device, dtype, T,
+                                                smoothing, SEED + T)
+            out = fused_ce.launch_fwd(f, W, b, lab)
+            grads = fused_ce.launch_bwd(f, W, b, lab, dce, dlpu)
+            again = fused_ce.launch_bwd(f, W, b, lab, dce, dlpu)
+            torch.cuda.synchronize()
+            ref = fused_ce.fused_ce_fwd_reference(f, W, b, lab)
+            ref_g = fused_ce.fused_ce_bwd_reference(f, W, b, lab, dce, dlpu)
+            e_f = max(_err(o, r, CE_TOL["float32"])[0]
+                      for o, r in zip(out, ref))
+            ok_f = all(_err(o, r, CE_TOL["float32"])[1]
+                       for o, r in zip(out, ref))
+            e_df, ok_df = _err(grads[0], ref_g[0], CE_TOL[dtype])
+            e_w = max(_err(g, r, CE_TOL["float32"])[0]
+                      for g, r in zip(grads[1:], ref_g[1:]))
+            ok_w = all(_err(g, r, CE_TOL["float32"])[1]
+                       for g, r in zip(grads[1:], ref_g[1:]))
+            same = all(torch.equal(g, a) for g, a in zip(grads, again))
+            zero_filler = not grads[0][dce == 0].any().item()
+            ok = ok_f and ok_df and ok_w and same and zero_filler
+            print(f"[kernel] fused_ce T={T:<3d} smoothing {smoothing} "
+                  f"{dtype:8s} fwd {e_f:.2e} df {e_df:.2e} dW/db {e_w:.2e} "
+                  f"deterministic {same} filler rows zero {zero_filler}: "
+                  f"{'ok' if ok else 'FAIL'}")
+            if not ok:
+                fail(f"fused CE disagrees with its twins (T={T}, {dtype})")
+            errs["fused_ce_fwd"][dtype] = max(errs["fused_ce_fwd"][dtype],
+                                              e_f)
+            errs["fused_ce_bwd"][dtype] = max(errs["fused_ce_bwd"][dtype],
+                                              e_df, e_w)
+    # ties: argmax is the first index at the max
+    f = torch.tensor([[1., 1., 0., 0.], [1., 1., 0., 0.], [0., 0., 3., 0.]],
+                     device=device)
+    lab = torch.tensor([1, 0, 2], dtype=torch.int32, device=device)
+    corr = fused_ce.launch_fwd(f, torch.eye(4, device=device),
+                               torch.zeros(4, device=device), lab)[2]
+    print(f"[kernel] fused_ce ties: correct {corr.tolist()} (want "
+          "[0.0, 1.0, 1.0])")
+    if corr.tolist() != [0.0, 1.0, 1.0]:
+        fail("fused_ce_fwd counts a tied label as the argmax")
     return errs
 
 
@@ -229,25 +403,43 @@ def time_ms(torch, fn, iters=100, warmup=10):
     return start.elapsed_time(end) / iters
 
 
-def flash_bound(seg, B, S, N, D, dtype):
-    """Least time for this work: q, k, v read once and o written once (plus
-    the [B, S] int32 segment IDs) over the memory rate, and the two
-    products over the needed (query, key) pairs only — same-segment pairs,
-    and every key for a padding row — over the peak rate for the type."""
+def needed_pairs(seg=None, key_mask=None):
+    """The (query, key) pairs attention needs on this data: same-segment
+    pairs and every key for a padding row (``seg``, ``[B, S]``), or every
+    query against the row's live keys, and every key for a row that masks
+    them all (``key_mask``, ``[B, S]`` {0, 1})."""
     import numpy as np
 
-    elem = 4 if dtype == "float32" else 2
-    nbytes = 4 * B * S * N * D * elem + B * S * 4
     pairs = 0
-    for row in seg:
-        ids, counts = np.unique(row[row > 0], return_counts=True)
-        pairs += int((counts.astype(np.int64) ** 2).sum())
-        pairs += int((row == 0).sum()) * S
-    flops = 4 * D * N * pairs
+    if seg is not None:
+        S = seg.shape[1]
+        for row in seg:
+            ids, counts = np.unique(row[row > 0], return_counts=True)
+            pairs += int((counts.astype(np.int64) ** 2).sum())
+            pairs += int((row == 0).sum()) * S
+        return pairs
+    S = key_mask.shape[1]
+    for row in key_mask:
+        live = int((row > 0).sum())
+        pairs += S * (live if live else S)
+    return pairs
+
+
+def bound(nbytes, flops, dtype):
+    """(least time in ms, what sets it): the bytes over the memory rate or
+    the operations over the peak rate for the type, the larger."""
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
     t_ops = flops / PEAK_FLOPS[dtype] * 1e3
-    return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops
-                                 else "operations"), nbytes, flops
+    return max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations"
+
+
+def flash_bound(seg, B, S, N, D, dtype):
+    """K1: q, k, v read once and o written once (plus the [B, S] int32
+    segment IDs), and the two products over the needed pairs only."""
+    elem = 4 if dtype == "float32" else 2
+    nbytes = 4 * B * S * N * D * elem + B * S * 4
+    flops = 4 * D * N * needed_pairs(seg=seg)
+    return (*bound(nbytes, flops, dtype), nbytes, flops)
 
 
 def time_kernels(torch, F, flash, seg_np, device, card):
@@ -319,27 +511,56 @@ def time_forwards(torch, engines, batch, card):
     return res
 
 
-def profile_forward(torch, engine, batch, card, label):
-    """Device time by kernel over 5 packed forwards (``torch.profiler``)
-    and the device's busy share of that window's wall time."""
+#: kernel-name fragments -> the part of a step they belong to (the first
+#: match wins); what matches none is "other" (elementwise, embeddings,
+#: softmax, dropout, copies)
+SPLIT = (("K1", ("flash_fwd_kernel",)), ("K2", ("flash_bwd_dq_kernel",)),
+         ("K3", ("flash_bwd_dkv_kernel",)), ("K4", ("fused_ce_fwd_kernel",)),
+         ("K5", ("fused_ce_bwd_kernel",)), ("LayerNorm", ("layer_norm",)),
+         ("optimizer", ("multi_tensor_apply", "adam")),
+         ("GEMM", ("gemm", "nvjet", "xmma", "cutlass", "splitk")))
+
+
+def split_device_time(rows):
+    """``{part: device ms}`` over the profiler's per-kernel rows."""
+    out = {name: 0.0 for name, _ in SPLIT}
+    out["other"] = 0.0
+    for ms, _n, key in rows:
+        low = key.lower()
+        part = next((name for name, frags in SPLIT
+                     if any(f in low for f in frags)), "other")
+        out[part] += ms
+    return out
+
+
+def profile_calls(torch, fn, n, card, label):
+    """Device time by kernel over ``n`` calls of ``fn`` (``torch.profiler``),
+    the device's busy share of that window's wall time and its split by
+    part (:func:`split_device_time`)."""
+    from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
-    engine.infer_packed(batch)
+    fn()
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
                  acc_events=True) as prof:
         t0 = time.perf_counter()
-        for _ in range(5):
-            engine.infer_packed(batch)
+        for _ in range(n):
+            fn()
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
     rows = []
     for ev in prof.key_averages():
+        # device kernels only: CPU ranges (ops, autograd nodes) and their
+        # device-side copies, the user annotations (the optimizer step's
+        # range), span the kernels they launched and would count them twice
+        if ev.device_type != DeviceType.CUDA or not ev.key or \
+                getattr(ev, "is_user_annotation", False):
+            continue
         dev = getattr(ev, "self_device_time_total", None)
         if dev is None:
             dev = getattr(ev, "self_cuda_time_total", 0)
-        if dev and ev.key and not ev.key.startswith("aten::") \
-                and not ev.key.startswith("cuda"):
+        if dev:
             rows.append((dev / 1e3, ev.count, ev.key))
     rows.sort(reverse=True)
     busy = sum(r[0] for r in rows)
@@ -347,12 +568,291 @@ def profile_forward(torch, engine, batch, card, label):
         print(f"[profile] {label}: device time not measured (the profiler "
               f"saw no device kernels) — {card}")
         return None
-    print(f"[profile] {label}: 5 forwards, wall {wall_ms:.3f} ms, device "
+    split = split_device_time(rows)
+    print(f"[profile] {label}: {n} calls, wall {wall_ms:.3f} ms, device "
           f"busy {busy:.3f} ms ({100 * busy / wall_ms:.1f}%) — {card}")
-    for ms, n, key in rows[:8]:
-        print(f"[profile]   {ms:9.3f} ms  x{n:<5d} {key[:90]}")
-    return {"wall_ms": wall_ms, "device_busy_ms": busy,
-            "top": [[round(ms, 4), n, key[:90]] for ms, n, key in rows[:8]]}
+    print(f"[profile]   split: " + ", ".join(
+        f"{k} {v:.3f}" for k, v in split.items()) +
+        f", idle {wall_ms - busy:.3f} ms")
+    for ms, cnt, key in rows[:8]:
+        print(f"[profile]   {ms:9.3f} ms  x{cnt:<5d} {key[:90]}")
+    return {"calls": n, "wall_ms": wall_ms, "device_busy_ms": busy,
+            "split_ms": split,
+            "top": [[round(ms, 4), cnt, key[:90]] for ms, cnt, key in rows[:8]]}
+
+
+# ----------------------------------------------------------------- phase 6
+
+
+def write_corpus(path, rng, n):
+    """A seeded synthetic corpus in the ``train.json`` format: texts of
+    5..150 space-separated CJK chars (the longer ones truncate at 128
+    tokens), labels 0..5."""
+    rows = [[" ".join(rng.choice(CHARS) for _ in range(rng.randint(5, 151))),
+             int(rng.randint(0, 6))] for _ in range(n)]
+    with open(path, "w", encoding="utf-8") as f:
+        json.dump(rows, f, ensure_ascii=False)
+
+
+def launch_counts(flash, fused_ce):
+    return {**{k: flash.launch_count(k) for k in flash.KERNELS},
+            **{k: fused_ce.launch_count(k) for k in fused_ce.KERNELS}}
+
+
+def reset_counts(flash, fused_ce):
+    flash.reset_launch_count()
+    fused_ce.reset_launch_count()
+
+
+def train_route(torch, flash, fused_ce, args, vocab_size, batches, device,
+                card, profile):
+    """``TRAIN_STEPS`` train steps of bert-base from the seeded weights on
+    ``batches`` through the port's own setup, step and upload.  Returns
+    the per-step losses, each step's kernel launches, the run's total
+    launches (counts set to 0 just before, read just after), the mean step
+    time over the last 15 steps, the final params (on the card) and, with
+    ``profile``, a profile of 3 more steps."""
+    from pdnlp_tpu_torch.train.setup import setup_model
+    from pdnlp_tpu_torch.train.steps import build_train_step
+    from pdnlp_tpu_torch.train.trainer import Trainer
+
+    cfg, state = setup_model(args, vocab_size, total_steps=TRAIN_STEPS)
+    step = build_train_step(args, device)
+    put = Trainer(args, cfg, state, step, None, device).put
+    losses, per_step = [], []
+    torch.cuda.synchronize()
+    reset_counts(flash, fused_ce)
+    for i, host in enumerate(batches):
+        if i == TRAIN_STEPS - 15:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+        before = launch_counts(flash, fused_ce)
+        m = step(state, put(host))
+        after = launch_counts(flash, fused_ce)
+        per_step.append({k: after[k] - before[k] for k in after})
+        losses.append(m["loss"])
+    torch.cuda.synchronize()
+    step_ms = (time.perf_counter() - t0) / 15 * 1e3
+    totals = launch_counts(flash, fused_ce)
+    losses = [float(x) for x in losses]
+    params = {k: v.detach().clone() for k, v in
+              state.model.state_dict().items()}
+    prof = None
+    if profile:
+        cycle = itertools.cycle([put(h) for h in batches[:3]])
+        prof = profile_calls(
+            torch, lambda: step(state, next(cycle)), 3, card,
+            f"training step, bert-base 32 x 128, kernel route {args.dtype}")
+    del state
+    torch.cuda.empty_cache()
+    return losses, per_step, totals, step_ms, params, prof
+
+
+def training_runs(torch, flash, fused_ce, base, vocab_size, batches, device,
+                  card):
+    """Phase 6a: per dtype, the kernel route (``auto``: K1-K5) and the plain
+    route (``attention_impl xla``, ``fused_ce xla``) from the same weights
+    on the same batches, dropout 0; losses and params held to each other,
+    every kernel-route step shown to launch K1 x12, K2 x12, K3 x12, K4 x1
+    and K5 x1, the plain route none."""
+    want_step = {"flash_fwd": 12, "flash_bwd_dq": 12, "flash_bwd_dkv": 12,
+                 "fused_ce_fwd": 1, "fused_ce_bwd": 1}
+    out = {}
+    for dtype in ("float32", "bfloat16"):
+        args = base.replace(dtype=dtype)
+        k_loss, k_steps, k_tot, k_ms, k_params, prof = train_route(
+            torch, flash, fused_ce, args, vocab_size, batches, device, card,
+            profile=True)
+        p_loss, p_steps, p_tot, p_ms, p_params, _ = train_route(
+            torch, flash, fused_ce,
+            args.replace(attention_impl="xla", fused_ce="xla"), vocab_size,
+            batches, device, card, profile=False)
+        bad = [i for i, c in enumerate(k_steps) if c != want_step]
+        if bad:
+            fail(f"{dtype}: kernel-route steps {bad} launched "
+                 f"{k_steps[bad[0]]}, not {want_step}")
+        if any(p_tot.values()):
+            fail(f"{dtype}: the plain route launched kernels: {p_tot}")
+        d_loss = max(abs(a - b) for a, b in zip(k_loss, p_loss))
+        d_par = max((k_params[n] - p_params[n]).abs().max().item()
+                    for n in k_params)
+        mean_par = sum((k_params[n] - p_params[n]).abs().sum().item()
+                       for n in k_params) / sum(t.numel()
+                                                for t in k_params.values())
+        finite = all(map(lambda x: x == x and abs(x) < 1e9, k_loss + p_loss))
+        rec = {"dtype": dtype, "steps": TRAIN_STEPS,
+               "loss_kernel": k_loss, "loss_plain": p_loss,
+               "max_loss_diff": d_loss, "max_param_diff": d_par,
+               "mean_param_diff": mean_par, "step_ms_kernel": k_ms,
+               "step_ms_plain": p_ms, "launches": k_tot,
+               "launches_per_step": want_step, "profile": prof}
+        out[dtype] = rec
+        print(f"[train] bert-base 32 x 128 {dtype}, {TRAIN_STEPS} steps: loss "
+              f"kernel {k_loss[0]:.6f} -> {k_loss[-1]:.6f}, plain "
+              f"{p_loss[0]:.6f} -> {p_loss[-1]:.6f}; max |loss diff| "
+              f"{d_loss:.3e} (atol {TRAIN_LOSS_ATOL[dtype]}), max |param diff|"
+              f" {d_par:.3e} (atol {PARAM_ATOL:.1e}), mean {mean_par:.3e}")
+        busy = (f"{100 * prof['device_busy_ms'] / prof['wall_ms']:.1f}%"
+                if prof else "not measured")
+        print(f"[train] step time {dtype}: kernel route {k_ms:.3f} ms, plain "
+              f"route {p_ms:.3f} ms (mean of the last 15 steps, host clock "
+              f"to a synchronize); kernel-route device busy {busy} — {card}")
+        print(f"[train] kernel-route launches over {TRAIN_STEPS} steps: "
+              f"{k_tot} (every step {want_step}); plain route {p_tot}")
+        if not finite or d_loss > TRAIN_LOSS_ATOL[dtype] or d_par > PARAM_ATOL:
+            fail(f"{dtype}: the kernel route and the plain route disagree "
+                 f"(loss {d_loss:.3e}, params {d_par:.3e})")
+        del k_params, p_params
+        torch.cuda.empty_cache()
+    return out
+
+
+def entry_point_run(work, corpus_path, vocab_path, data_limit):
+    """Phase 6b: ``python -m pdnlp_tpu_torch.train.single`` as a user runs
+    it (hidden dropout on, attention dropout 0 so the kernels train, dev
+    every 10 steps), to exit 0 with its lines, report and checkpoint."""
+    out_dir = os.path.join(work, "train_out")
+    cmd = [sys.executable, "-m", "pdnlp_tpu_torch.train.single", "--device",
+           "cuda", "--model", "bert-base", "--data_path", corpus_path,
+           "--vocab_path", vocab_path, "--output_dir", out_dir,
+           "--attn_dropout", "0", "--data_limit", str(data_limit),
+           "--dev", "true", "--eval_step", "10", "--seed", str(SEED)]
+    t0 = time.monotonic()
+    r = subprocess.run(cmd, capture_output=True, text=True, timeout=600,
+                       cwd=REPO, env={**os.environ, "PYTHONPATH": REPO})
+    wall = time.monotonic() - t0
+    lines = r.stdout.splitlines()
+    train = [ln for ln in lines if ln.startswith("【train】")]
+    want_steps = -(-int(data_limit * 0.92) // 32)
+    ckpt = os.path.join(out_dir, "single-cls.pt")
+    print(f"[train.single] exit={r.returncode} in {wall:.1f} s, "
+          f"{len(train)} 【train】 lines (want {want_steps})")
+    for ln in lines:
+        if not ln.startswith("【train】") or ln in (train[:1] + train[-1:]):
+            print(f"[train.single] {ln}")
+    ok = (r.returncode == 0 and len(train) == want_steps
+          and any(ln.startswith("耗时：") for ln in lines)
+          and any("precision    recall  f1-score   support" in ln
+                  for ln in lines)
+          and os.path.exists(ckpt))
+    if not ok:
+        fail(f"train.single: exit {r.returncode}, {len(train)} train lines, "
+             f"checkpoint {os.path.exists(ckpt)}\n{r.stderr[-3000:]}")
+    return ckpt, {"exit": r.returncode, "seconds": wall,
+                  "train_lines": len(train), "checkpoint": ckpt}
+
+
+# ------------------------------------------------------- phase 6 times
+
+
+def time_backward(torch, F, flash, mask_bias, key_mask, device, card):
+    """K2 and K3 at the training main path's shape (32 x 128, N 12, D 64,
+    the first training batch's key mask), beside their twins, the backward
+    of ``scaled_dot_product_attention`` on the same additive mask (the pair
+    of them, as one library call) and their bounds."""
+    import numpy as np
+
+    B, S = key_mask.shape
+    N, D = 12, 64
+    rng = np.random.RandomState(SEED + 4)
+    bias = mask_bias(torch.from_numpy(key_mask).to(device))
+    pairs = needed_pairs(key_mask=key_mask)
+    out = {}
+    for dtype in ("float32", "bfloat16"):
+        dt = getattr(torch, dtype)
+        q, k, v, do = (torch.from_numpy(rng.randn(B, S, N, D).astype(
+            np.float32)).to(device, dt) for _ in range(4))
+        o, m, l = flash.launch(q, k, v, bias=bias, with_stats=True)
+        di = (do.float() * o.float()).sum(-1).transpose(1, 2).contiguous()
+        args = (q, k, v, do, m, l, di)
+        fwd_stats = time_ms(torch, lambda: flash.launch(
+            q, k, v, bias=bias, with_stats=True))
+        k2 = time_ms(torch, lambda: flash.launch_dq(*args, bias=bias))
+        k3 = time_ms(torch, lambda: flash.launch_dkv(*args, bias=bias))
+        p2 = time_ms(torch, lambda: flash.flash_bwd_dq_reference(
+            *args, bias=bias), iters=20)
+        p3 = time_ms(torch, lambda: flash.flash_bwd_dkv_reference(
+            *args, bias=bias), iters=20)
+        qt, kt, vt = (t.transpose(1, 2).contiguous().requires_grad_()
+                      for t in (q, k, v))
+        ot = F.scaled_dot_product_attention(qt, kt, vt,
+                                            attn_mask=bias.to(dt))
+        dot = do.transpose(1, 2).contiguous()
+        lib = time_ms(torch, lambda: torch.autograd.grad(
+            ot, (qt, kt, vt), dot, retain_graph=True))
+        e2 = (flash.launch_dq(*args, bias=bias).float()
+              - flash.flash_bwd_dq_reference(*args, bias=bias).float()
+              ).abs().max().item()
+        e3 = max((a.float() - b.float()).abs().max().item() for a, b in zip(
+            flash.launch_dkv(*args, bias=bias),
+            flash.flash_bwd_dkv_reference(*args, bias=bias)))
+        elem = 4 if dtype == "float32" else 2
+        stats = 3 * B * N * S * 4 + B * S * 4        # m, l, Di, bias
+        b2 = bound(5 * B * S * N * D * elem + stats, 6 * D * N * pairs, dtype)
+        b3 = bound(6 * B * S * N * D * elem + stats, 8 * D * N * pairs, dtype)
+        out[dtype] = {
+            "flash_bwd_dq": {"ms": k2, "plain_ms": p2, "library_ms": lib,
+                             "bound_ms": b2[0], "bound_by": b2[1],
+                             "max_abs_err": e2},
+            "flash_bwd_dkv": {"ms": k3, "plain_ms": p3, "library_ms": lib,
+                              "bound_ms": b3[0], "bound_by": b3[1],
+                              "max_abs_err": e3},
+            "flash_fwd_with_stats_ms": fwd_stats, "pairs": pairs}
+        print(f"[time] flash backward {B}x{S} N={N} D={D} {dtype} (padded, "
+              f"{pairs} needed pairs): K2 {k2:.4f} ms (bound {b2[0]:.4f} by "
+              f"{b2[1]}, plain {p2:.4f}), K3 {k3:.4f} ms (bound {b3[0]:.4f} "
+              f"by {b3[1]}, plain {p3:.4f}); sdpa backward {lib:.4f} ms; K1 "
+              f"with m, l {fwd_stats:.4f} ms; err {e2:.2e} / {e3:.2e} "
+              f"— {card}")
+    return out
+
+
+def time_fused_ce(torch, F, fused_ce, device, card, T=32, H=768, C=6):
+    """K4 and K5 at the train step's 32 x 768 x 6, beside their twins,
+    ``F.linear`` + ``F.cross_entropy`` forward and backward, and their
+    bounds."""
+    out = {}
+    for dtype in ("float32", "bfloat16"):
+        f, W, b, lab, dce, dlpu = ce_inputs(torch, device, dtype, T, 0.0,
+                                            SEED + 5)
+        k4 = time_ms(torch, lambda: fused_ce.launch_fwd(f, W, b, lab))
+        k5 = time_ms(torch, lambda: fused_ce.launch_bwd(f, W, b, lab, dce,
+                                                        dlpu))
+        p4 = time_ms(torch, lambda: fused_ce.fused_ce_fwd_reference(
+            f, W, b, lab))
+        p5 = time_ms(torch, lambda: fused_ce.fused_ce_bwd_reference(
+            f, W, b, lab, dce, dlpu))
+        lab64 = lab.long()
+        lib4 = time_ms(torch, lambda: F.cross_entropy(F.linear(f, W, b),
+                                                      lab64))
+        fr, Wr, br = (t.detach().clone().requires_grad_() for t in (f, W, b))
+        loss = F.cross_entropy(F.linear(fr, Wr, br), lab64)
+        lib5 = time_ms(torch, lambda: torch.autograd.grad(
+            loss, (fr, Wr, br), retain_graph=True))
+        e4 = max((a - r).abs().max().item() for a, r in zip(
+            fused_ce.launch_fwd(f, W, b, lab),
+            fused_ce.fused_ce_fwd_reference(f, W, b, lab)))
+        e5 = max((a.float() - r.float()).abs().max().item() for a, r in zip(
+            fused_ce.launch_bwd(f, W, b, lab, dce, dlpu),
+            fused_ce.fused_ce_bwd_reference(f, W, b, lab, dce, dlpu)))
+        elem = 4 if dtype == "float32" else 2
+        ins = (T * H + C * H + C) * elem + T * 4        # f, W, b, labels
+        b4 = bound(ins + 3 * T * 4, 2 * T * H * C, dtype)
+        b5 = bound(ins + 2 * T * 4 + T * H * elem + (C * H + C) * 4,
+                   6 * T * H * C, dtype)
+        out[dtype] = {
+            "fused_ce_fwd": {"ms": k4, "plain_ms": p4, "library_ms": lib4,
+                             "bound_ms": b4[0], "bound_by": b4[1],
+                             "max_abs_err": e4},
+            "fused_ce_bwd": {"ms": k5, "plain_ms": p5, "library_ms": lib5,
+                             "bound_ms": b5[0], "bound_by": b5[1],
+                             "max_abs_err": e5}}
+        print(f"[time] fused CE {T}x{H}x{C} {dtype}: K4 {k4:.4f} ms (bound "
+              f"{b4[0]:.5f} by {b4[1]}, plain {p4:.4f}, linear+cross_entropy "
+              f"{lib4:.4f}), K5 {k5:.4f} ms (bound {b5[0]:.5f} by {b5[1]}, "
+              f"plain {p5:.4f}, their backward {lib5:.4f}); err {e4:.2e} / "
+              f"{e5:.2e} — {card}")
+    return out
 
 
 def main():
@@ -362,7 +862,7 @@ def main():
         sys.exit("chip_smoke: no CUDA device — this script runs on the card")
     sys.path.insert(0, REPO)
     try:
-        from pdnlp_tpu_torch.ops import cuda_lib, flash
+        from pdnlp_tpu_torch.ops import cuda_lib, flash, fused_ce
     except ImportError as e:
         sys.exit(f"chip_smoke: run it from a checkout of the repo ({e})")
     import numpy as np
@@ -370,6 +870,7 @@ def main():
 
     from pdnlp_tpu_torch.data.packing import pack_id_lists
     from pdnlp_tpu_torch.ops.attention import mask_bias
+    from pdnlp_tpu_torch.train.setup import setup_data
     from pdnlp_tpu_torch.serve import score_texts
     from pdnlp_tpu_torch.serve.engine import build_engine, InferenceEngine
     from pdnlp_tpu_torch.train.checkpoint import save_params
@@ -392,26 +893,30 @@ def main():
     # 2. build
     t0 = time.monotonic()
     took = cuda_lib.build_all()
-    kl = flash.build()
+    kls = [flash.build(), flash.build_bwd(), fused_ce.build()]
     print(f"[build] {sorted(cuda_lib.SOURCES)} in "
-          f"{time.monotonic() - t0:.2f} s (compiled now: {sorted(took)}); "
-          f"flash_fwd dynamic shared memory "
-          f"{kl.lib.pdnlp_flash_smem_bytes()} B per block")
-    for line in kl.build_log.splitlines():
-        if "registers" in line or "spill" in line or "smem" in line:
-            print(f"[build] ptxas: {line.strip()}")
+          f"{time.monotonic() - t0:.2f} s, one nvcc each, in parallel "
+          f"(compiled now: {sorted(took)}); dynamic shared memory per block: "
+          f"flash_fwd {kls[0].lib.pdnlp_flash_smem_bytes()} B, flash_bwd_dq "
+          f"{kls[1].lib.pdnlp_flash_bwd_dq_smem_bytes()} B, flash_bwd_dkv "
+          f"{kls[1].lib.pdnlp_flash_bwd_dkv_smem_bytes()} B")
+    for kl in kls:
+        for line in kl.build_log.splitlines():
+            if "registers" in line or "spill" in line or "smem" in line:
+                print(f"[build] {kl.name} ptxas: {line.strip()}")
 
     # 3. kernel vs plain
     errs = kernel_cases(torch, flash, mask_bias, device)
+    # 3b. the backward and the fused CE vs their twins
+    bwd_errs = backward_cases(torch, flash, mask_bias, device)
+    ce_errs = fused_ce_cases(torch, fused_ce, device)
 
     # 4. the main path: bert-base served through the port's entry points
     work = tempfile.mkdtemp(prefix="pdnlp_chip_smoke_")
     rng = np.random.RandomState(SEED)
-    chars = list("天地人你我他好坏大小上下来去爱恨喜怒哀乐高兴悲伤讨厌愤怒"
-                 "春夏秋冬东南西北山水风雨花草树木日月星云")
     vocab_path = os.path.join(work, "vocab.txt")
-    vocab_size = build_vocab_file(vocab_path, rng, chars)
-    texts = make_requests(rng, chars, N_REQUESTS)
+    vocab_size = build_vocab_file(vocab_path, rng, CHARS)
+    texts = make_requests(rng, CHARS, N_REQUESTS)
     base = Args(model="bert-base", vocab_path=vocab_path, device="cuda",
                 seed=SEED)
     seeded = InferenceEngine(base)
@@ -444,8 +949,9 @@ def main():
         packed, _ = pack_id_lists(ids, 128, 8, 16)
         fwd_times[dtype] = time_forwards(
             torch, {"kernel": engine, "plain": plain}, packed, card)
-        profiles[dtype] = profile_forward(
-            torch, engine, packed, card, f"kernel path {dtype}")
+        profiles[dtype] = profile_calls(
+            torch, lambda: engine.infer_packed(packed), 5, card,
+            f"serving, packed 8 x 128 forward, kernel path {dtype}")
         if dtype == "float32":
             top2 = np.sort(want, axis=-1)[:, -2:]
             clear = (top2[:, 1] - top2[:, 0]) > 2 * LOGIT_ATOL[dtype]
@@ -463,10 +969,47 @@ def main():
     print(f"[time] packed fp32 run: request p50 {packed_fp32['p50_ms']:.3f} "
           f"ms, p99 {packed_fp32['p99_ms']:.3f} ms over "
           f"{packed_fp32['requests']} requests — {card}")
-    print(f"[summary] {json.dumps({'card': card, 'runs': runs, 'forward_ms': fwd_times, 'profile': profiles, 'flash_fwd': times, 'kernel_max_abs_err': errs, 'seconds': time.monotonic() - t_start})}")
+
+    # 6. the training main path: bert-base at full width, 32 x 128
+    corpus_path = os.path.join(work, "train.json")
+    data_limit = 700                 # 644 train examples: 21 steps of 32
+    write_corpus(corpus_path, rng, data_limit)
+    train_args = Args(model="bert-base", device="cuda", seed=SEED,
+                      vocab_path=vocab_path, data_path=corpus_path,
+                      data_limit=data_limit, dropout=0.0, attn_dropout=0.0,
+                      learning_rate=LEARNING_RATE)
+    train_loader, _, tok = setup_data(train_args)
+    if tok.vocab_size != 21128:
+        fail(f"training vocab {tok.vocab_size}, not bert-base's 21128")
+    train_loader.set_epoch(0)
+    batches = list(train_loader)[:TRAIN_STEPS]
+    print(f"[train] {len(batches)} batches of "
+          f"{batches[0]['input_ids'].shape} from {corpus_path}; tokens per "
+          f"row {int(batches[0]['attention_mask'].sum(1).min())}.."
+          f"{int(batches[0]['attention_mask'].sum(1).max())} in the first")
+    # 6a. kernel route vs plain route
+    trains = training_runs(torch, flash, fused_ce, train_args, vocab_size,
+                           batches, device, card)
+    train_launches = trains["float32"]["launches"]
+    # 6b. the training entry point; the serve engine loads its checkpoint
+    ckpt_trained, single_rec = entry_point_run(work, corpus_path, vocab_path,
+                                               data_limit)
+    served = build_engine(base, checkpoint=ckpt_trained)
+    _, logits = served.classify_texts(texts[:8])
+    print(f"[train.single] serve engine on {ckpt_trained}: logits "
+          f"{logits.shape}, finite {bool(np.isfinite(logits).all())}")
+    if logits.shape != (8, 6) or not np.isfinite(logits).all():
+        fail("the serve engine's answers on the trained checkpoint")
+    del served
+    torch.cuda.empty_cache()
+    # 6 times: K2-K5 at the training shapes
+    bwd_times = time_backward(torch, F, flash, mask_bias,
+                              batches[0]["attention_mask"], device, card)
+    ce_times = time_fused_ce(torch, F, fused_ce, device, card)
+    print(f"[summary] {json.dumps({'card': card, 'runs': runs, 'forward_ms': fwd_times, 'profile': profiles, 'flash_fwd': times, 'kernel_max_abs_err': errs, 'backward_max_abs_err': bwd_errs, 'fused_ce_max_abs_err': ce_errs, 'training': trains, 'train_single': single_rec, 'flash_bwd_times': bwd_times, 'fused_ce_times': ce_times, 'seconds': time.monotonic() - t_start})}")
 
     t32 = times["float32"]
-    print(json.dumps({"kernels": [{
+    kernels = [{
         "name": "flash_fwd",
         "route": "cuda",
         "source": "pdnlp_tpu_torch/csrc/flash_fwd.cu",
@@ -474,12 +1017,31 @@ def main():
         "launches": main_launches,
         "max_abs_err": max(errs["float32"], t32["max_abs_err"]),
         "ms": t32["ms"],
-        "kernel_ms": t32["ms"],
         "plain_ms": t32["plain_ms"],
         "bound_ms": t32["bound_ms"],
         "bound_by": t32["bound_by"],
         "library_ms": t32["library_ms"],
-    }]}))
+    }]
+    for name, source, replaces, timed, checked in (
+            ("flash_bwd_dq", "flash_bwd.cu", "flash.py:296", bwd_times,
+             bwd_errs),
+            ("flash_bwd_dkv", "flash_bwd.cu", "flash.py:335", bwd_times,
+             bwd_errs),
+            ("fused_ce_fwd", "fused_ce.cu", "fused_ce.py:77", ce_times,
+             ce_errs),
+            ("fused_ce_bwd", "fused_ce.cu", "fused_ce.py:108", ce_times,
+             ce_errs)):
+        t = timed["float32"][name]
+        kernels.append({
+            "name": name, "route": "cuda",
+            "source": f"pdnlp_tpu_torch/csrc/{source}",
+            "replaces": f"pdnlp_tpu/ops/{replaces}",
+            "launches": train_launches[name],
+            "max_abs_err": max(checked[name]["float32"], t["max_abs_err"]),
+            "ms": t["ms"], "plain_ms": t["plain_ms"],
+            "bound_ms": t["bound_ms"], "bound_by": t["bound_by"],
+            "library_ms": t["library_ms"]})
+    print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                              "count": count}}))
 

@@ -7,5 +7,6 @@ CUDA C++ for ``sm_90a`` under ``csrc/``, built at first use
 (``ops.cuda_lib``); on CPU tensors each kernel's wrapper runs its plain
 PyTorch version instead.
 
-This slice serves the BERT classifier: ``python -m pdnlp_tpu_torch.serve.cli``.
+It serves the BERT classifier (``python -m pdnlp_tpu_torch.serve.cli``)
+and fine-tunes it on one device (``python -m pdnlp_tpu_torch.train.single``).
 """

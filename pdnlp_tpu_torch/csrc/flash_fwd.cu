@@ -18,16 +18,9 @@
 // Keys past S (a ragged last tile) are excluded outright with -inf, so any
 // S >= 1 runs here: they never join a fully masked row's average.
 //
-// Tile skip, decided in-kernel from the mask the block loads anyway (the
-// rule of ops/flash.py's segment_block_map / bias_block_map at TILE):
-//   segments  a (q tile, k tile) pair is live iff the tiles' nonzero
-//             segment-ID ranges intersect, or the q tile holds a padding
-//             row (segment 0), which needs every key;
-//   bias      a k tile is live iff one of its keys is above the -1e9 floor,
-//             or the batch row masks every key (a filler row).
-// A skipped tile's probabilities would all underflow to exactly 0 for every
-// row of the q tile, so skipping changes no bit of the output.  When
-// `live_out` is given, the blocks of head 0 write their decisions there.
+// Tile skip, decided in-kernel from the mask the block loads anyway, by the
+// rule stated in flash_common.cuh.  When `live_out` is given, the blocks of
+// head 0 write their decisions there.
 //
 // Layout: q, k, v and o are [B, S, N, D] contiguous (the model's projection
 // output viewed as heads), read and written in place: no head transposes.
@@ -48,24 +41,17 @@
 // grid; thread (ty, tx) owns query rows 4ty..4ty+3 and, in turn, key
 // columns 4tx..4tx+3 of a score tile and head dims 4tx..4tx+3 of the output
 // accumulator, so each row's m and l live in the 16 lanes of one half-warp.
+//
+// Training (m_out/l_out given): each row's final m and l go out as well,
+// [B, N, S] fp32, as the TPU kernel's m and l outputs do, for the backward
+// kernels (flash_bwd.cu) to recompute p = exp(s - m) / l.  Serving passes
+// null and pays one predicated-off branch per row.
 
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
-#include <math.h>
+#include "flash_common.cuh"
 
 namespace {
 
-constexpr int TILE_Q = 64;
-constexpr int TILE_K = 64;
-constexpr int HEAD_D = 64;
-constexpr int THREADS = 256;
-constexpr int ROW_PAD = 4;                    // keeps float4 alignment, spreads banks
-constexpr int KT_STRIDE = TILE_K + ROW_PAD;   // row stride of the K^T / P buffer
-constexpr float MASKED = -1e9f;
-constexpr int NO_SEGMENT = 1 << 30;           // min over no nonzero segment ID
-
-enum MaskKind { MASK_NONE = 0, MASK_BIAS = 1, MASK_SEGMENTS = 2 };
-enum DType { DTYPE_F32 = 0, DTYPE_BF16 = 1 };
+using namespace flash;
 
 struct __align__(16) Smem {
   float q[TILE_Q][HEAD_D];        // q tile, upcast and scaled
@@ -77,33 +63,14 @@ struct __align__(16) Smem {
   int lo[2], hi[2];               // per-warp segment-ID range of a k tile
 };
 static_assert(TILE_Q * KT_STRIDE <= HEAD_D * KT_STRIDE, "P must fit the K^T buffer");
-static_assert(TILE_Q == 64 && TILE_K == 64, "the range reductions span warps 0 and 1");
-
-__device__ __forceinline__ float to_f32(float x) { return x; }
-__device__ __forceinline__ float to_f32(__nv_bfloat16 x) { return __bfloat162float(x); }
-template <typename T> __device__ __forceinline__ T from_f32(float x);
-template <> __device__ __forceinline__ float from_f32<float>(float x) { return x; }
-template <> __device__ __forceinline__ __nv_bfloat16 from_f32<__nv_bfloat16>(float x) {
-  return __float2bfloat16(x);
-}
-
-// Threads 0..63 (warps 0 and 1) hold one segment ID each: their nonzero
-// min and overall max, per warp, into lo[]/hi[] (read after a barrier).
-__device__ __forceinline__ void segment_range(int id, int tid, int* lo, int* hi) {
-  const int wlo = __reduce_min_sync(0xffffffffu, id > 0 ? id : NO_SEGMENT);
-  const int whi = __reduce_max_sync(0xffffffffu, id);
-  if ((tid & 31) == 0) {
-    lo[tid >> 5] = wlo;
-    hi[tid >> 5] = whi;
-  }
-}
 
 template <typename T>
 __global__ void __launch_bounds__(THREADS)
 flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
                  const T* __restrict__ v, const float* __restrict__ bias,
                  const int* __restrict__ seg, T* __restrict__ o,
-                 int* __restrict__ live_out, int S, int N, int n_tiles,
+                 int* __restrict__ live_out, float* __restrict__ m_out,
+                 float* __restrict__ l_out, int S, int N, int n_tiles,
                  float scale, int mask_kind) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
   Smem& sm = *reinterpret_cast<Smem*>(smem_raw);
@@ -130,21 +97,10 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
   int q_lo = NO_SEGMENT, q_hi = -1;
   bool row_masked = false;      // bias: the batch row masks every key
   if (mask_kind == MASK_SEGMENTS) {
-    int id = -1;
-    if (tid < TILE_Q) {
-      const int s = q0 + tid;
-      id = s < S ? seg[(long)b * S + s] : -1;
-      sm.qseg[tid] = id;
-      segment_range(id, tid, sm.lo, sm.hi);
-    }
-    q_pad = __syncthreads_or(tid < TILE_Q && id == 0);
-    q_lo = min(sm.lo[0], sm.lo[1]);
-    q_hi = max(sm.hi[0], sm.hi[1]);
+    q_pad = query_tile_ids(seg + (long)b * S, S, q0, tid, sm.qseg, sm.lo, sm.hi, q_lo,
+                           q_hi);
   } else if (mask_kind == MASK_BIAS) {
-    int any_live = 0;
-    for (int s = tid; s < S; s += THREADS)
-      any_live |= bias[(long)b * S + s] > 0.5f * MASKED;
-    row_masked = !__syncthreads_or(any_live);
+    row_masked = row_all_masked(bias + (long)b * S, S, tid);
   }
 
   float m[4], l[4], acc[4][4];
@@ -159,31 +115,9 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
   for (int kt = 0; kt < n_tiles; ++kt) {
     const int k0 = kt * TILE_K;
     __syncthreads();                  // last tile's readers of smem are done
-    int key_live = 0;
-    if (tid < TILE_K) {
-      const int s = k0 + tid;
-      float km = 0.f;
-      int ks = -1;
-      if (s >= S) {
-        km = -INFINITY;
-      } else if (mask_kind == MASK_BIAS) {
-        km = bias[(long)b * S + s];
-        key_live = km > 0.5f * MASKED;
-      } else if (mask_kind == MASK_SEGMENTS) {
-        ks = seg[(long)b * S + s];
-      }
-      sm.kmask[tid] = km;
-      sm.kseg[tid] = ks;
-      if (mask_kind == MASK_SEGMENTS) segment_range(ks, tid, sm.lo, sm.hi);
-    }
-    bool live = true;
-    if (mask_kind == MASK_BIAS) {
-      live = __syncthreads_or(key_live) || row_masked;
-    } else if (mask_kind == MASK_SEGMENTS) {
-      __syncthreads();
-      live = q_pad || (q_lo <= max(sm.hi[0], sm.hi[1]) &&
-                       min(sm.lo[0], sm.lo[1]) <= q_hi);
-    }
+    const bool live = key_tile_live(bias + (long)b * S, seg + (long)b * S, S, k0, tid,
+                                    mask_kind, sm.kmask, sm.kseg, sm.lo, sm.hi, q_pad,
+                                    q_lo, q_hi, row_masked);
     if (live_row != nullptr) live_row[kt] = live;
     if (!live) continue;              // uniform across the block
 
@@ -220,10 +154,7 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
 #pragma unroll
       for (int j = 0; j < 4; ++j) {
         const int c = 4 * tx + j;
-        float add = sm.kmask[c];
-        if (mask_kind == MASK_SEGMENTS && add == 0.f)
-          add = (qs > 0 && qs == sm.kseg[c]) ? 0.f : MASKED;
-        sc[i][j] += add;
+        sc[i][j] += pair_mask(sm.kmask[c], mask_kind, qs, sm.kseg[c]);
       }
       float mx = fmaxf(fmaxf(sc[i][0], sc[i][1]), fmaxf(sc[i][2], sc[i][3]));
 #pragma unroll
@@ -275,13 +206,21 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
     T* out = o + base + s * row_stride + 4 * tx;
 #pragma unroll
     for (int j = 0; j < 4; ++j) out[j] = from_f32<T>(acc[i][j] / l[i]);
+    // the backward's row statistics, kept apart: m + log(l) would lose l
+    // to fp32 rounding on a fully masked row (m near -1e9)
+    if (m_out != nullptr && tx == 0) {
+      const long idx = ((long)b * N + n) * S + s;
+      m_out[idx] = m[i];
+      l_out[idx] = l[i];
+    }
   }
 }
 
 template <typename T>
 cudaError_t launch(const void* q, const void* k, const void* v, const float* bias,
-                   const int* seg, void* o, int* live_out, int B, int S, int N,
-                   int n_tiles, float scale, int mask_kind, cudaStream_t stream) {
+                   const int* seg, void* o, int* live_out, float* m_out, float* l_out,
+                   int B, int S, int N, int n_tiles, float scale, int mask_kind,
+                   cudaStream_t stream) {
   // above the 48 KB static limit: opt in.  The attribute is per device, so
   // it is set on every launch (a cheap call) rather than once per process.
   const int smem = (int)sizeof(Smem);
@@ -291,7 +230,8 @@ cudaError_t launch(const void* q, const void* k, const void* v, const float* bia
   const dim3 grid(n_tiles, B * N);
   flash_fwd_kernel<T><<<grid, THREADS, smem, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
-      bias, seg, static_cast<T*>(o), live_out, S, N, n_tiles, scale, mask_kind);
+      bias, seg, static_cast<T*>(o), live_out, m_out, l_out, S, N, n_tiles, scale,
+      mask_kind);
   return cudaGetLastError();
 }
 
@@ -312,12 +252,15 @@ const char* pdnlp_cuda_error_string(int err) {
 // Launches on `stream` and returns cudaGetLastError() (0 on success).
 // bias is read for MASK_BIAS only and seg for MASK_SEGMENTS only; either
 // may be null otherwise.  live_out, when not null, is [B, n_tiles, n_tiles]
-// int32 and receives the tile-skip decisions (1 = live).
+// int32 and receives the tile-skip decisions (1 = live).  m_out and l_out,
+// both null (serving) or both not, are [B, N, S] fp32 and receive each
+// row's running max and sum (the backward's statistics).
 int pdnlp_flash_fwd(const void* q, const void* k, const void* v, const float* bias,
-                    const int* seg, void* o, int* live_out, int B, int S, int N,
-                    int D, int dtype, int mask_kind, int n_tiles, float scale,
-                    void* stream) {
+                    const int* seg, void* o, int* live_out, float* m_out, float* l_out,
+                    int B, int S, int N, int D, int dtype, int mask_kind, int n_tiles,
+                    float scale, void* stream) {
   if (D != HEAD_D || B < 1 || S < 1 || N < 1 || B * N > 65535 ||
+      (m_out == nullptr) != (l_out == nullptr) ||
       n_tiles != (S + TILE_Q - 1) / TILE_Q ||
       (mask_kind == MASK_BIAS && bias == nullptr) ||
       (mask_kind == MASK_SEGMENTS && seg == nullptr) ||
@@ -325,11 +268,12 @@ int pdnlp_flash_fwd(const void* q, const void* k, const void* v, const float* bi
     return static_cast<int>(cudaErrorInvalidValue);
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (dtype == DTYPE_F32)
-    return static_cast<int>(launch<float>(q, k, v, bias, seg, o, live_out, B, S, N,
-                                          n_tiles, scale, mask_kind, st));
+    return static_cast<int>(launch<float>(q, k, v, bias, seg, o, live_out, m_out, l_out,
+                                          B, S, N, n_tiles, scale, mask_kind, st));
   if (dtype == DTYPE_BF16)
-    return static_cast<int>(launch<__nv_bfloat16>(q, k, v, bias, seg, o, live_out, B,
-                                                  S, N, n_tiles, scale, mask_kind, st));
+    return static_cast<int>(launch<__nv_bfloat16>(q, k, v, bias, seg, o, live_out, m_out,
+                                                  l_out, B, S, N, n_tiles, scale,
+                                                  mask_kind, st));
   return static_cast<int>(cudaErrorInvalidValue);
 }
 

@@ -1,1 +1,2 @@
-"""Data: tokenizer, corpus reading, padded and packed serving batches."""
+"""Data: tokenizer, corpus reading and the seeded split, training batches
+and their loader, padded and packed serving batches."""

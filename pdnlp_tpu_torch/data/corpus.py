@@ -1,13 +1,17 @@
-"""Corpus reading and the label names (``pdnlp_tpu/data/corpus.py``).
+"""Corpus reading, the seeded split and the label names
+(``pdnlp_tpu/data/corpus.py``).
 
 ``load_data`` reads ``train.json`` — one JSON array of ``[text, label]``
 pairs, text pre-tokenized with spaces — and re-joins each text by
-stripping the spaces.
+stripping the spaces.  ``split_data`` takes the first 10,000 examples,
+shuffles them under seed 123 and cuts 92/8 into train and dev; dev doubles
+as the test set.
 """
 from __future__ import annotations
 
 import json
-from typing import List, Tuple
+import random
+from typing import List, Sequence, Tuple
 
 Example = Tuple[str, int]
 
@@ -22,3 +26,16 @@ def load_data(path: str) -> List[Example]:
         raw = json.load(f)
     return [("".join(text.split(" ")).strip(), int(label))
             for text, label in raw]
+
+
+def split_data(
+    data: Sequence[Example],
+    seed: int = 123,
+    limit: int = 10_000,
+    ratio: float = 0.92,
+) -> Tuple[List[Example], List[Example]]:
+    """Seeded shuffle + split; returns (train, dev)."""
+    data = list(data[:limit])
+    random.Random(seed).shuffle(data)
+    cut = int(len(data) * ratio)
+    return data[:cut], data[cut:]

@@ -13,6 +13,8 @@ import os
 import unicodedata
 from typing import Dict, Iterable, List, Sequence
 
+import numpy as np
+
 PAD, UNK, CLS, SEP, MASK = "[PAD]", "[UNK]", "[CLS]", "[SEP]", "[MASK]"
 SPECIALS = [PAD, UNK, CLS, SEP, MASK]
 DEFAULT_VOCAB_SIZE = 21_128  # shape parity with chinese-bert-wwm-ext
@@ -162,6 +164,24 @@ class WordPieceTokenizer:
         serving bucket before ``data.collate.pad_ids_to_bucket`` fixes the
         shape."""
         return [self.encode_ids(t, max_len) for t in texts]
+
+    def encode_batch(self, texts: Sequence[str],
+                     max_len: int = 128) -> Dict[str, np.ndarray]:
+        """Fixed-width training encoding: ``[CLS] ids [SEP]`` truncated and
+        padded with [PAD] to ``max_len``; int32 ``input_ids``,
+        ``attention_mask`` and (all-zero) ``token_type_ids``."""
+        n = len(texts)
+        input_ids = np.full((n, max_len), self.pad_id, dtype=np.int32)
+        attention_mask = np.zeros((n, max_len), dtype=np.int32)
+        for i, text in enumerate(texts):
+            ids = self.encode_ids(text, max_len)
+            input_ids[i, : len(ids)] = ids
+            attention_mask[i, : len(ids)] = 1
+        return {
+            "input_ids": input_ids,
+            "attention_mask": attention_mask,
+            "token_type_ids": np.zeros((n, max_len), dtype=np.int32),
+        }
 
 
 def get_or_build_vocab(args) -> List[str]:

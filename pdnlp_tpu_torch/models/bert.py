@@ -1,5 +1,5 @@
 """BERT encoder + sequence-classification head, the PyTorch twin of
-``pdnlp_tpu/models/bert.py`` (deterministic forward: serving).
+``pdnlp_tpu/models/bert.py``: the serving forward and the training forward.
 
 Where the JAX package scans one step over ``[L, ...]``-stacked weights,
 this is an ``nn.ModuleList`` of layers run in a Python loop.  Parameter
@@ -12,11 +12,21 @@ Precision follows the JAX policy: the compute dtype is the dtype the
 caller asks for, LayerNorm reduces in fp32 whatever it is, the embedding
 sum is taken in fp32 and then cast, and logits come back in fp32.  Dense
 weights are cast to the compute dtype at the matmul (a no-op once the
-serving engine has cast them).
+serving engine has cast them; in training the fp32 master weights are
+cast there, so their gradients land in fp32).
+
+Training (``deterministic=False``) drops out, at the JAX package's places:
+after the embeddings, after the attention output projection and after the
+MLP (before each residual LayerNorm), on the pooled features, and on the
+attention probabilities on the plain attention route — the kernels have no
+probability dropout, so ``ops.attention`` routes attention dropout > 0 to
+the plain path.  The masks are drawn from an explicit ``torch.Generator``
+(different numbers from JAX's keys for the same seed).  Autograd runs
+through every part, the flash and fused-CE kernels included.
 
 Not in this slice, and refused rather than approximated: MoE layers,
-sequence-parallel (ring) attention, rematerialization, dropout (the
-forward is deterministic) and the int8 ``qscale`` branch.
+sequence-parallel (ring) attention, rematerialization and the int8
+``qscale`` branch.
 """
 from __future__ import annotations
 
@@ -47,6 +57,18 @@ def _gelu(x: torch.Tensor, form: str = "erf") -> torch.Tensor:
 
 def _dense(x: torch.Tensor, lin: nn.Linear) -> torch.Tensor:
     return F.linear(x, lin.weight.to(x.dtype), lin.bias.to(x.dtype))
+
+
+def _dropout(x: torch.Tensor, rate: float,
+             generator: Optional[torch.Generator]) -> torch.Tensor:
+    """Inverted dropout: keep with probability ``1 - rate`` and scale by
+    ``1 / (1 - rate)``; identity at rate 0 or without a generator (the
+    deterministic forward)."""
+    if rate <= 0.0 or generator is None:
+        return x
+    keep = 1.0 - rate
+    mask = torch.rand(x.shape, generator=generator, device=x.device) < keep
+    return torch.where(mask, x / keep, 0.0).to(x.dtype)
 
 
 class LayerNorm(nn.Module):
@@ -120,10 +142,12 @@ class BertClassifier(nn.Module):
     # ------------------------------------------------------------ forward
     def embed(self, input_ids: torch.Tensor, token_type_ids: torch.Tensor,
               dtype: torch.dtype,
-              position_ids: Optional[torch.Tensor] = None) -> torch.Tensor:
-        """Embedding sum (fp32) -> compute dtype -> LayerNorm.  Explicit
-        ``position_ids`` (packed rows restart per segment) carry their own
-        bound; row positions must fit the table."""
+              position_ids: Optional[torch.Tensor] = None,
+              generator: Optional[torch.Generator] = None) -> torch.Tensor:
+        """Embedding sum (fp32) -> compute dtype -> LayerNorm -> dropout
+        (with a ``generator``).  Explicit ``position_ids`` (packed rows
+        restart per segment) carry their own bound; row positions must fit
+        the table."""
         emb = self.embeddings
         S = input_ids.shape[1]
         if position_ids is None:
@@ -136,20 +160,25 @@ class BertClassifier(nn.Module):
             pos = emb.position[position_ids.long()]
         x = (emb.word[input_ids.long()] + pos
              + emb.token_type[token_type_ids.long()]).to(dtype)
-        return _layer_norm(x, emb.ln.scale, emb.ln.bias,
-                           self.cfg.layer_norm_eps)
+        x = _layer_norm(x, emb.ln.scale, emb.ln.bias, self.cfg.layer_norm_eps)
+        return _dropout(x, self.cfg.dropout, generator)
 
     def encode(self, input_ids, token_type_ids, attention_mask, *,
                dtype: torch.dtype = torch.float32, attn_impl: str = "auto",
                segment_ids: Optional[torch.Tensor] = None,
-               position_ids: Optional[torch.Tensor] = None) -> torch.Tensor:
+               position_ids: Optional[torch.Tensor] = None,
+               generator: Optional[torch.Generator] = None) -> torch.Tensor:
         """Hidden states ``[B, S, H]`` in ``dtype``.  ``segment_ids`` (packed
         rows) carries the block-diagonal mask to attention; otherwise the
-        key mask comes from ``attention_mask``."""
+        key mask comes from ``attention_mask``.  A ``generator`` turns on
+        dropout (training)."""
         cfg = self.cfg
         B, S = input_ids.shape
         N, D = cfg.num_heads, cfg.head_dim
-        x = self.embed(input_ids, token_type_ids, dtype, position_ids)
+        drop = cfg.dropout
+        attn_drop = cfg.attn_dropout if generator is not None else 0.0
+        x = self.embed(input_ids, token_type_ids, dtype, position_ids,
+                       generator)
         # fp32 whatever the compute dtype: the kernel adds the mask in fp32,
         # and the plain path casts it to the scores' dtype
         bias = None if segment_ids is not None else mask_bias(attention_mask)
@@ -158,35 +187,69 @@ class BertClassifier(nn.Module):
             k = _dense(x, lp.k).view(B, S, N, D)
             v = _dense(x, lp.v).view(B, S, N, D)
             attn = dot_product_attention(q, k, v, bias, impl=attn_impl,
-                                         segment_ids=segment_ids)
+                                         segment_ids=segment_ids,
+                                         dropout_rate=attn_drop,
+                                         generator=generator)
             attn = _dense(attn.reshape(B, S, N * D), lp.o)
-            x = _layer_norm(x + attn, lp.attn_ln.scale, lp.attn_ln.bias,
+            x = _layer_norm(x + _dropout(attn, drop, generator),
+                            lp.attn_ln.scale, lp.attn_ln.bias,
                             cfg.layer_norm_eps)
             h = _dense(_gelu(_dense(x, lp.up), cfg.gelu), lp.down)
-            x = _layer_norm(x + h, lp.mlp_ln.scale, lp.mlp_ln.bias,
+            x = _layer_norm(x + _dropout(h, drop, generator),
+                            lp.mlp_ln.scale, lp.mlp_ln.bias,
                             cfg.layer_norm_eps)
         return x
 
-    def pooled_logits(self, h0: torch.Tensor) -> torch.Tensor:
-        """[CLS] hidden rows ``[B, H]`` -> fp32 logits ``[B, num_labels]``."""
+    def pooled_features(self, h0: torch.Tensor,
+                        generator: Optional[torch.Generator] = None
+                        ) -> torch.Tensor:
+        """[CLS] hidden rows ``[B, H]`` -> pooled pre-classifier features
+        (tanh pooler, then dropout with a ``generator``): the input of the
+        fused classifier + CE kernels, which apply the classifier
+        themselves."""
         pooled = torch.tanh(_dense(h0, self.pooler))
-        return _dense(pooled, self.classifier).to(torch.float32)
+        return _dropout(pooled, self.cfg.dropout, generator)
+
+    def pooled_logits(self, h0: torch.Tensor,
+                      generator: Optional[torch.Generator] = None
+                      ) -> torch.Tensor:
+        """[CLS] hidden rows ``[B, H]`` -> fp32 logits ``[B, num_labels]``."""
+        return _dense(self.pooled_features(h0, generator),
+                      self.classifier).to(torch.float32)
+
+    def forward(self, batch: Dict[str, torch.Tensor], **kw) -> torch.Tensor:
+        """:meth:`classify`, so ``torch.func.functional_call`` can run the
+        model on other weights (the EMA)."""
+        return self.classify(batch, **kw)
 
     def classify(self, batch: Dict[str, torch.Tensor], *,
                  dtype: torch.dtype = torch.float32,
-                 attn_impl: str = "auto") -> torch.Tensor:
+                 attn_impl: str = "auto", deterministic: bool = True,
+                 generator: Optional[torch.Generator] = None,
+                 return_pooled: bool = False) -> torch.Tensor:
         """fp32 logits: ``[B, num_labels]`` for a padded batch, or
         ``[B, M, num_labels]`` per segment for a packed batch (one carrying
-        ``cls_positions``, ``segment_ids`` and ``position_ids``)."""
+        ``cls_positions``, ``segment_ids`` and ``position_ids``).
+
+        ``deterministic=False`` is the training forward: dropout drawn from
+        ``generator`` (required).  ``return_pooled`` returns the pooled
+        features (``[B, H]`` / ``[B, M, H]``, in ``dtype``) instead of
+        logits, for ``ops.fused_ce``."""
+        if not deterministic and generator is None:
+            raise ValueError("the training forward (deterministic=False) "
+                             "draws dropout from an explicit generator")
+        gen = None if deterministic else generator
         packed = "cls_positions" in batch
         hidden = self.encode(
             batch["input_ids"], batch["token_type_ids"],
             batch["attention_mask"], dtype=dtype, attn_impl=attn_impl,
             segment_ids=batch["segment_ids"] if packed else None,
-            position_ids=batch.get("position_ids") if packed else None)
+            position_ids=batch.get("position_ids") if packed else None,
+            generator=gen)
+        head = self.pooled_features if return_pooled else self.pooled_logits
         if not packed:
-            return self.pooled_logits(hidden[:, 0, :])
+            return head(hidden[:, 0, :], gen)
         pos = batch["cls_positions"].long()
         hM = torch.take_along_dim(hidden, pos[..., None], dim=1)  # [B, M, H]
         B, M, H = hM.shape
-        return self.pooled_logits(hM.reshape(B * M, H)).reshape(B, M, -1)
+        return head(hM.reshape(B * M, H), gen).reshape(B, M, -1)

@@ -7,6 +7,14 @@ as ``[in, out]``; :class:`~pdnlp_tpu_torch.models.bert.BertClassifier` has
 one module per layer and ``nn.Linear`` weights ``[out, in]``.  Both
 directions only transpose, split and stack, so a round trip is bitwise.
 The bridge speaks numpy on the JAX side, so it needs no JAX.
+
+Training uses both directions: JAX-initialised params seed a port train
+state (``from_jax_params`` into ``load_state_dict``, the optimizer's
+parameter groups unchanged), and the port's params after N steps — on any
+device — return as a JAX tree to be held leaf by leaf against the JAX
+train step's.  ``to_jax_params`` takes any mapping with the ``state_dict``
+names, so per-parameter flags (the AdamW decay groups) cross to the JAX
+tree too, to be held against ``train/optim.py:decay_mask``.
 """
 from __future__ import annotations
 

@@ -10,12 +10,15 @@
 - ``"auto"`` — the kernel on CUDA, the plain path on the CPU.
 
 The TPU package's measured ``ROUTING_TABLE`` is not carried over: its
-crossovers were taken on a TPU.  The serving forward has no dropout and no
-causal mask, so ``auto`` sends every attention on the card to the kernel,
-at every sequence width; a shape the kernel does not take (a head width
-other than 64) raises there rather than stepping aside to the plain path.
-Nothing falls back, so the JAX package's once-per-shape fallback warnings
-have nothing to report here.
+crossovers were taken on a TPU.  ``auto`` sends every attention on the card
+to the kernels (forward and, in training, backward), at every sequence
+width; a shape the kernel does not take (a head width other than 64)
+raises there rather than stepping aside to the plain path.  One rule is the
+JAX package's own (``pdnlp_tpu/ops/attention.py:132``): attention-
+probability dropout routes to the plain path on every device and for every
+request, because the kernels have no dropout.  Nothing else falls back, so
+the JAX package's once-per-shape fallback warnings have nothing to report
+here.
 """
 from __future__ import annotations
 
@@ -34,17 +37,21 @@ def mask_bias(attention_mask: torch.Tensor,
         :, None, None, :]
 
 
-def routed_impl(requested: str, device) -> str:
+def routed_impl(requested: str, device, dropout: bool = False) -> str:
     """The impl that runs for ``requested`` on ``device``: ``"xla"`` and
     ``"pallas"`` pass through; ``"auto"`` is the kernel on cuda and the
-    plain path elsewhere.  The one decision :func:`dot_product_attention`
-    and ``serve.batcher.resolve_serve_pack`` share."""
-    if requested == "auto":
-        return "pallas" if torch.device(device).type == "cuda" else "xla"
-    if requested not in ("xla", "pallas"):
+    plain path elsewhere; attention ``dropout`` takes the plain path
+    whatever was requested (the kernels have none).  The one decision
+    :func:`dot_product_attention` and ``serve.batcher.resolve_serve_pack``
+    share."""
+    if requested not in ("auto", "xla", "pallas"):
         raise ValueError(
             f"attention impl must be 'auto', 'xla' or 'pallas', "
             f"got {requested!r}")
+    if dropout:
+        return "xla"
+    if requested == "auto":
+        return "pallas" if torch.device(device).type == "cuda" else "xla"
     return requested
 
 
@@ -55,19 +62,24 @@ def dot_product_attention(
     bias: Optional[torch.Tensor] = None,   # broadcastable to [B, N, Sq, Sk]
     impl: str = "auto",
     segment_ids: Optional[torch.Tensor] = None,   # [B, S] int, 0 = padding
+    dropout_rate: float = 0.0,
+    generator: Optional[torch.Generator] = None,
 ) -> torch.Tensor:
-    """``[B, S, N, D]`` attention output in q's dtype (forward only).
+    """``[B, S, N, D]`` attention output in q's dtype.
 
     ``segment_ids`` carries the packed-row block-diagonal mask (attend iff
     query and key share a nonzero segment): in-kernel on the ``pallas``
     route, a materialized ``segment_bias`` on the plain route.  ``bias`` and
-    ``segment_ids`` exclude each other on every route.
+    ``segment_ids`` exclude each other on every route.  ``dropout_rate`` > 0
+    with a ``generator`` (training) drops attention probabilities, on the
+    plain route (:func:`routed_impl`).  Differentiable on every route.
     """
     if bias is not None and segment_ids is not None:
         raise ValueError("pass bias OR segment_ids, not both — the packed "
                          "block-diagonal mask rides the IDs, and padding "
                          "is segment 0")
-    if routed_impl(impl, q.device) == "pallas":
+    use_dropout = dropout_rate > 0.0 and generator is not None
+    if routed_impl(impl, q.device, use_dropout) == "pallas":
         from pdnlp_tpu_torch.ops import flash
 
         return flash.flash_attention(q, k, v, bias, segment_ids=segment_ids)
@@ -80,4 +92,9 @@ def dot_product_attention(
     if bias is not None:
         scores = scores + bias.to(scores.dtype)
     probs = torch.softmax(scores.to(torch.float32), dim=-1).to(q.dtype)
+    if use_dropout:
+        keep = 1.0 - dropout_rate
+        mask = torch.rand(probs.shape, generator=generator,
+                          device=probs.device) < keep
+        probs = torch.where(mask, probs / keep, 0.0).to(probs.dtype)
     return torch.einsum("bnqk,bknd->bqnd", probs, v)

@@ -3,8 +3,8 @@ with a plain C interface, bound with ``ctypes``.
 
 Each source under ``pdnlp_tpu_torch/csrc/`` becomes ``lib<name>-<hash>.so``
 in ``pdnlp_tpu_torch/build/`` (listed in ``.gitignore``) at first use.  The
-hash covers the source text and the compiler flags, so an edited kernel is
-never served from a stale build, and a finished build is reused by every
+hash covers the source text, every header (``*.cuh``) beside it and the
+compiler flags, so an edited kernel is never served from a stale build, and a finished build is reused by every
 later process on the same checkout.  Builds are written under a temporary
 name and renamed into place, so processes racing on one build both end up
 with a whole library.
@@ -31,6 +31,8 @@ BUILD_DIR = PACKAGE_DIR / "build"
 #: kernel library name -> its source under ``csrc/``
 SOURCES: Dict[str, str] = {
     "flash_fwd": "flash_fwd.cu",
+    "flash_bwd": "flash_bwd.cu",
+    "fused_ce": "fused_ce.cu",
 }
 
 #: Hopper's full feature set (wgmma, setmaxnreg) exists only for sm_90a
@@ -72,9 +74,11 @@ def nvcc() -> str:
 
 
 def _target(name: str) -> Path:
-    src = CSRC_DIR / SOURCES[name]
-    digest = hashlib.sha256(src.read_bytes()
-                            + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
+    text = (CSRC_DIR / SOURCES[name]).read_bytes()
+    for header in sorted(CSRC_DIR.glob("*.cuh")):
+        text += header.read_bytes()
+    digest = hashlib.sha256(text + " ".join(NVCC_FLAGS).encode()
+                            ).hexdigest()[:16]
     return BUILD_DIR / f"lib{name}-{digest}.so"
 
 
@@ -128,3 +132,14 @@ def load(name: str) -> KernelLibrary:
                            log.read_text() if log.exists() else "", took)
         _LOADED[name] = kl
         return kl
+
+
+def bind(name: str, fns) -> KernelLibrary:
+    """:func:`load` ``name`` and declare its C functions: ``fns`` maps each
+    symbol to ``(restype, argtypes)``, with ``ctypes.c_void_p`` for every
+    pointer and the stream, so none is cut to a 32-bit int."""
+    kl = load(name)
+    for sym, (res, args) in fns.items():
+        fn = getattr(kl.lib, sym)
+        fn.restype, fn.argtypes = res, args
+    return kl

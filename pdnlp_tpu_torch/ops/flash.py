@@ -1,40 +1,53 @@
-"""Flash-attention forward: the hand-written Hopper kernel and its plain twin.
+"""Flash attention: the hand-written Hopper kernels and their plain twins.
 
-:func:`flash_attention` is the port of ``pdnlp_tpu/ops/flash.py``'s forward
-(``_fwd_kernel``, launched by ``_fwd`` through ``pl.pallas_call``).  On a
-CUDA tensor it launches ``csrc/flash_fwd.cu`` (built by :mod:`.cuda_lib`)
-or raises; on a CPU tensor it runs :func:`flash_attention_reference`, the
-same function in the kernel's numerics.  There is no ``try`` that falls
-back from one to the other.
+:func:`flash_attention` is the port of ``pdnlp_tpu/ops/flash.py``'s
+``flash_attention``: the forward ``_fwd_kernel`` (K1, ``csrc/flash_fwd.cu``)
+and, when an input requires grad, the backward ``_dq_kernel`` (K2) and
+``_dkv_kernel`` (K3, both ``csrc/flash_bwd.cu``) through
+:class:`FlashAttention`, the ``jax.custom_vjp`` twin.  On CUDA tensors it
+launches the kernels (built by :mod:`.cuda_lib`) or raises; on CPU tensors
+it runs the plain twins, the same functions in the kernels' numerics:
+:func:`flash_attention_reference` / :func:`flash_forward_reference` for the
+forward and :func:`flash_bwd_dq_reference` / :func:`flash_bwd_dkv_reference`
+for the backward (the explicit formulas, not autograd of a forward).  There
+is no ``try`` that falls back from one to the other.
 
-What the kernel keeps from the TPU version, and what it changes:
+What the kernels keep from the TPU version, and what they change:
 
 - the score is ``(q * D^-1/2) . k^T + mask`` with the mask added in fp32 at
   ``-1e9`` (never ``-inf``), online softmax with fp32 ``m``/``l``/``acc``,
   one division by ``l`` at the end;
+- the forward saves ``m`` and ``l`` separately for the backward (never as
+  ``m + log l``: on a fully masked row fp32 would round ``log l`` away), and
+  the backward recomputes ``p = exp(s - m) / l`` from them, with
+  ``Di = rowsum(dO * O)`` taken here in PyTorch, as JAX takes it outside
+  Pallas;
 - two mask forms: a per-key bias (padded buckets) or segment IDs (packed
   rows, mask computed in-kernel — the ``[B, 1, S, S]`` bias never exists);
 - the block-sparse tile skip, by the rule :func:`segment_block_map` and
   :func:`bias_block_map` state (equal to the TPU's maps at tile 128).  The
-  CUDA kernel applies it at its own :data:`TILE` from the mask it loads
+  kernels apply it at their own :data:`TILE` from the mask they load
   anyway, so no map is built on the host; :func:`kernel_tile_map` reads
-  the kernel's decisions back to hold them against these functions;
+  K1's decisions back to hold them against these functions;
 - any ``S >= 1``: the TPU's ``S % 128 == 0`` gate would send the 32- and
-  64-token serving buckets elsewhere; the CUDA kernel masks its ragged last
-  tile itself, excluding keys past ``S`` outright;
-- no TPU layouts: q/k/v/o stay ``[B, S, N, D]`` (no head transposes) and
-  segment IDs stay ``[B, S]`` (no lane-broadcast q-side copy).
+  64-token serving buckets elsewhere; the kernels mask their ragged last
+  tile themselves, excluding keys past ``S`` outright;
+- no TPU layouts: q/k/v/o and their gradients stay ``[B, S, N, D]`` (no
+  head transposes), segment IDs stay ``[B, S]`` (no lane-broadcast q-side
+  copy), and ``m``, ``l``, ``Di`` are ``[B, N, S]``.
 
-What bounds it on an H100: fp32 arithmetic at the serving widths from
-S = 128 up, bytes below that (and bytes for bf16 inputs, against the
-tensor cores' rate).  This first version answers with the simple things —
-fp32 FMA on the CUDA cores out of shared memory, scores kept on the SM,
-dead tiles skipped before their K/V are read — and leaves tensor cores to later work (source note in
-``csrc/flash_fwd.cu``; measured times beside the bound in ``PERF.md``).
+What bounds them on an H100: fp32 arithmetic at the widths from S = 128
+up, bytes below that (and bytes for bf16 inputs, against the tensor cores'
+rate).  This first version answers with the simple things — fp32 FMA on
+the CUDA cores out of shared memory, scores kept on the SM, dead tiles
+skipped before their operands are read — and leaves tensor cores to later
+work (source notes in ``csrc/``; measured times beside the bounds in
+``PERF.md``).
 
-Forward only: serving needs no gradient.  The call runs under
-``torch.inference_mode()`` and refuses inputs that require grad; the
-backward kernels come with the training slice.
+Serving calls the forward under ``torch.inference_mode()`` and pays nothing
+for the statistics.  The kernels have no probability dropout (neither has
+the TPU kernel): ``ops.attention`` routes training with attention dropout
+to the plain path, as the JAX package does.
 """
 from __future__ import annotations
 
@@ -44,28 +57,31 @@ from typing import Optional
 import torch
 
 from pdnlp_tpu_torch.data.packing import segment_bias
+from pdnlp_tpu_torch.ops import cuda_lib
 
-#: the CUDA kernel's q and k tile (``csrc/flash_fwd.cu`` TILE_Q/TILE_K)
+#: the CUDA kernels' q and k tile (``csrc/flash_common.cuh`` TILE_Q/TILE_K)
 TILE = 64
-#: the only head width the kernel takes (every registered config has it)
+#: the only head width the kernels take (every registered config has it)
 HEAD_DIM = 64
 NEG_INF = -1e9
 
 _MASK_NONE, _MASK_BIAS, _MASK_SEGMENTS = 0, 1, 2
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 
-_launches = 0
+#: the kernels whose launches are counted: K1, K2, K3
+KERNELS = ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv")
+_launches = dict.fromkeys(KERNELS, 0)
 
 
-def launch_count() -> int:
-    """Kernel launches since the last :func:`reset_launch_count` (CPU calls
-    run the plain version and are not launches)."""
-    return _launches
+def launch_count(kernel: str = "flash_fwd") -> int:
+    """Launches of ``kernel`` since the last :func:`reset_launch_count`
+    (CPU calls run the plain twins and are not launches)."""
+    return _launches[kernel]
 
 
 def reset_launch_count() -> None:
-    global _launches
-    _launches = 0
+    for name in KERNELS:
+        _launches[name] = 0
 
 
 # ------------------------------------------------------------- block maps
@@ -132,9 +148,6 @@ def _check(q, k, v, bias, segment_ids) -> None:
                          f"{q.dtype}, {k.dtype}, {v.dtype}")
     if not (q.device == k.device == v.device):
         raise ValueError("q, k, v must live on one device")
-    if any(t.requires_grad for t in (q, k, v)):
-        raise ValueError("flash_attention is forward-only (serving): its "
-                         "inputs must not require grad")
     if bias is not None and segment_ids is not None:
         raise ValueError("pass bias OR segment_ids, not both — padding is "
                          "segment 0 and needs no separate mask")
@@ -150,64 +163,139 @@ def _check(q, k, v, bias, segment_ids) -> None:
             raise ValueError(f"{name} must live on q's device {q.device}")
 
 
-# ------------------------------------------------------------ plain twin
+def _check_kernel(q, k, v) -> None:
+    """What the kernels need beyond :func:`_check`."""
+    if q.device.type != "cuda":
+        raise ValueError(f"the flash kernel runs on cuda, not {q.device.type}")
+    if not (q.is_contiguous() and k.is_contiguous() and v.is_contiguous()):
+        raise ValueError("flash_attention's kernel reads contiguous "
+                         "[B, S, N, D] q, k, v")
+    if q.shape[0] * q.shape[2] > 65535:
+        raise ValueError(f"B * N = {q.shape[0] * q.shape[2]} exceeds the "
+                         "kernel grid's 65535")
+
+
+# ------------------------------------------------------------ plain twins
+
+
+def _scores(q, k, bias, segment_ids) -> torch.Tensor:
+    """``[B, N, S, S]`` fp32 scores ``(q * D^-1/2) . k^T`` plus the fp32
+    mask (``-1e9``), from inputs upcast to fp32."""
+    B, S, N, D = q.shape
+    s = torch.einsum("bqnd,bknd->bnqk", q.to(torch.float32) * D ** -0.5,
+                     k.to(torch.float32))
+    if segment_ids is not None:
+        return s + segment_bias(segment_ids)
+    if bias is not None:
+        return s + bias.reshape(B, 1, 1, S).to(torch.float32)
+    return s
 
 
 def flash_attention_reference(q, k, v, bias=None, segment_ids=None):
-    """The kernel's function in plain PyTorch, in its numerics: inputs
-    upcast to fp32, scores ``(q * D^-1/2) . k^T`` plus the fp32 mask
-    (``-1e9``), fp32 softmax over all S keys, output cast to q's dtype.
-    ``[B, S, N, D]`` in and out."""
+    """K1's function in plain PyTorch, in its numerics: inputs upcast to
+    fp32, scores plus the fp32 mask, fp32 softmax over all S keys, output
+    cast to q's dtype.  ``[B, S, N, D]`` in and out."""
     _check(q, k, v, bias, segment_ids)
-    B, S, N, D = q.shape
-    qf, kf, vf = (t.to(torch.float32) for t in (q, k, v))
-    s = torch.einsum("bqnd,bknd->bnqk", qf * D ** -0.5, kf)
-    if segment_ids is not None:
-        s = s + segment_bias(segment_ids)
-    elif bias is not None:
-        s = s + bias.reshape(B, 1, 1, S).to(torch.float32)
-    p = torch.softmax(s, dim=-1)
-    return torch.einsum("bnqk,bknd->bqnd", p, vf).to(q.dtype)
+    p = torch.softmax(_scores(q, k, bias, segment_ids), dim=-1)
+    return torch.einsum("bnqk,bknd->bqnd", p, v.to(torch.float32)).to(q.dtype)
 
 
-# ------------------------------------------------------------------ kernel
+def flash_forward_reference(q, k, v, bias=None, segment_ids=None):
+    """K1 with its row statistics, in plain PyTorch: ``(o, m, l)``, where
+    ``m`` (``[B, N, S]`` fp32) is each row's score maximum, floored at the
+    kernel's initial ``-1e9``, and ``l`` the sum of ``exp(s - m)``."""
+    _check(q, k, v, bias, segment_ids)
+    s = _scores(q, k, bias, segment_ids)
+    m = s.amax(-1).clamp_min(NEG_INF)
+    e = torch.exp(s - m[..., None])
+    l = e.sum(-1)
+    o = torch.einsum("bnqk,bknd->bqnd", e / l[..., None], v.to(torch.float32))
+    return o.to(q.dtype), m, l
 
 
-_lib: Optional[ctypes.CDLL] = None
+def _bwd_terms(q, k, v, do, m, l, di, bias, segment_ids):
+    """The backward kernels' shared terms: ``p = exp(s - m) / l`` and
+    ``dS = p * (dO . V^T - Di)``, ``[B, N, S, S]`` fp32."""
+    _check(q, k, v, bias, segment_ids)
+    p = torch.exp(_scores(q, k, bias, segment_ids) - m[..., None]) \
+        / l[..., None]
+    dp = torch.einsum("bqnd,bknd->bnqk", do.to(torch.float32),
+                      v.to(torch.float32))
+    return p, p * (dp - di[..., None])
+
+
+def flash_bwd_dq_reference(q, k, v, do, m, l, di, bias=None,
+                           segment_ids=None):
+    """K2 in plain PyTorch: ``dQ = (dS . K) * D^-1/2`` in q's dtype, from
+    the forward's ``m``, ``l`` and ``Di = rowsum(dO * O)`` (``[B, N, S]``
+    fp32)."""
+    _, ds = _bwd_terms(q, k, v, do, m, l, di, bias, segment_ids)
+    dq = torch.einsum("bnqk,bknd->bqnd", ds, k.to(torch.float32))
+    return (dq * q.shape[-1] ** -0.5).to(q.dtype)
+
+
+def flash_bwd_dkv_reference(q, k, v, do, m, l, di, bias=None,
+                            segment_ids=None):
+    """K3 in plain PyTorch: ``(dK, dV)`` with ``dV = p^T . dO`` and
+    ``dK = (dS^T . Q) * D^-1/2``, in k's and v's dtype."""
+    p, ds = _bwd_terms(q, k, v, do, m, l, di, bias, segment_ids)
+    dv = torch.einsum("bnqk,bqnd->bknd", p, do.to(torch.float32))
+    dk = torch.einsum("bnqk,bqnd->bknd", ds, q.to(torch.float32))
+    return (dk * q.shape[-1] ** -0.5).to(k.dtype), dv.to(v.dtype)
+
+
+# ----------------------------------------------------------------- kernels
+
+
+#: library name -> its bound ``ctypes`` handle, once :func:`build` /
+#: :func:`build_bwd` have checked it
+_libs = {}
+
+_P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+_FWD_FNS = {
+    "pdnlp_flash_tile": (_I, []),
+    "pdnlp_flash_head_dim": (_I, []),
+    "pdnlp_flash_smem_bytes": (_I, []),
+    "pdnlp_cuda_error_string": (ctypes.c_char_p, [_I]),
+    "pdnlp_flash_fwd": (_I, [_P] * 9 + [_I] * 7 + [_F, _P]),
+}
+_BWD_FNS = {
+    "pdnlp_flash_bwd_tile": (_I, []),
+    "pdnlp_flash_bwd_head_dim": (_I, []),
+    "pdnlp_flash_bwd_dq_smem_bytes": (_I, []),
+    "pdnlp_flash_bwd_dkv_smem_bytes": (_I, []),
+    "pdnlp_flash_bwd_error_string": (ctypes.c_char_p, [_I]),
+    "pdnlp_flash_bwd_dq": (_I, [_P] * 10 + [_I] * 7 + [_F, _P]),
+    "pdnlp_flash_bwd_dkv": (_I, [_P] * 11 + [_I] * 7 + [_F, _P]),
+}
 
 
 def build():
-    """Build (if needed), load and bind the kernel library; returns its
+    """Build (if needed), load and bind K1's library; returns its
     :class:`~pdnlp_tpu_torch.ops.cuda_lib.KernelLibrary` record."""
-    global _lib
-    from pdnlp_tpu_torch.ops import cuda_lib
+    kl = cuda_lib.bind("flash_fwd", _FWD_FNS)
+    if kl.lib.pdnlp_flash_tile() != TILE or \
+            kl.lib.pdnlp_flash_head_dim() != HEAD_DIM:
+        raise RuntimeError("flash_fwd.cu's tile/head dim disagree with "
+                           "ops/flash.py's TILE/HEAD_DIM")
+    _libs["flash_fwd"] = kl.lib
+    return kl
 
-    kl = cuda_lib.load("flash_fwd")
-    if _lib is None:
-        lib = kl.lib
-        lib.pdnlp_flash_tile.restype = ctypes.c_int
-        lib.pdnlp_flash_tile.argtypes = []
-        lib.pdnlp_flash_head_dim.restype = ctypes.c_int
-        lib.pdnlp_flash_head_dim.argtypes = []
-        lib.pdnlp_flash_smem_bytes.restype = ctypes.c_int
-        lib.pdnlp_flash_smem_bytes.argtypes = []
-        lib.pdnlp_cuda_error_string.restype = ctypes.c_char_p
-        lib.pdnlp_cuda_error_string.argtypes = [ctypes.c_int]
-        lib.pdnlp_flash_fwd.restype = ctypes.c_int
-        lib.pdnlp_flash_fwd.argtypes = (
-            [ctypes.c_void_p] * 7 + [ctypes.c_int] * 7
-            + [ctypes.c_float, ctypes.c_void_p])
-        if lib.pdnlp_flash_tile() != TILE or \
-                lib.pdnlp_flash_head_dim() != HEAD_DIM:
-            raise RuntimeError("flash_fwd.cu's tile/head dim disagree with "
-                               "ops/flash.py's TILE/HEAD_DIM")
-        _lib = lib
+
+def build_bwd():
+    """Build (if needed), load and bind K2's and K3's library."""
+    kl = cuda_lib.bind("flash_bwd", _BWD_FNS)
+    if kl.lib.pdnlp_flash_bwd_tile() != TILE or \
+            kl.lib.pdnlp_flash_bwd_head_dim() != HEAD_DIM:
+        raise RuntimeError("flash_bwd.cu's tile/head dim disagree with "
+                           "ops/flash.py's TILE/HEAD_DIM")
+    _libs["flash_bwd"] = kl.lib
     return kl
 
 
 def _operands(q, bias, segment_ids):
     """(mask kind, ``[B, S]`` fp32 bias or None, ``[B, S]`` int32 IDs or
-    None) as the kernel reads them: no copy when the caller's mask is
+    None) as the kernels read them: no copy when the caller's mask is
     already fp32 / int32 and contiguous."""
     B, S = q.shape[0], q.shape[1]
     if segment_ids is not None:
@@ -219,51 +307,89 @@ def _operands(q, bias, segment_ids):
     return _MASK_NONE, None, None
 
 
+def _ptr(t: Optional[torch.Tensor]):
+    return None if t is None else t.data_ptr()
+
+
+def _raise_on(err: int, lib, what: str, fn: str) -> None:
+    if err != 0:
+        raise RuntimeError(f"{what} launch failed: "
+                           + getattr(lib, fn)(err).decode())
+
+
 def launch(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
            bias: Optional[torch.Tensor] = None,
            segment_ids: Optional[torch.Tensor] = None,
-           live_out: Optional[torch.Tensor] = None) -> torch.Tensor:
-    """One kernel launch on the current stream (:func:`flash_attention`
-    checks the inputs first; ``chip_smoke.py`` times this alone).  Counts
-    the launch.  ``live_out`` (``[B, n, n]`` int32 on the card, ``n`` tiles
-    of :data:`TILE`) receives the kernel's tile-skip decisions."""
-    global _launches
+           live_out: Optional[torch.Tensor] = None,
+           with_stats: bool = False):
+    """One K1 launch on the current stream (:func:`flash_attention` checks
+    the inputs first; ``chip_smoke.py`` times this alone).  Counts the
+    launch.  Returns ``o``, or ``(o, m, l)`` with ``with_stats`` (the
+    ``[B, N, S]`` fp32 row statistics the backward reads).  ``live_out``
+    (``[B, n, n]`` int32 on the card, ``n`` tiles of :data:`TILE`) receives
+    the kernel's tile-skip decisions."""
     B, S, N, D = q.shape
-    lib = _lib if _lib is not None else build().lib
+    lib = _libs.get("flash_fwd") or build().lib
     kind, bias2, seg2 = _operands(q, bias, segment_ids)
     o = torch.empty_like(q)
+    m = l = None
+    if with_stats:
+        m = torch.empty((B, N, S), dtype=torch.float32, device=q.device)
+        l = torch.empty_like(m)
     err = lib.pdnlp_flash_fwd(
-        q.data_ptr(), k.data_ptr(), v.data_ptr(),
-        None if bias2 is None else bias2.data_ptr(),
-        None if seg2 is None else seg2.data_ptr(), o.data_ptr(),
-        None if live_out is None else live_out.data_ptr(),
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), _ptr(bias2), _ptr(seg2),
+        o.data_ptr(), _ptr(live_out), _ptr(m), _ptr(l),
         B, S, N, D, _DTYPE_CODE[q.dtype], kind, _tiles(S, TILE),
         D ** -0.5, torch.cuda.current_stream(q.device).cuda_stream)
-    if err != 0:
-        raise RuntimeError("flash_fwd launch failed: "
-                           + lib.pdnlp_cuda_error_string(err).decode())
-    _launches += 1
-    return o
+    _raise_on(err, lib, "flash_fwd", "pdnlp_cuda_error_string")
+    _launches["flash_fwd"] += 1
+    return (o, m, l) if with_stats else o
 
 
-def _check_kernel(q, k, v) -> None:
-    """What the kernel needs beyond :func:`_check`."""
-    if q.device.type != "cuda":
-        raise ValueError(f"the flash kernel runs on cuda, not {q.device.type}")
-    if not (q.is_contiguous() and k.is_contiguous() and v.is_contiguous()):
-        raise ValueError("flash_attention's kernel reads contiguous "
-                         "[B, S, N, D] q, k, v")
-    if q.shape[0] * q.shape[2] > 65535:
-        raise ValueError(f"B * N = {q.shape[0] * q.shape[2]} exceeds the "
-                         "kernel grid's 65535")
+def _bwd_args(q, k, v, do, m, l, di, bias, segment_ids):
+    """The inputs and sizes K2 and K3 share, as their C functions take
+    them."""
+    B, S, N, D = q.shape
+    kind, bias2, seg2 = _operands(q, bias, segment_ids)
+    ins = (q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
+           m.data_ptr(), l.data_ptr(), di.data_ptr(), _ptr(bias2), _ptr(seg2))
+    dims = (B, S, N, D, _DTYPE_CODE[q.dtype], kind, _tiles(S, TILE),
+            D ** -0.5, torch.cuda.current_stream(q.device).cuda_stream)
+    # bias2 / seg2 may be fresh copies: keep them alive across the launch
+    return ins, dims, (bias2, seg2)
+
+
+def launch_dq(q, k, v, do, m, l, di, bias=None, segment_ids=None):
+    """One K2 launch on the current stream: ``dq`` in q's dtype.  ``do``
+    is ``[B, S, N, D]`` contiguous like q; ``m``, ``l``, ``di`` are
+    ``[B, N, S]`` fp32 contiguous.  Counts the launch."""
+    lib = _libs.get("flash_bwd") or build_bwd().lib
+    ins, dims, _keep = _bwd_args(q, k, v, do, m, l, di, bias, segment_ids)
+    dq = torch.empty_like(q)
+    err = lib.pdnlp_flash_bwd_dq(*ins, dq.data_ptr(), *dims)
+    _raise_on(err, lib, "flash_bwd_dq", "pdnlp_flash_bwd_error_string")
+    _launches["flash_bwd_dq"] += 1
+    return dq
+
+
+def launch_dkv(q, k, v, do, m, l, di, bias=None, segment_ids=None):
+    """One K3 launch on the current stream: ``(dk, dv)`` in the inputs'
+    dtype (operands as :func:`launch_dq`).  Counts the launch."""
+    lib = _libs.get("flash_bwd") or build_bwd().lib
+    ins, dims, _keep = _bwd_args(q, k, v, do, m, l, di, bias, segment_ids)
+    dk, dv = torch.empty_like(k), torch.empty_like(v)
+    err = lib.pdnlp_flash_bwd_dkv(*ins, dk.data_ptr(), dv.data_ptr(), *dims)
+    _raise_on(err, lib, "flash_bwd_dkv", "pdnlp_flash_bwd_error_string")
+    _launches["flash_bwd_dkv"] += 1
+    return dk, dv
 
 
 def kernel_tile_map(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                     bias: Optional[torch.Tensor] = None,
                     segment_ids: Optional[torch.Tensor] = None
                     ) -> torch.Tensor:
-    """The ``[B, n, n]`` tile-skip decisions the kernel takes on these
-    inputs (one launch), to hold against :func:`segment_block_map` /
+    """The ``[B, n, n]`` tile-skip decisions K1 takes on these inputs (one
+    launch), to hold against :func:`segment_block_map` /
     :func:`bias_block_map` at :data:`TILE`.  CUDA tensors only."""
     _check(q, k, v, bias, segment_ids)
     _check_kernel(q, k, v)
@@ -275,6 +401,44 @@ def kernel_tile_map(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     return live
 
 
+# ---------------------------------------------------------------- autograd
+
+
+class FlashAttention(torch.autograd.Function):
+    """Differentiable flash attention (the ``_flash3``/``_flash3_seg``
+    custom VJPs): the forward keeps ``m`` and ``l``, the backward forms
+    ``Di = rowsum(dO * O)`` and runs K2 then K3 — on CUDA the kernels, on
+    the CPU their twins.  The mask gets no gradient."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, bias, segment_ids):
+        if q.device.type == "cpu":
+            o, m, l = flash_forward_reference(q, k, v, bias, segment_ids)
+        else:
+            with torch.cuda.device(q.device):
+                o, m, l = launch(q, k, v, bias, segment_ids, with_stats=True)
+        ctx.save_for_backward(q, k, v, o, m, l, bias, segment_ids)
+        return o
+
+    @staticmethod
+    def backward(ctx, do):
+        q, k, v, o, m, l, bias, segment_ids = ctx.saved_tensors
+        do = do.contiguous()
+        di = (do.to(torch.float32) * o.to(torch.float32)).sum(-1) \
+            .transpose(1, 2).contiguous()                     # [B, N, S]
+        if q.device.type == "cpu":
+            dq = flash_bwd_dq_reference(q, k, v, do, m, l, di, bias,
+                                        segment_ids)
+            dk, dv = flash_bwd_dkv_reference(q, k, v, do, m, l, di, bias,
+                                             segment_ids)
+        else:
+            with torch.cuda.device(q.device):
+                dq = launch_dq(q, k, v, do, m, l, di, bias, segment_ids)
+                dk, dv = launch_dkv(q, k, v, do, m, l, di, bias,
+                                    segment_ids)
+        return dq, dk, dv, None, None
+
+
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                     bias: Optional[torch.Tensor] = None,
                     segment_ids: Optional[torch.Tensor] = None
@@ -284,12 +448,18 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     ``bias``: per-key additive mask (``ops.attention.mask_bias``'s
     ``[B, 1, 1, S]``).  ``segment_ids``: ``[B, S]`` int, 0 = padding — the
     packed block-diagonal mask, computed in-kernel.  Mutually exclusive.
-    CUDA tensors launch the kernel (contiguous fp32 or bf16, D = 64); CPU
-    tensors run :func:`flash_attention_reference`; anything else raises.
+    CUDA tensors launch the kernels (contiguous fp32 or bf16, D = 64); CPU
+    tensors run the twins; anything else raises.  When an input requires
+    grad (and grad mode is on) the call records :class:`FlashAttention`;
+    otherwise it is the serving forward, under ``torch.inference_mode()``.
     """
     _check(q, k, v, bias, segment_ids)
+    if q.device.type != "cpu":
+        _check_kernel(q, k, v)
+    if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad
+                                    or v.requires_grad):
+        return FlashAttention.apply(q, k, v, bias, segment_ids)
     if q.device.type == "cpu":
         return flash_attention_reference(q, k, v, bias, segment_ids)
-    _check_kernel(q, k, v)
     with torch.inference_mode(), torch.cuda.device(q.device):
         return launch(q, k, v, bias, segment_ids)

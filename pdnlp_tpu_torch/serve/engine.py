@@ -30,25 +30,8 @@ from pdnlp_tpu_torch.models.bert import BertClassifier
 from pdnlp_tpu_torch.models.config import args_overrides, get_config
 from pdnlp_tpu_torch.serve.metrics import ServeMetrics
 from pdnlp_tpu_torch.train import checkpoint as ckpt
-
-_DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
-
-
-def resolve_device(name: str) -> torch.device:
-    """``args.device`` -> a ``torch.device``; ``cuda`` without a card
-    raises (the port never falls back to the CPU)."""
-    device = torch.device(name)
-    if device.type == "cuda":
-        if not torch.cuda.is_available():
-            raise RuntimeError(
-                f"--device {name}: no CUDA device is available (pass "
-                "--device cpu to run the plain PyTorch path on the CPU)")
-        # true fp32 on the card: matmuls and convolutions without TF32
-        torch.backends.cuda.matmul.allow_tf32 = False
-        torch.backends.cudnn.allow_tf32 = False
-    elif device.type != "cpu":
-        raise ValueError(f"--device must be cuda or cpu, got {name!r}")
-    return device
+from pdnlp_tpu_torch.train.precision import resolve_dtype
+from pdnlp_tpu_torch.utils.config import resolve_device
 
 
 class InferenceEngine:
@@ -72,13 +55,8 @@ class InferenceEngine:
         if self.serve_dtype not in ("auto", "bf16"):
             raise ValueError("serve_dtype must be 'auto' or 'bf16', "
                              f"got {self.serve_dtype!r}")
-        if self.serve_dtype == "bf16":
-            self.dtype = torch.bfloat16
-        elif args.dtype in _DTYPES:
-            self.dtype = _DTYPES[args.dtype]
-        else:
-            raise ValueError(f"dtype must be one of {sorted(_DTYPES)}, "
-                             f"got {args.dtype!r}")
+        self.dtype = (torch.bfloat16 if self.serve_dtype == "bf16"
+                      else resolve_dtype(args.dtype))
         self.attn_requested = args.attention_impl
         self.metrics = ServeMetrics()
         # init on the CPU from an explicit generator: one seed gives the

@@ -1,1 +1,2 @@
-"""Checkpoints in the port's own format (what serving needs)."""
+"""Single-device training: setup, steps, the Trainer, the optimizer and the
+port's own checkpoint format."""

@@ -1,5 +1,5 @@
-"""Parameter checkpoints in the port's own format — what serving needs of
-``pdnlp_tpu/train/checkpoint.py``.
+"""Parameter checkpoints in the port's own format — what training writes
+and serving reads, of ``pdnlp_tpu/train/checkpoint.py``.
 
 A file is a ``torch.save`` of ``{"format", "model", "vocab_size",
 "state_dict"}`` (tensors on the CPU), written under a temporary name and

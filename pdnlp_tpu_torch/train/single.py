@@ -1,0 +1,86 @@
+"""Single-device training — the twin of ``single-tpu-cls.py`` (the
+reference's ``single-gpu-cls.py``): one card, batch 32, seq len 128, one
+epoch over the seeded 9,200-example split (288 steps), AdamW 3e-5, a
+``【train】`` line per step, ``耗时：X分钟``, the checkpoint, then a test
+pass over dev with the classification report.
+
+    python -m pdnlp_tpu_torch.train.single --data_path data/train.json \\
+        [--dtype bfloat16] [--dev true] [--attn_dropout 0] [--device cpu]
+
+Runs on ``cuda`` unless ``--device cpu`` is given.  With ``--attn_dropout``
+above 0 (the default 0.1) training attention takes the plain path, as in
+the JAX package; at 0 the flash kernels run forward and backward.  The
+checkpoint (``<output_dir>/single-cls.pt``) is the port's own format and
+``python -m pdnlp_tpu_torch.serve.cli --checkpoint`` serves it.
+"""
+from __future__ import annotations
+
+import sys
+
+#: JAX training flags whose paths the port does not have yet -> where
+#: ROADMAP queues them; a value in the tuple is the one setting allowed
+NOT_PORTED = {
+    "--fuse_steps": ("1", "K-step fusion as CUDA graph capture (ROADMAP A4)"),
+    "--grads_dtype": ("param", "compute-dtype gradients (ROADMAP A4)"),
+    "--length_mode": ("full", "length-aware training (ROADMAP A8)"),
+    "--pipeline": ("sync", "the resident/prefetch pipeline (ROADMAP A8)"),
+    "--resume_every": (None, "resume snapshots (ROADMAP A4)"),
+    "--resume_from": (None, "resume snapshots (ROADMAP A4)"),
+    "--elastic": (None, "elastic restart (ROADMAP A11)"),
+    "--heartbeat_interval": (None, "heartbeats (ROADMAP A11)"),
+    "--trace": (None, "obs span tracing (ROADMAP A4)"),
+    "--metrics_port": (None, "live telemetry (ROADMAP A4)"),
+    "--flight_recorder": (None, "live telemetry (ROADMAP A4)"),
+    "--profile_dir": (None, "the profiler (ROADMAP A4)"),
+    "--remat": (None, "rematerialization (ROADMAP A3)"),
+    "--init_from": (None, "pretrained warm start (ROADMAP A12)"),
+}
+
+
+def refuse_not_ported(argv, table=NOT_PORTED):
+    """``argv`` without the flags of ``table`` that carry their one
+    allowed value; exits naming the missing path for any other use."""
+    out = list(argv)
+    for flag, (allowed, what) in table.items():
+        if flag not in out:
+            continue
+        i = out.index(flag)
+        value = out[i + 1] if i + 1 < len(out) else None
+        if allowed is None or value != allowed:
+            sys.exit(f"train.single: {flag} needs {what}, which the "
+                     "PyTorch port does not have yet")
+        del out[i:i + 2]
+    return out
+
+
+def main(args) -> float:
+    from pdnlp_tpu_torch.data.corpus import LABELS
+    from pdnlp_tpu_torch.train.setup import setup_data, setup_model
+    from pdnlp_tpu_torch.train.steps import build_eval_step, build_train_step
+    from pdnlp_tpu_torch.train.trainer import Trainer
+    from pdnlp_tpu_torch.utils.logging import rank0_print
+    from pdnlp_tpu_torch.utils.metrics import classification_report
+
+    train_loader, dev_loader, tok = setup_data(args)
+    cfg, state = setup_model(args, tok.vocab_size,
+                             total_steps=len(train_loader) * args.epochs)
+    device = next(state.model.parameters()).device
+    rank0_print(f"device: {device.type}  model: {args.model}  "
+                f"dtype: {args.dtype}  steps/epoch: {len(train_loader)}")
+    trainer = Trainer(args, cfg, state, build_train_step(args, device),
+                      build_eval_step(args), device)
+    minutes = trainer.train(train_loader, dev_loader)
+    # dev doubles as the test set (single-gpu-cls.py:241-247)
+    result = trainer.test(dev_loader)
+    rank0_print(f"test loss：{result['loss']:.6f} "
+                f"accuracy：{result['accuracy']:.4f}")
+    rank0_print(classification_report(result["y_true"], result["y_pred"],
+                                      LABELS))
+    return minutes
+
+
+if __name__ == "__main__":
+    from pdnlp_tpu_torch.utils.config import Args, parse_cli
+
+    main(parse_cli(refuse_not_ported(sys.argv[1:]),
+                   base=Args(strategy="single")))

@@ -1,0 +1,143 @@
+"""Train and eval steps (``pdnlp_tpu/train/steps.py``).
+
+The JAX step is one jitted program: forward, weighted CE, backward, AdamW.
+Here it runs eagerly on the train state, in place: the training forward
+(dropout from the state's generator), the bare loss and the optimized
+objective, ``backward``, the optimizer step, the schedule step and the
+optional EMA.  Under bf16 the fp32 master weights are cast at each matmul
+inside the forward, so their gradients land in fp32 (the JAX
+``grads_dtype="param"`` default; ``"compute"`` is not ported).
+
+Loss semantics: per-example cross-entropy weighted by ``example_weight``,
+so the filler rows of the last batch contribute nothing.  The reported loss
+is always the bare CE; label smoothing enters the objective only.
+
+Folding K steps into one dispatch (JAX ``build_multi_step``) becomes CUDA
+graph capture in a later slice.
+"""
+from __future__ import annotations
+
+import dataclasses
+from typing import Callable, Dict, Optional
+
+import torch
+
+from pdnlp_tpu_torch.models.bert import BertClassifier
+from pdnlp_tpu_torch.ops.fused_ce import fused_weighted_ce, resolve_fused_ce
+from pdnlp_tpu_torch.train.precision import resolve_dtype
+
+Batch = Dict[str, torch.Tensor]
+Metrics = Dict[str, torch.Tensor]
+
+
+@dataclasses.dataclass
+class TrainState:
+    """What the JAX state dict holds, as live objects: the params (the
+    model), the optimizer moments, the schedule, the dropout stream, the
+    optional EMA of the params and the step count."""
+
+    model: BertClassifier
+    optimizer: torch.optim.Optimizer
+    scheduler: Optional[torch.optim.lr_scheduler.LRScheduler]
+    generator: torch.Generator
+    ema: Optional[Dict[str, torch.Tensor]] = None
+    step: int = 0
+
+    def eval_params(self) -> Dict[str, torch.Tensor]:
+        """The weights eval and checkpoints use: the EMA when kept, else
+        the live params."""
+        if self.ema is not None:
+            return self.ema
+        return {k: v.detach() for k, v in self.model.state_dict().items()}
+
+
+def init_ema(model: torch.nn.Module) -> Dict[str, torch.Tensor]:
+    """An EMA initialised to the params (distinct fp32 buffers)."""
+    return {k: v.detach().clone() for k, v in model.state_dict().items()}
+
+
+def weighted_ce(logits: torch.Tensor, labels: torch.Tensor,
+                weights: torch.Tensor, smoothing: float = 0.0):
+    """(weighted mean bare CE, weighted correct count, training objective);
+    filler rows weigh 0.  ``smoothing`` > 0 mixes the one-hot target with
+    uniform mass in the objective only."""
+    logp = torch.log_softmax(logits.to(torch.float32), -1)
+    ce = -logp.gather(-1, labels.long()[:, None])[:, 0]
+    wsum = weights.sum().clamp_min(1.0)
+    loss = (ce * weights).sum() / wsum
+    objective = loss
+    if smoothing:
+        uniform = ((-logp.mean(-1)) * weights).sum() / wsum
+        objective = (1.0 - smoothing) * loss + smoothing * uniform
+    correct = ((logits.argmax(-1) == labels.long()) * weights).sum()
+    return loss, correct, objective
+
+
+def build_train_step(args, device) -> Callable[[TrainState, Batch], Metrics]:
+    """The train step for ``args`` on ``device``: ``step(state, batch)``
+    updates ``state`` in place and returns ``{"loss", "accuracy"}`` as
+    device scalars (fetching them is the caller's choice)."""
+    dtype = resolve_dtype(args.dtype)
+    attn_impl = args.attention_impl
+    smoothing = args.label_smoothing
+    fused = resolve_fused_ce(args.fused_ce, device) == "pallas"
+    ema_decay = args.ema_decay
+
+    def train_step(state: TrainState, batch: Batch) -> Metrics:
+        model = state.model
+        out = model.classify(batch, dtype=dtype, attn_impl=attn_impl,
+                             deterministic=False, generator=state.generator,
+                             return_pooled=fused)
+        labels, weights = batch["label"], batch["example_weight"]
+        if fused:
+            # out is the pooled features: the kernels apply the classifier
+            # themselves, so the [T, C] logits never reach device memory
+            loss, correct, objective = fused_weighted_ce(
+                out, model.classifier.weight.to(dtype),
+                model.classifier.bias.to(dtype), labels, weights,
+                smoothing=smoothing)
+        else:
+            loss, correct, objective = weighted_ce(out, labels, weights,
+                                                   smoothing=smoothing)
+        state.optimizer.zero_grad(set_to_none=True)
+        objective.backward()
+        state.optimizer.step()
+        if state.scheduler is not None:
+            state.scheduler.step()
+        if state.ema is not None:
+            with torch.no_grad():
+                ema = list(state.ema.values())
+                torch._foreach_mul_(ema, ema_decay)
+                torch._foreach_add_(
+                    ema, [p.detach() for p in model.state_dict().values()],
+                    alpha=1.0 - ema_decay)
+        state.step += 1
+        wsum = weights.sum().clamp_min(1.0)
+        return {"loss": loss.detach(), "accuracy": correct.detach() / wsum}
+
+    return train_step
+
+
+def build_eval_step(args) -> Callable[..., Metrics]:
+    """The deterministic eval step: ``eval_step(model, params, batch)``
+    returns device sums and the per-example predictions, labels and
+    weights (the host accumulates).  ``params`` (a ``state_dict``-shaped
+    mapping, e.g. the EMA) replaces the model's own weights for the call."""
+    dtype = resolve_dtype(args.dtype)
+    attn_impl = args.attention_impl
+
+    def eval_step(model: BertClassifier, params, batch: Batch) -> Metrics:
+        kw = {"dtype": dtype, "attn_impl": attn_impl}
+        with torch.inference_mode():
+            if params is None:
+                logits = model.classify(batch, **kw)
+            else:
+                logits = torch.func.functional_call(model, dict(params),
+                                                    (batch,), kw)
+            labels, w = batch["label"], batch["example_weight"]
+            loss, correct, _ = weighted_ce(logits, labels, w)
+            return {"loss_sum": loss * w.sum().clamp_min(1.0),
+                    "weight": w.sum(), "correct": correct,
+                    "pred": logits.argmax(-1), "label": labels, "ew": w}
+
+    return eval_step

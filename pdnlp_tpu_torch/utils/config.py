@@ -1,34 +1,75 @@
-"""Serving hyperparameters: the ``Args`` fields the port reads, with the
-JAX package's names and defaults (``pdnlp_tpu/utils/config.py``), so CLI
-flags read the same, plus ``device``."""
+"""Hyperparameters: the ``Args`` fields the port reads, with the JAX
+package's names and defaults (``pdnlp_tpu/utils/config.py``), so CLI flags
+read the same, plus ``device``."""
 from __future__ import annotations
 
 import dataclasses
+import os
 from typing import Optional
+
+import torch
+
 
 @dataclasses.dataclass
 class Args:
     # --- data ---
-    data_path: str = "data/train.json"            # corpus the vocab is built
-                                                  # from when vocab_path is
-                                                  # missing
+    data_path: str = "data/train.json"            # the corpus (train.json
+                                                  # format); the vocab is
+                                                  # built from it when
+                                                  # vocab_path is missing
     vocab_path: str = "output/vocab.txt"          # built from the corpus (no egress)
     max_seq_len: int = 128
+    data_limit: int = 10_000                      # first-N slice of the corpus
+    ratio: float = 0.92                           # train/dev split
+    train_batch_size: int = 32
+    dev_batch_size: int = 32
 
     # --- model ---
     model: str = "bert-base"                      # key into models.config registry
     num_labels: int = 6
-    dropout: float = 0.1                          # config fields only: the
-    attn_dropout: float = 0.1                     # serving forward is
-                                                  # deterministic
-    seed: int = 123                               # init weights when no
-                                                  # checkpoint is given
+    dropout: float = 0.1                          # hidden and pooled dropout
+    attn_dropout: float = 0.1                     # attention-probability
+                                                  # dropout; > 0 routes
+                                                  # training attention to
+                                                  # the plain path (ops.
+                                                  # attention.routed_impl)
+    seed: int = 123                               # init weights, split,
+                                                  # shuffle and dropout
     gelu: Optional[str] = None                    # erf|tanh (None = config's
                                                   # erf; models.config.
                                                   # args_overrides)
 
-    # --- serving ---
+    # --- optimization ---
+    learning_rate: float = 3e-5
+    label_smoothing: float = 0.0                  # CE target smoothing eps
+    ema_decay: float = 0.0                        # > 0 keeps an EMA of the
+                                                  # params; eval, best and
+                                                  # checkpoint use it
+    lr_schedule: Optional[str] = None             # warmup_linear|warmup_cosine
+    warmup_ratio: float = 0.06                    # fraction of total steps
+    weight_decay: float = 0.01
+    adam_b1: float = 0.9
+    adam_b2: float = 0.999
+    adam_eps: float = 1e-6
+    epochs: int = 1
+
+    # --- eval / checkpoint ---
+    eval_step: int = 50
+    dev: bool = False                             # eval during training
+    output_dir: str = "output"
+    ckpt_name: Optional[str] = None               # default "<strategy>-cls.pt"
+    strategy: str = "single"
+
+    # --- precision, kernels, input ---
     dtype: str = "float32"                        # float32|bfloat16 compute
+                                                  # (fp32 master weights)
+    fused_ce: str = "auto"                        # auto|xla|pallas: the fused
+                                                  # classifier + CE kernels
+                                                  # in the train step (ops.
+                                                  # fused_ce); auto = the
+                                                  # kernels on cuda, plain
+                                                  # on cpu
+    prefetch: int = 2                             # loader collation lookahead
     serve_dtype: str = "auto"                     # auto (= --dtype) | bf16
     attention_impl: str = "auto"                  # auto|xla|pallas (alias
                                                   # --attn_impl): xla = the
@@ -46,9 +87,15 @@ class Args:
     def replace(self, **kw) -> "Args":
         return dataclasses.replace(self, **kw)
 
+    def ckpt_path(self, name: Optional[str] = None) -> str:
+        """One checkpoint per strategy, in the port's own format."""
+        return os.path.join(self.output_dir,
+                            name or self.ckpt_name or f"{self.strategy}-cls.pt")
+
 
 def add_dataclass_args(parser, cls, defaults=None) -> None:
-    """One typed ``--field`` per dataclass field (Optional[T] parses as T)."""
+    """One typed ``--field`` per dataclass field (Optional[T] parses as T;
+    bools accept 1/true/yes)."""
     import types
     import typing
 
@@ -60,7 +107,13 @@ def add_dataclass_args(parser, cls, defaults=None) -> None:
         if typing.get_origin(hint) in (typing.Union, types.UnionType):
             inner = [a for a in typing.get_args(hint) if a is not type(None)]
             hint = inner[0] if len(inner) == 1 else str
+        if hint is bool:
+            hint = _parse_bool
         parser.add_argument(f"--{f.name}", type=hint, default=default)
+
+
+def _parse_bool(s: str) -> bool:
+    return s.lower() in ("1", "true", "yes")
 
 
 def pop_cli_flag(argv, name: str, default=None, cast=str):
@@ -87,3 +140,20 @@ def parse_cli(argv=None, base: Optional[Args] = None) -> Args:
                    help="alias for --attention_impl (auto|xla|pallas: xla is "
                         "the plain PyTorch path, pallas the CUDA kernel)")
     return Args(**vars(p.parse_args(argv)))
+
+
+def resolve_device(name: str) -> torch.device:
+    """``args.device`` -> a ``torch.device``; ``cuda`` without a card
+    raises (the port never falls back to the CPU)."""
+    device = torch.device(name)
+    if device.type == "cuda":
+        if not torch.cuda.is_available():
+            raise RuntimeError(
+                f"--device {name}: no CUDA device is available (pass "
+                "--device cpu to run the plain PyTorch path on the CPU)")
+        # true fp32 on the card: matmuls and convolutions without TF32
+        torch.backends.cuda.matmul.allow_tf32 = False
+        torch.backends.cudnn.allow_tf32 = False
+    elif device.type != "cpu":
+        raise ValueError(f"--device must be cuda or cpu, got {name!r}")
+    return device

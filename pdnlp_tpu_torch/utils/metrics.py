@@ -1,6 +1,7 @@
-"""Serving observability primitives (``pdnlp_tpu/utils/metrics.py``'s
-``Counter`` / ``Gauge`` / ``Histogram``): thread-safe, JSON-snapshot
-friendly, aggregated by ``serve.metrics.ServeMetrics``."""
+"""Metrics (``pdnlp_tpu/utils/metrics.py``): the serving observability
+primitives ``Counter`` / ``Gauge`` / ``Histogram`` (thread-safe,
+JSON-snapshot friendly, aggregated by ``serve.metrics.ServeMetrics``) and
+the eval report ``classification_report``, byte for byte."""
 from __future__ import annotations
 
 import threading
@@ -91,3 +92,57 @@ class Histogram:
             "p95": ps[1],
             "p99": ps[2],
         }
+
+
+def per_class_stats(y_true: Sequence[int], y_pred: Sequence[int], num_classes: int):
+    t = np.asarray(y_true, np.int64)
+    p = np.asarray(y_pred, np.int64)
+    stats = []
+    for c in range(num_classes):
+        tp = int(((p == c) & (t == c)).sum())
+        fp = int(((p == c) & (t != c)).sum())
+        fn = int(((p != c) & (t == c)).sum())
+        prec = tp / (tp + fp) if tp + fp else 0.0
+        rec = tp / (tp + fn) if tp + fn else 0.0
+        f1 = 2 * prec * rec / (prec + rec) if prec + rec else 0.0
+        stats.append({"precision": prec, "recall": rec, "f1": f1,
+                      "support": int((t == c).sum())})
+    return stats
+
+
+def accuracy(y_true, y_pred) -> float:
+    t = np.asarray(y_true)
+    return float((t == np.asarray(y_pred)).mean()) if len(t) else 0.0
+
+
+def classification_report(
+    y_true: Sequence[int],
+    y_pred: Sequence[int],
+    target_names: Optional[List[str]] = None,
+    num_classes: Optional[int] = None,
+) -> str:
+    n = num_classes or (len(target_names) if target_names
+                        else int(max(max(y_true, default=0), max(y_pred, default=0))) + 1)
+    names = target_names or [str(i) for i in range(n)]
+    stats = per_class_stats(y_true, y_pred, n)
+    total = len(np.asarray(y_true))
+    width = max(12, max(len(s) for s in names) + 2)
+
+    lines = [f"{'':>{width}}  precision    recall  f1-score   support", ""]
+    for name, s in zip(names, stats):
+        lines.append(f"{name:>{width}}  {s['precision']:9.2f} {s['recall']:9.2f} "
+                     f"{s['f1']:9.2f} {s['support']:9d}")
+    acc = accuracy(y_true, y_pred)
+    macro = {k: float(np.mean([s[k] for s in stats])) for k in ("precision", "recall", "f1")}
+    wsum = sum(s["support"] for s in stats) or 1
+    weighted = {k: float(sum(s[k] * s["support"] for s in stats) / wsum)
+                for k in ("precision", "recall", "f1")}
+    lines += [
+        "",
+        f"{'accuracy':>{width}}  {'':9} {'':9} {acc:9.2f} {total:9d}",
+        f"{'macro avg':>{width}}  {macro['precision']:9.2f} {macro['recall']:9.2f} "
+        f"{macro['f1']:9.2f} {total:9d}",
+        f"{'weighted avg':>{width}}  {weighted['precision']:9.2f} {weighted['recall']:9.2f} "
+        f"{weighted['f1']:9.2f} {total:9d}",
+    ]
+    return "\n".join(lines)

@@ -1,5 +1,6 @@
-"""Card tests of the PyTorch port: the CUDA flash kernel against its plain
-PyTorch twin, and the serving engine with the kernel against the plain
+"""Card tests of the PyTorch port: the CUDA kernels (flash forward K1,
+flash backward K2/K3, fused classifier CE K4/K5) against their plain
+PyTorch twins, and the serving engine with the kernel against the plain
 path, on an NVIDIA card.
 
 Whether a card is present is decided inside the ``cuda_device`` fixture,
@@ -12,7 +13,7 @@ import numpy as np
 import pytest
 import torch
 
-from pdnlp_tpu_torch.ops import flash
+from pdnlp_tpu_torch.ops import flash, fused_ce
 from pdnlp_tpu_torch.ops.attention import mask_bias
 
 pytestmark = pytest.mark.cuda
@@ -111,9 +112,11 @@ def test_launch_counter_and_refusals(cuda_device):
                               k, v)
     with pytest.raises(ValueError, match="head dim"):
         flash.flash_attention(q[..., :32], k[..., :32], v[..., :32])
-    with pytest.raises(ValueError, match="require grad"):
-        flash.flash_attention(q.clone().requires_grad_(), k, v)
     assert flash.launch_count() == 2
+    # an input that requires grad records the backward: K1 once, then K2
+    # and K3 once each on backward
+    flash.flash_attention(q.clone().requires_grad_(), k, v).sum().backward()
+    assert [flash.launch_count(n) for n in flash.KERNELS] == [3, 1, 1]
 
 
 @pytest.mark.parametrize("serve_dtype", ["auto", "bf16"])
@@ -143,3 +146,117 @@ def test_engine_kernel_matches_plain(cuda_device, serve_dtype):
     tol = 2e-4 if serve_dtype == "auto" else 5e-2
     for g, w in zip(got, want):
         np.testing.assert_allclose(g, w, atol=tol)
+
+
+# ----------------------------------------------------- K1 stats, K2, K3
+
+#: kernel vs twin on the same card: fp32 sums in another order (up to 512
+#: keys); bf16 adds the rounding of the outputs to bfloat16
+BWD_TOL = {torch.float32: dict(atol=5e-5, rtol=0),
+           torch.bfloat16: dict(atol=2e-2, rtol=2e-2)}
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+@pytest.mark.parametrize("S,form", [
+    (40, "bias"), (128, "bias"), (200, "bias"), (512, "bias"), (1, "none"),
+    (128, "none"), (40, "segments"), (128, "segments"), (384, "segments"),
+])
+def test_backward_kernels_match_twins(cuda_device, S, form, dtype):
+    """K1's m and l, then K2 and K3 on the same m, l, Di, against the
+    twins: padded keys with a filler row, packed rows with padding."""
+    q, k, v, kw = _case(S, form, dtype, cuda_device, seed=S)
+    do = torch.randn_like(q.float()).to(dtype)
+    o, m, l = flash.launch(q, k, v, with_stats=True, **kw)
+    torch.cuda.synchronize()
+    o_ref, m_ref, l_ref = flash.flash_forward_reference(q, k, v, **kw)
+    torch.testing.assert_close(m, m_ref, rtol=1e-6, atol=1e-4)
+    torch.testing.assert_close(l, l_ref, rtol=1e-5, atol=1e-4)
+    di = (do.float() * o.float()).sum(-1).transpose(1, 2).contiguous()
+    got = (flash.launch_dq(q, k, v, do, m, l, di, **kw),
+           *flash.launch_dkv(q, k, v, do, m, l, di, **kw))
+    torch.cuda.synchronize()
+    want = (flash.flash_bwd_dq_reference(q, k, v, do, m, l, di, **kw),
+            *flash.flash_bwd_dkv_reference(q, k, v, do, m, l, di, **kw))
+    for name, g, w in zip(("dq", "dk", "dv"), got, want):
+        assert g.dtype == dtype and g.shape == q.shape, name
+        torch.testing.assert_close(g.float(), w.float(), **BWD_TOL[dtype],
+                                   msg=name)
+
+
+def test_flash_autograd_on_the_card_matches_the_cpu_twins(cuda_device):
+    q, k, v, kw = _case(200, "segments", torch.float32, cuda_device, seed=9)
+    do = torch.randn_like(q)
+    grads = []
+    for dev in (cuda_device, torch.device("cpu")):
+        t = [x.detach().to(dev).clone().requires_grad_() for x in (q, k, v)]
+        flash.flash_attention(*t, **{n: x.to(dev) for n, x in kw.items()}
+                              ).backward(do.to(dev))
+        grads.append([x.grad.cpu() for x in t])
+    for g, w in zip(*grads):
+        torch.testing.assert_close(g, w, **BWD_TOL[torch.float32])
+
+
+# ----------------------------------------------------------- K4, K5
+
+#: kernel vs twin: fp32 sums over H = 768 (and over the rows for dW) in
+#: another order; bf16 d(feats) is rounded to bfloat16
+CE_TOL = {torch.float32: dict(atol=1e-5, rtol=1e-5),
+          torch.bfloat16: dict(atol=1e-2, rtol=1e-2)}
+
+
+def _ce_case(T, dtype, device, C=6, H=768, seed=0):
+    r = np.random.RandomState(seed)
+    f = torch.from_numpy(np.tanh(r.randn(T, H)).astype(np.float32))
+    W = torch.from_numpy((r.randn(C, H) * 0.05).astype(np.float32))
+    b = torch.from_numpy((r.randn(C) * 0.1).astype(np.float32))
+    lab = torch.from_numpy(r.randint(0, C, T).astype(np.int32))
+    w = torch.from_numpy((r.rand(T) > 0.2).astype(np.float32))
+    return [x.to(device) for x in (f.to(dtype), W.to(dtype), b.to(dtype),
+                                   lab, w)]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+@pytest.mark.parametrize("T", [1, 32, 37, 300])
+def test_fused_ce_kernels_match_twins(cuda_device, T, dtype):
+    f, W, b, lab, w = _ce_case(T, dtype, cuda_device, seed=T)
+    got = fused_ce.launch_fwd(f, W, b, lab)
+    torch.cuda.synchronize()
+    want = fused_ce.fused_ce_fwd_reference(f, W, b, lab)
+    for name, g, x in zip(("ce", "lpu", "correct"), got, want):
+        torch.testing.assert_close(g, x, **CE_TOL[torch.float32], msg=name)
+    dce = w / w.sum().clamp_min(1.0)
+    dlpu = 0.1 * dce
+    got = fused_ce.launch_bwd(f, W, b, lab, dce, dlpu)
+    again = fused_ce.launch_bwd(f, W, b, lab, dce, dlpu)
+    torch.cuda.synchronize()
+    want = fused_ce.fused_ce_bwd_reference(f, W, b, lab, dce, dlpu)
+    torch.testing.assert_close(got[0].float(), want[0].float(),
+                               **CE_TOL[dtype])
+    for g, x in zip(got[1:], want[1:]):
+        torch.testing.assert_close(g, x, **CE_TOL[torch.float32])
+    # dW/db from per-block partials added in a fixed order: the same bits
+    for g, x in zip(got, again):
+        assert torch.equal(g, x)
+    assert not got[0][w == 0].any()          # filler rows: zero d(feats)
+
+
+def test_fused_ce_ties_and_autograd_on_the_card(cuda_device):
+    f = torch.tensor([[1., 1., 0., 0.], [1., 1., 0., 0.], [0., 0., 3., 0.]],
+                     device=cuda_device)
+    W, b = torch.eye(4, device=cuda_device), torch.zeros(4, device=cuda_device)
+    lab = torch.tensor([1, 0, 2], dtype=torch.int32, device=cuda_device)
+    assert fused_ce.launch_fwd(f, W, b, lab)[2].tolist() == [0.0, 1.0, 1.0]
+    fc, Wc, bc, labc, wc = _ce_case(37, torch.float32, cuda_device, seed=5)
+    grads = []
+    for dev in (cuda_device, torch.device("cpu")):
+        t = [x.detach().to(dev).clone().requires_grad_()
+             for x in (fc, Wc, bc)]
+        out = fused_ce.fused_weighted_ce(*t, labc.to(dev), wc.to(dev),
+                                         smoothing=0.1)
+        out[2].backward()
+        grads.append([x.grad.cpu() for x in t] + [o.detach().cpu()
+                                                  for o in out])
+    for g, x in zip(*grads):
+        torch.testing.assert_close(g, x, **CE_TOL[torch.float32])

@@ -1,0 +1,125 @@
+"""The PyTorch port's fused classifier + cross-entropy against the JAX
+package's (the twin of ``tests/test_kernels.py``'s fused-CE tests).
+
+On the CPU the port's :class:`FusedRows` runs its plain twins; the JAX
+kernels run in Pallas interpret mode.  Inputs are numpy arrays from a
+seed, handed to both (the JAX kernel takes W as ``[H, C]``, the port as
+nn.Linear's ``[C, H]``).  The CUDA kernels are held against the twins on
+the card by ``tests/test_torch_cuda.py``.
+
+Tolerance: atol 1e-5, the bound of ``tests/test_kernels.py``.
+"""
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from pdnlp_tpu.ops.fused_ce import fused_weighted_ce as jax_fused
+from pdnlp_tpu.train.steps import weighted_ce as jax_weighted_ce
+from pdnlp_tpu_torch.ops import fused_ce
+
+ATOL = 1e-5
+
+
+def _case(T=37, H=64, C=6, seed=0):
+    """T off any block, zero weights standing for filler rows."""
+    r = np.random.RandomState(seed)
+    return (r.randn(T, H).astype(np.float32),
+            (r.randn(H, C) * 0.1).astype(np.float32),
+            (r.randn(C) * 0.1).astype(np.float32),
+            r.randint(0, C, T).astype(np.int32),
+            (r.rand(T) > 0.3).astype(np.float32))
+
+
+def _port(f, W, b, lab, w, smoothing):
+    t = [torch.from_numpy(a).requires_grad_() for a in (f, W.T.copy(), b)]
+    out = fused_ce.fused_weighted_ce(*t, torch.from_numpy(lab),
+                                     torch.from_numpy(w), smoothing=smoothing)
+    out[2].backward()
+    return [float(o.detach()) for o in out], [a.grad.numpy() for a in t]
+
+
+@pytest.mark.parametrize("smoothing", [0.0, 0.1])
+def test_value_and_grads_match_jax(smoothing):
+    f, W, b, lab, w = _case()
+    want = jax_fused(*map(jnp.asarray, (f, W, b, lab, w)),
+                     smoothing=smoothing)
+    wgrad = jax.grad(lambda f, W, b: jax_fused(
+        f, W, b, jnp.asarray(lab), jnp.asarray(w), smoothing=smoothing)[2],
+        argnums=(0, 1, 2))(*map(jnp.asarray, (f, W, b)))
+    got, grads = _port(f, W, b, lab, w, smoothing)
+    for name, g, x in zip(("loss", "correct", "objective"), got, want):
+        assert abs(g - float(x)) <= ATOL, name
+    df, dW, db = grads
+    np.testing.assert_allclose(df, np.asarray(wgrad[0]), atol=ATOL)
+    np.testing.assert_allclose(dW.T, np.asarray(wgrad[1]), atol=ATOL)
+    np.testing.assert_allclose(db, np.asarray(wgrad[2]), atol=ATOL)
+
+
+def test_correct_counts_first_index_argmax_on_ties():
+    """A label tied with a lower-indexed class counts incorrect, as
+    argmax picks the first index (``tests/test_kernels.py:211``)."""
+    f = np.array([[1., 1., 0., 0.], [1., 1., 0., 0.], [0., 0., 3., 0.]],
+                 np.float32)
+    W, b = np.eye(4, dtype=np.float32), np.zeros(4, np.float32)
+    lab = np.array([1, 0, 2], np.int32)
+    w = np.ones(3, np.float32)
+    want = jax_fused(*map(jnp.asarray, (f, W, b, lab, w)))
+    got, _ = _port(f, W, b, lab, w, 0.0)
+    assert got[1] == float(want[1]) == 2.0
+    ce, lpu, corr = fused_ce.fused_ce_fwd_reference(
+        *(torch.from_numpy(a) for a in (f, W, b, lab)))
+    assert corr.tolist() == [0.0, 1.0, 1.0]
+
+
+@pytest.mark.parametrize("smoothing", [0.0, 0.1])
+def test_twins_match_the_unfused_logits_path(smoothing):
+    """The fused pair against JAX's unfused ``weighted_ce`` on explicit
+    logits (the ``--fused_ce xla`` tail): value and gradients."""
+    f, W, b, lab, w = _case(T=20, H=32, C=6, seed=1)
+    want = jax_weighted_ce(jnp.asarray(f @ W + b), jnp.asarray(lab),
+                           jnp.asarray(w), smoothing=smoothing)
+    wdf = jax.grad(lambda f: jax_weighted_ce(
+        f @ jnp.asarray(W) + jnp.asarray(b), jnp.asarray(lab),
+        jnp.asarray(w), smoothing=smoothing)[2])(jnp.asarray(f))
+    got, grads = _port(f, W, b, lab, w, smoothing)
+    np.testing.assert_allclose(got, [float(x) for x in want], atol=ATOL)
+    np.testing.assert_allclose(grads[0], np.asarray(wdf), atol=ATOL)
+
+
+def test_filler_rows_carry_no_gradient_and_bf16_keeps_dtypes():
+    """Zero-weight rows get zero d(feats) and add nothing to dW/db; bf16
+    features come back with bf16 d(feats) and fp32-accumulated dW/db."""
+    f, W, b, lab, w = _case(T=9, H=16, C=6, seed=2)
+    w[4:] = 0.0
+    _, grads = _port(f, W, b, lab, w, 0.1)
+    assert not grads[0][4:].any()
+    _, trimmed = _port(f[:4], W, b, lab[:4], w[:4], 0.1)
+    np.testing.assert_allclose(grads[1], trimmed[1], atol=1e-6)
+    np.testing.assert_allclose(grads[2], trimmed[2], atol=1e-6)
+    df, dW, db = fused_ce.fused_ce_bwd_reference(
+        torch.from_numpy(f).bfloat16(), torch.from_numpy(W.T.copy()).bfloat16(),
+        torch.from_numpy(b).bfloat16(), torch.from_numpy(lab),
+        torch.ones(9), torch.zeros(9))
+    assert df.dtype == torch.bfloat16
+    assert dW.dtype == db.dtype == torch.float32
+
+
+def test_routing_and_refusals():
+    assert fused_ce.resolve_fused_ce("auto", "cpu") == "xla"
+    assert fused_ce.resolve_fused_ce("auto", "cuda") == "pallas"
+    assert fused_ce.resolve_fused_ce(None, torch.device("cuda", 0)) == "pallas"
+    assert fused_ce.resolve_fused_ce("pallas", "cpu") == "pallas"
+    assert fused_ce.resolve_fused_ce("xla", "cuda") == "xla"
+    with pytest.raises(ValueError, match="fused_ce"):
+        fused_ce.resolve_fused_ce("fast", "cpu")
+    f, W, b, lab, w = (torch.from_numpy(a) for a in _case(T=4, H=8))
+    with pytest.raises(ValueError, match="share H"):
+        fused_ce.fused_weighted_ce(f, W, b, lab, w)          # W not [C, H]
+    with pytest.raises(ValueError, match="float32 or bfloat16"):
+        fused_ce.fused_weighted_ce(f.double(), W.T.double(), b.double(),
+                                   lab, w)
+    fused_ce.reset_launch_count()
+    fused_ce.fused_weighted_ce(f, W.T.contiguous(), b, lab, w)
+    assert fused_ce.launch_count("fused_ce_fwd") == 0   # CPU: the twin
