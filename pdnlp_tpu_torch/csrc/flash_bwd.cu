@@ -19,24 +19,60 @@
 // innermost, sequential grid axis.  CUDA blocks run in no order, so here
 // one block owns one 64-row q tile (K2) or k tile (K3), loops over the
 // other axis itself and keeps its accumulators in registers: nothing
-// crosses blocks, there are no atomics, and the results are deterministic.
+// crosses blocks, there are no atomics, and the results are the same bits
+// on every run.
 //
-// What bounds it on an H100: per needed (query, key) pair K2 does three
+// What bounds them on an H100.  Per needed (query, key) pair K2 does three
 // products over D (6 * D flops) and K3 four (8 * D), against q, k, v, dO
-// and one output read or written once -- about 48 flops per fp32 byte at
-// S = 128, above the fp32 ridge (20 flops/byte), so fp32 arithmetic bounds
-// both.  This first version answers with the simple things: fp32 FMA on
-// the CUDA cores out of shared memory (no tensor cores, mma/wgmma, TMA or
-// pipelining -- later work), scores, probabilities and dS never leave the
-// SM, and dead tiles are skipped before their operands are read.
+// and the outputs read or written once.  In fp32 that is ~48 flops per
+// byte at S = 128, above the CUDA cores' ridge (67 TFLOP/s / 3.35 TB/s =
+// 20): fp32 arithmetic bounds them.  In bf16 the same work on the tensor
+// cores (989 TFLOP/s, ridge ~295) is an order of magnitude under the time
+// the bytes take: bytes bound them.  Two designs follow, one per dtype.
 //
-// Blocks: one per (tile of 64 rows, b * N + n), 256 threads as a 16 x 16
-// grid.  K2: thread (ty, tx) owns query rows 4ty..4ty+3 and key columns
-// 4tx..4tx+3 of a score tile, then head dims 4tx..4tx+3 of dQ.  K3 works
-// on the transposed tile: key rows 4ty..4ty+3, query columns 4tx..4tx+3,
-// then head dims 4tx..4tx+3 of dK and dV.  Shared memory is above the
-// 48 KB static limit (102 KB for K2, 119 KB for K3), so each launch opts
-// in with cudaFuncSetAttribute (a per-device attribute).
+// bf16 (flash_bwd_*_kernel_bf16): the tensor cores.  4 warps own a 64-row
+// tile, 16 rows each.  Every product is warp-level
+// mma.sync.m16n8k16.row.col.f32.bf16.bf16.f32 fed by ldmatrix from tiles
+// kept once, as bf16, in shared memory with rows padded to 72 elements
+// (144 B: the 8 row addresses of an ldmatrix fall in 8 different 16 B bank
+// groups).  A tile's rows serve as the B operand of s = Q . K^T as they are
+// stored and, through ldmatrix.trans, of dQ += dS . K: no transposed
+// copies.  The owned tile's A fragments (Q and dO in K2, K and V in K3)
+// are read anew from shared memory for each product: kept in registers
+// for the whole walk they cost 32 a thread and spill (measured no faster
+// on the H100).  s and dP sit in fp32 accumulators;
+// the mask, p and dS are formed there in fp32, and p and dS are repacked
+// from the accumulator layout straight into bf16 A fragments (two n8
+// accumulator tiles are one k16 fragment), never through shared memory.
+// The walked tiles (K, V in K2; Q, dO and their m, l, Di in K3) arrive by
+// cp.async, double-buffered: the next live tile loads while this one is
+// multiplied.  The 64 walked columns go in two halves of 32, so the fp32
+// score registers stay at 32 a thread; ~57 KB of shared memory and at most
+// 168 registers give 3 blocks per SM.  mma.sync and not wgmma + TMA: at
+// S = 128 the products fit well under the byte bound at mma.sync's rate.
+// Numerics: s and dP are exact products of bf16 inputs summed in fp32; p
+// and dS are rounded to bf16 once, before the three second-stage products
+// (dQ, dV, dK), as FlashAttention-2 does; ops/flash.py's twin rounds at
+// the same places.
+//
+// fp32 (flash_bwd_*_kernel_f32): FMA on the CUDA cores (no TF32).  256
+// threads as a 16 x 16 grid, each owning a 4 x 4 block of every product.
+// All five tiles of a block are stored once, row-major, rows padded to 68
+// floats, and arrive by cp.async; each product reads 16 B vectors of both
+// operands (8 loads per 64 FMA).  Row against row (s = Q . K^T) a thread
+// takes columns tx + 16j, so the 8 rows a quarter-warp reads fall in 8
+// different bank groups; row against column (dQ = dS . K) it takes
+// columns 4tx..4tx+3.  ~87 KB of shared memory and at most 128 registers
+// give 2 blocks per SM.
+//
+// Both: 1/sqrt(D) = 2^-3 (D = 64 only) is applied to the fp32 sums, which
+// is exact, so Q is never rescaled in memory.  p = exp2((s - m) log2 e)
+// times 1/l (exp2f and a reciprocal in place of expf and a division: the
+// exponential and division were most of the elementwise work); p differs
+// from the twin's expf()/l by a few fp32 ulps.  Dead tiles are skipped
+// before their operands are read; a dead k tile in K3 writes zeros without
+// reading Q.  Shared memory is above the 48 KB static limit, so each
+// launch opts in with cudaFuncSetAttribute (a per-device attribute).
 
 #include "flash_common.cuh"
 
@@ -44,66 +80,109 @@ namespace {
 
 using namespace flash;
 
-struct __align__(16) DqSmem {
-  float q[TILE_Q][HEAD_D];        // q tile, upcast and scaled
-  float dout[TILE_Q][HEAD_D];     // dO tile
-  float kt[HEAD_D][KT_STRIDE];    // k tile transposed (for s)
-  float vt[HEAD_D][KT_STRIDE];    // v tile transposed (for dP)
-  float k[TILE_K][HEAD_D];        // k tile (for dS . K)
-  float ds[TILE_Q][KT_STRIDE];    // dS tile
-  float kmask[TILE_K];
-  int qseg[TILE_Q];
-  int kseg[TILE_K];
-  int lo[2], hi[2];
+typedef __nv_bfloat16 bf16;
+
+constexpr int F32_LD = HEAD_D + 4;    // fp32 tile row stride (floats)
+constexpr int BF16_LD = HEAD_D + 8;   // bf16 tile row stride (elements)
+constexpr int BF_THREADS = 128;       // 4 warps of the bf16 kernels
+constexpr float LOG2E = 1.4426950408889634f;
+
+// What the C entry points pass every kernel, by value.
+struct Args {
+  const void *q, *k, *v, *dout;
+  const float *m, *l, *di, *bias;
+  const int* seg;
+  void *dq, *dk, *dv;
+  int B, S, N, n_tiles, mask_kind;
+  float scale;
 };
 
-struct __align__(16) DkvSmem {
-  float k[TILE_K][HEAD_D];        // this block's keys
-  float v[TILE_K][HEAD_D];
-  float qt[HEAD_D][KT_STRIDE];    // q tile transposed and scaled (for s^T)
-  float q[TILE_Q][HEAD_D];        // q tile (for dS^T . Q)
-  float doutt[HEAD_D][KT_STRIDE]; // dO tile transposed (for dP^T)
-  float dout[TILE_Q][HEAD_D];     // dO tile (for p^T . dO)
-  float pt[TILE_K][KT_STRIDE];    // p^T, then dS^T
-  float qm[TILE_Q], ql[TILE_Q], qdi[TILE_Q];   // the q tile's m, l, Di
-  float kmask[TILE_K];
-  int qseg[TILE_Q];
-  int kseg[TILE_K];
-  int lo[2], hi[2];
-};
+// ----------------------------------------------------------- async copies
 
-// acc[i][j] += sum_d a[4ty + i][d] * bt[d][4tx + j]: a 64-deep product of a
-// row-major tile and a transposed one into this thread's 4 x 4 block.
-__device__ __forceinline__ void tile_product(float (*a)[HEAD_D], float (*bt)[KT_STRIDE],
-                                             int ty, int tx, float acc[4][4]) {
-#pragma unroll 8
-  for (int d = 0; d < HEAD_D; ++d) {
-    const float4 bv = *reinterpret_cast<const float4*>(&bt[d][4 * tx]);
+__device__ __forceinline__ unsigned smem_u32(const void* p) {
+  return static_cast<unsigned>(__cvta_generic_to_shared(p));
+}
+
+// 16 (or 4) bytes global -> shared without registers; zeros when !in.
+__device__ __forceinline__ void cp_async16(void* dst, const void* src, bool in) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(smem_u32(dst)),
+               "l"(src), "r"(in ? 16 : 0));
+}
+__device__ __forceinline__ void cp_async4(void* dst, const void* src, bool in) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(smem_u32(dst)),
+               "l"(src), "r"(in ? 4 : 0));
+}
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+// Wait until at most N committed groups are still in flight.
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+// Rows row0..row0+63 of one head ([B, S, N, D] at g = (b, 0, n, 0)) into a
+// padded shared tile; rows past S become zeros.  NT threads share it.
+template <int NT, typename T, int LD>
+__device__ __forceinline__ void load_tile_async(T (*dst)[LD], const T* g, long row_stride,
+                                                int row0, int S, int tid) {
+  constexpr int CH = HEAD_D * (int)sizeof(T) / 16;   // 16 B chunks per row
+  constexpr int EL = 16 / (int)sizeof(T);
+  static_assert(TILE_Q * CH % NT == 0, "whole chunks per thread");
 #pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const float av = a[4 * ty + i][d];
-      acc[i][0] = fmaf(av, bv.x, acc[i][0]);
-      acc[i][1] = fmaf(av, bv.y, acc[i][1]);
-      acc[i][2] = fmaf(av, bv.z, acc[i][2]);
-      acc[i][3] = fmaf(av, bv.w, acc[i][3]);
-    }
+  for (int i = 0; i < TILE_Q * CH / NT; ++i) {
+    const int e = tid + i * NT, r = e / CH, c = e % CH;
+    const bool in = row0 + r < S;
+    cp_async16(&dst[r][c * EL], g + (in ? row0 + r : 0) * row_stride + c * EL, in);
   }
 }
 
-// acc[i][j] += sum_c a[4ty + i][c] * b[c][4tx + j]: a 64-deep product of a
-// score-shaped tile (row stride KT_STRIDE) and a row-major [64][HEAD_D] one.
-__device__ __forceinline__ void score_product(float (*a)[KT_STRIDE], float (*b)[HEAD_D],
-                                              int ty, int tx, float acc[4][4]) {
-#pragma unroll 4
-  for (int c = 0; c < TILE_K; ++c) {
-    const float4 bv = *reinterpret_cast<const float4*>(&b[c][4 * tx]);
+// ------------------------------------------------ fp32: CUDA-core products
+
+// acc[i][j] += sum_d a[4ty + i][d] * b[tx + 16j][d]: rows against rows.
+__device__ __forceinline__ void product_nt(const float (*a)[F32_LD], const float (*b)[F32_LD],
+                                           int ty, int tx, float acc[4][4]) {
+#pragma unroll 2
+  for (int d = 0; d < HEAD_D; d += 4) {
+    float4 av[4], bv[4];
 #pragma unroll
     for (int i = 0; i < 4; ++i) {
-      const float av = a[4 * ty + i][c];
-      acc[i][0] = fmaf(av, bv.x, acc[i][0]);
-      acc[i][1] = fmaf(av, bv.y, acc[i][1]);
-      acc[i][2] = fmaf(av, bv.z, acc[i][2]);
-      acc[i][3] = fmaf(av, bv.w, acc[i][3]);
+      av[i] = *reinterpret_cast<const float4*>(&a[4 * ty + i][d]);
+      bv[i] = *reinterpret_cast<const float4*>(&b[tx + 16 * i][d]);
+    }
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        acc[i][j] = fmaf(av[i].x, bv[j].x, acc[i][j]);
+        acc[i][j] = fmaf(av[i].y, bv[j].y, acc[i][j]);
+        acc[i][j] = fmaf(av[i].z, bv[j].z, acc[i][j]);
+        acc[i][j] = fmaf(av[i].w, bv[j].w, acc[i][j]);
+      }
+  }
+}
+
+// acc[i][j] += sum_c a[4ty + i][c] * b[c][4tx + j]: rows against columns.
+__device__ __forceinline__ void product_nn(const float (*a)[F32_LD], const float (*b)[F32_LD],
+                                           int ty, int tx, float acc[4][4]) {
+#pragma unroll 2
+  for (int c = 0; c < TILE_K; c += 4) {
+    float4 av[4], bv[4];
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      av[i] = *reinterpret_cast<const float4*>(&a[4 * ty + i][c]);
+      bv[i] = *reinterpret_cast<const float4*>(&b[c + i][4 * tx]);
+    }
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const float ai[4] = {av[i].x, av[i].y, av[i].z, av[i].w};
+#pragma unroll
+      for (int cc = 0; cc < 4; ++cc) {
+        acc[i][0] = fmaf(ai[cc], bv[cc].x, acc[i][0]);
+        acc[i][1] = fmaf(ai[cc], bv[cc].y, acc[i][1]);
+        acc[i][2] = fmaf(ai[cc], bv[cc].z, acc[i][2]);
+        acc[i][3] = fmaf(ai[cc], bv[cc].w, acc[i][3]);
+      }
     }
   }
 }
@@ -115,47 +194,68 @@ __device__ __forceinline__ void zero(float acc[4][4]) {
     for (int j = 0; j < 4; ++j) acc[i][j] = 0.f;
 }
 
-// K2: one block per (q tile, b * N + n); walks the k tiles.
-template <typename T>
-__global__ void __launch_bounds__(THREADS)
-flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                    const T* __restrict__ v, const T* __restrict__ dout,
-                    const float* __restrict__ m, const float* __restrict__ l,
-                    const float* __restrict__ di, const float* __restrict__ bias,
-                    const int* __restrict__ seg, T* __restrict__ dq, int S, int N,
-                    int n_tiles, float scale, int mask_kind) {
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  DqSmem& sm = *reinterpret_cast<DqSmem*>(smem_raw);
+struct __align__(16) DqSmemF32 {
+  float q[TILE_Q][F32_LD];       // q tile (unscaled)
+  float dout[TILE_Q][F32_LD];    // dO tile
+  float k[TILE_K][F32_LD];       // walked k tile
+  float v[TILE_K][F32_LD];       // walked v tile
+  float ds[TILE_Q][F32_LD];      // dS tile
+  float kmask[TILE_K];
+  int qseg[TILE_Q];
+  int kseg[TILE_K];
+  int lo[2], hi[2];
+};
 
-  const int qt = blockIdx.x;
+struct __align__(16) DkvSmemF32 {
+  float k[TILE_K][F32_LD];       // this block's keys
+  float v[TILE_K][F32_LD];
+  float q[TILE_Q][F32_LD];       // walked q tile (unscaled)
+  float dout[TILE_Q][F32_LD];    // walked dO tile
+  float pt[TILE_K][F32_LD];      // p^T, then dS^T
+  float qm[TILE_Q], ql[TILE_Q], qdi[TILE_Q];   // the q tile's m, l, Di
+  float kmask[TILE_K];
+  int qseg[TILE_Q];
+  int kseg[TILE_K];
+  int lo[2], hi[2];
+};
+
+// K2, fp32: one block per (q tile, b * N + n); walks the k tiles.  Thread
+// (ty, tx) owns query rows 4ty..4ty+3 against key columns tx + 16j, then
+// head dims 4tx..4tx+3 of dQ.
+__global__ void __launch_bounds__(THREADS, 2) flash_bwd_dq_kernel_f32(const Args a) {
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  DqSmemF32& sm = *reinterpret_cast<DqSmemF32*>(smem_raw);
+
+  const int S = a.S, N = a.N, mask_kind = a.mask_kind;
   const int b = blockIdx.y / N;
   const int n = blockIdx.y % N;
   const int tid = threadIdx.x;
   const int ty = tid / 16;
   const int tx = tid % 16;
-  const int q0 = qt * TILE_Q;
+  const int q0 = blockIdx.x * TILE_Q;
   const long row_stride = (long)N * HEAD_D;             // s -> s + 1
   const long base = ((long)b * S * N + n) * HEAD_D;     // (b, 0, n, 0)
   const long stat = ((long)b * N + n) * S;              // (b, n, 0) of m, l, Di
-  const float* bias_row = bias + (long)b * S;
-  const int* seg_row = seg + (long)b * S;
+  const float* bias_row = a.bias + (long)b * S;
+  const int* seg_row = a.seg + (long)b * S;
+  const float* q = static_cast<const float*>(a.q) + base;
+  const float* k = static_cast<const float*>(a.k) + base;
+  const float* v = static_cast<const float*>(a.v) + base;
+  const float* dout = static_cast<const float*>(a.dout) + base;
 
-  for (int e = tid; e < TILE_Q * HEAD_D; e += THREADS) {
-    const int r = e / HEAD_D, d = e % HEAD_D, s = q0 + r;
-    const bool in = s < S;
-    sm.q[r][d] = in ? to_f32(q[base + s * row_stride + d]) * scale : 0.f;
-    sm.dout[r][d] = in ? to_f32(dout[base + s * row_stride + d]) : 0.f;
-  }
+  load_tile_async<THREADS>(sm.q, q, row_stride, q0, S, tid);
+  load_tile_async<THREADS>(sm.dout, dout, row_stride, q0, S, tid);
+  cp_async_commit();
   // the owned rows' statistics; rows past S get p = 0
-  float rm[4], rl[4], rdi[4];
+  float rm[4], rinv[4], rdi[4];
   bool rin[4];
 #pragma unroll
   for (int i = 0; i < 4; ++i) {
     const int s = q0 + 4 * ty + i;
     rin[i] = s < S;
-    rm[i] = rin[i] ? m[stat + s] : 0.f;
-    rl[i] = rin[i] ? l[stat + s] : 1.f;
-    rdi[i] = rin[i] ? di[stat + s] : 0.f;
+    rm[i] = rin[i] ? a.m[stat + s] : 0.f;
+    rinv[i] = rin[i] ? 1.f / a.l[stat + s] : 1.f;
+    rdi[i] = rin[i] ? a.di[stat + s] : 0.f;
   }
 
   bool q_pad = false;
@@ -168,86 +268,70 @@ flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
 
   float acc[4][4];
   zero(acc);
-  for (int kt = 0; kt < n_tiles; ++kt) {
+  for (int kt = 0; kt < a.n_tiles; ++kt) {
     const int k0 = kt * TILE_K;
     __syncthreads();                  // last tile's readers of smem are done
     if (!key_tile_live(bias_row, seg_row, S, k0, tid, mask_kind, sm.kmask, sm.kseg, sm.lo,
                        sm.hi, q_pad, q_lo, q_hi, row_masked))
       continue;                       // uniform across the block
-
-    for (int e = tid; e < TILE_K * HEAD_D; e += THREADS) {
-      const int r = e / HEAD_D, d = e % HEAD_D, s = k0 + r;
-      const bool in = s < S;
-      const float kv = in ? to_f32(k[base + s * row_stride + d]) : 0.f;
-      sm.kt[d][r] = kv;
-      sm.k[r][d] = kv;
-      sm.vt[d][r] = in ? to_f32(v[base + s * row_stride + d]) : 0.f;
-    }
+    load_tile_async<THREADS>(sm.k, k, row_stride, k0, S, tid);
+    load_tile_async<THREADS>(sm.v, v, row_stride, k0, S, tid);
+    cp_async_commit();
+    cp_async_wait<0>();
     __syncthreads();
 
     float sc[4][4], dp[4][4];
     zero(sc);
     zero(dp);
-    tile_product(sm.q, sm.kt, ty, tx, sc);
-    tile_product(sm.dout, sm.vt, ty, tx, dp);
+    product_nt(sm.q, sm.k, ty, tx, sc);
+    product_nt(sm.dout, sm.v, ty, tx, dp);
 #pragma unroll
     for (int i = 0; i < 4; ++i) {
       const int qs = mask_kind == MASK_SEGMENTS ? sm.qseg[4 * ty + i] : 0;
-      float ds[4];
 #pragma unroll
       for (int j = 0; j < 4; ++j) {
-        const int c = 4 * tx + j;
-        const float s = sc[i][j] + pair_mask(sm.kmask[c], mask_kind, qs, sm.kseg[c]);
-        const float p = rin[i] ? expf(s - rm[i]) / rl[i] : 0.f;
-        ds[j] = p * (dp[i][j] - rdi[i]);
+        const int c = tx + 16 * j;
+        const float s =
+            sc[i][j] * a.scale + pair_mask(sm.kmask[c], mask_kind, qs, sm.kseg[c]);
+        const float p = rin[i] ? exp2f((s - rm[i]) * LOG2E) * rinv[i] : 0.f;
+        sm.ds[4 * ty + i][c] = p * (dp[i][j] - rdi[i]);
       }
-      *reinterpret_cast<float4*>(&sm.ds[4 * ty + i][4 * tx]) =
-          make_float4(ds[0], ds[1], ds[2], ds[3]);
     }
     __syncthreads();
-    score_product(sm.ds, sm.k, ty, tx, acc);
+    product_nn(sm.ds, sm.k, ty, tx, acc);
   }
+  cp_async_wait<0>();                 // no tile live: q and dO still land
 
+  float* dq = static_cast<float*>(a.dq) + base;
 #pragma unroll
   for (int i = 0; i < 4; ++i) {
     if (!rin[i]) continue;
-    T* out = dq + base + (q0 + 4 * ty + i) * row_stride + 4 * tx;
-#pragma unroll
-    for (int j = 0; j < 4; ++j) out[j] = from_f32<T>(acc[i][j] * scale);
+    *reinterpret_cast<float4*>(dq + (q0 + 4 * ty + i) * row_stride + 4 * tx) =
+        make_float4(acc[i][0] * a.scale, acc[i][1] * a.scale, acc[i][2] * a.scale,
+                    acc[i][3] * a.scale);
   }
 }
 
-// K3: one block per (k tile, b * N + n); walks the q tiles.
-template <typename T>
-__global__ void __launch_bounds__(THREADS)
-flash_bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                     const T* __restrict__ v, const T* __restrict__ dout,
-                     const float* __restrict__ m, const float* __restrict__ l,
-                     const float* __restrict__ di, const float* __restrict__ bias,
-                     const int* __restrict__ seg, T* __restrict__ dk, T* __restrict__ dv,
-                     int S, int N, int n_tiles, float scale, int mask_kind) {
+// K3, fp32: one block per (k tile, b * N + n); walks the q tiles.  It works
+// on the transposed tile: key rows 4ty..4ty+3 against query columns
+// tx + 16j, then head dims 4tx..4tx+3 of dK and dV.
+__global__ void __launch_bounds__(THREADS, 2) flash_bwd_dkv_kernel_f32(const Args a) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
-  DkvSmem& sm = *reinterpret_cast<DkvSmem*>(smem_raw);
+  DkvSmemF32& sm = *reinterpret_cast<DkvSmemF32*>(smem_raw);
 
-  const int kt = blockIdx.x;
+  const int S = a.S, N = a.N, mask_kind = a.mask_kind;
   const int b = blockIdx.y / N;
   const int n = blockIdx.y % N;
   const int tid = threadIdx.x;
   const int ty = tid / 16;
   const int tx = tid % 16;
-  const int k0 = kt * TILE_K;
+  const int k0 = blockIdx.x * TILE_K;
   const long row_stride = (long)N * HEAD_D;
   const long base = ((long)b * S * N + n) * HEAD_D;
   const long stat = ((long)b * N + n) * S;
-  const float* bias_row = bias + (long)b * S;
-  const int* seg_row = seg + (long)b * S;
+  const float* bias_row = a.bias + (long)b * S;
+  const int* seg_row = a.seg + (long)b * S;
 
-  for (int e = tid; e < TILE_K * HEAD_D; e += THREADS) {
-    const int r = e / HEAD_D, d = e % HEAD_D, s = k0 + r;
-    const bool in = s < S;
-    sm.k[r][d] = in ? to_f32(k[base + s * row_stride + d]) : 0.f;
-    sm.v[r][d] = in ? to_f32(v[base + s * row_stride + d]) : 0.f;
-  }
   // this k tile's side of the skip rule: for bias it decides every pair
   // (row_masked and the keys do not depend on the q tile); for segments
   // the tile's own range, kept for the q tiles below
@@ -257,11 +341,18 @@ flash_bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
                                     sm.kseg, sm.lo, sm.hi, true, 0, 0, row_masked);
   const int k_lo = min(sm.lo[0], sm.lo[1]);
   const int k_hi = max(sm.hi[0], sm.hi[1]);
+  if (k_live) {
+    load_tile_async<THREADS>(sm.k, static_cast<const float*>(a.k) + base, row_stride, k0, S,
+                             tid);
+    load_tile_async<THREADS>(sm.v, static_cast<const float*>(a.v) + base, row_stride, k0, S,
+                             tid);
+    cp_async_commit();
+  }
 
   float adk[4][4], adv[4][4];
   zero(adk);
   zero(adv);
-  for (int qt = 0; k_live && qt < n_tiles; ++qt) {
+  for (int qt = 0; k_live && qt < a.n_tiles; ++qt) {
     const int q0 = qt * TILE_Q;
     __syncthreads();                  // last tile's readers of smem are done
     if (mask_kind == MASK_SEGMENTS) {
@@ -270,110 +361,486 @@ flash_bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
                                         q_hi);
       if (!(q_pad || (q_lo <= k_hi && k_lo <= q_hi))) continue;   // uniform
     }
+    load_tile_async<THREADS>(sm.q, static_cast<const float*>(a.q) + base, row_stride, q0, S,
+                             tid);
+    load_tile_async<THREADS>(sm.dout, static_cast<const float*>(a.dout) + base, row_stride,
+                             q0, S, tid);
+    cp_async_commit();
     if (tid < TILE_Q) {
       const int s = q0 + tid;
       const bool in = s < S;
-      sm.qm[tid] = in ? m[stat + s] : 0.f;
-      sm.ql[tid] = in ? l[stat + s] : 1.f;
-      sm.qdi[tid] = in ? di[stat + s] : 0.f;
+      sm.qm[tid] = in ? a.m[stat + s] : 0.f;
+      sm.ql[tid] = in ? a.l[stat + s] : 1.f;
+      sm.qdi[tid] = in ? a.di[stat + s] : 0.f;
     }
-    for (int e = tid; e < TILE_Q * HEAD_D; e += THREADS) {
-      const int r = e / HEAD_D, d = e % HEAD_D, s = q0 + r;
-      const bool in = s < S;
-      const float qv = in ? to_f32(q[base + s * row_stride + d]) : 0.f;
-      const float ov = in ? to_f32(dout[base + s * row_stride + d]) : 0.f;
-      sm.qt[d][r] = qv * scale;
-      sm.q[r][d] = qv;
-      sm.doutt[d][r] = ov;
-      sm.dout[r][d] = ov;
-    }
+    cp_async_wait<0>();
     __syncthreads();
 
     float sc[4][4], dp[4][4];
     zero(sc);
     zero(dp);
-    tile_product(sm.k, sm.qt, ty, tx, sc);      // s^T: key rows, query cols
-    tile_product(sm.v, sm.doutt, ty, tx, dp);   // dP^T
+    product_nt(sm.k, sm.q, ty, tx, sc);       // s^T: key rows, query cols
+    product_nt(sm.v, sm.dout, ty, tx, dp);    // dP^T
 #pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const int c = 4 * ty + i;
-      float p[4];
+    for (int j = 0; j < 4; ++j) {     // query column r, key rows 4ty..4ty+3
+      const int r = tx + 16 * j;
+      const int qs = mask_kind == MASK_SEGMENTS ? sm.qseg[r] : 0;
+      const bool in = q0 + r < S;
+      const float qm = sm.qm[r], linv = __frcp_rn(sm.ql[r]), qdi = sm.qdi[r];
 #pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const int r = 4 * tx + j;
-        const int qs = mask_kind == MASK_SEGMENTS ? sm.qseg[r] : 0;
-        const float s = sc[i][j] + pair_mask(sm.kmask[c], mask_kind, qs, sm.kseg[c]);
-        p[j] = q0 + r < S ? expf(s - sm.qm[r]) / sm.ql[r] : 0.f;
-        dp[i][j] = p[j] * (dp[i][j] - sm.qdi[r]);      // dS^T
+      for (int i = 0; i < 4; ++i) {
+        const int c = 4 * ty + i;
+        const float s = sc[i][j] * a.scale + pair_mask(sm.kmask[c], mask_kind, qs, sm.kseg[c]);
+        const float p = in ? exp2f((s - qm) * LOG2E) * linv : 0.f;
+        dp[i][j] = p * (dp[i][j] - qdi);    // dS^T
+        sm.pt[c][r] = p;
       }
-      *reinterpret_cast<float4*>(&sm.pt[c][4 * tx]) = make_float4(p[0], p[1], p[2], p[3]);
     }
     __syncthreads();
-    score_product(sm.pt, sm.dout, ty, tx, adv);  // dV += p^T . dO
+    product_nn(sm.pt, sm.dout, ty, tx, adv);  // dV += p^T . dO
     __syncthreads();                  // every thread is done reading p^T
 #pragma unroll
     for (int i = 0; i < 4; ++i)
-      *reinterpret_cast<float4*>(&sm.pt[4 * ty + i][4 * tx]) =
-          make_float4(dp[i][0], dp[i][1], dp[i][2], dp[i][3]);
+#pragma unroll
+      for (int j = 0; j < 4; ++j) sm.pt[4 * ty + i][tx + 16 * j] = dp[i][j];
     __syncthreads();
-    score_product(sm.pt, sm.q, ty, tx, adk);     // dK += dS^T . Q
+    product_nn(sm.pt, sm.q, ty, tx, adk);     // dK += dS^T . Q
   }
+  cp_async_wait<0>();                 // no q tile live: k and v still land
 
+  float* dk = static_cast<float*>(a.dk) + base;
+  float* dv = static_cast<float*>(a.dv) + base;
 #pragma unroll
   for (int i = 0; i < 4; ++i) {
     const int s = k0 + 4 * ty + i;
     if (s >= S) continue;
-    T* ok = dk + base + s * row_stride + 4 * tx;
-    T* ov = dv + base + s * row_stride + 4 * tx;
+    *reinterpret_cast<float4*>(dk + s * row_stride + 4 * tx) =
+        make_float4(adk[i][0] * a.scale, adk[i][1] * a.scale, adk[i][2] * a.scale,
+                    adk[i][3] * a.scale);
+    *reinterpret_cast<float4*>(dv + s * row_stride + 4 * tx) =
+        make_float4(adv[i][0], adv[i][1], adv[i][2], adv[i][3]);
+  }
+}
+
+// ----------------------------------------------- bf16: tensor-core products
+//
+// Fragments of mma.m16n8k16 (lane = 4g + t): A (16 x 16, row-major) a0 =
+// (row g, cols 2t, 2t+1), a1 = row g+8, a2 = cols +8, a3 = both; B (16 x 8,
+// k x n) b0 = (k 2t, 2t+1; col g), b1 = k +8; C (16 x 8 fp32) c0, c1 = (row
+// g, cols 2t, 2t+1), c2, c3 = row g+8.
+
+__device__ __forceinline__ void ldsm_x4(unsigned r[4], const void* p) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(smem_u32(p)));
+}
+__device__ __forceinline__ void ldsm_x4_trans(unsigned r[4], const void* p) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0,%1,%2,%3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(smem_u32(p)));
+}
+
+// c += a . b on the tensor cores: bf16 in, fp32 accumulate.
+__device__ __forceinline__ void mma_bf16(float c[4], const unsigned a[4], unsigned b0,
+                                         unsigned b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// Two fp32 values rounded to nearest bf16, the lower column in the low half.
+__device__ __forceinline__ unsigned pack_bf16(float lo, float hi) {
+  __nv_bfloat162 h = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<unsigned*>(&h);
+}
+
+// The A fragment of rows r0..r0+15, cols c0..c0+15 of a row-major tile.
+__device__ __forceinline__ void lds_a(unsigned a[4], const bf16 (*t)[BF16_LD], int r0, int c0,
+                                      int lane) {
+  ldsm_x4(a, &t[r0 + (lane & 15)][c0 + (lane >> 4) * 8]);
+}
+
+// B fragments of X . T^T, T row-major with its rows as the n axis: rows
+// n0..n0+7 in b[0], b[1] and rows n0+8..n0+15 in b[2], b[3], over the
+// depth c0..c0+15.
+__device__ __forceinline__ void lds_b_rows(unsigned b[4], const bf16 (*t)[BF16_LD], int n0,
+                                           int c0, int lane) {
+  ldsm_x4(b, &t[n0 + (lane & 7) + ((lane >> 4) << 3)][c0 + ((lane >> 3) & 1) * 8]);
+}
+
+// B fragments of X . T, T row-major with its rows as the depth: depth
+// r0..r0+15, columns n0..n0+7 in b[0], b[1] and n0+8..n0+15 in b[2], b[3].
+__device__ __forceinline__ void lds_b_cols(unsigned b[4], const bf16 (*t)[BF16_LD], int r0,
+                                           int n0, int lane) {
+  ldsm_x4_trans(b, &t[r0 + (lane & 7) + ((lane >> 3) & 1) * 8][n0 + (lane >> 4) * 8]);
+}
+
+// acc (16 rows x 32 columns, n8 tiles 0..3) += rows r0..r0+15 of x .
+// rows n0..n0+31 of t ^T, over the 64 head dims.  x's fragments are read
+// anew from shared memory each time: held in registers for the whole walk
+// they would cost 32 a thread and spill.
+__device__ __forceinline__ void mma_rows(float acc[4][4], const bf16 (*x)[BF16_LD], int r0,
+                                         const bf16 (*t)[BF16_LD], int n0, int lane) {
 #pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      ok[j] = from_f32<T>(adk[i][j] * scale);
-      ov[j] = from_f32<T>(adv[i][j]);
+  for (int kk = 0; kk < 4; ++kk) {
+    unsigned a[4];
+    lds_a(a, x, r0, 16 * kk, lane);
+#pragma unroll
+    for (int jj = 0; jj < 2; ++jj) {
+      unsigned b[4];
+      lds_b_rows(b, t, n0 + 16 * jj, 16 * kk, lane);
+      mma_bf16(acc[2 * jj], a, b[0], b[1]);
+      mma_bf16(acc[2 * jj + 1], a, b[2], b[3]);
     }
   }
 }
 
-struct Args {
-  const void *q, *k, *v, *dout;
-  const float *m, *l, *di, *bias;
-  const int* seg;
-  void *dq, *dk, *dv;
-  int B, S, N, n_tiles, mask_kind;
-  float scale;
+// acc (16 rows x 64 head dims, n8 tiles 0..7) += x . rows r0..r0+31 of t,
+// x being two k16 A fragments (32 walked columns).
+__device__ __forceinline__ void mma_cols(float acc[8][4], const unsigned x[2][4],
+                                         const bf16 (*t)[BF16_LD], int r0, int lane) {
+#pragma unroll
+  for (int u = 0; u < 2; ++u)
+#pragma unroll
+    for (int jj = 0; jj < 4; ++jj) {
+      unsigned b[4];
+      lds_b_cols(b, t, r0 + 16 * u, 16 * jj, lane);
+      mma_bf16(acc[2 * jj], x[u], b[0], b[1]);
+      mma_bf16(acc[2 * jj + 1], x[u], b[2], b[3]);
+    }
+}
+
+// Four n8 accumulator tiles (16 x 32) as two bf16 k16 A fragments.
+__device__ __forceinline__ void to_a_frags(const float c[4][4], unsigned x[2][4]) {
+#pragma unroll
+  for (int u = 0; u < 2; ++u) {
+    x[u][0] = pack_bf16(c[2 * u][0], c[2 * u][1]);
+    x[u][1] = pack_bf16(c[2 * u][2], c[2 * u][3]);
+    x[u][2] = pack_bf16(c[2 * u + 1][0], c[2 * u + 1][1]);
+    x[u][3] = pack_bf16(c[2 * u + 1][2], c[2 * u + 1][3]);
+  }
+}
+
+template <int R, int C>
+__device__ __forceinline__ void zero_frags(float acc[R][C]) {
+#pragma unroll
+  for (int i = 0; i < R; ++i)
+#pragma unroll
+    for (int j = 0; j < C; ++j) acc[i][j] = 0.f;
+}
+
+// 16 rows x 64 head dims of accumulators, rows row0 + g (+ 8), to bf16
+// [B, S, N, D] rows below S, times `scale`.
+__device__ __forceinline__ void store_rows_bf16(bf16* out, const float acc[8][4], int row0,
+                                                int S, long row_stride, float scale,
+                                                int lane) {
+  const int g = lane >> 2, t = lane & 3;
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const int s = row0 + g + 8 * h;
+    if (s >= S) continue;
+#pragma unroll
+    for (int j = 0; j < 8; ++j)
+      *reinterpret_cast<unsigned*>(out + s * row_stride + 8 * j + 2 * t) =
+          pack_bf16(acc[j][2 * h] * scale, acc[j][2 * h + 1] * scale);
+  }
+}
+
+struct __align__(16) DqSmemBf16 {
+  bf16 q[TILE_Q][BF16_LD];
+  bf16 dout[TILE_Q][BF16_LD];
+  bf16 k[2][TILE_K][BF16_LD];       // walked k and v tiles, double-buffered
+  bf16 v[2][TILE_K][BF16_LD];
+  float kmask[2][TILE_K];
+  int kseg[2][TILE_K];
+  int qseg[TILE_Q];
+  int lo[2], hi[2];
 };
 
-template <typename T>
-cudaError_t launch_dq(const Args& a, cudaStream_t stream) {
-  const int smem = (int)sizeof(DqSmem);
-  const cudaError_t err = cudaFuncSetAttribute(
-      flash_bwd_dq_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-  if (err != cudaSuccess) return err;
-  flash_bwd_dq_kernel<T><<<dim3(a.n_tiles, a.B * a.N), THREADS, smem, stream>>>(
-      static_cast<const T*>(a.q), static_cast<const T*>(a.k), static_cast<const T*>(a.v),
-      static_cast<const T*>(a.dout), a.m, a.l, a.di, a.bias, a.seg, static_cast<T*>(a.dq),
-      a.S, a.N, a.n_tiles, a.scale, a.mask_kind);
-  return cudaGetLastError();
+struct __align__(16) DkvSmemBf16 {
+  bf16 k[TILE_K][BF16_LD];
+  bf16 v[TILE_K][BF16_LD];
+  bf16 q[2][TILE_Q][BF16_LD];       // walked q and dO tiles, double-buffered
+  bf16 dout[2][TILE_Q][BF16_LD];
+  float qm[2][TILE_Q], ql[2][TILE_Q], qdi[2][TILE_Q];
+  int qseg[2][TILE_Q];
+  float kmask[TILE_K];
+  int kseg[TILE_K];
+  int lo[2], hi[2];
+};
+
+// K2, bf16: one block of 4 warps per (q tile, b * N + n); warp w owns query
+// rows 16w..16w+15, walks the live k tiles with the next one in flight.
+__global__ void __launch_bounds__(BF_THREADS, 3) flash_bwd_dq_kernel_bf16(const Args a) {
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  DqSmemBf16& sm = *reinterpret_cast<DqSmemBf16*>(smem_raw);
+
+  const int S = a.S, N = a.N, mask_kind = a.mask_kind, n_tiles = a.n_tiles;
+  const int b = blockIdx.y / N;
+  const int n = blockIdx.y % N;
+  const int tid = threadIdx.x;
+  const int warp = tid >> 5, lane = tid & 31, g = lane >> 2, t = lane & 3;
+  const int q0 = blockIdx.x * TILE_Q;
+  const int r0 = 16 * warp;                             // the warp's rows in the tile
+  const long row_stride = (long)N * HEAD_D;
+  const long base = ((long)b * S * N + n) * HEAD_D;
+  const long stat = ((long)b * N + n) * S;
+  const float* bias_row = a.bias + (long)b * S;
+  const int* seg_row = a.seg + (long)b * S;
+  const bf16* k = static_cast<const bf16*>(a.k) + base;
+  const bf16* v = static_cast<const bf16*>(a.v) + base;
+
+  load_tile_async<BF_THREADS>(sm.q, static_cast<const bf16*>(a.q) + base, row_stride, q0, S,
+                              tid);
+  load_tile_async<BF_THREADS>(sm.dout, static_cast<const bf16*>(a.dout) + base, row_stride,
+                              q0, S, tid);
+  cp_async_commit();
+  // the thread's rows g and g + 8 of the warp: statistics (p = 0 past S)
+  float rm[2], rinv[2], rdi[2];
+  bool rin[2];
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const int s = q0 + r0 + g + 8 * h;
+    rin[h] = s < S;
+    rm[h] = rin[h] ? a.m[stat + s] : 0.f;
+    rinv[h] = rin[h] ? 1.f / a.l[stat + s] : 1.f;
+    rdi[h] = rin[h] ? a.di[stat + s] : 0.f;
+  }
+
+  bool q_pad = false;
+  int q_lo = NO_SEGMENT, q_hi = -1;
+  bool row_masked = false;
+  int rseg[2] = {0, 0};
+  if (mask_kind == MASK_SEGMENTS) {
+    q_pad = query_tile_ids(seg_row, S, q0, tid, sm.qseg, sm.lo, sm.hi, q_lo, q_hi);
+    rseg[0] = sm.qseg[r0 + g];
+    rseg[1] = sm.qseg[r0 + g + 8];
+  } else if (mask_kind == MASK_BIAS) {
+    row_masked = row_all_masked(bias_row, S, tid, BF_THREADS);
+  }
+  // the first live k tile at or after kt, its mask terms in buffer buf
+  auto next_live = [&](int kt, int buf) {
+    for (; kt < n_tiles; ++kt) {
+      __syncthreads();                // lo/hi and kmask[buf] have no readers left
+      if (key_tile_live(bias_row, seg_row, S, kt * TILE_K, tid, mask_kind, sm.kmask[buf],
+                        sm.kseg[buf], sm.lo, sm.hi, q_pad, q_lo, q_hi, row_masked))
+        break;
+    }
+    return kt;
+  };
+  auto load_kv = [&](int kt, int buf) {
+    load_tile_async<BF_THREADS>(sm.k[buf], k, row_stride, kt * TILE_K, S, tid);
+    load_tile_async<BF_THREADS>(sm.v[buf], v, row_stride, kt * TILE_K, S, tid);
+  };
+
+  int cur = next_live(0, 0);
+  if (cur < n_tiles) load_kv(cur, 0);
+  cp_async_commit();
+
+  float acc[8][4];                    // dQ: the warp's 16 rows x 64 dims
+  zero_frags<8, 4>(acc);
+  for (int buf = 0; cur < n_tiles; buf ^= 1) {
+    const int nxt = next_live(cur + 1, buf ^ 1);
+    if (nxt < n_tiles) load_kv(nxt, buf ^ 1);
+    cp_async_commit();
+    cp_async_wait<1>();               // tile cur is in; nxt may still fly
+    __syncthreads();
+    const float* kmask = sm.kmask[buf];
+    const int* kseg = sm.kseg[buf];
+#pragma unroll
+    for (int half = 0; half < 2; ++half) {   // key columns 32 half + 0..31
+      float sc[4][4], dp[4][4];
+      zero_frags<4, 4>(sc);
+      zero_frags<4, 4>(dp);
+      mma_rows(sc, sm.q, r0, sm.k[buf], 32 * half, lane);
+      mma_rows(dp, sm.dout, r0, sm.v[buf], 32 * half, lane);
+#pragma unroll
+      for (int j = 0; j < 4; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int h = e >> 1, c = 32 * half + 8 * j + 2 * t + (e & 1);
+          const float s = sc[j][e] * a.scale + pair_mask(kmask[c], mask_kind, rseg[h], kseg[c]);
+          const float p = rin[h] ? exp2f((s - rm[h]) * LOG2E) * rinv[h] : 0.f;
+          dp[j][e] = p * (dp[j][e] - rdi[h]);      // dS
+        }
+      unsigned dsa[2][4];
+      to_a_frags(dp, dsa);
+      mma_cols(acc, dsa, sm.k[buf], 32 * half, lane);   // dQ += dS . K
+    }
+    __syncthreads();                  // buf is free for the tile after nxt
+    cur = nxt;
+  }
+  cp_async_wait<0>();
+  store_rows_bf16(static_cast<bf16*>(a.dq) + base, acc, q0 + r0, S, row_stride, a.scale, lane);
 }
 
-template <typename T>
-cudaError_t launch_dkv(const Args& a, cudaStream_t stream) {
-  const int smem = (int)sizeof(DkvSmem);
-  const cudaError_t err = cudaFuncSetAttribute(
-      flash_bwd_dkv_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-  if (err != cudaSuccess) return err;
-  flash_bwd_dkv_kernel<T><<<dim3(a.n_tiles, a.B * a.N), THREADS, smem, stream>>>(
-      static_cast<const T*>(a.q), static_cast<const T*>(a.k), static_cast<const T*>(a.v),
-      static_cast<const T*>(a.dout), a.m, a.l, a.di, a.bias, a.seg, static_cast<T*>(a.dk),
-      static_cast<T*>(a.dv), a.S, a.N, a.n_tiles, a.scale, a.mask_kind);
-  return cudaGetLastError();
+// K3, bf16: one block of 4 warps per (k tile, b * N + n); warp w owns key
+// rows 16w..16w+15 and walks the live q tiles, the next one (q, dO and
+// their m, l, Di) in flight.  It works on the transposed scores: key rows,
+// query columns.
+__global__ void __launch_bounds__(BF_THREADS, 3) flash_bwd_dkv_kernel_bf16(const Args a) {
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  DkvSmemBf16& sm = *reinterpret_cast<DkvSmemBf16*>(smem_raw);
+
+  const int S = a.S, N = a.N, mask_kind = a.mask_kind, n_tiles = a.n_tiles;
+  const int b = blockIdx.y / N;
+  const int n = blockIdx.y % N;
+  const int tid = threadIdx.x;
+  const int warp = tid >> 5, lane = tid & 31, g = lane >> 2, t = lane & 3;
+  const int k0 = blockIdx.x * TILE_K;
+  const int r0 = 16 * warp;
+  const long row_stride = (long)N * HEAD_D;
+  const long base = ((long)b * S * N + n) * HEAD_D;
+  const long stat = ((long)b * N + n) * S;
+  const float* bias_row = a.bias + (long)b * S;
+  const int* seg_row = a.seg + (long)b * S;
+  const bf16* q = static_cast<const bf16*>(a.q) + base;
+  const bf16* dout = static_cast<const bf16*>(a.dout) + base;
+
+  // the k tile's side of the skip rule, as in the fp32 kernel
+  const bool row_masked =
+      mask_kind == MASK_BIAS ? row_all_masked(bias_row, S, tid, BF_THREADS) : false;
+  const bool k_live = key_tile_live(bias_row, seg_row, S, k0, tid, mask_kind, sm.kmask,
+                                    sm.kseg, sm.lo, sm.hi, true, 0, 0, row_masked);
+  const int k_lo = min(sm.lo[0], sm.lo[1]);
+  const int k_hi = max(sm.hi[0], sm.hi[1]);
+  // the thread's key rows g and g + 8 of the warp: their mask terms
+  const float rkm[2] = {sm.kmask[r0 + g], sm.kmask[r0 + g + 8]};
+  const int rks[2] = {sm.kseg[r0 + g], sm.kseg[r0 + g + 8]};
+  if (k_live) {
+    load_tile_async<BF_THREADS>(sm.k, static_cast<const bf16*>(a.k) + base, row_stride, k0,
+                                S, tid);
+    load_tile_async<BF_THREADS>(sm.v, static_cast<const bf16*>(a.v) + base, row_stride, k0,
+                                S, tid);
+  }
+  cp_async_commit();
+
+  // the first live q tile at or after qt, its segment IDs in buffer buf
+  auto next_live = [&](int qt, int buf) {
+    if (!k_live) return n_tiles;
+    if (mask_kind != MASK_SEGMENTS) return qt;
+    for (; qt < n_tiles; ++qt) {
+      __syncthreads();                // lo/hi and qseg[buf] have no readers left
+      int q_lo, q_hi;
+      const bool q_pad = query_tile_ids(seg_row, S, qt * TILE_Q, tid, sm.qseg[buf], sm.lo,
+                                        sm.hi, q_lo, q_hi);
+      if (q_pad || (q_lo <= k_hi && k_lo <= q_hi)) break;
+    }
+    return qt;
+  };
+  auto load_q = [&](int qt, int buf) {
+    const int q0 = qt * TILE_Q;
+    load_tile_async<BF_THREADS>(sm.q[buf], q, row_stride, q0, S, tid);
+    load_tile_async<BF_THREADS>(sm.dout[buf], dout, row_stride, q0, S, tid);
+    for (int i = tid; i < 3 * TILE_Q; i += BF_THREADS) {
+      const int which = i / TILE_Q, r = i % TILE_Q, s = q0 + r;
+      const bool in = s < S;
+      const float* src = (which == 0 ? a.m : which == 1 ? a.l : a.di) + stat + (in ? s : 0);
+      float* dst = which == 0 ? sm.qm[buf] : which == 1 ? sm.ql[buf] : sm.qdi[buf];
+      cp_async4(&dst[r], src, in);
+    }
+  };
+
+  int cur = next_live(0, 0);
+  if (cur < n_tiles) load_q(cur, 0);
+  cp_async_commit();
+
+  float adk[8][4], adv[8][4];         // the warp's 16 key rows x 64 dims
+  zero_frags<8, 4>(adk);
+  zero_frags<8, 4>(adv);
+  for (int buf = 0; cur < n_tiles; buf ^= 1) {
+    const int nxt = next_live(cur + 1, buf ^ 1);
+    if (nxt < n_tiles) load_q(nxt, buf ^ 1);
+    cp_async_commit();
+    cp_async_wait<1>();               // tile cur is in; nxt may still fly
+    __syncthreads();
+    const int q0 = cur * TILE_Q;
+#pragma unroll
+    for (int half = 0; half < 2; ++half) {   // query columns 32 half + 0..31
+      float sc[4][4], dp[4][4];
+      zero_frags<4, 4>(sc);
+      zero_frags<4, 4>(dp);
+      mma_rows(sc, sm.k, r0, sm.q[buf], 32 * half, lane);      // s^T
+      mma_rows(dp, sm.v, r0, sm.dout[buf], 32 * half, lane);   // dP^T
+#pragma unroll
+      for (int j = 0; j < 4; ++j)
+#pragma unroll
+        for (int cc = 0; cc < 2; ++cc) {      // query column c, key rows g, g + 8
+          const int c = 32 * half + 8 * j + 2 * t + cc;
+          const int qs = mask_kind == MASK_SEGMENTS ? sm.qseg[buf][c] : 0;
+          const bool in = q0 + c < S;
+          const float qm = sm.qm[buf][c], linv = __frcp_rn(sm.ql[buf][c]);
+          const float qdi = sm.qdi[buf][c];
+#pragma unroll
+          for (int h = 0; h < 2; ++h) {
+            const int e = 2 * h + cc;
+            const float s = sc[j][e] * a.scale + pair_mask(rkm[h], mask_kind, qs, rks[h]);
+            const float p = in ? exp2f((s - qm) * LOG2E) * linv : 0.f;
+            dp[j][e] = p * (dp[j][e] - qdi);     // dS^T
+            sc[j][e] = p;                        // p^T
+          }
+        }
+      unsigned x[2][4];
+      to_a_frags(sc, x);
+      mma_cols(adv, x, sm.dout[buf], 32 * half, lane);   // dV += p^T . dO
+      to_a_frags(dp, x);
+      mma_cols(adk, x, sm.q[buf], 32 * half, lane);      // dK += dS^T . Q
+    }
+    __syncthreads();                  // buf is free for the tile after nxt
+    cur = nxt;
+  }
+  cp_async_wait<0>();
+  store_rows_bf16(static_cast<bf16*>(a.dk) + base, adk, k0 + r0, S, row_stride, a.scale,
+                  lane);
+  store_rows_bf16(static_cast<bf16*>(a.dv) + base, adv, k0 + r0, S, row_stride, 1.f, lane);
 }
 
-bool valid(const Args& a, int D) {
+// ------------------------------------------------------------- launching
+
+enum Kernel { KERNEL_DQ = 0, KERNEL_DKV = 1 };
+
+struct Config {
+  const void* fn;
+  int threads, smem;
+};
+
+bool known(int kernel, int dtype) {
+  return (kernel == KERNEL_DQ || kernel == KERNEL_DKV) &&
+         (dtype == DTYPE_F32 || dtype == DTYPE_BF16);
+}
+
+Config config(int kernel, int dtype) {
+  const bool bf = dtype == DTYPE_BF16;
+  if (kernel == KERNEL_DQ)
+    return bf ? Config{(const void*)flash_bwd_dq_kernel_bf16, BF_THREADS,
+                       (int)sizeof(DqSmemBf16)}
+              : Config{(const void*)flash_bwd_dq_kernel_f32, THREADS, (int)sizeof(DqSmemF32)};
+  return bf ? Config{(const void*)flash_bwd_dkv_kernel_bf16, BF_THREADS,
+                     (int)sizeof(DkvSmemBf16)}
+            : Config{(const void*)flash_bwd_dkv_kernel_f32, THREADS, (int)sizeof(DkvSmemF32)};
+}
+
+// Opts the kernel in to its shared memory (a per-device attribute, so on
+// every launch) and launches it on `stream`; returns cudaGetLastError().
+cudaError_t launch(int kernel, int dtype, Args a, cudaStream_t stream) {
+  const Config c = config(kernel, dtype);
+  const cudaError_t err =
+      cudaFuncSetAttribute(c.fn, cudaFuncAttributeMaxDynamicSharedMemorySize, c.smem);
+  if (err != cudaSuccess) return err;
+  void* params[] = {&a};
+  const cudaError_t launched = cudaLaunchKernel(c.fn, dim3(a.n_tiles, a.B * a.N),
+                                                dim3(c.threads), params, c.smem, stream);
+  return launched != cudaSuccess ? launched : cudaGetLastError();
+}
+
+bool valid(const Args& a, int D, int dtype) {
   return D == HEAD_D && a.B >= 1 && a.S >= 1 && a.N >= 1 && a.B * a.N <= 65535 &&
          a.n_tiles == (a.S + TILE_Q - 1) / TILE_Q && a.m != nullptr && a.l != nullptr &&
          a.di != nullptr && a.mask_kind >= MASK_NONE && a.mask_kind <= MASK_SEGMENTS &&
          (a.mask_kind != MASK_BIAS || a.bias != nullptr) &&
-         (a.mask_kind != MASK_SEGMENTS || a.seg != nullptr);
+         (a.mask_kind != MASK_SEGMENTS || a.seg != nullptr) && known(KERNEL_DQ, dtype);
 }
 
 }  // namespace
@@ -384,29 +851,43 @@ int pdnlp_flash_bwd_tile(void) { return TILE_Q; }
 
 int pdnlp_flash_bwd_head_dim(void) { return HEAD_D; }
 
-int pdnlp_flash_bwd_dq_smem_bytes(void) { return (int)sizeof(DqSmem); }
+// Dynamic shared memory per block of K2 (kernel 0) or K3 (kernel 1) for a
+// dtype code; -1 for an unknown pair.
+int pdnlp_flash_bwd_smem_bytes(int kernel, int dtype) {
+  return known(kernel, dtype) ? config(kernel, dtype).smem : -1;
+}
 
-int pdnlp_flash_bwd_dkv_smem_bytes(void) { return (int)sizeof(DkvSmem); }
+// Blocks of K2 (kernel 0) or K3 (kernel 1) that fit one SM at once, by
+// cudaOccupancyMaxActiveBlocksPerMultiprocessor after the shared-memory
+// opt-in; -1 for an unknown pair or a failed query.
+int pdnlp_flash_bwd_blocks_per_sm(int kernel, int dtype) {
+  if (!known(kernel, dtype)) return -1;
+  const Config c = config(kernel, dtype);
+  int blocks = 0;
+  if (cudaFuncSetAttribute(c.fn, cudaFuncAttributeMaxDynamicSharedMemorySize, c.smem) !=
+          cudaSuccess ||
+      cudaOccupancyMaxActiveBlocksPerMultiprocessor(&blocks, c.fn, c.threads, c.smem) !=
+          cudaSuccess)
+    return -1;
+  return blocks;
+}
 
 const char* pdnlp_flash_bwd_error_string(int err) {
   return cudaGetErrorString(static_cast<cudaError_t>(err));
 }
 
-// K2.  q, k, v, dout, dq: [B, S, N, D] contiguous in one dtype; m, l, di:
-// [B, N, S] fp32; bias [B, S] fp32 (MASK_BIAS) or seg [B, S] int32
-// (MASK_SEGMENTS), null otherwise.  Launches on `stream`; returns
-// cudaGetLastError() (0 on success).
+// K2.  q, k, v, dout, dq: [B, S, N, D] contiguous in one dtype, 16-byte
+// aligned; m, l, di: [B, N, S] fp32; bias [B, S] fp32 (MASK_BIAS) or seg
+// [B, S] int32 (MASK_SEGMENTS), null otherwise.  Launches on `stream`;
+// returns cudaGetLastError() (0 on success).
 int pdnlp_flash_bwd_dq(const void* q, const void* k, const void* v, const void* dout,
                        const float* m, const float* l, const float* di, const float* bias,
                        const int* seg, void* dq, int B, int S, int N, int D, int dtype,
                        int mask_kind, int n_tiles, float scale, void* stream) {
   const Args a{q, k, v, dout, m, l, di, bias, seg, dq, nullptr, nullptr,
                B, S, N, n_tiles, mask_kind, scale};
-  if (!valid(a, D) || dq == nullptr) return static_cast<int>(cudaErrorInvalidValue);
-  const cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (dtype == DTYPE_F32) return static_cast<int>(launch_dq<float>(a, st));
-  if (dtype == DTYPE_BF16) return static_cast<int>(launch_dq<__nv_bfloat16>(a, st));
-  return static_cast<int>(cudaErrorInvalidValue);
+  if (!valid(a, D, dtype) || dq == nullptr) return static_cast<int>(cudaErrorInvalidValue);
+  return static_cast<int>(launch(KERNEL_DQ, dtype, a, static_cast<cudaStream_t>(stream)));
 }
 
 // K3.  As K2, writing dk and dv ([B, S, N, D], the input dtype).
@@ -416,12 +897,9 @@ int pdnlp_flash_bwd_dkv(const void* q, const void* k, const void* v, const void*
                         int dtype, int mask_kind, int n_tiles, float scale, void* stream) {
   const Args a{q, k, v, dout, m, l, di, bias, seg, nullptr, dk, dv,
                B, S, N, n_tiles, mask_kind, scale};
-  if (!valid(a, D) || dk == nullptr || dv == nullptr)
+  if (!valid(a, D, dtype) || dk == nullptr || dv == nullptr)
     return static_cast<int>(cudaErrorInvalidValue);
-  const cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (dtype == DTYPE_F32) return static_cast<int>(launch_dkv<float>(a, st));
-  if (dtype == DTYPE_BF16) return static_cast<int>(launch_dkv<__nv_bfloat16>(a, st));
-  return static_cast<int>(cudaErrorInvalidValue);
+  return static_cast<int>(launch(KERNEL_DKV, dtype, a, static_cast<cudaStream_t>(stream)));
 }
 
 }  // extern "C"

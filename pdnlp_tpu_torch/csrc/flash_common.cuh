@@ -47,10 +47,11 @@ __device__ __forceinline__ float pair_mask(float key_term, int mask_kind, int qs
 }
 
 // Is the batch row's every key at the -1e9 floor (a filler row)?  Every
-// thread of the block calls it; the answer is uniform.
-__device__ __forceinline__ bool row_all_masked(const float* bias_row, int S, int tid) {
+// thread of the block (`threads` of them) calls it; the answer is uniform.
+__device__ __forceinline__ bool row_all_masked(const float* bias_row, int S, int tid,
+                                               int threads = THREADS) {
   int any_live = 0;
-  for (int s = tid; s < S; s += THREADS) any_live |= bias_row[s] > 0.5f * MASKED;
+  for (int s = tid; s < S; s += threads) any_live |= bias_row[s] > 0.5f * MASKED;
   return !__syncthreads_or(any_live);
 }
 

@@ -134,6 +134,24 @@ def load(name: str) -> KernelLibrary:
         return kl
 
 
+def sass_counts(name: str, opcode: str) -> Dict[str, int]:
+    """``{kernel symbol: instructions}`` of one SASS opcode (``HMMA``: the
+    tensor cores) in each kernel of the built library ``name``, read with
+    the toolkit's ``cuobjdump --dump-sass``."""
+    tool = os.path.join(os.path.dirname(nvcc()), "cuobjdump")
+    out = subprocess.run([tool, "--dump-sass", str(load(name).path)],
+                         capture_output=True, text=True, check=True).stdout
+    counts: Dict[str, int] = {}
+    fn = None
+    for line in out.splitlines():
+        if "Function :" in line:
+            fn = line.split("Function :", 1)[1].strip()
+            counts[fn] = 0
+        elif fn is not None and f" {opcode}" in line:
+            counts[fn] += 1
+    return counts
+
+
 def bind(name: str, fns) -> KernelLibrary:
     """:func:`load` ``name`` and declare its C functions: ``fns`` maps each
     symbol to ``(restype, argtypes)``, with ``ctypes.c_void_p`` for every

@@ -37,12 +37,15 @@ What the kernels keep from the TPU version, and what they change:
   copy), and ``m``, ``l``, ``Di`` are ``[B, N, S]``.
 
 What bounds them on an H100: fp32 arithmetic at the widths from S = 128
-up, bytes below that (and bytes for bf16 inputs, against the tensor cores'
-rate).  This first version answers with the simple things — fp32 FMA on
-the CUDA cores out of shared memory, scores kept on the SM, dead tiles
-skipped before their operands are read — and leaves tensor cores to later
-work (source notes in ``csrc/``; measured times beside the bounds in
-``PERF.md``).
+up, bytes below that; bytes for bf16 inputs.  K1 computes in fp32 on the
+CUDA cores in both dtypes.  K2 and K3 take one design per dtype (source
+notes in ``csrc/flash_bwd.cu``; measured times beside the bounds in
+``PERF.md``): bf16 runs every product on the tensor cores (``mma.sync``,
+bf16 in, fp32 sums) with the walked tiles double-buffered by ``cp.async``;
+fp32 stays on FMA on the CUDA cores (no TF32) from tiles stored once. In
+bf16 the backward rounds ``p`` and ``dS`` to bf16 once, before the three
+second-stage products (dQ, dV, dK), as FlashAttention-2 does, and the
+twins round at the same places (:func:`_bwd_terms`).
 
 Serving calls the forward under ``torch.inference_mode()`` and pays nothing
 for the statistics.  The kernels have no probability dropout (neither has
@@ -173,6 +176,9 @@ def _check_kernel(q, k, v) -> None:
     if q.shape[0] * q.shape[2] > 65535:
         raise ValueError(f"B * N = {q.shape[0] * q.shape[2]} exceeds the "
                          "kernel grid's 65535")
+    if any(t.data_ptr() % 16 for t in (q, k, v)):
+        raise ValueError("flash_attention's kernels copy 16-byte rows: q, k, "
+                         "v must start 16-byte aligned")
 
 
 # ------------------------------------------------------------ plain twins
@@ -215,13 +221,19 @@ def flash_forward_reference(q, k, v, bias=None, segment_ids=None):
 
 def _bwd_terms(q, k, v, do, m, l, di, bias, segment_ids):
     """The backward kernels' shared terms: ``p = exp(s - m) / l`` and
-    ``dS = p * (dO . V^T - Di)``, ``[B, N, S, S]`` fp32."""
+    ``dS = p * (dO . V^T - Di)``, ``[B, N, S, S]`` fp32.  For bf16 inputs
+    both come back rounded to bf16 (then held in fp32), where the kernels
+    round them to feed the tensor cores; ``dS`` is formed from the fp32
+    ``p`` before either is rounded."""
     _check(q, k, v, bias, segment_ids)
     p = torch.exp(_scores(q, k, bias, segment_ids) - m[..., None]) \
         / l[..., None]
     dp = torch.einsum("bqnd,bknd->bnqk", do.to(torch.float32),
                       v.to(torch.float32))
-    return p, p * (dp - di[..., None])
+    ds = p * (dp - di[..., None])
+    if q.dtype == torch.bfloat16:
+        p, ds = (t.to(torch.bfloat16).to(torch.float32) for t in (p, ds))
+    return p, ds
 
 
 def flash_bwd_dq_reference(q, k, v, do, m, l, di, bias=None,
@@ -262,8 +274,8 @@ _FWD_FNS = {
 _BWD_FNS = {
     "pdnlp_flash_bwd_tile": (_I, []),
     "pdnlp_flash_bwd_head_dim": (_I, []),
-    "pdnlp_flash_bwd_dq_smem_bytes": (_I, []),
-    "pdnlp_flash_bwd_dkv_smem_bytes": (_I, []),
+    "pdnlp_flash_bwd_smem_bytes": (_I, [_I, _I]),
+    "pdnlp_flash_bwd_blocks_per_sm": (_I, [_I, _I]),
     "pdnlp_flash_bwd_error_string": (ctypes.c_char_p, [_I]),
     "pdnlp_flash_bwd_dq": (_I, [_P] * 10 + [_I] * 7 + [_F, _P]),
     "pdnlp_flash_bwd_dkv": (_I, [_P] * 11 + [_I] * 7 + [_F, _P]),
@@ -350,6 +362,10 @@ def _bwd_args(q, k, v, do, m, l, di, bias, segment_ids):
     """The inputs and sizes K2 and K3 share, as their C functions take
     them."""
     B, S, N, D = q.shape
+    if do.shape != q.shape or do.dtype != q.dtype or not do.is_contiguous() \
+            or do.data_ptr() % 16:
+        raise ValueError("the flash backward reads dO as a contiguous, "
+                         "16-byte aligned [B, S, N, D] tensor like q")
     kind, bias2, seg2 = _operands(q, bias, segment_ids)
     ins = (q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
            m.data_ptr(), l.data_ptr(), di.data_ptr(), _ptr(bias2), _ptr(seg2))
@@ -357,6 +373,17 @@ def _bwd_args(q, k, v, do, m, l, di, bias, segment_ids):
             D ** -0.5, torch.cuda.current_stream(q.device).cuda_stream)
     # bias2 / seg2 may be fresh copies: keep them alive across the launch
     return ins, dims, (bias2, seg2)
+
+
+def bwd_occupancy(dtype: torch.dtype) -> dict:
+    """``{kernel: (shared memory bytes per block, blocks per SM)}`` of K2
+    and K3 for inputs of ``dtype``, as the built library reports them
+    (``cudaOccupancyMaxActiveBlocksPerMultiprocessor``; needs the card)."""
+    lib = _libs.get("flash_bwd") or build_bwd().lib
+    code = _DTYPE_CODE[dtype]
+    return {name: (lib.pdnlp_flash_bwd_smem_bytes(i, code),
+                   lib.pdnlp_flash_bwd_blocks_per_sm(i, code))
+            for i, name in enumerate(KERNELS[1:])}
 
 
 def launch_dq(q, k, v, do, m, l, di, bias=None, segment_ids=None):

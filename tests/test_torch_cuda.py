@@ -160,11 +160,14 @@ BWD_TOL = {torch.float32: dict(atol=5e-5, rtol=0),
                          ids=["f32", "bf16"])
 @pytest.mark.parametrize("S,form", [
     (40, "bias"), (128, "bias"), (200, "bias"), (512, "bias"), (1, "none"),
-    (128, "none"), (40, "segments"), (128, "segments"), (384, "segments"),
+    (128, "none"), (40, "segments"), (128, "segments"), (200, "segments"),
+    (384, "segments"), (512, "segments"),
 ])
 def test_backward_kernels_match_twins(cuda_device, S, form, dtype):
     """K1's m and l, then K2 and K3 on the same m, l, Di, against the
-    twins: padded keys with a filler row, packed rows with padding."""
+    twins: padded keys with a filler row, packed rows with padding; ragged
+    widths (40, 200) and eight tiles (512), where the bf16 kernels walk
+    their double-buffered tiles."""
     q, k, v, kw = _case(S, form, dtype, cuda_device, seed=S)
     do = torch.randn_like(q.float()).to(dtype)
     o, m, l = flash.launch(q, k, v, with_stats=True, **kw)
@@ -182,6 +185,46 @@ def test_backward_kernels_match_twins(cuda_device, S, form, dtype):
         assert g.dtype == dtype and g.shape == q.shape, name
         torch.testing.assert_close(g.float(), w.float(), **BWD_TOL[dtype],
                                    msg=name)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+@pytest.mark.parametrize("S,form", [(200, "bias"), (512, "segments")])
+def test_backward_kernels_give_the_same_bits_twice(cuda_device, S, form,
+                                                   dtype):
+    """No atomics: each block owns its rows of dQ (or dK, dV)."""
+    q, k, v, kw = _case(S, form, dtype, cuda_device, seed=S + 1)
+    do = torch.randn_like(q.float()).to(dtype)
+    o, m, l = flash.launch(q, k, v, with_stats=True, **kw)
+    di = (do.float() * o.float()).sum(-1).transpose(1, 2).contiguous()
+    runs = [(flash.launch_dq(q, k, v, do, m, l, di, **kw),
+             *flash.launch_dkv(q, k, v, do, m, l, di, **kw))
+            for _ in range(2)]
+    torch.cuda.synchronize()
+    for name, a, b in zip(("dq", "dk", "dv"), *runs):
+        assert torch.equal(a, b), name
+
+
+@pytest.mark.parametrize("dtype,least", [(torch.float32, 2),
+                                         (torch.bfloat16, 3)],
+                         ids=["f32", "bf16"])
+def test_backward_kernels_fit_several_blocks_per_sm(cuda_device, dtype,
+                                                    least):
+    for name, (smem, blocks) in flash.bwd_occupancy(dtype).items():
+        assert smem > 48 * 1024 and blocks >= least, (name, smem, blocks)
+
+
+def test_bf16_backward_runs_on_the_tensor_cores(cuda_device):
+    """The bf16 K2 and K3 hold HMMA instructions in their SASS; the fp32
+    ones, FMA on the CUDA cores by design, hold none."""
+    from pdnlp_tpu_torch.ops import cuda_lib
+
+    counts = cuda_lib.sass_counts("flash_bwd", "HMMA")
+    for name in ("flash_bwd_dq_kernel", "flash_bwd_dkv_kernel"):
+        bf16 = [c for fn, c in counts.items() if f"{name}_bf16" in fn]
+        f32 = [c for fn, c in counts.items() if f"{name}_f32" in fn]
+        assert len(bf16) == 1 and bf16[0] > 0, counts
+        assert f32 == [0], counts
 
 
 def test_flash_autograd_on_the_card_matches_the_cpu_twins(cuda_device):

@@ -264,3 +264,83 @@ def test_bf16_gradients_keep_the_dtype_and_track_fp32():
         assert g.grad.dtype == torch.bfloat16
         np.testing.assert_allclose(g.grad.float().numpy(), w, atol=3e-2,
                                    rtol=3e-2, err_msg=name)
+
+
+# ------------------------------------------- bf16: the tensor-core numerics
+
+
+def _bf16(a):
+    """numpy fp32 values rounded to bf16 (so both packages get them)."""
+    return torch.from_numpy(a).bfloat16().float().numpy()
+
+
+@pytest.mark.parametrize("form", ["bias", "segments"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+def test_twins_round_p_and_ds_to_bf16_for_bf16_inputs(dtype, form):
+    """The K2/K3 twins are the fp32 formulas, with ``p`` and ``dS`` (formed
+    in fp32 from the fp32 ``p``) rounded to bf16 before the three
+    second-stage products when the inputs are bf16, and nothing rounded
+    when they are fp32 — where the bf16 kernels round to feed the tensor
+    cores."""
+    B, S = 2, 128
+    q, k, v, do = (torch.from_numpy(a).to(dtype)
+                   for a in _qkv(B, S, seed=21))
+    kw = _mask(form, B, S, seed=22)[1]
+    o, m, l = tflash.flash_forward_reference(q, k, v, **kw)
+    di = (do.float() * o.float()).sum(-1).transpose(1, 2).contiguous()
+    f = [t.float() for t in (q, k, v, do)]
+    bias = kw.get("bias")
+    if "segment_ids" in kw:
+        from pdnlp_tpu_torch.data.packing import segment_bias
+
+        bias = segment_bias(kw["segment_ids"])
+    s = torch.einsum("bqnd,bknd->bnqk", f[0] * 64 ** -0.5, f[1]) \
+        + bias.reshape(B, 1, -1, S).float()
+    p = torch.exp(s - m[..., None]) / l[..., None]
+    ds = p * (torch.einsum("bqnd,bknd->bnqk", f[3], f[2]) - di[..., None])
+    rounded = [t.bfloat16().float() for t in (p, ds)]
+    if dtype == torch.bfloat16:
+        p, ds = rounded
+    else:
+        assert not torch.equal(p, rounded[0])   # the rounding is visible
+    want = [(torch.einsum("bnqk,bknd->bqnd", ds, f[1]) * 0.125).to(dtype),
+            (torch.einsum("bnqk,bqnd->bknd", ds, f[0]) * 0.125).to(dtype),
+            torch.einsum("bnqk,bqnd->bknd", p, f[3]).to(dtype)]
+    got = [tflash.flash_bwd_dq_reference(q, k, v, do, m, l, di, **kw),
+           *tflash.flash_bwd_dkv_reference(q, k, v, do, m, l, di, **kw)]
+    for name, g, w in zip(("dq", "dk", "dv"), got, want):
+        assert g.dtype == dtype, name
+        torch.testing.assert_close(g, w, atol=0, rtol=0, msg=name)
+
+
+@pytest.mark.parametrize("form", ["bias", "segments", "pad_tail"])
+def test_bf16_gradients_track_jax_flash(form):
+    """bf16 dQ, dK, dV of the port (K1's twin with statistics, then the
+    K2/K3 twins in the bf16 kernels' numerics) against ``jax.grad`` of the
+    JAX flash kernels (interpret mode) on the same bf16 values: padded keys
+    with a filler row, packed rows, packed rows with a padding tail.
+
+    Bound 3e-2 absolute + 3e-2 relative: both round the gradients to bf16
+    (half an ulp is 2^-9 relative, ~1e-2 on values of a few units); the
+    port also rounds ``p`` and ``dS`` to bf16 before the second-stage
+    products (2^-9 relative per term, of random sign over up to 256 keys),
+    which the JAX kernel, fp32 inside, does not."""
+    B, S = 2, 256
+    q, k, v, do = (_bf16(a) for a in _qkv(B, S, seed=31))
+    jkw, tkw = _mask(form, B, S, seed=32)
+
+    def loss(q, k, v):
+        o = jflash.flash_attention(q, k, v, **jkw)
+        return (o.astype(jnp.float32) * do).sum()
+
+    want = jax.grad(loss, argnums=(0, 1, 2))(
+        *(jnp.asarray(a, jnp.bfloat16) for a in (q, k, v)))
+    t = [torch.from_numpy(a).bfloat16().requires_grad_() for a in (q, k, v)]
+    tflash.flash_attention(*t, **tkw).backward(
+        torch.from_numpy(do).bfloat16())
+    for name, a, w in zip(("dq", "dk", "dv"), t, want):
+        assert a.grad.dtype == torch.bfloat16 and w.dtype == jnp.bfloat16
+        np.testing.assert_allclose(a.grad.float().numpy(),
+                                   np.asarray(w.astype(jnp.float32)),
+                                   atol=3e-2, rtol=3e-2, err_msg=name)
