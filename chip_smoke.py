@@ -15,8 +15,9 @@ from the launch counters that each path ran its kernels, times the
 kernels beside their bounds, and checks the answers against the plain
 paths on the same card.
 
-Phases: 1 device, 2 build (with K2/K3's blocks per SM and the tensor-core
-instructions of their bf16 versions), 3 kernel vs plain (3b: the backward and the
+Phases: 1 device, 2 build (with K1-K3's blocks per SM and the tensor-core
+instructions of their bf16 versions), 3 kernel vs plain, with K1's tile
+skips against the block maps in both dtypes (3b: the backward and the
 fused CE), 4 serving main path (DynamicBatcher packed and padded, fp32 and
 bf16, and the CLI), 5 times, 6 training main path (6a kernel route vs
 plain route, 6b ``python -m pdnlp_tpu_torch.train.single``).  Any failure
@@ -85,18 +86,21 @@ def card_line():
 
 # ----------------------------------------------------------------- phase 2
 
-#: K2/K3 blocks that must fit one SM at once, per dtype
+#: K1-K3 blocks that must fit one SM at once, per dtype
 MIN_BLOCKS_PER_SM = {"float32": 2, "bfloat16": 3}
 
 
-def check_backward_build(torch, flash, cuda_lib, card):
-    """K2's and K3's shared memory and blocks per SM per dtype, and the
-    tensor-core instructions (SASS ``HMMA``) in each kernel of their
-    library: the bf16 kernels must have them, at the occupancy above."""
-    hmma = cuda_lib.sass_counts("flash_bwd", "HMMA")
+def check_flash_build(torch, flash, cuda_lib, card):
+    """K1's, K2's and K3's shared memory and blocks per SM per dtype, and
+    the tensor-core instructions (SASS ``HMMA``) in each kernel of their
+    libraries: the bf16 kernels must have them, at the occupancy above,
+    and the fp32 ones (CUDA-core FMA by design) none."""
+    hmma = {**cuda_lib.sass_counts("flash_fwd", "HMMA"),
+            **cuda_lib.sass_counts("flash_bwd", "HMMA")}
     out = {"hmma": hmma}
     for dtype in ("float32", "bfloat16"):
-        occ = flash.bwd_occupancy(getattr(torch, dtype))
+        occ = {"flash_fwd": flash.fwd_occupancy(getattr(torch, dtype)),
+               **flash.bwd_occupancy(getattr(torch, dtype))}
         out[dtype] = occ
         for name, (smem, blocks) in occ.items():
             print(f"[build] {name} {dtype}: {smem} B shared memory, {blocks} "
@@ -104,10 +108,13 @@ def check_backward_build(torch, flash, cuda_lib, card):
             if blocks < MIN_BLOCKS_PER_SM[dtype]:
                 fail(f"{name} {dtype}: {blocks} blocks per SM")
     for fn, count in sorted(hmma.items()):
-        print(f"[build] flash_bwd SASS: {count} HMMA in {fn}")
-    for name in ("flash_bwd_dq_kernel_bf16", "flash_bwd_dkv_kernel_bf16"):
-        if not any(name in fn and c > 0 for fn, c in hmma.items()):
-            fail(f"{name} has no tensor-core (HMMA) instruction")
+        print(f"[build] flash SASS: {count} HMMA in {fn}")
+    for name in ("flash_fwd_kernel", "flash_bwd_dq_kernel",
+                 "flash_bwd_dkv_kernel"):
+        if not any(f"{name}_bf16" in fn and c > 0 for fn, c in hmma.items()):
+            fail(f"{name}_bf16 has no tensor-core (HMMA) instruction")
+        if any(f"{name}_f32" in fn and c > 0 for fn, c in hmma.items()):
+            fail(f"{name}_f32 runs on the tensor cores (TF32)")
     return out
 
 
@@ -145,16 +152,14 @@ def kernel_cases(torch, flash, mask_bias, device):
         for dtype in ("float32", "bfloat16"):
             q, k, v = (torch.from_numpy(a).to(device, getattr(torch, dtype))
                        for a in qkv)
-            if dtype == "float32":
-                live = flash.kernel_tile_map(q, k, v, **kw).cpu()
-                want = (flash.bias_block_map(kw["bias"].cpu()) if "bias" in kw
-                        else flash.segment_block_map(
-                            kw["segment_ids"].cpu()))
-                if not torch.equal(live, want):
-                    fail(f"flash_fwd skipped other tiles than the block map "
-                         f"({form}, S={S})")
-                what += (f", {int(live.sum())}/{live.numel()} tiles live "
-                         "(= block map)")
+            live = flash.kernel_tile_map(q, k, v, **kw).cpu()
+            want = (flash.bias_block_map(kw["bias"].cpu()) if "bias" in kw
+                    else flash.segment_block_map(kw["segment_ids"].cpu()))
+            if not torch.equal(live, want):
+                fail(f"flash_fwd skipped other tiles than the block map "
+                     f"({form}, S={S}, {dtype})")
+            tiles = (f", {int(live.sum())}/{live.numel()} tiles live "
+                     "(= block map)")
             out = flash.flash_attention(q, k, v, **kw)
             torch.cuda.synchronize()
             ref = flash.flash_attention_reference(q, k, v, **kw)
@@ -162,7 +167,7 @@ def kernel_cases(torch, flash, mask_bias, device):
             ok = err <= KERNEL_ATOL[dtype] and out.isfinite().all().item()
             print(f"[kernel] flash_fwd {form:8s} S={S:<4d} {dtype:8s} "
                   f"max_abs_err={err:.3e} (atol {KERNEL_ATOL[dtype]:g}) "
-                  f"{what}: {'ok' if ok else 'FAIL'}")
+                  f"{what}{tiles}: {'ok' if ok else 'FAIL'}")
             if not ok:
                 fail(f"flash_fwd disagrees with its plain version "
                      f"({form}, S={S}, {dtype}): {err}")
@@ -882,6 +887,9 @@ def time_backward(torch, F, flash, mask_bias, key_mask, device, card):
             flash.flash_bwd_dkv_reference(*args, bias=bias)))
         elem = 4 if dtype == "float32" else 2
         stats = 3 * B * N * S * 4 + B * S * 4        # m, l, Di, bias
+        # K1 with m and l: q, k, v read and o written once, the bias, m, l
+        b1 = bound(4 * B * S * N * D * elem + 2 * B * N * S * 4 + B * S * 4,
+                   4 * D * N * pairs, dtype)
         b2 = bound(5 * B * S * N * D * elem + stats, 6 * D * N * pairs, dtype)
         b3 = bound(6 * B * S * N * D * elem + stats, 8 * D * N * pairs, dtype)
         out[dtype] = {
@@ -896,6 +904,8 @@ def time_backward(torch, F, flash, mask_bias, key_mask, device, card):
                               "bound_ms": b3[0], "bound_by": b3[1],
                               "max_abs_err": e3},
             "flash_fwd_with_stats_ms": fwd_stats,
+            "flash_fwd_with_stats_bound_ms": b1[0],
+            "flash_fwd_with_stats_bound_by": b1[1],
             "flash_fwd_library_ms": fwd_lib, "device_ms": dev,
             "pairs": pairs}
         print(f"[time] flash backward {B}x{S} N={N} D={D} {dtype} (padded, "
@@ -903,11 +913,17 @@ def time_backward(torch, F, flash, mask_bias, key_mask, device, card):
               f"{b2[1]}, plain {p2:.4f}), K3 {k3:.4f} ms (bound {b3[0]:.4f} "
               f"by {b3[1]}, plain {p3:.4f}); sdpa backward {lib:.4f} ms "
               f"(K2 + K3 / sdpa {(k2 + k3) / lib:.2f}x); K1 with m, l "
-              f"{fwd_stats:.4f} ms, sdpa forward {fwd_lib:.4f} ms; err "
-              f"{e2:.2e} / {e3:.2e} — {card}")
+              f"{fwd_stats:.4f} ms (bound {b1[0]:.4f} by {b1[1]}), sdpa "
+              f"forward {fwd_lib:.4f} ms; err {e2:.2e} / {e3:.2e} — {card}")
         print(f"[time] flash backward {B}x{S} {dtype} device time "
               f"(torch.profiler, ms per call): " + ", ".join(
                   f"{k} {fmt_ms(v)}" for k, v in dev.items()) + f" — {card}")
+        k1, sdpa = dev["flash_fwd_with_stats"], dev["sdpa_fwd"]
+        if k1 is not None and sdpa:
+            print(f"[time] K1 with m, l at {B}x{S} {dtype}: device "
+                  f"{k1:.4f} ms = {100 * b1[0] / k1:.1f}% of its bound "
+                  f"{b1[0]:.4f} ms by {b1[1]}, {k1 / sdpa:.2f}x sdpa's "
+                  f"forward ({sdpa:.4f} ms) — {card}")
     return out
 
 
@@ -1009,15 +1025,13 @@ def main():
     kls = [flash.build(), flash.build_bwd(), fused_ce.build()]
     print(f"[build] {sorted(cuda_lib.SOURCES)} in "
           f"{time.monotonic() - t0:.2f} s, one nvcc each, in parallel "
-          f"(compiled now: {sorted(took)}); dynamic shared memory per block: "
-          f"flash_fwd {kls[0].lib.pdnlp_flash_smem_bytes()} B")
+          f"(compiled now: {sorted(took)})")
     for kl in kls:
         for line in kl.build_log.splitlines():
             if "registers" in line or "spill" in line or "smem" in line:
                 print(f"[build] {kl.name} ptxas: {line.strip()}")
-    occupancy = check_backward_build(torch, flash, cuda_lib, card)
+    occupancy = check_flash_build(torch, flash, cuda_lib, card)
 
-    # 3. kernel vs plain
     # 3. kernel vs plain
     errs = kernel_cases(torch, flash, mask_bias, device)
     # 3b. the backward and the fused CE vs their twins
@@ -1119,7 +1133,7 @@ def main():
     bwd_times = time_backward(torch, F, flash, mask_bias,
                               batches[0]["attention_mask"], device, card)
     ce_times = time_fused_ce(torch, F, fused_ce, device, card)
-    print(f"[summary] {json.dumps({'card': card, 'runs': runs, 'forward_ms': fwd_times, 'profile': profiles, 'flash_fwd': times, 'kernel_max_abs_err': errs, 'backward_max_abs_err': bwd_errs, 'fused_ce_max_abs_err': ce_errs, 'training': trains, 'train_single': single_rec, 'flash_bwd_times': bwd_times, 'fused_ce_times': ce_times, 'flash_bwd_build': occupancy, 'seconds': time.monotonic() - t_start})}")
+    print(f"[summary] {json.dumps({'card': card, 'runs': runs, 'forward_ms': fwd_times, 'profile': profiles, 'flash_fwd': times, 'kernel_max_abs_err': errs, 'backward_max_abs_err': bwd_errs, 'fused_ce_max_abs_err': ce_errs, 'training': trains, 'train_single': single_rec, 'flash_bwd_times': bwd_times, 'fused_ce_times': ce_times, 'flash_build': occupancy, 'seconds': time.monotonic() - t_start})}")
 
     t32 = times["float32"]
     kernels = [{

@@ -1,6 +1,7 @@
 // What the flash kernels share (flash_fwd.cu: K1; flash_bwd.cu: K2, K3):
 // the tile and head sizes, the mask constants and the tile skip rule with
-// the warp reduction of a tile's segment-ID range it reads.
+// the warp reduction of a tile's segment-ID range it reads (the tile
+// loads and products are in flash_tiles.cuh).
 // ops/cuda_lib.py hashes every header into every library's name, so an
 // edit here rebuilds them all.
 #pragma once
@@ -15,9 +16,7 @@ namespace flash {
 constexpr int TILE_Q = 64;
 constexpr int TILE_K = 64;
 constexpr int HEAD_D = 64;
-constexpr int THREADS = 256;
-constexpr int ROW_PAD = 4;                    // keeps float4 alignment, spreads banks
-constexpr int KT_STRIDE = TILE_K + ROW_PAD;   // row stride of a transposed tile
+constexpr int THREADS = 256;                  // the fp32 kernels' 16 x 16 grid
 constexpr float MASKED = -1e9f;
 constexpr int NO_SEGMENT = 1 << 30;           // min over no nonzero segment ID
 

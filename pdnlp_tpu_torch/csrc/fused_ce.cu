@@ -14,20 +14,23 @@
 // they add nothing to dW or db.
 //
 // The TPU kernel summed dW and db across its sequential grid in place.
-// CUDA blocks run in no order, so here every block writes its rows' partial
-// dW/db to scratch, and the last block to finish (a ticket counter) adds
-// the partials in block order: a fixed order, no fp32 atomics, so dW and
-// db are the same bits on every run.
+// CUDA blocks run in no order, so K5 splits the work by H columns instead
+// of rows: each block recomputes g for every row (the softmax terms are
+// small next to a round trip through device memory), then writes df, dW
+// and db for its own columns only.  No block reads another's output: no
+// fp32 atomics and no cross-block reduce, so dW and db are the same bits
+// on every run, summed over the rows in row order.
 //
 // What bounds it on an H100: nothing large.  At the train step's shapes
 // (T = 32 rows, H = 768, C = 6) the pair moves about 0.2 MB and does a few
 // MFLOP, well under a microsecond of either the memory or the arithmetic
-// bound; each launch costs more than its work.  The design keeps the
-// launch count at one per kernel (the partial reduce rides in K5's last
-// block) and the logits on the SM; one warp owns one row, its lanes
-// striding over H, C sums reduced by shuffles.  The TPU layouts are not
-// carried over: no class padding to 128 lanes, no lane-broadcast row
-// operands, no padding of rows to a block.
+// bound; what a launch costs is latency.  K4 keeps one warp per row, its
+// lanes striding over H, C sums reduced by shuffles.  K5 spreads H over
+// 12 blocks (BWD_COLS = 64 columns each at H = 768), reads f and W in
+// 16-byte vectors with every load of a stride in flight (phase A), and
+// holds W's block columns in shared memory for df (phase B).  The TPU
+// layouts are not carried over: no class padding to 128 lanes, no
+// lane-broadcast row operands, no padding of rows to a block.
 
 #include <cuda_runtime.h>
 #include <math.h>
@@ -39,6 +42,11 @@ namespace {
 constexpr int THREADS = 256;
 constexpr int ROWS = THREADS / 32;   // one warp per row
 constexpr int MAX_C = 16;            // classes held in registers
+constexpr int BWD_COLS = 64;         // K5: H columns per block
+constexpr int CHUNK_ROWS = 32;       // K5: rows whose g a block holds at once
+constexpr int WARP_ROWS = CHUNK_ROWS / ROWS;          // K5: rows per warp in phase A
+constexpr int CLASS_GROUPS = THREADS / BWD_COLS;      // K5: threads per dW column
+static_assert(MAX_C % CLASS_GROUPS == 0, "whole classes per dW thread");
 
 // Row r's fp32 logits, in every lane of the calling warp.
 template <typename T>
@@ -100,80 +108,190 @@ fused_ce_fwd_kernel(const T* __restrict__ f, const T* __restrict__ w,
   correct[r] = first == lab ? 1.f : 0.f;
 }
 
+// 16 bytes of f or W, loaded as they are stored, as fp32.
+__device__ __forceinline__ void unpack16(const uint4& v, float* x, float) {
+  x[0] = __uint_as_float(v.x);
+  x[1] = __uint_as_float(v.y);
+  x[2] = __uint_as_float(v.z);
+  x[3] = __uint_as_float(v.w);
+}
+__device__ __forceinline__ void unpack16(const uint4& v, float* x, __nv_bfloat16) {
+  const unsigned u[4] = {v.x, v.y, v.z, v.w};
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    x[2 * i] = __uint_as_float(u[i] << 16);          // the low bf16: its fp32 bits
+    x[2 * i + 1] = __uint_as_float(u[i] & 0xffff0000u);
+  }
+}
+
+// K5 phase A: g of the chunk's rows r0.. into g[][] (shared), WARP_ROWS
+// rows per warp.  The lanes stride over H in 16 B vectors (scalars when H
+// or a base address does not allow them) and keep one fp32 sum per (row,
+// class).  Each stride issues all its loads (the warp's rows of f, then
+// all C rows of W, predicated, with no branch between a load and the next)
+// before its first FMA, so they are in flight together; the C sums reduce
+// by shuffles, then lane i forms row i's softmax and
+// g = dce (p - onehot) + dlpu (p - 1/C).
+template <typename T>
+__device__ __forceinline__ void chunk_terms(const T* __restrict__ f, const T* __restrict__ w,
+                                            const T* __restrict__ b,
+                                            const int* __restrict__ labels,
+                                            const float* __restrict__ dce,
+                                            const float* __restrict__ dlpu, int r0, int rows,
+                                            int H, int C, bool vec, float (*g)[MAX_C],
+                                            int warp, int lane) {
+  constexpr int V = 16 / (int)sizeof(T);
+  const int rw = r0 + warp * WARP_ROWS;            // the warp's first row
+  if (rw >= rows) return;                          // the whole warp
+  const T* fr[WARP_ROWS];
+#pragma unroll
+  for (int i = 0; i < WARP_ROWS; ++i)              // rows past the end: any row, unused
+    fr[i] = f + (long)min(rw + i, rows - 1) * H;
+  float acc[WARP_ROWS][MAX_C];
+#pragma unroll
+  for (int i = 0; i < WARP_ROWS; ++i)
+#pragma unroll
+    for (int c = 0; c < MAX_C; ++c) acc[i][c] = 0.f;
+  if (vec) {
+#pragma unroll 2
+    for (int h = lane * V; h < H; h += 32 * V) {
+      uint4 fraw[WARP_ROWS], wraw[MAX_C];          // every load of the stride, then the FMAs
+#pragma unroll
+      for (int i = 0; i < WARP_ROWS; ++i) fraw[i] = *reinterpret_cast<const uint4*>(fr[i] + h);
+#pragma unroll
+      for (int c = 0; c < MAX_C; ++c)
+        if (c < C) wraw[c] = *reinterpret_cast<const uint4*>(w + (long)c * H + h);
+      float fv[WARP_ROWS][V];
+#pragma unroll
+      for (int i = 0; i < WARP_ROWS; ++i) unpack16(fraw[i], fv[i], T());
+#pragma unroll
+      for (int c = 0; c < MAX_C; ++c) {
+        if (c < C) {
+          float wv[V];
+          unpack16(wraw[c], wv, T());
+#pragma unroll
+          for (int i = 0; i < WARP_ROWS; ++i)
+#pragma unroll
+            for (int e = 0; e < V; ++e) acc[i][c] = fmaf(fv[i][e], wv[e], acc[i][c]);
+        }
+      }
+    }
+  } else {
+    for (int h = lane; h < H; h += 32) {
+      float fv[WARP_ROWS];
+#pragma unroll
+      for (int i = 0; i < WARP_ROWS; ++i) fv[i] = to_f32(fr[i][h]);
+#pragma unroll
+      for (int c = 0; c < MAX_C; ++c) {
+        if (c >= C) break;
+        const float wv = to_f32(w[(long)c * H + h]);
+#pragma unroll
+        for (int i = 0; i < WARP_ROWS; ++i) acc[i][c] = fmaf(fv[i], wv, acc[i][c]);
+      }
+    }
+  }
+  float lg[MAX_C];                                 // lane i < WARP_ROWS: row rw + i
+#pragma unroll
+  for (int c = 0; c < MAX_C; ++c) {
+    if (c >= C) break;
+#pragma unroll
+    for (int i = 0; i < WARP_ROWS; ++i)
+#pragma unroll
+      for (int off = 16; off > 0; off >>= 1)
+        acc[i][c] += __shfl_xor_sync(0xffffffffu, acc[i][c], off);
+    lg[c] = acc[0][c];
+#pragma unroll
+    for (int i = 1; i < WARP_ROWS; ++i)
+      if (lane == i) lg[c] = acc[i][c];
+    lg[c] += to_f32(b[c]);
+  }
+  const int r = rw + lane;
+  if (lane >= WARP_ROWS || r >= rows) return;
+  const float mx = row_max(lg, C);
+  float sum = 0.f;
+#pragma unroll
+  for (int c = 0; c < MAX_C; ++c) {   // static indices: lg stays in registers
+    if (c >= C) break;
+    lg[c] = expf(lg[c] - mx);
+    sum += lg[c];
+  }
+  const int lab = labels[r];
+  const float a = dce[r], s = dlpu[r];
+#pragma unroll
+  for (int c = 0; c < MAX_C; ++c) {
+    if (c >= C) break;
+    const float p = lg[c] / sum;
+    g[warp * WARP_ROWS + lane][c] = a * (p - (c == lab ? 1.f : 0.f)) + s * (p - 1.f / C);
+  }
+}
+
+// K5: one block per BWD_COLS columns of H.  Each block forms g for every
+// row itself (phase A, CHUNK_ROWS rows at a time, so any row count fits
+// its shared memory) and then, for its own columns only (phase B),
+// df[:, cols] = g . W[:, cols] and dW[:, cols] = sum over rows, in row
+// order, of g[r]^T f[r, cols]; block 0 also sums db.  No block reads
+// another's output: no atomics, no partials, the same bits on every run.
 template <typename T>
 __global__ void __launch_bounds__(THREADS)
 fused_ce_bwd_kernel(const T* __restrict__ f, const T* __restrict__ w,
                     const T* __restrict__ b, const int* __restrict__ labels,
                     const float* __restrict__ dce, const float* __restrict__ dlpu,
                     T* __restrict__ df, float* __restrict__ dw, float* __restrict__ db,
-                    float* __restrict__ part_w, float* __restrict__ part_b,
-                    unsigned int* __restrict__ ticket, int rows, int H, int C) {
-  __shared__ float g[ROWS][MAX_C];
-  __shared__ bool is_last;
+                    int rows, int H, int C) {
+  __shared__ float g[CHUNK_ROWS][MAX_C];
+  __shared__ float wc[MAX_C][BWD_COLS];            // W[:, cols] as fp32
+  constexpr int V = 16 / (int)sizeof(T);
   const int tid = threadIdx.x;
   const int lane = tid % 32;
   const int warp = tid / 32;
-  const int r0 = blockIdx.x * ROWS;
-  const int r = r0 + warp;
-
-  // g of the block's rows (0 for rows past the end)
-  float logits[MAX_C];
-  if (r < rows) row_logits(f, w, b, r, H, C, lane, logits);
-  if (lane == 0) {
-    if (r < rows) {
-      const float mx = row_max(logits, C);
-      float sum = 0.f;
-      for (int c = 0; c < C; ++c) sum += expf(logits[c] - mx);
-      const int lab = labels[r];
-      const float a = dce[r], s = dlpu[r];
-      for (int c = 0; c < C; ++c) {
-        const float p = expf(logits[c] - mx) / sum;
-        g[warp][c] = a * (p - (c == lab ? 1.f : 0.f)) + s * (p - 1.f / C);
+  const int h0 = blockIdx.x * BWD_COLS;
+  const bool vec = H % V == 0 && reinterpret_cast<size_t>(f) % 16 == 0 &&
+                   reinterpret_cast<size_t>(w) % 16 == 0;
+  for (int e = tid; e < MAX_C * BWD_COLS; e += THREADS) {
+    const int c = e / BWD_COLS, h = h0 + e % BWD_COLS;
+    wc[c][e % BWD_COLS] = (c < C && h < H) ? to_f32(w[(long)c * H + h]) : 0.f;
+  }
+  // this thread's dW entries: column h, classes cg + CLASS_GROUPS * u
+  const int cg = tid / BWD_COLS;
+  const int h = h0 + tid % BWD_COLS;
+  float aw[MAX_C / CLASS_GROUPS];
+#pragma unroll
+  for (int u = 0; u < MAX_C / CLASS_GROUPS; ++u) aw[u] = 0.f;
+  float ab = 0.f;                                  // db[tid], block 0
+  for (int r0 = 0; r0 < rows; r0 += CHUNK_ROWS) {
+    const int n = min(CHUNK_ROWS, rows - r0);
+    __syncthreads();                               // wc is in; g has no readers left
+    chunk_terms(f, w, b, labels, dce, dlpu, r0, rows, H, C, vec, g, warp, lane);
+    __syncthreads();
+    for (int e = tid; e < n * BWD_COLS; e += THREADS) {   // df = g . W
+      const int i = e / BWD_COLS, hl = e % BWD_COLS;
+      if (h0 + hl >= H) continue;
+      float acc = 0.f;
+      for (int c = 0; c < C; ++c) acc = fmaf(g[i][c], wc[c][hl], acc);
+      df[(long)(r0 + i) * H + h0 + hl] = from_f32<T>(acc);
+    }
+    if (h < H) {                                   // dW += g^T . f, row by row
+#pragma unroll 4
+      for (int i = 0; i < n; ++i) {
+        const float x = to_f32(f[(long)(r0 + i) * H + h]);
+#pragma unroll
+        for (int u = 0; u < MAX_C / CLASS_GROUPS; ++u) {
+          const int c = cg + CLASS_GROUPS * u;
+          if (c < C) aw[u] = fmaf(g[i][c], x, aw[u]);
+        }
       }
-    } else {
-      for (int c = 0; c < C; ++c) g[warp][c] = 0.f;
+    }
+    if (blockIdx.x == 0 && tid < C)
+      for (int i = 0; i < n; ++i) ab += g[i][tid];
+  }
+  if (h < H) {
+#pragma unroll
+    for (int u = 0; u < MAX_C / CLASS_GROUPS; ++u) {
+      const int c = cg + CLASS_GROUPS * u;
+      if (c < C) dw[(long)c * H + h] = aw[u];
     }
   }
-  __syncthreads();
-
-  const int n_rows = min(ROWS, rows - r0);
-  for (int e = tid; e < n_rows * H; e += THREADS) {       // df = g . W
-    const int i = e / H, h = e % H;
-    float acc = 0.f;
-    for (int c = 0; c < C; ++c) acc = fmaf(g[i][c], to_f32(w[(long)c * H + h]), acc);
-    df[(long)(r0 + i) * H + h] = from_f32<T>(acc);
-  }
-  float* pw = part_w + (long)blockIdx.x * C * H;          // this block's g^T . f
-  for (int e = tid; e < C * H; e += THREADS) {
-    const int c = e / H, h = e % H;
-    float acc = 0.f;
-    for (int i = 0; i < n_rows; ++i)
-      acc = fmaf(g[i][c], to_f32(f[(long)(r0 + i) * H + h]), acc);
-    pw[e] = acc;
-  }
-  for (int c = tid; c < C; c += THREADS) {
-    float acc = 0.f;
-    for (int i = 0; i < n_rows; ++i) acc += g[i][c];
-    part_b[(long)blockIdx.x * C + c] = acc;
-  }
-
-  // the last block to finish adds the partials in block order
-  __threadfence();
-  __syncthreads();
-  if (tid == 0) is_last = atomicAdd(ticket, 1u) == gridDim.x - 1;
-  __syncthreads();
-  if (!is_last) return;
-  __threadfence();
-  for (int e = tid; e < C * H; e += THREADS) {
-    float acc = 0.f;
-    for (int blk = 0; blk < (int)gridDim.x; ++blk) acc += __ldcg(&part_w[(long)blk * C * H + e]);
-    dw[e] = acc;
-  }
-  for (int c = tid; c < C; c += THREADS) {
-    float acc = 0.f;
-    for (int blk = 0; blk < (int)gridDim.x; ++blk) acc += __ldcg(&part_b[(long)blk * C + c]);
-    db[c] = acc;
-  }
+  if (blockIdx.x == 0 && tid < C) db[tid] = ab;
 }
 
 bool valid(int rows, int H, int C) { return rows >= 1 && H >= 1 && C >= 1 && C <= MAX_C; }
@@ -184,7 +302,7 @@ int blocks(int rows) { return (rows + ROWS - 1) / ROWS; }
 
 extern "C" {
 
-int pdnlp_fused_ce_rows_per_block(void) { return ROWS; }
+int pdnlp_fused_ce_bwd_columns(void) { return BWD_COLS; }
 
 int pdnlp_fused_ce_max_classes(void) { return MAX_C; }
 
@@ -214,25 +332,23 @@ int pdnlp_fused_ce_fwd(const void* f, const void* w, const void* b, const int* l
 }
 
 // K5.  As K4's inputs plus dce, dlpu [rows] fp32; writes df [rows, H] (the
-// input dtype), dw [C, H] and db [C] fp32.  part_w [blocks, C, H] and
-// part_b [blocks, C] fp32 are scratch (blocks = ceil(rows / rows per
-// block)); ticket is one uint32 that must be 0 at launch.
+// input dtype), dw [C, H] and db [C] fp32, each element by one block.
 int pdnlp_fused_ce_bwd(const void* f, const void* w, const void* b, const int* labels,
                        const float* dce, const float* dlpu, void* df, float* dw, float* db,
-                       float* part_w, float* part_b, unsigned int* ticket, int rows, int H,
-                       int C, int dtype, void* stream) {
+                       int rows, int H, int C, int dtype, void* stream) {
   if (!valid(rows, H, C)) return static_cast<int>(cudaErrorInvalidValue);
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const int grid = (H + BWD_COLS - 1) / BWD_COLS;
   if (dtype == DTYPE_F32)
-    fused_ce_bwd_kernel<float><<<blocks(rows), THREADS, 0, st>>>(
+    fused_ce_bwd_kernel<float><<<grid, THREADS, 0, st>>>(
         static_cast<const float*>(f), static_cast<const float*>(w),
         static_cast<const float*>(b), labels, dce, dlpu, static_cast<float*>(df), dw, db,
-        part_w, part_b, ticket, rows, H, C);
+        rows, H, C);
   else if (dtype == DTYPE_BF16)
-    fused_ce_bwd_kernel<__nv_bfloat16><<<blocks(rows), THREADS, 0, st>>>(
+    fused_ce_bwd_kernel<__nv_bfloat16><<<grid, THREADS, 0, st>>>(
         static_cast<const __nv_bfloat16*>(f), static_cast<const __nv_bfloat16*>(w),
         static_cast<const __nv_bfloat16*>(b), labels, dce, dlpu,
-        static_cast<__nv_bfloat16*>(df), dw, db, part_w, part_b, ticket, rows, H, C);
+        static_cast<__nv_bfloat16*>(df), dw, db, rows, H, C);
   else
     return static_cast<int>(cudaErrorInvalidValue);
   return static_cast<int>(cudaGetLastError());

@@ -37,15 +37,18 @@ What the kernels keep from the TPU version, and what they change:
   copy), and ``m``, ``l``, ``Di`` are ``[B, N, S]``.
 
 What bounds them on an H100: fp32 arithmetic at the widths from S = 128
-up, bytes below that; bytes for bf16 inputs.  K1 computes in fp32 on the
-CUDA cores in both dtypes.  K2 and K3 take one design per dtype (source
-notes in ``csrc/flash_bwd.cu``; measured times beside the bounds in
-``PERF.md``): bf16 runs every product on the tensor cores (``mma.sync``,
-bf16 in, fp32 sums) with the walked tiles double-buffered by ``cp.async``;
-fp32 stays on FMA on the CUDA cores (no TF32) from tiles stored once. In
-bf16 the backward rounds ``p`` and ``dS`` to bf16 once, before the three
-second-stage products (dQ, dV, dK), as FlashAttention-2 does, and the
-twins round at the same places (:func:`_bwd_terms`).
+up, bytes below that; bytes for bf16 inputs.  K1, K2 and K3 each take one
+design per dtype (source notes in ``csrc/flash_fwd.cu`` and
+``csrc/flash_bwd.cu``, shared tile code in ``csrc/flash_tiles.cuh``;
+measured times beside the bounds in ``PERF.md``): bf16 runs every product
+on the tensor cores (``mma.sync``, bf16 in, fp32 sums) with the walked
+tiles double-buffered by ``cp.async``; fp32 stays on FMA on the CUDA cores
+(no TF32) from tiles stored once.  In bf16 the forward rounds the
+unnormalised ``p`` to bf16 once, before ``P . V`` (``l`` sums the fp32
+``p``), and the backward rounds ``p`` and ``dS`` once, before the three
+second-stage products (dQ, dV, dK), as FlashAttention-2 does; the twins
+round at the same places (:func:`flash_forward_reference`,
+:func:`_bwd_terms`).
 
 Serving calls the forward under ``torch.inference_mode()`` and pays nothing
 for the statistics.  The kernels have no probability dropout (neither has
@@ -200,7 +203,10 @@ def _scores(q, k, bias, segment_ids) -> torch.Tensor:
 def flash_attention_reference(q, k, v, bias=None, segment_ids=None):
     """K1's function in plain PyTorch, in its numerics: inputs upcast to
     fp32, scores plus the fp32 mask, fp32 softmax over all S keys, output
-    cast to q's dtype.  ``[B, S, N, D]`` in and out."""
+    cast to q's dtype (bf16 inputs: :func:`flash_forward_reference`'s
+    rounding of ``p``).  ``[B, S, N, D]`` in and out."""
+    if q.dtype == torch.bfloat16:
+        return flash_forward_reference(q, k, v, bias, segment_ids)[0]
     _check(q, k, v, bias, segment_ids)
     p = torch.softmax(_scores(q, k, bias, segment_ids), dim=-1)
     return torch.einsum("bnqk,bknd->bqnd", p, v.to(torch.float32)).to(q.dtype)
@@ -209,13 +215,21 @@ def flash_attention_reference(q, k, v, bias=None, segment_ids=None):
 def flash_forward_reference(q, k, v, bias=None, segment_ids=None):
     """K1 with its row statistics, in plain PyTorch: ``(o, m, l)``, where
     ``m`` (``[B, N, S]`` fp32) is each row's score maximum, floored at the
-    kernel's initial ``-1e9``, and ``l`` the sum of ``exp(s - m)``."""
+    kernel's initial ``-1e9``, and ``l`` the sum of ``e = exp(s - m)``.
+    For bf16 inputs ``o = (bf16(e) . V) / l``: ``e`` rounded to bf16 where
+    the kernel rounds it to feed the tensor cores, ``l`` from the fp32
+    ``e``."""
     _check(q, k, v, bias, segment_ids)
     s = _scores(q, k, bias, segment_ids)
     m = s.amax(-1).clamp_min(NEG_INF)
     e = torch.exp(s - m[..., None])
     l = e.sum(-1)
-    o = torch.einsum("bnqk,bknd->bqnd", e / l[..., None], v.to(torch.float32))
+    vf = v.to(torch.float32)
+    if q.dtype == torch.bfloat16:
+        o = torch.einsum("bnqk,bknd->bqnd", e.to(torch.bfloat16).float(), vf) \
+            / l.transpose(1, 2)[..., None]
+    else:
+        o = torch.einsum("bnqk,bknd->bqnd", e / l[..., None], vf)
     return o.to(q.dtype), m, l
 
 
@@ -267,7 +281,8 @@ _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 _FWD_FNS = {
     "pdnlp_flash_tile": (_I, []),
     "pdnlp_flash_head_dim": (_I, []),
-    "pdnlp_flash_smem_bytes": (_I, []),
+    "pdnlp_flash_fwd_smem_bytes": (_I, [_I]),
+    "pdnlp_flash_fwd_blocks_per_sm": (_I, [_I]),
     "pdnlp_cuda_error_string": (ctypes.c_char_p, [_I]),
     "pdnlp_flash_fwd": (_I, [_P] * 9 + [_I] * 7 + [_F, _P]),
 }
@@ -373,6 +388,16 @@ def _bwd_args(q, k, v, do, m, l, di, bias, segment_ids):
             D ** -0.5, torch.cuda.current_stream(q.device).cuda_stream)
     # bias2 / seg2 may be fresh copies: keep them alive across the launch
     return ins, dims, (bias2, seg2)
+
+
+def fwd_occupancy(dtype: torch.dtype) -> tuple:
+    """``(shared memory bytes per block, blocks per SM)`` of K1 for inputs
+    of ``dtype``, as the built library reports them
+    (``cudaOccupancyMaxActiveBlocksPerMultiprocessor``; needs the card)."""
+    lib = _libs.get("flash_fwd") or build().lib
+    code = _DTYPE_CODE[dtype]
+    return (lib.pdnlp_flash_fwd_smem_bytes(code),
+            lib.pdnlp_flash_fwd_blocks_per_sm(code))
 
 
 def bwd_occupancy(dtype: torch.dtype) -> dict:

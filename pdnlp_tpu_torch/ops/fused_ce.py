@@ -33,6 +33,9 @@ import torch
 from pdnlp_tpu_torch.ops import cuda_lib
 
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
+#: K5's split of H: each block writes df, dW and db for this many columns
+#: (``csrc/fused_ce.cu`` BWD_COLS)
+BWD_COLUMNS = 64
 
 #: the kernels whose launches are counted: K4, K5
 KERNELS = ("fused_ce_fwd", "fused_ce_bwd")
@@ -124,11 +127,11 @@ def fused_ce_bwd_reference(feats, weight, bias, labels, dce, dlpu):
 _lib: Optional[ctypes.CDLL] = None
 _P, _I = ctypes.c_void_p, ctypes.c_int
 _FNS = {
-    "pdnlp_fused_ce_rows_per_block": (_I, []),
+    "pdnlp_fused_ce_bwd_columns": (_I, []),
     "pdnlp_fused_ce_max_classes": (_I, []),
     "pdnlp_fused_ce_error_string": (ctypes.c_char_p, [_I]),
     "pdnlp_fused_ce_fwd": (_I, [_P] * 7 + [_I] * 4 + [_P]),
-    "pdnlp_fused_ce_bwd": (_I, [_P] * 12 + [_I] * 4 + [_P]),
+    "pdnlp_fused_ce_bwd": (_I, [_P] * 9 + [_I] * 4 + [_P]),
 }
 
 
@@ -137,6 +140,9 @@ def build():
     :class:`~pdnlp_tpu_torch.ops.cuda_lib.KernelLibrary` record."""
     global _lib
     kl = cuda_lib.bind("fused_ce", _FNS)
+    if kl.lib.pdnlp_fused_ce_bwd_columns() != BWD_COLUMNS:
+        raise RuntimeError("fused_ce.cu's BWD_COLS disagrees with "
+                           "ops/fused_ce.py's BWD_COLUMNS")
     _lib = kl.lib
     return kl
 
@@ -177,25 +183,19 @@ def launch_fwd(feats, weight, bias, labels):
 
 def launch_bwd(feats, weight, bias, labels, dce, dlpu):
     """One K5 launch on the current stream: ``(df, dW, db)`` — ``df`` in
-    the features' dtype, ``dW`` ``[C, H]`` and ``db`` ``[C]`` fp32.  The
-    per-block partials it reduces in a fixed order are scratch allocated
-    here.  Counts the launch."""
+    the features' dtype, ``dW`` ``[C, H]`` and ``db`` ``[C]`` fp32, each
+    element written by one block (no scratch, no atomics).  Counts the
+    launch."""
     lib = _lib if _lib is not None else build().lib
     (T, H), C = feats.shape, weight.shape[0]
     dev = feats.device
-    rows = lib.pdnlp_fused_ce_rows_per_block()
-    blocks = -(-T // rows)
     df = torch.empty_like(feats)
     dw = torch.empty((C, H), dtype=torch.float32, device=dev)
     db = torch.empty(C, dtype=torch.float32, device=dev)
-    part_w = torch.empty((blocks, C, H), dtype=torch.float32, device=dev)
-    part_b = torch.empty((blocks, C), dtype=torch.float32, device=dev)
-    ticket = torch.zeros(1, dtype=torch.int32, device=dev)
     err = lib.pdnlp_fused_ce_bwd(
         feats.data_ptr(), weight.data_ptr(), bias.data_ptr(),
         labels.data_ptr(), dce.data_ptr(), dlpu.data_ptr(), df.data_ptr(),
-        dw.data_ptr(), db.data_ptr(), part_w.data_ptr(), part_b.data_ptr(),
-        ticket.data_ptr(), T, H, C, _DTYPE_CODE[feats.dtype],
+        dw.data_ptr(), db.data_ptr(), T, H, C, _DTYPE_CODE[feats.dtype],
         torch.cuda.current_stream(dev).cuda_stream)
     _raise_on(err, "fused_ce_bwd")
     _launches["fused_ce_bwd"] += 1

@@ -1,7 +1,7 @@
 """Card tests of the PyTorch port: the CUDA kernels (flash forward K1,
 flash backward K2/K3, fused classifier CE K4/K5) against their plain
-PyTorch twins, and the serving engine with the kernel against the plain
-path, on an NVIDIA card.
+PyTorch twins, their occupancy and tensor-core instructions, and the
+serving engine with the kernel against the plain path, on an NVIDIA card.
 
 Whether a card is present is decided inside the ``cuda_device`` fixture,
 so every worker collects the same tests; without a card each one skips.
@@ -78,19 +78,61 @@ def test_kernel_matches_plain(cuda_device, S, form, dtype):
     assert err <= ATOL[dtype], f"max abs err {err}"
 
 
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
 @pytest.mark.parametrize("S,form", [(40, "bias"), (200, "bias"),
                                     (512, "bias"), (40, "segments"),
                                     (200, "segments"), (512, "segments")])
-def test_kernel_skips_the_block_maps_dead_tiles(cuda_device, S, form):
+def test_kernel_skips_the_block_maps_dead_tiles(cuda_device, S, form, dtype):
     """The tiles the kernel decides to skip, read back from the card, are
-    exactly the dead tiles of the block maps at the kernel's tile."""
-    q, k, v, kw = _case(S, form, torch.float32, cuda_device, B=6, N=2)
+    exactly the dead tiles of the block maps at the kernel's tile, in both
+    dtypes (each runs its own kernel)."""
+    q, k, v, kw = _case(S, form, dtype, cuda_device, B=6, N=2)
     got = flash.kernel_tile_map(q, k, v, **kw).cpu()
     if form == "bias":
         want = flash.bias_block_map(kw["bias"].cpu())
     else:
         want = flash.segment_block_map(kw["segment_ids"].cpu())
     assert torch.equal(got, want)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+@pytest.mark.parametrize("S,form", [(128, "bias"), (200, "segments"),
+                                    (512, "segments")])
+def test_forward_kernel_gives_the_same_bits_twice(cuda_device, S, form,
+                                                  dtype):
+    """No atomics in K1 either: o, m and l are the same bits on a second
+    launch, and m, l agree with the twin's."""
+    q, k, v, kw = _case(S, form, dtype, cuda_device, seed=S + 2)
+    runs = [flash.launch(q, k, v, with_stats=True, **kw) for _ in range(2)]
+    torch.cuda.synchronize()
+    for name, a, b in zip(("o", "m", "l"), *runs):
+        assert torch.equal(a, b), name
+    _, m_ref, l_ref = flash.flash_forward_reference(q, k, v, **kw)
+    torch.testing.assert_close(runs[0][1], m_ref, rtol=1e-6, atol=1e-4)
+    torch.testing.assert_close(runs[0][2], l_ref, rtol=1e-5, atol=1e-4)
+
+
+@pytest.mark.parametrize("dtype,least", [(torch.float32, 2),
+                                         (torch.bfloat16, 3)],
+                         ids=["f32", "bf16"])
+def test_forward_kernel_fits_several_blocks_per_sm(cuda_device, dtype,
+                                                   least):
+    smem, blocks = flash.fwd_occupancy(dtype)
+    assert smem > 0 and blocks >= least, (smem, blocks)
+
+
+def test_bf16_forward_runs_on_the_tensor_cores(cuda_device):
+    """The bf16 K1 holds HMMA instructions in its SASS; the fp32 K1, FMA
+    on the CUDA cores by design, holds none."""
+    from pdnlp_tpu_torch.ops import cuda_lib
+
+    counts = cuda_lib.sass_counts("flash_fwd", "HMMA")
+    bf16 = [c for fn, c in counts.items() if "flash_fwd_kernel_bf16" in fn]
+    f32 = [c for fn, c in counts.items() if "flash_fwd_kernel_f32" in fn]
+    assert len(bf16) == 1 and bf16[0] > 0, counts
+    assert f32 == [0], counts
 
 
 def test_auto_route_raises_on_a_head_width_the_kernel_lacks(cuda_device):
@@ -279,10 +321,39 @@ def test_fused_ce_kernels_match_twins(cuda_device, T, dtype):
                                **CE_TOL[dtype])
     for g, x in zip(got[1:], want[1:]):
         torch.testing.assert_close(g, x, **CE_TOL[torch.float32])
-    # dW/db from per-block partials added in a fixed order: the same bits
+    # every dW/db element written by one block, no atomics: the same bits
     for g, x in zip(got, again):
         assert torch.equal(g, x)
     assert not got[0][w == 0].any()          # filler rows: zero d(feats)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+@pytest.mark.parametrize("C", [2, 6, 16])
+@pytest.mark.parametrize("H", [100, 768])
+@pytest.mark.parametrize("T", [1, 7, 32, 300])
+def test_fused_ce_bwd_over_rows_widths_and_classes(cuda_device, T, H, C,
+                                                   dtype):
+    """K5 split over H columns: a ragged last block (H = 100; bf16 rows
+    too short for 16-byte loads), one row, rows in several chunks (300),
+    up to MAX_C classes; agrees with the twin and gives the same bits on a
+    second launch, filler rows with zero d(feats)."""
+    f, W, b, lab, w = _ce_case(T, dtype, cuda_device, C=C, H=H, seed=T + C)
+    dce = w / w.sum().clamp_min(1.0)
+    dlpu = 0.1 * dce
+    got = fused_ce.launch_bwd(f, W, b, lab, dce, dlpu)
+    again = fused_ce.launch_bwd(f, W, b, lab, dce, dlpu)
+    torch.cuda.synchronize()
+    want = fused_ce.fused_ce_bwd_reference(f, W, b, lab, dce, dlpu)
+    assert got[0].dtype == dtype and got[1].dtype == got[2].dtype == \
+        torch.float32
+    torch.testing.assert_close(got[0].float(), want[0].float(),
+                               **CE_TOL[dtype])
+    for g, x in zip(got[1:], want[1:]):
+        torch.testing.assert_close(g, x, **CE_TOL[torch.float32])
+    for g, x in zip(got, again):
+        assert torch.equal(g, x)
+    assert not got[0][w == 0].any()
 
 
 def test_fused_ce_ties_and_autograd_on_the_card(cuda_device):

@@ -8,7 +8,8 @@ softmax) is held here by a plain emulation of it; the kernel itself is held
 against the twin, and its skip decisions against the block maps, on the
 card by ``tests/test_torch_cuda.py``.
 
-Tolerance: fp32 atol 2e-5, the JAX kernel tests' bound.
+Tolerance: fp32 atol 2e-5, the JAX kernel tests' bound; bf16 bounds are
+stated beside their tests.
 """
 import jax.numpy as jnp
 import numpy as np
@@ -175,12 +176,20 @@ def _kernel_liveness(S, bias=None, segment_ids=None):
     return torch.from_numpy(live)
 
 
+LOG2E = 1.4426950408889634
+
+
 def _kernel_emulation(q, k, v, bias=None, segment_ids=None):
     """The tile loop of ``csrc/flash_fwd.cu`` in plain PyTorch: q tiles of
     ``TILE`` rows, key tiles walked in order and skipped where the block's
     skip rule says so, keys past S at -inf, the additive mask in fp32 at
-    -1e9, running max initialised to -1e9, one division by l at the end."""
+    -1e9 added to the scaled score before any log2 e scaling, running max
+    (natural units) initialised to -1e9, p = exp2((s - m) log2 e), one
+    division by l at the end.  For bf16 inputs each tile's p is rounded to
+    bf16 before P . V (the tensor cores' operand) while l sums the fp32 p,
+    as the bf16 kernel does."""
     T = tflash.TILE
+    rounds = q.dtype == torch.bfloat16
     B, S, N, D = q.shape
     n = -(-S // T)
     tmap = _kernel_liveness(S, bias, segment_ids).expand(B, n, n)
@@ -212,10 +221,11 @@ def _kernel_emulation(q, k, v, bias=None, segment_ids=None):
             s = torch.einsum("bqnd,bknd->bnqk", qf[:, rows], kf[:, cols]) \
                 + add[:, :, rows, cols]
             m_new = torch.maximum(m, s.amax(-1, keepdim=True))
-            alpha = torch.exp(m - m_new)
-            p = torch.exp(s - m_new)
+            alpha = torch.exp2((m - m_new) * LOG2E)
+            p = torch.exp2((s - m_new) * LOG2E)
             upd_l = l * alpha + p.sum(-1, keepdim=True)
-            upd_acc = acc * alpha + torch.einsum("bnqk,bknd->bnqd", p,
+            pv = p.to(torch.bfloat16).float() if rounds else p
+            upd_acc = acc * alpha + torch.einsum("bnqk,bknd->bnqd", pv,
                                                  vf[:, cols])
             m = torch.where(live, m_new, m)
             l = torch.where(live, upd_l, l)
@@ -242,6 +252,102 @@ def test_kernel_tile_loop_matches_twin(S, form):
     got = _kernel_emulation(q, k, v, **kw)
     want = tflash.flash_attention_reference(q, k, v, **kw)
     torch.testing.assert_close(got, want, atol=ATOL, rtol=0)
+
+
+@pytest.mark.parametrize("S", [1, 40, 100, 128, 200])
+@pytest.mark.parametrize("form", ["none", "bias", "segments"])
+def test_bf16_kernel_tile_loop_matches_twin(S, form):
+    """The bf16 K1's tile loop (p rounded to bf16 per tile, against the
+    running max of the tiles walked so far) against the bf16 twin (p
+    rounded against the row's final max), fully masked rows included.
+
+    Bound 1e-2, ``chip_smoke.py``'s bf16 ``KERNEL_ATOL``: both round the
+    output to bf16 (one ulp is 7.8e-3 on values in [1, 2)); where a later
+    tile raises a row's max, the kernel's earlier p are rounded at another
+    scale than the twin's (2^-9 relative each), which moves the fp32 sum
+    by far less than an ulp of the output."""
+    B = 3
+    q, k, v = (t.bfloat16() for t in _t(*_qkv(B, S, N=2, seed=5)))
+    kw = {}
+    if form == "bias":
+        kw["bias"] = tattn.mask_bias(torch.from_numpy(
+            _key_mask(B, S, seed=5, filler_row=True)))
+    elif form == "segments":
+        seg = _packed_segments(B, max(S, 30), seed=6)[:, :S]
+        seg[1] = 0 if S < 64 else seg[1]
+        kw["segment_ids"] = torch.from_numpy(np.ascontiguousarray(seg))
+    got = _kernel_emulation(q, k, v, **kw)
+    want = tflash.flash_attention_reference(q, k, v, **kw)
+    assert got.dtype == want.dtype == torch.bfloat16
+    torch.testing.assert_close(got.float(), want.float(), atol=1e-2, rtol=0)
+
+
+@pytest.mark.parametrize("form", ["bias", "segments"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+def test_forward_twin_rounds_p_to_bf16_for_bf16_inputs(dtype, form):
+    """The K1 twin is the fp32 formula ``(e / l) . V``, ``e = exp(s - m)``;
+    for bf16 inputs ``(bf16(e) . V) / l`` with ``l`` from the fp32 ``e``,
+    where the bf16 kernel rounds p to feed the tensor cores; nothing is
+    rounded for fp32 inputs."""
+    B, S = 2, 128
+    q, k, v = (t.to(dtype) for t in _t(*_qkv(B, S, N=2, seed=21)))
+    if form == "bias":
+        kw = {"bias": tattn.mask_bias(torch.from_numpy(
+            _key_mask(B, S, seed=22, filler_row=True)))}
+        add = kw["bias"].reshape(B, 1, 1, S)
+    else:
+        seg = torch.from_numpy(_packed_segments(B, S, seed=22))
+        kw = {"segment_ids": seg}
+        add = torch_segment_bias(seg)
+    f = [t.float() for t in (q, k, v)]
+    s = torch.einsum("bqnd,bknd->bnqk", f[0] * 64 ** -0.5, f[1]) + add
+    m = s.amax(-1).clamp_min(-1e9)
+    e = torch.exp(s - m[..., None])
+    l = e.sum(-1)
+    if dtype == torch.bfloat16:
+        want = torch.einsum("bnqk,bknd->bqnd", e.bfloat16().float(), f[2]) \
+            / l.transpose(1, 2)[..., None]
+    else:
+        want = torch.einsum("bnqk,bknd->bqnd", e / l[..., None], f[2])
+    o, m_got, l_got = tflash.flash_forward_reference(q, k, v, **kw)
+    torch.testing.assert_close(o, want.to(dtype), atol=0, rtol=0)
+    torch.testing.assert_close(m_got, m, atol=0, rtol=0)
+    torch.testing.assert_close(l_got, l, atol=0, rtol=0)
+    torch.testing.assert_close(
+        tflash.flash_attention_reference(q, k, v, **kw), o,
+        atol=0 if dtype == torch.bfloat16 else ATOL, rtol=0)
+
+
+@pytest.mark.parametrize("form", ["bias", "segments", "pad_tail"])
+def test_bf16_forward_tracks_jax_flash(form):
+    """The bf16 twin (K1's bf16 numerics) against the JAX flash forward
+    (interpret mode) on the same bf16 values: padded keys with a filler
+    row, packed rows, packed rows with a padding tail.
+
+    Bound 2e-2 absolute: both round the output to bf16 (an ulp is 1.6e-2
+    on values in [2, 4), so two roundings of nearly equal sums can land an
+    ulp apart); the port also rounds p to bf16 before P . V (2^-9 relative
+    per term), which the JAX kernel, fp32 inside, does not."""
+    B, S = 2, 256
+    q, k, v = (torch.from_numpy(a).bfloat16().float().numpy()
+               for a in _qkv(B, S, seed=31))
+    if form == "bias":
+        mask = _key_mask(B, S, seed=32, filler_row=True)
+        jkw = {"bias": jax_mask_bias(jnp.asarray(mask))}
+        tkw = {"bias": tattn.mask_bias(torch.from_numpy(mask))}
+    else:
+        seg = _packed_segments(B, S, seed=32, pad_tail=form == "pad_tail")
+        jkw = {"segment_ids": jnp.asarray(seg)}
+        tkw = {"segment_ids": torch.from_numpy(seg)}
+    want = jflash.flash_attention(
+        *(jnp.asarray(a, jnp.bfloat16) for a in (q, k, v)), **jkw)
+    got = tflash.flash_attention(
+        *(torch.from_numpy(a).bfloat16() for a in (q, k, v)), **tkw)
+    assert got.dtype == torch.bfloat16 and want.dtype == jnp.bfloat16
+    np.testing.assert_allclose(got.float().numpy(),
+                               np.asarray(want.astype(jnp.float32)),
+                               atol=2e-2, rtol=0)
 
 
 def test_segment_map_skips_off_diagonal_tiles():

@@ -57,6 +57,57 @@ def test_value_and_grads_match_jax(smoothing):
     np.testing.assert_allclose(db, np.asarray(wgrad[2]), atol=ATOL)
 
 
+def _k5_emulation(f, W, b, lab, dce, dlpu, cols=fused_ce.BWD_COLUMNS):
+    """``csrc/fused_ce.cu``'s K5 in plain PyTorch, fp32: H split into
+    blocks of ``cols`` columns (a ragged last one); each block forms g for
+    every row, then its own columns of df = g . W and of dW, summed over
+    the rows one at a time in row order; db summed in row order too."""
+    T, H = f.shape
+    C = W.shape[0]
+    logits = f @ W.T + b
+    p = torch.softmax(logits, -1)
+    onehot = torch.nn.functional.one_hot(lab.long(), C).float()
+    g = dce[:, None] * (p - onehot) + dlpu[:, None] * (p - 1.0 / C)
+    df = torch.empty(T, H)
+    dW = torch.empty(C, H)
+    for h0 in range(0, H, cols):
+        blk = slice(h0, min(h0 + cols, H))
+        df[:, blk] = g @ W[:, blk]
+        acc = torch.zeros(C, blk.stop - h0)
+        for r in range(T):
+            acc = acc + g[r, :, None] * f[r, None, blk]
+        dW[:, blk] = acc
+    db = torch.zeros(C)
+    for r in range(T):
+        db = db + g[r]
+    return df, dW, db
+
+
+@pytest.mark.parametrize("smoothing", [0.0, 0.1])
+@pytest.mark.parametrize("T,H", [(1, 100), (37, 100), (37, 768), (70, 64)])
+def test_k5_column_split_matches_twin_and_jax(T, H, smoothing):
+    """The K5 design (column blocks, dW over rows in order) against the
+    twin and against ``jax.grad`` of the JAX fused CE (interpret mode) on
+    the same inputs: one row, a ragged last column block (H = 100 at 64
+    columns a block), several blocks, one block of exactly 64."""
+    f, W, b, lab, w = _case(T=T, H=H, seed=T + H)
+    wsum = max(float(w.sum()), 1.0)
+    dce = torch.from_numpy((1 - smoothing) * w / wsum)
+    dlpu = torch.from_numpy(smoothing * w / wsum)
+    ft, Wt, bt, labt = (torch.from_numpy(a) for a in (f, W.T.copy(), b, lab))
+    got = _k5_emulation(ft, Wt, bt, labt, dce, dlpu)
+    twin = fused_ce.fused_ce_bwd_reference(ft, Wt, bt, labt, dce, dlpu)
+    jgrad = jax.grad(lambda f, W, b: jax_fused(
+        f, W, b, jnp.asarray(lab), jnp.asarray(w), smoothing=smoothing)[2],
+        argnums=(0, 1, 2))(*map(jnp.asarray, (f, W, b)))
+    want = (np.asarray(jgrad[0]), np.asarray(jgrad[1]).T, np.asarray(jgrad[2]))
+    for name, g, x, j in zip(("df", "dW", "db"), got, twin, want):
+        np.testing.assert_allclose(g.numpy(), x.numpy(), atol=ATOL,
+                                   err_msg=name)
+        np.testing.assert_allclose(g.numpy(), j, atol=ATOL, err_msg=name)
+    assert not got[0][torch.from_numpy(w) == 0].any()   # filler rows
+
+
 def test_correct_counts_first_index_argmax_on_ties():
     """A label tied with a lower-indexed class counts incorrect, as
     argmax picks the first index (``tests/test_kernels.py:211``)."""
