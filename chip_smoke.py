@@ -12,8 +12,9 @@ full width on a seeded synthetic corpus — 20 steps on the kernel route
 against 20 on the plain route, fp32 and bf16, then the training entry
 point as a subprocess, whose checkpoint the serve engine loads — shows
 from the launch counters that each path ran its kernels, times the
-kernels beside their bounds, and checks the answers against the plain
-paths on the same card.
+kernels beside their bounds (K4 and K5, which latency bounds, also beside
+the launch floor: one PyTorch kernel on a one-element tensor), and checks
+the answers against the plain paths on the same card.
 
 Phases: 1 device, 2 build (with K1-K3's blocks per SM and the tensor-core
 instructions of their bf16 versions), 3 kernel vs plain, with K1's tile
@@ -85,6 +86,19 @@ def card_line():
 
 
 # ----------------------------------------------------------------- phase 2
+
+
+def kernel_symbol(mangled):
+    """A kernel's name in a mangled symbol, with its storage type where it
+    is a template (``fused_ce_fwd_kernel<bf16>``), for the ptxas lines."""
+    import re
+
+    m = re.search(r"(?<=\d)([a-z][a-z_]*_kernel(?:_bf16|_f32)?)"
+                  r"(If|I13__nv_bfloat16)?", mangled)
+    if m is None:
+        return mangled.strip()
+    return m.group(1) + {"If": "<float>", "I13__nv_bfloat16": "<bf16>"}.get(
+        m.group(2), "")
 
 #: K1-K3 blocks that must fit one SM at once, per dtype
 MIN_BLOCKS_PER_SM = {"float32": 2, "bfloat16": 3}
@@ -257,9 +271,12 @@ def backward_cases(torch, flash, mask_bias, device):
     return errs
 
 
-def ce_inputs(torch, device, dtype, T, smoothing, seed, H=768, C=6):
+def ce_inputs(torch, device, dtype, T, smoothing, seed, H=768, C=6,
+              shift=0):
     """Pooled-like features, a classifier, labels and the objective's
-    cotangents (zero on a quarter of the rows: filler weights)."""
+    cotangents (zero on a quarter of the rows: filler weights).  With
+    ``shift`` the features start that many elements into a larger buffer:
+    contiguous, but off a 16-byte base, so the kernels take scalar loads."""
     import numpy as np
 
     rng = np.random.RandomState(seed)
@@ -272,22 +289,36 @@ def ce_inputs(torch, device, dtype, T, smoothing, seed, H=768, C=6):
     w[0] = 1.0
     dce = w / w.sum() * (1 - smoothing)
     dlpu = w / w.sum() * smoothing
-    return [x.to(device) for x in (f.to(dt), W.to(dt), b.to(dt), lab, dce,
-                                   dlpu)]
+    buf = torch.empty(T * H + shift, dtype=dt, device=device)
+    f_dev = buf[shift:].view(T, H)
+    f_dev.copy_(f.to(dt))
+    return [f_dev] + [x.to(device) for x in (W.to(dt), b.to(dt), lab, dce,
+                                             dlpu)]
+
+
+#: phase 3b's K4/K5 cases: (rows, smoothing, H, C, features' shift): the
+#: train step's 32 x 768 x 6, other row counts, H = 100 (bf16 rows too
+#: short for 16-byte loads), MAX_C = 16 classes, features off a 16-byte
+#: base (scalar loads at H = 768)
+CE_CASES = ((32, 0.0, 768, 6, 0), (32, 0.1, 768, 6, 0), (1, 0.0, 768, 6, 0),
+            (37, 0.1, 768, 6, 0), (300, 0.1, 768, 6, 0),
+            (32, 0.1, 100, 6, 0), (7, 0.0, 768, 16, 0),
+            (37, 0.1, 100, 16, 0), (32, 0.0, 768, 6, 1))
 
 
 def fused_ce_cases(torch, fused_ce, device):
-    """K4 and K5 against their twins: the train step's 32 x 768 x 6 and
-    other row counts, smoothing 0 and 0.1, filler weights, exact ties; K5
-    twice on the same inputs must give the same bits."""
+    """K4 and K5 against their twins over ``CE_CASES``, smoothing 0 and
+    0.1, filler weights, exact ties; each kernel twice on the same inputs
+    must give the same bits."""
     errs = {k: {"float32": 0.0, "bfloat16": 0.0}
             for k in ("fused_ce_fwd", "fused_ce_bwd")}
-    for T, smoothing in ((32, 0.0), (32, 0.1), (1, 0.0), (37, 0.1),
-                         (300, 0.1)):
+    for T, smoothing, H, C, shift in CE_CASES:
         for dtype in ("float32", "bfloat16"):
             f, W, b, lab, dce, dlpu = ce_inputs(torch, device, dtype, T,
-                                                smoothing, SEED + T)
+                                                smoothing, SEED + T + C, H=H,
+                                                C=C, shift=shift)
             out = fused_ce.launch_fwd(f, W, b, lab)
+            out_again = fused_ce.launch_fwd(f, W, b, lab)
             grads = fused_ce.launch_bwd(f, W, b, lab, dce, dlpu)
             again = fused_ce.launch_bwd(f, W, b, lab, dce, dlpu)
             torch.cuda.synchronize()
@@ -302,15 +333,18 @@ def fused_ce_cases(torch, fused_ce, device):
                       for g, r in zip(grads[1:], ref_g[1:]))
             ok_w = all(_err(g, r, CE_TOL["float32"])[1]
                        for g, r in zip(grads[1:], ref_g[1:]))
-            same = all(torch.equal(g, a) for g, a in zip(grads, again))
+            same = all(torch.equal(g, a) for g, a in
+                       zip((*out, *grads), (*out_again, *again)))
             zero_filler = not grads[0][dce == 0].any().item()
             ok = ok_f and ok_df and ok_w and same and zero_filler
-            print(f"[kernel] fused_ce T={T:<3d} smoothing {smoothing} "
+            where = f"T={T:<3d} H={H:<3d} C={C:<2d}" + (
+                f" features {shift} element off 16 B" if shift else "")
+            print(f"[kernel] fused_ce {where} smoothing {smoothing} "
                   f"{dtype:8s} fwd {e_f:.2e} df {e_df:.2e} dW/db {e_w:.2e} "
-                  f"deterministic {same} filler rows zero {zero_filler}: "
-                  f"{'ok' if ok else 'FAIL'}")
+                  f"same bits twice (K4 and K5) {same} filler rows zero "
+                  f"{zero_filler}: {'ok' if ok else 'FAIL'}")
             if not ok:
-                fail(f"fused CE disagrees with its twins (T={T}, {dtype})")
+                fail(f"fused CE disagrees with its twins ({where}, {dtype})")
             errs["fused_ce_fwd"][dtype] = max(errs["fused_ce_fwd"][dtype],
                                               e_f)
             errs["fused_ce_bwd"][dtype] = max(errs["fused_ce_bwd"][dtype],
@@ -930,9 +964,13 @@ def time_backward(torch, F, flash, mask_bias, key_mask, device, card):
 def time_fused_ce(torch, F, fused_ce, device, card, T=32, H=768, C=6):
     """K4 and K5 at the train step's 32 x 768 x 6, beside their twins,
     ``F.linear`` + ``F.cross_entropy`` forward and backward, and their
-    bounds."""
+    bounds; and the launch floor, the device time of one PyTorch kernel on
+    a one-element tensor, which latency-bound K4 and K5 are held against
+    (their bounds sit far below any launch)."""
     out = {}
+    one = torch.zeros(1, device=device)
     for dtype in ("float32", "bfloat16"):
+        floor = device_ms(torch, one.zero_)
         f, W, b, lab, dce, dlpu = ce_inputs(torch, device, dtype, T, 0.0,
                                             SEED + 5)
         k4 = time_ms(torch, lambda: fused_ce.launch_fwd(f, W, b, lab))
@@ -974,13 +1012,18 @@ def time_fused_ce(torch, F, fused_ce, device, card, T=32, H=768, C=6):
             "fused_ce_bwd": {"ms": k5, "plain_ms": p5, "library_ms": lib5,
                              "device_ms": dev[1], "library_device_ms": dev[3],
                              "bound_ms": b5[0], "bound_by": b5[1],
-                             "max_abs_err": e5}}
+                             "max_abs_err": e5},
+            "launch_floor_device_ms": floor}
+        ratio = ("not measured" if None in (dev[0], dev[2])
+                 else f"{dev[0] / dev[2]:.2f}x")
         print(f"[time] fused CE {T}x{H}x{C} {dtype}: K4 {k4:.4f} ms (bound "
               f"{b4[0]:.5f} by {b4[1]}, plain {p4:.4f}, linear+cross_entropy "
               f"{lib4:.4f}), K5 {k5:.4f} ms (bound {b5[0]:.5f} by {b5[1]}, "
               f"plain {p5:.4f}, their backward {lib5:.4f}); err {e4:.2e} / "
               f"{e5:.2e}; device time K4 {fmt_ms(dev[0])}, K5 {fmt_ms(dev[1])}, "
-              f"library {fmt_ms(dev[2])} / {fmt_ms(dev[3])} ms — {card}")
+              f"library {fmt_ms(dev[2])} / {fmt_ms(dev[3])} ms (K4 {ratio} "
+              f"its library call), launch floor (zero_ of one element) "
+              f"{fmt_ms(floor)} ms — {card}")
     return out
 
 
@@ -1027,9 +1070,12 @@ def main():
           f"{time.monotonic() - t0:.2f} s, one nvcc each, in parallel "
           f"(compiled now: {sorted(took)})")
     for kl in kls:
+        fn = "?"
         for line in kl.build_log.splitlines():
-            if "registers" in line or "spill" in line or "smem" in line:
-                print(f"[build] {kl.name} ptxas: {line.strip()}")
+            if "Function properties for" in line:
+                fn = kernel_symbol(line.split("Function properties for")[1])
+            elif "registers" in line or "spill" in line or "smem" in line:
+                print(f"[build] {kl.name} {fn} ptxas: {line.strip()}")
     occupancy = check_flash_build(torch, flash, cuda_lib, card)
 
     # 3. kernel vs plain

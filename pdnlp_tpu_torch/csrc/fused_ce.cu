@@ -21,15 +21,26 @@
 // fp32 atomics and no cross-block reduce, so dW and db are the same bits
 // on every run, summed over the rows in row order.
 //
-// What bounds it on an H100: nothing large.  At the train step's shapes
-// (T = 32 rows, H = 768, C = 6) the pair moves about 0.2 MB and does a few
-// MFLOP, well under a microsecond of either the memory or the arithmetic
-// bound; what a launch costs is latency.  K4 keeps one warp per row, its
-// lanes striding over H, C sums reduced by shuffles.  K5 spreads H over
-// 12 blocks (BWD_COLS = 64 columns each at H = 768), reads f and W in
-// 16-byte vectors with every load of a stride in flight (phase A), and
-// holds W's block columns in shared memory for df (phase B).  The TPU
-// layouts are not carried over: no class padding to 128 lanes, no
+// What bounds them on an H100: neither bytes nor operations.  At the train
+// step's shapes (T = 32 rows, H = 768, C = 6) the pair moves about 0.2 MB
+// and does a few MFLOP, tens of nanoseconds of either bound; what is left
+// is latency: one launch, and each round of loads that has to come back
+// before the next can start.  So both designs aim at one round of loads
+// per block, spread over many SMs.
+//   K4  One block of FWD_THREADS per row (32 SMs at T = 32), so a row's
+//       H columns split over 128 threads: at H = 768 each thread holds at
+//       most 8 columns (two 16-byte fp32 vectors, one bf16 vector) and
+//       issues every load it needs -- its columns of f and of all C rows
+//       of W, predicated, no branch between one load and the next -- before
+//       its first FMA.  The C sums reduce in a fixed order, a butterfly
+//       over each warp then the warps in order through shared memory, and
+//       warp 0 forms the softmax terms with lane c holding class c, all by
+//       shuffles: one block barrier, no loop over H at H <= 1024.
+//   K5  spreads H over 12 blocks (BWD_COLS = 64 columns each at H = 768),
+//       reads f and W in 16-byte vectors with every load of a stride in
+//       flight (phase A), and holds W's block columns in shared memory for
+//       df (phase B).
+// The TPU layouts are not carried over: no class padding to 128 lanes, no
 // lane-broadcast row operands, no padding of rows to a block.
 
 #include <cuda_runtime.h>
@@ -39,38 +50,20 @@
 
 namespace {
 
-constexpr int THREADS = 256;
-constexpr int ROWS = THREADS / 32;   // one warp per row
 constexpr int MAX_C = 16;            // classes held in registers
+constexpr int FWD_THREADS = 128;     // K4: threads per row (one block each)
+constexpr int FWD_WARPS = FWD_THREADS / 32;
+constexpr int FWD_ELEMS = 8;         // K4: columns of H per thread per stride
+constexpr int THREADS = 256;         // K5
+constexpr int WARPS = THREADS / 32;  // K5
 constexpr int BWD_COLS = 64;         // K5: H columns per block
 constexpr int CHUNK_ROWS = 32;       // K5: rows whose g a block holds at once
-constexpr int WARP_ROWS = CHUNK_ROWS / ROWS;          // K5: rows per warp in phase A
+constexpr int WARP_ROWS = CHUNK_ROWS / WARPS;         // K5: rows per warp in phase A
 constexpr int CLASS_GROUPS = THREADS / BWD_COLS;      // K5: threads per dW column
 static_assert(MAX_C % CLASS_GROUPS == 0, "whole classes per dW thread");
-
-// Row r's fp32 logits, in every lane of the calling warp.
-template <typename T>
-__device__ __forceinline__ void row_logits(const T* __restrict__ f, const T* __restrict__ w,
-                                           const T* __restrict__ b, int r, int H, int C,
-                                           int lane, float logits[MAX_C]) {
-#pragma unroll
-  for (int c = 0; c < MAX_C; ++c) logits[c] = 0.f;
-  const T* fr = f + (long)r * H;
-  for (int h = lane; h < H; h += 32) {
-    const float x = to_f32(fr[h]);
-#pragma unroll
-    for (int c = 0; c < MAX_C; ++c)
-      if (c < C) logits[c] = fmaf(x, to_f32(w[(long)c * H + h]), logits[c]);
-  }
-#pragma unroll
-  for (int c = 0; c < MAX_C; ++c) {
-    if (c >= C) break;
-#pragma unroll
-    for (int off = 16; off > 0; off >>= 1)
-      logits[c] += __shfl_xor_sync(0xffffffffu, logits[c], off);
-    logits[c] += to_f32(b[c]);
-  }
-}
+static_assert(MAX_C <= 32 && (MAX_C & (MAX_C - 1)) == 0,
+              "K4's epilogue: one lane per class, a butterfly over MAX_C lanes");
+static_assert(FWD_ELEMS % 8 == 0, "K4: whole 16-byte vectors of fp32 (4) and bf16 (8)");
 
 __device__ __forceinline__ float row_max(const float logits[MAX_C], int C) {
   float mx = logits[0];
@@ -78,34 +71,6 @@ __device__ __forceinline__ float row_max(const float logits[MAX_C], int C) {
   for (int c = 1; c < MAX_C; ++c)
     if (c < C) mx = fmaxf(mx, logits[c]);
   return mx;
-}
-
-template <typename T>
-__global__ void __launch_bounds__(THREADS)
-fused_ce_fwd_kernel(const T* __restrict__ f, const T* __restrict__ w,
-                    const T* __restrict__ b, const int* __restrict__ labels,
-                    float* __restrict__ ce, float* __restrict__ lpu,
-                    float* __restrict__ correct, int rows, int H, int C) {
-  const int lane = threadIdx.x % 32;
-  const int r = blockIdx.x * ROWS + threadIdx.x / 32;
-  if (r >= rows) return;                       // a whole warp
-  float logits[MAX_C];
-  row_logits(f, w, b, r, H, C, lane, logits);
-  if (lane != 0) return;
-  const float mx = row_max(logits, C);
-  float sum = 0.f, total = 0.f;
-  int first = C;                               // first index at the max
-  for (int c = 0; c < C; ++c) {
-    sum += expf(logits[c] - mx);
-    total += logits[c];
-    if (first == C && logits[c] == mx) first = c;
-  }
-  const float lse = mx + logf(sum);
-  const int lab = labels[r];
-  const float logit_lab = (lab >= 0 && lab < C) ? logits[lab] : 0.f;
-  ce[r] = lse - logit_lab;
-  lpu[r] = lse - total / C;
-  correct[r] = first == lab ? 1.f : 0.f;
 }
 
 // 16 bytes of f or W, loaded as they are stored, as fp32.
@@ -121,6 +86,134 @@ __device__ __forceinline__ void unpack16(const uint4& v, float* x, __nv_bfloat16
   for (int i = 0; i < 4; ++i) {
     x[2 * i] = __uint_as_float(u[i] << 16);          // the low bf16: its fp32 bits
     x[2 * i + 1] = __uint_as_float(u[i] & 0xffff0000u);
+  }
+}
+
+// K4: one block per row r (grid = rows).  Each stride of the row covers
+// FWD_THREADS * FWD_ELEMS columns (all of H = 768 in one stride): thread t
+// takes 16-byte vectors t + j * FWD_THREADS, j < FWD_ELEMS / V, of the
+// stride (fp32: two vectors of 4; bf16: one of 8), or, where H or a base
+// address rules vectors out, the scalars t + j * FWD_THREADS, j <
+// FWD_ELEMS.  A thread issues every load of the stride -- its columns of
+// f, then the same columns of all C rows of W, each predicated and zero
+// where it is off the row or the classes -- before its first FMA, so the
+// loads are in flight together and the row costs one round of latency,
+// not one per column.  The thread's C sums then reduce in a fixed order:
+// a butterfly over each warp's lanes, then the warps' sums in warp order
+// through shared memory, so a launch gives the same bits every time.
+// Warp 0 finishes: lane c < C holds logit c (lanes past C carry -inf for
+// the max and 0 for the sums), and the max, the sum of exp, the sum of
+// the logits and the first index at the max are each a butterfly over
+// MAX_C lanes.  A label outside [0, C) reads logit 0, as the JAX kernel's
+// one-hot does, and is never correct.
+template <typename T>
+__global__ void __launch_bounds__(FWD_THREADS)
+fused_ce_fwd_kernel(const T* __restrict__ f, const T* __restrict__ w,
+                    const T* __restrict__ b, const int* __restrict__ labels,
+                    float* __restrict__ ce, float* __restrict__ lpu,
+                    float* __restrict__ correct, int H, int C) {
+  __shared__ float part[FWD_WARPS][MAX_C];
+  constexpr int V = 16 / (int)sizeof(T);
+  constexpr int NV = FWD_ELEMS / V;                // vectors per thread per stride
+  const int tid = threadIdx.x;
+  const int lane = tid % 32;
+  const int warp = tid / 32;
+  const long r = blockIdx.x;
+  const T* fr = f + r * H;
+  const bool vec = H % V == 0 && reinterpret_cast<size_t>(f) % 16 == 0 &&
+                   reinterpret_cast<size_t>(w) % 16 == 0;
+  const int lab = labels[r];                       // in flight with the row
+  const float bias = tid < C ? to_f32(b[tid]) : 0.f;   // warp 0's lanes
+  float acc[MAX_C];
+#pragma unroll
+  for (int c = 0; c < MAX_C; ++c) acc[c] = 0.f;
+  for (int h0 = 0; h0 < H; h0 += FWD_THREADS * FWD_ELEMS) {
+    if (vec) {
+      uint4 fraw[NV], wraw[NV][MAX_C];             // every load, then the FMAs
+#pragma unroll
+      for (int j = 0; j < NV; ++j) {
+        const int h = h0 + (j * FWD_THREADS + tid) * V;
+        fraw[j] = make_uint4(0u, 0u, 0u, 0u);
+        if (h < H) fraw[j] = *reinterpret_cast<const uint4*>(fr + h);
+#pragma unroll
+        for (int c = 0; c < MAX_C; ++c) {
+          wraw[j][c] = make_uint4(0u, 0u, 0u, 0u);
+          if (h < H && c < C) wraw[j][c] = *reinterpret_cast<const uint4*>(w + (long)c * H + h);
+        }
+      }
+#pragma unroll
+      for (int j = 0; j < NV; ++j) {
+        float fv[V];
+        unpack16(fraw[j], fv, T());
+#pragma unroll
+        for (int c = 0; c < MAX_C; ++c) {
+          if (c < C) {
+            float wv[V];
+            unpack16(wraw[j][c], wv, T());
+#pragma unroll
+            for (int e = 0; e < V; ++e) acc[c] = fmaf(fv[e], wv[e], acc[c]);
+          }
+        }
+      }
+    } else {
+      T fs[FWD_ELEMS], ws[FWD_ELEMS][MAX_C];
+#pragma unroll
+      for (int j = 0; j < FWD_ELEMS; ++j) {
+        const int h = h0 + j * FWD_THREADS + tid;
+        fs[j] = from_f32<T>(0.f);
+        if (h < H) fs[j] = fr[h];
+#pragma unroll
+        for (int c = 0; c < MAX_C; ++c) {
+          ws[j][c] = from_f32<T>(0.f);
+          if (h < H && c < C) ws[j][c] = w[(long)c * H + h];
+        }
+      }
+#pragma unroll
+      for (int j = 0; j < FWD_ELEMS; ++j) {
+        const float x = to_f32(fs[j]);
+#pragma unroll
+        for (int c = 0; c < MAX_C; ++c)
+          if (c < C) acc[c] = fmaf(x, to_f32(ws[j][c]), acc[c]);
+      }
+    }
+  }
+#pragma unroll
+  for (int c = 0; c < MAX_C; ++c) {
+    if (c < C) {
+#pragma unroll
+      for (int off = 16; off > 0; off >>= 1)
+        acc[c] += __shfl_xor_sync(0xffffffffu, acc[c], off);
+      if (lane == 0) part[warp][c] = acc[c];
+    }
+  }
+  __syncthreads();
+  if (warp != 0) return;
+  const bool real = lane < C;
+  float x = -INFINITY;                             // lane c: logit c
+  if (real) {
+    x = part[0][lane];
+#pragma unroll
+    for (int i = 1; i < FWD_WARPS; ++i) x += part[i][lane];
+    x += bias;
+  }
+  float mx = x;
+#pragma unroll
+  for (int off = MAX_C / 2; off > 0; off >>= 1)
+    mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, off));
+  float sum = real ? expf(x - mx) : 0.f;
+  float total = real ? x : 0.f;
+#pragma unroll
+  for (int off = MAX_C / 2; off > 0; off >>= 1) {
+    sum += __shfl_xor_sync(0xffffffffu, sum, off);
+    total += __shfl_xor_sync(0xffffffffu, total, off);
+  }
+  const int first = __reduce_min_sync(0xffffffffu, real && x == mx ? lane : MAX_C);
+  const float x_lab = __shfl_sync(0xffffffffu, x, lab & 31);
+  if (lane == 0) {
+    const float lse = mx + logf(sum);
+    ce[r] = lse - (lab >= 0 && lab < C ? x_lab : 0.f);
+    lpu[r] = lse - total / C;
+    correct[r] = first == lab ? 1.f : 0.f;
   }
 }
 
@@ -296,8 +389,6 @@ fused_ce_bwd_kernel(const T* __restrict__ f, const T* __restrict__ w,
 
 bool valid(int rows, int H, int C) { return rows >= 1 && H >= 1 && C >= 1 && C <= MAX_C; }
 
-int blocks(int rows) { return (rows + ROWS - 1) / ROWS; }
-
 }  // namespace
 
 extern "C" {
@@ -319,13 +410,13 @@ int pdnlp_fused_ce_fwd(const void* f, const void* w, const void* b, const int* l
   if (!valid(rows, H, C)) return static_cast<int>(cudaErrorInvalidValue);
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (dtype == DTYPE_F32)
-    fused_ce_fwd_kernel<float><<<blocks(rows), THREADS, 0, st>>>(
+    fused_ce_fwd_kernel<float><<<rows, FWD_THREADS, 0, st>>>(
         static_cast<const float*>(f), static_cast<const float*>(w),
-        static_cast<const float*>(b), labels, ce, lpu, correct, rows, H, C);
+        static_cast<const float*>(b), labels, ce, lpu, correct, H, C);
   else if (dtype == DTYPE_BF16)
-    fused_ce_fwd_kernel<__nv_bfloat16><<<blocks(rows), THREADS, 0, st>>>(
+    fused_ce_fwd_kernel<__nv_bfloat16><<<rows, FWD_THREADS, 0, st>>>(
         static_cast<const __nv_bfloat16*>(f), static_cast<const __nv_bfloat16*>(w),
-        static_cast<const __nv_bfloat16*>(b), labels, ce, lpu, correct, rows, H, C);
+        static_cast<const __nv_bfloat16*>(b), labels, ce, lpu, correct, H, C);
   else
     return static_cast<int>(cudaErrorInvalidValue);
   return static_cast<int>(cudaGetLastError());

@@ -332,6 +332,53 @@ def test_fused_ce_kernels_match_twins(cuda_device, T, dtype):
 @pytest.mark.parametrize("C", [2, 6, 16])
 @pytest.mark.parametrize("H", [100, 768])
 @pytest.mark.parametrize("T", [1, 7, 32, 300])
+def test_fused_ce_fwd_over_rows_widths_and_classes(cuda_device, T, H, C,
+                                                   dtype):
+    """K4, one block per row: one row and many (300 blocks), H = 100 (bf16
+    rows too short for 16-byte loads: the scalar path), up to MAX_C
+    classes; agrees with the twin and gives the same bits on a second
+    launch."""
+    f, W, b, lab, _ = _ce_case(T, dtype, cuda_device, C=C, H=H, seed=T + C)
+    got = fused_ce.launch_fwd(f, W, b, lab)
+    again = fused_ce.launch_fwd(f, W, b, lab)
+    torch.cuda.synchronize()
+    want = fused_ce.fused_ce_fwd_reference(f, W, b, lab)
+    for name, g, x, a in zip(("ce", "lpu", "correct"), got, want, again):
+        assert g.dtype == torch.float32 and g.shape == (T,), name
+        torch.testing.assert_close(g, x, **CE_TOL[torch.float32], msg=name)
+        assert torch.equal(g, a), name
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+def test_fused_ce_fwd_scalar_path_off_a_16_byte_base(cuda_device, dtype):
+    """Features that start one element into a buffer are contiguous but
+    not 16-byte aligned, so K4 takes its scalar loads at H = 768 (a row
+    slice such as ``f[1:]`` stays aligned there); the same values as the
+    aligned launch within CE_TOL, and the same bits twice."""
+    T, H = 32, 768
+    f, W, b, lab, _ = _ce_case(T, dtype, cuda_device, seed=11)
+    buf = torch.empty(T * H + 1, dtype=dtype, device=cuda_device)
+    shifted = buf[1:1 + T * H].view(T, H)
+    shifted.copy_(f)
+    assert shifted.is_contiguous() and shifted.data_ptr() % 16 != 0
+    got = fused_ce.launch_fwd(shifted, W, b, lab)
+    again = fused_ce.launch_fwd(shifted, W, b, lab)
+    aligned = fused_ce.launch_fwd(f, W, b, lab)
+    torch.cuda.synchronize()
+    want = fused_ce.fused_ce_fwd_reference(f, W, b, lab)
+    for name, g, x, a, v in zip(("ce", "lpu", "correct"), got, want, again,
+                                aligned):
+        torch.testing.assert_close(g, x, **CE_TOL[torch.float32], msg=name)
+        torch.testing.assert_close(g, v, **CE_TOL[torch.float32], msg=name)
+        assert torch.equal(g, a), name
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+@pytest.mark.parametrize("C", [2, 6, 16])
+@pytest.mark.parametrize("H", [100, 768])
+@pytest.mark.parametrize("T", [1, 7, 32, 300])
 def test_fused_ce_bwd_over_rows_widths_and_classes(cuda_device, T, H, C,
                                                    dtype):
     """K5 split over H columns: a ragged last block (H = 100; bf16 rows

@@ -15,6 +15,7 @@ import numpy as np
 import pytest
 import torch
 
+from pdnlp_tpu.ops.fused_ce import _fused_rows as jax_fused_rows
 from pdnlp_tpu.ops.fused_ce import fused_weighted_ce as jax_fused
 from pdnlp_tpu.train.steps import weighted_ce as jax_weighted_ce
 from pdnlp_tpu_torch.ops import fused_ce
@@ -55,6 +56,110 @@ def test_value_and_grads_match_jax(smoothing):
     np.testing.assert_allclose(df, np.asarray(wgrad[0]), atol=ATOL)
     np.testing.assert_allclose(dW.T, np.asarray(wgrad[1]), atol=ATOL)
     np.testing.assert_allclose(db, np.asarray(wgrad[2]), atol=ATOL)
+
+
+#: ``csrc/fused_ce.cu`` K4: threads per row, columns per thread per stride
+#: and the classes its epilogue holds, one per lane
+K4_THREADS, K4_ELEMS, MAX_C = 128, 8, 16
+
+
+def _butterfly(v):
+    """Sum over the last dim (lanes, a power of 2) as the kernel's xor
+    shuffles give it: lane l adds lane l ^ off, off = n/2 .. 1; lane 0's."""
+    lanes = torch.arange(v.shape[-1])
+    off = v.shape[-1] // 2
+    while off:
+        v = v + v[..., lanes ^ off]
+        off //= 2
+    return v[..., 0]
+
+
+def _k4_columns(H, V):
+    """Each K4 thread's columns of H in the order it sums them
+    (``[threads, K]``, -1 off the row): strides of threads x elems columns;
+    in each, vectors t + j * threads of V columns (V = 4 fp32, 8 bf16) or,
+    at V = 1, the scalars t + j * threads."""
+    t = torch.arange(K4_THREADS)[:, None]
+    cols = [h0 + (j * K4_THREADS + t) * V + e
+            for h0 in range(0, H, K4_THREADS * K4_ELEMS)
+            for j in range(K4_ELEMS // V) for e in range(V)]
+    idx = torch.cat(cols, 1)
+    return torch.where(idx < H, idx, -1)
+
+
+def _k4_emulation(f, W, b, lab, V):
+    """``csrc/fused_ce.cu``'s K4 in plain PyTorch, fp32, one row per block:
+    V = 4 or 8 is the 16-byte vector of fp32 or bf16 (taken only where it
+    divides H), V = 1 the scalar path (a base address off 16 bytes).  Each
+    thread sums its columns in its own order, each warp's 32 partial sums
+    reduce by the xor butterfly, the 4 warps' in warp order, then warp 0's
+    epilogue: lane c holds logit c, the max, the sums of exp and of the
+    logits over MAX_C lanes, the first lane at the max."""
+    T, H = f.shape
+    C = W.shape[0]
+    idx = _k4_columns(H, V if H % V == 0 else 1)
+    live = (idx >= 0).float()
+    fx = f[:, idx.clamp(min=0)] * live                  # [T, threads, K]
+    wx = W[:, idx.clamp(min=0)] * live                  # [C, threads, K]
+    acc = torch.zeros(T, K4_THREADS, C)
+    for k in range(idx.shape[1]):
+        acc = acc + fx[:, :, k, None] * wx[:, :, k].T
+    warps = _butterfly(acc.reshape(T, K4_THREADS // 32, 32, C).transpose(2, 3))
+    x = warps[:, 0]
+    for i in range(1, warps.shape[1]):
+        x = x + warps[:, i]
+    x = x + b
+    lanes = torch.full((T, MAX_C), float("-inf"))
+    lanes[:, :C] = x
+    real = torch.arange(MAX_C) < C
+    mx = lanes.max(-1).values
+    total = _butterfly(torch.where(real, lanes, 0.0))
+    lse = mx + torch.log(_butterfly(torch.where(
+        real, torch.exp(lanes - mx[:, None]), 0.0)))
+    first = torch.where(real & (lanes == mx[:, None]), torch.arange(MAX_C),
+                        MAX_C).min(-1).values
+    lab = lab.long()
+    ok = (lab >= 0) & (lab < C)
+    x_lab = torch.where(ok, x.gather(-1, lab.clamp(0, C - 1)[:, None])[:, 0],
+                        0.0)
+    return lse - x_lab, lse - total / C, (first == lab).float()
+
+
+@pytest.mark.parametrize("V", [1, 4, 8], ids=["scalars", "f32-vec", "bf16-vec"])
+@pytest.mark.parametrize("T,H", [(1, 100), (37, 100), (37, 768), (70, 64)])
+def test_k4_design_matches_twin_and_jax(T, H, V):
+    """The K4 design (one block per row, per-thread sums over its columns,
+    warp butterfly, warps in order, a shuffle epilogue) against the twin
+    and the JAX kernel's per-row values (interpret mode) on the same
+    inputs: one row; H = 100, where bf16 takes the scalar path; H = 768 in
+    one stride; H = 64, most threads idle."""
+    f, W, b, lab, _ = _case(T=T, H=H, seed=T + H)
+    ft, Wt, bt, labt = (torch.from_numpy(a) for a in (f, W.T.copy(), b, lab))
+    got = _k4_emulation(ft, Wt, bt, labt, V)
+    twin = fused_ce.fused_ce_fwd_reference(ft, Wt, bt, labt)
+    rows = jax_fused_rows(*map(jnp.asarray, (f, W, b, lab)))
+    for name, g, x, j in zip(("ce", "lpu", "correct"), got, twin, rows):
+        np.testing.assert_allclose(g.numpy(), x.numpy(), atol=ATOL,
+                                   err_msg=name)
+        np.testing.assert_allclose(g.numpy(), np.asarray(j), atol=ATOL,
+                                   err_msg=name)
+
+
+@pytest.mark.parametrize("V", [1, 4, 8], ids=["scalars", "f32-vec", "bf16-vec"])
+def test_k4_design_counts_first_index_argmax_on_ties(V):
+    """Exact ties across lanes of K4's epilogue: only the first index at
+    the max counts, as argmax picks it; the twin and JAX agree."""
+    f = np.array([[1., 1., 0., 0.], [1., 1., 0., 0.], [0., 0., 3., 0.],
+                  [0., 2., 0., 2.], [0., 2., 0., 2.]], np.float32)
+    W, b = np.eye(4, dtype=np.float32), np.zeros(4, np.float32)
+    lab = np.array([1, 0, 2, 3, 1], np.int32)
+    ft, Wt, bt, labt = (torch.from_numpy(a) for a in (f, W, b, lab))
+    got = _k4_emulation(ft, Wt, bt, labt, V)[2]
+    assert got.tolist() == [0.0, 1.0, 1.0, 0.0, 1.0]
+    assert fused_ce.fused_ce_fwd_reference(ft, Wt, bt, labt)[2].tolist() == \
+        got.tolist()
+    rows = jax_fused_rows(*map(jnp.asarray, (f, W, b, lab)))
+    assert np.asarray(rows[2]).tolist() == got.tolist()
 
 
 def _k5_emulation(f, W, b, lab, dce, dlpu, cols=fused_ce.BWD_COLUMNS):
