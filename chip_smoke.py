@@ -18,11 +18,19 @@ the answers against the plain paths on the same card.
 
 Phases: 1 device, 2 build (with K1-K3's blocks per SM and the tensor-core
 instructions of their bf16 versions), 3 kernel vs plain, with K1's tile
-skips against the block maps in both dtypes (3b: the backward and the
-fused CE), 4 serving main path (DynamicBatcher packed and padded, fp32 and
-bf16, and the CLI), 5 times, 6 training main path (6a kernel route vs
-plain route, 6b ``python -m pdnlp_tpu_torch.train.single``).  Any failure
-raises and the script exits non-zero.  Without a card, or away from the
+skips against the block maps in both dtypes, at the serving and training
+shapes and at the length modes' (bucket widths 32 and 64, packer-made
+rows) (3b: the backward and the fused CE, with K4/K5 over the pack
+route's 512 per-segment rows), 4 serving main path (DynamicBatcher packed
+and padded, fp32 and bf16, and the CLI), 5 times, 6 training main path
+(6a kernel route vs plain route at 32 x 128, 6b ``python -m
+pdnlp_tpu_torch.train.single`` at full width and with ``--length_mode
+pack --pipeline auto``, 6c length-aware training: bucket, pack and
+multi-width pack routes, kernel vs plain, on a corpus with the length
+profile of the JAX package's synthetic corpus, 6d the sync, prefetch and
+resident pipelines bit for bit), then the kernels' times at every shape
+these paths give them.  Any failure raises and the script exits
+non-zero.  Without a card, or away from the
 repo, it prints no result and exits non-zero.  The line before the last is
 the ``{"kernels": [...]}`` record; the last is ``{"ok": true, ...}``.
 Numbers are printed beside the card's name and power limit.
@@ -58,13 +66,31 @@ CE_TOL = {"float32": (1e-5, 1e-5), "bfloat16": (1e-2, 1e-2)}
 #: (dropout 0): per-step loss, fp32 rounding through 12 layers (fp32) or
 #: bf16 scores and probabilities on the plain route only (bf16)
 TRAIN_LOSS_ATOL = {"float32": 1e-3, "bfloat16": 5e-2}
-#: final params: an Adam update moves a weight by about lr per step
-#: whatever the gradient's size, so a gradient near 0 whose sign the two
-#: routes' rounding decides can differ by up to 2 * lr per step
 TRAIN_STEPS = 20
 LEARNING_RATE = 3e-5
-PARAM_ATOL = 2 * LEARNING_RATE * TRAIN_STEPS
+
+
+def param_atol(steps):
+    """Final params, kernel route vs plain route after ``steps`` steps: an
+    Adam update moves a weight by about lr per step whatever the
+    gradient's size, so a gradient near 0 whose sign the two routes'
+    rounding decides can differ by up to 2 x lr per step; each route is
+    held to its own step count."""
+    return 2 * LEARNING_RATE * steps
+
+
 BUCKETS = (32, 64, 128)
+#: 6c: steps per length-aware route (the multi-width route: 2 per width)
+LENGTH_STEPS = 20
+MULTI_WIDTH_STEPS_PER_WIDTH = 2
+#: corpus sizes: the profile corpus gives the pack route more than
+#: LENGTH_STEPS rows of 32 in one epoch; 6d's split gives two epochs of
+#: about 40 fixed-width and 10 packed steps; the long corpus has documents
+#: of 129-500 tokens for the 256- and 512-wide rows
+PROFILE_EXAMPLES = 3400
+PIPELINE_EXAMPLES = 1400
+LONG_EXAMPLES = 600
+LONG_DOCS = 120
 N_REQUESTS = 64
 SEED = 0
 CHARS = list("天地人你我他好坏大小上下来去爱恨喜怒哀乐高兴悲伤讨厌愤怒"
@@ -135,19 +161,30 @@ def check_flash_build(torch, flash, cuda_lib, card):
 # ----------------------------------------------------------------- phase 3
 
 
-def kernel_cases(torch, flash, mask_bias, device):
-    """The kernel against its plain twin at B*N = 8*12, D = 64, and the
-    tiles it skips against the block maps' dead tiles."""
+def kernel_cases(torch, flash, mask_bias, device, packed_segs):
+    """The kernel against its plain twin at N = 12, D = 64, and the tiles
+    it skips against the block maps' dead tiles: B = 8 at the serving
+    shapes, and B = 32 at the length modes' (bucket widths 32 and 64 with
+    padded keys, and ``packed_segs``, width -> the ``segment_ids`` of a
+    32-row batch from the port's own packer: the pack route's 128 and the
+    multi-width route's 256 and 512)."""
     import numpy as np
 
-    B, N = 8, 12
+    N = 12
     rng = np.random.RandomState(SEED)
     errs = {"float32": 0.0, "bfloat16": 0.0}
-    cases = [("bias", S) for S in (32, 64, 100, 128, 512)] + \
-            [("segments", S) for S in (128, 512)]
-    for form, S in cases:
+    cases = [("bias", 8, S) for S in (32, 64, 100, 128, 512)] + \
+            [("segments", 8, S) for S in (128, 512)] + \
+            [("bias", 32, 32), ("bias", 32, 64)] + \
+            [("packer", 32, S) for S in sorted(packed_segs)]
+    for form, B, S in cases:
         qkv = [rng.randn(B, S, N, 64).astype(np.float32) for _ in range(3)]
-        if form == "bias":
+        if form == "packer":
+            seg = packed_segs[S]
+            kw = {"segment_ids": torch.from_numpy(seg).to(device)}
+            what = (f"packer rows, {int(seg.max())} segments max, "
+                    f"{int((seg == 0).sum())} padding rows")
+        elif form == "bias":
             mask = np.zeros((B, S), np.int32)
             for b in range(B - 1):
                 mask[b, : rng.randint(1, S + 1)] = 1     # padded keys
@@ -179,7 +216,7 @@ def kernel_cases(torch, flash, mask_bias, device):
             ref = flash.flash_attention_reference(q, k, v, **kw)
             err = (out.float() - ref.float()).abs().max().item()
             ok = err <= KERNEL_ATOL[dtype] and out.isfinite().all().item()
-            print(f"[kernel] flash_fwd {form:8s} S={S:<4d} {dtype:8s} "
+            print(f"[kernel] flash_fwd {form:8s} {B}x{S:<4d} {dtype:8s} "
                   f"max_abs_err={err:.3e} (atol {KERNEL_ATOL[dtype]:g}) "
                   f"{what}{tiles}: {'ok' if ok else 'FAIL'}")
             if not ok:
@@ -201,23 +238,32 @@ def _err(got, want, tol):
                                 and g.isfinite().all())
 
 
-def backward_cases(torch, flash, mask_bias, device):
+def backward_cases(torch, flash, mask_bias, device, packed_segs):
     """K1's m and l against the twin's, then K2 and K3 on the same m, l
     and Di against theirs: the training shape (32 x 128, N 12, padded keys,
-    a filler row), ragged widths, eight tiles of 64 (S = 512), and packed
-    rows with padding rows (``pad_tail``) and without; a second launch of
-    K2 and K3 must give the same bits.  Returns the max error per kernel
-    and dtype."""
+    a filler row), ragged widths, eight tiles of 64 (S = 512), packed rows
+    with padding rows (``pad_tail``) and without, and the length modes'
+    shapes (32 x 32 and 32 x 64 with padded keys, the packer's rows of
+    ``packed_segs`` at 32 x 128, 256 and 512); a second launch of K2 and
+    K3 must give the same bits.  Returns
+    the max error per kernel and dtype."""
     import numpy as np
 
     rng = np.random.RandomState(SEED + 3)
     errs = {k: {"float32": 0.0, "bfloat16": 0.0}
             for k in ("stats", "flash_bwd_dq", "flash_bwd_dkv")}
     cases = [("bias", 32, 128), ("bias", 4, 40), ("bias", 4, 200),
-             ("bias", 4, 512), ("segments", 4, 128), ("pad_tail", 4, 512)]
+             ("bias", 4, 512), ("segments", 4, 128), ("pad_tail", 4, 512),
+             ("bias", 32, 32), ("bias", 32, 64)] + \
+        [("packer", 32, S) for S in sorted(packed_segs)]
     for form, B, S in cases:
         qkvd = [rng.randn(B, S, 12, 64).astype(np.float32) for _ in range(4)]
-        if form == "bias":
+        if form == "packer":
+            seg = packed_segs[S]
+            kw = {"segment_ids": torch.from_numpy(seg).to(device)}
+            what = (f"packer rows, {int(seg.max())} segments max, "
+                    f"{int((seg == 0).sum())} padding rows")
+        elif form == "bias":
             mask = np.zeros((B, S), np.int32)
             for b in range(B - 1):
                 mask[b, : rng.randint(1, S + 1)] = 1     # padded keys
@@ -272,11 +318,12 @@ def backward_cases(torch, flash, mask_bias, device):
 
 
 def ce_inputs(torch, device, dtype, T, smoothing, seed, H=768, C=6,
-              shift=0):
+              shift=0, rows=None):
     """Pooled-like features, a classifier, labels and the objective's
-    cotangents (zero on a quarter of the rows: filler weights).  With
-    ``shift`` the features start that many elements into a larger buffer:
-    contiguous, but off a 16-byte base, so the kernels take scalar loads."""
+    cotangents (zero on a quarter of the rows: filler weights; or the
+    ``(labels, weights)`` of ``rows``).  With ``shift`` the features start
+    that many elements into a larger buffer: contiguous, but off a 16-byte
+    base, so the kernels take scalar loads."""
     import numpy as np
 
     rng = np.random.RandomState(seed)
@@ -287,6 +334,8 @@ def ce_inputs(torch, device, dtype, T, smoothing, seed, H=768, C=6,
     lab = torch.from_numpy(rng.randint(0, C, T).astype(np.int32))
     w = torch.from_numpy((rng.rand(T) > 0.25).astype(np.float32))
     w[0] = 1.0
+    if rows is not None:
+        lab, w = (torch.from_numpy(np.ascontiguousarray(a)) for a in rows)
     dce = w / w.sum() * (1 - smoothing)
     dlpu = w / w.sum() * smoothing
     buf = torch.empty(T * H + shift, dtype=dt, device=device)
@@ -306,17 +355,24 @@ CE_CASES = ((32, 0.0, 768, 6, 0), (32, 0.1, 768, 6, 0), (1, 0.0, 768, 6, 0),
             (37, 0.1, 100, 16, 0), (32, 0.0, 768, 6, 1))
 
 
-def fused_ce_cases(torch, fused_ce, device):
+def fused_ce_cases(torch, fused_ce, device, pack_rows):
     """K4 and K5 against their twins over ``CE_CASES``, smoothing 0 and
-    0.1, filler weights, exact ties; each kernel twice on the same inputs
-    must give the same bits."""
+    0.1, filler weights, exact ties, and over each entry of ``pack_rows``
+    (name -> the flat labels and weights of a packed batch's per-segment
+    rows, most of them empty slots of weight 0: the pack route's 32 x 16
+    = 512, the multi-width route's 1,024 and 2,048); each kernel twice on
+    the same inputs must give the same bits, and every weight-0 row
+    exactly zero d(feats)."""
     errs = {k: {"float32": 0.0, "bfloat16": 0.0}
             for k in ("fused_ce_fwd", "fused_ce_bwd")}
-    for T, smoothing, H, C, shift in CE_CASES:
+    cases = [c + (None, None) for c in CE_CASES] + [
+        (len(rows[0]), sm, 768, 6, 0, rows, name)
+        for name, rows in pack_rows.items() for sm in (0.0, 0.1)]
+    for T, smoothing, H, C, shift, rows, rows_name in cases:
         for dtype in ("float32", "bfloat16"):
             f, W, b, lab, dce, dlpu = ce_inputs(torch, device, dtype, T,
                                                 smoothing, SEED + T + C, H=H,
-                                                C=C, shift=shift)
+                                                C=C, shift=shift, rows=rows)
             out = fused_ce.launch_fwd(f, W, b, lab)
             out_again = fused_ce.launch_fwd(f, W, b, lab)
             grads = fused_ce.launch_bwd(f, W, b, lab, dce, dlpu)
@@ -338,7 +394,9 @@ def fused_ce_cases(torch, fused_ce, device):
             zero_filler = not grads[0][dce == 0].any().item()
             ok = ok_f and ok_df and ok_w and same and zero_filler
             where = f"T={T:<3d} H={H:<3d} C={C:<2d}" + (
-                f" features {shift} element off 16 B" if shift else "")
+                f" features {shift} element off 16 B" if shift else "") + (
+                f" {rows_name} rows ({int((dce == 0).sum())} of weight 0)"
+                if rows is not None else "")
             print(f"[kernel] fused_ce {where} smoothing {smoothing} "
                   f"{dtype:8s} fwd {e_f:.2e} df {e_df:.2e} dW/db {e_w:.2e} "
                   f"same bits twice (K4 and K5) {same} filler rows zero "
@@ -476,30 +534,39 @@ def time_ms(torch, fn, iters=100, warmup=10):
     return start.elapsed_time(end) / iters
 
 
-def device_ms(torch, fn, n=50):
+def device_ms(torch, fn, n=50, attempts=4):
     """Mean device time per call of ``fn``: every kernel it launched, by
     ``torch.profiler`` over ``n`` calls after a warm-up call, without the
-    host's pacing that back-to-back CUDA events also time.  None where the
-    profiler saw no device kernel."""
+    host's pacing that back-to-back CUDA events also time.  A window in
+    which the profiler saw no device kernel is profiled again, with twice
+    the calls, up to ``attempts`` windows; None if none saw one."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(n):
-            fn()
-        torch.cuda.synchronize()
-    total = 0.0
-    for ev in prof.key_averages():
-        if ev.device_type != DeviceType.CUDA or \
-                getattr(ev, "is_user_annotation", False):
-            continue
-        dev = getattr(ev, "self_device_time_total", None)
-        if dev is None:
-            dev = getattr(ev, "self_cuda_time_total", 0)
-        total += dev
-    return total / 1e3 / n if total else None
+    for attempt in range(attempts):
+        calls = n << attempt
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(calls):
+                fn()
+            torch.cuda.synchronize()
+        total = 0.0
+        for ev in prof.key_averages():
+            if ev.device_type != DeviceType.CUDA or \
+                    getattr(ev, "is_user_annotation", False):
+                continue
+            dev = getattr(ev, "self_device_time_total", None)
+            if dev is None:
+                dev = getattr(ev, "self_cuda_time_total", 0)
+            total += dev
+        if total:
+            if attempt:
+                print(f"[time] device_ms: the profiler saw no kernel in "
+                      f"{attempt} window(s); read window {attempt + 1} "
+                      f"({calls} calls)")
+            return total / 1e3 / calls
+    return None
 
 
 def fmt_ms(ms):
@@ -808,7 +875,8 @@ def training_runs(torch, flash, fused_ce, base, vocab_size, batches, device,
               f"kernel {k_loss[0]:.6f} -> {k_loss[-1]:.6f}, plain "
               f"{p_loss[0]:.6f} -> {p_loss[-1]:.6f}; max |loss diff| "
               f"{d_loss:.3e} (atol {TRAIN_LOSS_ATOL[dtype]}), max |param diff|"
-              f" {d_par:.3e} (atol {PARAM_ATOL:.1e}), mean {mean_par:.3e}")
+              f" {d_par:.3e} (atol {param_atol(TRAIN_STEPS):.1e}), mean "
+              f"{mean_par:.3e}")
         busy = (f"{100 * prof['device_busy_ms'] / prof['wall_ms']:.1f}%"
                 if prof else "not measured")
         print(f"[train] step time {dtype}: kernel route {k_ms:.3f} ms, plain "
@@ -816,7 +884,8 @@ def training_runs(torch, flash, fused_ce, base, vocab_size, batches, device,
               f"to a synchronize); kernel-route device busy {busy} — {card}")
         print(f"[train] kernel-route launches over {TRAIN_STEPS} steps: "
               f"{k_tot} (every step {want_step}); plain route {p_tot}")
-        if not finite or d_loss > TRAIN_LOSS_ATOL[dtype] or d_par > PARAM_ATOL:
+        if not finite or d_loss > TRAIN_LOSS_ATOL[dtype] or \
+                d_par > param_atol(TRAIN_STEPS):
             fail(f"{dtype}: the kernel route and the plain route disagree "
                  f"(loss {d_loss:.3e}, params {d_par:.3e})")
         del k_params, p_params
@@ -824,104 +893,442 @@ def training_runs(torch, flash, fused_ce, base, vocab_size, batches, device,
     return out
 
 
-def entry_point_run(work, corpus_path, vocab_path, data_limit):
+def entry_point_run(work, corpus_path, vocab_path, data_limit, extra=(),
+                    want_pipeline=None, tag="train_out"):
     """Phase 6b: ``python -m pdnlp_tpu_torch.train.single`` as a user runs
     it (hidden dropout on, attention dropout 0 so the kernels train, dev
-    every 10 steps), to exit 0 with its lines, report and checkpoint."""
-    out_dir = os.path.join(work, "train_out")
+    every 10 steps, ``extra`` flags), to exit 0 with a 【train】 line for
+    every step of the steps/epoch it prints, the pipeline
+    ``want_pipeline``, its report and its checkpoint."""
+    import re
+
+    out_dir = os.path.join(work, tag)
     cmd = [sys.executable, "-m", "pdnlp_tpu_torch.train.single", "--device",
            "cuda", "--model", "bert-base", "--data_path", corpus_path,
            "--vocab_path", vocab_path, "--output_dir", out_dir,
            "--attn_dropout", "0", "--data_limit", str(data_limit),
-           "--dev", "true", "--eval_step", "10", "--seed", str(SEED)]
+           "--dev", "true", "--eval_step", "10", "--seed", str(SEED),
+           *extra]
     t0 = time.monotonic()
     r = subprocess.run(cmd, capture_output=True, text=True, timeout=600,
                        cwd=REPO, env={**os.environ, "PYTHONPATH": REPO})
     wall = time.monotonic() - t0
     lines = r.stdout.splitlines()
     train = [ln for ln in lines if ln.startswith("【train】")]
-    want_steps = -(-int(data_limit * 0.92) // 32)
+    head = next((ln for ln in lines if ln.startswith("device:")), "")
+    m = re.search(r"steps/epoch: (\d+)\s+pipeline: (\w+)", head)
+    steps, pipeline = (int(m.group(1)), m.group(2)) if m else (None, None)
+    if not extra:
+        steps_fixed = -(-int(data_limit * 0.92) // 32)
+        steps = steps if steps == steps_fixed else None
     ckpt = os.path.join(out_dir, "single-cls.pt")
-    print(f"[train.single] exit={r.returncode} in {wall:.1f} s, "
-          f"{len(train)} 【train】 lines (want {want_steps})")
+    print(f"[train.single] {' '.join(extra) or 'full width'}: "
+          f"exit={r.returncode} in {wall:.1f} s, {len(train)} 【train】 lines "
+          f"(want {steps}), pipeline {pipeline}")
     for ln in lines:
         if not ln.startswith("【train】") or ln in (train[:1] + train[-1:]):
             print(f"[train.single] {ln}")
-    ok = (r.returncode == 0 and len(train) == want_steps
+    ok = (r.returncode == 0 and steps and len(train) == steps
+          and (want_pipeline is None or pipeline == want_pipeline)
           and any(ln.startswith("耗时：") for ln in lines)
           and any("precision    recall  f1-score   support" in ln
                   for ln in lines)
           and os.path.exists(ckpt))
     if not ok:
-        fail(f"train.single: exit {r.returncode}, {len(train)} train lines, "
-             f"checkpoint {os.path.exists(ckpt)}\n{r.stderr[-3000:]}")
-    return ckpt, {"exit": r.returncode, "seconds": wall,
-                  "train_lines": len(train), "checkpoint": ckpt}
+        fail(f"train.single {' '.join(extra)}: exit {r.returncode}, "
+             f"{len(train)} train lines of {steps}, pipeline {pipeline} "
+             f"(want {want_pipeline}), checkpoint {os.path.exists(ckpt)}\n"
+             f"{r.stderr[-3000:]}")
+    return ckpt, {"exit": r.returncode, "seconds": wall, "extra": list(extra),
+                  "train_lines": len(train), "pipeline": pipeline,
+                  "checkpoint": ckpt}
+
+
+def serves(build_engine, base, ckpt, texts):
+    """The serve engine loads a trained checkpoint and answers."""
+    import numpy as np
+
+    served = build_engine(base, checkpoint=ckpt)
+    _, logits = served.classify_texts(texts[:8])
+    print(f"[train.single] serve engine on {ckpt}: logits "
+          f"{logits.shape}, finite {bool(np.isfinite(logits).all())}")
+    if logits.shape != (8, 6) or not np.isfinite(logits).all():
+        fail(f"the serve engine's answers on the trained checkpoint {ckpt}")
+
+
+# ------------------------------------------------------------- phase 6c
+
+
+def write_profile_corpus(path, rng, n, long_docs=0):
+    """A seeded corpus in the ``train.json`` format with the length profile
+    of the JAX package's synthetic corpus (``bench.py --length``): 78% of
+    4-24 chars, 14% of 25-60, 8% of 61-126, one token per char; plus
+    ``long_docs`` documents of 127-253 and 255-498 chars (129-500
+    tokens), in a seeded order."""
+    lengths = []
+    for _ in range(n):
+        r = rng.rand()
+        lengths.append(rng.randint(4, 25) if r < 0.78 else
+                       rng.randint(25, 61) if r < 0.92 else
+                       rng.randint(61, 127))
+    lengths += [int(rng.randint(127, 254) if i % 2 else
+                    rng.randint(255, 499)) for i in range(long_docs)]
+    order = rng.permutation(len(lengths))
+    rows = [["".join(rng.choice(CHARS) for _ in range(lengths[i])),
+             int(rng.randint(0, 6))] for i in order]
+    with open(path, "w", encoding="utf-8") as f:
+        json.dump(rows, f, ensure_ascii=False)
+
+
+def epoch_batches(loader, per_width, total):
+    """Epoch 0 of ``loader`` (host batches), its record (steps, steps per
+    width, fill: real tokens over fed tokens) and the batches a route
+    trains on: the first ``per_width`` of each width in epoch order,
+    grouped by width, at most ``total``."""
+    loader.set_epoch(0)
+    every = list(loader)
+    by_width = {}
+    for b in every:
+        by_width.setdefault(int(b["input_ids"].shape[1]), []).append(b)
+    chosen = [b for w in sorted(by_width) for b in by_width[w][:per_width]]
+    real = sum(int(b["attention_mask"].sum()) for b in every)
+    fed = sum(int(b["input_ids"].size) for b in every)
+    rec = {"steps_per_epoch": len(every),
+           "steps_by_width": {w: len(v) for w, v in sorted(by_width.items())},
+           "fill": real / fed,
+           "examples": sum(int(b["example_weight"].sum()) for b in every)}
+    return chosen[:total], rec
+
+
+def length_route(torch, flash, fused_ce, args, vocab_size, batches, device,
+                 card=None, label=None):
+    """``batches`` (grouped by width) through the port's ``setup_model``,
+    train step and upload from the seeded weights.  Returns the per-step
+    losses and launches, the run's totals (counts set to 0 just before,
+    read just after), per width the mean step time after its first step
+    (host clock between synchronizes; its one step where it has one), the
+    final params and, with a ``label``, per width a profile of 3 more
+    steps on that width's batches."""
+    from pdnlp_tpu_torch.train.setup import setup_model
+    from pdnlp_tpu_torch.train.steps import build_train_step
+    from pdnlp_tpu_torch.train.trainer import Trainer
+
+    cfg, state = setup_model(args, vocab_size, total_steps=len(batches))
+    step = build_train_step(args, device)
+    put = Trainer(args, cfg, state, step, None, device).put
+    groups = []
+    for i, b in enumerate(batches):
+        w = int(b["input_ids"].shape[1])
+        if not groups or groups[-1][0] != w:
+            groups.append((w, []))
+        groups[-1][1].append(i)
+    losses, per_step, step_ms = [None] * len(batches), [None] * len(
+        batches), {}
+    torch.cuda.synchronize()
+    reset_counts(flash, fused_ce)
+    for w, idx in groups:
+        timed = idx[1:] or idx
+        for i in idx:
+            if i == timed[0]:
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+            before = launch_counts(flash, fused_ce)
+            m = step(state, put(batches[i]))
+            after = launch_counts(flash, fused_ce)
+            per_step[i] = {k: after[k] - before[k] for k in after}
+            losses[i] = m["loss"]
+        torch.cuda.synchronize()
+        step_ms[w] = (time.perf_counter() - t0) / len(timed) * 1e3
+    totals = launch_counts(flash, fused_ce)
+    params = {k: v.detach().clone() for k, v in
+              state.model.state_dict().items()}
+    profiles = {}
+    if label is not None:
+        for w, idx in groups:
+            cycle = itertools.cycle([put(batches[i]) for i in idx[:3]])
+            profiles[w] = profile_calls(
+                torch, lambda: step(state, next(cycle)), 3, card,
+                f"{label}, width {w}")
+    del state
+    torch.cuda.empty_cache()
+    return ([float(x) for x in losses], per_step, totals, step_ms, params,
+            profiles)
+
+
+WANT_STEP = {"flash_fwd": 12, "flash_bwd_dq": 12, "flash_bwd_dkv": 12,
+             "fused_ce_fwd": 1, "fused_ce_bwd": 1}
+
+
+def length_runs(torch, flash, fused_ce, routes, full, vocab_size, device,
+                card, full_ms):
+    """Phase 6c: per dtype and length route (``routes``: name -> (args,
+    batches, epoch record)), the kernel route against the plain route
+    (``attention_impl xla``, ``fused_ce xla``) from the same weights on the
+    same batches at dropout 0, held to 6a's tolerances; every kernel-route
+    step launches K1-K3 x12 and K4/K5 x1, the plain route none; the bucket
+    route trains in every bucket.  Prints per mode (``full``: the
+    fixed-width loader's epoch record, timed by 6a's 32 x 128 step
+    ``full_ms``) the fill, steps per epoch, step time and minutes per
+    epoch."""
+    out = {}
+    for dtype in ("float32", "bfloat16"):
+        rec = full[1]
+        mins = rec["steps_per_epoch"] * full_ms[dtype] / 6e4
+        print(f"[length] full {dtype}: fill {rec['fill']:.4f} (real tokens "
+              f"over fed tokens, the epoch), {rec['steps_per_epoch']} "
+              f"steps/epoch of 32 x 128, kernel-route step {full_ms[dtype]:.3f}"
+              f" ms (6a), {mins:.4f} min/epoch of the split — {card}")
+        out[("full", dtype)] = {"epoch": rec, "step_ms": full_ms[dtype],
+                                "min_per_epoch": mins}
+        for name, (args, batches, rec) in routes.items():
+            a = args.replace(dtype=dtype)
+            k_loss, k_steps, k_tot, k_ms, k_par, prof = length_route(
+                torch, flash, fused_ce, a, vocab_size, batches, device, card,
+                f"training step, {name} route, kernel route {dtype}")
+            p_loss, _, p_tot, p_ms, p_par, _ = length_route(
+                torch, flash, fused_ce,
+                a.replace(attention_impl="xla", fused_ce="xla"), vocab_size,
+                batches, device)
+            widths = [int(b["input_ids"].shape[1]) for b in batches]
+            bad = [i for i, c in enumerate(k_steps) if c != WANT_STEP]
+            if bad:
+                fail(f"{name} {dtype}: kernel-route steps {bad} launched "
+                     f"{k_steps[bad[0]]}, not {WANT_STEP}")
+            if any(p_tot.values()):
+                fail(f"{name} {dtype}: the plain route launched kernels: "
+                     f"{p_tot}")
+            if set(widths) != set(rec["steps_by_width"]):
+                fail(f"{name}: trained at widths {sorted(set(widths))}, the "
+                     f"epoch has {sorted(rec['steps_by_width'])}")
+            d_loss = max(abs(x - y) for x, y in zip(k_loss, p_loss))
+            d_par = max((k_par[n] - p_par[n]).abs().max().item()
+                        for n in k_par)
+            atol_par = param_atol(len(batches))
+            finite = all(x == x and abs(x) < 1e9 for x in k_loss + p_loss)
+            mins = sum(n * k_ms[w] for w, n in rec["steps_by_width"].items()
+                       ) / 6e4
+            launches = {w: {k: sum(c[k] for c, ww in zip(k_steps, widths)
+                                   if ww == w) for k in WANT_STEP}
+                        for w in sorted(set(widths))}
+            out[(name, dtype)] = {
+                "epoch": rec, "widths": widths, "loss_kernel": k_loss,
+                "loss_plain": p_loss, "max_loss_diff": d_loss,
+                "max_param_diff": d_par, "param_atol": atol_par,
+                "step_ms_kernel": k_ms,
+                "step_ms_plain": p_ms, "launches": k_tot,
+                "launches_by_width": launches, "min_per_epoch": mins,
+                "profile": prof}
+            print(f"[length] {name} {dtype}: {len(batches)} steps at widths "
+                  f"{sorted(set(widths))}; loss kernel {k_loss[0]:.6f} -> "
+                  f"{k_loss[-1]:.6f}, plain {p_loss[0]:.6f} -> "
+                  f"{p_loss[-1]:.6f}; max |loss diff| {d_loss:.3e} (atol "
+                  f"{TRAIN_LOSS_ATOL[dtype]}), max |param diff| {d_par:.3e} "
+                  f"(atol {atol_par:.1e})")
+            print(f"[length] {name} {dtype}: fill {rec['fill']:.4f} (real "
+                  f"tokens over fed tokens, the epoch), "
+                  f"{rec['steps_per_epoch']} steps/epoch "
+                  f"{rec['steps_by_width']}, kernel-route step ms by width "
+                  + ", ".join(f"{w}: {v:.3f}" for w, v in k_ms.items()) +
+                  " (plain " + ", ".join(f"{w}: {v:.3f}"
+                                        for w, v in p_ms.items()) +
+                  f"), {mins:.4f} min/epoch of the split — {card}")
+            busy = ", ".join(
+                f"{w}: {100 * p['device_busy_ms'] / p['wall_ms']:.1f}%"
+                if p else f"{w}: not measured" for w, p in prof.items())
+            print(f"[length] {name} {dtype}: kernel-route device busy by "
+                  f"width {busy} (3 profiled steps each) — {card}")
+            print(f"[length] {name} {dtype}: kernel-route launches {k_tot} "
+                  f"over {len(batches)} steps (every step {WANT_STEP}); by "
+                  f"width {launches}; plain route {p_tot}")
+            if not finite or d_loss > TRAIN_LOSS_ATOL[dtype] or \
+                    d_par > atol_par:
+                fail(f"{name} {dtype}: the kernel route and the plain route "
+                     f"disagree (loss {d_loss:.3e}, params {d_par:.3e})")
+            del k_par, p_par
+            torch.cuda.empty_cache()
+    return out
+
+
+# ------------------------------------------------------------- phase 6d
+
+
+def pipeline_runs(torch, flash, fused_ce, base, vocab_size, device, card):
+    """Phase 6d: for the fixed-width and the pack loaders of ``base``
+    (bf16, kernel route), the sync, prefetch and resident pipelines from
+    the same weights through ``setup_data``, ``build_pipeline`` and the
+    train step, epoch by epoch in turns (each epoch in the order sync,
+    prefetch, resident, the next in the reverse order): over the first two
+    epochs per-step losses equal bit for bit, K1-K3 x12 and K4/K5 x1 per
+    step; over all four, resident with 0 in-loop upload bytes and prefetch
+    with at most one batch in flight; each pipeline's mean step time over
+    epochs 3 and 4 (host clock to a synchronize)."""
+    from pdnlp_tpu_torch.data.pipeline import build_pipeline
+    from pdnlp_tpu_torch.train.setup import setup_data, setup_model
+    from pdnlp_tpu_torch.train.steps import build_train_step
+
+    names = ("sync", "prefetch", "resident")
+    out = {}
+    for mode in ("full", "pack"):
+        runs = {}
+        for name in names:
+            args = base.replace(dtype="bfloat16", length_mode=mode,
+                                pipeline=name)
+            loader, _, _ = setup_data(args)
+            pipe = build_pipeline(args, loader, device)
+            if pipe.mode != name:
+                fail(f"--pipeline {name} built {pipe.mode}")
+            _, state = setup_model(args, vocab_size,
+                                   total_steps=4 * len(loader))
+            runs[name] = {"pipe": pipe, "state": state, "losses": [],
+                          "step": build_train_step(args, device),
+                          "launches": dict.fromkeys(WANT_STEP, 0),
+                          "ms": []}
+        for epoch in range(4):
+            for name in names if epoch % 2 == 0 else names[::-1]:
+                r, pipe = runs[name], runs[name]["pipe"]
+                pipe.set_epoch(epoch)
+                torch.cuda.synchronize()
+                reset_counts(flash, fused_ce)
+                t0 = time.perf_counter()
+                for batch, _n, _fused, _ex in pipe.macro_batches(1):
+                    r["losses"].append(r["step"](r["state"], batch)["loss"])
+                torch.cuda.synchronize()
+                r["ms"].append((time.perf_counter() - t0) / len(pipe) * 1e3)
+                if epoch < 2:
+                    for k, v in launch_counts(flash, fused_ce).items():
+                        r["launches"][k] += v
+        steps = 2 * len(runs["sync"]["pipe"])
+        losses = {n: torch.stack(r["losses"][:steps]).cpu()
+                  for n, r in runs.items()}
+        for name, r in runs.items():
+            snap = r["pipe"].stats.snapshot()
+            ms = sum(r["ms"][2:]) / 2
+            want = {k: v * steps for k, v in WANT_STEP.items()}
+            out[(mode, name)] = {"steps_checked": steps,
+                                 "epoch_step_ms": r["ms"], "step_ms": ms,
+                                 "launches": r["launches"],
+                                 "transport": snap}
+            print(f"[pipeline] {mode} {name}: {len(r['losses'])} steps (4 "
+                  f"epochs), step {ms:.3f} ms (mean of epochs 3-4; by epoch "
+                  + ", ".join(f"{x:.3f}" for x in r["ms"]) +
+                  f"), in-loop upload {snap['bytes_uploaded_in_loop']} B "
+                  f"({snap['puts_in_loop']} puts), amortized "
+                  f"{snap['bytes_uploaded_total'] - snap['bytes_uploaded_in_loop']}"
+                  f" B, in flight max {snap['prefetch_in_flight_max']}, "
+                  f"token padding {snap['padding_waste_tokens']}; launches "
+                  f"in epochs 1-2 {r['launches']} — {card}")
+            if r["launches"] != want:
+                fail(f"pipeline {mode}/{name}: launches {r['launches']}, "
+                     f"want {want}")
+            if name == "resident" and snap["bytes_uploaded_in_loop"] != 0:
+                fail(f"resident {mode}: {snap['bytes_uploaded_in_loop']} B "
+                     "uploaded inside the loop")
+            if name == "prefetch" and snap["prefetch_in_flight_max"] > 1:
+                fail(f"prefetch {mode}: {snap['prefetch_in_flight_max']} "
+                     "batches in flight")
+        del runs
+        torch.cuda.empty_cache()
+        same = {n: torch.equal(losses["sync"], losses[n])
+                for n in ("prefetch", "resident")}
+        print(f"[pipeline] {mode}: per-step losses of epochs 1-2 ({steps} "
+              f"steps) equal to sync bit for bit {same}; loss "
+              f"{float(losses['sync'][0]):.6f} -> "
+              f"{float(losses['sync'][-1]):.6f}")
+        if not all(same.values()) or not torch.isfinite(
+                losses["sync"]).all():
+            d = {n: (losses["sync"] - losses[n]).abs().max().item()
+                 for n in same}
+            fail(f"pipelines {mode}: losses differ from sync (max {d})")
+    return out
 
 
 # ------------------------------------------------------- phase 6 times
 
 
-def time_backward(torch, F, flash, mask_bias, key_mask, device, card):
-    """K2 and K3 at the training main path's shape (32 x 128, N 12, D 64,
-    the first training batch's key mask), beside their twins, the backward
-    of ``scaled_dot_product_attention`` on the same additive mask (the pair
-    of them, as one library call) and their bounds."""
+def time_backward(torch, F, flash, mask_bias, device, card, key_mask=None,
+                  seg=None):
+    """K1 with m and l, K2 and K3 at a training shape (N 12, D 64; padded
+    keys of ``key_mask`` or the packed rows of ``seg``, ``[B, S]``),
+    beside their twins, ``scaled_dot_product_attention``'s forward and
+    backward on the same additive mask (the backward pair as one library
+    call) and their bounds.  Every output it times is held to its twin
+    (K1 ``KERNEL_ATOL``, K2/K3 ``BWD_TOL``) and fails the run if it
+    disagrees."""
     import numpy as np
 
-    B, S = key_mask.shape
+    from pdnlp_tpu_torch.data.packing import segment_bias
+
+    B, S = (key_mask if seg is None else seg).shape
     N, D = 12, 64
     rng = np.random.RandomState(SEED + 4)
-    bias = mask_bias(torch.from_numpy(key_mask).to(device))
-    pairs = needed_pairs(key_mask=key_mask)
+    if seg is None:
+        kw = {"bias": mask_bias(torch.from_numpy(key_mask).to(device))}
+        pairs = needed_pairs(key_mask=key_mask)
+        form = "padded"
+    else:
+        kw = {"segment_ids": torch.from_numpy(seg).to(device)}
+        pairs = needed_pairs(seg=seg)
+        form = "packed"
+    lib_mask = kw["bias"] if seg is None else segment_bias(
+        kw["segment_ids"])
     out = {}
     for dtype in ("float32", "bfloat16"):
         dt = getattr(torch, dtype)
         q, k, v, do = (torch.from_numpy(rng.randn(B, S, N, D).astype(
             np.float32)).to(device, dt) for _ in range(4))
-        o, m, l = flash.launch(q, k, v, bias=bias, with_stats=True)
+        o, m, l = flash.launch(q, k, v, with_stats=True, **kw)
         di = (do.float() * o.float()).sum(-1).transpose(1, 2).contiguous()
         args = (q, k, v, do, m, l, di)
         fwd_stats = time_ms(torch, lambda: flash.launch(
-            q, k, v, bias=bias, with_stats=True))
+            q, k, v, with_stats=True, **kw))
         qh, kh, vh = (t.transpose(1, 2).contiguous() for t in (q, k, v))
+        am = lib_mask.to(dt)
         with torch.inference_mode():
             fwd_lib = time_ms(torch, lambda: F.scaled_dot_product_attention(
-                qh, kh, vh, attn_mask=bias.to(dt)))
-        k2 = time_ms(torch, lambda: flash.launch_dq(*args, bias=bias))
-        k3 = time_ms(torch, lambda: flash.launch_dkv(*args, bias=bias))
+                qh, kh, vh, attn_mask=am))
+        p1 = time_ms(torch, lambda: flash.flash_attention_reference(
+            q, k, v, **kw), iters=20)
+        k2 = time_ms(torch, lambda: flash.launch_dq(*args, **kw))
+        k3 = time_ms(torch, lambda: flash.launch_dkv(*args, **kw))
         p2 = time_ms(torch, lambda: flash.flash_bwd_dq_reference(
-            *args, bias=bias), iters=20)
+            *args, **kw), iters=20)
         p3 = time_ms(torch, lambda: flash.flash_bwd_dkv_reference(
-            *args, bias=bias), iters=20)
+            *args, **kw), iters=20)
         qt, kt, vt = (t.transpose(1, 2).contiguous().requires_grad_()
                       for t in (q, k, v))
-        ot = F.scaled_dot_product_attention(qt, kt, vt,
-                                            attn_mask=bias.to(dt))
+        ot = F.scaled_dot_product_attention(qt, kt, vt, attn_mask=am)
         dot = do.transpose(1, 2).contiguous()
         lib = time_ms(torch, lambda: torch.autograd.grad(
             ot, (qt, kt, vt), dot, retain_graph=True))
         dev = {"flash_bwd_dq": device_ms(
-                   torch, lambda: flash.launch_dq(*args, bias=bias)),
+                   torch, lambda: flash.launch_dq(*args, **kw)),
                "flash_bwd_dkv": device_ms(
-                   torch, lambda: flash.launch_dkv(*args, bias=bias)),
+                   torch, lambda: flash.launch_dkv(*args, **kw)),
                "sdpa_bwd": device_ms(torch, lambda: torch.autograd.grad(
                    ot, (qt, kt, vt), dot, retain_graph=True)),
                "flash_fwd_with_stats": device_ms(torch, lambda: flash.launch(
-                   q, k, v, bias=bias, with_stats=True))}
+                   q, k, v, with_stats=True, **kw))}
         with torch.inference_mode():
             dev["sdpa_fwd"] = device_ms(
                 torch, lambda: F.scaled_dot_product_attention(
-                    qh, kh, vh, attn_mask=bias.to(dt)))
-        e2 = (flash.launch_dq(*args, bias=bias).float()
-              - flash.flash_bwd_dq_reference(*args, bias=bias).float()
-              ).abs().max().item()
-        e3 = max((a.float() - b.float()).abs().max().item() for a, b in zip(
-            flash.launch_dkv(*args, bias=bias),
-            flash.flash_bwd_dkv_reference(*args, bias=bias)))
+                    qh, kh, vh, attn_mask=am))
+        e2, ok2 = _err(flash.launch_dq(*args, **kw),
+                       flash.flash_bwd_dq_reference(*args, **kw),
+                       BWD_TOL[dtype])
+        e3k, e3v = (_err(a, b, BWD_TOL[dtype]) for a, b in zip(
+            flash.launch_dkv(*args, **kw),
+            flash.flash_bwd_dkv_reference(*args, **kw)))
+        e3, ok3 = max(e3k[0], e3v[0]), e3k[1] and e3v[1]
+        e1, ok1 = _err(o, flash.flash_attention_reference(q, k, v, **kw),
+                       (KERNEL_ATOL[dtype], 0.0))
+        if not (ok1 and ok2 and ok3):
+            fail(f"at the timed shape {B}x{S} ({form}, {dtype}) a kernel "
+                 f"disagrees with its twin: K1 {e1:.3e} (atol "
+                 f"{KERNEL_ATOL[dtype]:g}), K2 {e2:.3e}, K3 {e3:.3e} "
+                 f"(atol/rtol {BWD_TOL[dtype]})")
         elem = 4 if dtype == "float32" else 2
-        stats = 3 * B * N * S * 4 + B * S * 4        # m, l, Di, bias
-        # K1 with m and l: q, k, v read and o written once, the bias, m, l
+        stats = 3 * B * N * S * 4 + B * S * 4        # m, l, Di, mask
+        # K1 with m and l: q, k, v read and o written once, the mask, m, l
         b1 = bound(4 * B * S * N * D * elem + 2 * B * N * S * 4 + B * S * 4,
                    4 * D * N * pairs, dtype)
         b2 = bound(5 * B * S * N * D * elem + stats, 6 * D * N * pairs, dtype)
@@ -940,39 +1347,50 @@ def time_backward(torch, F, flash, mask_bias, key_mask, device, card):
             "flash_fwd_with_stats_ms": fwd_stats,
             "flash_fwd_with_stats_bound_ms": b1[0],
             "flash_fwd_with_stats_bound_by": b1[1],
+            "flash_fwd_with_stats_err": e1, "flash_fwd_plain_ms": p1,
             "flash_fwd_library_ms": fwd_lib, "device_ms": dev,
-            "pairs": pairs}
-        print(f"[time] flash backward {B}x{S} N={N} D={D} {dtype} (padded, "
+            "pairs": pairs, "shape": f"{B}x{S}", "form": form}
+        print(f"[time] flash backward {B}x{S} N={N} D={D} {dtype} ({form}, "
               f"{pairs} needed pairs): K2 {k2:.4f} ms (bound {b2[0]:.4f} by "
               f"{b2[1]}, plain {p2:.4f}), K3 {k3:.4f} ms (bound {b3[0]:.4f} "
               f"by {b3[1]}, plain {p3:.4f}); sdpa backward {lib:.4f} ms "
               f"(K2 + K3 / sdpa {(k2 + k3) / lib:.2f}x); K1 with m, l "
-              f"{fwd_stats:.4f} ms (bound {b1[0]:.4f} by {b1[1]}), sdpa "
-              f"forward {fwd_lib:.4f} ms; err {e2:.2e} / {e3:.2e} — {card}")
-        print(f"[time] flash backward {B}x{S} {dtype} device time "
+              f"{fwd_stats:.4f} ms (bound {b1[0]:.4f} by {b1[1]}, plain "
+              f"{p1:.4f}), sdpa "
+              f"forward {fwd_lib:.4f} ms; err {e1:.2e} / {e2:.2e} / "
+              f"{e3:.2e} — {card}")
+        print(f"[time] flash backward {B}x{S} {form} {dtype} device time "
               f"(torch.profiler, ms per call): " + ", ".join(
                   f"{k} {fmt_ms(v)}" for k, v in dev.items()) + f" — {card}")
         k1, sdpa = dev["flash_fwd_with_stats"], dev["sdpa_fwd"]
-        if k1 is not None and sdpa:
-            print(f"[time] K1 with m, l at {B}x{S} {dtype}: device "
+        kb, sb = dev["flash_bwd_dq"], dev["sdpa_bwd"]
+        if None not in (k1, sdpa, kb, sb, dev["flash_bwd_dkv"]):
+            print(f"[time] K1 with m, l at {B}x{S} {form} {dtype}: device "
                   f"{k1:.4f} ms = {100 * b1[0] / k1:.1f}% of its bound "
                   f"{b1[0]:.4f} ms by {b1[1]}, {k1 / sdpa:.2f}x sdpa's "
-                  f"forward ({sdpa:.4f} ms) — {card}")
+                  f"forward ({sdpa:.4f} ms); K2 + K3 "
+                  f"{(kb + dev['flash_bwd_dkv']) / sb:.2f}x sdpa's backward "
+                  f"({sb:.4f} ms) — {card}")
     return out
 
 
-def time_fused_ce(torch, F, fused_ce, device, card, T=32, H=768, C=6):
-    """K4 and K5 at the train step's 32 x 768 x 6, beside their twins,
+def time_fused_ce(torch, F, fused_ce, device, card, T=32, H=768, C=6,
+                  rows=None):
+    """K4 and K5 at the train step's 32 x 768 x 6 (or over ``rows``, the
+    labels and weights of a packed batch's per-segment rows), beside their
+    twins (held to ``CE_TOL``: a disagreement fails the run),
     ``F.linear`` + ``F.cross_entropy`` forward and backward, and their
     bounds; and the launch floor, the device time of one PyTorch kernel on
     a one-element tensor, which latency-bound K4 and K5 are held against
     (their bounds sit far below any launch)."""
     out = {}
     one = torch.zeros(1, device=device)
+    if rows is not None:
+        T = len(rows[0])
     for dtype in ("float32", "bfloat16"):
         floor = device_ms(torch, one.zero_)
         f, W, b, lab, dce, dlpu = ce_inputs(torch, device, dtype, T, 0.0,
-                                            SEED + 5)
+                                            SEED + 5, rows=rows)
         k4 = time_ms(torch, lambda: fused_ce.launch_fwd(f, W, b, lab))
         k5 = time_ms(torch, lambda: fused_ce.launch_bwd(f, W, b, lab, dce,
                                                         dlpu))
@@ -993,12 +1411,17 @@ def time_fused_ce(torch, F, fused_ce, device, card, T=32, H=768, C=6):
             lambda: F.cross_entropy(F.linear(f, W, b), lab64),
             lambda: torch.autograd.grad(loss, (fr, Wr, br),
                                         retain_graph=True))]
-        e4 = max((a - r).abs().max().item() for a, r in zip(
+        r4 = [_err(a, r, CE_TOL["float32"]) for a, r in zip(
             fused_ce.launch_fwd(f, W, b, lab),
-            fused_ce.fused_ce_fwd_reference(f, W, b, lab)))
-        e5 = max((a.float() - r.float()).abs().max().item() for a, r in zip(
-            fused_ce.launch_bwd(f, W, b, lab, dce, dlpu),
-            fused_ce.fused_ce_bwd_reference(f, W, b, lab, dce, dlpu)))
+            fused_ce.fused_ce_fwd_reference(f, W, b, lab))]
+        r5 = [_err(a, r, CE_TOL[dtype if i == 0 else "float32"])
+              for i, (a, r) in enumerate(zip(
+                  fused_ce.launch_bwd(f, W, b, lab, dce, dlpu),
+                  fused_ce.fused_ce_bwd_reference(f, W, b, lab, dce, dlpu)))]
+        e4, e5 = max(e for e, _ in r4), max(e for e, _ in r5)
+        if not all(ok for _, ok in r4 + r5):
+            fail(f"fused CE at the timed shape T={T} ({dtype}) disagrees "
+                 f"with its twins: K4 {e4:.3e}, K5 {e5:.3e} (CE_TOL)")
         elem = 4 if dtype == "float32" else 2
         ins = (T * H + C * H + C) * elem + T * 4        # f, W, b, labels
         b4 = bound(ins + 3 * T * 4, 2 * T * H * C, dtype)
@@ -1078,17 +1501,75 @@ def main():
                 print(f"[build] {kl.name} {fn} ptxas: {line.strip()}")
     occupancy = check_flash_build(torch, flash, cuda_lib, card)
 
-    # 3. kernel vs plain
-    errs = kernel_cases(torch, flash, mask_bias, device)
-    # 3b. the backward and the fused CE vs their twins
-    bwd_errs = backward_cases(torch, flash, mask_bias, device)
-    ce_errs = fused_ce_cases(torch, fused_ce, device)
-
-    # 4. the main path: bert-base served through the port's entry points
+    # the length-aware routes' data, on the host: a corpus with the length
+    # profile of the JAX package's synthetic corpus, and one with long
+    # documents for the multi-width pack route
     work = tempfile.mkdtemp(prefix="pdnlp_chip_smoke_")
     rng = np.random.RandomState(SEED)
     vocab_path = os.path.join(work, "vocab.txt")
     vocab_size = build_vocab_file(vocab_path, rng, CHARS)
+    prng = np.random.RandomState(SEED + 6)
+    profile_path = os.path.join(work, "profile.json")
+    write_profile_corpus(profile_path, prng, PROFILE_EXAMPLES)
+    long_path = os.path.join(work, "long.json")
+    write_profile_corpus(long_path, prng, LONG_EXAMPLES - LONG_DOCS,
+                         long_docs=LONG_DOCS)
+    length_base = Args(model="bert-base", device="cuda", seed=SEED,
+                       vocab_path=vocab_path, data_path=profile_path,
+                       data_limit=PROFILE_EXAMPLES, dropout=0.0,
+                       attn_dropout=0.0, learning_rate=LEARNING_RATE)
+    multi = "pack 128,256,512"
+    routes = {}
+    for name, args, per_width, total in (
+            ("bucket", length_base.replace(length_mode="bucket"),
+             -(-LENGTH_STEPS // len(BUCKETS)), LENGTH_STEPS),
+            ("pack", length_base.replace(length_mode="pack"), LENGTH_STEPS,
+             LENGTH_STEPS),
+            (multi, length_base.replace(
+                length_mode="pack", data_path=long_path,
+                data_limit=LONG_EXAMPLES, max_seq_len=512,
+                length_buckets="128,256,512"),
+             MULTI_WIDTH_STEPS_PER_WIDTH, 3 * MULTI_WIDTH_STEPS_PER_WIDTH)):
+        loader, _, tok = setup_data(args)
+        if tok.vocab_size != 21128:
+            fail(f"training vocab {tok.vocab_size}, not bert-base's 21128")
+        batches_l, rec = epoch_batches(loader, per_width, total)
+        routes[name] = (args, batches_l, rec)
+        print(f"[length] {name} data: {rec['examples']} examples, "
+              f"{rec['steps_per_epoch']} steps/epoch by width "
+              f"{rec['steps_by_width']}, fill {rec['fill']:.4f}; the route "
+              f"trains on {len(batches_l)} of them")
+    if routes["pack"][2]["steps_per_epoch"] < LENGTH_STEPS:
+        fail(f"the pack route has {routes['pack'][2]['steps_per_epoch']} "
+             f"steps per epoch, fewer than {LENGTH_STEPS}")
+    full = epoch_batches(setup_data(length_base)[0], 0, 0)
+    # the packed shapes the routes give the kernels: the pack route's first
+    # batch and the multi-width route's first at 256 and at 512
+    packed_batches = {128: routes["pack"][1][0]}
+    for w in (256, 512):
+        packed_batches[w] = next(
+            (b for b in routes[multi][1] if b["input_ids"].shape[1] == w),
+            None)
+        if packed_batches[w] is None:
+            fail(f"the multi-width route trains no batch of width {w}")
+    packed_segs = {w: b["segment_ids"] for w, b in packed_batches.items()}
+    pack_rows = {}
+    for w, b in packed_batches.items():
+        rows = (b["label"].reshape(-1), b["example_weight"].reshape(-1))
+        name = "pack route" if w == 128 else "multi-width route"
+        pack_rows[f"{name} 32x{w}"] = rows
+        print(f"[length] the {name}'s first batch of width {w}: "
+              f"{b['segment_ids'].shape[0]} x {w}, "
+              f"{int((rows[1] > 0).sum())} examples in {rows[1].size} segment"
+              f" slots, up to {int(b['segment_ids'].max())} segments per row")
+
+    # 3. kernel vs plain
+    errs = kernel_cases(torch, flash, mask_bias, device, packed_segs)
+    # 3b. the backward and the fused CE vs their twins
+    bwd_errs = backward_cases(torch, flash, mask_bias, device, packed_segs)
+    ce_errs = fused_ce_cases(torch, fused_ce, device, pack_rows)
+
+    # 4. the main path: bert-base served through the port's entry points
     texts = make_requests(rng, CHARS, N_REQUESTS)
     base = Args(model="bert-base", vocab_path=vocab_path, device="cuda",
                 seed=SEED)
@@ -1164,22 +1645,64 @@ def main():
     trains = training_runs(torch, flash, fused_ce, train_args, vocab_size,
                            batches, device, card)
     train_launches = trains["float32"]["launches"]
-    # 6b. the training entry point; the serve engine loads its checkpoint
+    # 6b. the training entry point at full width, then with the packed
+    # rows and the pipeline's default (resident); the serve engine loads
+    # both checkpoints
     ckpt_trained, single_rec = entry_point_run(work, corpus_path, vocab_path,
                                                data_limit)
-    served = build_engine(base, checkpoint=ckpt_trained)
-    _, logits = served.classify_texts(texts[:8])
-    print(f"[train.single] serve engine on {ckpt_trained}: logits "
-          f"{logits.shape}, finite {bool(np.isfinite(logits).all())}")
-    if logits.shape != (8, 6) or not np.isfinite(logits).all():
-        fail("the serve engine's answers on the trained checkpoint")
-    del served
+    serves(build_engine, base, ckpt_trained, texts)
+    ckpt_packed, single_pack_rec = entry_point_run(
+        work, profile_path, vocab_path, PROFILE_EXAMPLES,
+        extra=("--length_mode", "pack", "--pipeline", "auto"),
+        want_pipeline="resident", tag="train_pack_out")
+    serves(build_engine, base, ckpt_packed, texts)
     torch.cuda.empty_cache()
-    # 6 times: K2-K5 at the training shapes
-    bwd_times = time_backward(torch, F, flash, mask_bias,
-                              batches[0]["attention_mask"], device, card)
+    # 6c. length-aware training: bucket, pack, multi-width pack
+    full_ms = {d: trains[d]["step_ms_kernel"] for d in trains}
+    lengths = length_runs(torch, flash, fused_ce, routes, full, vocab_size,
+                          device, card, full_ms)
+    # 6d. the pipelines, bit for bit
+    pipes = pipeline_runs(torch, flash, fused_ce,
+                          length_base.replace(data_limit=PIPELINE_EXAMPLES),
+                          vocab_size, device, card)
+    launches_by_path = {
+        "serving packed (K1)": main_launches,
+        "6a fixed width fp32": train_launches,
+        **{f"6c {name} fp32": lengths[(name, "float32")]["launches_by_width"]
+           for name in routes},
+        **{f"6d {m} {p} bf16": r["launches"] for (m, p), r in pipes.items()}}
+    print(f"[launches] per path (counts set to 0 just before each, read "
+          f"just after): {json.dumps(launches_by_path)}")
+    # 6 times: K1-K3 at every training shape of the paths, K4/K5 at the
+    # train step's rows and the pack route's segment rows
+    bwd_times = time_backward(torch, F, flash, mask_bias, device, card,
+                              key_mask=batches[0]["attention_mask"])
+    shape_times = {}
+    for w in (32, 64):
+        b = next(b for b in routes["bucket"][1]
+                 if b["input_ids"].shape[1] == w)
+        shape_times[f"32x{w} bucket"] = time_backward(
+            torch, F, flash, mask_bias, device, card,
+            key_mask=b["attention_mask"])
+    for w, seg in packed_segs.items():
+        shape_times[f"32x{w} packed"] = time_backward(
+            torch, F, flash, mask_bias, device, card, seg=seg)
     ce_times = time_fused_ce(torch, F, fused_ce, device, card)
-    print(f"[summary] {json.dumps({'card': card, 'runs': runs, 'forward_ms': fwd_times, 'profile': profiles, 'flash_fwd': times, 'kernel_max_abs_err': errs, 'backward_max_abs_err': bwd_errs, 'fused_ce_max_abs_err': ce_errs, 'training': trains, 'train_single': single_rec, 'flash_bwd_times': bwd_times, 'fused_ce_times': ce_times, 'flash_build': occupancy, 'seconds': time.monotonic() - t_start})}")
+    ce_pack_times = {name: time_fused_ce(torch, F, fused_ce, device, card,
+                                         rows=rows)
+                     for name, rows in pack_rows.items()}
+    summary = {
+        "card": card, "runs": runs, "forward_ms": fwd_times,
+        "profile": profiles, "flash_fwd": times, "kernel_max_abs_err": errs,
+        "backward_max_abs_err": bwd_errs, "fused_ce_max_abs_err": ce_errs,
+        "training": trains, "train_single": [single_rec, single_pack_rec],
+        "length": {f"{n}/{d}": r for (n, d), r in lengths.items()},
+        "pipelines": {f"{m}/{p}": r for (m, p), r in pipes.items()},
+        "launches_by_path": launches_by_path,
+        "flash_bwd_times": bwd_times, "flash_shape_times": shape_times,
+        "fused_ce_times": ce_times, "fused_ce_pack_times": ce_pack_times,
+        "flash_build": occupancy, "seconds": time.monotonic() - t_start}
+    print(f"[summary] {json.dumps(summary)}")
 
     t32 = times["float32"]
     kernels = [{

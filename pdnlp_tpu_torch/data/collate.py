@@ -24,10 +24,11 @@ class Collator:
         self.max_seq_len = max_seq_len
 
     def __call__(self, examples: Sequence[Tuple[str, int]],
-                 pad_to: int = 0) -> Batch:
-        """Encode ``examples``; pad the batch up to ``pad_to`` rows."""
+                 pad_to: int = 0, seq_len: int = 0) -> Batch:
+        """Encode ``examples``; pad the batch up to ``pad_to`` rows and the
+        token columns to ``seq_len`` (a length bucket) or ``max_seq_len``."""
         enc = self.tokenizer.encode_batch([t for t, _ in examples],
-                                          self.max_seq_len)
+                                          seq_len or self.max_seq_len)
         n = len(examples)
         rows = max(pad_to, n)
         batch = {k: _pad_rows(v, rows) for k, v in enc.items()}
@@ -53,12 +54,32 @@ class EncodedDataset:
     def __len__(self) -> int:
         return self.n
 
-    def take(self, indices: Sequence[int], pad_to: int = 0) -> Batch:
-        """Assemble a batch by row indices; pad with zero-weight filler."""
+    def lengths(self) -> np.ndarray:
+        """Real tokens per example, [CLS] and [SEP] included: what the
+        length-grouped sampler buckets on."""
+        return self.arrays["attention_mask"].sum(axis=1).astype(np.int64)
+
+    def take(self, indices: Sequence[int], pad_to: int = 0,
+             seq_len: int = 0) -> Batch:
+        """Assemble a batch by row indices; pad with zero-weight filler.
+
+        ``seq_len`` narrows the token columns to a bucket width: an example
+        that fits the bucket holds only [PAD] (zeros) beyond it, so the
+        slice is the direct encoding at ``seq_len``, byte for byte.  Only
+        the full-width ``[N, seq_len]`` channels are sliced; per-segment
+        channels of packed rows keep their width.  A dataset that carries
+        its own ``example_weight`` (packed rows: ``[N, M]``) keeps it."""
         idx = np.asarray(indices, np.int64)
         rows = max(pad_to, len(idx))
-        batch = {k: _pad_rows(v[idx], rows) for k, v in self.arrays.items()}
-        batch["example_weight"] = _weights(len(idx), rows)
+        batch = {}
+        for k, v in self.arrays.items():
+            g = v[idx]
+            if seq_len and v.ndim == 2 and v.shape[1] == self.seq_len \
+                    and seq_len < self.seq_len:
+                g = g[:, :seq_len]
+            batch[k] = _pad_rows(g, rows)
+        if "example_weight" not in batch:
+            batch["example_weight"] = _weights(len(idx), rows)
         return batch
 
 

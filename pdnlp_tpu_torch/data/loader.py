@@ -4,8 +4,9 @@
 One worker thread assembles batches into a bounded queue while the card
 runs the previous step; every put polls a stop flag, so a consumer that
 breaks out early tears the worker down in one bounded join.  Every batch
-has the full static shape; a short final batch carries zero-weight filler
-rows (``data.collate``).
+has the full row count; a short final batch carries zero-weight filler
+rows (``data.collate``).  A batching sampler (``LengthGroupedSampler``)
+supplies each batch's indices and token width.
 """
 from __future__ import annotations
 
@@ -38,8 +39,19 @@ class DataLoader:
         self.drop_last = drop_last
         self.prefetch = prefetch
         self.encoded = encoded
+        if (hasattr(self.sampler, "chunks") and self.drop_last
+                and not getattr(self.sampler, "drop_last", False)):
+            # the sampler chunks global batches: a shard-local length test
+            # here would drop different steps on different processes (a
+            # 15-row global tail is 8 rows on shard 0 and 7 on shard 1)
+            raise ValueError(
+                "drop_last with a batching sampler must be set on the "
+                "sampler (it owns the global chunking), not the loader")
 
     def __len__(self) -> int:
+        n_batches = getattr(self.sampler, "batches_per_epoch", None)
+        if n_batches is not None:
+            return n_batches
         n = len(self.sampler)
         return n // self.batch_size if self.drop_last \
             else -(-n // self.batch_size)
@@ -47,24 +59,32 @@ class DataLoader:
     def set_epoch(self, epoch: int) -> None:
         self.sampler.set_epoch(epoch)
 
-    def _chunks(self) -> Iterator[List[int]]:
+    def chunks(self) -> Iterator[Tuple[List[int], int]]:
+        """``(indices, seq_len)`` per batch, this epoch (JAX's ``_chunks``);
+        ``seq_len`` 0 is the full ``max_seq_len``.  A sampler with
+        ``chunks()`` supplies both.  The host batches and the resident
+        pipeline's on-card gathers both follow it."""
+        if hasattr(self.sampler, "chunks"):
+            yield from self.sampler.chunks()
+            return
         idx = list(self.sampler)
         for i in range(0, len(idx), self.batch_size):
             chunk = idx[i: i + self.batch_size]
             if self.drop_last and len(chunk) < self.batch_size:
                 return
-            yield chunk
+            yield chunk, 0
 
-    def _make(self, chunk: List[int]) -> Batch:
+    def _make(self, chunk: List[int], seq_len: int = 0) -> Batch:
         if self.encoded is not None:
-            return self.encoded.take(chunk, pad_to=self.batch_size)
+            return self.encoded.take(chunk, pad_to=self.batch_size,
+                                     seq_len=seq_len)
         return self.collator([self.data[j] for j in chunk],
-                             pad_to=self.batch_size)
+                             pad_to=self.batch_size, seq_len=seq_len)
 
     def __iter__(self) -> Iterator[Batch]:
         if self.prefetch <= 0:
-            for chunk in self._chunks():
-                yield self._make(chunk)
+            for chunk, seq_len in self.chunks():
+                yield self._make(chunk, seq_len)
             return
         q: queue.Queue = queue.Queue(maxsize=self.prefetch)
         done = object()
@@ -84,8 +104,8 @@ class DataLoader:
 
         def worker():
             try:
-                for chunk in self._chunks():
-                    if not put_or_stop(self._make(chunk)):
+                for chunk, seq_len in self.chunks():
+                    if not put_or_stop(self._make(chunk, seq_len)):
                         return
                 put_or_stop(done)
             except BaseException as e:  # handed to the consumer, re-raised there

@@ -1,10 +1,11 @@
-"""Experiment assembly (``pdnlp_tpu/train/setup.py``): the data and the
-model the entry points share.
+"""Experiment assembly (``pdnlp_tpu/train/setup.py``): the data, the input
+pipeline and the model the entry points share.
 
-``setup_data`` is the full-width path of the JAX ``setup_data``: the seeded
-split, the once-encoded splits, a shuffled train loader and an unshuffled
-dev loader, every batch padded to ``max_seq_len``.  Length-grouped and
-packed training batches wait for ROADMAP A8.
+``setup_data`` builds the seeded split, the once-encoded splits, the train
+loader of ``--length_mode`` (:func:`build_length_train_loader`) and an
+unshuffled dev loader padded to ``max_seq_len``;
+``data.pipeline.build_pipeline`` puts the train loader behind the
+``--pipeline`` mode.
 """
 from __future__ import annotations
 
@@ -13,7 +14,13 @@ from typing import Tuple
 from pdnlp_tpu_torch.data.collate import Collator, EncodedDataset
 from pdnlp_tpu_torch.data.corpus import load_data, split_data
 from pdnlp_tpu_torch.data.loader import DataLoader
-from pdnlp_tpu_torch.data.sampler import DistributedShardSampler
+from pdnlp_tpu_torch.data.packing import (
+    MultiWidthPackedDataset, pack_classification,
+)
+from pdnlp_tpu_torch.data.sampler import (
+    DistributedShardSampler, LengthGroupedSampler, parse_buckets,
+    resolve_length_mode, validate_length_buckets,
+)
 from pdnlp_tpu_torch.data.tokenizer import WordPieceTokenizer, get_or_build_vocab
 from pdnlp_tpu_torch.models.bert import BertClassifier
 from pdnlp_tpu_torch.models.config import BertConfig, args_overrides, get_config
@@ -29,18 +36,75 @@ def setup_data(args) -> Tuple[DataLoader, DataLoader, WordPieceTokenizer]:
                             limit=args.data_limit, ratio=args.ratio)
     tok = WordPieceTokenizer(get_or_build_vocab(args))
     col = Collator(tok, args.max_seq_len)
-    train_loader = DataLoader(
-        train, col, args.train_batch_size,
-        sampler=DistributedShardSampler(len(train), shuffle=True,
-                                        seed=args.seed),
-        prefetch=args.prefetch,
-        encoded=EncodedDataset(train, tok, args.max_seq_len))
+    train_loader = build_length_train_loader(
+        args, train, col, EncodedDataset(train, tok, args.max_seq_len),
+        batch_size=args.train_batch_size)
     dev_loader = DataLoader(
         dev, col, args.dev_batch_size,
         sampler=DistributedShardSampler(len(dev), shuffle=False),
         prefetch=args.prefetch,
         encoded=EncodedDataset(dev, tok, args.max_seq_len))
     return train_loader, dev_loader, tok
+
+
+def build_length_train_loader(args, train, col, train_enc, *, batch_size,
+                              num_shards: int = 1, shard_id: int = 0
+                              ) -> DataLoader:
+    """The train loader of ``--length_mode``:
+
+    - ``full``: the seeded shard sampler, every batch padded to
+      ``max_seq_len``;
+    - ``bucket``: the seeded length-grouped sampler; each batch pads to the
+      smallest bucket of ``--length_buckets`` that covers its longest
+      example;
+    - ``pack``: the split packed once into multi-example rows, whose epochs
+      shuffle through the shard sampler.  When ``--length_buckets`` names
+      more than one width that is a multiple of 128 and the largest covers
+      ``max_seq_len``, each example packs at its smallest covering width
+      (``MultiWidthPackedDataset``) and the length-grouped sampler batches
+      the rows width by width.
+
+    bucket and pack check the widths against the model's position table
+    first (``validate_length_buckets``).  Eval loaders stay unpacked and
+    full-width in every mode, so dev accuracy means the same thing.
+    """
+    mode = resolve_length_mode(args)
+    if mode in ("bucket", "pack"):
+        widths = parse_buckets(args.length_buckets, args.max_seq_len)
+        validate_length_buckets(
+            widths, max_position=get_config(args.model).max_position,
+            model=args.model, mode=mode, max_seq_len=args.max_seq_len)
+    if mode == "bucket":
+        sampler = LengthGroupedSampler(
+            train_enc.lengths(), batch_size=batch_size, buckets=widths,
+            num_shards=num_shards, shard_id=shard_id, shuffle=True,
+            seed=args.seed)
+        return DataLoader(train, col, batch_size, sampler=sampler,
+                          prefetch=args.prefetch, encoded=train_enc)
+    if mode == "pack":
+        cap = args.pack_max_segments
+        tiling = tuple(w for w in widths if w >= 128 and w % 128 == 0)
+        if len(tiling) > 1 and tiling[-1] >= args.max_seq_len:
+            packed = MultiWidthPackedDataset(train_enc, tiling,
+                                             max_segments=cap)
+            sampler = LengthGroupedSampler(
+                packed.row_width_table(), batch_size=batch_size,
+                buckets=tiling, num_shards=num_shards, shard_id=shard_id,
+                shuffle=True, seed=args.seed)
+            return DataLoader(train, col, batch_size, sampler=sampler,
+                              prefetch=args.prefetch, encoded=packed)
+        packed = pack_classification(train_enc, max_segments=cap)
+        return DataLoader(
+            train, col, batch_size,
+            sampler=DistributedShardSampler(len(packed), num_shards,
+                                            shard_id, shuffle=True,
+                                            seed=args.seed),
+            prefetch=args.prefetch, encoded=packed)
+    return DataLoader(
+        train, col, batch_size,
+        sampler=DistributedShardSampler(len(train), num_shards, shard_id,
+                                        shuffle=True, seed=args.seed),
+        prefetch=args.prefetch, encoded=train_enc)
 
 
 def setup_model(args, vocab_size: int, total_steps=None

@@ -5,7 +5,15 @@ epoch over the seeded 9,200-example split (288 steps), AdamW 3e-5, a
 pass over dev with the classification report.
 
     python -m pdnlp_tpu_torch.train.single --data_path data/train.json \\
-        [--dtype bfloat16] [--dev true] [--attn_dropout 0] [--device cpu]
+        [--dtype bfloat16] [--dev true] [--attn_dropout 0] [--device cpu] \\
+        [--length_mode full|bucket|pack] [--length_buckets 32,64,128] \\
+        [--pipeline auto|resident|prefetch|sync]
+
+``--length_mode bucket`` pads each batch to the smallest covering width of
+``--length_buckets``; ``pack`` puts several examples in each row, with the
+segment form of the flash kernels (``data.packing``).  ``--pipeline``
+picks how batches reach the card (``data.pipeline``; ``auto`` holds the
+split on the card when it can, else prefetches on a side stream).
 
 Runs on ``cuda`` unless ``--device cpu`` is given.  With ``--attn_dropout``
 above 0 (the default 0.1) training attention takes the plain path, as in
@@ -22,8 +30,6 @@ import sys
 NOT_PORTED = {
     "--fuse_steps": ("1", "K-step fusion as CUDA graph capture (ROADMAP A4)"),
     "--grads_dtype": ("param", "compute-dtype gradients (ROADMAP A4)"),
-    "--length_mode": ("full", "length-aware training (ROADMAP A8)"),
-    "--pipeline": ("sync", "the resident/prefetch pipeline (ROADMAP A8)"),
     "--resume_every": (None, "resume snapshots (ROADMAP A4)"),
     "--resume_from": (None, "resume snapshots (ROADMAP A4)"),
     "--elastic": (None, "elastic restart (ROADMAP A11)"),
@@ -55,6 +61,7 @@ def refuse_not_ported(argv, table=NOT_PORTED):
 
 def main(args) -> float:
     from pdnlp_tpu_torch.data.corpus import LABELS
+    from pdnlp_tpu_torch.data.pipeline import build_pipeline
     from pdnlp_tpu_torch.train.setup import setup_data, setup_model
     from pdnlp_tpu_torch.train.steps import build_eval_step, build_train_step
     from pdnlp_tpu_torch.train.trainer import Trainer
@@ -65,10 +72,12 @@ def main(args) -> float:
     cfg, state = setup_model(args, tok.vocab_size,
                              total_steps=len(train_loader) * args.epochs)
     device = next(state.model.parameters()).device
+    pipeline = build_pipeline(args, train_loader, device)
     rank0_print(f"device: {device.type}  model: {args.model}  "
-                f"dtype: {args.dtype}  steps/epoch: {len(train_loader)}")
+                f"dtype: {args.dtype}  steps/epoch: {len(train_loader)}  "
+                f"pipeline: {pipeline.mode}")
     trainer = Trainer(args, cfg, state, build_train_step(args, device),
-                      build_eval_step(args), device)
+                      build_eval_step(args), device, pipeline=pipeline)
     minutes = trainer.train(train_loader, dev_loader)
     # dev doubles as the test set (single-gpu-cls.py:241-247)
     result = trainer.test(dev_loader)

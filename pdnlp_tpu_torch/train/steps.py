@@ -9,8 +9,12 @@ inside the forward, so their gradients land in fp32 (the JAX
 ``grads_dtype="param"`` default; ``"compute"`` is not ported).
 
 Loss semantics: per-example cross-entropy weighted by ``example_weight``,
-so the filler rows of the last batch contribute nothing.  The reported loss
-is always the bare CE; label smoothing enters the objective only.
+so the filler rows of the last batch contribute nothing.  Packed rows give
+per-segment outputs ``[B, M, ·]`` with ``[B, M]`` labels and weights; both
+steps flatten them to ``[B·M]`` example rows before either CE, so the loss
+is the unpacked loss over the same examples (empty slots weigh 0).  The
+reported loss is always the bare CE; label smoothing enters the objective
+only.
 
 Folding K steps into one dispatch (JAX ``build_multi_step``) becomes CUDA
 graph capture in a later slice.
@@ -73,6 +77,17 @@ def weighted_ce(logits: torch.Tensor, labels: torch.Tensor,
     return loss, correct, objective
 
 
+def flat_examples(out: torch.Tensor, labels: torch.Tensor,
+                  weights: torch.Tensor):
+    """Packed rows' per-segment ``[B, M, ·]`` outputs and ``[B, M]``
+    labels and weights -> ``[B·M]`` example rows; padded batches pass
+    through."""
+    if out.dim() == 3:
+        return (out.reshape(-1, out.shape[-1]), labels.reshape(-1),
+                weights.reshape(-1))
+    return out, labels, weights
+
+
 def build_train_step(args, device) -> Callable[[TrainState, Batch], Metrics]:
     """The train step for ``args`` on ``device``: ``step(state, batch)``
     updates ``state`` in place and returns ``{"loss", "accuracy"}`` as
@@ -88,7 +103,8 @@ def build_train_step(args, device) -> Callable[[TrainState, Batch], Metrics]:
         out = model.classify(batch, dtype=dtype, attn_impl=attn_impl,
                              deterministic=False, generator=state.generator,
                              return_pooled=fused)
-        labels, weights = batch["label"], batch["example_weight"]
+        out, labels, weights = flat_examples(out, batch["label"],
+                                             batch["example_weight"])
         if fused:
             # out is the pooled features: the kernels apply the classifier
             # themselves, so the [T, C] logits never reach device memory
@@ -134,7 +150,8 @@ def build_eval_step(args) -> Callable[..., Metrics]:
             else:
                 logits = torch.func.functional_call(model, dict(params),
                                                     (batch,), kw)
-            labels, w = batch["label"], batch["example_weight"]
+            logits, labels, w = flat_examples(logits, batch["label"],
+                                              batch["example_weight"])
             loss, correct, _ = weighted_ce(logits, labels, w)
             return {"loss_sum": loss * w.sum().clamp_min(1.0),
                     "weight": w.sum(), "correct": correct,

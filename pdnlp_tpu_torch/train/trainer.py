@@ -8,10 +8,12 @@
 - ``dev``: mean loss and accuracy over the dev loader.
 - ``test``: ``dev`` plus the predictions for the classification report.
 
-Batches move to the card per step from pinned host memory.  The loss is
-fetched from the card only for a line that prints, one step late: the
-line for step s prints after step s+1 is queued, so the card never waits
-on the host between steps.
+Training batches reach the card through an input pipeline
+(``data.pipeline``): the one given when it wraps the train loader, else a
+sync one (pinned host copy, upload inline).  The example count comes with
+each batch from the host.  The loss is fetched from the card only for a
+line that prints, one step late: the line for step s prints after step
+s+1 is queued, so the card never waits on the host between steps.
 
 Not in this slice: resume snapshots and elastic width, heartbeats, the
 obs tracer and exporter, the profiler and ``LoopHooks`` (ROADMAP A4, A11);
@@ -25,6 +27,9 @@ from typing import Callable, Dict, Optional, Tuple
 import numpy as np
 import torch
 
+from pdnlp_tpu_torch.data.pipeline import (
+    InputPipeline, SyncPipeline, to_device,
+)
 from pdnlp_tpu_torch.train import checkpoint as ckpt
 from pdnlp_tpu_torch.train.steps import TrainState
 from pdnlp_tpu_torch.utils.logging import (
@@ -34,13 +39,15 @@ from pdnlp_tpu_torch.utils.logging import (
 
 class Trainer:
     def __init__(self, args, cfg, state: TrainState, train_step: Callable,
-                 eval_step: Callable, device: torch.device):
+                 eval_step: Callable, device: torch.device,
+                 pipeline: Optional[InputPipeline] = None):
         self.args = args
         self.cfg = cfg
         self.state = state
         self.train_step = train_step
         self.eval_step = eval_step
         self.device = device
+        self.pipeline = pipeline
         self.best_accuracy = 0.0
         self._best_params: Optional[Dict[str, torch.Tensor]] = None
         # dev batches held on the card, keyed by loader identity: the dev
@@ -50,11 +57,14 @@ class Trainer:
     def put(self, batch: Dict[str, np.ndarray]) -> Dict[str, torch.Tensor]:
         """Host batch -> tensors on the device (pinned host copy, then an
         asynchronous upload on the card)."""
-        if self.device.type != "cuda":
-            return {k: torch.from_numpy(v) for k, v in batch.items()}
-        return {k: torch.from_numpy(v).pin_memory().to(self.device,
-                                                        non_blocking=True)
-                for k, v in batch.items()}
+        return to_device(batch, self.device)
+
+    def _train_pipeline(self, train_loader) -> InputPipeline:
+        """The pipeline that feeds ``train_loader``: the Trainer's own when
+        it wraps that loader, else a sync one."""
+        if self.pipeline is not None and self.pipeline.loader is train_loader:
+            return self.pipeline
+        return SyncPipeline(train_loader, self.device)
 
     def _sync(self) -> None:
         if self.device.type == "cuda":
@@ -64,16 +74,16 @@ class Trainer:
     def train(self, train_loader, dev_loader=None) -> float:
         """Run ``args.epochs`` epochs; returns wall-clock minutes."""
         args = self.args
-        total_step = len(train_loader) * args.epochs
+        pipeline = self._train_pipeline(train_loader)
+        total_step = len(pipeline) * args.epochs
         gstep = examples = 0
         pending: Optional[Tuple[int, int, torch.Tensor]] = None
         last_loss = None
         start = time.time()
         for epoch in range(1, args.epochs + 1):
-            train_loader.set_epoch(epoch - 1)
-            for batch in train_loader:
-                n_examples = int(batch["example_weight"].sum())
-                metrics = self.train_step(self.state, self.put(batch))
+            pipeline.set_epoch(epoch - 1)
+            for batch, _n, _fused, n_examples in pipeline.macro_batches(1):
+                metrics = self.train_step(self.state, batch)
                 last_loss = metrics["loss"]
                 gstep += 1
                 examples += n_examples

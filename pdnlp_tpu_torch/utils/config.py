@@ -70,6 +70,29 @@ class Args:
                                                   # kernels on cuda, plain
                                                   # on cpu
     prefetch: int = 2                             # loader collation lookahead
+    length_mode: str = "auto"                     # full (every batch padded
+                                                  # to max_seq_len) | bucket
+                                                  # (length-grouped batches
+                                                  # padded to the smallest
+                                                  # covering bucket) | pack
+                                                  # (several examples per
+                                                  # row, segment mask);
+                                                  # auto = full (data.
+                                                  # sampler.
+                                                  # resolve_length_mode)
+    length_buckets: str = "32,64,128"             # bucket widths; values over
+                                                  # max_seq_len are dropped
+                                                  # and max_seq_len is always
+                                                  # the last bucket
+    pipeline: str = "auto"                        # auto|resident|prefetch|
+                                                  # sync: how training
+                                                  # batches reach the card
+                                                  # (data.pipeline); auto =
+                                                  # resident when eligible,
+                                                  # else prefetch
+    pipeline_hbm_mb: int = 128                    # resident mode: the split
+                                                  # held on the card must fit
+                                                  # this many MB
     serve_dtype: str = "auto"                     # auto (= --dtype) | bf16
     attention_impl: str = "auto"                  # auto|xla|pallas (alias
                                                   # --attn_impl): xla = the
@@ -78,8 +101,13 @@ class Args:
                                                   # flash kernel; auto = the
                                                   # kernel on cuda, plain on
                                                   # cpu (ops.attention)
-    pack_max_segments: int = 16                   # requests per packed row cap
-                                                  # at the 128-token width
+    pack_max_segments: int = 16                   # examples (training) or
+                                                  # requests (serving) per
+                                                  # packed row, at the
+                                                  # 128-token base width;
+                                                  # wider training rows scale
+                                                  # it (data.packing.
+                                                  # segment_cap)
     device: str = "cuda"                          # cuda | cpu; cuda without a
                                                   # card raises, never falls
                                                   # back

@@ -1,7 +1,8 @@
 """Metrics (``pdnlp_tpu/utils/metrics.py``): the serving observability
 primitives ``Counter`` / ``Gauge`` / ``Histogram`` (thread-safe,
-JSON-snapshot friendly, aggregated by ``serve.metrics.ServeMetrics``) and
-the eval report ``classification_report``, byte for byte."""
+JSON-snapshot friendly, aggregated by ``serve.metrics.ServeMetrics``), the
+input pipeline's ``TransportStats`` and the eval report
+``classification_report``, byte for byte."""
 from __future__ import annotations
 
 import threading
@@ -92,6 +93,123 @@ class Histogram:
             "p95": ps[1],
             "p99": ps[2],
         }
+
+
+class TransportStats:
+    """Host->device transport of one input pipeline (``data.pipeline``).
+
+    Tells *in-loop* uploads (paid per step, inside the epoch: what the
+    resident pipeline removes) from *amortized* ones (the one-time upload
+    of the split and the per-epoch permutation), and counts the rows and
+    token positions fed, real and padding, overall and per token width.
+    Thread-safe: the prefetch pipeline records from its upload worker
+    while the train loop reads.
+    """
+
+    def __init__(self) -> None:
+        self._lock = threading.Lock()
+        self.mode: Optional[str] = None
+        self.bytes_total = 0        # every host->device upload
+        self.bytes_in_loop = 0      # uploads issued per step, in the loop
+        self.puts_in_loop = 0
+        self.puts_amortized = 0
+        self.put_wait_sec = 0.0     # host seconds blocked inside put()
+        self.steps = 0              # optimizer steps fed
+        self.rows = 0               # label slots fed (filler included)
+        self.rows_real = 0          # weight-1 slots (real examples)
+        self.tokens = 0             # token positions fed (rows x seq_len)
+        self.tokens_real = 0        # attention-mask-1 positions (non-[PAD])
+        self.by_bucket: Dict[int, Dict[str, int]] = {}  # seq_len -> counters
+        self.in_flight = 0          # uploaded but not yet handed to the loop
+        self.in_flight_max = 0
+
+    def record_upload(self, nbytes: int, wait_sec: float,
+                      in_loop: bool = True) -> None:
+        with self._lock:
+            self.bytes_total += int(nbytes)
+            self.put_wait_sec += float(wait_sec)
+            if in_loop:
+                self.bytes_in_loop += int(nbytes)
+                self.puts_in_loop += 1
+            else:
+                self.puts_amortized += 1
+
+    def record_batch(self, steps: int, rows: int, rows_real: int,
+                     seq_len: int = 0, tokens: int = 0,
+                     tokens_real: int = 0) -> None:
+        """``tokens`` positions were paid for (input rows x width; under
+        packing fewer than the example count suggests), ``tokens_real``
+        of them were not [PAD]; both also per ``seq_len``."""
+        with self._lock:
+            self.steps += int(steps)
+            self.rows += int(rows)
+            self.rows_real += int(rows_real)
+            if seq_len:
+                self.tokens += int(tokens)
+                self.tokens_real += int(tokens_real)
+                b = self.by_bucket.setdefault(
+                    int(seq_len),
+                    {"steps": 0, "rows": 0, "rows_real": 0, "tokens": 0,
+                     "tokens_real": 0})
+                b["steps"] += int(steps)
+                b["rows"] += int(rows)
+                b["rows_real"] += int(rows_real)
+                b["tokens"] += int(tokens)
+                b["tokens_real"] += int(tokens_real)
+
+    def put_started(self) -> None:
+        with self._lock:
+            self.in_flight += 1
+            self.in_flight_max = max(self.in_flight_max, self.in_flight)
+
+    def put_delivered(self) -> None:
+        with self._lock:
+            self.in_flight -= 1
+
+    @property
+    def bytes_per_step(self) -> float:
+        """In-loop bytes per optimizer step: 0 for the resident pipeline."""
+        return self.bytes_in_loop / self.steps if self.steps else 0.0
+
+    @property
+    def padding_waste(self) -> float:
+        """Fraction of fed label slots that were zero-weight filler."""
+        return 1.0 - self.rows_real / self.rows if self.rows else 0.0
+
+    @property
+    def padding_waste_tokens(self) -> float:
+        """Fraction of fed token positions that were [PAD]: the work the
+        length-aware modes (bucket, pack) save."""
+        return 1.0 - self.tokens_real / self.tokens if self.tokens else 0.0
+
+    def snapshot(self) -> Dict[str, object]:
+        """JSON-ready summary."""
+        with self._lock:
+            snap = {
+                "mode": self.mode,
+                "steps": self.steps,
+                "puts_in_loop": self.puts_in_loop,
+                "puts_amortized": self.puts_amortized,
+                "bytes_uploaded_total": self.bytes_total,
+                "bytes_uploaded_in_loop": self.bytes_in_loop,
+                "bytes_per_step": round(self.bytes_per_step, 2),
+                "put_wait_sec": round(self.put_wait_sec, 6),
+                "padding_waste_ratio": round(self.padding_waste, 6),
+                "padding_waste_tokens": round(self.padding_waste_tokens, 6)
+                if self.tokens else None,
+                "prefetch_in_flight_max": self.in_flight_max,
+            }
+            if self.by_bucket:
+                snap["by_bucket"] = {
+                    str(seq): {
+                        **b,
+                        "padding_waste_tokens": round(
+                            1.0 - b["tokens_real"] / b["tokens"], 6)
+                        if b["tokens"] else 0.0,
+                    }
+                    for seq, b in sorted(self.by_bucket.items())
+                }
+            return snap
 
 
 def per_class_stats(y_true: Sequence[int], y_pred: Sequence[int], num_classes: int):

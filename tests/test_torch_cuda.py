@@ -421,3 +421,191 @@ def test_fused_ce_ties_and_autograd_on_the_card(cuda_device):
                                                   for o in out])
     for g, x in zip(*grads):
         torch.testing.assert_close(g, x, **CE_TOL[torch.float32])
+
+
+# ------------------------------------------ length-aware training shapes
+
+
+def _profile_corpus(n, seed=0):
+    """Texts with the length profile of the JAX package's synthetic corpus
+    (``bench.py --length``): 78% of 4-24 chars, 14% of 25-60, 8% of
+    61-126, one token per char."""
+    rng = np.random.RandomState(seed)
+    chars = list("天地人你我他好坏大小上下来去爱恨喜怒哀乐高兴悲伤讨厌愤怒")
+    out = []
+    for _ in range(n):
+        r = rng.rand()
+        L = (rng.randint(4, 25) if r < 0.78 else
+             rng.randint(25, 61) if r < 0.92 else rng.randint(61, 127))
+        out.append(("".join(rng.choice(chars) for _ in range(L)),
+                    int(rng.randint(0, 6))))
+    return out
+
+
+@pytest.fixture(scope="module")
+def packed_rows():
+    """A packed 32 x 128 training batch over the profile corpus, from the
+    port's own packer: ~4-5 segments per row, boundaries in every tile."""
+    from pdnlp_tpu_torch.data.collate import EncodedDataset
+    from pdnlp_tpu_torch.data.packing import pack_classification
+    from pdnlp_tpu_torch.data.tokenizer import WordPieceTokenizer, build_vocab
+
+    data = _profile_corpus(400)
+    tok = WordPieceTokenizer(build_vocab(t for t, _ in data))
+    packed = pack_classification(EncodedDataset(data, tok, 128))
+    return packed.take(list(range(32)), pad_to=32)
+
+
+@pytest.fixture(scope="module")
+def multi_width_rows():
+    """Width -> a packed 32-row batch of the multi-width packer
+    (``--max_seq_len 512 --length_buckets 128,256,512``) over the profile
+    corpus plus documents of 129-500 tokens: 32 x 256 (cap 32 segments a
+    row) and 32 x 512 (cap 64)."""
+    from pdnlp_tpu_torch.data.collate import EncodedDataset
+    from pdnlp_tpu_torch.data.packing import MultiWidthPackedDataset
+    from pdnlp_tpu_torch.data.tokenizer import WordPieceTokenizer, build_vocab
+
+    rng = np.random.RandomState(1)
+    data = _profile_corpus(600) + [
+        ("好" * int(rng.randint(127, 254) if i % 2 else
+                   rng.randint(255, 499)), int(rng.randint(0, 6)))
+        for i in range(120)]
+    tok = WordPieceTokenizer(build_vocab(t for t, _ in data))
+    packed = MultiWidthPackedDataset(EncodedDataset(data, tok, 512),
+                                     (128, 256, 512))
+    return {w: packed.groups[w].take(list(range(min(32, packed.groups[w].n))),
+                                     pad_to=32) for w in (256, 512)}
+
+
+def _length_case(form, S, dtype, device, packed, seed):
+    """B = 32, N = 12 at a bucket width (padded keys, a filler row) or the
+    packer's segment IDs."""
+    rng = np.random.RandomState(seed)
+    q, k, v, do = (torch.from_numpy(rng.randn(32, S, 12, 64).astype(
+        np.float32)).to(device, dtype) for _ in range(4))
+    if form == "bias":
+        mask = np.zeros((32, S), np.int32)
+        for b in range(31):
+            mask[b, : rng.randint(2, S + 1)] = 1
+        kw = {"bias": mask_bias(torch.from_numpy(mask).to(device))}
+    else:
+        kw = {"segment_ids": torch.from_numpy(packed["segment_ids"]).to(
+            device)}
+    return q, k, v, do, kw
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+@pytest.mark.parametrize("form,S", [("bias", 32), ("bias", 64),
+                                    ("packed", 128), ("packed", 256),
+                                    ("packed", 512)])
+def test_kernels_at_the_length_modes_shapes(cuda_device, packed_rows,
+                                            multi_width_rows, form, S,
+                                            dtype):
+    """K1-K3 at the bucket widths 32 and 64 (half of a 64-row tile, and one
+    tile) and on packer-made rows (the pack route's 128, the multi-width
+    route's 256 and 512), batch 32: the forward, m, l and the backward
+    against the twins, the tiles skipped equal to the block maps, and K2/K3
+    the same bits on a second launch."""
+    rows = packed_rows if S == 128 else multi_width_rows.get(S)
+    q, k, v, do, kw = _length_case(form, S, dtype, cuda_device, rows,
+                                   seed=S)
+    out = flash.flash_attention(q, k, v, **kw)
+    o, m, l = flash.launch(q, k, v, with_stats=True, **kw)
+    torch.cuda.synchronize()
+    ref = flash.flash_attention_reference(q, k, v, **kw)
+    assert (out.float() - ref.float()).abs().max().item() <= ATOL[dtype]
+    _, m_ref, l_ref = flash.flash_forward_reference(q, k, v, **kw)
+    torch.testing.assert_close(m, m_ref, rtol=1e-6, atol=1e-4)
+    torch.testing.assert_close(l, l_ref, rtol=1e-5, atol=1e-4)
+    live = flash.kernel_tile_map(q, k, v, **kw).cpu()
+    want = (flash.bias_block_map(kw["bias"].cpu()) if "bias" in kw
+            else flash.segment_block_map(kw["segment_ids"].cpu()))
+    assert torch.equal(live, want)
+    di = (do.float() * o.float()).sum(-1).transpose(1, 2).contiguous()
+    runs = [(flash.launch_dq(q, k, v, do, m, l, di, **kw),
+             *flash.launch_dkv(q, k, v, do, m, l, di, **kw))
+            for _ in range(2)]
+    torch.cuda.synchronize()
+    twins = (flash.flash_bwd_dq_reference(q, k, v, do, m, l, di, **kw),
+             *flash.flash_bwd_dkv_reference(q, k, v, do, m, l, di, **kw))
+    for name, g, a, w in zip(("dq", "dk", "dv"), *runs, twins):
+        torch.testing.assert_close(g.float(), w.float(), **BWD_TOL[dtype],
+                                   msg=name)
+        assert torch.equal(g, a), name
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+@pytest.mark.parametrize("S", [128, 256, 512])
+def test_fused_ce_over_packed_segment_rows(cuda_device, packed_rows,
+                                           multi_width_rows, S, dtype):
+    """K4/K5 at T = 32 x 16 = 512 rows with the pack route's weights, and
+    at the multi-width route's T = 32 x 32 = 1,024 and 32 x 64 = 2,048:
+    most rows are empty slots (weight 0, label 0); the twins' values, the
+    same bits on a second launch, and exactly zero d(feats) on every empty
+    slot."""
+    rows = packed_rows if S == 128 else multi_width_rows[S]
+    T = 32 * 16 * S // 128
+    w = torch.from_numpy(rows["example_weight"].reshape(-1)).to(cuda_device)
+    lab = torch.from_numpy(rows["label"].reshape(-1)).to(cuda_device)
+    assert w.numel() == T and 0 < int(w.sum()) < T // 2
+    f, W, b, _, _ = _ce_case(T, dtype, cuda_device, seed=21)
+    got = fused_ce.launch_fwd(f, W, b, lab)
+    want = fused_ce.fused_ce_fwd_reference(f, W, b, lab)
+    for g, x in zip(got, want):
+        torch.testing.assert_close(g, x, **CE_TOL[torch.float32])
+    dce = w / w.sum()
+    dlpu = 0.1 * dce
+    runs = [fused_ce.launch_bwd(f, W, b, lab, dce, dlpu) for _ in range(2)]
+    torch.cuda.synchronize()
+    ref = fused_ce.fused_ce_bwd_reference(f, W, b, lab, dce, dlpu)
+    torch.testing.assert_close(runs[0][0].float(), ref[0].float(),
+                               **CE_TOL[dtype])
+    for g, x in zip(runs[0][1:], ref[1:]):
+        torch.testing.assert_close(g, x, **CE_TOL[torch.float32])
+    for g, a in zip(*runs):
+        assert torch.equal(g, a)
+    assert not runs[0][0][w == 0].any()
+
+
+@pytest.mark.parametrize("mode", ["full", "pack"])
+def test_pipelines_feed_the_card_the_same_losses(cuda_device, mode):
+    """sync, prefetch (side-stream upload) and resident (on-card gather)
+    give bert-tiny on the kernel route the same per-step losses over two
+    epochs, bit for bit; resident uploads nothing inside the loop and
+    prefetch keeps at most one batch in flight."""
+    from pdnlp_tpu_torch.data import pipeline
+    from pdnlp_tpu_torch.data.collate import Collator, EncodedDataset
+    from pdnlp_tpu_torch.data.tokenizer import WordPieceTokenizer, build_vocab
+    from pdnlp_tpu_torch.train import setup, steps
+    from pdnlp_tpu_torch.utils.config import Args
+
+    data = _profile_corpus(300, seed=1)
+    tok = WordPieceTokenizer(build_vocab(t for t, _ in data))
+    args = Args(device="cuda", model="bert-tiny", dropout=0.0,
+                attn_dropout=0.0, learning_rate=1e-3, train_batch_size=16,
+                length_mode=mode, prefetch=2)
+    losses = {}
+    for name in ("sync", "prefetch", "resident"):
+        ld = setup.build_length_train_loader(
+            args, data, Collator(tok, 128), EncodedDataset(data, tok, 128),
+            batch_size=16)
+        pipe = pipeline.build_pipeline(args.replace(pipeline=name), ld)
+        _, state = setup.setup_model(args, tok.vocab_size)
+        step = steps.build_train_step(args, cuda_device)
+        out = []
+        for epoch in range(2):
+            pipe.set_epoch(epoch)
+            for batch, _n, _f, _ex in pipe.macro_batches(1):
+                out.append(step(state, batch)["loss"])
+        losses[name] = torch.stack(out).cpu()
+        snap = pipe.stats.snapshot()
+        if name == "resident":
+            assert snap["bytes_uploaded_in_loop"] == 0
+        if name == "prefetch":
+            assert snap["prefetch_in_flight_max"] == 1
+    assert torch.isfinite(losses["sync"]).all()
+    assert torch.equal(losses["sync"], losses["prefetch"])
+    assert torch.equal(losses["sync"], losses["resident"])

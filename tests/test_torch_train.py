@@ -423,9 +423,11 @@ def test_entry_point_refusals(tmp_path):
     assert single.refuse_not_ported(["--fuse_steps", "1", "--dev", "1"]) \
         == ["--dev", "1"]
     for argv in (["--fuse_steps", "4"], ["--resume_every", "10"],
-                 ["--grads_dtype", "compute"], ["--length_mode", "pack"]):
+                 ["--grads_dtype", "compute"], ["--trace", "1"]):
         with pytest.raises(SystemExit, match="does not have yet"):
             single.refuse_not_ported(argv)
+    ported = ["--length_mode", "pack", "--pipeline", "resident"]
+    assert single.refuse_not_ported(ported) == ported
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="no CUDA device"):
             setup_model(Args(model="bert-tiny"), VOCAB)
