@@ -28,8 +28,16 @@ pdnlp_tpu_torch.train.single`` at full width and with ``--length_mode
 pack --pipeline auto``, 6c length-aware training: bucket, pack and
 multi-width pack routes, kernel vs plain, on a corpus with the length
 profile of the JAX package's synthetic corpus, 6d the sync, prefetch and
-resident pipelines bit for bit), then the kernels' times at every shape
-these paths give them.  Any failure raises and the script exits
+resident pipelines bit for bit), 7 data-parallel training (7a dp, two gloo
+ranks sharing the card, fp32 and bf16, 10 full-width and 3 packed 64-row
+global batches against one process on the same batches, replicas
+bit-equal, K1-K5 counted per rank per step; 7b zero, FSDP2 with remat, at
+world 1 over NCCL, its consolidated checkpoint served by ``serve.cli``; 7c
+the explicit all-reduce, fp32 and bf16 on the wire; 7d ``python -m
+pdnlp_tpu_torch.train.multi`` over NCCL at world 1 and 7e ``python -m
+pdnlp_tpu_torch.train.spawn --num_processes 2 --dist_backend gloo`` at
+full width), then the kernels' times at every shape these paths give
+them.  Any failure raises and the script exits
 non-zero.  Without a card, or away from the
 repo, it prints no result and exits non-zero.  The line before the last is
 the ``{"kernels": [...]}`` record; the last is ``{"ok": true, ...}``.
@@ -1242,6 +1250,321 @@ def pipeline_runs(torch, flash, fused_ce, base, vocab_size, device, card):
     return out
 
 
+# ----------------------------------------------------------------- phase 7
+
+#: 7a-7c: every run trains from the seeded weights on DP_STEPS 64-row
+#: global batches of 6a's corpus (32 x 128 per rank), then PACKED_STEPS
+#: packed ones (two of the pack route's 32-row batches each, so the ranks
+#: carry different weight mass)
+DP_STEPS = 10
+PACKED_STEPS = 3
+DP_WORLD = 2
+#: 7b's placement, fixed from a measurement on the H100: FSDP2 over gloo on
+#: CUDA tensors killed both ranks with SIGSEGV (torch 2.11.0+cu128), so the
+#: zero phase runs FSDP2 at world 1 over NCCL; its 2-rank path on the card
+#: is unproven (the CPU tests hold it at 2 ranks over gloo)
+ZERO_WORLD = 1
+ZERO_REASON = ("FSDP2 over gloo on CUDA tensors killed both ranks with "
+               "SIGSEGV on torch 2.11.0+cu128, so zero runs at world 1 over "
+               "NCCL here; its 2-rank path on one card is unproven")
+WANT_DP_STEP = {"flash_fwd": 12, "flash_bwd_dq": 12, "flash_bwd_dkv": 12,
+                "fused_ce_fwd": 1, "fused_ce_bwd": 1}
+#: remat runs each layer's forward again in the backward: K1 twice
+WANT_REMAT_STEP = {**WANT_DP_STEP, "flash_fwd": 24}
+#: 7c: bf16 on the wire against the fp32 all-reduce (tests/test_parallel.py
+#: :338's bound) and the uncompressed explicit all-reduce against DDP
+SHARDMAP_BF16_RTOL = 1e-3
+SHARDMAP_RTOL = 1e-5
+
+
+def single_reference(torch, args, vocab_size, batches, device):
+    """One process on the kernel route fed the same global batches: the
+    per-step losses, the final params on the host and the mean step time
+    after the first (host clock to a synchronize)."""
+    from pdnlp_tpu_torch.data.pipeline import to_device
+    from pdnlp_tpu_torch.train.setup import setup_model
+    from pdnlp_tpu_torch.train.steps import build_train_step
+
+    _, state = setup_model(args, vocab_size, total_steps=len(batches))
+    step = build_train_step(args, device)
+    losses = []
+    for i, host in enumerate(batches):
+        if i == 1:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+        losses.append(step(state, to_device(host, device))["loss"])
+    torch.cuda.synchronize()
+    ms = (time.perf_counter() - t0) / (len(batches) - 1) * 1e3
+    params = {k: v.detach().cpu() for k, v in
+              state.model.state_dict().items()}
+    del state
+    torch.cuda.empty_cache()
+    return [float(x) for x in losses], params, ms
+
+
+def _ckpt_params(torch, path):
+    return torch.load(path, weights_only=True)["state_dict"]
+
+
+def _max_diff(a, b):
+    return max((a[k].float() - b[k].float()).abs().max().item() for k in a)
+
+
+def _check_launches(name, records, want):
+    for rank, rec in enumerate(records):
+        bad = [i for i, c in enumerate(rec["launches"]) if c != want]
+        if bad:
+            fail(f"{name}: rank {rank} step {bad[0]} launched "
+                 f"{rec['launches'][bad[0]]}, not {want}")
+
+
+def global_packed_batches(pack_batches):
+    """Pairs of the pack route's 32-row batches as 64-row global batches:
+    rank 0 takes the first of each pair, rank 1 the second."""
+    import numpy as np
+
+    out = []
+    for a, b in zip(pack_batches[0::2], pack_batches[1::2]):
+        if float(a["example_weight"].sum()) == \
+                float(b["example_weight"].sum()):
+            continue
+        out.append({k: np.concatenate([a[k], b[k]]) for k in a})
+    if len(out) < PACKED_STEPS:
+        fail("fewer than 3 packed global batches whose ranks' weights "
+             "differ")
+    return out[:PACKED_STEPS]
+
+
+def data_parallel_runs(torch, base, vocab_size, full, packed, device, card,
+                       work, texts, vocab_path, single_ms):
+    """Phase 7a-7c: two gloo ranks on the one card (NCCL refuses a second
+    rank on a card) train dp in fp32 and bf16, the explicit-collectives
+    step without and with bf16 on the wire; 7b: zero (FSDP2, remat) in
+    this process at ZERO_WORLD over NCCL.  Each is held to a single
+    process on the same global batches, step by step, and its launches
+    counted per rank per step."""
+    from pdnlp_tpu_torch.parallel import local, runtime
+    from pdnlp_tpu_torch.serve import score_texts
+    from pdnlp_tpu_torch.serve.engine import build_engine
+
+    batches = full + packed
+    steps = len(batches)
+    out_dir = os.path.join(work, "dp_out")
+    os.makedirs(out_dir, exist_ok=True)
+    numel = param_count(torch, base.model, vocab_size)
+    gang_args = base.replace(dist_backend="gloo")
+    runs = [{"name": "dp float32"},
+            {"name": "dp bfloat16", "dtype": "bfloat16"},
+            {"name": "shardmap", "explicit_collectives": True,
+             "compress_grads": False},
+            {"name": "shardmap bf16 wire", "explicit_collectives": True,
+             "compress_grads": True, "batches": full[:PACKED_STEPS]}]
+    t0 = time.monotonic()
+    ranks = local.run_gang(local.train_global_batches, DP_WORLD, gang_args,
+                           {"runs": runs, "vocab_size": vocab_size,
+                            "batches": batches, "out_dir": out_dir,
+                            "allreduce_numel": numel}, timeout=600)
+    gang_s = time.monotonic() - t0
+    by_name = {rec["name"]: [r[i] for r in ranks]
+               for i, rec in enumerate(ranks[0])}
+    rec7 = {"world": DP_WORLD, "backend": "gloo", "gang_seconds": gang_s,
+            "steps": steps, "allreduce_numel": numel,
+            "allreduce_ms": ranks[0][0]["allreduce_ms"], "runs": {}}
+    refs = {}
+    for dtype in ("float32", "bfloat16"):
+        name = f"dp {dtype}"
+        recs = by_name[name]
+        ref_loss, ref_params, ref_ms = single_reference(
+            torch, base.replace(dtype=dtype), vocab_size, batches, device)
+        got = _ckpt_params(torch, recs[0]["checkpoint"])
+        d_loss = max(abs(a - b) for a, b in zip(recs[0]["losses"], ref_loss))
+        d_par = _max_diff(got, ref_params)
+        _check_launches(name, recs, WANT_DP_STEP)
+        equal = recs[0]["digests"][0] == recs[0]["digests"][1]
+        refs[dtype] = (recs[0]["losses"], got)
+        rec7["runs"][name] = {
+            "losses": recs[0]["losses"], "single_losses": ref_loss,
+            "max_loss_diff": d_loss, "max_param_diff": d_par,
+            "replicas_bit_equal": equal,
+            "rank_step_ms": [r["step_ms"] for r in recs],
+            "single_step_ms_64_rows": ref_ms,
+            "launches_per_step": recs[0]["launches"][0]}
+        print(f"[dp] 7a {name}, {DP_WORLD} gloo ranks x 32 x 128, "
+              f"{DP_STEPS} steps + {PACKED_STEPS} packed: max |loss diff| vs "
+              f"one process {d_loss:.3e} (atol {TRAIN_LOSS_ATOL[dtype]}), "
+              f"max |param diff| {d_par:.3e} (atol {param_atol(steps):.1e}),"
+              f" replicas bit-equal {equal}, launches per rank per step "
+              f"{recs[0]['launches'][0]}")
+        print(f"[dp] 7a {name} step time per rank {recs[0]['step_ms']:.1f} / "
+              f"{recs[1]['step_ms']:.1f} ms (2 gloo ranks), one process on "
+              f"the same 64 rows {ref_ms:.1f} ms, one process on 32 rows "
+              f"{single_ms[dtype]:.1f} ms (6a) — host clock to a sync; "
+              f"printed, not claimed — {card}")
+        if not equal or d_loss > TRAIN_LOSS_ATOL[dtype] or \
+                d_par > param_atol(steps):
+            fail(f"7a {name}: 2 ranks vs one process: loss {d_loss:.3e}, "
+                 f"params {d_par:.3e}, replicas bit-equal {equal}")
+    ar = rec7["allreduce_ms"]
+    print(f"[dp] one gloo all-reduce of {numel:,} fp32 values "
+          f"({numel * 4 / 1e6:.0f} MB, {base.model}'s grads) over 2 ranks on "
+          f"one card: {', '.join(f'{x:.1f}' for x in ar)} ms (host clock to a "
+          f"synchronize; printed, not claimed) — {card}")
+    # 7c: the explicit all-reduce
+    dp_loss, dp_params = refs["float32"]
+    sm = by_name["shardmap"]
+    _check_launches("shardmap", sm, WANT_DP_STEP)
+    rel = max(abs(a - b) / abs(b) for a, b in zip(sm[0]["losses"], dp_loss))
+    d_par = _max_diff(_ckpt_params(torch, sm[0]["checkpoint"]), dp_params)
+    smc = by_name["shardmap bf16 wire"]
+    rel_c = max(abs(a - b) / abs(b)
+                for a, b in zip(smc[0]["losses"], dp_loss))
+    equal = all(r[0]["digests"][0] == r[0]["digests"][1]
+                for r in (sm, smc))
+    rec7["runs"]["shardmap"] = {"max_loss_rel": rel, "max_param_diff": d_par,
+                                "bf16_wire_max_loss_rel": rel_c,
+                                "replicas_bit_equal": equal,
+                                "rank_step_ms": [r["step_ms"] for r in sm]}
+    print(f"[dp] 7c shardmap fp32 wire: max loss rel diff vs dp {rel:.3e} "
+          f"(rtol {SHARDMAP_RTOL}), max |param diff| {d_par:.3e}; bf16 wire "
+          f"over {PACKED_STEPS} steps: loss rel {rel_c:.3e} (rtol "
+          f"{SHARDMAP_BF16_RTOL}); replicas bit-equal {equal}; step "
+          f"{sm[0]['step_ms']:.1f} ms per rank — {card}")
+    if rel > SHARDMAP_RTOL or d_par > param_atol(steps) or \
+            rel_c > SHARDMAP_BF16_RTOL or not equal:
+        fail("7c: the explicit all-reduce disagrees with dp")
+    # 7b: zero, FSDP2 with remat, in this process
+    print(f"[dp] 7b {ZERO_REASON}")
+    runtime.init_runtime(base.replace(dist_backend="auto"))
+    try:
+        backend = torch.distributed.get_backend()
+        zero = local.train_global_batches(
+            0, ZERO_WORLD, base,
+            {"runs": [{"name": "zero", "mode": "zero", "remat": True}],
+             "vocab_size": vocab_size, "batches": batches,
+             "out_dir": out_dir})[0]
+    finally:
+        runtime.shutdown()
+    _check_launches("7b zero", [zero], WANT_REMAT_STEP)
+    zparams = _ckpt_params(torch, zero["checkpoint"])
+    d_par = _max_diff(zparams, dp_params)
+    d_loss = max(abs(a - b) for a, b in zip(zero["losses"], dp_loss))
+    print(f"[dp] 7b zero (FSDP2, remat) at world {ZERO_WORLD} over "
+          f"{backend}: shard fraction {zero['shard_fraction']:.3f}, max "
+          f"|loss diff| vs 7a dp {d_loss:.3e}, max |param diff| {d_par:.3e} "
+          f"(atol {param_atol(steps):.1e}), launches per step "
+          f"{zero['launches'][0]}, step {zero['step_ms']:.1f} ms — {card}")
+    if backend != "nccl" or d_loss > TRAIN_LOSS_ATOL["float32"] or \
+            d_par > param_atol(steps) or \
+            abs(zero["shard_fraction"] - 1 / ZERO_WORLD) > 0.05:
+        fail(f"7b zero: loss {d_loss:.3e}, params {d_par:.3e}, fraction "
+             f"{zero['shard_fraction']}, backend {backend}")
+    import numpy as np
+
+    plain = build_engine(base.replace(attention_impl="xla"),
+                         checkpoint=zero["checkpoint"])
+    _, want = score_texts(plain, texts, buckets=BUCKETS, batch_size=8)
+    del plain
+    top2 = np.sort(want, axis=-1)[:, -2:]
+    labels = [int(w.argmax()) if (t[1] - t[0]) > 2 * LOGIT_ATOL["float32"]
+              else None for w, t in zip(want, top2)]
+    cli_run(vocab_path, zero["checkpoint"], texts, labels[:6])
+    rec7["runs"]["zero"] = {"world": ZERO_WORLD, "backend": backend,
+                            "reason": ZERO_REASON,
+                            "shard_fraction": zero["shard_fraction"],
+                            "max_loss_diff_vs_dp": d_loss,
+                            "max_param_diff_vs_dp": d_par,
+                            "step_ms": zero["step_ms"],
+                            "launches_per_step": zero["launches"][0]}
+    rec7["launches_rank0"] = {
+        name: {k: sum(c[k] for c in recs[0]["launches"])
+               for k in WANT_DP_STEP} for name, recs in by_name.items()}
+    rec7["launches_rank0"]["zero"] = {
+        k: sum(c[k] for c in zero["launches"]) for k in WANT_DP_STEP}
+    return rec7
+
+
+def param_count(torch, model_name, vocab_size):
+    """The model's parameter count (shapes only, on the meta device): the
+    size of its gradient all-reduce."""
+    from pdnlp_tpu_torch.models.bert import BertClassifier
+    from pdnlp_tpu_torch.models.config import get_config
+
+    with torch.device("meta"):
+        model = BertClassifier(get_config(model_name, vocab_size=vocab_size))
+    return sum(p.numel() for p in model.parameters())
+
+
+def entry_points_7de(work, corpus_path, vocab_path, data_limit):
+    """7d: ``train.multi --strategy dp`` at world 1 with the default
+    backend (NCCL), a few steps; 7e: ``train.spawn --strategy dp
+    --num_processes 2 --dist_backend gloo`` at full width, steps per epoch
+    ceil(single's / 2).  Both run at once, as users run them; each must
+    exit 0 with a 【train】 line per step and its checkpoint."""
+    import re
+
+    common = ["--device", "cuda", "--model", "bert-base", "--data_path",
+              corpus_path, "--vocab_path", vocab_path, "--attn_dropout", "0",
+              "--seed", str(SEED), "--strategy", "dp"]
+    cmds = {
+        "7d train.multi": (["-m", "pdnlp_tpu_torch.train.multi", *common,
+                            "--data_limit", "200", "--output_dir",
+                            os.path.join(work, "multi_out")],
+                           -(-int(200 * 0.92) // 32), "nccl", 1),
+        "7e train.spawn": (["-m", "pdnlp_tpu_torch.train.spawn", *common,
+                            "--num_processes", str(DP_WORLD),
+                            "--dist_backend", "gloo", "--data_limit",
+                            str(data_limit), "--dev", "true", "--eval_step",
+                            "5", "--output_dir",
+                            os.path.join(work, "spawn_out")],
+                           -(-(-(-int(data_limit * 0.92) // 32)) // DP_WORLD),
+                           "gloo", DP_WORLD)}
+    env = {k: v for k, v in os.environ.items()
+           if k not in ("COORDINATOR_ADDRESS", "NUM_PROCESSES", "PROCESS_ID",
+                        "MASTER_ADDR", "WORLD_SIZE", "RANK", "LOCAL_RANK")}
+    env["PYTHONPATH"] = REPO
+    t0 = time.monotonic()
+    procs = {k: subprocess.Popen([sys.executable, *c[0]], cwd=REPO, env=env,
+                                 stdout=subprocess.PIPE,
+                                 stderr=subprocess.PIPE, text=True)
+             for k, c in cmds.items()}
+    outs = {}
+    try:
+        for k, p in procs.items():
+            outs[k] = p.communicate(timeout=600)
+    finally:
+        for p in procs.values():
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    wall = time.monotonic() - t0
+    recs = {}
+    for k, (cmd, want_steps, backend, world) in cmds.items():
+        out, err = outs[k]
+        lines = out.splitlines()
+        head = next((ln for ln in lines if ln.startswith("mesh:")), "")
+        m = re.search(r"steps/epoch: (\d+)", head)
+        steps = int(m.group(1)) if m else None
+        train = [ln for ln in lines if ln.startswith("【train】")]
+        out_dir = cmd[cmd.index("--output_dir") + 1]
+        ckpt = os.path.join(out_dir, "dp-cls.pt")
+        rec = {"exit": procs[k].returncode, "steps_per_epoch": steps,
+               "want_steps": want_steps, "train_lines": len(train),
+               "head": head, "checkpoint": ckpt}
+        recs[k] = rec
+        print(f"[dp] {k}: exit={rec['exit']}, {head}; {len(train)} 【train】 "
+              f"lines (want {want_steps})")
+        for ln in lines:
+            if ln.startswith(("【dev】", "test loss", "耗时", "steps/s")):
+                print(f"[dp] {k} {ln}")
+        ok = (rec["exit"] == 0 and steps == want_steps
+              and len(train) == steps and f"backend: {backend}" in head
+              and f"process 0/{world}" in head and os.path.exists(ckpt))
+        if not ok:
+            fail(f"{k}: {rec}\n{err[-3000:]}")
+    print(f"[dp] 7d and 7e ran at once in {wall:.1f} s")
+    return recs
+
+
 # ------------------------------------------------------- phase 6 times
 
 
@@ -1665,12 +1988,33 @@ def main():
     pipes = pipeline_runs(torch, flash, fused_ce,
                           length_base.replace(data_limit=PIPELINE_EXAMPLES),
                           vocab_size, device, card)
+    # 7. data-parallel training: two gloo ranks on the card, zero over
+    # NCCL, the entry points
+    dp_loader = setup_data(train_args.replace(train_batch_size=64))[0]
+    dp_loader.set_epoch(0)
+    dp_full = list(dp_loader)[:DP_STEPS]
+    dp_packed = global_packed_batches(routes["pack"][1])
+    print(f"[dp] global batches: {DP_STEPS} of {dp_full[0]['input_ids'].shape}"
+          f" from {corpus_path}, then {PACKED_STEPS} packed of "
+          f"{dp_packed[0]['input_ids'].shape}, ranks' weights "
+          + ", ".join(f"{float(b['example_weight'][:32].sum()):.0f}/"
+                      f"{float(b['example_weight'][32:].sum()):.0f}"
+                      for b in dp_packed))
+    torch.cuda.empty_cache()
+    dp = data_parallel_runs(torch, train_args, vocab_size, dp_full,
+                            dp_packed, device, card, work, texts, vocab_path,
+                            full_ms)
+    dp["entry_points"] = entry_points_7de(work, corpus_path, vocab_path,
+                                          data_limit)
+    serves(build_engine, base, dp["entry_points"]["7e train.spawn"][
+        "checkpoint"], texts)
     launches_by_path = {
         "serving packed (K1)": main_launches,
         "6a fixed width fp32": train_launches,
         **{f"6c {name} fp32": lengths[(name, "float32")]["launches_by_width"]
            for name in routes},
-        **{f"6d {m} {p} bf16": r["launches"] for (m, p), r in pipes.items()}}
+        **{f"6d {m} {p} bf16": r["launches"] for (m, p), r in pipes.items()},
+        **{f"7 {n} rank 0": c for n, c in dp["launches_rank0"].items()}}
     print(f"[launches] per path (counts set to 0 just before each, read "
           f"just after): {json.dumps(launches_by_path)}")
     # 6 times: K1-K3 at every training shape of the paths, K4/K5 at the
@@ -1698,6 +2042,7 @@ def main():
         "training": trains, "train_single": [single_rec, single_pack_rec],
         "length": {f"{n}/{d}": r for (n, d), r in lengths.items()},
         "pipelines": {f"{m}/{p}": r for (m, p), r in pipes.items()},
+        "data_parallel": dp,
         "launches_by_path": launches_by_path,
         "flash_bwd_times": bwd_times, "flash_shape_times": shape_times,
         "fused_ce_times": ce_times, "fused_ce_pack_times": ce_pack_times,

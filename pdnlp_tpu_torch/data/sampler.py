@@ -235,3 +235,34 @@ class LengthGroupedSampler:
             if not self.drop_last and tail > self.shard_id:
                 total += -(-(tail - self.shard_id) // self.num_shards)
         return total
+
+
+class BatchBlockSampler:
+    """Each global batch of ``loader`` cut to shard ``shard_id``'s
+    contiguous block of ``batch_size / num_shards`` rows — how a
+    ``P("data")`` placement splits one batch over devices, and
+    ``nn.DataParallel``'s scatter.  Every shard reads the same global
+    order (the loader's own sampler, any length mode), so the steps per
+    epoch are the global loader's; the rows of a short last batch fall to
+    the first blocks, and a block past them is all filler (weight 0)."""
+
+    def __init__(self, loader, num_shards: int, shard_id: int):
+        if not 0 <= shard_id < num_shards:
+            raise ValueError(f"shard_id {shard_id} outside [0, {num_shards})")
+        if loader.batch_size % num_shards:
+            raise ValueError(f"batch {loader.batch_size} does not split into "
+                             f"{num_shards} blocks")
+        self.loader = loader
+        self.num_shards = num_shards
+        self.shard_id = shard_id
+        self.rows = loader.batch_size // num_shards
+        self.batches_per_epoch = len(loader)
+
+    def set_epoch(self, epoch: int) -> None:
+        self.loader.set_epoch(epoch)
+
+    def chunks(self) -> Iterator[Tuple[List[int], int]]:
+        lo = self.shard_id * self.rows
+        for idx, seq_len in self.loader.chunks():
+            yield list(idx[lo: lo + self.rows]), seq_len
+

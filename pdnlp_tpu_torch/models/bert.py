@@ -24,9 +24,11 @@ the plain path.  The masks are drawn from an explicit ``torch.Generator``
 (different numbers from JAX's keys for the same seed).  Autograd runs
 through every part, the flash and fused-CE kernels included.
 
+Rematerialization (``remat``, the ``jax.checkpoint`` twin) recomputes each
+layer in the backward, with the dropout generator replayed (:func:`_remat`).
+
 Not in this slice, and refused rather than approximated: MoE layers,
-sequence-parallel (ring) attention, rematerialization and the int8
-``qscale`` branch.
+sequence-parallel (ring) attention and the int8 ``qscale`` branch.
 """
 from __future__ import annotations
 
@@ -93,8 +95,13 @@ class Embeddings(nn.Module):
 
 
 class EncoderLayer(nn.Module):
+    """One post-LN encoder block.  Its body runs in :meth:`forward`, so a
+    wrapper that acts through a module's forward (FSDP2's per-layer
+    unshard, ``torch.utils.checkpoint``) sees every layer."""
+
     def __init__(self, cfg: BertConfig, device=None):
         super().__init__()
+        self.cfg = cfg
         H, I = cfg.hidden_size, cfg.intermediate_size
         self.q = nn.Linear(H, H, device=device)
         self.k = nn.Linear(H, H, device=device)
@@ -104,6 +111,65 @@ class EncoderLayer(nn.Module):
         self.up = nn.Linear(H, I, device=device)
         self.down = nn.Linear(I, H, device=device)
         self.mlp_ln = LayerNorm(H, device)
+
+    def forward(self, x: torch.Tensor, bias: Optional[torch.Tensor] = None,
+                segment_ids: Optional[torch.Tensor] = None, *,
+                attn_impl: str = "auto",
+                generator: Optional[torch.Generator] = None) -> torch.Tensor:
+        """``[B, S, H]`` -> ``[B, S, H]``: attention (key ``bias`` or
+        packed ``segment_ids``), output projection, residual LayerNorm, MLP,
+        residual LayerNorm; dropout with a ``generator``."""
+        cfg = self.cfg
+        B, S, _ = x.shape
+        N, D = cfg.num_heads, cfg.head_dim
+        drop = cfg.dropout
+        attn_drop = cfg.attn_dropout if generator is not None else 0.0
+        q = _dense(x, self.q).view(B, S, N, D)
+        k = _dense(x, self.k).view(B, S, N, D)
+        v = _dense(x, self.v).view(B, S, N, D)
+        attn = dot_product_attention(q, k, v, bias, impl=attn_impl,
+                                     segment_ids=segment_ids,
+                                     dropout_rate=attn_drop,
+                                     generator=generator)
+        attn = _dense(attn.reshape(B, S, N * D), self.o)
+        x = _layer_norm(x + _dropout(attn, drop, generator),
+                        self.attn_ln.scale, self.attn_ln.bias,
+                        cfg.layer_norm_eps)
+        h = _dense(_gelu(_dense(x, self.up), cfg.gelu), self.down)
+        return _layer_norm(x + _dropout(h, drop, generator),
+                           self.mlp_ln.scale, self.mlp_ln.bias,
+                           cfg.layer_norm_eps)
+
+
+def _remat(layer: EncoderLayer, x: torch.Tensor, *args,
+           generator: Optional[torch.Generator], **kw) -> torch.Tensor:
+    """``layer(x, ...)`` under ``torch.utils.checkpoint``: its activations
+    are dropped after the forward and recomputed in the backward.
+
+    ``checkpoint``'s ``preserve_rng_state`` restores only the default CPU
+    and CUDA streams, and dropout draws from the explicit ``generator``:
+    left alone, the recompute would draw other masks and the gradient would
+    be silently wrong.  So the generator's state is saved here, restored
+    at the start of the recompute, and the stream put back where the
+    backward found it afterwards (``jax.checkpoint`` replays its keys for
+    free).  Nothing on this path draws from the default streams."""
+    from torch.utils.checkpoint import checkpoint
+
+    saved = generator.get_state() if generator is not None else None
+    ran = []
+
+    def body(x):
+        if not ran or saved is None:      # the forward itself
+            ran.append(True)
+            return layer(x, *args, generator=generator, **kw)
+        now = generator.get_state()       # the recompute: replay the masks
+        generator.set_state(saved)
+        try:
+            return layer(x, *args, generator=generator, **kw)
+        finally:
+            generator.set_state(now)
+
+    return checkpoint(body, x, use_reentrant=False, preserve_rng_state=False)
 
 
 class BertClassifier(nn.Module):
@@ -167,37 +233,25 @@ class BertClassifier(nn.Module):
                dtype: torch.dtype = torch.float32, attn_impl: str = "auto",
                segment_ids: Optional[torch.Tensor] = None,
                position_ids: Optional[torch.Tensor] = None,
-               generator: Optional[torch.Generator] = None) -> torch.Tensor:
+               generator: Optional[torch.Generator] = None,
+               remat: bool = False) -> torch.Tensor:
         """Hidden states ``[B, S, H]`` in ``dtype``.  ``segment_ids`` (packed
         rows) carries the block-diagonal mask to attention; otherwise the
         key mask comes from ``attention_mask``.  A ``generator`` turns on
-        dropout (training)."""
-        cfg = self.cfg
-        B, S = input_ids.shape
-        N, D = cfg.num_heads, cfg.head_dim
-        drop = cfg.dropout
-        attn_drop = cfg.attn_dropout if generator is not None else 0.0
+        dropout (training).  ``remat`` recomputes each layer's activations
+        in the backward instead of keeping them (:func:`_remat`)."""
         x = self.embed(input_ids, token_type_ids, dtype, position_ids,
                        generator)
         # fp32 whatever the compute dtype: the kernel adds the mask in fp32,
         # and the plain path casts it to the scores' dtype
         bias = None if segment_ids is not None else mask_bias(attention_mask)
-        for lp in self.layers:
-            q = _dense(x, lp.q).view(B, S, N, D)
-            k = _dense(x, lp.k).view(B, S, N, D)
-            v = _dense(x, lp.v).view(B, S, N, D)
-            attn = dot_product_attention(q, k, v, bias, impl=attn_impl,
-                                         segment_ids=segment_ids,
-                                         dropout_rate=attn_drop,
-                                         generator=generator)
-            attn = _dense(attn.reshape(B, S, N * D), lp.o)
-            x = _layer_norm(x + _dropout(attn, drop, generator),
-                            lp.attn_ln.scale, lp.attn_ln.bias,
-                            cfg.layer_norm_eps)
-            h = _dense(_gelu(_dense(x, lp.up), cfg.gelu), lp.down)
-            x = _layer_norm(x + _dropout(h, drop, generator),
-                            lp.mlp_ln.scale, lp.mlp_ln.bias,
-                            cfg.layer_norm_eps)
+        for layer in self.layers:
+            if remat and torch.is_grad_enabled():
+                x = _remat(layer, x, bias, segment_ids, attn_impl=attn_impl,
+                           generator=generator)
+            else:
+                x = layer(x, bias, segment_ids, attn_impl=attn_impl,
+                          generator=generator)
         return x
 
     def pooled_features(self, h0: torch.Tensor,
@@ -226,7 +280,8 @@ class BertClassifier(nn.Module):
                  dtype: torch.dtype = torch.float32,
                  attn_impl: str = "auto", deterministic: bool = True,
                  generator: Optional[torch.Generator] = None,
-                 return_pooled: bool = False) -> torch.Tensor:
+                 return_pooled: bool = False,
+                 remat: bool = False) -> torch.Tensor:
         """fp32 logits: ``[B, num_labels]`` for a padded batch, or
         ``[B, M, num_labels]`` per segment for a packed batch (one carrying
         ``cls_positions``, ``segment_ids`` and ``position_ids``).
@@ -234,7 +289,7 @@ class BertClassifier(nn.Module):
         ``deterministic=False`` is the training forward: dropout drawn from
         ``generator`` (required).  ``return_pooled`` returns the pooled
         features (``[B, H]`` / ``[B, M, H]``, in ``dtype``) instead of
-        logits, for ``ops.fused_ce``."""
+        logits, for ``ops.fused_ce``.  ``remat``: see :meth:`encode`."""
         if not deterministic and generator is None:
             raise ValueError("the training forward (deterministic=False) "
                              "draws dropout from an explicit generator")
@@ -245,7 +300,7 @@ class BertClassifier(nn.Module):
             batch["attention_mask"], dtype=dtype, attn_impl=attn_impl,
             segment_ids=batch["segment_ids"] if packed else None,
             position_ids=batch.get("position_ids") if packed else None,
-            generator=gen)
+            generator=gen, remat=remat)
         head = self.pooled_features if return_pooled else self.pooled_logits
         if not packed:
             return head(hidden[:, 0, :], gen)

@@ -8,6 +8,10 @@ the serving model's template before anything reaches the device, so a
 ``bert-tiny`` file into a ``bert-base`` engine fails at load with the
 offending key, not as a shape error mid-request.
 
+Under ``zero`` every rank holds a shard of each tensor: :func:`consolidate`
+gathers the full state dict (the ``zero_to_fp32.py`` analog), and only rank
+0 writes, so one file in the same format serves every strategy.
+
 Reading the JAX package's ``.msgpack`` checkpoints needs a jax-free
 msgpack reader and is not in this slice (ROADMAP A9).
 """
@@ -69,3 +73,25 @@ def load_params(path: str, template: Mapping[str, torch.Tensor], *,
     sd = payload["state_dict"]
     check_state(sd, template, path=path)
     return sd
+
+
+def is_sharded(model: torch.nn.Module) -> bool:
+    """Does ``model`` hold FSDP2 shards (DTensor parameters)?"""
+    return any(hasattr(p, "to_local") for p in model.parameters())
+
+
+def consolidate(model: torch.nn.Module) -> Dict[str, torch.Tensor]:
+    """``model``'s full state dict on the CPU.  Sharded (FSDP2) weights are
+    gathered with ``get_model_state_dict(full_state_dict=True,
+    cpu_offload=True)`` — a collective every rank calls, which leaves the
+    whole dict on rank 0 and an empty one elsewhere; replicated weights
+    are read as they are."""
+    if not is_sharded(model):
+        return {k: v.detach() for k, v in model.state_dict().items()}
+    from torch.distributed.checkpoint.state_dict import (
+        StateDictOptions, get_model_state_dict,
+    )
+
+    return get_model_state_dict(model, options=StateDictOptions(
+        full_state_dict=True, cpu_offload=True))
+

@@ -18,30 +18,61 @@ from pdnlp_tpu_torch.data.packing import (
     MultiWidthPackedDataset, pack_classification,
 )
 from pdnlp_tpu_torch.data.sampler import (
-    DistributedShardSampler, LengthGroupedSampler, parse_buckets,
-    resolve_length_mode, validate_length_buckets,
+    BatchBlockSampler, DistributedShardSampler, LengthGroupedSampler,
+    parse_buckets, resolve_length_mode, validate_length_buckets,
 )
 from pdnlp_tpu_torch.data.tokenizer import WordPieceTokenizer, get_or_build_vocab
 from pdnlp_tpu_torch.models.bert import BertClassifier
 from pdnlp_tpu_torch.models.config import BertConfig, args_overrides, get_config
 from pdnlp_tpu_torch.train.optim import build_optimizer
-from pdnlp_tpu_torch.train.steps import TrainState, init_ema
+from pdnlp_tpu_torch.train.steps import TrainObjective, TrainState, init_ema
 from pdnlp_tpu_torch.utils.config import resolve_device
 from pdnlp_tpu_torch.utils.seeding import set_seed
 
 
-def setup_data(args) -> Tuple[DataLoader, DataLoader, WordPieceTokenizer]:
-    """(train_loader, dev_loader, tokenizer)."""
+def setup_data(args, *, num_shards: int = 1, shard_id: int = 0,
+               device_batch_mult: int = 1, scatter: bool = False
+               ) -> Tuple[DataLoader, DataLoader, WordPieceTokenizer]:
+    """(train_loader, dev_loader, tokenizer) of shard ``shard_id`` of
+    ``num_shards`` (one per rank).
+
+    The train loader takes the shard's slice of the seeded order at
+    ``train_batch_size * device_batch_mult`` rows a step (a rank feeds one
+    device, so the multiplier is 1 in the port; JAX's feeds a process's
+    devices).  ``scatter`` is ``nn.DataParallel``'s semantics instead: every
+    shard reads the one global order at ``train_batch_size`` rows and takes
+    its contiguous block of ``train_batch_size / num_shards`` rows, as a
+    ``P("data")`` placement splits one batch, so the step count does not
+    shrink (``data.sampler.BatchBlockSampler``).  The dev loader is sharded
+    like JAX's (strided, wrapped to equal length), unshuffled, padded to
+    ``max_seq_len``."""
     train, dev = split_data(load_data(args.data_path), seed=args.seed,
                             limit=args.data_limit, ratio=args.ratio)
     tok = WordPieceTokenizer(get_or_build_vocab(args))
     col = Collator(tok, args.max_seq_len)
-    train_loader = build_length_train_loader(
-        args, train, col, EncodedDataset(train, tok, args.max_seq_len),
-        batch_size=args.train_batch_size)
+    train_enc = EncodedDataset(train, tok, args.max_seq_len)
+    if scatter:
+        if args.train_batch_size % num_shards:
+            raise ValueError(
+                f"train_batch_size {args.train_batch_size} does not split "
+                f"into {num_shards} equal blocks: a scattered global batch "
+                "gives every rank the same number of rows")
+        whole = build_length_train_loader(args, train, col, train_enc,
+                                          batch_size=args.train_batch_size)
+        rows = args.train_batch_size // num_shards
+        train_loader = DataLoader(
+            train, col, rows,
+            sampler=BatchBlockSampler(whole, num_shards, shard_id),
+            prefetch=args.prefetch, encoded=whole.encoded)
+    else:
+        train_loader = build_length_train_loader(
+            args, train, col, train_enc,
+            batch_size=args.train_batch_size * device_batch_mult,
+            num_shards=num_shards, shard_id=shard_id)
     dev_loader = DataLoader(
-        dev, col, args.dev_batch_size,
-        sampler=DistributedShardSampler(len(dev), shuffle=False),
+        dev, col, args.dev_batch_size * device_batch_mult,
+        sampler=DistributedShardSampler(len(dev), num_shards, shard_id,
+                                        shuffle=False),
         prefetch=args.prefetch,
         encoded=EncodedDataset(dev, tok, args.max_seq_len))
     return train_loader, dev_loader, tok
@@ -121,4 +152,5 @@ def setup_model(args, vocab_size: int, total_steps=None
     model = BertClassifier(cfg, generator=init_gen).to(device)
     optimizer, scheduler = build_optimizer(model, args, total_steps)
     ema = init_ema(model) if args.ema_decay > 0 else None
-    return cfg, TrainState(model, optimizer, scheduler, dropout_gen, ema)
+    return cfg, TrainState(model, optimizer, scheduler, dropout_gen, ema,
+                           objective=TrainObjective(model, args, device))

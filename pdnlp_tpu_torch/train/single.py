@@ -7,13 +7,14 @@ pass over dev with the classification report.
     python -m pdnlp_tpu_torch.train.single --data_path data/train.json \\
         [--dtype bfloat16] [--dev true] [--attn_dropout 0] [--device cpu] \\
         [--length_mode full|bucket|pack] [--length_buckets 32,64,128] \\
-        [--pipeline auto|resident|prefetch|sync]
+        [--pipeline auto|resident|prefetch|sync] [--remat true]
 
 ``--length_mode bucket`` pads each batch to the smallest covering width of
 ``--length_buckets``; ``pack`` puts several examples in each row, with the
 segment form of the flash kernels (``data.packing``).  ``--pipeline``
 picks how batches reach the card (``data.pipeline``; ``auto`` holds the
 split on the card when it can, else prefetches on a side stream).
+``--remat true`` recomputes each layer's activations in the backward.
 
 Runs on ``cuda`` unless ``--device cpu`` is given.  With ``--attn_dropout``
 above 0 (the default 0.1) training attention takes the plain path, as in
@@ -38,12 +39,11 @@ NOT_PORTED = {
     "--metrics_port": (None, "live telemetry (ROADMAP A4)"),
     "--flight_recorder": (None, "live telemetry (ROADMAP A4)"),
     "--profile_dir": (None, "the profiler (ROADMAP A4)"),
-    "--remat": (None, "rematerialization (ROADMAP A3)"),
     "--init_from": (None, "pretrained warm start (ROADMAP A12)"),
 }
 
 
-def refuse_not_ported(argv, table=NOT_PORTED):
+def refuse_not_ported(argv, table=NOT_PORTED, prog: str = "train.single"):
     """``argv`` without the flags of ``table`` that carry their one
     allowed value; exits naming the missing path for any other use."""
     out = list(argv)
@@ -53,7 +53,7 @@ def refuse_not_ported(argv, table=NOT_PORTED):
         i = out.index(flag)
         value = out[i + 1] if i + 1 < len(out) else None
         if allowed is None or value != allowed:
-            sys.exit(f"train.single: {flag} needs {what}, which the "
+            sys.exit(f"{prog}: {flag} needs {what}, which the "
                      "PyTorch port does not have yet")
         del out[i:i + 2]
     return out

@@ -2,11 +2,11 @@
 
 The JAX step is one jitted program: forward, weighted CE, backward, AdamW.
 Here it runs eagerly on the train state, in place: the training forward
-(dropout from the state's generator), the bare loss and the optimized
-objective, ``backward``, the optimizer step, the schedule step and the
-optional EMA.  Under bf16 the fp32 master weights are cast at each matmul
-inside the forward, so their gradients land in fp32 (the JAX
-``grads_dtype="param"`` default; ``"compute"`` is not ported).
+and loss (:class:`TrainObjective`, dropout from the state's generator),
+``backward``, the optimizer step, the schedule step and the optional EMA.
+Under bf16 the fp32 master weights are cast at each matmul inside the
+forward, so their gradients land in fp32 (the JAX ``grads_dtype="param"``
+default; ``"compute"`` is not ported).
 
 Loss semantics: per-example cross-entropy weighted by ``example_weight``,
 so the filler rows of the last batch contribute nothing.  Packed rows give
@@ -46,6 +46,9 @@ class TrainState:
     generator: torch.Generator
     ema: Optional[Dict[str, torch.Tensor]] = None
     step: int = 0
+    #: the module the step calls: a :class:`TrainObjective` over ``model``,
+    #: wrapped in DDP or FSDP2 under data parallelism
+    objective: Optional[torch.nn.Module] = None
 
     def eval_params(self) -> Dict[str, torch.Tensor]:
         """The weights eval and checkpoints use: the EMA when kept, else
@@ -88,35 +91,94 @@ def flat_examples(out: torch.Tensor, labels: torch.Tensor,
     return out, labels, weights
 
 
-def build_train_step(args, device) -> Callable[[TrainState, Batch], Metrics]:
-    """The train step for ``args`` on ``device``: ``step(state, batch)``
-    updates ``state`` in place and returns ``{"loss", "accuracy"}`` as
-    device scalars (fetching them is the caller's choice)."""
-    dtype = resolve_dtype(args.dtype)
-    attn_impl = args.attention_impl
-    smoothing = args.label_smoothing
-    fused = resolve_fused_ce(args.fused_ce, device) == "pallas"
-    ema_decay = args.ema_decay
+class TrainObjective(torch.nn.Module):
+    """The training forward and its loss as one module (the loss function of
+    JAX's step): ``forward(batch, generator)`` runs ``classify`` and the
+    fused (K4/K5) or plain weighted CE and returns ``(loss, correct,
+    objective, weight)`` — the weighted mean bare CE, the weighted correct
+    count, what ``backward`` starts from and the batch's weight mass.
 
-    def train_step(state: TrainState, batch: Batch) -> Metrics:
-        model = state.model
-        out = model.classify(batch, dtype=dtype, attn_impl=attn_impl,
-                             deterministic=False, generator=state.generator,
-                             return_pooled=fused)
+    DDP and FSDP2 act only through the forward of the module they wrap, so
+    the whole loss runs in here, the fused CE kernels included: FSDP2's
+    root unit unshards the pooler and the classifier for them.
+
+    With a process ``group`` the batch is this rank's shard of a global
+    batch.  The objective is then scaled by ``world * lw / gw`` (``lw`` the
+    shard's weight, ``gw`` the all-reduced global weight, at least 1), so
+    the wrappers' *mean* of the ranks' gradients is the gradient of the
+    global weighted mean ``sum(w * ce) / sum(w)`` that JAX's jitted step
+    takes, even when the ranks carry different weight mass (packed rows,
+    filler rows); ``loss`` is scaled by ``lw / gw``, so its sum over the
+    ranks is the global loss, and ``weight`` is ``gw``
+    (``collectives.weighted_shard_scale``).
+
+    ``forward(batch)`` without a generator is the deterministic eval
+    forward: fp32 logits, through the same wrapper."""
+
+    def __init__(self, model: BertClassifier, args, device,
+                 group=None):
+        super().__init__()
+        self.model = model
+        self.dtype = resolve_dtype(args.dtype)
+        self.attn_impl = args.attention_impl
+        self.smoothing = args.label_smoothing
+        self.fused = resolve_fused_ce(args.fused_ce, device) == "pallas"
+        self.remat = bool(getattr(args, "remat", False))
+        self.group = group
+
+    def forward(self, batch: Batch,
+                generator: Optional[torch.Generator] = None):
+        model = self.model
+        if generator is None:
+            return model.classify(batch, dtype=self.dtype,
+                                  attn_impl=self.attn_impl)
+        out = model.classify(batch, dtype=self.dtype,
+                             attn_impl=self.attn_impl, deterministic=False,
+                             generator=generator, return_pooled=self.fused,
+                             remat=self.remat)
         out, labels, weights = flat_examples(out, batch["label"],
                                              batch["example_weight"])
-        if fused:
+        if self.fused:
             # out is the pooled features: the kernels apply the classifier
             # themselves, so the [T, C] logits never reach device memory
             loss, correct, objective = fused_weighted_ce(
-                out, model.classifier.weight.to(dtype),
-                model.classifier.bias.to(dtype), labels, weights,
-                smoothing=smoothing)
+                out, model.classifier.weight.to(self.dtype),
+                model.classifier.bias.to(self.dtype), labels, weights,
+                smoothing=self.smoothing)
         else:
             loss, correct, objective = weighted_ce(out, labels, weights,
-                                                   smoothing=smoothing)
+                                                   smoothing=self.smoothing)
+        weight = weights.sum().detach()
+        if self.group is not None:
+            from pdnlp_tpu_torch.parallel.collectives import (
+                weighted_shard_scale,
+            )
+
+            share, weight = weighted_shard_scale(weight, self.group)
+            world = torch.distributed.get_world_size(self.group)
+            objective = objective * (world * share)
+            loss = loss * share
+        return loss, correct, objective, weight
+
+
+def build_train_step(args, device, after_backward=None, reduce_metrics=None
+                     ) -> Callable[[TrainState, Batch], Metrics]:
+    """The train step for ``args``: ``step(state, batch)`` calls
+    ``state.objective`` (which resolved the routes for ``device``), runs
+    ``backward``, then ``after_backward(state)`` (the explicit gradient
+    all-reduce of the shard_map twin), the optimizer, the schedule and the
+    EMA, and returns ``{"loss", "accuracy"}`` as device scalars (fetching
+    them is the caller's choice).  ``reduce_metrics(loss, correct)`` sums
+    the ranks' shares first."""
+    ema_decay = args.ema_decay
+
+    def train_step(state: TrainState, batch: Batch) -> Metrics:
+        loss, correct, objective, weight = state.objective(batch,
+                                                           state.generator)
         state.optimizer.zero_grad(set_to_none=True)
         objective.backward()
+        if after_backward is not None:
+            after_backward(state)
         state.optimizer.step()
         if state.scheduler is not None:
             state.scheduler.step()
@@ -125,31 +187,42 @@ def build_train_step(args, device) -> Callable[[TrainState, Batch], Metrics]:
                 ema = list(state.ema.values())
                 torch._foreach_mul_(ema, ema_decay)
                 torch._foreach_add_(
-                    ema, [p.detach() for p in model.state_dict().values()],
+                    ema, [p.detach()
+                          for p in state.model.state_dict().values()],
                     alpha=1.0 - ema_decay)
         state.step += 1
-        wsum = weights.sum().clamp_min(1.0)
-        return {"loss": loss.detach(), "accuracy": correct.detach() / wsum}
+        loss, correct = loss.detach(), correct.detach()
+        if reduce_metrics is not None:
+            loss, correct = reduce_metrics(loss, correct)
+        return {"loss": loss, "accuracy": correct / weight.clamp_min(1.0)}
 
     return train_step
 
 
-def build_eval_step(args) -> Callable[..., Metrics]:
+def build_eval_step(args, forward=None) -> Callable[..., Metrics]:
     """The deterministic eval step: ``eval_step(model, params, batch)``
     returns device sums and the per-example predictions, labels and
     weights (the host accumulates).  ``params`` (a ``state_dict``-shaped
-    mapping, e.g. the EMA) replaces the model's own weights for the call."""
+    mapping, e.g. the EMA) replaces the model's own weights for the call.
+    ``forward(batch)`` (the placed ``TrainObjective`` under data
+    parallelism, whose wrapper must see the call) replaces
+    ``model.classify`` when ``params`` is None."""
     dtype = resolve_dtype(args.dtype)
     attn_impl = args.attention_impl
+    # FSDP2 unshards through autograd-visible tensors: no_grad, not
+    # inference_mode, when a wrapper runs the forward
+    no_grad = torch.inference_mode if forward is None else torch.no_grad
 
     def eval_step(model: BertClassifier, params, batch: Batch) -> Metrics:
         kw = {"dtype": dtype, "attn_impl": attn_impl}
-        with torch.inference_mode():
-            if params is None:
-                logits = model.classify(batch, **kw)
-            else:
+        with no_grad():
+            if params is not None:
                 logits = torch.func.functional_call(model, dict(params),
                                                     (batch,), kw)
+            elif forward is not None:
+                logits = forward(batch)
+            else:
+                logits = model.classify(batch, **kw)
             logits, labels, w = flat_examples(logits, batch["label"],
                                               batch["example_weight"])
             loss, correct, _ = weighted_ce(logits, labels, w)

@@ -15,6 +15,14 @@ each batch from the host.  The loss is fetched from the card only for a
 line that prints, one step late: the line for step s prints after step
 s+1 is queued, so the card never waits on the host between steps.
 
+Under data parallelism (a process group) each rank trains on its shard;
+the step's metrics are already global.  Dev and test sums are all-reduced
+and the ``pred``/``label``/``ew`` arrays all-gathered before the report
+(``parallel.collectives.output_reduce``), so every rank reports the global
+dev set; rank 0 alone prints and writes the checkpoint, which sharded
+weights reach through ``checkpoint.consolidate`` on every rank; all ranks
+meet at a barrier after the final sync.
+
 Not in this slice: resume snapshots and elastic width, heartbeats, the
 obs tracer and exporter, the profiler and ``LoopHooks`` (ROADMAP A4, A11);
 ``train.single`` refuses their flags.
@@ -30,10 +38,12 @@ import torch
 from pdnlp_tpu_torch.data.pipeline import (
     InputPipeline, SyncPipeline, to_device,
 )
+from pdnlp_tpu_torch.parallel import collectives
 from pdnlp_tpu_torch.train import checkpoint as ckpt
 from pdnlp_tpu_torch.train.steps import TrainState
 from pdnlp_tpu_torch.utils.logging import (
-    fmt_best, fmt_dev, fmt_elapsed_minutes, fmt_rates, fmt_train, rank0_print,
+    fmt_best, fmt_dev, fmt_elapsed_minutes, fmt_rates, fmt_train, is_rank0,
+    rank0_print,
 )
 
 
@@ -99,19 +109,28 @@ class Trainer:
             e, s, l = pending
             rank0_print(fmt_train(e, args.epochs, s, total_step, float(l)))
         self._sync()
+        collectives.barrier()
         minutes = (time.time() - start) / 60
         rank0_print(fmt_elapsed_minutes(minutes))
-        rank0_print(fmt_rates(gstep, examples, minutes))
+        rank0_print(fmt_rates(gstep, self._global_count(examples), minutes))
         if not args.dev:
-            self._save(args.ckpt_path(), self.state.eval_params())
+            self._save(args.ckpt_path())
         elif self._best_params is not None:
             # adopt the best dev weights, so test() evaluates what is saved
             self.state.model.load_state_dict(self._best_params)
             if self.state.ema is not None:
                 self.state.ema = {k: v.clone()
                                   for k, v in self._best_params.items()}
-            self._save(args.ckpt_path(), self._best_params)
+            self._save(args.ckpt_path())
         return minutes
+
+    def _global_count(self, n: int) -> int:
+        """``n`` summed over the ranks (``n`` without a process group)."""
+        if collectives.world_size() == 1:
+            return n
+        t = torch.tensor([n], dtype=torch.float64, device=self.device)
+        torch.distributed.all_reduce(t)
+        return int(t.item())
 
     def _dev_and_maybe_save(self, dev_loader) -> None:
         """Eval; keep a copy of the best weights on the card (one write
@@ -125,28 +144,46 @@ class Trainer:
                                  self.state.eval_params().items()}
             rank0_print(fmt_best(acc))
 
-    def _save(self, path: str, params: Dict[str, torch.Tensor]) -> None:
-        ckpt.save_params(path, params, model_name=self.args.model,
-                         vocab_size=self.cfg.vocab_size)
+    def _save(self, path: str) -> None:
+        """Write the eval weights (the EMA when kept): sharded weights are
+        consolidated first, by every rank; rank 0 writes."""
+        params = self.state.ema if self.state.ema is not None \
+            else ckpt.consolidate(self.state.model)
+        if is_rank0():
+            ckpt.save_params(path, params, model_name=self.args.model,
+                             vocab_size=self.cfg.vocab_size)
 
     # ------------------------------------------------------------------- eval
     def _evaluate(self, loader, collect_preds: bool) -> Dict:
-        """Dispatch every batch, then fetch once at the end."""
+        """Dispatch every batch, then fetch once at the end; under data
+        parallelism the sums and the per-example arrays are the ranks'
+        together (see the module docstring)."""
         if self._eval_cache is None or self._eval_cache[0] is not loader:
             self._eval_cache = (loader, [self.put(b) for b in loader])
         params = self.state.ema        # None: the live model's weights
         pending = [self.eval_step(self.state.model, params, batch)
                    for batch in self._eval_cache[1]]
-        y_true, y_pred = [], []
         loss_sum = weight = correct = 0.0
         for m in pending:
             loss_sum += float(m["loss_sum"])
             weight += float(m["weight"])
             correct += float(m["correct"])
-            if collect_preds:
-                real = m["ew"].cpu().numpy() > 0     # drop filler rows
-                y_pred.extend(m["pred"].cpu().numpy()[real].tolist())
-                y_true.extend(m["label"].cpu().numpy()[real].tolist())
+        arrays = None
+        if collect_preds and pending:
+            arrays = [torch.cat([m[k] for m in pending])
+                      for k in ("pred", "label", "ew")]
+        if collectives.world_size() > 1:
+            sums = torch.tensor([loss_sum, weight, correct],
+                                dtype=torch.float64, device=self.device)
+            torch.distributed.all_reduce(sums)
+            loss_sum, weight, correct = sums.tolist()
+            if arrays is not None:
+                arrays = collectives.output_reduce(*arrays)
+        y_true, y_pred = [], []
+        if arrays is not None:
+            pred, label, ew = (a.cpu().numpy() for a in arrays)
+            real = ew > 0                              # drop filler rows
+            y_pred, y_true = pred[real].tolist(), label[real].tolist()
         weight = max(weight, 1.0)
         return {"loss": loss_sum / weight, "accuracy": correct / weight,
                 "y_true": y_true, "y_pred": y_pred}

@@ -1,9 +1,10 @@
 """Hyperparameters: the ``Args`` fields the port reads, with the JAX
 package's names and defaults (``pdnlp_tpu/utils/config.py``), so CLI flags
-read the same, plus ``device``."""
+read the same, plus ``device`` and ``dist_backend``."""
 from __future__ import annotations
 
 import dataclasses
+import json
 import os
 from typing import Optional
 
@@ -58,7 +59,29 @@ class Args:
     dev: bool = False                             # eval during training
     output_dir: str = "output"
     ckpt_name: Optional[str] = None               # default "<strategy>-cls.pt"
-    strategy: str = "single"
+    strategy: str = "single"                      # single | dp | dataparallel
+                                                  # | zero | shardmap | amp
+                                                  # (train.multi's table)
+    mode: str = "dp"                              # dp (replicated, DDP) |
+                                                  # zero (FSDP2, ZeRO-3);
+                                                  # tp/ep/pp/sp are refused
+                                                  # (ROADMAP A11)
+    remat: bool = False                           # recompute each layer in
+                                                  # the backward (zero's
+                                                  # default)
+
+    # --- data parallelism (parallel/) ---
+    num_devices: Optional[int] = None             # ranks in the mesh (None =
+                                                  # the world size)
+    mesh_shape: Optional[dict] = None             # JSON axis -> size; only
+                                                  # "data" (-1 infers it)
+    coordinator_address: Optional[str] = None     # host:port of rank 0
+    num_processes: Optional[int] = None           # world size
+    process_id: Optional[int] = None              # this process's rank
+    dist_backend: str = "auto"                    # auto (nccl on cuda, gloo
+                                                  # on cpu) | nccl | gloo;
+                                                  # JAX picks its transport
+                                                  # itself
 
     # --- precision, kernels, input ---
     dtype: str = "float32"                        # float32|bfloat16 compute
@@ -123,7 +146,7 @@ class Args:
 
 def add_dataclass_args(parser, cls, defaults=None) -> None:
     """One typed ``--field`` per dataclass field (Optional[T] parses as T;
-    bools accept 1/true/yes)."""
+    bools accept 1/true/yes; dicts parse as JSON)."""
     import types
     import typing
 
@@ -137,6 +160,8 @@ def add_dataclass_args(parser, cls, defaults=None) -> None:
             hint = inner[0] if len(inner) == 1 else str
         if hint is bool:
             hint = _parse_bool
+        elif hint not in (int, float, str):
+            hint = json.loads                     # dicts parse as JSON
         parser.add_argument(f"--{f.name}", type=hint, default=default)
 
 

@@ -609,3 +609,48 @@ def test_pipelines_feed_the_card_the_same_losses(cuda_device, mode):
     assert torch.isfinite(losses["sync"]).all()
     assert torch.equal(losses["sync"], losses["prefetch"])
     assert torch.equal(losses["sync"], losses["resident"])
+
+
+def test_two_gloo_ranks_on_the_card_match_a_single_process(cuda_device,
+                                                           tmp_path):
+    """Data parallelism on one card: two gloo ranks (NCCL refuses a second
+    rank on a card) train bert-tiny with DDP on the kernel route, 3 steps
+    of 32 x 128 split 16 / 16; the losses and weights are one process's on
+    the same batches (fp32 sums in another order: 1e-5, 2e-5), the ranks'
+    weights bit-equal, and every step of every rank launched K1-K3 once per
+    layer and K4/K5 once."""
+    from pdnlp_tpu_torch.parallel import local
+    from pdnlp_tpu_torch.train import setup, steps
+    from pdnlp_tpu_torch.utils.config import Args
+
+    rng = np.random.RandomState(0)
+    batches = []
+    for _ in range(3):
+        mask = (np.arange(128)[None] < rng.randint(8, 129, (32, 1)))
+        batches.append({
+            "input_ids": (rng.randint(5, 100, (32, 128)) * mask).astype(
+                np.int32),
+            "token_type_ids": np.zeros((32, 128), np.int32),
+            "attention_mask": mask.astype(np.int32),
+            "label": rng.randint(0, 6, 32).astype(np.int32),
+            "example_weight": np.ones(32, np.float32)})
+    args = Args(device="cuda", dist_backend="gloo", model="bert-tiny",
+                dropout=0.0, attn_dropout=0.0, learning_rate=1e-3)
+    r0, r1 = local.run_gang(local.train_global_batches, 2, args,
+                            {"runs": [{"name": "dp"}], "vocab_size": 100,
+                             "batches": batches, "out_dir": str(tmp_path)},
+                            timeout=300)
+    got = r0[0]
+    assert got["digests"][0] == got["digests"][1]
+    want_step = {"flash_fwd": 2, "flash_bwd_dq": 2, "flash_bwd_dkv": 2,
+                 "fused_ce_fwd": 1, "fused_ce_bwd": 1}
+    assert got["launches"] == r1[0]["launches"] == [want_step] * 3
+    _, state = setup.setup_model(args, 100)
+    step = steps.build_train_step(args, cuda_device)
+    for b, loss in zip(batches, got["losses"]):
+        m = step(state, {k: torch.from_numpy(v).to(cuda_device)
+                         for k, v in b.items()})
+        assert abs(float(m["loss"]) - loss) <= 1e-5
+    params = torch.load(got["checkpoint"], weights_only=True)["state_dict"]
+    for k, v in state.model.state_dict().items():
+        torch.testing.assert_close(params[k], v.cpu(), atol=2e-5, rtol=0)

@@ -37,7 +37,16 @@ def test_no_module_imports_jax_or_the_jax_package():
     assert {"pdnlp_tpu_torch/data/pipeline.py",
             "pdnlp_tpu_torch/data/packing.py",
             "pdnlp_tpu_torch/data/sampler.py",
-            "pdnlp_tpu_torch/train/setup.py"} <= rel
+            "pdnlp_tpu_torch/train/setup.py",
+            "pdnlp_tpu_torch/parallel/runtime.py",
+            "pdnlp_tpu_torch/parallel/mesh.py",
+            "pdnlp_tpu_torch/parallel/collectives.py",
+            "pdnlp_tpu_torch/parallel/sharding.py",
+            "pdnlp_tpu_torch/parallel/execution.py",
+            "pdnlp_tpu_torch/parallel/local.py",
+            "pdnlp_tpu_torch/train/run.py",
+            "pdnlp_tpu_torch/train/multi.py",
+            "pdnlp_tpu_torch/train/spawn.py"} <= rel
     bad = {f"{p.relative_to(REPO)}: {root}" for p in paths
            for root in _imported_roots(p) if root in FORBIDDEN}
     assert not bad, sorted(bad)

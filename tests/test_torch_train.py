@@ -431,3 +431,32 @@ def test_entry_point_refusals(tmp_path):
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="no CUDA device"):
             setup_model(Args(model="bert-tiny"), VOCAB)
+
+
+def test_single_trains_with_remat_and_matches_without(corpus_path, tmp_path,
+                                                      capsys):
+    """``train.single --remat true`` (no longer refused) trains, and at
+    dropout 0 its loss lines and weights are ``--remat false``'s: the
+    recompute gives the same activations."""
+    from pdnlp_tpu_torch.train import single
+
+    assert single.refuse_not_ported(["--remat", "true"]) == ["--remat",
+                                                             "true"]
+    runs = {}
+    for remat in (True, False):
+        out = tmp_path / f"remat_{remat}"
+        args = Args(device="cpu", model="bert-tiny", data_path=corpus_path,
+                    vocab_path=str(tmp_path / "vocab.txt"),
+                    output_dir=str(out), data_limit=120,
+                    train_batch_size=16, dropout=0.0, attn_dropout=0.0,
+                    learning_rate=1e-3, remat=remat)
+        single.main(args)
+        lines = capsys.readouterr().out.splitlines()
+        losses = [float(ln.rsplit("：", 1)[1]) for ln in lines
+                  if ln.startswith("【train】")]
+        runs[remat] = (losses, torch.load(args.ckpt_path(),
+                                          weights_only=True)["state_dict"])
+    assert len(runs[True][0]) == 7
+    np.testing.assert_allclose(runs[True][0], runs[False][0], atol=1e-6)
+    for k, v in runs[False][1].items():
+        torch.testing.assert_close(runs[True][1][k], v, atol=1e-6, rtol=0)
