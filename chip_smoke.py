@@ -36,8 +36,15 @@ world 1 over NCCL, its consolidated checkpoint served by ``serve.cli``; 7c
 the explicit all-reduce, fp32 and bf16 on the wire; 7d ``python -m
 pdnlp_tpu_torch.train.multi`` over NCCL at world 1 and 7e ``python -m
 pdnlp_tpu_torch.train.spawn --num_processes 2 --dist_backend gloo`` at
-full width), then the kernels' times at every shape these paths give
-them.  Any failure raises and the script exits
+full width), 8 the training loop (8a ``fuse_steps`` 4 as captured CUDA
+graphs against eager steps, losses, params and EMA bit for bit at dropout
+0.1 in fp32 and bf16, fixed width and a bucket and a pack epoch, launches
+counted replay-aware; 8b eager against captured step times; 8c
+``train.single`` with every loop flag, its span file read back into the
+eight phases; 8d resume bit for bit, and a corrupted snapshot falling back
+to its ``.prev``; 8e ``tools.evaluate`` and ``tools.predict`` over ``.pt``
+and ``.msgpack`` files), then the kernels' times at every shape these
+paths give them.  Any failure raises and the script exits
 non-zero.  Without a card, or away from the
 repo, it prints no result and exits non-zero.  The line before the last is
 the ``{"kernels": [...]}`` record; the last is ``{"ok": true, ...}``.
@@ -92,11 +99,12 @@ BUCKETS = (32, 64, 128)
 LENGTH_STEPS = 20
 MULTI_WIDTH_STEPS_PER_WIDTH = 2
 #: corpus sizes: the profile corpus gives the pack route more than
-#: LENGTH_STEPS rows of 32 in one epoch; 6d's split gives two epochs of
-#: about 40 fixed-width and 10 packed steps; the long corpus has documents
-#: of 129-500 tokens for the 256- and 512-wide rows
+#: LENGTH_STEPS rows of 32 in one epoch; 6d's split gives epochs of
+#: about 20 fixed-width and 5 packed steps (cut from 1,400 examples to
+#: keep the whole run near half its time limit); the long corpus has
+#: documents of 129-500 tokens for the 256- and 512-wide rows
 PROFILE_EXAMPLES = 3400
-PIPELINE_EXAMPLES = 1400
+PIPELINE_EXAMPLES = 700
 LONG_EXAMPLES = 600
 LONG_DOCS = 120
 N_REQUESTS = 64
@@ -1253,10 +1261,11 @@ def pipeline_runs(torch, flash, fused_ce, base, vocab_size, device, card):
 # ----------------------------------------------------------------- phase 7
 
 #: 7a-7c: every run trains from the seeded weights on DP_STEPS 64-row
-#: global batches of 6a's corpus (32 x 128 per rank), then PACKED_STEPS
-#: packed ones (two of the pack route's 32-row batches each, so the ranks
-#: carry different weight mass)
-DP_STEPS = 10
+#: global batches of 6a's corpus (32 x 128 per rank; cut from 10 to keep
+#: the whole run near half its time limit), then PACKED_STEPS packed ones
+#: (two of the pack route's 32-row batches each, so the ranks carry
+#: different weight mass)
+DP_STEPS = 6
 PACKED_STEPS = 3
 DP_WORLD = 2
 #: 7b's placement, fixed from a measurement on the H100: FSDP2 over gloo on
@@ -1480,6 +1489,7 @@ def data_parallel_runs(torch, base, vocab_size, full, packed, device, card,
                for k in WANT_DP_STEP} for name, recs in by_name.items()}
     rec7["launches_rank0"]["zero"] = {
         k: sum(c[k] for c in zero["launches"]) for k in WANT_DP_STEP}
+    rec7["zero_checkpoint"] = zero["checkpoint"]
     return rec7
 
 
@@ -1563,6 +1573,470 @@ def entry_points_7de(work, corpus_path, vocab_path, data_limit):
             fail(f"{k}: {rec}\n{err[-3000:]}")
     print(f"[dp] 7d and 7e ran at once in {wall:.1f} s")
     return recs
+
+
+# ----------------------------------------------------------------- phase 8
+
+#: 8a: K steps per captured graph; 14 fixed-width batches give 3 captured
+#: groups and 2 eager single steps
+FUSE = 4
+FUSED_STEPS = 14
+#: 8b: captured groups and eager steps timed per shape
+TIMED_GROUPS = 5
+TIMED_EAGER = 20
+#: 8d: steps of the resumed runs (a snapshot every RESUME_EVERY)
+RESUME_STEPS = 20
+RESUME_EVERY = 10
+
+
+def sum_launches(obj, into=None):
+    """Every kernel's launches summed over a (nested) record of counts."""
+    into = dict.fromkeys(WANT_STEP, 0) if into is None else into
+    if isinstance(obj, dict):
+        for k, v in obj.items():
+            if k in into and isinstance(v, int):
+                into[k] += v
+            else:
+                sum_launches(v, into)
+    return into
+
+
+def fixed_groups(batches, device):
+    """``groups(k, stage)`` over host batches: runs of ``k`` stacked on the
+    host and uploaded (the multi-step copies them into its buffers), the
+    rest as single steps."""
+    from pdnlp_tpu_torch.data.pipeline import host_macro_batches, to_device
+
+    def groups(k, stage):
+        for host, n, fused, _ex in host_macro_batches(batches, k):
+            yield to_device(host, device), n, fused
+    return groups
+
+
+def pipeline_groups(args, device):
+    """``groups(k, stage)`` over one epoch of ``args``' train loader through
+    the resident pipeline: fused groups are gathered on the card straight
+    into the multi-step's buffers."""
+    from pdnlp_tpu_torch.data.pipeline import build_pipeline
+    from pdnlp_tpu_torch.train.setup import setup_data
+
+    loader = setup_data(args)[0]
+
+    def groups(k, stage):
+        pipe = build_pipeline(args.replace(pipeline="resident"), loader,
+                              device)
+        pipe.set_epoch(0)
+        for batch, n, fused, _ex in pipe.macro_batches(k, stage):
+            yield batch, n, fused
+    return groups, len(loader)
+
+
+def train_groups(torch, args, vocab_size, device, groups, k, total):
+    """Train bert-base from the seeded weights through ``groups(k, ...)``:
+    fused groups through ``build_multi_step`` (one captured graph per shape),
+    the rest through the eager step.  Returns the per-step losses (host),
+    the state and the multi-step."""
+    from pdnlp_tpu_torch.train.setup import setup_model
+    from pdnlp_tpu_torch.train.steps import build_multi_step, build_train_step
+
+    _, state = setup_model(args, vocab_size, total_steps=total)
+    step = build_train_step(args, device)
+    multi = build_multi_step(step, device)
+    losses = []
+    for batch, n, fused in groups(k, multi.stage):
+        if fused:
+            losses += list(multi(state, batch)["loss"])
+        else:
+            losses.append(step(state, batch)["loss"])
+    return torch.stack(losses).cpu(), state, multi
+
+
+def fused_runs(torch, flash, fused_ce, base, vocab_size, device, card,
+               batches, length_base):
+    """Phase 8a: per dtype (dropout 0.1, attention dropout 0, a warmup
+    schedule and an EMA, so K1-K5, the dropout stream, the rates and the
+    EMA are all in the graph), fixed width (14 batches of 32 x 128:
+    3 captured groups, 2 eager steps), one bucket-mode epoch and one
+    pack-mode epoch of 6c's corpus with ``fuse_steps`` 4, each against the
+    same batches run eagerly from the same weights and generator: per-step
+    losses, params and EMA bit for bit; launches counted replay-aware,
+    K1-K3 x12 and K4/K5 x1 per step; one graph per width."""
+    out = {}
+    for dtype in ("float32", "bfloat16"):
+        for mode in ("fixed", "bucket", "pack"):
+            if mode == "fixed":
+                args = base.replace(dtype=dtype)
+                groups, total = fixed_groups(batches[:FUSED_STEPS],
+                                             device), FUSED_STEPS
+            else:
+                args = length_base.replace(dtype=dtype, length_mode=mode)
+                groups, total = pipeline_groups(args, device)
+            args = args.replace(dropout=0.1, attn_dropout=0.0,
+                                fuse_steps=FUSE, ema_decay=0.999,
+                                lr_schedule="warmup_linear")
+            eager, s_e, _ = train_groups(torch, args, vocab_size, device,
+                                         groups, 1, total)
+            torch.cuda.synchronize()
+            reset_counts(flash, fused_ce)
+            t0 = time.perf_counter()
+            fused, s_f, multi = train_groups(torch, args, vocab_size, device,
+                                             groups, FUSE, total)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            launches = launch_counts(flash, fused_ce)
+            want = {k: v * len(fused) for k, v in WANT_STEP.items()}
+            pe, pf = s_e.model.state_dict(), s_f.model.state_dict()
+            d_par = max((pe[k] - pf[k]).abs().max().item() for k in pe)
+            same = (torch.equal(eager, fused)
+                    and all(torch.equal(pe[k], pf[k]) for k in pe)
+                    and all(torch.equal(s_e.ema[k], s_f.ema[k]) for k in pe)
+                    and s_e.step == s_f.step == len(eager))
+            graphs = list(multi.graphs.values())
+            widths = sorted({int(g.inputs["input_ids"].shape[-1])
+                             for g in graphs})
+            replays = sum(g.replays for g in graphs)
+            rec = {"steps": len(fused), "graphs": len(graphs),
+                   "widths": widths, "replays": replays,
+                   "eager_steps": len(fused) - FUSE * replays,
+                   "bitwise": same, "max_param_diff": d_par,
+                   "launches": launches, "wall_s": wall,
+                   "pool_bytes": multi.pool_bytes,
+                   "capture_s": [g.seconds for g in graphs],
+                   "loss_first_last": [float(fused[0]), float(fused[-1])]}
+            out[f"{mode} {dtype}"] = rec
+            print(f"[fused] 8a {mode} {dtype}: {len(fused)} steps = "
+                  f"{replays} captured groups of {FUSE} on {len(graphs)} "
+                  f"graph(s) (widths {widths}) + {rec['eager_steps']} eager;"
+                  f" vs eager: losses, params and EMA bit for bit {same} "
+                  f"(max |param diff| {d_par:.3e}); loss "
+                  f"{float(fused[0]):.6f} -> {float(fused[-1]):.6f}; "
+                  f"launches {launches}; pool "
+                  f"{multi.pool_bytes / 2**20:.1f} MiB, capture "
+                  + ", ".join(f"{x:.3f}" for x in rec["capture_s"])
+                  + f" s — {card}")
+            if not same:
+                fail(f"8a {mode} {dtype}: captured steps differ from eager "
+                     f"(max |param diff| {d_par:.3e}, losses equal "
+                     f"{torch.equal(eager, fused)})")
+            if launches != want:
+                fail(f"8a {mode} {dtype}: launches {launches}, want {want}")
+            if replays == 0 or not torch.isfinite(fused).all():
+                fail(f"8a {mode} {dtype}: {replays} replays, finite "
+                     f"{bool(torch.isfinite(fused).all())}")
+            del s_e, s_f, multi
+            torch.cuda.empty_cache()
+    return out
+
+
+def fused_times(torch, base, vocab_size, device, card, batch128, batch32,
+                batch512):
+    """Phase 8b (printed, not claimed): per dtype and shape (32 x 128, and
+    bucket 32 x 32), the eager step against the captured one (host clock
+    to a synchronize: TIMED_EAGER re-fed eager steps, TIMED_GROUPS re-fed
+    replays of a 4-step group), the eager step also as ``--fuse_steps`` 1
+    builds it (AdamW not capturable; the two eager states timed in turns,
+    twice each), each one's device busy share over 3 calls
+    (``torch.profiler``), the graph's pool bytes and capture time; at the
+    widest graph, packed 32 x 512 in bf16, the same with 3 eager steps and
+    one replay."""
+    import numpy as np
+
+    from pdnlp_tpu_torch.data.pipeline import to_device
+    from pdnlp_tpu_torch.train.setup import setup_model
+    from pdnlp_tpu_torch.train.steps import build_multi_step, build_train_step
+
+    out = {}
+    shapes = [(label, host, dtype, TIMED_EAGER, TIMED_GROUPS)
+              for dtype in ("float32", "bfloat16")
+              for label, host in (("32x128", batch128),
+                                  ("bucket 32x32", batch32))]
+    shapes.append(("packed 32x512", batch512, "bfloat16", 3, 1))
+    for label, host, dtype, n_eager, n_groups in shapes:
+        args = base.replace(dtype=dtype, dropout=0.1, attn_dropout=0.0,
+                            fuse_steps=FUSE)
+        _, state = setup_model(args, vocab_size)
+        step = build_train_step(args, device)
+        multi = build_multi_step(step, device)
+        one = to_device(host, device)
+        group = to_device({k: np.stack([v] * FUSE)
+                           for k, v in host.items()}, device)
+        for _ in range(3):
+            step(state, one)
+        multi(state, group)
+        torch.cuda.synchronize()
+
+        def eager(st):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for _ in range(n_eager):
+                step(st, one)
+            torch.cuda.synchronize()
+            return (time.perf_counter() - t0) / n_eager * 1e3
+
+        plain = turns = None
+        if n_groups > 1:
+            # the default eager step (``fuse_steps`` 1: AdamW with a
+            # host-float rate, not capturable), in turns with this run's
+            _, pstate = setup_model(args.replace(fuse_steps=1), vocab_size)
+            for _ in range(3):
+                step(pstate, one)
+            turns = [eager(state), eager(pstate), eager(state), eager(pstate)]
+            eager_ms, plain = (turns[0] + turns[2]) / 2, \
+                (turns[1] + turns[3]) / 2
+            del pstate
+        else:
+            eager_ms = eager(state)
+        t0 = time.perf_counter()
+        for _ in range(n_groups):
+            multi(state, group)
+        torch.cuda.synchronize()
+        cap_ms = (time.perf_counter() - t0) / (n_groups * FUSE) * 1e3
+        name = f"{label} {dtype}"
+        p_e = profile_calls(torch, lambda: step(state, one), 3, card,
+                            f"8b eager step, {name}")
+        p_c = profile_calls(torch, lambda: multi(state, group), 3, card,
+                            f"8b captured group of {FUSE}, {name}")
+        g = next(iter(multi.graphs.values()))
+
+        def busy(p):
+            return None if p is None else \
+                p["device_busy_ms"] / p["wall_ms"]
+        rec = {"eager_step_ms": eager_ms, "captured_step_ms": cap_ms,
+               "eager_fuse1_ms": plain, "eager_turns_ms": turns,
+               "eager_busy": busy(p_e), "captured_busy": busy(p_c),
+               "captured_device_ms_per_step":
+                   None if p_c is None
+                   else p_c["device_busy_ms"] / (3 * FUSE),
+               "pool_bytes": g.pool_bytes, "capture_s": g.seconds}
+        out[name] = rec
+
+        def pct(x):
+            return "not measured" if x is None else f"{100 * x:.1f}%"
+        plain_txt = "" if plain is None else \
+            f" (turns {' / '.join(f'{t:.3f}' for t in turns)}; --fuse_steps" \
+            f" 1, AdamW not capturable: {plain:.3f} ms)"
+        print(f"[fused] 8b {name}: eager step {eager_ms:.3f} ms"
+              f"{plain_txt}, captured {cap_ms:.3f} ms per step (host clock "
+              f"to a synchronize); device busy eager {pct(rec['eager_busy'])},"
+              f" captured {pct(rec['captured_busy'])}; pool "
+              f"{g.pool_bytes / 2**20:.1f} MiB, capture {g.seconds:.3f} "
+              f"s — {card}")
+        del state, multi, group, one
+        torch.cuda.empty_cache()
+    return out
+
+
+def _train_single(work, tag, corpus_path, vocab_path, data_limit, extra):
+    """``python -m pdnlp_tpu_torch.train.single`` at full width as a
+    started process: ``(Popen, output dir)``."""
+    out_dir = os.path.join(work, tag)
+    cmd = [sys.executable, "-m", "pdnlp_tpu_torch.train.single", "--device",
+           "cuda", "--model", "bert-base", "--data_path", corpus_path,
+           "--vocab_path", vocab_path, "--output_dir", out_dir,
+           "--attn_dropout", "0", "--data_limit", str(data_limit),
+           "--seed", str(SEED), *extra]
+    return subprocess.Popen(cmd, cwd=REPO, stdout=subprocess.PIPE,
+                            stderr=subprocess.PIPE, text=True,
+                            env={**os.environ, "PYTHONPATH": REPO}), out_dir
+
+
+def _finish(procs, timeout=600):
+    """``{name: (returncode, stdout, stderr)}``; every process is stopped."""
+    outs = {}
+    try:
+        for k, p in procs.items():
+            out, err = p.communicate(timeout=timeout)
+            outs[k] = (p.returncode, out, err)
+    finally:
+        for p in procs.values():
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    return outs
+
+
+def loop_runs(torch, work, corpus_path, vocab_path, card, tool_ckpts,
+              during):
+    """Phases 8c-8e, as processes on the card beside ``during()`` (the
+    in-process 8a, whose results this returns too).
+
+    8c: ``train.single --fuse_steps 4 --warmup_compile true --trace true
+    --profile_dir <d> --resume_every 10 --log_every 5 --probe_steps 3``
+    (dev every 10 steps) exits 0 and prints its probe's rate, its span
+    file read back holds all eight phases, its profiler trace exists.  8d: for fp32, bf16 and fp32 with
+    ``--fuse_steps 2``, a 20-step run snapshotting every 10 steps; its
+    step-10 snapshot (retained as ``.prev`` when step 20's was published)
+    is copied aside, and a run resumed from the copy trains steps 11-20:
+    its final params equal the first run's bit for bit; then a snapshot
+    corrupted on purpose falls back to its ``.prev`` with the warning.
+    8e: ``tools.evaluate`` and ``tools.predict`` over a directory holding
+    ``tool_ckpts`` and 8c's weights as ``.pt`` and as a ``.msgpack`` the
+    port wrote: every file loads, and the ``.msgpack`` gives its
+    ``.pt``'s loss, accuracy and argmax.  The resumed runs and the tools
+    run together, after 8c and the first runs."""
+    import contextlib
+    import io
+    import shutil
+
+    from pdnlp_tpu_torch.obs import PHASES, StepBreakdown
+    from pdnlp_tpu_torch.obs.export import load_records
+    from pdnlp_tpu_torch.train import checkpoint as ckpt
+
+    limit = int(RESUME_STEPS * 32 / 0.92) + 1        # 640 train examples
+    if int(limit * 0.92) != RESUME_STEPS * 32:
+        fail(f"8d: data_limit {limit} gives {int(limit * 0.92)} examples")
+    prof_dir = os.path.join(work, "fused_prof")
+    procs, dirs = {}, {}
+    procs["8c"], dirs["8c"] = _train_single(
+        work, "fused_out", corpus_path, vocab_path, 700,
+        ("--fuse_steps", "4", "--warmup_compile", "true", "--trace", "true",
+         "--profile_dir", prof_dir, "--resume_every", "10", "--log_every",
+         "5", "--probe_steps", "3", "--dev", "true", "--eval_step", "10"))
+    runs = {"fp32": ("--dtype", "float32"), "bf16": ("--dtype", "bfloat16"),
+            "fp32 fuse 2": ("--dtype", "float32", "--fuse_steps", "2")}
+    for name, extra in runs.items():
+        procs[f"8d {name} run 1"], dirs[name] = _train_single(
+            work, f"resume_{name.replace(' ', '_')}", corpus_path,
+            vocab_path, limit, (*extra, "--resume_every", str(RESUME_EVERY)))
+    t0 = time.monotonic()
+    try:
+        in_process = during()
+    finally:
+        outs = _finish(procs)
+    rc, out, err = outs["8c"]
+    lines = out.splitlines()
+    span_file = os.path.join(dirs["8c"], "trace", "trace_proc0.jsonl")
+    phases = []
+    if os.path.exists(span_file):
+        phases = sorted(StepBreakdown.from_records(
+            load_records(span_file)).summary()["phases"])
+    prof_files = [f for _, _, fs in os.walk(prof_dir) for f in fs] \
+        if os.path.isdir(prof_dir) else []
+    ckpt_8c = os.path.join(dirs["8c"], "single-cls.pt")
+    rec = {"8c": {"exit": rc, "phases": phases, "profile_files": prof_files,
+                  "lines": [ln for ln in lines if not ln.startswith(" ")][:60]}}
+    print(f"[fused] 8c train.single --fuse_steps 4 --warmup_compile true "
+          f"--trace true --profile_dir --resume_every 10 --log_every 5 "
+          f"--probe_steps 3: exit {rc}; span file phases {phases}; "
+          f"profiler files {prof_files}")
+    for ln in lines:
+        if ln.startswith(("[warmup]", "step graphs", "耗时", "steps/s",
+                          "【train】", "[obs] spans", "[profiler]",
+                          "probe steps/s")):
+            print(f"[fused] 8c {ln}")
+    probed = any(ln.startswith("probe steps/s") for ln in lines)
+    if rc != 0 or phases != sorted(PHASES) or not prof_files or \
+            not probed or not os.path.exists(ckpt_8c):
+        fail(f"8c: exit {rc}, phases {phases}, profiler {prof_files}, "
+             f"probe line {probed}\n{err[-3000:]}")
+    procs = {}
+    for name, extra in runs.items():
+        rc, _out, err = outs[f"8d {name} run 1"]
+        snap = os.path.join(dirs[name], "resume-single.pt")
+        meta = (ckpt.load_manifest(ckpt.prev_path(snap)) or {}).get("meta")
+        if rc != 0 or meta != {"step": RESUME_EVERY,
+                               "steps_per_epoch": RESUME_STEPS}:
+            fail(f"8d {name} run 1: exit {rc}, .prev meta {meta}\n"
+                 f"{err[-3000:]}")
+        copy = os.path.join(work, f"step10_{name.replace(' ', '_')}.pt")
+        shutil.copyfile(ckpt.prev_path(snap), copy)
+        shutil.copyfile(ckpt.manifest_path(ckpt.prev_path(snap)),
+                        ckpt.manifest_path(copy))
+        procs[name], _ = _train_single(
+            work, f"resumed_{name.replace(' ', '_')}", corpus_path,
+            vocab_path, limit, (*extra, "--resume_from", copy))
+    tools_dir = tools_dir_8e(work, {**tool_ckpts, "fused-cls.pt": ckpt_8c})
+    common = ["--device", "cuda", "--model", "bert-base", "--data_path",
+              corpus_path, "--vocab_path", vocab_path, "--data_limit", "700",
+              "--output_dir", tools_dir, "--seed", str(SEED)]
+    for t in ("evaluate", "predict"):
+        procs[t] = subprocess.Popen(
+            [sys.executable, "-m", f"pdnlp_tpu_torch.tools.{t}", *common],
+            cwd=REPO, stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+            text=True, env={**os.environ, "PYTHONPATH": REPO})
+    outs = _finish(procs)
+    rec["8d"] = {}
+    for name in runs:
+        rc, out, err = outs[name]
+        a = _ckpt_params(torch, os.path.join(dirs[name], "single-cls.pt"))
+        b = _ckpt_params(torch, os.path.join(
+            work, f"resumed_{name.replace(' ', '_')}", "single-cls.pt")) \
+            if rc == 0 else {}
+        same = rc == 0 and all(torch.equal(a[k], b[k]) for k in a)
+        resumed = [ln for ln in out.splitlines() if ln.startswith("resumed")]
+        trained = [ln for ln in out.splitlines() if ln.startswith("【train】")]
+        rec["8d"][name] = {"exit": rc, "bitwise": same, "resumed": resumed,
+                           "train_lines": len(trained)}
+        print(f"[fused] 8d {name}: resumed run exit {rc}, {resumed}, "
+              f"{len(trained)} 【train】 lines; final params equal the "
+              f"uninterrupted run's bit for bit {same}")
+        if not same or not resumed:
+            fail(f"8d {name}: resumed run differs (exit {rc})\n{err[-3000:]}")
+    snap = os.path.join(dirs["fp32"], "resume-single.pt")
+    with open(snap, "r+b") as f:
+        f.truncate(4096)
+    buf = io.StringIO()
+    with contextlib.redirect_stderr(buf):
+        _payload, meta, used = ckpt.load_state(snap)
+    warned = "falling back" in buf.getvalue()
+    rec["8d"]["corrupt"] = {"used": used, "meta": meta, "warned": warned}
+    print(f"[fused] 8d corrupted snapshot: read {os.path.basename(used)} at "
+          f"step {meta.get('step')}, warning {warned}")
+    if used != ckpt.prev_path(snap) or meta.get("step") != RESUME_EVERY \
+            or not warned:
+        fail(f"8d: the corrupted snapshot did not fall back: {used}, {meta}")
+    rec["8e"] = tools_check_8e(outs, sorted([*tool_ckpts, "fused-cls.pt",
+                                             "fused-cls.msgpack"]))
+    rec["wall_s"] = time.monotonic() - t0
+    print(f"[fused] 8c-8e ran beside 8a in {rec['wall_s']:.1f} s")
+    return rec, in_process, os.path.join(tools_dir, "fused-cls.msgpack")
+
+
+def tools_dir_8e(work, ckpts):
+    """The tools' directory: ``ckpts`` (name -> file) copied in, and the
+    weights of ``fused-cls.pt`` written again by the port as
+    ``fused-cls.msgpack``."""
+    import shutil
+
+    from pdnlp_tpu_torch.train import checkpoint as ckpt
+
+    d = os.path.join(work, "tools_out")
+    os.makedirs(d, exist_ok=True)
+    for name, path in ckpts.items():
+        shutil.copyfile(path, os.path.join(d, name))
+    raw = ckpt.load(os.path.join(d, "fused-cls.pt"))
+    ckpt.save_params(os.path.join(d, "fused-cls.msgpack"), raw["state_dict"],
+                     model_name="bert-base", vocab_size=raw["vocab_size"])
+    return d
+
+
+def tools_check_8e(outs, names):
+    """8e's outputs: every file evaluated and predicted, the ``.msgpack``
+    equal to its ``.pt``."""
+    import re
+
+    rc_e, out_e, err_e = outs["evaluate"]
+    rc_p, out_p, err_p = outs["predict"]
+    acc = {}
+    for block in out_e.split("======== ")[1:]:
+        name = block.split(" ========")[0]
+        m = re.search(r"test loss：(\S+) accuracy：(\S+)", block)
+        acc[name] = (float(m.group(1)), float(m.group(2))) if m else None
+    pred = {}
+    for ln in out_p.splitlines():
+        m = re.match(r"(\S+)  预测：(\S+)  真实：(\S+)", ln)
+        if m:
+            pred[m.group(1)] = m.group(2)
+    rec = {"evaluate": acc, "predict": pred, "exit": [rc_e, rc_p]}
+    print(f"[tools] 8e tools.evaluate exit {rc_e}: (loss, accuracy) {acc}")
+    print(f"[tools] 8e tools.predict exit {rc_p}: {pred}")
+    ok = (rc_e == 0 and rc_p == 0 and sorted(acc) == names
+          and all(acc.values()) and sorted(pred) == names
+          and acc["fused-cls.msgpack"] == acc["fused-cls.pt"]
+          and pred["fused-cls.msgpack"] == pred["fused-cls.pt"])
+    if not ok:
+        fail(f"8e: {rec}\n{err_e[-2000:]}\n{err_p[-2000:]}")
+    return rec
 
 
 # ------------------------------------------------------- phase 6 times
@@ -1798,6 +2272,14 @@ def main():
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     t_start = time.monotonic()
+    clock = {}
+
+    def lap(name):
+        """Seconds since the previous lap, printed: where the run's time
+        limit goes, phase by phase."""
+        now = time.monotonic()
+        clock[name] = now - t_start - sum(clock.values())
+        print(f"[clock] {name}: {clock[name]:.1f} s")
 
     # 1. device
     device = torch.device("cuda", 0)
@@ -1947,6 +2429,7 @@ def main():
           f"ms, p99 {packed_fp32['p99_ms']:.3f} ms over "
           f"{packed_fp32['requests']} requests — {card}")
 
+    lap("1-5 device, build, kernels, serving")
     # 6. the training main path: bert-base at full width, 32 x 128
     corpus_path = os.path.join(work, "train.json")
     data_limit = 700                 # 644 train examples: 21 steps of 32
@@ -1968,6 +2451,7 @@ def main():
     trains = training_runs(torch, flash, fused_ce, train_args, vocab_size,
                            batches, device, card)
     train_launches = trains["float32"]["launches"]
+    lap("6a")
     # 6b. the training entry point at full width, then with the packed
     # rows and the pipeline's default (resident); the serve engine loads
     # both checkpoints
@@ -1980,14 +2464,17 @@ def main():
         want_pipeline="resident", tag="train_pack_out")
     serves(build_engine, base, ckpt_packed, texts)
     torch.cuda.empty_cache()
+    lap("6b")
     # 6c. length-aware training: bucket, pack, multi-width pack
     full_ms = {d: trains[d]["step_ms_kernel"] for d in trains}
     lengths = length_runs(torch, flash, fused_ce, routes, full, vocab_size,
                           device, card, full_ms)
+    lap("6c")
     # 6d. the pipelines, bit for bit
     pipes = pipeline_runs(torch, flash, fused_ce,
                           length_base.replace(data_limit=PIPELINE_EXAMPLES),
                           vocab_size, device, card)
+    lap("6d")
     # 7. data-parallel training: two gloo ranks on the card, zero over
     # NCCL, the entry points
     dp_loader = setup_data(train_args.replace(train_batch_size=64))[0]
@@ -2008,13 +2495,31 @@ def main():
                                           data_limit)
     serves(build_engine, base, dp["entry_points"]["7e train.spawn"][
         "checkpoint"], texts)
+    lap("7")
+    # 8. the training loop: captured K-step groups against eager steps,
+    # their times, the entry point with every loop flag, resume, the tools
+    # (8c-8e run as processes beside 8a; 8b's times are taken alone)
+    torch.cuda.empty_cache()
+    loop_rec, fused, msgpack_8c = loop_runs(
+        torch, work, corpus_path, vocab_path, card,
+        {"single-cls.pt": ckpt_trained, "zero-cls.pt": dp["zero_checkpoint"]},
+        lambda: fused_runs(torch, flash, fused_ce, train_args, vocab_size,
+                           device, card, batches, length_base))
+    serves(build_engine, base, msgpack_8c, texts)
+    lap("8a, 8c-8e")
+    batch32 = next(b for b in routes["bucket"][1]
+                   if b["input_ids"].shape[1] == 32)
+    fused_ms = fused_times(torch, train_args, vocab_size, device, card,
+                           batches[0], batch32, packed_batches[512])
+    lap("8b")
     launches_by_path = {
-        "serving packed (K1)": main_launches,
+        "serving packed (K1)": {"flash_fwd": main_launches},
         "6a fixed width fp32": train_launches,
         **{f"6c {name} fp32": lengths[(name, "float32")]["launches_by_width"]
            for name in routes},
         **{f"6d {m} {p} bf16": r["launches"] for (m, p), r in pipes.items()},
-        **{f"7 {n} rank 0": c for n, c in dp["launches_rank0"].items()}}
+        **{f"7 {n} rank 0": c for n, c in dp["launches_rank0"].items()},
+        **{f"8a {n}": r["launches"] for n, r in fused.items()}}
     print(f"[launches] per path (counts set to 0 just before each, read "
           f"just after): {json.dumps(launches_by_path)}")
     # 6 times: K1-K3 at every training shape of the paths, K4/K5 at the
@@ -2035,6 +2540,7 @@ def main():
     ce_pack_times = {name: time_fused_ce(torch, F, fused_ce, device, card,
                                          rows=rows)
                      for name, rows in pack_rows.items()}
+    lap("6 times")
     summary = {
         "card": card, "runs": runs, "forward_ms": fwd_times,
         "profile": profiles, "flash_fwd": times, "kernel_max_abs_err": errs,
@@ -2046,16 +2552,19 @@ def main():
         "launches_by_path": launches_by_path,
         "flash_bwd_times": bwd_times, "flash_shape_times": shape_times,
         "fused_ce_times": ce_times, "fused_ce_pack_times": ce_pack_times,
-        "flash_build": occupancy, "seconds": time.monotonic() - t_start}
+        "flash_build": occupancy, "fused": fused, "fused_times": fused_ms,
+        "loop": loop_rec, "phase_seconds": clock,
+        "seconds": time.monotonic() - t_start}
     print(f"[summary] {json.dumps(summary)}")
 
     t32 = times["float32"]
+    launched = sum_launches(launches_by_path)
     kernels = [{
         "name": "flash_fwd",
         "route": "cuda",
         "source": "pdnlp_tpu_torch/csrc/flash_fwd.cu",
         "replaces": "pdnlp_tpu/ops/flash.py:191",
-        "launches": main_launches,
+        "launches": launched["flash_fwd"],
         "max_abs_err": max(errs["float32"], t32["max_abs_err"]),
         "ms": line_times(t32)[0],
         "plain_ms": t32["plain_ms"],
@@ -2077,7 +2586,7 @@ def main():
             "name": name, "route": "cuda",
             "source": f"pdnlp_tpu_torch/csrc/{source}",
             "replaces": f"pdnlp_tpu/ops/{replaces}",
-            "launches": train_launches[name],
+            "launches": launched[name],
             "max_abs_err": max(checked[name]["float32"], t["max_abs_err"]),
             "ms": line_times(t)[0], "plain_ms": t["plain_ms"],
             "bound_ms": t["bound_ms"], "bound_by": t["bound_by"],

@@ -66,8 +66,21 @@ def from_jax_params(tree: Dict[str, Any]) -> Dict[str, torch.Tensor]:
     return sd
 
 
+def _sorted(tree):
+    """Dicts rebuilt in sorted key order, as jax's tree utilities leave a
+    tree: flax then writes the same bytes for it as the JAX package does."""
+    if isinstance(tree, dict):
+        return {k: _sorted(tree[k]) for k in sorted(tree)}
+    return tree
+
+
 def to_jax_params(state_dict: Dict[str, torch.Tensor]) -> Dict[str, Any]:
-    """The port's ``state_dict`` -> JAX parameter tree with numpy leaves."""
+    """The port's ``state_dict`` -> JAX parameter tree with numpy leaves
+    (keys in sorted order)."""
+    return _sorted(_to_jax_params(state_dict))
+
+
+def _to_jax_params(state_dict: Dict[str, torch.Tensor]) -> Dict[str, Any]:
     def a(key) -> np.ndarray:
         return state_dict[key].detach().cpu().numpy()
 

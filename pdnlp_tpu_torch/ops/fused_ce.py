@@ -53,6 +53,19 @@ def reset_launch_count() -> None:
         _launches[name] = 0
 
 
+def launch_counts() -> dict:
+    """``{kernel: launches}`` of this module's kernels."""
+    return dict(_launches)
+
+
+def add_launches(counts: dict, times: int = 1) -> None:
+    """Count the launches of ``times`` replays of a captured CUDA graph
+    whose capture recorded ``counts`` (a replay makes no host call, so
+    its kernels are counted here, not in the wrappers)."""
+    for name in KERNELS:
+        _launches[name] += times * int(counts.get(name, 0))
+
+
 def resolve_fused_ce(requested: str, device) -> str:
     """``--fused_ce auto|xla|pallas`` -> the path that runs on ``device``:
     ``pallas`` is the fused kernels, ``xla`` the plain logits path

@@ -31,7 +31,8 @@ from pdnlp_tpu_torch.parallel import collectives
 from pdnlp_tpu_torch.parallel.sharding import check_mode, wrap
 from pdnlp_tpu_torch.train.optim import build_optimizer
 from pdnlp_tpu_torch.train.steps import (
-    TrainObjective, TrainState, build_eval_step, build_train_step, init_ema,
+    TrainObjective, TrainState, build_eval_step, build_train_step,
+    compute_grads, init_ema, matmul_weights,
 )
 from pdnlp_tpu_torch.utils.config import resolve_device
 from pdnlp_tpu_torch.utils.seeding import set_seed
@@ -43,6 +44,21 @@ def dropout_seed(seed: int, rank: int) -> int:
     return int(seed) + int(rank) * 2 ** 32
 
 
+def check_zero(args, mode: str) -> None:
+    """Raise for what the port does not run under ``zero`` yet (ROADMAP
+    A7): the EMA, and ``--grads_dtype compute``."""
+    if mode != "zero":
+        return
+    if args.ema_decay > 0:
+        raise ValueError("--ema_decay under zero is not in the PyTorch port "
+                         "yet (ROADMAP A7): the EMA would shadow FSDP2's "
+                         "shards; use dp")
+    if compute_grads(args):
+        raise ValueError("--grads_dtype compute under zero is not in the "
+                         "PyTorch port yet (ROADMAP A7): FSDP2 gathers and "
+                         "reduces whole modules in one dtype; use dp")
+
+
 def setup_sharded_model(args, vocab_size: int, mesh, mode: str = "dp",
                         total_steps=None, explicit_collectives: bool = False
                         ) -> Tuple[BertConfig, TrainState]:
@@ -51,10 +67,7 @@ def setup_sharded_model(args, vocab_size: int, mesh, mode: str = "dp",
     shard_map step reduces the gradients itself) after broadcasting rank
     0's weights.  ``total_steps`` sizes the optional ``--lr_schedule``."""
     check_mode(mode)
-    if args.ema_decay > 0 and mode == "zero":
-        raise ValueError("--ema_decay under zero is not in the PyTorch port "
-                         "yet (ROADMAP A7): the EMA would shadow FSDP2's "
-                         "shards; use dp")
+    check_zero(args, mode)
     device = resolve_device(args.device)
     if device.type == "cuda":
         device = torch.device("cuda", torch.cuda.current_device())
@@ -86,13 +99,36 @@ def _metric_sum(group):
     return reduce_metrics
 
 
+def _grad_reduce(group, compress, compute: bool):
+    """``after_backward``: every gradient mean-reduced over the ranks,
+    ``compress`` on the wire; under ``--grads_dtype compute`` the matmul
+    weights' gradients (bf16 values) go in bf16 whatever ``compress``, as
+    JAX's all-reduce of the bf16 gradient leaves does."""
+    def reduce_grads(state: TrainState) -> None:
+        named = list(state.model.named_parameters())
+        if compute:
+            mm = set(matmul_weights(state.model))
+            collectives.grad_reduce([p.grad for n, p in named if n in mm],
+                                    group=group,
+                                    compress_dtype=torch.bfloat16)
+            named = [(n, p) for n, p in named if n not in mm]
+        collectives.grad_reduce([p.grad for _, p in named], group=group,
+                                compress_dtype=compress)
+
+    return reduce_grads
+
+
 def make_parallel_train_step(args, mesh, device):
     """The dp / zero step: the wrapped objective's forward and backward
     (the wrapper's collectives inside), the optimizer on the rank's
     replica or shard, and the loss and correct count summed over the
-    ranks (each rank's share is already scaled by ``lw / gw``)."""
-    return build_train_step(args, device,
-                            reduce_metrics=_metric_sum(mesh.get_group()))
+    ranks (each rank's share is already scaled by ``lw / gw``).  Under
+    ``--grads_dtype compute`` DDP's reduction is off and the step reduces
+    the gradients itself (``train.steps.build_train_step``)."""
+    group = mesh.get_group()
+    after = _grad_reduce(group, None, True) if compute_grads(args) else None
+    return build_train_step(args, device, after_backward=after,
+                            reduce_metrics=_metric_sum(group))
 
 
 def make_parallel_eval_step(args, state: TrainState):
@@ -116,10 +152,9 @@ def make_shardmap_train_step(args, mesh, device, compress_grads: bool = True):
                          "would silently evaluate stale weights")
     group = mesh.get_group()
     compress = torch.bfloat16 if compress_grads else None
-
-    def reduce_grads(state: TrainState) -> None:
-        collectives.grad_reduce([p.grad for p in state.model.parameters()],
-                                group=group, compress_dtype=compress)
-
-    return build_train_step(args, device, after_backward=reduce_grads,
-                            reduce_metrics=_metric_sum(group))
+    # one wire dtype for every gradient, as JAX's shard_map step, which
+    # takes no ``--grads_dtype`` (the compute path's gradients are the
+    # same values: bf16 ones, widened)
+    return build_train_step(
+        args, device, after_backward=_grad_reduce(group, compress, False),
+        reduce_metrics=_metric_sum(group))

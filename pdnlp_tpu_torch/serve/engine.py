@@ -5,9 +5,9 @@ logits (``pdnlp_tpu/serve/engine.py`` without the mesh).
   raises; nothing falls back to the CPU.  On the card, fp32 matmuls and
   convolutions are held to true fp32 (TF32 off), so the default
   ``dtype=float32`` path computes what its name says.
-- **checkpoint load** goes through ``train.checkpoint``: every tensor is
-  name- and shape-checked against the model template before it reaches
-  the device.
+- **checkpoint load** goes through ``train.checkpoint``: the port's
+  ``.pt`` or the JAX package's ``.msgpack``; every tensor is name- and
+  shape-checked against the model template before it reaches the device.
 - **precision**: ``serve_dtype`` ``auto`` follows ``args.dtype``; ``bf16``
   casts the dense weights to bfloat16 once at load (LayerNorm and
   embedding tables stay fp32, as in the JAX forward).
@@ -82,7 +82,8 @@ class InferenceEngine:
             self.model.load_state_dict(dict(state_dict))
 
     def load_checkpoint(self, path: str) -> None:
-        """Swap in a checkpoint written by ``train.checkpoint.save_params``."""
+        """Swap in a checkpoint written by ``train.checkpoint.save_params``
+        or by the JAX package's ``save_params`` (``.msgpack``)."""
         self.load_state(ckpt.load_params(path, self._template,
                                          model_name=self.args.model),
                         path=path)

@@ -29,6 +29,7 @@ from __future__ import annotations
 
 import sys
 
+from pdnlp_tpu_torch.parallel.execution import check_zero
 from pdnlp_tpu_torch.parallel.sharding import check_mode
 from pdnlp_tpu_torch.train.single import NOT_PORTED, refuse_not_ported
 
@@ -46,6 +47,9 @@ STRATEGIES = {
 MULTI_NOT_PORTED = {
     **{k: v for k, v in NOT_PORTED.items()
        if k not in ("--elastic", "--heartbeat_interval")},
+    "--fuse_steps": ("1", "K steps per dispatch under a process group: "
+                     "the captured graph needs NCCL's capturable "
+                     "collectives (ROADMAP A7)"),
     "--offload_opt_state": ("false", "Adam moments in host memory, FSDP2's "
                             "CPUOffloadPolicy (ROADMAP A7)"),
     "--elastic": (None, "elastic restart (ROADMAP A11)"),
@@ -68,6 +72,7 @@ def parse(argv, prog: str = "train.multi"):
     args = parse_cli(argv, base=Args(strategy=strategy, **defaults))
     try:
         check_mode(args.mode)
+        check_zero(args, args.mode)
     except ValueError as e:
         raise SystemExit(f"{prog}: {e}") from None
     return args, {"mode": args.mode, **knobs}

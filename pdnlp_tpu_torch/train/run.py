@@ -20,7 +20,7 @@ from typing import Tuple
 import torch
 
 from pdnlp_tpu_torch.data.corpus import LABELS
-from pdnlp_tpu_torch.data.pipeline import build_pipeline
+from pdnlp_tpu_torch.data.pipeline import setup_pipeline
 from pdnlp_tpu_torch.data.sampler import resolve_length_mode
 from pdnlp_tpu_torch.parallel.execution import (
     make_parallel_eval_step, make_parallel_train_step,
@@ -64,7 +64,7 @@ def build_parallel_trainer(args, *, mode: str = "dp",
         train_step = make_shardmap_train_step(args, mesh, device)
     else:
         train_step = make_parallel_train_step(args, mesh, device)
-    pipeline = build_pipeline(args, train_loader, device)
+    pipeline = setup_pipeline(args, train_loader, device)
     trainer = Trainer(args, cfg, state, train_step,
                       make_parallel_eval_step(args, state), device,
                       pipeline=pipeline)
@@ -79,10 +79,32 @@ def build_parallel_trainer(args, *, mode: str = "dp",
     return trainer, train_loader, dev_loader
 
 
+def try_resume(trainer: Trainer, args) -> None:
+    """Restore the resume snapshot when ``--resume_from`` names one that
+    exists (``auto``: ``args.resume_path()``); a file whose retained
+    previous is corrupt too starts the run from scratch, loudly."""
+    import os
+
+    from pdnlp_tpu_torch.train import checkpoint as ckpt
+
+    if not (args.resume_from and os.path.exists(args.resume_path())):
+        return
+    try:
+        trainer.load_resume(args.resume_path())
+    except ckpt.CorruptCheckpointError as e:
+        rank0_print(f"WARNING: resume snapshot unusable ({e}) — no valid "
+                    "previous snapshot retained either; starting from "
+                    "scratch")
+        return
+    rank0_print(f"resumed from {args.resume_path()} at step "
+                f"{trainer.state.step}")
+
+
 def run_parallel(args, **strategy) -> float:
     """Train and test; returns wall-clock minutes."""
     trainer, train_loader, dev_loader = build_parallel_trainer(args,
                                                                **strategy)
+    try_resume(trainer, args)
     minutes = trainer.train(train_loader, dev_loader)
     result = trainer.test(dev_loader)
     rank0_print(f"test loss：{result['loss']:.6f} "

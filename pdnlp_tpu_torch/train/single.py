@@ -7,7 +7,11 @@ pass over dev with the classification report.
     python -m pdnlp_tpu_torch.train.single --data_path data/train.json \\
         [--dtype bfloat16] [--dev true] [--attn_dropout 0] [--device cpu] \\
         [--length_mode full|bucket|pack] [--length_buckets 32,64,128] \\
-        [--pipeline auto|resident|prefetch|sync] [--remat true]
+        [--pipeline auto|resident|prefetch|sync] [--remat true] \\
+        [--fuse_steps 4] [--warmup_compile true] [--grads_dtype compute] \\
+        [--resume_every 50] [--resume_from auto|<path>] [--ckpt_async false] \\
+        [--trace true] [--trace_dir <d>] [--profile_dir <d>] [--log_every 10] \\
+        [--probe_steps 30]
 
 ``--length_mode bucket`` pads each batch to the smallest covering width of
 ``--length_buckets``; ``pack`` puts several examples in each row, with the
@@ -15,6 +19,11 @@ segment form of the flash kernels (``data.packing``).  ``--pipeline``
 picks how batches reach the card (``data.pipeline``; ``auto`` holds the
 split on the card when it can, else prefetches on a side stream).
 ``--remat true`` recomputes each layer's activations in the backward.
+``--fuse_steps`` K runs K steps per dispatch, on the card as one captured
+CUDA graph (``train.steps.build_multi_step``); ``--resume_every`` /
+``--resume_from`` snapshot and restore the whole train state bit for bit;
+``--trace`` writes the phase spans and prints the breakdown table
+(``train.trainer``).
 
 Runs on ``cuda`` unless ``--device cpu`` is given.  With ``--attn_dropout``
 above 0 (the default 0.1) training attention takes the plain path, as in
@@ -29,16 +38,12 @@ import sys
 #: JAX training flags whose paths the port does not have yet -> where
 #: ROADMAP queues them; a value in the tuple is the one setting allowed
 NOT_PORTED = {
-    "--fuse_steps": ("1", "K-step fusion as CUDA graph capture (ROADMAP A4)"),
-    "--grads_dtype": ("param", "compute-dtype gradients (ROADMAP A4)"),
-    "--resume_every": (None, "resume snapshots (ROADMAP A4)"),
-    "--resume_from": (None, "resume snapshots (ROADMAP A4)"),
     "--elastic": (None, "elastic restart (ROADMAP A11)"),
     "--heartbeat_interval": (None, "heartbeats (ROADMAP A11)"),
-    "--trace": (None, "obs span tracing (ROADMAP A4)"),
-    "--metrics_port": (None, "live telemetry (ROADMAP A4)"),
-    "--flight_recorder": (None, "live telemetry (ROADMAP A4)"),
-    "--profile_dir": (None, "the profiler (ROADMAP A4)"),
+    "--metrics_port": (None, "the live exporter (ROADMAP A9: obs/"
+                             "exporter.py)"),
+    "--flight_recorder": (None, "the live exporter's flight recorder "
+                                "(ROADMAP A9: obs/exporter.py)"),
     "--init_from": (None, "pretrained warm start (ROADMAP A12)"),
 }
 
@@ -61,7 +66,8 @@ def refuse_not_ported(argv, table=NOT_PORTED, prog: str = "train.single"):
 
 def main(args) -> float:
     from pdnlp_tpu_torch.data.corpus import LABELS
-    from pdnlp_tpu_torch.data.pipeline import build_pipeline
+    from pdnlp_tpu_torch.data.pipeline import setup_pipeline
+    from pdnlp_tpu_torch.train.run import try_resume
     from pdnlp_tpu_torch.train.setup import setup_data, setup_model
     from pdnlp_tpu_torch.train.steps import build_eval_step, build_train_step
     from pdnlp_tpu_torch.train.trainer import Trainer
@@ -72,12 +78,13 @@ def main(args) -> float:
     cfg, state = setup_model(args, tok.vocab_size,
                              total_steps=len(train_loader) * args.epochs)
     device = next(state.model.parameters()).device
-    pipeline = build_pipeline(args, train_loader, device)
+    pipeline = setup_pipeline(args, train_loader, device)
     rank0_print(f"device: {device.type}  model: {args.model}  "
                 f"dtype: {args.dtype}  steps/epoch: {len(train_loader)}  "
                 f"pipeline: {pipeline.mode}")
     trainer = Trainer(args, cfg, state, build_train_step(args, device),
                       build_eval_step(args), device, pipeline=pipeline)
+    try_resume(trainer, args)
     minutes = trainer.train(train_loader, dev_loader)
     # dev doubles as the test set (single-gpu-cls.py:241-247)
     result = trainer.test(dev_loader)

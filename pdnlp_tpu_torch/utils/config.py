@@ -135,6 +135,46 @@ class Args:
                                                   # card raises, never falls
                                                   # back
 
+    # --- the training loop (train.trainer) ---
+    fuse_steps: int = 1                           # K optimizer steps per
+                                                  # dispatch: on cuda one
+                                                  # captured CUDA graph per
+                                                  # (K, batch shape); the
+                                                  # remainder runs as single
+                                                  # steps
+    grads_dtype: str = "param"                    # "param": fp32 grads
+                                                  # (default). "compute": under
+                                                  # bf16 the matmul weights are
+                                                  # cast outside autograd, so
+                                                  # their grads are produced in
+                                                  # bf16 (train.steps)
+    log_every: int = 1                            # a 【train】 line every N steps
+    probe_steps: int = 0                          # N re-fed steps on a copy of
+                                                  # the state before the epoch;
+                                                  # prints the controlled
+                                                  # steps/s
+    warmup_compile: bool = False                  # build the kernels and capture
+                                                  # every step graph the epoch
+                                                  # needs before the clock
+                                                  # starts
+    trace: bool = False                           # obs span tracing: per-step
+                                                  # phase spans, the breakdown
+                                                  # table and the regression
+                                                  # detector
+    trace_dir: Optional[str] = None               # span files (trace_proc
+                                                  # <i>.jsonl); default
+                                                  # <output_dir>/trace
+    profile_dir: Optional[str] = None             # torch.profiler trace of a
+                                                  # window of steps
+    resume_every: Optional[int] = None            # full-state snapshot every N
+                                                  # steps
+    resume_from: Optional[str] = None             # snapshot path, or "auto"
+    ckpt_async: bool = True                       # resume snapshots: device->
+                                                  # host copy in the loop, the
+                                                  # write on a writer thread
+                                                  # (train.async_ckpt); false =
+                                                  # the whole save in the loop
+
     def replace(self, **kw) -> "Args":
         return dataclasses.replace(self, **kw)
 
@@ -142,6 +182,13 @@ class Args:
         """One checkpoint per strategy, in the port's own format."""
         return os.path.join(self.output_dir,
                             name or self.ckpt_name or f"{self.strategy}-cls.pt")
+
+    def resume_path(self) -> str:
+        """Where periodic full-state snapshots live (``resume_from="auto"``
+        or unset: ``<output_dir>/resume-<strategy>.pt``)."""
+        if self.resume_from and self.resume_from != "auto":
+            return self.resume_from
+        return os.path.join(self.output_dir, f"resume-{self.strategy}.pt")
 
 
 def add_dataclass_args(parser, cls, defaults=None) -> None:

@@ -1,7 +1,8 @@
 """Rank-0 printing with the reference's line formats, byte for byte
-(``pdnlp_tpu/utils/logging.py`` and ``utils/profiling.py:StepStats.line``):
+(``pdnlp_tpu/utils/logging.py``; the rates line is
+``utils.profiling.StepStats.line``):
 ``【train】 epoch：1/1 step：10/288 loss：1.791759``, ``【dev】 loss：...
-accuracy：...``, ``【best accuracy】 ...``, ``耗时：X分钟`` and the rates line.
+accuracy：...``, ``【best accuracy】 ...`` and ``耗时：X分钟``.
 """
 from __future__ import annotations
 
@@ -36,10 +37,3 @@ def fmt_best(accuracy) -> str:
 
 def fmt_elapsed_minutes(minutes: float) -> str:
     return f"耗时：{minutes}分钟"
-
-
-def fmt_rates(steps: int, examples: int, minutes: float) -> str:
-    """Steps and examples per second over the timed epochs."""
-    secs = minutes * 60
-    return (f"steps/s：{steps / secs if secs else 0.0:.2f}  "
-            f"samples/s：{examples / secs if secs else 0.0:.1f}")

@@ -654,3 +654,235 @@ def test_two_gloo_ranks_on_the_card_match_a_single_process(cuda_device,
     params = torch.load(got["checkpoint"], weights_only=True)["state_dict"]
     for k, v in state.model.state_dict().items():
         torch.testing.assert_close(params[k], v.cpu(), atol=2e-5, rtol=0)
+
+
+# ------------------------------------------------- captured K-step groups
+
+
+def _tiny_batches(n, B=8, S=64, seed=0, vocab=120):
+    rng = np.random.RandomState(seed)
+    out = []
+    for _ in range(n):
+        mask = np.zeros((B, S), np.int32)
+        for b in range(B):
+            mask[b, : rng.randint(4, S + 1)] = 1
+        out.append({
+            "input_ids": (rng.randint(5, vocab, (B, S)) * mask).astype(
+                np.int32),
+            "token_type_ids": np.zeros((B, S), np.int32),
+            "attention_mask": mask,
+            "label": rng.randint(0, 6, B).astype(np.int32),
+            "example_weight": np.ones(B, np.float32)})
+    return out
+
+
+def _fused_vs_eager(device, dropout, **kw):
+    """bert-tiny on the card: six steps eager, and the same six as one
+    captured group of four plus two eager steps, from the same seed."""
+    from pdnlp_tpu_torch.data.pipeline import to_device
+    from pdnlp_tpu_torch.train.setup import setup_model
+    from pdnlp_tpu_torch.train.steps import build_multi_step, build_train_step
+    from pdnlp_tpu_torch.utils.config import Args
+
+    args = Args(model="bert-tiny", device="cuda", dropout=dropout,
+                attn_dropout=0.0, fuse_steps=4, ema_decay=0.9,
+                lr_schedule="warmup_linear", learning_rate=1e-3, **kw)
+    batches = _tiny_batches(6)
+    _, se = setup_model(args, 120, total_steps=6)
+    step = build_train_step(args, device)
+    eager = [step(se, to_device(b, device))["loss"] for b in batches]
+    _, sf = setup_model(args, 120, total_steps=6)
+    step_f = build_train_step(args, device)
+    multi = build_multi_step(step_f, device)
+    flash.reset_launch_count()
+    fused_ce.reset_launch_count()
+    stacked = {k: np.stack([b[k] for b in batches[:4]]) for k in batches[0]}
+    fused = list(multi(sf, to_device(stacked, device))["loss"])
+    fused += [step_f(sf, to_device(b, device))["loss"] for b in batches[4:]]
+    torch.cuda.synchronize()
+    return se, sf, torch.stack(eager), torch.stack(fused), multi
+
+
+@pytest.mark.parametrize("dropout", [0.0, 0.1])
+def test_captured_steps_equal_eager_bit_for_bit(cuda_device, dropout):
+    """A captured group of four and two eager steps against six eager
+    steps: losses, params, EMA and the dropout generator's position bit
+    for bit, with K1-K5 in the graph."""
+    se, sf, eager, fused, multi = _fused_vs_eager(cuda_device, dropout)
+    assert torch.equal(eager, fused)
+    pe, pf = se.model.state_dict(), sf.model.state_dict()
+    assert all(torch.equal(pe[k], pf[k]) for k in pe)
+    assert all(torch.equal(se.ema[k], sf.ema[k]) for k in pe)
+    assert torch.equal(se.generator.get_state(), sf.generator.get_state())
+    assert len(multi.graphs) == 1 and sf.step == se.step == 6
+
+
+def test_replayed_launches_are_counted(cuda_device):
+    """Launches counted replay-aware: the capture's, once per replay, plus
+    the eager steps' — per step K1-K3 x layers and K4/K5 x1; the warm-up
+    step before the capture counts nothing."""
+    _se, sf, _e, _f, multi = _fused_vs_eager(cuda_device, 0.1)
+    layers = sf.model.cfg.num_layers
+    got = {**flash.launch_counts(), **fused_ce.launch_counts()}
+    want = {"flash_fwd": 6 * layers, "flash_bwd_dq": 6 * layers,
+            "flash_bwd_dkv": 6 * layers, "fused_ce_fwd": 6,
+            "fused_ce_bwd": 6}
+    assert got == want
+    g = next(iter(multi.graphs.values()))
+    assert g.launches == {k: 4 * v // 6 for k, v in want.items()}
+    assert g.replays == 1 and g.pool_bytes > 0
+
+
+def test_compute_grads_within_the_bf16_band(cuda_device, monkeypatch):
+    """``grads_dtype compute`` against ``param`` at bf16, three steps from
+    the same weights.  The forward is the same bits under both settings
+    and the widened bf16 gradient is what ``param``'s cast hands back, so
+    the weights and losses agree bit for bit; what differs is where the
+    matmul weights' gradients materialize, which is checked: every compute
+    step makes bf16 leaves with bf16 gradients, ``param`` makes none.  The
+    captured compute step equals its eager steps bit for bit."""
+    from pdnlp_tpu_torch.data.pipeline import to_device
+    from pdnlp_tpu_torch.train.setup import setup_model
+    from pdnlp_tpu_torch.train.steps import build_train_step, matmul_weights
+    from pdnlp_tpu_torch.utils.config import Args
+
+    leaves = []
+    real = torch.func.functional_call
+
+    def spy(module, tensors, *a, **k):
+        leaves.append(tensors)
+        return real(module, tensors, *a, **k)
+
+    monkeypatch.setattr(torch.func, "functional_call", spy)
+    runs = {}
+    for mode in ("param", "compute"):
+        args = Args(model="bert-tiny", device="cuda", dropout=0.0,
+                    attn_dropout=0.0, dtype="bfloat16", grads_dtype=mode,
+                    learning_rate=1e-3)
+        _, state = setup_model(args, 120)
+        step = build_train_step(args, cuda_device)
+        leaves.clear()
+        losses = []
+        for b in _tiny_batches(3, seed=4):
+            losses.append(step(state, to_device(b, cuda_device))["loss"])
+            for n in matmul_weights(state.model) if mode == "compute" else ():
+                assert leaves[-1][f"model.{n}"].grad.dtype == torch.bfloat16
+        assert len(leaves) == (3 if mode == "compute" else 0)
+        runs[mode] = (torch.stack(losses), state.model.state_dict())
+    assert torch.equal(runs["compute"][0], runs["param"][0])
+    for k, v in runs["param"][1].items():
+        assert torch.equal(runs["compute"][1][k], v), k
+    monkeypatch.undo()
+    se, sf, eager, fused, _ = _fused_vs_eager(
+        cuda_device, 0.1, dtype="bfloat16", grads_dtype="compute")
+    assert torch.equal(eager, fused)
+
+
+def test_resume_on_the_card_is_bitwise(cuda_device, tmp_path):
+    """Two captured groups straight against one, a snapshot, a fresh state
+    restored from it, and the second group: params and the dropout
+    generator bit for bit (the generator survives capture)."""
+    from pdnlp_tpu_torch.data.pipeline import to_device
+    from pdnlp_tpu_torch.train.setup import setup_model
+    from pdnlp_tpu_torch.train.steps import build_multi_step, build_train_step
+    from pdnlp_tpu_torch.train.trainer import Trainer
+    from pdnlp_tpu_torch.utils.config import Args
+
+    args = Args(model="bert-tiny", device="cuda", dropout=0.1,
+                attn_dropout=0.0, fuse_steps=4, lr_schedule="warmup_linear",
+                learning_rate=1e-3)
+    b = _tiny_batches(8, seed=9)
+    groups = [to_device({k: np.stack([x[k] for x in b[i:i + 4]])
+                         for k in b[0]}, cuda_device) for i in (0, 4)]
+
+    def fresh():
+        _, st = setup_model(args, 120, total_steps=8)
+        step = build_train_step(args, cuda_device)
+        return st, step, build_multi_step(step, cuda_device)
+
+    s1, _, m1 = fresh()
+    for g in groups:
+        m1(s1, g)
+    s2, step2, m2 = fresh()
+    m2(s2, groups[0])
+    path = str(tmp_path / "r.pt")
+    Trainer(args, None, s2, step2, None, cuda_device, multi_step=m2) \
+        .save_resume(path)
+    s3, step3, m3 = fresh()
+    t3 = Trainer(args, None, s3, step3, None, cuda_device, multi_step=m3)
+    t3.load_resume(path)
+    m3(t3.state, groups[1])
+    torch.cuda.synchronize()
+    p1, p3 = s1.model.state_dict(), t3.state.model.state_dict()
+    assert all(torch.equal(p1[k], p3[k]) for k in p1)
+    assert torch.equal(s1.generator.get_state(),
+                       t3.state.generator.get_state())
+
+
+def test_resume_across_fuse_settings_on_the_card(cuda_device, tmp_path):
+    """A snapshot from ``--fuse_steps`` 1 (AdamW not capturable: host
+    rates, step counts on the host) resumes under ``--fuse_steps`` 4
+    (capturable: rates and counts on the card) and the other way round:
+    each run keeps its own optimizer setting and ends where a run that
+    used one setting throughout ends, within 1e-5: the two AdamW forms
+    order the bias correction differently, which moved one word-embedding
+    weight of 15,360 by 1.15e-6 in the first card run (NVIDIA H100 80GB
+    HBM3), while a lost step count or rate moves the params by about lr
+    (1e-3)."""
+    from pdnlp_tpu_torch.data.pipeline import to_device
+    from pdnlp_tpu_torch.train.setup import setup_model
+    from pdnlp_tpu_torch.train.steps import build_multi_step, build_train_step
+    from pdnlp_tpu_torch.train.trainer import Trainer
+    from pdnlp_tpu_torch.utils.config import Args
+
+    base = Args(model="bert-tiny", device="cuda", dropout=0.1,
+                attn_dropout=0.0, lr_schedule="warmup_linear",
+                learning_rate=1e-3)
+    b = _tiny_batches(8, seed=11)
+    one = [to_device(x, cuda_device) for x in b]
+    group = to_device({k: np.stack([x[k] for x in b[4:]]) for k in b[0]},
+                      cuda_device)
+
+    def fresh(fuse):
+        args = base.replace(fuse_steps=fuse)
+        _, st = setup_model(args, 120, total_steps=8)
+        step = build_train_step(args, cuda_device)
+        return Trainer(args, None, st, step, None, cuda_device,
+                       multi_step=build_multi_step(step, cuda_device))
+
+    def run(first, second):
+        t = fresh(first)
+        for x in one[:4]:
+            t.train_step(t.state, x)
+        path = str(tmp_path / f"r{first}.pt")
+        t.save_resume(path)
+        t2 = fresh(second)
+        t2.load_resume(path)
+        if second > 1:
+            t2.multi_step(t2.state, group)
+        else:
+            for x in one[4:]:
+                t2.train_step(t2.state, x)
+        torch.cuda.synchronize()
+        return t2.state
+
+    ref = fresh(4)
+    for x in one[:4]:
+        ref.train_step(ref.state, x)
+    ref.multi_step(ref.state, group)
+    want = ref.state.model.state_dict()
+    for first, second in ((1, 4), (4, 1)):
+        st = run(first, second)
+        cap = second > 1
+        for g in st.optimizer.param_groups:
+            assert g["capturable"] == cap
+            assert isinstance(g["lr"], torch.Tensor) == cap
+            for p in g["params"]:
+                count = st.optimizer.state[p]["step"]
+                assert count.device.type == ("cuda" if cap else "cpu")
+                assert float(count) == 8
+        assert st.step == 8 and st.scheduler.last_epoch == 8
+        got = st.model.state_dict()
+        diff = max((got[k] - want[k]).abs().max().item() for k in want)
+        print(f"resume {first} -> {second}: max param diff {diff:.3e}")
+        assert diff <= 1e-5, (first, second, diff)

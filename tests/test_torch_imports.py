@@ -1,4 +1,4 @@
-"""Import rules of the PyTorch port: it never imports JAX or the JAX
+"""Import rules of the PyTorch port: it never imports JAX, flax, msgpack or the JAX
 package, it imports on a CPU-only PyTorch, and its entry points run on
 ``cuda`` unless asked for the CPU — raising, never falling back, when
 there is no card."""
@@ -13,7 +13,7 @@ import torch
 
 REPO = Path(__file__).resolve().parents[1]
 PORT = REPO / "pdnlp_tpu_torch"
-FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "pdnlp_tpu")
+FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "msgpack", "pdnlp_tpu")
 
 
 def _modules():
@@ -46,7 +46,20 @@ def test_no_module_imports_jax_or_the_jax_package():
             "pdnlp_tpu_torch/parallel/local.py",
             "pdnlp_tpu_torch/train/run.py",
             "pdnlp_tpu_torch/train/multi.py",
-            "pdnlp_tpu_torch/train/spawn.py"} <= rel
+            "pdnlp_tpu_torch/train/spawn.py",
+            "pdnlp_tpu_torch/train/checkpoint.py",
+            "pdnlp_tpu_torch/train/msgpack.py",
+            "pdnlp_tpu_torch/train/async_ckpt.py",
+            "pdnlp_tpu_torch/train/trainer.py",
+            "pdnlp_tpu_torch/train/steps.py",
+            "pdnlp_tpu_torch/obs/trace.py",
+            "pdnlp_tpu_torch/obs/export.py",
+            "pdnlp_tpu_torch/obs/phases.py",
+            "pdnlp_tpu_torch/obs/regress.py",
+            "pdnlp_tpu_torch/obs/memory.py",
+            "pdnlp_tpu_torch/utils/profiling.py",
+            "pdnlp_tpu_torch/tools/evaluate.py",
+            "pdnlp_tpu_torch/tools/predict.py"} <= rel
     bad = {f"{p.relative_to(REPO)}: {root}" for p in paths
            for root in _imported_roots(p) if root in FORBIDDEN}
     assert not bad, sorted(bad)

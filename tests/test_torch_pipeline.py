@@ -105,10 +105,34 @@ def test_resident_batches_bitwise_equal_host_loader(corpus, tok, mode):
 
 
 def test_macro_batches_refuse_fused_steps(corpus, tok):
+    """Fused groups never stack mixed widths: under bucket mode every
+    pipeline's ``macro_batches(3)`` cuts the epoch as JAX's
+    ``host_macro_batches`` does (a width change flushes a partial run as
+    single steps), each fused group is the host loader's three batches
+    stacked, bit for bit, and it lands in the stage's buffers."""
+    host_loader = make_loader(corpus, tok, "bucket")
+    host_loader.set_epoch(1)
+    host = list(host_loader)
+    want = [(n, fused, int(b["input_ids"].shape[-1])) for b, n, fused, _ in
+            jpipeline.host_macro_batches(host, 3)]
+    assert any(f for _, f, _ in want) and any(not f for _, f, _ in want)
     for cls in (pipeline.SyncPipeline, pipeline.DevicePrefetchPipeline,
                 pipeline.DeviceResidentPipeline):
-        with pytest.raises(ValueError, match="CUDA graph"):
-            cls(make_loader(corpus, tok), CPU).macro_batches(2)
+        pipe = cls(make_loader(corpus, tok, "bucket"), CPU)
+        pipe.set_epoch(1)
+        stage = pipeline.DeviceStage(CPU)
+        got, i = [], 0
+        for b, n, fused, ex in pipe.macro_batches(3, stage):
+            got.append((n, fused, int(b["input_ids"].shape[-1])))
+            part = host[i:i + n]
+            i += n
+            assert ex == sum(int(h["example_weight"].sum()) for h in part)
+            if fused:
+                assert b["input_ids"] is stage.like(b)["input_ids"]
+                for k in part[0]:
+                    assert np.array_equal(b[k].numpy(),
+                                          np.stack([h[k] for h in part])), k
+        assert got == want, cls.__name__
 
 
 # --------------------------------------------------------- losses, stats

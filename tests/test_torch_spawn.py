@@ -128,8 +128,9 @@ def test_spawn_matches_single_process(spawn_run, single_run):
     (["--elastic", "true"], "ROADMAP A11"),
     (["--heartbeat_interval", "2"], "ROADMAP A11"),
     (["--offload_opt_state", "true"], "ROADMAP A7"),
-    (["--fuse_steps", "2"], "ROADMAP A4"),
-    (["--resume_every", "10"], "ROADMAP A4"),
+    (["--fuse_steps", "2"], "ROADMAP A7"),
+    (["--strategy", "zero", "--dtype", "bfloat16", "--grads_dtype",
+      "compute"], "ROADMAP A7"),
     (["--mode", "tp"], "ROADMAP A11"),
     (["--strategy", "pp"], "--strategy must be one of")])
 def test_refusals_name_the_missing_path(argv, match):

@@ -40,6 +40,7 @@ from pdnlp_tpu_torch.train.setup import setup_model
 from pdnlp_tpu_torch.utils import logging as tlog
 from pdnlp_tpu_torch.utils import metrics
 from pdnlp_tpu_torch.utils.config import Args
+from pdnlp_tpu_torch.utils.profiling import StepStats as PortStepStats
 
 VOCAB = 120
 
@@ -368,7 +369,7 @@ def test_log_formats_match_jax_byte_for_byte():
     assert tlog.fmt_elapsed_minutes(0.1234) == \
         jlog.fmt_elapsed_minutes(0.1234)
     for s, e, m in ((288, 9200, 0.37), (0, 0, 0.0)):
-        assert tlog.fmt_rates(s, e, m) == StepStats(s, e, m).line()
+        assert PortStepStats(s, e, m).line() == StepStats(s, e, m).line()
     r = np.random.RandomState(0)
     yt, yp = r.randint(0, 6, 50).tolist(), r.randint(0, 6, 50).tolist()
     for names in (corpus.LABELS, None):
@@ -420,14 +421,24 @@ def test_trainer_run_prints_the_reference_lines(corpus_path, tmp_path,
 def test_entry_point_refusals(tmp_path):
     from pdnlp_tpu_torch.train import single
 
-    assert single.refuse_not_ported(["--fuse_steps", "1", "--dev", "1"]) \
-        == ["--dev", "1"]
-    for argv in (["--fuse_steps", "4"], ["--resume_every", "10"],
-                 ["--grads_dtype", "compute"], ["--trace", "1"]):
+    from pdnlp_tpu_torch.train import multi
+
+    for argv in (["--metrics_port", "9000"], ["--flight_recorder", "f"],
+                 ["--elastic", "1"], ["--heartbeat_interval", "5"],
+                 ["--init_from", "x.msgpack"]):
         with pytest.raises(SystemExit, match="does not have yet"):
             single.refuse_not_ported(argv)
-    ported = ["--length_mode", "pack", "--pipeline", "resident"]
+    ported = ["--length_mode", "pack", "--pipeline", "resident",
+              "--fuse_steps", "4", "--resume_every", "10", "--grads_dtype",
+              "compute", "--trace", "1", "--profile_dir", "p"]
     assert single.refuse_not_ported(ported) == ported
+    table = multi.MULTI_NOT_PORTED
+    assert multi.refuse_not_ported(["--fuse_steps", "1", "--dev", "1"],
+                                   table) == ["--dev", "1"]
+    with pytest.raises(SystemExit, match="ROADMAP A7"):
+        multi.refuse_not_ported(["--fuse_steps", "4"], table)
+    assert multi.refuse_not_ported(["--grads_dtype", "compute"], table) \
+        == ["--grads_dtype", "compute"]
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="no CUDA device"):
             setup_model(Args(model="bert-tiny"), VOCAB)
