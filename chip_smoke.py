@@ -43,7 +43,19 @@ counted replay-aware; 8b eager against captured step times; 8c
 ``train.single`` with every loop flag, its span file read back into the
 eight phases; 8d resume bit for bit, and a corrupted snapshot falling back
 to its ``.prev``; 8e ``tools.evaluate`` and ``tools.predict`` over ``.pt``
-and ``.msgpack`` files), then the kernels' times at every shape these
+and ``.msgpack`` files), 9 the serving tier (9a engines in fp32, bf16
+and int8 with a CUDA graph per served shape — padded 8 x 32 / 64 / 128,
+packed 8 x 128, chunked-prefill 4 x 256 and 2 x 512 — captured logits
+against eager bit for bit at each, 64 requests (16 of them 200-500
+tokens, through chunked prefill) with zero recaptures, long requests
+against a padded single-request forward, eager against captured forward
+wall, device busy and request p50/p99, int8 against bf16 and against int8
+on the plain path; 9b two bf16 replicas on the card behind the router
+through a kill mid-burst, a relaunch while the other serves, a corrupt
+swap rolled back and a good one applied in place; 9c ``serve.cli
+--replicas 2 --serve_dtype int8 --serve_long_widths 256,512
+--metrics_port 0 --flight_recorder <f> --trace true`` as a process beside
+9b, on the native encoder), then the kernels' times at every shape these
 paths give them.  Any failure raises and the script exits
 non-zero.  Without a card, or away from the
 repo, it prints no result and exits non-zero.  The line before the last is
@@ -2039,6 +2051,524 @@ def tools_check_8e(outs, names):
     return rec
 
 
+# ----------------------------------------------------------------- phase 9
+
+#: chunked-prefill widths of the serving tier (bert-base has 512 positions)
+LONG_WIDTHS = (256, 512)
+#: requests per engine in 9a: 48 short (5..120 tokens), 16 long (200..500)
+TIER_SHORT, TIER_LONG = 48, 16
+#: int8 weights against bf16 weights, same activations: the int8 rounding
+#: of every weight (half a step of its channel's amax) through 12 layers,
+#: on top of bf16 (the JAX package's int8-vs-bf16 engine bound,
+#: ``tests/test_kernels.py::test_int8_engine_matches_bf16_predictions``)
+INT8_ATOL = 0.15
+
+
+def long_requests(rng, chars, n):
+    """Texts of 198..498 CJK chars: 200..500 tokens with [CLS]/[SEP]."""
+    return ["".join(rng.choice(chars) for _ in range(rng.randint(198, 499)))
+            for _ in range(n)]
+
+
+def tier_batches(tok, short, long_):
+    """One batch per served shape, as the batcher forms them: padded
+    8 x 32 / 64 / 128, packed 8 x 128 (16 segments), long 4 x 256 and
+    2 x 512 (``segment_cap`` segments)."""
+    from pdnlp_tpu_torch.data.collate import pad_ids_to_bucket
+    from pdnlp_tpu_torch.data.packing import pack_id_lists, segment_cap
+
+    ids = tok.encode_ragged(short, 128)
+    out = {}
+    for b in BUCKETS:
+        fit = [i for i in ids if len(i) <= b][:8]
+        out[f"padded 8x{b}"] = pad_ids_to_bucket(fit, b, 8,
+                                                 pad_id=tok.pad_id)
+    out["packed 8x128"] = pack_id_lists(ids, 128, 8, 16,
+                                        pad_id=tok.pad_id)[0]
+    lids = tok.encode_ragged(long_, 512)
+    for w in LONG_WIDTHS:
+        rows = 8 * 128 // w
+        fit = [i for i in lids if 128 < len(i) <= w]
+        out[f"long {rows}x{w}"] = pack_id_lists(
+            fit, w, rows, segment_cap(w, 16, 128), pad_id=tok.pad_id)[0]
+    return out
+
+
+def _infer(engine, batch):
+    if "cls_positions" in batch:
+        return engine.infer_packed(batch, segments=1)
+    return engine.infer(batch)
+
+
+def forward_turns(torch, engine, batch, card, label):
+    """Wall per forward (logits on the host), eager and captured in turns
+    — eager, captured, captured, eager, 20 forwards each — host clock;
+    then the device's busy share over 5 forwards of each."""
+    res = {"eager": [], "captured": []}
+    fns = {"eager": lambda: engine.forward_eager(batch),
+           "captured": lambda: _infer(engine, batch)}
+    for name in ("eager", "captured", "captured", "eager"):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(20):
+            fns[name]()
+        torch.cuda.synchronize()
+        res[name].append((time.perf_counter() - t0) / 20 * 1e3)
+    prof = {name: profile_calls(torch, fn, 5, card, f"9a {label} {name}")
+            for name, fn in fns.items()}
+    print(f"[tier] {label} forward wall eager "
+          f"{' / '.join(f'{t:.3f}' for t in res['eager'])} ms, captured "
+          f"{' / '.join(f'{t:.3f}' for t in res['captured'])} ms — {card}")
+    return {"wall_ms": res, "profile": prof}
+
+
+def burst(torch, flash, frontend, engine_layers, texts, metrics):
+    """A closed burst of ``texts`` through ``frontend`` (batcher or
+    router), K1 counts set to 0 just before and read just after."""
+    import numpy as np
+
+    torch.cuda.synchronize()
+    flash.reset_launch_count()
+    t0 = time.monotonic()
+    futs = [frontend.submit(t, deadline_ms=300_000) for t in texts]
+    got = np.stack([f.result(timeout=300) for f in futs])
+    wall = time.monotonic() - t0
+    return got, flash.launch_count(), wall
+
+
+def tier_engine_run(torch, flash, InferenceEngine, args, ckpt, short,
+                    long_, card, timed):
+    """9a for one serve dtype: the batcher's warmup captures every shape,
+    64 requests with zero recaptures, captured == eager bit for bit at
+    every shape, long requests against a padded single-request forward,
+    times (when ``timed``); returns ``(record, logits by shape)``."""
+    import numpy as np
+
+    from pdnlp_tpu_torch.data.collate import pad_ids_to_bucket
+    from pdnlp_tpu_torch.serve import DynamicBatcher, ServeMetrics
+
+    dtype_name = "float32" if args.serve_dtype == "auto" else "bfloat16"
+    eng = InferenceEngine(args)
+    eng.load_checkpoint(ckpt)
+    layers = eng.cfg.num_layers
+    bat = DynamicBatcher(eng, buckets=BUCKETS, max_batch_size=8,
+                         max_wait_ms=5.0, serve_pack="on",
+                         long_widths=LONG_WIDTHS).start()
+    rec = {"serve_dtype": args.serve_dtype, "dtype": eng.dtype_label}
+    try:
+        t0 = time.monotonic()
+        bat.warmup()                      # packed 128, long 256 and 512
+        eng.warmup(BUCKETS, 8)            # the padded buckets
+        rec["warmup_s"] = time.monotonic() - t0
+        rec["captures"] = eng.metrics.retraces.value
+        rec["graphs"] = eng.graph_stats()
+        rec["pool_bytes"] = eng.pool_bytes
+        warm = eng.metrics.retraces.value
+        eng.metrics = bat.metrics = ServeMetrics()
+        texts = short[:TIER_SHORT] + long_[:TIER_LONG]
+        got, launches, wall = burst(torch, flash, bat, layers, texts,
+                                    eng.metrics)
+        forwards = eng.metrics.batches_total.value
+        lat = eng.metrics.request_latency_ms.snapshot()
+        rec.update({"requests": len(texts), "forwards": forwards,
+                    "launches": launches, "wall_s": wall,
+                    "p50_ms": lat["p50"], "p99_ms": lat["p99"],
+                    "recaptures": eng.metrics.retraces.value})
+    finally:
+        bat.stop(drain=True)
+    if rec["recaptures"] != 0 or warm != rec["captures"]:
+        fail(f"9a {eng.dtype_label}: {rec['recaptures']} recaptures after "
+             "warmup over the burst")
+    if forwards < 1 or launches != layers * forwards:
+        fail(f"9a {eng.dtype_label}: {launches} K1 launches for {forwards} "
+             f"forwards of {layers} layers")
+    if not np.isfinite(got).all():
+        fail(f"9a {eng.dtype_label}: non-finite logits")
+    # long requests: against a padded single-request forward at their width
+    atol = LOGIT_ATOL[dtype_name]
+    lerr = 0.0
+    for text, out in zip(long_[:TIER_LONG], got[TIER_SHORT:]):
+        ids = eng.tokenizer.encode_ids(text, 512)
+        w = next(w for w in LONG_WIDTHS if len(ids) <= w)
+        ref = eng.forward_eager(pad_ids_to_bucket([ids], w, 1,
+                                                  pad_id=eng.tokenizer.pad_id))
+        lerr = max(lerr, float(np.abs(ref[0] - out).max()))
+    rec["long_max_abs_err"] = lerr
+    if lerr > atol:
+        fail(f"9a {eng.dtype_label}: long requests differ from a padded "
+             f"single-request forward by {lerr:.3e} (atol {atol})")
+    # captured against eager, bit for bit, at every served shape, K1
+    # counted per replay
+    batches = tier_batches(eng.tokenizer, short, long_)
+    logits, bitwise, per_shape = {}, {}, {}
+    for name, b in batches.items():
+        flash.reset_launch_count()
+        cap = _infer(eng, b)
+        per_shape[name] = flash.launch_count()
+        ref = eng.forward_eager(b)
+        bitwise[name] = bool(np.array_equal(cap, ref))
+        logits[name] = cap
+        if per_shape[name] != layers:
+            fail(f"9a {eng.dtype_label} {name}: {per_shape[name]} K1 "
+                 f"launches in one replay, not {layers}")
+    rec["bitwise"] = bitwise
+    rec["launches_by_shape"] = per_shape
+    if eng.metrics.retraces.value:
+        fail(f"9a {eng.dtype_label}: a served shape was not captured by "
+             "the warmup")
+    if not all(bitwise.values()):
+        fail(f"9a {eng.dtype_label}: captured logits differ from eager at "
+             f"{[n for n, ok in bitwise.items() if not ok]}")
+    if timed:
+        rec["times"] = {name: forward_turns(torch, eng, batches[name], card,
+                                            f"{eng.dtype_label} {name}")
+                        for name in ("packed 8x128", "long 2x512")}
+        eager = _eager_engine(InferenceEngine)(args)
+        eager.load_checkpoint(ckpt)
+        ebat = DynamicBatcher(eager, buckets=BUCKETS, max_batch_size=8,
+                              max_wait_ms=5.0, serve_pack="on",
+                              long_widths=LONG_WIDTHS).start()
+        try:
+            ebat.warmup()
+            eager.metrics = ebat.metrics = ServeMetrics()
+            _, elaunch, ewall = burst(torch, flash, ebat, layers,
+                                      short[:TIER_SHORT] + long_[:TIER_LONG],
+                                      eager.metrics)
+            elat = eager.metrics.request_latency_ms.snapshot()
+        finally:
+            ebat.stop(drain=True)
+        rec["eager_burst"] = {"wall_s": ewall, "p50_ms": elat["p50"],
+                              "p99_ms": elat["p99"], "launches": elaunch}
+        del eager
+    print(f"[tier] {json.dumps({k: v for k, v in rec.items() if k != 'graphs'})}"
+          f" — {card}")
+    del eng
+    torch.cuda.empty_cache()
+    return rec, logits
+
+
+def _eager_engine(InferenceEngine):
+    """The engine with its replay swapped for the eager forward: the
+    smoke's measurement baseline for request latency, never a serving
+    path."""
+    class EagerOnCard(InferenceEngine):
+        def _replay(self, key, batch, keys):
+            return self.forward_eager(batch)
+
+    return EagerOnCard
+
+
+def int8_checks(torch, flash, InferenceEngine, args, ckpt, short, long_,
+                by_dtype, card):
+    """int8 kernel path against bf16 (``INT8_ATOL``, argmax on the rows
+    that are not near-ties) and against int8 on the plain attention path
+    (the bf16 band: the same weights, the attention route alone
+    differs)."""
+    import numpy as np
+
+    plain = InferenceEngine(args.replace(serve_dtype="int8",
+                                         attention_impl="xla"))
+    plain.load_checkpoint(ckpt)
+    batches = tier_batches(plain.tokenizer, short, long_)
+    rec = {}
+    for name, b in batches.items():
+        i8, bf = by_dtype["int8"][name], by_dtype["bfloat16"][name]
+        pl = plain.forward_eager(b)
+        if i8.ndim == 3:       # packed: the segments that hold a request
+            keep = np.zeros(i8.shape[:2], bool)
+            for r in range(i8.shape[0]):
+                n = int(b["segment_ids"][r].max())
+                keep[r, :n] = True
+            i8, bf, pl = i8[keep], bf[keep], pl[keep]
+        else:
+            n = int((b["attention_mask"].sum(1) > 0).sum())
+            i8, bf, pl = i8[:n], bf[:n], pl[:n]
+        top2 = np.sort(bf, axis=-1)[:, -2:]
+        clear = (top2[:, 1] - top2[:, 0]) > 2 * INT8_ATOL
+        rec[name] = {
+            "vs_bf16_max_abs": float(np.abs(i8 - bf).max()),
+            "vs_plain_max_abs": float(np.abs(i8 - pl).max()),
+            "argmax_agree": float((i8.argmax(-1) == bf.argmax(-1)).mean()),
+            "argmax_clear_rows": int(clear.sum()),
+            "argmax_clear_agree": bool((i8.argmax(-1) == bf.argmax(-1))
+                                       [clear].all())}
+        r = rec[name]
+        if r["vs_bf16_max_abs"] > INT8_ATOL or \
+                r["vs_plain_max_abs"] > LOGIT_ATOL["bfloat16"] or \
+                not r["argmax_clear_agree"]:
+            fail(f"9a int8 {name}: {r}")
+    print(f"[tier] int8 vs bf16 and vs int8 on the plain path: "
+          f"{json.dumps(rec)} — {card}")
+    del plain
+    torch.cuda.empty_cache()
+    return rec
+
+
+def _cli_9c(work, vocab_path, ckpt, texts):
+    """``serve.cli --replicas 2 --serve_dtype int8 --serve_long_widths
+    256,512 --metrics_port 0 --flight_recorder <f> --trace true`` as a
+    started process fed ``texts`` on stdin (EOF ends it)."""
+    out = os.path.join(work, "cli_9c")
+    os.makedirs(out, exist_ok=True)
+    cmd = [sys.executable, "-m", "pdnlp_tpu_torch.serve.cli", "--device",
+           "cuda", "--model", "bert-base", "--vocab_path", vocab_path,
+           "--checkpoint", ckpt, "--replicas", "2", "--serve_dtype", "int8",
+           "--serve_long_widths", "256,512", "--metrics_port", "0",
+           "--flight_recorder", os.path.join(out, "flight.jsonl"),
+           "--trace", "true", "--trace_dir", os.path.join(out, "trace"),
+           "--output_dir", out, "--max_wait_ms", "20",
+           "--metrics_path", os.path.join(out, "metrics.json")]
+    p = subprocess.Popen(cmd, cwd=REPO, stdin=subprocess.PIPE,
+                         stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+                         text=True, env={**os.environ, "PYTHONPATH": REPO})
+    return p, out, "\n".join(texts) + "\n"
+
+
+def _cli_9c_check(p, out, stdin, n):
+    try:
+        so, se = p.communicate(stdin, timeout=600)
+    finally:
+        if p.poll() is None:
+            p.kill()
+            p.wait()
+    answers = [x for x in so.splitlines() if "\t" in x]
+    encoder = next((x for x in se.splitlines()
+                    if x.startswith("encoder: ")), "encoder: ?")
+    rec = {"exit": p.returncode, "answers": len(answers), "encoder": encoder}
+    if p.returncode != 0 or len(answers) != n or \
+            any(x.startswith("ERROR") for x in answers):
+        fail(f"9c serve.cli: {rec}\n{se[-3000:]}")
+    if encoder != "encoder: native":
+        fail(f"9c serve.cli ran the {encoder!r}, not the native encoder")
+    snap = json.load(open(os.path.join(out, "metrics.json")))
+    rec["retraces_post_warmup"] = {
+        k: v["retraces_post_warmup"] for k, v in snap["replicas"].items()}
+    rec["completed"] = snap["router"]["completed_total"]
+    rec["captures"] = {k: v["engine"]["compile_cache"]["retraces"]
+                       for k, v in snap["replicas"].items() if v["engine"]}
+    flight = os.path.join(out, "flight.jsonl")
+    rec["flight_lines"] = sum(1 for _ in open(flight)) \
+        if os.path.exists(flight) else 0
+    traces = [f for f in os.listdir(os.path.join(out, "trace"))
+              if f.startswith("trace_proc")] \
+        if os.path.isdir(os.path.join(out, "trace")) else []
+    rec["trace_files"] = len(traces)
+    print(f"[tier] 9c serve.cli: {json.dumps(rec)}")
+    if any(rec["retraces_post_warmup"].values()) or rec["completed"] != n \
+            or not rec["flight_lines"] or not traces:
+        fail(f"9c serve.cli telemetry: {rec}")
+    return rec
+
+
+def router_run(torch, flash, InferenceEngine, args, ckpt, ckpt2, work,
+               short, long_, card):
+    """9b: two bf16 replicas on the one card behind the router: a kill
+    mid-burst with every request answered, a relaunch while the other
+    replica serves (zero recaptures after its warmup), a corrupt swap
+    rolled back and a good swap applied in place (graphs still equal to
+    eager after it)."""
+    import shutil
+
+    import numpy as np
+
+    from pdnlp_tpu_torch.data.tokenizer import (
+        WordPieceTokenizer, get_or_build_vocab,
+    )
+    from pdnlp_tpu_torch.serve import ReplicaRouter
+    from pdnlp_tpu_torch.train.checkpoint import manifest_path
+
+    tok = WordPieceTokenizer(get_or_build_vocab(args))
+
+    def factory(i):
+        return InferenceEngine(args, tokenizer=tok)
+
+    r = ReplicaRouter([factory(0), factory(1)], engine_factory=factory,
+                      buckets=BUCKETS, max_batch_size=8, max_wait_ms=5.0,
+                      serve_pack="on", long_widths=LONG_WIDTHS,
+                      stall_timeout=60.0, poll_interval=0.05,
+                      checkpoint_path=ckpt).start()
+    rec = {}
+    try:
+        if not r.wait_ready(600):
+            fail("9b: the replicas did not finish their warmup")
+        layers = r.engine(0).cfg.num_layers
+        texts = short[:TIER_SHORT] + long_[:TIER_LONG]
+        torch.cuda.synchronize()
+        flash.reset_launch_count()
+        futs = [r.submit(t, deadline_ms=300_000) for t in texts[:32]]
+        r.kill_replica(0, "crash")
+        futs += [r.submit(t, deadline_ms=300_000) for t in texts[32:]]
+        got = [f.result(timeout=300) for f in futs]
+        rec["kill_burst"] = {"requests": len(texts), "answered": len(got),
+                             "launches": flash.launch_count(),
+                             "finite": bool(np.isfinite(got).all())}
+        deadline = time.monotonic() + 120
+        while r.states[0] != "ejected" and time.monotonic() < deadline:
+            time.sleep(0.05)
+        if r.states[0] != "ejected" or not rec["kill_burst"]["finite"]:
+            fail(f"9b: kill_replica: states {r.states}, {rec}")
+        # relaunch while replica 1 serves a burst
+        futs = [r.submit(t, deadline_ms=300_000) for t in texts]
+        t0 = time.monotonic()
+        r.relaunch(0)
+        ready = r.wait_ready(600)
+        while r.states[0] != "healthy" and time.monotonic() - t0 < 600:
+            time.sleep(0.05)
+        rec["relaunch_s"] = time.monotonic() - t0
+        got = [f.result(timeout=300) for f in futs]
+        futs = [r.submit(t, deadline_ms=300_000) for t in texts]
+        got += [f.result(timeout=300) for f in futs]
+        rec["after_relaunch"] = {
+            "answered": len(got), "states": r.states,
+            "retraces_post_warmup": r.retraces_post_warmup,
+            "replica0_captures":
+                r.engine(0).metrics.retraces.value}
+        if not ready or r.states[0] != "healthy" or r.retraces_post_warmup:
+            fail(f"9b: relaunch: {rec}")
+        # a corrupt artifact rolls back; a good one swaps in place
+        bad = os.path.join(work, "bert-base-corrupt.pt")
+        shutil.copyfile(ckpt2, bad)
+        shutil.copyfile(manifest_path(ckpt2), manifest_path(bad))
+        with open(bad, "r+b") as f:
+            f.truncate(4096)
+        rep = r.swap_checkpoint(bad)
+        rec["corrupt_swap"] = rep
+        if rep["rolled_back"] != [0] or rep["swapped"] or \
+                "CorruptCheckpointError" not in rep.get("error", ""):
+            fail(f"9b: the corrupt swap was not rolled back: {rep}")
+        before = r.submit(texts[0], deadline_ms=300_000).result(timeout=300)
+        rep = r.swap_checkpoint(ckpt2)
+        rec["good_swap"] = rep
+        after = r.submit(texts[0], deadline_ms=300_000).result(timeout=300)
+        if rep["swapped"] != [0, 1] or np.array_equal(before, after):
+            fail(f"9b: the good swap did not apply: {rep}")
+        b = tier_batches(tok, short, long_)["packed 8x128"]
+        eng = r.engine(1)
+        same = bool(np.array_equal(eng.infer_packed(b, segments=1),
+                                   eng.forward_eager(b)))
+        rec["graphs_valid_after_swap"] = same
+        rec["retraces_post_warmup"] = r.retraces_post_warmup
+        if not same or r.retraces_post_warmup:
+            fail(f"9b: after the in-place swap: {rec}")
+        rec["launches"] = flash.launch_count()
+        rec["snapshot_replicas"] = {
+            k: {"state": v["state"], "batches": v["batches"],
+                "retraces_post_warmup": v["retraces_post_warmup"]}
+            for k, v in r.snapshot()["replicas"].items()}
+    finally:
+        r.stop(drain=False, timeout=30)
+    print(f"[tier] 9b router: {json.dumps(rec)} — {card}")
+    torch.cuda.empty_cache()
+    return rec
+
+
+def time_k1_shape(torch, F, flash, mask_bias, device, card, label,
+                  seg_np=None, key_mask=None):
+    """K1 at one serving shape, both dtypes: device time, the plain twin,
+    SDPA and the bound, and its error against the twin."""
+    import numpy as np
+
+    from pdnlp_tpu_torch.data.packing import segment_bias
+
+    mask = seg_np if seg_np is not None else key_mask
+    B, S = mask.shape
+    N, D = 12, 64
+    rng = np.random.RandomState(SEED + 9)
+    kw, am = {}, None
+    if seg_np is not None:
+        seg = torch.from_numpy(seg_np).to(device)
+        kw = {"segment_ids": seg}
+        am_f = lambda dt: segment_bias(seg).to(dt)  # noqa: E731
+    else:
+        bias = mask_bias(torch.from_numpy(key_mask).to(device))
+        kw = {"bias": bias}
+        am_f = lambda dt: bias.to(dt)  # noqa: E731
+    out = {}
+    for dtype in ("float32", "bfloat16"):
+        q, k, v = (torch.from_numpy(rng.randn(B, S, N, D).astype(np.float32))
+                   .to(device, getattr(torch, dtype)) for _ in range(3))
+        with torch.inference_mode():
+            plain = time_ms(torch, lambda: flash.flash_attention_reference(
+                q, k, v, **kw))
+            qt, kt, vt = (t.transpose(1, 2).contiguous() for t in (q, k, v))
+            am = am_f(q.dtype)
+            dev = device_ms(torch, lambda: flash.launch(q, k, v, **kw))
+            dev_lib = device_ms(torch, lambda: F.scaled_dot_product_attention(
+                qt, kt, vt, attn_mask=am))
+            ev = time_ms(torch, lambda: flash.launch(q, k, v, **kw))
+            err = (flash.launch(q, k, v, **kw).float()
+                   - flash.flash_attention_reference(q, k, v, **kw).float()
+                   ).abs().max().item()
+        if seg_np is not None:
+            bnd, by, nbytes, flops = flash_bound(seg_np, B, S, N, D, dtype)
+        else:
+            elem = 4 if dtype == "float32" else 2
+            nbytes = 4 * B * S * N * D * elem + B * S * 4
+            flops = 4 * D * N * needed_pairs(key_mask=key_mask)
+            bnd, by = bound(nbytes, flops, dtype)
+        out[dtype] = {"device_ms": dev, "ms": ev, "plain_ms": plain,
+                      "library_device_ms": dev_lib, "bound_ms": bnd,
+                      "bound_by": by, "max_abs_err": err}
+        print(f"[time] flash_fwd serving {label} {dtype}: device "
+              f"{fmt_ms(dev)} ms (events {ev:.4f}), plain {plain:.4f} ms, "
+              f"sdpa device {fmt_ms(dev_lib)} ms, bound {bnd:.4f} ms by "
+              f"{by}, err {err:.2e} — {card}")
+        if err > KERNEL_ATOL[dtype]:
+            fail(f"K1 at {label} {dtype} differs from its twin by {err:.2e}")
+    return out
+
+
+def serving_tier(torch, F, flash, mask_bias, InferenceEngine, base, ckpt,
+                 work, vocab_path, rng, card, lap):
+    """Phase 9, the serving tier at bert-base full width (module doc)."""
+    from pdnlp_tpu_torch.train.checkpoint import save_params
+
+    short = make_requests(rng, CHARS, TIER_SHORT)
+    long_ = long_requests(rng, CHARS, TIER_LONG)
+    args = base.replace(max_seq_len=128)
+    recs, logits = {}, {}
+    for serve_dtype in ("auto", "bf16", "int8"):
+        rec, lg = tier_engine_run(torch, flash, InferenceEngine,
+                                  args.replace(serve_dtype=serve_dtype),
+                                  ckpt, short, long_, card, timed=True)
+        recs[rec["dtype"]] = rec
+        logits[rec["dtype"]] = lg
+    recs["int8_checks"] = int8_checks(torch, flash, InferenceEngine, args,
+                                      ckpt, short, long_, logits, card)
+    lap("9a")
+    # a second seeded checkpoint for the good swap
+    other = InferenceEngine(args.replace(seed=SEED + 1))
+    ckpt2 = os.path.join(work, "bert-base-seeded-2.pt")
+    save_params(ckpt2, other.state_dict(), model_name=args.model,
+                vocab_size=other.tokenizer.vocab_size)
+    del other
+    # 9c runs as a process beside 9b
+    cli_texts = short[:12] + long_[:8]
+    proc, out, stdin = _cli_9c(work, vocab_path, ckpt, cli_texts)
+    try:
+        recs["router"] = router_run(torch, flash, InferenceEngine,
+                                    args.replace(serve_dtype="bf16"), ckpt,
+                                    ckpt2, work, short, long_, card)
+    finally:
+        recs["cli"] = _cli_9c_check(proc, out, stdin, len(cli_texts))
+    lap("9b, 9c")
+    # K1 at the serving shapes phase 5 does not time
+    from pdnlp_tpu_torch.data.tokenizer import (
+        WordPieceTokenizer, get_or_build_vocab,
+    )
+
+    tb = tier_batches(WordPieceTokenizer(get_or_build_vocab(args)), short,
+                      long_)
+    recs["k1_times"] = {
+        name: time_k1_shape(
+            torch, F, flash, mask_bias, torch.device("cuda", 0), card, name,
+            **({"seg_np": b["segment_ids"]} if "cls_positions" in b
+               else {"key_mask": b["attention_mask"]}))
+        for name, b in tb.items() if name != "packed 8x128"}
+    lap("9 times")
+    return recs
+
+
 # ------------------------------------------------------- phase 6 times
 
 
@@ -2512,6 +3042,11 @@ def main():
     fused_ms = fused_times(torch, train_args, vocab_size, device, card,
                            batches[0], batch32, packed_batches[512])
     lap("8b")
+    # 9. the serving tier: captured engines in fp32, bf16 and int8, two
+    # replicas behind the router, serve.cli with every tier flag
+    torch.cuda.empty_cache()
+    tier = serving_tier(torch, F, flash, mask_bias, InferenceEngine, base,
+                        ckpt_path, work, vocab_path, rng, card, lap)
     launches_by_path = {
         "serving packed (K1)": {"flash_fwd": main_launches},
         "6a fixed width fp32": train_launches,
@@ -2519,7 +3054,13 @@ def main():
            for name in routes},
         **{f"6d {m} {p} bf16": r["launches"] for (m, p), r in pipes.items()},
         **{f"7 {n} rank 0": c for n, c in dp["launches_rank0"].items()},
-        **{f"8a {n}": r["launches"] for n, r in fused.items()}}
+        **{f"8a {n}": r["launches"] for n, r in fused.items()},
+        **{f"9a {d} burst": {"flash_fwd": tier[d]["launches"]}
+           for d in ("float32", "bfloat16", "int8")},
+        **{f"9a {d} shapes": {"flash_fwd": sum(
+            tier[d]["launches_by_shape"].values())}
+           for d in ("float32", "bfloat16", "int8")},
+        "9b router": {"flash_fwd": tier["router"]["launches"]}}
     print(f"[launches] per path (counts set to 0 just before each, read "
           f"just after): {json.dumps(launches_by_path)}")
     # 6 times: K1-K3 at every training shape of the paths, K4/K5 at the
@@ -2553,7 +3094,7 @@ def main():
         "flash_bwd_times": bwd_times, "flash_shape_times": shape_times,
         "fused_ce_times": ce_times, "fused_ce_pack_times": ce_pack_times,
         "flash_build": occupancy, "fused": fused, "fused_times": fused_ms,
-        "loop": loop_rec, "phase_seconds": clock,
+        "loop": loop_rec, "serving_tier": tier, "phase_seconds": clock,
         "seconds": time.monotonic() - t_start}
     print(f"[summary] {json.dumps(summary)}")
 

@@ -2,9 +2,10 @@
 
 The port's own copy of ``pdnlp_tpu/data/tokenizer.py`` (same ids, byte for
 byte): every CJK char is its own token, latin words are greedy-matched with
-``##`` continuations, and encoding frames ``[CLS] tokens [SEP]``.  The
-ctypes binding to ``csrc/libwordpiece.so`` is not ported yet; this is the
-pure-Python path.
+``##`` continuations, and encoding frames ``[CLS] tokens [SEP]``.
+``data.native.attach`` binds the C++ encoder (``csrc/wordpiece.cpp``, built
+into the port's build directory) to a tokenizer: ``encode_batch``,
+``encode_ids`` and ``encode_ragged`` then run natively, with the same ids.
 """
 from __future__ import annotations
 
@@ -141,6 +142,7 @@ class WordPieceTokenizer:
         self.unk_id = self.vocab[UNK]
         self.cls_id = self.vocab[CLS]
         self.sep_id = self.vocab[SEP]
+        self._native = None  # set by data.native.attach()
 
     @property
     def vocab_size(self) -> int:
@@ -156,6 +158,8 @@ class WordPieceTokenizer:
         """Unpadded ``[CLS] ids [SEP]``, truncated to ``max_len``."""
         if max_len < 2:
             raise ValueError(f"max_len must be >= 2 ([CLS]+[SEP]), got {max_len}")
+        if self._native is not None:
+            return self.encode_ragged([text], max_len)[0]
         ids = [self.vocab.get(p, self.unk_id) for p in self.tokenize(text)]
         return [self.cls_id] + ids[: max_len - 2] + [self.sep_id]
 
@@ -163,6 +167,10 @@ class WordPieceTokenizer:
         """Unpadded ``[CLS] ids [SEP]`` per text — true lengths pick the
         serving bucket before ``data.collate.pad_ids_to_bucket`` fixes the
         shape."""
+        if self._native is not None:
+            b = self._native.encode_batch(texts, max_len)
+            return [row[:n].tolist() for row, n in
+                    zip(b["input_ids"], b["attention_mask"].sum(axis=1))]
         return [self.encode_ids(t, max_len) for t in texts]
 
     def encode_batch(self, texts: Sequence[str],
@@ -170,6 +178,8 @@ class WordPieceTokenizer:
         """Fixed-width training encoding: ``[CLS] ids [SEP]`` truncated and
         padded with [PAD] to ``max_len``; int32 ``input_ids``,
         ``attention_mask`` and (all-zero) ``token_type_ids``."""
+        if self._native is not None:
+            return self._native.encode_batch(texts, max_len)
         n = len(texts)
         input_ids = np.full((n, max_len), self.pad_id, dtype=np.int32)
         attention_mask = np.zeros((n, max_len), dtype=np.int32)

@@ -27,8 +27,10 @@ through every part, the flash and fused-CE kernels included.
 Rematerialization (``remat``, the ``jax.checkpoint`` twin) recomputes each
 layer in the backward, with the dropout generator replayed (:func:`_remat`).
 
-Not in this slice, and refused rather than approximated: MoE layers,
-sequence-parallel (ring) attention and the int8 ``qscale`` branch.
+Int8 weight-only serving swaps each dense layer for a :class:`QuantLinear`
+(:func:`quantize_linears`), whose ``_dense`` branch is the JAX ``qscale``
+one.  Not in this slice, and refused rather than approximated: MoE layers
+and sequence-parallel (ring) attention.
 """
 from __future__ import annotations
 
@@ -57,7 +59,49 @@ def _gelu(x: torch.Tensor, form: str = "erf") -> torch.Tensor:
     return F.gelu(x, approximate="tanh" if form == "tanh" else "none")
 
 
-def _dense(x: torch.Tensor, lin: nn.Linear) -> torch.Tensor:
+class QuantLinear(nn.Module):
+    """An int8 weight-only dense block (``serve.quant``): an ``int8``
+    ``weight`` ``[out, in]``, an fp32 ``qscale`` ``[out]`` (one per output
+    channel) and an fp32 ``bias``, all buffers — a serving module, never
+    trained."""
+
+    def __init__(self, out_features: int, in_features: int, device=None):
+        super().__init__()
+        self.register_buffer("weight", torch.zeros(
+            out_features, in_features, dtype=torch.int8, device=device))
+        self.register_buffer("qscale", torch.ones(
+            out_features, dtype=torch.float32, device=device))
+        self.register_buffer("bias", torch.zeros(
+            out_features, dtype=torch.float32, device=device))
+
+
+def quantize_linears(model: nn.Module) -> None:
+    """Swap every ``nn.Linear`` of ``model`` for a :class:`QuantLinear`
+    holding its int8 form (``serve.quant.quantize_dense``), in place —
+    JAX's scope: q/k/v/o, up/down, pooler and classifier."""
+    from pdnlp_tpu_torch.serve.quant import quantize_dense
+
+    for parent in list(model.modules()):
+        for name, child in list(parent.named_children()):
+            if isinstance(child, nn.Linear):
+                q, s = quantize_dense(child.weight)
+                ql = QuantLinear(child.out_features, child.in_features,
+                                 device=child.weight.device)
+                ql.weight.copy_(q)
+                ql.qscale.copy_(s)
+                ql.bias.copy_(child.bias.detach().to(torch.float32))
+                setattr(parent, name, ql)
+
+
+def _dense(x: torch.Tensor, lin: nn.Module) -> torch.Tensor:
+    if isinstance(lin, QuantLinear):
+        # int8 weight-only serving (JAX's ``qscale`` branch): the
+        # per-OUTPUT-channel scale commutes through the contraction, so it
+        # multiplies the [.., out] RESULT.  The int8 weight is cast to the
+        # compute dtype here, a copy per call (XLA fuses that convert into
+        # the product; this plain product does not)
+        y = F.linear(x, lin.weight.to(x.dtype))
+        return y * lin.qscale.to(x.dtype) + lin.bias.to(x.dtype)
     return F.linear(x, lin.weight.to(x.dtype), lin.bias.to(x.dtype))
 
 

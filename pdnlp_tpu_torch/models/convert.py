@@ -15,6 +15,11 @@ device — return as a JAX tree to be held leaf by leaf against the JAX
 train step's.  ``to_jax_params`` takes any mapping with the ``state_dict``
 names, so per-parameter flags (the AdamW decay groups) cross to the JAX
 tree too, to be held against ``train/optim.py:decay_mask``.
+
+An int8 serving ``state_dict`` (``serve.quant``) carries a
+``<name>.qscale`` beside each int8 ``<name>.weight``; both directions map
+it onto the JAX dense block's ``qscale`` leaf, so a JAX ``*.int8.msgpack``
+artifact loads into the port and the port's is the same bytes.
 """
 from __future__ import annotations
 
@@ -24,6 +29,8 @@ import numpy as np
 import torch
 
 _DENSE = ("q", "k", "v", "o", "up", "down")
+#: the int8 per-output-channel scale leaf (``serve.quant``)
+QSCALE = "qscale"
 _LN = ("attn_ln", "mlp_ln")
 
 
@@ -53,6 +60,9 @@ def from_jax_params(tree: Dict[str, Any]) -> Dict[str, torch.Tensor]:
         for name in _DENSE:
             sd[f"layers.{i}.{name}.weight"] = _t(
                 np.asarray(layers[name]["kernel"])[i].T)
+            if QSCALE in layers[name]:
+                sd[f"layers.{i}.{name}.{QSCALE}"] = _t(
+                    np.asarray(layers[name][QSCALE])[i])
             sd[f"layers.{i}.{name}.bias"] = _t(
                 np.asarray(layers[name]["bias"])[i])
         for name in _LN:
@@ -62,15 +72,21 @@ def from_jax_params(tree: Dict[str, Any]) -> Dict[str, torch.Tensor]:
                 np.asarray(layers[name]["bias"])[i])
     for name in ("pooler", "classifier"):
         sd[f"{name}.weight"] = _t(np.asarray(tree[name]["kernel"]).T)
+        if QSCALE in tree[name]:
+            sd[f"{name}.{QSCALE}"] = _t(tree[name][QSCALE])
         sd[f"{name}.bias"] = _t(tree[name]["bias"])
     return sd
 
 
 def _sorted(tree):
     """Dicts rebuilt in sorted key order, as jax's tree utilities leave a
-    tree: flax then writes the same bytes for it as the JAX package does."""
+    tree: flax then writes the same bytes for it as the JAX package does.
+    A quantized dense block keeps the order JAX's ``quantize_params``
+    builds it in (kernel, qscale, bias), which flax keeps too."""
     if isinstance(tree, dict):
-        return {k: _sorted(tree[k]) for k in sorted(tree)}
+        keys = (("kernel", QSCALE, "bias") if QSCALE in tree
+                else sorted(tree))
+        return {k: _sorted(tree[k]) for k in keys}
     return tree
 
 
@@ -86,13 +102,20 @@ def _to_jax_params(state_dict: Dict[str, torch.Tensor]) -> Dict[str, Any]:
 
     L = 1 + max(int(k.split(".")[1]) for k in state_dict
                 if k.startswith("layers."))
+    def dense(key: str, ws, bs, ss) -> Dict[str, Any]:
+        node = {"kernel": ws, "bias": bs}
+        if f"{key}.{QSCALE}" in state_dict:
+            node[QSCALE] = ss()
+        return node
+
     layers: Dict[str, Any] = {}
     for name in _DENSE:
-        layers[name] = {
-            "kernel": np.stack([a(f"layers.{i}.{name}.weight").T
-                                for i in range(L)]),
-            "bias": np.stack([a(f"layers.{i}.{name}.bias") for i in range(L)]),
-        }
+        layers[name] = dense(
+            f"layers.0.{name}",
+            np.stack([a(f"layers.{i}.{name}.weight").T for i in range(L)]),
+            np.stack([a(f"layers.{i}.{name}.bias") for i in range(L)]),
+            lambda: np.stack([a(f"layers.{i}.{name}.{QSCALE}")
+                              for i in range(L)]))
     for name in _LN:
         layers[name] = {
             "scale": np.stack([a(f"layers.{i}.{name}.scale")
@@ -108,7 +131,7 @@ def _to_jax_params(state_dict: Dict[str, torch.Tensor]) -> Dict[str, Any]:
                    "bias": a("embeddings.ln.bias")},
         },
         "layers": layers,
-        "pooler": {"kernel": a("pooler.weight").T, "bias": a("pooler.bias")},
-        "classifier": {"kernel": a("classifier.weight").T,
-                       "bias": a("classifier.bias")},
+        **{name: dense(name, a(f"{name}.weight").T, a(f"{name}.bias"),
+                       lambda: a(f"{name}.{QSCALE}"))
+           for name in ("pooler", "classifier")},
     }

@@ -1,9 +1,10 @@
 """``pdnlp_tpu_torch.obs`` — the training loop's telemetry: the span
 tracer (``trace``), the eight-phase step breakdown (``phases``), the JSONL
 and Chrome-trace exporters (``export``), device memory accounting
-(``memory``) and the step-time regression detector (``regress``).  The
-JAX package's ``pdnlp_tpu.obs`` twins, record schema included; the live
-exporter and the request tracer wait for ROADMAP A9.
+(``memory``), the step-time regression detector (``regress``), the
+per-request hop tracer (``request``) and the live ``/metrics`` exporter
+and flight recorder (``exporter``).  The JAX package's ``pdnlp_tpu.obs``
+twins, record schema included.
 
 Off by default: ``--trace`` turns it on (spans land under
 ``<output_dir>/trace/trace_proc<i>.jsonl``).

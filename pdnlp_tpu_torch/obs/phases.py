@@ -1,7 +1,7 @@
 """The canonical per-step phase taxonomy + the per-step aggregator — the
-port's copy of ``pdnlp_tpu/obs/phases.py`` without its serving tables
-(ROADMAP A9), so a training span file of either package folds into the
-same table.
+port's copy of ``pdnlp_tpu/obs/phases.py``, serving tables included
+(per-replica phases, fill, retries and peak device memory), so a span file
+of either package folds into the same table.
 
 Every traced layer names its spans out of ONE vocabulary, so a trace from
 the trainer, the input pipeline, and the checkpoint writer composes into a
@@ -53,9 +53,25 @@ PHASES = ("data_wait", "h2d_put", "step_dispatch", "device_block",
 #: stream (the traced loop's per-step barrier)
 STEP_END_PHASE = "device_block"
 
-#: span attrs tallied as adoption counters: ``attn_impl`` = the routed
-#: attention kernel on a train dispatch
-_ADOPTION_ATTRS = ("attn_impl",)
+#: span attrs tallied as adoption counters (any span name, incl. the serve
+#: vocabulary): ``attn_impl`` = the routed attention kernel on a dispatch,
+#: ``dtype`` = the serve forward precision (``"int8"`` under weight-
+#: quantized serving)
+_ADOPTION_ATTRS = ("attn_impl", "dtype")
+
+#: the serve-side span vocabulary: ``queue_wait`` (batcher/router pre-batch
+#: wait, ``retry`` attr counts re-dispatched requests), ``forward`` /
+#: ``compile`` (engine execution, cache hit vs first-seen shape; packed
+#: forwards additionally carry ``packed``/``fill``/``segments`` attrs —
+#: token-level fill and riding-request count per batch), ``swap`` (a
+#: rolling checkpoint hot-swap).  Generative decoding adds ``prefill``
+#: (bucketed causal prompt forward + KV insert, ``streams``/``tokens``
+#: attrs) and ``decode`` (ONE fixed-shape step over the slot block,
+#: ``live`` attr = rows actually advancing).  Spans carrying a ``replica``
+#: attr feed the PER-REPLICA phase tables — one sick replica must show up
+#: as itself in ``trace_tpu.py summarize``, not as a pool-average smear.
+SERVE_PHASES = ("queue_wait", "forward", "compile", "swap", "prefill",
+                "decode")
 
 
 def _bucket_key(bucket) -> tuple:
@@ -87,7 +103,8 @@ class StepBreakdown:
     ``feed(record)`` accepts tracer span records; per-STEP totals (a step
     may contain several spans of one phase) are closed by the
     ``device_block`` record and become one observation per phase.  Spans
-    whose name is not a known phase are ignored.  Phase seconds are SELF
+    whose name is not a known phase are ignored — serve traces flow through
+    the same tracer with their own vocabulary.  Phase seconds are SELF
     time: a phase span nested inside another phase span (same thread,
     contained interval) has its duration subtracted from the enclosing
     one, so sync mode's in-``next`` upload counts as ``h2d_put``, not as
@@ -118,13 +135,25 @@ class StepBreakdown:
         # main thread's step spans without this
         self._lock = threading.Lock()
         self._children: Dict[int, List] = {}  # tid -> [(t0, t1, dur, depth)]
-        # adoption counters: spans carrying an ``attn_impl`` attr are
-        # tallied by value, so the end-of-train table shows which impl the
-        # hot path ran, not just how long
+        # kernel/precision adoption counters: spans carrying an
+        # ``attn_impl`` (train dispatch) or ``dtype`` (serve forward) attr
+        # are tallied by value, so ``summarize``/the end-of-train table
+        # show WHICH impl the hot path actually ran, not just how long
         self._impls: Dict[str, Dict[str, int]] = {}
-        # device-memory accounting: "hbm" records (obs.memory samplers)
+        # per-replica serve-phase durations (SERVE_PHASES spans with a
+        # ``replica`` attr) + retry counts from queue_wait records
+        self._serve: Dict[object, Dict[str, List[float]]] = {}
+        self._serve_retries: Dict[object, int] = {}
+        # per-replica token-level fill of executed forwards (the ``fill``
+        # attr engine spans carry) + how many of them were packed batches
+        self._serve_fill: Dict[object, List[float]] = {}
+        self._serve_packed: Dict[object, int] = {}
+        # device-memory accounting: "hbm" records (obs.memory samplers) and
+        # per-forward ``hbm_peak`` span attrs feed the memory columns — the
+        # peak is the HBM-budget number, last is the live occupancy
         self._hbm_peak = 0
         self._hbm_last = 0
+        self._serve_hbm: Dict[object, int] = {}   # replica -> peak bytes
         # per-rank sub-summaries of a merged multi-process trace
         # (from_records splits by pid so rank A's device_block can never
         # close a step holding rank B's phases)
@@ -146,6 +175,33 @@ class StepBreakdown:
                 with self._lock:
                     by = self._impls.setdefault(key, {})
                     by[str(v)] = by.get(str(v), 0) + 1
+        if name in SERVE_PHASES and "replica" in attrs:
+            with self._lock:
+                per = self._serve.setdefault(attrs["replica"], {})
+                per.setdefault(name, []).append(
+                    float(record.get("dur", 0.0)))
+                retry = attrs.get("retry")
+                if retry:
+                    self._serve_retries[attrs["replica"]] = \
+                        self._serve_retries.get(attrs["replica"], 0) \
+                        + int(retry)
+                # fill aggregates FORWARD spans only: every compile span
+                # is a warmup dummy ([[CLS],[SEP]] at ~0.002 fill) and
+                # would drag a healthy replica's reported fill far below
+                # its steady state (the router snapshot's fill_ratio
+                # already excludes warmups — the two surfaces must agree)
+                if name == "forward" and attrs.get("fill") is not None:
+                    self._serve_fill.setdefault(
+                        attrs["replica"], []).append(float(attrs["fill"]))
+                    if attrs.get("packed"):
+                        self._serve_packed[attrs["replica"]] = \
+                            self._serve_packed.get(attrs["replica"], 0) + 1
+                if attrs.get("hbm_peak") is not None:
+                    # peak HBM per replica: the engine samples its mesh
+                    # slice's allocator before each executed batch
+                    self._serve_hbm[attrs["replica"]] = max(
+                        self._serve_hbm.get(attrs["replica"], 0),
+                        int(attrs["hbm_peak"]))
         if name not in PHASES:
             return
         full = float(record.get("dur", 0.0))
@@ -250,6 +306,36 @@ class StepBreakdown:
         if self._impls:
             out["impls"] = {k: dict(sorted(v.items(), key=lambda kv: -kv[1]))
                             for k, v in sorted(self._impls.items())}
+        if self._serve:
+            out["serve_by_replica"] = {
+                str(rep): {
+                    "retries": self._serve_retries.get(rep, 0),
+                    # token-level fill of this replica's executed forwards
+                    # (None when its spans predate the fill attr)
+                    "fill_mean": (round(sum(self._serve_fill[rep])
+                                        / len(self._serve_fill[rep]), 4)
+                                  if self._serve_fill.get(rep) else None),
+                    "packed_batches": self._serve_packed.get(rep, 0),
+                    # peak HBM of this replica's device slice (None on
+                    # backends without memory_stats, e.g. CPU)
+                    "hbm_peak_gb": (round(
+                        self._serve_hbm[rep] / 2**30, 3)
+                        if rep in self._serve_hbm else None),
+                    "phases": {
+                        phase: {
+                            "count": len(vals),
+                            "total_sec": round(sum(vals), 6),
+                            "mean_sec": round(sum(vals) / len(vals), 9),
+                            "p95_sec": round(
+                                _percentile(sorted(vals), 95), 9),
+                        }
+                        for phase, vals in sorted(
+                            per.items(), key=lambda kv: -sum(kv[1]))
+                    },
+                }
+                for rep, per in sorted(self._serve.items(),
+                                       key=lambda kv: _bucket_key(kv[0]))
+            }
         if self._per_bucket:
             out["by_bucket"] = {
                 str(bucket): {
@@ -316,6 +402,21 @@ class StepBreakdown:
                 mine = self._impls.setdefault(key, {})
                 for val, n in by.items():
                     mine[val] = mine.get(val, 0) + n
+            for rep, per in other._serve.items():
+                mine = self._serve.setdefault(rep, {})
+                for phase, vals in per.items():
+                    mine.setdefault(phase, []).extend(vals)
+            for rep, n in other._serve_retries.items():
+                self._serve_retries[rep] = \
+                    self._serve_retries.get(rep, 0) + n
+            for rep, vals in other._serve_fill.items():
+                self._serve_fill.setdefault(rep, []).extend(vals)
+            for rep, n in other._serve_packed.items():
+                self._serve_packed[rep] = \
+                    self._serve_packed.get(rep, 0) + n
+            for rep, peak in other._serve_hbm.items():
+                self._serve_hbm[rep] = max(
+                    self._serve_hbm.get(rep, 0), peak)
             for bucket, b in other._per_bucket.items():
                 mine = self._per_bucket.setdefault(
                     bucket, {"steps": 0, "groups": 0, "phases": {}})
@@ -348,10 +449,26 @@ def format_table(summary: Dict) -> str:
     if mem:
         lines.append(f"peak HBM {mem['gb_peak']:.3f} GB "
                      f"(in use {mem['bytes_in_use'] / 2**30:.3f} GB)")
-    # adoption line: which attention impl the hot path ran
+    # adoption line (kernel/precision): which impl the hot path actually
+    # ran — `attn_impl: pallas x384` is the pallas-is-default receipt
     for key, by in summary.get("impls", {}).items():
         lines.append(f"{key}: " + "  ".join(
             f"{val} x{n}" for val, n in by.items()))
+    # per-replica serve tables (router runs): one block per replica so a
+    # slow or retry-heavy replica reads as ITSELF, not a pool average
+    for rep, b in summary.get("serve_by_replica", {}).items():
+        line = f"replica {rep}: {b['retries']} retried request(s)"
+        if b.get("fill_mean") is not None:
+            line += (f"  fill {b['fill_mean']:.2f}"
+                     f" ({b.get('packed_batches', 0)} packed batch(es))")
+        if b.get("hbm_peak_gb") is not None:
+            line += f"  peak HBM {b['hbm_peak_gb']:.3f} GB"
+        lines.append(line)
+        for phase, s in b["phases"].items():
+            lines.append(
+                f"  {phase:<12} {s['count']:>6d}x {s['total_sec']:>10.3f}s "
+                f"total {s['mean_sec'] * 1e3:>10.3f} ms mean "
+                f"{s['p95_sec'] * 1e3:>10.3f} ms p95")
     # per-rank lines (merged multi-rank traces): each rank's step count,
     # wall share, and peak HBM — a stalled or memory-pressured rank reads
     # as ITSELF, not as a gang-average smear

@@ -159,6 +159,21 @@ class Tracer:
         tid, stack = self._thread_state()
         self._record(name, t0, t1, tid, len(stack), attrs)
 
+    def mark(self, name: str, attrs: Dict) -> None:
+        """Zero-duration instant record, hot-path cheap: one clock read, no
+        thread-state lookup (tid 0), the caller's dict adopted as it is —
+        the per-request hop stream (``obs.request``) runs through here."""
+        if not self.enabled:
+            return
+        rec = {"name": name, "t0": self.clock(), "dur": 0.0, "tid": 0,
+               "depth": 0, "attrs": attrs}
+        # under the lock: records()/flush() copy the deque under it, and a
+        # concurrent lock-free append would break that copy
+        with self._lock:
+            self._records.append(rec)
+        for fn in list(self._listeners):
+            fn(rec)
+
     def now(self) -> float:
         return self.clock()
 

@@ -57,7 +57,9 @@ to the plain path, as the JAX package does.
 """
 from __future__ import annotations
 
+import contextlib
 import ctypes
+import threading
 from typing import Optional
 
 import torch
@@ -95,12 +97,45 @@ def launch_counts() -> dict:
     return dict(_launches)
 
 
+_capture_tally = threading.local()
+#: serving replicas launch from several threads: counts are updated under it
+_count_lock = threading.Lock()
+
+
+def _count(kernel: str) -> None:
+    """One launch of ``kernel`` by a wrapper — or, inside
+    :func:`capturing_launches` on this thread, one launch recorded into a
+    CUDA graph being captured (nothing ran yet)."""
+    tally = getattr(_capture_tally, "counts", None)
+    if tally is not None:
+        tally[kernel] = tally.get(kernel, 0) + 1
+    else:
+        with _count_lock:
+            _launches[kernel] += 1
+
+
+@contextlib.contextmanager
+def capturing_launches():
+    """While a CUDA graph is captured on this thread, the wrappers' calls
+    land in the yielded ``{kernel: launches}`` dict instead of the
+    counters, so other threads' launches (another serving replica) never
+    mix into a capture's count.  Each replay then counts them through
+    :func:`add_launches`."""
+    prev = getattr(_capture_tally, "counts", None)
+    _capture_tally.counts = counts = {}
+    try:
+        yield counts
+    finally:
+        _capture_tally.counts = prev
+
+
 def add_launches(counts: dict, times: int = 1) -> None:
     """Count the launches of ``times`` replays of a captured CUDA graph
     whose capture recorded ``counts`` (a replay makes no host call, so
     its kernels are counted here, not in the wrappers)."""
-    for name in KERNELS:
-        _launches[name] += times * int(counts.get(name, 0))
+    with _count_lock:
+        for name in KERNELS:
+            _launches[name] += times * int(counts.get(name, 0))
 
 
 # ------------------------------------------------------------- block maps
@@ -382,7 +417,7 @@ def launch(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         B, S, N, D, _DTYPE_CODE[q.dtype], kind, _tiles(S, TILE),
         D ** -0.5, torch.cuda.current_stream(q.device).cuda_stream)
     _raise_on(err, lib, "flash_fwd", "pdnlp_cuda_error_string")
-    _launches["flash_fwd"] += 1
+    _count("flash_fwd")
     return (o, m, l) if with_stats else o
 
 
@@ -433,7 +468,7 @@ def launch_dq(q, k, v, do, m, l, di, bias=None, segment_ids=None):
     dq = torch.empty_like(q)
     err = lib.pdnlp_flash_bwd_dq(*ins, dq.data_ptr(), *dims)
     _raise_on(err, lib, "flash_bwd_dq", "pdnlp_flash_bwd_error_string")
-    _launches["flash_bwd_dq"] += 1
+    _count("flash_bwd_dq")
     return dq
 
 
@@ -445,7 +480,7 @@ def launch_dkv(q, k, v, do, m, l, di, bias=None, segment_ids=None):
     dk, dv = torch.empty_like(k), torch.empty_like(v)
     err = lib.pdnlp_flash_bwd_dkv(*ins, dk.data_ptr(), dv.data_ptr(), *dims)
     _raise_on(err, lib, "flash_bwd_dkv", "pdnlp_flash_bwd_error_string")
-    _launches["flash_bwd_dkv"] += 1
+    _count("flash_bwd_dkv")
     return dk, dv
 
 

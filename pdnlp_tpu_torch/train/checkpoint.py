@@ -311,7 +311,7 @@ def check_state(state_dict: Mapping[str, torch.Tensor],
                          + (" ..." if len(problems) > 8 else ""))
 
 
-def _params_from_raw(raw: Any, path: str, *,
+def params_from_raw(raw: Any, path: str, *,
                     model_name: Optional[str] = None
                     ) -> Dict[str, torch.Tensor]:
     """A decoded parameter file -> the port's CPU ``state_dict``."""
@@ -337,7 +337,7 @@ def load_params(path: str, template: Mapping[str, torch.Tensor], *,
     shape-checked against ``template`` (and, for the port's format,
     against ``model_name``)."""
     raw, _meta, used = read_verified(path)
-    sd = _params_from_raw(raw, used, model_name=model_name)
+    sd = params_from_raw(raw, used, model_name=model_name)
     check_state(sd, template, path=path)
     return sd
 

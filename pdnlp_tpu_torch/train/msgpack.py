@@ -31,6 +31,8 @@ EXT_NPSCALAR = 3
 #: flax chunks arrays above this many bytes (``MAX_CHUNK_SIZE``)
 MAX_CHUNK_SIZE = 2 ** 30
 CHUNKED = "__msgpack_chunked_array__"
+#: key order of an int8 dense block (``serve.quant``), kept as it is
+_QUANT_ORDER = ["kernel", "qscale", "bias"]
 
 
 # ------------------------------------------------------------------ encode
@@ -154,7 +156,11 @@ def _pack(out: bytearray, v: Any) -> None:
         out += struct.pack(">d", v)
     elif isinstance(v, dict):
         _pack_len(out, len(v), (0x80, 15), (None, 0xDE, 0xDF))
-        for k, x in sorted(v.items()):     # jax's tree order: sorted keys
+        # jax's tree order: sorted keys — except an int8 dense block, which
+        # JAX's ``quantize_params`` builds as (kernel, qscale, bias) and
+        # flax writes in that order
+        items = v.items() if list(v) == _QUANT_ORDER else sorted(v.items())
+        for k, x in items:
             _pack(out, k)
             _pack(out, x)
     elif isinstance(v, (list, tuple)):

@@ -40,10 +40,10 @@ import sys
 NOT_PORTED = {
     "--elastic": (None, "elastic restart (ROADMAP A11)"),
     "--heartbeat_interval": (None, "heartbeats (ROADMAP A11)"),
-    "--metrics_port": (None, "the live exporter (ROADMAP A9: obs/"
-                             "exporter.py)"),
-    "--flight_recorder": (None, "the live exporter's flight recorder "
-                                "(ROADMAP A9: obs/exporter.py)"),
+    "--metrics_port": (None, "the live exporter in the training loop "
+                             "(ROADMAP A9b; serve.cli has it)"),
+    "--flight_recorder": (None, "the flight recorder in the training loop "
+                                "(ROADMAP A9b; serve.cli has it)"),
     "--init_from": (None, "pretrained warm start (ROADMAP A12)"),
 }
 

@@ -117,6 +117,16 @@ class Args:
                                                   # held on the card must fit
                                                   # this many MB
     serve_dtype: str = "auto"                     # auto (= --dtype) | bf16
+                                                  # | int8 (int8 weights,
+                                                  # bf16 activations;
+                                                  # serve.quant)
+    serve_long_widths: str = ""                   # chunked-prefill widths,
+                                                  # e.g. "256,512": requests
+                                                  # over the pack width run
+                                                  # as one segment of a
+                                                  # long-width packed batch
+                                                  # ("" = truncate at the
+                                                  # largest bucket)
     attention_impl: str = "auto"                  # auto|xla|pallas (alias
                                                   # --attn_impl): xla = the
                                                   # plain PyTorch path, pallas
@@ -164,6 +174,15 @@ class Args:
     trace_dir: Optional[str] = None               # span files (trace_proc
                                                   # <i>.jsonl); default
                                                   # <output_dir>/trace
+    metrics_port: int = 0                         # live telemetry (obs.
+                                                  # exporter): Prometheus
+                                                  # /metrics + JSON /healthz
+                                                  # on this port; 0 = off.
+                                                  # Also turns on the flight
+                                                  # recorder
+    flight_recorder: Optional[str] = None         # bounded JSONL of metric
+                                                  # snapshots a background
+                                                  # thread appends to
     profile_dir: Optional[str] = None             # torch.profiler trace of a
                                                   # window of steps
     resume_every: Optional[int] = None            # full-state snapshot every N

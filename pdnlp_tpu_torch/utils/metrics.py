@@ -69,6 +69,9 @@ class Histogram:
                 self._recent[self._pos] = v
                 self._pos = (self._pos + 1) % self._window
 
+    def percentile(self, p: float) -> Optional[float]:
+        return (self.percentiles((p,)) or [None])[0]
+
     def percentiles(self, ps: Sequence[float]) -> Optional[List[float]]:
         """All requested percentiles over one copy of the window."""
         with self._lock:

@@ -190,6 +190,113 @@ def test_engine_kernel_matches_plain(cuda_device, serve_dtype):
         np.testing.assert_allclose(g, w, atol=tol)
 
 
+def _tier_engine(serve_dtype, seed=0, impl="auto"):
+    from pdnlp_tpu_torch.data.tokenizer import WordPieceTokenizer
+    from pdnlp_tpu_torch.serve.engine import InferenceEngine
+    from pdnlp_tpu_torch.utils.config import Args
+
+    vocab = ["[PAD]", "[UNK]", "[CLS]", "[SEP]", "[MASK]"] + \
+        [f"t{i}" for i in range(95)]
+    return InferenceEngine(Args(model="bert-tiny-long", device="cuda",
+                                serve_dtype=serve_dtype, seed=seed,
+                                attention_impl=impl),
+                           tokenizer=WordPieceTokenizer(vocab))
+
+
+def _tier_batches():
+    """A padded 8 x 32, a packed 4 x 128 and a long 2 x 256 batch."""
+    from pdnlp_tpu_torch.data.collate import pad_ids_to_bucket
+    from pdnlp_tpu_torch.data.packing import pack_id_lists
+
+    r = np.random.RandomState(3)
+    short = [[2] + list(r.randint(5, 99, r.randint(3, 30))) + [3]
+             for _ in range(20)]
+    long_ = [[2] + list(r.randint(5, 99, r.randint(130, 250))) + [3]
+             for _ in range(2)]
+    return {"padded": pad_ids_to_bucket(short[:8], 32, 8),
+            "packed": pack_id_lists(short, 128, 4, 16)[0],
+            "long": pack_id_lists(long_, 256, 2, 32)[0]}
+
+
+def _serve(engine, batch):
+    if "cls_positions" in batch:
+        return engine.infer_packed(batch, segments=1)
+    return engine.infer(batch)
+
+
+@pytest.mark.parametrize("serve_dtype", ["auto", "bf16", "int8"])
+def test_captured_forward_equals_eager_bit_for_bit(cuda_device, serve_dtype):
+    """Each served shape is captured once (a retrace), replayed after, and
+    gives the eager forward's logits bit for bit; a replay counts the
+    layers' K1 launches."""
+    eng = _tier_engine(serve_dtype)
+    batches = _tier_batches()
+    for name, b in batches.items():
+        _serve(eng, b)                          # the capture
+        flash.reset_launch_count()
+        got = _serve(eng, b)                    # a replay
+        assert flash.launch_count() == eng.cfg.num_layers, name
+        np.testing.assert_array_equal(got, eng.forward_eager(b),
+                                      err_msg=name)
+    assert eng.metrics.retraces.value == len(batches)
+    assert eng.pool_bytes > 0
+
+
+def test_in_place_swap_keeps_the_graphs(cuda_device):
+    """A checkpoint swap copies into the captured tensors: same storage,
+    new answers from the same graphs, still equal to eager; a failed load
+    changes nothing."""
+    eng, other = _tier_engine("bf16"), _tier_engine("bf16", seed=1)
+    b = _tier_batches()["packed"]
+    before = _serve(eng, b)
+    ptrs = {k: v.data_ptr() for k, v in eng.model.state_dict().items()}
+    eng.load_state(other.state_dict())
+    after = _serve(eng, b)
+    assert {k: v.data_ptr() for k, v in
+            eng.model.state_dict().items()} == ptrs
+    assert not np.array_equal(before, after)
+    np.testing.assert_array_equal(after, eng.forward_eager(b))
+    np.testing.assert_array_equal(after, _serve(other, b))
+    bad = dict(other.state_dict())
+    bad.pop("pooler.bias")
+    with pytest.raises(ValueError, match="missing pooler.bias"):
+        eng.load_state(bad)
+    np.testing.assert_array_equal(_serve(eng, b), after)
+    assert eng.metrics.retraces.value == 1
+
+
+def test_capture_while_another_engine_serves(cuda_device):
+    """Two replicas' engines on the one card: one captures (thread-local
+    capture mode, under the capture lock) while another thread replays
+    the other's graph; both stay right."""
+    import threading
+
+    a, b = _tier_engine("bf16"), _tier_engine("bf16")
+    batches = _tier_batches()
+    want = a.forward_eager(batches["packed"])
+    _serve(a, batches["packed"])
+    stop, errors, outs = threading.Event(), [], []
+
+    def serve_a():
+        try:
+            while not stop.is_set():
+                outs.append(_serve(a, batches["packed"]))
+        except Exception as e:  # noqa: BLE001 — reported below
+            errors.append(e)
+
+    t = threading.Thread(target=serve_a)
+    t.start()
+    try:
+        for batch in batches.values():
+            np.testing.assert_array_equal(_serve(b, batch),
+                                          b.forward_eager(batch))
+    finally:
+        stop.set()
+        t.join(timeout=60)
+    assert not errors and outs
+    assert all(np.array_equal(o, want) for o in outs)
+
+
 # ----------------------------------------------------- K1 stats, K2, K3
 
 #: kernel vs twin on the same card: fp32 sums in another order (up to 512

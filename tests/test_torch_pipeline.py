@@ -104,7 +104,7 @@ def test_resident_batches_bitwise_equal_host_loader(corpus, tok, mode):
     assert snap["steps"] == 2 * len(host_loader)
 
 
-def test_macro_batches_refuse_fused_steps(corpus, tok):
+def test_macro_batches_never_stack_mixed_widths(corpus, tok):
     """Fused groups never stack mixed widths: under bucket mode every
     pipeline's ``macro_batches(3)`` cuts the epoch as JAX's
     ``host_macro_batches`` does (a width change flushes a partial run as
