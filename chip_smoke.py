@@ -55,11 +55,29 @@ through a kill mid-burst, a relaunch while the other serves, a corrupt
 swap rolled back and a good one applied in place; 9c ``serve.cli
 --replicas 2 --serve_dtype int8 --serve_long_widths 256,512
 --metrics_port 0 --flight_recorder <f> --trace true`` as a process beside
-9b, on the native encoder), then the kernels' times at every shape these
-paths give them.  Any failure raises and the script exits
-non-zero.  Without a card, or away from the
-repo, it prints no result and exits non-zero.  The line before the last is
-the ``{"kernels": [...]}`` record; the last is ``{"ok": true, ...}``.
+9b, on the native encoder), 10 generative decoding (10a slot and paged
+decode engines at 8 slots x 256 positions in fp32, bf16 and bf16 with
+int8 KV, every captured program — prefill with its insert per bucket, the
+``[slots, 1]`` decode step, the paged chunk and copy-on-write — held to
+its eager run bit for bit, incremental decode against a cold recompute bit
+for bit, paged tokens against the slot engine's, a full prefix hit that
+runs no prefill and a partial one against a cold stream, 50 mixed streams
+with zero captures and zero leaked pages, K1 only on the MLM infill and
+held to the plain route, int8 KV against bf16 KV teacher-forced on bf16's
+tokens (logits within 5e-2, so the same greedy token wherever the margin
+decides it; free-running agreement reported); 10b
+two bf16 replicas behind ``DecodeRouter`` through a kill mid-decode, no
+token duplicated or lost (every orphan re-prefilled from its emitted
+tokens), then two fp32 replicas whose tokens also equal a pass without
+the kill; 10c ``serve.cli --decode --replicas 1
+--kv_layout paged`` as a process beside 10b; 10d one decode step's wall
+eager against captured and its device time beside its byte bound, each
+prefill bucket's wall, and a closed burst's tokens/s, TTFT and inter-token
+p50/p99), then the kernels' times at every shape these paths give them.
+Any failure raises and the script exits non-zero.  Without a card, or
+away from the repo, it prints no result and exits non-zero.  The line
+before the last is the ``{"kernels": [...]}`` record; the last is
+``{"ok": true, ...}``.
 Numbers are printed beside the card's name and power limit.
 """
 import itertools
@@ -2569,6 +2587,564 @@ def serving_tier(torch, F, flash, mask_bias, InferenceEngine, base, ckpt,
     return recs
 
 
+# ---------------------------------------------------------------- phase 10
+
+#: the decode engines' geometry at bert-base width, and the streams
+DECODE_SLOTS, DECODE_MAX_LEN, DECODE_NEW = 8, 256, 32
+#: 10a: mixed streams after warmup; 10d: the closed burst
+DECODE_MIXED, DECODE_BURST = 50, 32
+#: 10a/10d configurations: (label, serve_dtype, kv_dtype); int8 KV under
+#: bf16 compute
+DECODE_CONFIGS = (("float32", "auto", "auto"), ("bfloat16", "bf16", "auto"),
+                  ("bfloat16 int8-KV", "bf16", "int8"))
+#: decode steps of the cold-recompute chain
+CHAIN_STEPS = 12
+#: bert-base at full width: (layers, hidden, vocab)
+DECODE_SHAPE = (12, 768, 21128)
+#: int8 KV against bf16 KV, both under bf16 compute, teacher-forced on the
+#: bf16 run's tokens: every step's logits within the bf16 serving bound
+#: (each K/V element rounds to half a step of its channel's amax, about
+#: bf16's own relative step).  A bound e on every logit decides the greedy
+#: token wherever bf16's top-2 margin exceeds 2e; free-running streams can
+#: still part at a near-tie of random weights, so their agreement is
+#: reported, not gated
+INT8_KV_ATOL = 5e-2
+
+
+def decode_prompts(rng, n, lo, hi, vocab):
+    """``n`` id lists of ``lo..hi - 1`` tokens ([CLS] first)."""
+    return [[2] + [int(t) for t in rng.randint(5, vocab,
+                                               rng.randint(lo, hi) - 1)]
+            for _ in range(n)]
+
+
+def held_to_eager(eng, seen):
+    """After each replay the same program runs eagerly on the same inputs
+    (a program writes the same cache state when run twice) and the
+    replay's output is held to it bit for bit: ``seen`` collects
+    ``(program key, equal)``.  The eager run's K1 launches go to a
+    discarded tally.  ``del eng._replay`` undoes it."""
+    import numpy as np
+
+    from pdnlp_tpu_torch.ops import flash
+
+    orig = eng._replay
+
+    def replay(key, batch, keys, fn=None):
+        got = orig(key, batch, keys, fn)
+        if got is not None:
+            with flash.capturing_launches():
+                want = eng._eager(batch, keys, fn)
+            seen.append((key, bool(np.array_equal(got, want))))
+        return got
+
+    eng._replay = replay
+
+
+def decode_streams(frontend, ps, max_new):
+    """Greedy tokens of ``ps`` (no early stop) through a batcher or a
+    router, in submission order."""
+    for b in getattr(frontend, "batchers", [frontend]):
+        b.eos_id = -1
+    streams = [frontend.submit_ids(p, max_new_tokens=max_new) for p in ps]
+    return [s.result(timeout=300) for s in streams]
+
+
+def seat(eng, ps):
+    """Claim slots ``0..len(ps)-1`` of ``eng`` for ``ps`` (pages on the
+    paged layout) and prefill them: the decode step's ``(tokens, pos)``
+    for those live rows."""
+    import numpy as np
+
+    from pdnlp_tpu_torch.serve.decode import DecodeStream
+
+    eng.reset_cache()
+    for i, p in enumerate(ps):
+        eng.attach_stream(i, DecodeStream(p, DECODE_NEW))
+    r = eng.prefill_rows
+    logits = np.concatenate([
+        eng.prefill_ids(ps[i:i + r], list(range(i, min(len(ps), i + r))))
+        for i in range(0, len(ps), r)])
+    tok = np.zeros((eng.slots,), np.int32)
+    pos = np.zeros((eng.slots,), np.int32)
+    tok[:len(ps)] = logits.argmax(-1)
+    pos[:len(ps)] = [len(p) for p in ps]
+    return tok, pos
+
+
+def cold_chain(eng, ps, forced=None):
+    """Prefill ``ps`` from zeroed caches and decode ``CHAIN_STEPS`` steps
+    through the captured programs, each fed its own greedy token (or
+    ``forced[step]``): the first tokens, then every step's logits."""
+    tok, pos = seat(eng, ps)
+    n = len(ps)
+    if forced is not None:
+        tok[:n] = forced[0]
+    out = [tok[:n].copy()]
+    for step in range(CHAIN_STEPS):
+        lg = eng.decode_batch(tok, pos, live=n)
+        out.append(lg[:n])
+        tok[:n] = lg[:n].argmax(-1) if forced is None else forced[step + 1]
+        pos[:n] += 1
+    eng.reset_cache()
+    return out
+
+
+def decode_bound(eng, dtype):
+    """The decode step's least time: the stored weights it reads once (the
+    trunk's layers, the head, the tied word matrix as stored) plus the
+    whole ``[slots, max_len]`` KV extent it gathers, over the memory rate;
+    or its operations over the peak rate, the larger."""
+    cfg = eng.cfg
+    nbytes = sum(v.numel() * v.element_size()
+                 for k, v in eng.model.state_dict().items()
+                 if k.startswith("layers."))
+    nbytes += sum(v.numel() * v.element_size()
+                  for v in eng.head.state_dict().values())
+    word = eng.model.embeddings.word
+    nbytes += word.numel() * word.element_size()
+    kv = 2 * cfg.num_layers * eng.slots * eng.max_len * cfg.hidden_size \
+        * eng._cache_k.element_size()
+    dense = 12 * cfg.hidden_size ** 2 * cfg.num_layers \
+        + cfg.hidden_size ** 2 + cfg.vocab_size * cfg.hidden_size
+    flops = 2 * eng.slots * dense \
+        + 4 * cfg.num_layers * eng.slots * eng.max_len * cfg.hidden_size
+    ms, by = bound(nbytes + kv, flops, dtype)
+    return ms, by, nbytes, kv
+
+
+def decode_times(torch, eng, ps, dtype, card, label):
+    """10d for one engine: one decode step's wall, eager against captured
+    in turns (eager, captured, captured, eager; 20 steps each, host clock,
+    each step ending in its logits on the host), both steps' device time,
+    the byte bound, and each prefill bucket's wall (10 calls)."""
+    import numpy as np
+
+    tok, pos = seat(eng, ps)
+    batch = {"tokens": tok.reshape(eng.slots, 1), "pos": pos}
+    if eng.paged:
+        batch["table"] = eng._table
+    fns = {"eager": lambda: eng._eager(batch, tuple(batch), eng._decode_fn),
+           "captured": lambda: eng.decode_batch(tok, pos, live=len(ps))}
+    wall = {"eager": [], "captured": []}
+    for name in ("eager", "captured", "captured", "eager"):
+        t0 = time.perf_counter()
+        for _ in range(20):
+            fns[name]()
+        wall[name].append((time.perf_counter() - t0) / 20 * 1e3)
+    dev = {name: device_ms(torch, fn, n=20) for name, fn in fns.items()}
+    prof = profile_calls(torch, fns["captured"], 5, card,
+                         f"10d {label} decode step, captured")
+    bound_ms, bound_by, wbytes, kvbytes = decode_bound(eng, dtype)
+    prefill_ms = {}
+    for b in eng.prefill_buckets:
+        ids = [[2] * b] * eng.prefill_rows
+        slots = [eng.slots] * eng.prefill_rows      # the guard takes them
+        eng.prefill_ids(ids, slots)
+        t0 = time.perf_counter()
+        for _ in range(10):
+            eng.prefill_ids(ids, slots)
+        prefill_ms[b] = (time.perf_counter() - t0) / 10 * 1e3
+    eng.reset_cache()
+    rec = {"step_wall_ms": wall, "step_device_ms": dev, "profile": prof,
+           "bound_ms": bound_ms, "bound_by": bound_by,
+           "weight_bytes": wbytes, "kv_bytes": kvbytes,
+           "prefill_wall_ms": prefill_ms}
+    print(f"[decode] 10d {label}: step wall eager "
+          f"{' / '.join(f'{t:.3f}' for t in wall['eager'])} ms, captured "
+          f"{' / '.join(f'{t:.3f}' for t in wall['captured'])} ms; device "
+          f"eager {fmt_ms(dev['eager'])} captured {fmt_ms(dev['captured'])}"
+          f" ms; bound {bound_ms:.4f} ms ({bound_by}: {wbytes / 1e6:.1f} MB "
+          f"weights + {kvbytes / 1e6:.1f} MB KV); prefill wall per bucket "
+          + ", ".join(f"{b}: {t:.3f}" for b, t in prefill_ms.items())
+          + f" ms (rows {eng.prefill_rows}) — {card}")
+    return rec
+
+
+def decode_burst(eng, ps, label, card):
+    """A closed burst of ``ps`` through a fresh batcher: tokens/s, TTFT and
+    inter-token p50/p99 (``DecodeMetrics``)."""
+    from pdnlp_tpu_torch.serve.decode import DecodeBatcher
+
+    eng.reset_cache()
+    b = DecodeBatcher(eng).start()
+    try:
+        t0 = time.monotonic()
+        outs = decode_streams(b, ps, DECODE_NEW)
+        wall = time.monotonic() - t0
+    finally:
+        b.stop()
+    m = b.metrics.snapshot()
+    rec = {"streams": len(ps), "tokens": sum(len(o) for o in outs),
+           "wall_s": wall, "tokens_per_s": sum(len(o) for o in outs) / wall,
+           "ttft_ms": {k: m["ttft_ms"][k] for k in ("p50", "p99")},
+           "intertoken_ms": {k: m["intertoken_ms"][k]
+                             for k in ("p50", "p99")},
+           "decode_steps": m["decode_steps_total"]}
+    print(f"[decode] 10d {label} burst of {len(ps)} streams x {DECODE_NEW}:"
+          f" {rec['tokens_per_s']:.1f} tokens/s, TTFT p50/p99 "
+          f"{rec['ttft_ms']['p50']:.2f} / {rec['ttft_ms']['p99']:.2f} ms, "
+          f"inter-token p50/p99 {rec['intertoken_ms']['p50']:.3f} / "
+          f"{rec['intertoken_ms']['p99']:.3f} ms — {card}")
+    eng.reset_cache()
+    return rec
+
+
+def decode_config_run(torch, flash, args, ckpt, label, ps, mixed, burst,
+                      card, forced=None):
+    """10a and 10d for one configuration (module doc): slot and paged
+    engines with every program held to eager, the cold recompute, paged
+    against slot tokens, prefix hits, zero captures over the mixed
+    streams, zero leaked pages, K1 on infill only, then the times.
+    Returns the record and the paged engine's chain (:func:`cold_chain`,
+    fed ``forced``)."""
+    import numpy as np
+
+    from pdnlp_tpu_torch.models import decoder
+    from pdnlp_tpu_torch.serve.decode import (
+        DecodeBatcher, DecodeEngine, PagedDecodeEngine,
+    )
+
+    dtype = "float32" if args.serve_dtype == "auto" else "bfloat16"
+    seen, engines, rec = [], {}, {"config": label}
+    for layout, cls in (("slots", DecodeEngine), ("paged", PagedDecodeEngine)):
+        eng = cls(args)
+        eng.load_checkpoint(ckpt)
+        held_to_eager(eng, seen)
+        t0 = time.monotonic()
+        eng.warmup_decode()
+        rec[f"{layout}_warmup_s"] = time.monotonic() - t0
+        rec[f"{layout}_captures"] = eng.metrics.retraces.value
+        engines[layout] = eng
+    slot, pag = engines["slots"], engines["paged"]
+    if (slot.cfg.num_layers, slot.cfg.hidden_size, slot.cfg.vocab_size) \
+            != DECODE_SHAPE:
+        fail(f"10a: not bert-base at full width: {slot.cfg}")
+    # the bitwise contract: incremental decode against a cold recompute in
+    # the same geometry, both layouts
+    rec["cold_recompute_bitwise"] = {}
+    for layout, eng in engines.items():
+        chain = cold_chain(eng, ps[:8], forced)
+        rec["cold_recompute_bitwise"][layout] = all(
+            np.array_equal(x, y) for x, y in
+            zip(chain, cold_chain(eng, ps[:8], forced)))
+    # the main path: streams through the batchers, K1 counted from 0
+    flash.reset_launch_count()
+    toks = {}
+    for layout, eng in engines.items():
+        bat = DecodeBatcher(eng).start()
+        try:
+            toks[layout] = decode_streams(bat, ps[:8], DECODE_NEW)
+            if layout == "paged":
+                # prefix hits: a full hit runs no prefill; a partial hit
+                # equals the slot engine's cold tokens
+                before = bat.metrics.prefills_total.value
+                rec["full_hit_equal"] = decode_streams(
+                    bat, ps[:2], DECODE_NEW) == toks["paged"][:2]
+                rec["full_hit_prefills"] = \
+                    bat.metrics.prefills_total.value - before
+                base = ps[8][:40]
+                decode_streams(bat, [base + [7, 8, 9]], 8)
+                rec["partial_hit_tokens"] = decode_streams(
+                    bat, [base + [5, 6]], 8)[0]
+                r0 = eng.metrics.retraces.value
+                t0 = time.monotonic()
+                mixed_out = decode_streams(bat, mixed, DECODE_NEW)
+                rec["mixed_s"] = time.monotonic() - t0
+                rec["mixed_tokens"] = sum(len(o) for o in mixed_out)
+                rec["captures_after_warmup"] = eng.metrics.retraces.value - r0
+        finally:
+            bat.stop()
+    sbat = DecodeBatcher(slot).start()
+    try:
+        rec["partial_hit_ref"] = decode_streams(sbat, [ps[8][:40] + [5, 6]],
+                                                8)[0]
+    finally:
+        sbat.stop()
+    rec["launches_decode"] = flash.launch_count()
+    rec["paged_equals_slots"] = toks["paged"] == toks["slots"]
+    rec["tokens"] = toks["paged"]
+    rec["prefix"] = pag.prefix.snapshot()
+    pag.prefix.clear()
+    leak = pag.leak_check()
+    rec["leak"] = {k: leak[k] for k in ("ok", "leaked_pages",
+                                        "stream_owners")}
+    rec["pages_after_drain"] = pag.allocator.used_pages
+    rec["slot_captures_after"] = slot.metrics.retraces.value \
+        - rec["slots_captures"]
+    # infill: K1 on the bidirectional trunk against the plain route
+    ips = ps[:pag.prefill_rows]
+    flash.reset_launch_count()
+    got = pag.infill_ids(ips)
+    rec["launches_infill"] = flash.launch_count()
+    bucket = got.shape[1]
+    ids = np.zeros((pag.prefill_rows, bucket), np.int32)
+    mask = np.zeros_like(ids)
+    for i, p in enumerate(ips):
+        ids[i, :len(p)], mask[i, :len(p)] = p, 1
+    with torch.inference_mode():
+        want = decoder.infill_logits(
+            pag.model, pag.head, torch.from_numpy(ids).to(pag.device),
+            torch.from_numpy(mask).to(pag.device), dtype=pag.dtype,
+            attn_impl="xla").cpu().numpy()
+    rec["infill_max_abs_err"] = float(np.abs(got - want[:len(ips)]).max())
+    rec["held_to_eager"] = {"programs": len(seen),
+                            "keys": sorted({str(k) for k, _ in seen}),
+                            "unequal": sorted({str(k) for k, ok in seen
+                                               if not ok})}
+    for eng in engines.values():
+        del eng._replay                 # times: the plain replay
+    rec["times"] = decode_times(torch, pag, ps[:DECODE_SLOTS], dtype, card,
+                                label)
+    rec["slot_times"] = decode_times(torch, slot, ps[:DECODE_SLOTS], dtype,
+                                     card, label + " slots")
+    rec["burst"] = decode_burst(pag, burst, label, card)
+    print(f"[decode] 10a {label}: "
+          f"{json.dumps({k: v for k, v in rec.items() if k not in ('tokens', 'times', 'slot_times', 'burst')})}"
+          f" — {card}")
+    atol = LOGIT_ATOL[dtype]
+    problems = []
+    if not all(rec["cold_recompute_bitwise"].values()):
+        problems.append("incremental decode differs from a cold recompute")
+    if rec["held_to_eager"]["unequal"] or not seen:
+        problems.append("captured programs differ from eager: "
+                        f"{rec['held_to_eager']['unequal']}")
+    if not rec["paged_equals_slots"]:
+        problems.append("paged tokens differ from the slot engine's")
+    if not rec["full_hit_equal"] or rec["full_hit_prefills"]:
+        problems.append("a full prefix hit ran a prefill or changed tokens")
+    # under int8 KV a cold prefill attends the prompt's unquantized K/V
+    # and a partial hit the dequantized shared pages, so equal tokens are
+    # not owed there (JAX's engines do the same); reported, not gated
+    rec["partial_hit_equal"] = \
+        rec["partial_hit_tokens"] == rec["partial_hit_ref"]
+    if not rec["partial_hit_equal"] and args.kv_dtype != "int8":
+        problems.append("a partial prefix hit differs from a cold stream")
+    if rec["captures_after_warmup"] or rec["slot_captures_after"]:
+        problems.append("a program was captured after warmup")
+    if not rec["leak"]["ok"] or rec["pages_after_drain"]:
+        problems.append(f"pages leaked: {rec['leak']}")
+    if rec["launches_decode"] != 0:
+        problems.append(f"K1 launched {rec['launches_decode']} times on "
+                        "the prefill/decode programs")
+    if rec["launches_infill"] != pag.cfg.num_layers:
+        problems.append(f"K1 launched {rec['launches_infill']} times on "
+                        "one infill call")
+    if not rec["infill_max_abs_err"] <= atol:
+        problems.append(f"infill K1 vs plain {rec['infill_max_abs_err']}")
+    if problems:
+        fail(f"10a {label}: " + "; ".join(problems))
+    del slot, pag, engines
+    torch.cuda.empty_cache()
+    return rec, chain
+
+
+def _cli_10c(work, vocab_path, ckpt, texts):
+    """``serve.cli --decode --replicas 1 --kv_layout paged`` as a started
+    process fed ``texts``."""
+    out = os.path.join(work, "cli_10c")
+    os.makedirs(out, exist_ok=True)
+    cmd = [sys.executable, "-m", "pdnlp_tpu_torch.serve.cli", "--decode",
+           "--replicas", "1", "--kv_layout", "paged", "--device", "cuda",
+           "--model", "bert-base", "--vocab_path", vocab_path,
+           "--checkpoint", ckpt, "--decode_max_len", str(DECODE_MAX_LEN),
+           "--max_new_tokens", "16", "--output_dir", out,
+           "--metrics_path", os.path.join(out, "metrics.json")]
+    p = subprocess.Popen(cmd, cwd=REPO, stdin=subprocess.PIPE,
+                         stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+                         text=True, env={**os.environ, "PYTHONPATH": REPO})
+    return p, out, "\n".join(texts) + "\n"
+
+
+def _cli_10c_check(p, out, stdin, n):
+    try:
+        so, se = p.communicate(stdin, timeout=600)
+    finally:
+        if p.poll() is None:
+            p.kill()
+            p.wait()
+    rows = [x.split("\t", 2) for x in so.splitlines() if "\t" in x]
+    gens = {int(r[0]) for r in rows if r[1] == "gen"}
+    toks = [r for r in rows if r[1] == "tok"]
+    errors = [r for r in rows if r[1] == "ERROR"]
+    rec = {"exit": p.returncode, "gen_lines": len(gens),
+           "tok_lines": len(toks), "errors": len(errors)}
+    if p.returncode == 0:
+        snap = json.load(open(os.path.join(out, "metrics.json")))["replicas"]
+        rec["tokens_out"] = snap["0"]["decode"]["tokens_out_total"]
+        rec["layout"] = snap["0"]["kv"]["layout"]
+    print(f"[decode] 10c serve.cli --decode: {json.dumps(rec)}")
+    if p.returncode != 0 or gens != set(range(n)) or errors or \
+            not toks or rec.get("tokens_out") != len(toks) or \
+            rec.get("layout") != "paged":
+        fail(f"10c serve.cli --decode: {rec}\n{se[-3000:]}")
+    return rec
+
+
+def decode_router_run(torch, args, ckpt, ps, card, exact):
+    """10b: two paged replicas on the card behind ``DecodeRouter``: a
+    reference pass, then the same streams with replica 0 killed
+    mid-decode.  No token duplicated or lost: every stream delivers
+    exactly its tokens, once each (the streamed tokens are the result),
+    and every orphan re-prefilled ``prompt + emitted`` on the survivor
+    (its ``prefill`` hop after the ``requeue`` carries that many tokens);
+    chains valid, the survivor's pages reconciled, no capture.  With
+    ``exact`` (fp32) the outputs also equal the reference pass's.  In
+    bf16 they need not: the survivor re-prefills ``prompt + emitted`` in
+    one causal forward where the reference decoded those tokens one step
+    at a time, and its prompt bucket follows the orphans it is batched
+    with; other program shapes round otherwise in bf16, so a stream can
+    part from the reference at a near-tie.  Their agreement is
+    reported."""
+    from pdnlp_tpu_torch.obs.request import chains, validate_chains
+    from pdnlp_tpu_torch.serve.decode import DecodeRouter, PagedDecodeEngine
+
+    engines = [PagedDecodeEngine(args) for _ in range(2)]
+    for e in engines:
+        e.load_checkpoint(ckpt)
+    engines[1].tracer = engines[0].tracer
+    router = DecodeRouter(engines).start()
+    router.warmup()
+    try:
+        refs = decode_streams(router, ps, DECODE_NEW)
+    finally:
+        router.stop()
+    for e in engines:
+        e.reset_cache()
+    captures = [e.metrics.retraces.value for e in engines]
+    router = DecodeRouter(engines).start()
+    for b in router.batchers:
+        b.eos_id = -1
+    t0 = time.monotonic()
+    streams = [router.submit_ids(p, max_new_tokens=DECODE_NEW) for p in ps]
+    while (router.batchers[0].metrics.tokens_out_total.value < 64
+           and time.monotonic() - t0 < 120):
+        time.sleep(0.001)
+    killed_at = router.batchers[0].metrics.tokens_out_total.value
+    router.kill(0)
+    try:
+        outs = [s.result(timeout=300) for s in streams]
+    finally:
+        router.stop()
+    records = engines[0].tracer.records()
+    report = validate_chains(records, [s.rid for s in streams])
+    hops = chains(records)
+    resumed, resumed_right = 0, 0
+    for s in streams:
+        ch = [h["attrs"] for h in hops.get(s.rid, [])]
+        rq = [i for i, h in enumerate(ch) if h["hop"] == "requeue"]
+        if not rq:
+            continue
+        resumed += 1
+        k = ch[rq[-1]]["tokens_emitted"]
+        pre = [h for h in ch[rq[-1]:] if h["hop"] == "prefill"]
+        if pre:
+            h = pre[0]
+            seen = h["tokens_in"] + (h.get("cached_tokens", 0)
+                                     if h.get("prefix_hit") == "partial"
+                                     else 0)
+            resumed_right += seen == len(s.prompt_ids) + k
+    survivor = engines[1]
+    survivor.prefix.clear()
+    rec = {"dtype": engines[0].dtype_label, "streams": len(ps),
+           "killed_after_tokens": killed_at,
+           "delivered_all": all(len(o) == DECODE_NEW for o in outs),
+           "streamed_equal_result": all(
+               list(s.tokens(timeout=5)) == o
+               for s, o in zip(streams, outs)),
+           "resumed": resumed, "resumed_from_emitted": resumed_right,
+           "equal_to_reference": sum(o == r for o, r in zip(outs, refs)),
+           "complete": report["complete"],
+           "incomplete": len(report["incomplete"]),
+           "requeued": report["requeued"],
+           "requeued_in": router.batchers[1].rmetrics.requeued_in.value,
+           "survivor_leak_ok": survivor.leak_check()["ok"],
+           "survivor_pages": survivor.allocator.used_pages,
+           "captures_after_warmup": [e.metrics.retraces.value - c
+                                     for e, c in zip(engines, captures)]}
+    print(f"[decode] 10b router {rec['dtype']}: {json.dumps(rec)} — {card}")
+    if not (rec["delivered_all"] and rec["streamed_equal_result"]
+            and resumed >= 1 and resumed_right == resumed
+            and rec["complete"] == len(ps) and not rec["incomplete"]
+            and rec["requeued"] >= 1 and rec["requeued_in"] >= 1
+            and rec["survivor_leak_ok"] and not rec["survivor_pages"]
+            and not any(rec["captures_after_warmup"])
+            and (not exact or rec["equal_to_reference"] == len(ps))):
+        fail(f"10b decode router through a kill: {rec}")
+    del engines, router, survivor
+    torch.cuda.empty_cache()
+    return rec
+
+
+def int8_kv_parity(bf16, int8, bf16_tokens, int8_tokens):
+    """int8 KV against bf16 KV (:data:`INT8_KV_ATOL`): every teacher-forced
+    step's logits within the bound, the same greedy token wherever bf16's
+    top-2 margin exceeds twice it; the free-running streams' agreement
+    reported beside it."""
+    import numpy as np
+
+    err, decided, agree = 0.0, 0, 0
+    for lb, l8 in zip(bf16[1:], int8[1:]):
+        err = max(err, float(np.abs(lb - l8).max()))
+        top2 = np.sort(lb, axis=-1)[:, -2:]
+        clear = (top2[:, 1] - top2[:, 0]) > 2 * INT8_KV_ATOL
+        decided += int(clear.sum())
+        agree += int((lb.argmax(-1) == l8.argmax(-1))[clear].sum())
+    rec = {"max_abs_err": err, "steps_decided": decided,
+           "steps_agree": agree,
+           "free_running_streams_equal": sum(
+               a == b for a, b in zip(bf16_tokens, int8_tokens)),
+           "streams": len(bf16_tokens)}
+    print(f"[decode] 10a int8 KV vs bf16 KV: {json.dumps(rec)}")
+    if not err <= INT8_KV_ATOL or agree != decided:
+        fail(f"10a int8 KV against bf16 KV: {rec} (atol {INT8_KV_ATOL})")
+    return rec
+
+
+def decode_phase(torch, flash, base, ckpt, work, vocab_path, card, lap):
+    """Phase 10, generative decoding at bert-base full width (module
+    doc)."""
+    import numpy as np
+
+    rng = np.random.RandomState(SEED + 10)
+    vocab = DECODE_SHAPE[2]
+    ps = decode_prompts(rng, 9, 24, 120, vocab)       # 8 + 1 prefix base
+    mixed = decode_prompts(rng, DECODE_MIXED, 3, 200, vocab)
+    burst = decode_prompts(rng, DECODE_BURST, 16, 200, vocab)
+    args = base.replace(decode_slots=DECODE_SLOTS,
+                        decode_max_len=DECODE_MAX_LEN,
+                        max_new_tokens=DECODE_NEW)
+    recs, chains = {}, {}
+    for label, serve_dtype, kv in DECODE_CONFIGS:
+        forced = None
+        if kv == "int8":     # teacher-forced on bf16's greedy tokens
+            forced = [chains["bfloat16"][0]] + [
+                lg.argmax(-1) for lg in chains["bfloat16"][1:]]
+        recs[label], chains[label] = decode_config_run(
+            torch, flash, args.replace(serve_dtype=serve_dtype, kv_dtype=kv),
+            ckpt, label, ps, mixed, burst, card, forced)
+    recs["int8_kv"] = int8_kv_parity(chains["bfloat16"],
+                                     chains["bfloat16 int8-KV"],
+                                     recs["bfloat16"]["tokens"],
+                                     recs["bfloat16 int8-KV"]["tokens"])
+    lap("10a, 10d")
+    texts = make_requests(rng, CHARS, 8)
+    proc, out, stdin = _cli_10c(work, vocab_path, ckpt, texts)
+    try:
+        rps = decode_prompts(rng, 24, 16, 200, vocab)
+        targs = args.replace(trace=True,
+                             trace_dir=os.path.join(work, "trace_10b"))
+        recs["router"] = decode_router_run(
+            torch, targs.replace(serve_dtype="bf16"), ckpt, rps, card,
+            exact=False)
+        recs["router_fp32"] = decode_router_run(torch, targs, ckpt, rps,
+                                                card, exact=True)
+    finally:
+        recs["cli"] = _cli_10c_check(proc, out, stdin, len(texts))
+    lap("10b, 10c")
+    return recs
+
+
 # ------------------------------------------------------- phase 6 times
 
 
@@ -3047,6 +3623,11 @@ def main():
     torch.cuda.empty_cache()
     tier = serving_tier(torch, F, flash, mask_bias, InferenceEngine, base,
                         ckpt_path, work, vocab_path, rng, card, lap)
+    # 10. generative decoding: slot and paged engines, fp32, bf16 and int8
+    # KV, the router through a kill, serve.cli --decode
+    torch.cuda.empty_cache()
+    decode = decode_phase(torch, flash, base, ckpt_path, work, vocab_path,
+                          card, lap)
     launches_by_path = {
         "serving packed (K1)": {"flash_fwd": main_launches},
         "6a fixed width fp32": train_launches,
@@ -3060,7 +3641,11 @@ def main():
         **{f"9a {d} shapes": {"flash_fwd": sum(
             tier[d]["launches_by_shape"].values())}
            for d in ("float32", "bfloat16", "int8")},
-        "9b router": {"flash_fwd": tier["router"]["launches"]}}
+        "9b router": {"flash_fwd": tier["router"]["launches"]},
+        **{f"10a {d} decode streams": {"flash_fwd": decode[d][
+            "launches_decode"]} for d, _, _ in DECODE_CONFIGS},
+        **{f"10a {d} infill": {"flash_fwd": decode[d]["launches_infill"]}
+           for d, _, _ in DECODE_CONFIGS}}
     print(f"[launches] per path (counts set to 0 just before each, read "
           f"just after): {json.dumps(launches_by_path)}")
     # 6 times: K1-K3 at every training shape of the paths, K4/K5 at the
@@ -3094,7 +3679,8 @@ def main():
         "flash_bwd_times": bwd_times, "flash_shape_times": shape_times,
         "fused_ce_times": ce_times, "fused_ce_pack_times": ce_pack_times,
         "flash_build": occupancy, "fused": fused, "fused_times": fused_ms,
-        "loop": loop_rec, "serving_tier": tier, "phase_seconds": clock,
+        "loop": loop_rec, "serving_tier": tier, "decode": decode,
+        "phase_seconds": clock,
         "seconds": time.monotonic() - t_start}
     print(f"[summary] {json.dumps(summary)}")
 

@@ -31,6 +31,11 @@ Int8 weight-only serving swaps each dense layer for a :class:`QuantLinear`
 (:func:`quantize_linears`), whose ``_dense`` branch is the JAX ``qscale``
 one.  Not in this slice, and refused rather than approximated: MoE layers
 and sequence-parallel (ring) attention.
+
+The masked-LM head (:class:`MLMHead`, :func:`init_mlm_head`,
+:func:`mlm_logits`) is its own module beside the classifier, as the JAX
+head is its own tree, so classifier checkpoints load into the trunk
+unchanged; its decoder is tied to ``embeddings.word``.
 """
 from __future__ import annotations
 
@@ -214,6 +219,49 @@ def _remat(layer: EncoderLayer, x: torch.Tensor, *args,
             generator.set_state(now)
 
     return checkpoint(body, x, use_reentrant=False, preserve_rng_state=False)
+
+
+class MLMHead(nn.Module):
+    """The masked-LM head (``bert.init_mlm_head``'s tree): a dense
+    ``transform``, GELU, the LayerNorm ``ln``, then a decoder TIED to the
+    trunk's word embeddings plus a per-token ``bias``.  The word matrix is
+    the trunk's, so the head holds no copy of it."""
+
+    def __init__(self, cfg: BertConfig, device=None):
+        super().__init__()
+        self.cfg = cfg
+        H = cfg.hidden_size
+        self.transform = nn.Linear(H, H, device=device)
+        self.ln = LayerNorm(H, device)
+        self.bias = nn.Parameter(torch.zeros(cfg.vocab_size, device=device))
+
+
+@torch.no_grad()
+def init_mlm_head(cfg: BertConfig, *,
+                  generator: Optional[torch.Generator] = None,
+                  device=None) -> MLMHead:
+    """A fresh :class:`MLMHead`: truncated normal (+-2 std) transform,
+    zero biases, unit LayerNorm — the JAX ``init_mlm_head`` scheme (other
+    draws: the generators differ)."""
+    head = MLMHead(cfg, device)
+    std = cfg.initializer_range
+    nn.init.trunc_normal_(head.transform.weight, std=std, a=-2 * std,
+                          b=2 * std, generator=generator)
+    head.transform.bias.zero_()
+    return head
+
+
+def mlm_logits(model: "BertClassifier", head: MLMHead, hidden: torch.Tensor,
+               *, dtype: torch.dtype = torch.float32) -> torch.Tensor:
+    """``[B, S, H]`` hidden states -> ``[B, S, vocab]`` fp32 logits: the
+    transform, GELU and LayerNorm, then the tied decoder
+    (``embeddings.word`` cast to the compute dtype) plus the bias."""
+    cfg = head.cfg
+    h = _gelu(_dense(hidden, head.transform), cfg.gelu)
+    h = _layer_norm(h, head.ln.scale, head.ln.bias, cfg.layer_norm_eps)
+    word = model.embeddings.word.to(dtype)
+    logits = torch.einsum("bsh,vh->bsv", h, word) + head.bias.to(dtype)
+    return logits.to(torch.float32)
 
 
 class BertClassifier(nn.Module):

@@ -20,6 +20,13 @@ An int8 serving ``state_dict`` (``serve.quant``) carries a
 ``<name>.qscale`` beside each int8 ``<name>.weight``; both directions map
 it onto the JAX dense block's ``qscale`` leaf, so a JAX ``*.int8.msgpack``
 artifact loads into the port and the port's is the same bytes.
+
+Generative decoding adds two small trees, bridged the same way: the LM
+head (``{"transform", "ln", "bias"}``, the JAX ``init_lm_head`` tree, to
+``models.bert.MLMHead``'s ``state_dict``; its int8 form carries the
+transform's ``qscale``) and the int8 KV-cache scale tables
+(``{"k_scale", "v_scale"}``, ``[L, N, D]`` each, the ``.kvscales.msgpack``
+sidecar).
 """
 from __future__ import annotations
 
@@ -135,3 +142,44 @@ def _to_jax_params(state_dict: Dict[str, torch.Tensor]) -> Dict[str, Any]:
                        lambda: a(f"{name}.{QSCALE}"))
            for name in ("pooler", "classifier")},
     }
+
+
+def head_from_jax(tree: Dict[str, Any]) -> Dict[str, torch.Tensor]:
+    """JAX LM-head tree -> ``MLMHead``'s ``state_dict``."""
+    tr = tree["transform"]
+    sd = {"transform.weight": _t(np.asarray(tr["kernel"]).T)}
+    if QSCALE in tr:
+        sd[f"transform.{QSCALE}"] = _t(tr[QSCALE])
+    sd.update({"transform.bias": _t(tr["bias"]),
+               "ln.scale": _t(tree["ln"]["scale"]),
+               "ln.bias": _t(tree["ln"]["bias"]),
+               "bias": _t(tree["bias"])})
+    return sd
+
+
+def head_to_jax(state_dict: Dict[str, torch.Tensor]) -> Dict[str, Any]:
+    """``MLMHead``'s ``state_dict`` -> the JAX LM-head tree (numpy leaves,
+    keys in flax's order)."""
+    def a(key) -> np.ndarray:
+        return state_dict[key].detach().cpu().numpy()
+
+    tr = {"kernel": a("transform.weight").T, "bias": a("transform.bias")}
+    if f"transform.{QSCALE}" in state_dict:
+        tr[QSCALE] = a(f"transform.{QSCALE}")
+    return _sorted({"transform": tr,
+                    "ln": {"scale": a("ln.scale"), "bias": a("ln.bias")},
+                    "bias": a("bias")})
+
+
+def kv_scales_from_jax(tree: Dict[str, Any]):
+    """``{"k_scale", "v_scale"}`` ``[L, N, D]`` tables -> a ``(k, v)`` pair
+    of fp32 tensors."""
+    return (_t(np.asarray(tree["k_scale"], np.float32)),
+            _t(np.asarray(tree["v_scale"], np.float32)))
+
+
+def kv_scales_to_jax(k_scale: torch.Tensor,
+                     v_scale: torch.Tensor) -> Dict[str, Any]:
+    """The ``(k, v)`` tables -> the sidecar's tree (numpy fp32 leaves)."""
+    return {"k_scale": k_scale.detach().cpu().to(torch.float32).numpy(),
+            "v_scale": v_scale.detach().cpu().to(torch.float32).numpy()}

@@ -9,7 +9,13 @@
   / ``ckpt_save`` / ``ckpt_wait`` record triggers a read, tagged with the
   phase; samples land in the trace as zero-duration ``"hbm"`` records.  On
   the CPU the first sample flips ``supported=False`` and every later call
-  is one attribute read.
+  is one attribute read;
+- :class:`KVBudget` — the declared ``--kv_hbm_mb`` budget of one decode
+  engine's KV cache: it caps the preallocation at construction and
+  refuses an oversized stream at admission, both loudly
+  (:class:`KVBudgetExceeded`), and carries the live-bytes gauge.  The
+  bytes it counts are the cache tensors the engine allocates on the card;
+  what the card's allocator holds in all is :func:`device_memory_stats`'s.
 
 Reads are host calls against the allocator's counters: no launch, no sync.
 """
@@ -74,6 +80,100 @@ def memory_snapshot(devices: Optional[Sequence] = None) -> Dict:
         "gb_in_use": gb(in_use),
         "gb_peak": gb(peak),
     }
+
+
+class KVBudgetExceeded(RuntimeError):
+    """A generative stream (or a decode engine's cache preallocation) would
+    exceed the declared ``--kv_hbm_mb`` KV budget — the loud refusal that
+    replaces an allocator OOM three layers deeper."""
+
+
+class KVBudget:
+    """Declared KV-cache budget for one decode engine
+    (``pdnlp_tpu/obs/memory.py``'s, unchanged).
+
+    The engine preallocates its cache once (slots or pages, updated in
+    place — decode never allocates), so the budget decides at two doors:
+
+    - **construction**: :meth:`cap_slots` / :meth:`cap_pages` return how
+      many slots or pages the budget covers — the engine allocates that
+      many (noted on stderr when capped below the request) and refuses
+      outright when not even one maximum-length stream fits;
+    - **admission**: :meth:`check_stream` refuses a stream whose worst
+      case (``prompt + max_new_tokens`` positions) cannot fit.
+
+    :meth:`set_live` / :attr:`live_bytes` is the ``/metrics`` gauge:
+    positions actually written across live streams x bytes per position.
+    ``budget_mb`` 0 or None disables every check and keeps the gauge."""
+
+    def __init__(self, budget_mb: Optional[float] = None):
+        self.budget_bytes: Optional[int] = (
+            None if not budget_mb else int(float(budget_mb) * 2**20))
+        self._live = 0
+        self._lock = threading.Lock()
+
+    def cap_slots(self, requested: int, slot_bytes: int) -> int:
+        """Slots the budget covers (``requested`` when unbudgeted); raises
+        :class:`KVBudgetExceeded` when it cannot cover one."""
+        if self.budget_bytes is None:
+            return int(requested)
+        fit = self.budget_bytes // max(1, int(slot_bytes))
+        if fit < 1:
+            raise KVBudgetExceeded(
+                f"kv_hbm_mb={self.budget_bytes / 2**20:.1f} cannot hold "
+                f"even one decode slot ({slot_bytes / 2**20:.1f} MB of KV "
+                "at this max_len/model) — raise --kv_hbm_mb or shrink "
+                "--decode_max_len")
+        return min(int(requested), int(fit))
+
+    def cap_pages(self, requested: int, page_bytes: int,
+                  min_pages: int = 1) -> int:
+        """Pages the budget covers (``requested`` when unbudgeted);
+        ``min_pages`` is one maximum-length stream's pages — a budget that
+        cannot cover it refuses here instead of deadlocking every claim."""
+        if self.budget_bytes is None:
+            return int(requested)
+        fit = self.budget_bytes // max(1, int(page_bytes))
+        if fit < int(min_pages):
+            raise KVBudgetExceeded(
+                f"kv_hbm_mb={self.budget_bytes / 2**20:.1f} covers only "
+                f"{fit} KV pages ({page_bytes / 2**20:.2f} MB/page) but "
+                f"one maximum-length stream needs {min_pages} — raise "
+                "--kv_hbm_mb or shrink --decode_max_len/--kv_page_sz")
+        return min(int(requested), int(fit))
+
+    def check_stream(self, tokens_total: int, token_bytes: int) -> None:
+        """Admission door: refuse a stream whose worst-case KV cannot fit
+        under the budget."""
+        if self.budget_bytes is None:
+            return
+        need = int(tokens_total) * int(token_bytes)
+        if need > self.budget_bytes:
+            raise KVBudgetExceeded(
+                f"stream needs {need / 2**20:.1f} MB of KV "
+                f"({tokens_total} positions) but the declared budget is "
+                f"{self.budget_bytes / 2**20:.1f} MB (--kv_hbm_mb) — "
+                "shorten the prompt / max_new_tokens or raise the budget")
+
+    def set_live(self, nbytes: int) -> None:
+        with self._lock:
+            self._live = int(nbytes)
+
+    @property
+    def live_bytes(self) -> int:
+        with self._lock:
+            return self._live
+
+    def snapshot(self) -> Dict:
+        """JSON-ready block for engine snapshots and the exporter."""
+        with self._lock:
+            live = self._live
+        return {
+            "budget_mb": (None if self.budget_bytes is None
+                          else round(self.budget_bytes / 2**20, 3)),
+            "live_bytes": live,
+            "live_mb": round(live / 2**20, 3),
+        }
 
 
 class MemorySampler:

@@ -1,5 +1,5 @@
-"""Classifier serving from the command line — the classifier surface of
-``serve_tpu.py``.
+"""Serving from the command line — the classifier and the generative
+surfaces of ``serve_tpu.py``.
 
 Online (default): one text per stdin line through the dynamic batcher (or,
 with ``--replicas N`` > 1, the replica router), answers printed in input
@@ -23,6 +23,23 @@ plus every ``Args`` field (``--device``, ``--model``, ``--dtype``,
 it builds (``data.native``); the first stderr line names the encoder.
 SIGTERM / SIGINT stop intake, drain every accepted request, then flush the
 metrics snapshot and the spans.
+
+Generative (``--decode``): one prompt per stdin line, tokens streamed as
+they decode — ``<line>\\ttok\\t<piece>`` for each, then
+``<line>\\tgen\\t<text>`` closing the stream (``<line>\\tERROR\\t...`` for
+a refusal):
+
+    printf '...\n' | python -m pdnlp_tpu_torch.serve.cli --decode \
+        --model bert-base --vocab_path output/vocab.txt [--checkpoint c.pt] \
+        [--replicas 2] [--kv_layout paged|slots] [--kv_dtype int8] \
+        [--decode_slots 8] [--decode_max_len 256] [--max_new_tokens 32] \
+        [--kv_hbm_mb 512] [--kv_page_sz 16]
+
+``--replicas`` engines share the card behind ``serve.decode.DecodeRouter``;
+each captures one CUDA graph per decode shape at warmup.  Speculation and
+the disaggregated pools (``--speculate``, ``--draft_k``, ``--disagg``,
+``--prefill_engines``, ``--decode_engines``) are ROADMAP A10b, the
+controller A9b; each is refused by name.
 """
 from __future__ import annotations
 
@@ -41,12 +58,11 @@ NOT_PORTED = {
     "--canary_fraction": "the multi-model fleet (ROADMAP A9b)",
     "--degrade_at": "the multi-model fleet (ROADMAP A9b)",
     "--rollout": "the multi-model fleet (ROADMAP A9b)",
-    "--decode": "generative decoding (ROADMAP A10)",
-    "--speculate": "speculative decoding (ROADMAP A10)",
-    "--draft_k": "speculative decoding (ROADMAP A10)",
-    "--disagg": "disaggregated prefill/decode (ROADMAP A10)",
-    "--prefill_engines": "disaggregated prefill/decode (ROADMAP A10)",
-    "--decode_engines": "disaggregated prefill/decode (ROADMAP A10)",
+    "--speculate": "speculative decoding (ROADMAP A10b)",
+    "--draft_k": "speculative decoding (ROADMAP A10b)",
+    "--disagg": "disaggregated prefill/decode (ROADMAP A10b)",
+    "--prefill_engines": "disaggregated prefill/decode (ROADMAP A10b)",
+    "--decode_engines": "disaggregated prefill/decode (ROADMAP A10b)",
 }
 
 
@@ -110,6 +126,137 @@ def build_router(args, replicas: int, *, checkpoint: Optional[str] = None,
         tracer=engines[0].tracer)
 
 
+def build_decode_pool(args, replicas: int, *,
+                      checkpoint: Optional[str] = None, tokenizer=None,
+                      buckets=None, max_waiting: int = 256):
+    """Generative serving pool (``serve_tpu.py:build_decode_pool`` without
+    speculation and the disaggregated pools): ``replicas`` decode engines
+    on the card — :class:`~pdnlp_tpu_torch.serve.decode.PagedDecodeEngine`
+    under ``--kv_layout paged`` (the default), ``DecodeEngine`` under
+    ``slots`` — behind a ``DecodeRouter`` (one replica included: the
+    router is the one submit/kill/snapshot surface).  The engines share
+    one tokenizer and one tracer; each loads ``checkpoint``."""
+    from pdnlp_tpu_torch.data.tokenizer import (
+        WordPieceTokenizer, get_or_build_vocab,
+    )
+    from pdnlp_tpu_torch.serve.batcher import DEFAULT_BUCKETS
+    from pdnlp_tpu_torch.serve.decode import (
+        DecodeEngine, DecodeRouter, PagedDecodeEngine,
+    )
+
+    if args.kv_layout not in ("paged", "slots"):
+        sys.exit(f"serve.cli: --kv_layout takes paged|slots, got "
+                 f"{args.kv_layout!r}")
+    tok = tokenizer or WordPieceTokenizer(get_or_build_vocab(args))
+    cls = PagedDecodeEngine if args.kv_layout == "paged" else DecodeEngine
+    engines = [cls(args, tokenizer=tok, buckets=buckets or DEFAULT_BUCKETS)
+               for _ in range(replicas)]
+    for e in engines[1:]:
+        e.tracer = engines[0].tracer   # one span/hop stream for the pool
+    if checkpoint:
+        for e in engines:
+            e.load_checkpoint(checkpoint)
+        print(f"decoding from {checkpoint} on {replicas} replica(s)",
+              file=sys.stderr)
+    else:
+        print("WARNING: no --checkpoint — decoding from untrained init "
+              "weights (smoke mode)", file=sys.stderr)
+    return DecodeRouter(engines, max_waiting=max_waiting,
+                        default_max_new=args.max_new_tokens)
+
+
+def serve_decode(args, *, replicas: int, checkpoint: Optional[str],
+                 tokenizer, buckets, max_queue: int,
+                 deadline_ms: Optional[float],
+                 metrics_path: Optional[str]) -> None:
+    """The ``--decode`` online loop (``serve_tpu.py:serve_decode``): one
+    prompt per stdin line, tokens streamed to stdout as they decode.
+    Results drain in submission order; a window of in-flight streams
+    keeps the decode slots full (continuous batching needs waiting streams
+    to claim freed slots)."""
+    from pdnlp_tpu_torch.serve.decode import detokenize
+
+    pool = build_decode_pool(args, replicas, checkpoint=checkpoint,
+                             tokenizer=tokenizer, buckets=buckets,
+                             max_waiting=max_queue)
+    engine = pool.engine(0)
+    pool.start()
+    pool.warmup()
+    print(f"ready ({replicas} replica(s), {args.kv_layout} KV "
+          f"{engine.kv_snapshot()['kv_dtype']}, {engine.slots} slots x "
+          f"{engine.max_len} positions on {engine.device}, serve_dtype "
+          f"{engine.dtype_label}) — one prompt per line on stdin (EOF to "
+          "exit); tokens stream as `<line>\\ttok\\t<piece>`",
+          file=sys.stderr)
+
+    exporter = None
+    if args.metrics_port or args.flight_recorder:
+        from pdnlp_tpu_torch.obs import memory_snapshot
+        from pdnlp_tpu_torch.obs.exporter import build_from_args
+
+        exporter = build_from_args(
+            args, {"decode": pool.snapshot, "memory": memory_snapshot},
+            "flight_decode.jsonl",
+            health_sources={"decode": pool.health_summary})
+        if exporter is not None and exporter.port is not None:
+            print(f"[obs] /metrics + /healthz on "
+                  f"http://127.0.0.1:{exporter.port}", file=sys.stderr)
+
+    tok = engine.tokenizer
+    max_new = args.max_new_tokens
+    # leave generation room: a prompt may use max_len - max_new positions
+    prompt_budget = max(1, engine.max_len - max_new)
+    # enough streams in flight to keep every slot claimable, capped at the
+    # waiting-queue bound so pipelining never walks into the reject tier
+    window = min(2 * sum(b.engine.slots for b in pool.batchers), max_queue)
+    inflight: deque = deque()
+
+    def emit(idx, stream) -> None:
+        try:
+            for tid in stream.tokens(timeout=120):
+                print(f"{idx}\ttok\t{tok.vocab_list[tid]}", flush=True)
+            print(f"{idx}\tgen\t{detokenize(tok, stream.emitted)}",
+                  flush=True)
+        except Exception as e:  # noqa: BLE001 — the stream failed: report
+            print(f"{idx}\tERROR\t{type(e).__name__}: {e}", flush=True)
+
+    n = 0
+    try:
+        for line in sys.stdin:
+            text = line.strip()
+            if not text:
+                continue
+            ids = tok.encode_ids(text, prompt_budget)
+            try:
+                inflight.append((n, pool.submit_ids(
+                    ids, max_new_tokens=max_new, deadline_ms=deadline_ms)))
+            except Exception as e:  # noqa: BLE001 — a refusal: report
+                print(f"{n}\tERROR\t{type(e).__name__}: {e}", flush=True)
+            n += 1
+            while len(inflight) >= window:
+                emit(*inflight.popleft())
+    except _ShutdownRequested as e:
+        print(f"[serve] {e} — draining {len(inflight)} stream(s), then "
+              "shutting down", file=sys.stderr)
+    finally:
+        while inflight:
+            emit(*inflight.popleft())
+        pool.stop(drain=True)
+        if exporter is not None:
+            exporter.stop(final_flight=True)
+        snap = pool.snapshot()
+        if metrics_path:
+            from pdnlp_tpu_torch.serve.metrics import _save_json
+
+            _save_json(snap, metrics_path)
+            print(f"metrics snapshot -> {metrics_path}", file=sys.stderr)
+        else:
+            print(json.dumps(snap, indent=2), file=sys.stderr)
+        trace_path = engine.tracer.flush()
+        if trace_path:
+            print(f"[obs] spans -> {trace_path}", file=sys.stderr)
+
+
 def main(argv=None) -> None:
     from pdnlp_tpu_torch.data import native
     from pdnlp_tpu_torch.data.corpus import id2label
@@ -138,9 +285,24 @@ def main(argv=None) -> None:
     argv, in_path = pop_cli_flag(argv, "--input")
     argv, out_path = pop_cli_flag(argv, "--output")
     argv, metrics_path = pop_cli_flag(argv, "--metrics_path")
+    decode_mode = "--decode" in argv
+    if decode_mode:
+        argv.remove("--decode")
     args = parse_cli(argv)
     buckets = (tuple(int(b) for b in buckets_s.split(",")) if buckets_s
                else DEFAULT_BUCKETS)
+    if decode_mode:
+        if in_path or serve_pack != "auto" or args.serve_long_widths:
+            sys.exit("serve.cli: --decode is the generative online path — "
+                     "drop --input/--serve_pack/--serve_long_widths")
+        _install_signal_handlers()
+        tok = WordPieceTokenizer(get_or_build_vocab(args))
+        encoder = "native" if native.attach(tok) else "python"
+        print(f"encoder: {encoder}", file=sys.stderr)
+        serve_decode(args, replicas=replicas, checkpoint=checkpoint,
+                     tokenizer=tok, buckets=buckets, max_queue=max_queue,
+                     deadline_ms=deadline, metrics_path=metrics_path)
+        return
     long_widths = parse_long_widths(args.serve_long_widths)
     if long_widths and in_path:
         sys.exit("serve.cli: --serve_long_widths is the online path's "

@@ -63,10 +63,10 @@ CAPTURE_LOCK = threading.Lock()
 
 
 class _ShapeGraph:
-    """One captured forward: its static inputs — every channel a view of
+    """One captured program: its static inputs — every channel a view of
     one int32 device buffer, filled from one pinned host buffer by one
-    copy — the pinned buffer for the logits, the graph, and what its
-    capture recorded."""
+    copy — the pinned buffer for the logits (None for a program that only
+    writes device state), the graph, and what its capture recorded."""
 
     def __init__(self, graph, device_in, host_in, logits, host_out,
                  launches, seconds, pool_bytes):
@@ -152,27 +152,31 @@ class InferenceEngine:
 
     # ------------------------------------------------------------ params
     def _serving_state(self, state_dict: Mapping[str, torch.Tensor],
-                       path: str) -> Dict[str, torch.Tensor]:
+                       path: str, templates: Optional[Tuple[Mapping, Mapping]]
+                       = None) -> Dict[str, torch.Tensor]:
         """A loaded CPU ``state_dict`` -> what this engine serves, every
         check passed: quantized on the fly under int8 (an int8 artifact
         is checked against the quantized template), refused when int8
-        meets a float engine."""
+        meets a float engine.  ``templates`` = ``(float, serving)``
+        templates of another module than the trunk (the decoder's LM
+        head)."""
         from pdnlp_tpu_torch.serve.quant import is_quantized, quantize_state
 
+        template, serving_template = templates or (self._template,
+                                                   self._serving_template)
         if self.serve_dtype == "int8":
             if is_quantized(state_dict):
-                ckpt.check_state(state_dict, self._serving_template,
-                                 path=path)
-                bad = [k for k, v in self._serving_template.items()
+                ckpt.check_state(state_dict, serving_template, path=path)
+                bad = [k for k, v in serving_template.items()
                        if (v.dtype == torch.int8)
                        != (state_dict[k].dtype == torch.int8)]
                 if bad:
                     raise ValueError(
                         f"checkpoint {path!r}: {bad[0]} has dtype "
                         f"{state_dict[bad[0]].dtype}, the int8 template "
-                        f"{self._serving_template[bad[0]].dtype}")
+                        f"{serving_template[bad[0]].dtype}")
                 return dict(state_dict)
-            ckpt.check_state(state_dict, self._template, path=path)
+            ckpt.check_state(state_dict, template, path=path)
             return quantize_state(state_dict)
         if is_quantized(state_dict):
             raise ValueError(
@@ -180,7 +184,7 @@ class InferenceEngine:
                 "(quantize_ckpt.py) but this engine serves "
                 f"{self.serve_dtype!r} — start it with --serve_dtype "
                 "int8, or point it at the float checkpoint")
-        ckpt.check_state(state_dict, self._template, path=path)
+        ckpt.check_state(state_dict, template, path=path)
         return dict(state_dict)
 
     def load_state(self, state_dict: Mapping[str, torch.Tensor],
@@ -243,12 +247,16 @@ class InferenceEngine:
             return self._model_forward(fwd).cpu().numpy()
 
     def _capture(self, key: tuple, batch: Dict[str, np.ndarray],
-                 keys) -> _ShapeGraph:
-        """Capture the forward at ``batch``'s shape: static buffers, one
-        eager warm-up forward on the engine's stream (kernel libraries
-        load, cuBLAS sets up), then the capture.  Counts a retrace."""
+                 keys, fn=None) -> _ShapeGraph:
+        """Capture ``fn`` (default: the classifier forward) at ``batch``'s
+        shape: static buffers, one eager warm-up run on the engine's
+        stream (kernel libraries load, cuBLAS sets up), then the capture.
+        A program that writes device state in place (the decoder's caches)
+        must give the same state when run twice on the same inputs — the
+        warm-up and the first replay both run it.  Counts a retrace."""
         from pdnlp_tpu_torch.ops import flash
 
+        fn = fn or self._model_forward
         with CAPTURE_LOCK:
             sizes = [int(np.prod(batch[k].shape)) for k in keys]
             device_in = torch.empty(sum(sizes), dtype=torch.int32,
@@ -266,7 +274,7 @@ class InferenceEngine:
                 for k in keys:
                     inputs[k].copy_(torch.from_numpy(
                         np.ascontiguousarray(batch[k])))
-                self._model_forward(inputs)
+                fn(inputs)
             stream.synchronize()
             # the capture empties the allocator's cache first; so does
             # this, so the reserved bytes' growth is the graph's pool
@@ -278,12 +286,12 @@ class InferenceEngine:
                     torch.inference_mode(), \
                     torch.cuda.graph(graph, pool=self._pool, stream=stream,
                                      capture_error_mode="thread_local"):
-                logits = self._model_forward(inputs)
+                logits = fn(inputs)
             seconds = time.perf_counter() - t0
             if self._pool is None:
                 self._pool = graph.pool()
-            host_out = torch.empty(logits.shape, dtype=logits.dtype,
-                                   pin_memory=True)
+            host_out = None if logits is None else torch.empty(
+                logits.shape, dtype=logits.dtype, pin_memory=True)
             g = _ShapeGraph(graph, device_in, host_in, logits, host_out,
                             dict(launches), seconds,
                             torch.cuda.memory_reserved(self.device)
@@ -293,13 +301,13 @@ class InferenceEngine:
         return g
 
     def _replay(self, key: tuple, batch: Dict[str, np.ndarray],
-                keys) -> np.ndarray:
+                keys, fn=None) -> Optional[np.ndarray]:
         from pdnlp_tpu_torch.ops import flash
 
         # the graph key holds every channel's shape (a packed batch of
         # another segment capacity is another graph, counted as a retrace)
         gkey = (key, tuple(batch[k].shape for k in keys))
-        g = self._graphs.get(gkey) or self._capture(gkey, batch, keys)
+        g = self._graphs.get(gkey) or self._capture(gkey, batch, keys, fn)
         stream = self._stream
         staged = g.host_in.numpy()
         o = 0
@@ -310,11 +318,12 @@ class InferenceEngine:
         with torch.cuda.stream(stream):
             g.device_in.copy_(g.host_in, non_blocking=True)
             g.graph.replay()
-            g.host_out.copy_(g.logits, non_blocking=True)
+            if g.logits is not None:
+                g.host_out.copy_(g.logits, non_blocking=True)
         stream.synchronize()
         g.replays += 1
         flash.add_launches(g.launches, 1)
-        return g.host_out.numpy().copy()
+        return None if g.logits is None else g.host_out.numpy().copy()
 
     def _execute(self, batch: Dict[str, np.ndarray], key: tuple, keys,
                  *, segments: Optional[int] = None,

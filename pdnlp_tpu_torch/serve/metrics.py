@@ -22,9 +22,11 @@ What each instrument answers:
 
 The replica router adds :class:`RouterMetrics` (admission tiers, requeues,
 retries, hedges, ejections, swaps, recovery) and :class:`ReplicaMetrics`
-(replica-labelled queue depth, occupancy and failure counters).  The
-decode and fleet metrics come with generative decoding (ROADMAP A10) and
-the fleet (A9b).
+(replica-labelled queue depth, occupancy and failure counters).
+Generative decoding adds :class:`DecodeMetrics` (tokens, TTFT and
+inter-token gaps, the KV and page gauges; its speculation and handoff
+counters stay at 0 until ROADMAP A10b).  The fleet metrics come with the
+fleet (A9b).
 """
 from __future__ import annotations
 
@@ -208,3 +210,113 @@ class RouterMetrics:
 
     def save(self, path: str) -> None:
         _save_json(self.snapshot(), path)
+
+
+class DecodeMetrics:
+    """Generative-decoding observability (``serve.decode``), in the units
+    that tier actually optimizes — TOKENS and inter-token gaps, not
+    request rows:
+
+    - ``streams_total`` / ``rejected_total`` / ``deadline_expired_total``
+      — stream admission accounting (rejects include KV-budget refusals);
+    - ``prefills_total`` / ``prefill_tokens_total`` — bucketed prompt
+      forwards and the prompt tokens they consumed;
+    - ``decode_steps_total`` / ``tokens_out_total`` — fixed-shape decode
+      dispatches and the tokens they produced (tokens/s/chip = the bench
+      headline);
+    - ``ttft_ms`` — submit -> first token (the prefill-visible latency);
+    - ``intertoken_ms`` — gap between consecutive tokens of one stream
+      (p99 is the streaming SLO ``bench.py --decode`` gates);
+    - ``waiting`` — streams queued for a free slot;
+    - ``kv_bytes_live`` / ``kv_slots_live`` — live KV occupancy (the
+      ``--kv_hbm_mb`` budget gauge on ``/metrics``);
+    - ``kv_pages_live`` / ``kv_pages_free`` — paged layout only: page
+      pool occupancy and free-list depth (allocator/index detail rides
+      ``kv_snapshot()``/``control_snapshot()``);
+    - ``peak_live_streams`` — high-water concurrent live streams (the
+      admitted-concurrency headline the paged-vs-slot bench gates).
+
+    Speculative decoding (draft-k / verify-1) adds its acceptance
+    accounting — the live signal the controller's ``draft_k`` law and
+    the bench's speedup gate both read:
+
+    - ``draft_tokens_total`` / ``accepted_tokens_total`` — tokens the
+      cheap drafter proposed / tokens the primary's verify call kept
+      (their ratio is the acceptance rate; every ACCEPTED token skipped
+      one full primary decode step);
+    - ``verify_calls_total`` / ``spec_rounds_total`` — primary verify
+      dispatches and completed draft→verify rounds;
+    - ``accept_rate`` — live cumulative acceptance gauge (per-stream
+      counts ride the ``verify`` hops);
+    - ``drafter_deaths_total`` — drafter engines lost mid-storm (each
+      one degraded its pair to primary-only decode, decision-recorded).
+
+    Disaggregated pools (prefill-role vs decode-role engines) add the
+    handoff accounting — sender-side, counted when the receiver ACKED:
+
+    - ``handoffs_total`` / ``handoff_pages_total`` /
+      ``handoff_bytes_total`` — placed handoffs and the page/byte
+      volume they moved between allocators;
+    - ``handoff_failures_total`` — dispatches no decode engine took
+      (each one re-prefilled at the sender: recovery, not loss);
+    - ``handoff_ms`` — export→ack latency per handoff (the
+      disaggregation tax ``bench.py --decode`` phase F budgets).
+    """
+
+    def __init__(self) -> None:
+        self.streams_total = Counter()
+        self.rejected_total = Counter()
+        self.deadline_expired_total = Counter()
+        self.prefills_total = Counter()
+        self.prefill_tokens_total = Counter()
+        self.decode_steps_total = Counter()
+        self.tokens_out_total = Counter()
+        self.draft_tokens_total = Counter()
+        self.accepted_tokens_total = Counter()
+        self.verify_calls_total = Counter()
+        self.spec_rounds_total = Counter()
+        self.drafter_deaths_total = Counter()
+        self.handoffs_total = Counter()
+        self.handoff_pages_total = Counter()
+        self.handoff_bytes_total = Counter()
+        self.handoff_failures_total = Counter()
+        self.ttft_ms = Histogram()
+        self.intertoken_ms = Histogram()
+        self.handoff_ms = Histogram()
+        self.waiting = Gauge()
+        self.accept_rate = Gauge()
+        self.kv_bytes_live = Gauge()
+        self.kv_slots_live = Gauge()
+        self.kv_pages_live = Gauge()
+        self.kv_pages_free = Gauge()
+        self.peak_live_streams = Gauge()
+
+    def snapshot(self) -> Dict:
+        return {
+            "streams_total": self.streams_total.value,
+            "rejected_total": self.rejected_total.value,
+            "deadline_expired_total": self.deadline_expired_total.value,
+            "prefills_total": self.prefills_total.value,
+            "prefill_tokens_total": self.prefill_tokens_total.value,
+            "decode_steps_total": self.decode_steps_total.value,
+            "tokens_out_total": self.tokens_out_total.value,
+            "draft_tokens_total": self.draft_tokens_total.value,
+            "accepted_tokens_total": self.accepted_tokens_total.value,
+            "verify_calls_total": self.verify_calls_total.value,
+            "spec_rounds_total": self.spec_rounds_total.value,
+            "drafter_deaths_total": self.drafter_deaths_total.value,
+            "handoffs_total": self.handoffs_total.value,
+            "handoff_pages_total": self.handoff_pages_total.value,
+            "handoff_bytes_total": self.handoff_bytes_total.value,
+            "handoff_failures_total": self.handoff_failures_total.value,
+            "accept_rate": self.accept_rate.value,
+            "ttft_ms": self.ttft_ms.snapshot(),
+            "intertoken_ms": self.intertoken_ms.snapshot(),
+            "handoff_ms": self.handoff_ms.snapshot(),
+            "waiting": self.waiting.value,
+            "kv_bytes_live": self.kv_bytes_live.value,
+            "kv_slots_live": self.kv_slots_live.value,
+            "kv_pages_live": self.kv_pages_live.value,
+            "kv_pages_free": self.kv_pages_free.value,
+            "peak_live_streams": self.peak_live_streams.value,
+        }

@@ -13,14 +13,25 @@ data, no device.
     # -> output/dp-cls.int8.msgpack (flax's bytes, as the JAX script's)
 
 The output goes through ``train.checkpoint``'s publish (atomic, with a
-CRC32 manifest).  ``--kv_calib`` (the KV-cache scale tables of generative
-decoding) is refused: decoding is ROADMAP A10.
+CRC32 manifest).
+
+``--kv_calib MODEL`` also writes the int8 KV-cache scale tables of
+generative decoding (``--kv_dtype int8``): per-(layer, head, channel)
+symmetric scales from the seeded synthetic causal forward of
+``models.decoder.calibrate_kv_scales`` on the CPU — the computation a
+decode engine runs when it calibrates itself, so on the same device the
+two give the same bytes.  They land beside the INPUT checkpoint as
+``<stem>.kvscales.msgpack`` (flax's bytes, through ``train/msgpack.py``,
+with a manifest), which the decode engine loads when the checkpoint swaps
+in.
 """
 from __future__ import annotations
 
 import argparse
 import os
 import sys
+
+import torch
 
 
 def artifact_path(checkpoint: str) -> str:
@@ -29,9 +40,30 @@ def artifact_path(checkpoint: str) -> str:
     from pdnlp_tpu_torch.train import checkpoint as ckpt
 
     ext = ".msgpack" if ckpt.is_msgpack(checkpoint) else ".pt"
-    stem = checkpoint[: -len(ext)] if checkpoint.endswith(ext) \
-        else checkpoint
-    return f"{stem}.int8{ext}"
+    return f"{ckpt.stem(checkpoint)}.int8{ext}"
+
+
+def emit_kv_scales(state_dict, model: str, checkpoint: str) -> str:
+    """Calibrate and publish the int8 KV scale tables for ``checkpoint``'s
+    weights: ``<stem>.kvscales.msgpack``, manifest-verified."""
+    from pdnlp_tpu_torch.models import convert
+    from pdnlp_tpu_torch.models.bert import BertClassifier
+    from pdnlp_tpu_torch.models.config import get_config
+    from pdnlp_tpu_torch.models.decoder import calibrate_kv_scales
+    from pdnlp_tpu_torch.train import checkpoint as ckpt
+
+    vocab = int(state_dict["embeddings.word"].shape[0])
+    cfg = get_config(model, vocab_size=vocab,
+                     num_labels=int(state_dict["classifier.weight"].shape[0]))
+    net = BertClassifier(cfg)
+    net.load_state_dict(state_dict)
+    k_scale, v_scale = calibrate_kv_scales(net.eval())
+    out = ckpt.stem(checkpoint) + ".kvscales.msgpack"
+    ckpt.save(out, convert.kv_scales_to_jax(torch.from_numpy(k_scale),
+                                            torch.from_numpy(v_scale)))
+    print(f"wrote {out}  (KV scale tables {k_scale.shape}, model={model}, "
+          f"vocab={vocab})")
+    return out
 
 
 def main(argv=None) -> int:
@@ -41,15 +73,14 @@ def main(argv=None) -> int:
     from pdnlp_tpu_torch.train import checkpoint as ckpt
 
     argv = list(sys.argv[1:] if argv is None else argv)
-    if "--kv_calib" in argv:
-        print("quantize_ckpt: --kv_calib calibrates the int8 KV cache of "
-              "generative decoding, which the PyTorch port does not have "
-              "yet (ROADMAP A10)", file=sys.stderr)
-        return 2
     p = argparse.ArgumentParser(description=__doc__)
     p.add_argument("checkpoint", help="params checkpoint (.pt or .msgpack)")
     p.add_argument("-o", "--output", default=None,
                    help="artifact path (default: <stem>.int8.<ext>)")
+    p.add_argument("--kv_calib", default=None, metavar="MODEL",
+                   help="also write the int8 KV-cache scale tables for this "
+                        "registry model (generative decoding, --kv_dtype "
+                        "int8): a seeded synthetic causal forward on the CPU")
     ns = p.parse_args(argv)
 
     raw = ckpt.load_raw(ns.checkpoint)
@@ -57,6 +88,8 @@ def main(argv=None) -> int:
     if is_quantized(sd):
         print(f"{ns.checkpoint} is already an int8 artifact", file=sys.stderr)
         return 1
+    if ns.kv_calib:
+        emit_kv_scales(sd, ns.kv_calib, ns.checkpoint)
     qsd = quantize_state(sd)
     report = quant_error_report(sd, qsd)
     if not report:

@@ -59,6 +59,14 @@ def is_msgpack(path: str) -> bool:
     return path.endswith(".msgpack")
 
 
+def stem(path: str) -> str:
+    """``path`` without its format's extension (``.msgpack`` or ``.pt``):
+    where a file's sidecars (``<stem>.int8.<ext>``,
+    ``<stem>.kvscales.msgpack``) are named from."""
+    ext = ".msgpack" if is_msgpack(path) else ".pt"
+    return path[:-len(ext)] if path.endswith(ext) else path
+
+
 # ---------------------------------------------------------------- publish
 
 

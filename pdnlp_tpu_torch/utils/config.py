@@ -127,6 +127,38 @@ class Args:
                                                   # long-width packed batch
                                                   # ("" = truncate at the
                                                   # largest bucket)
+    decode_slots: int = 8                         # generative serving (serve.
+                                                  # decode): the fixed decode
+                                                  # batch rows; continuous
+                                                  # batching keeps them full
+    decode_max_len: int = 0                       # KV positions per stream
+                                                  # (prompt + generated); 0 =
+                                                  # max_seq_len
+    max_new_tokens: int = 32                      # default generation budget
+                                                  # per stream
+    kv_dtype: str = "auto"                        # KV-cache precision: auto
+                                                  # (= the serve compute
+                                                  # dtype) | fp32 | bf16 |
+                                                  # int8 (per-channel scale
+                                                  # tables, calibrated at
+                                                  # warmup or loaded from
+                                                  # tools.quantize_ckpt
+                                                  # --kv_calib)
+    kv_hbm_mb: float = 0.0                        # declared KV-cache budget
+                                                  # per decode engine (obs.
+                                                  # memory.KVBudget): caps
+                                                  # slots or pages at
+                                                  # construction, refuses
+                                                  # loudly at admission; 0 =
+                                                  # off
+    kv_layout: str = "paged"                      # paged (page allocator +
+                                                  # refcounted prefix
+                                                  # sharing, serve.kvpage) |
+                                                  # slots (one max_len stripe
+                                                  # per stream)
+    kv_page_sz: int = 16                          # paged layout: KV positions
+                                                  # per page (the sharing
+                                                  # granularity)
     attention_impl: str = "auto"                  # auto|xla|pallas (alias
                                                   # --attn_impl): xla = the
                                                   # plain PyTorch path, pallas

@@ -993,3 +993,137 @@ def test_resume_across_fuse_settings_on_the_card(cuda_device, tmp_path):
         diff = max((got[k] - want[k]).abs().max().item() for k in want)
         print(f"resume {first} -> {second}: max param diff {diff:.3e}")
         assert diff <= 1e-5, (first, second, diff)
+
+
+# ------------------------------------------------- generative decoding
+
+def _decode_engine(layout="paged", kv="auto", serve_dtype="auto", **kw):
+    from pdnlp_tpu_torch.data.tokenizer import WordPieceTokenizer
+    from pdnlp_tpu_torch.serve.decode import DecodeEngine, PagedDecodeEngine
+    from pdnlp_tpu_torch.utils.config import Args
+
+    vocab = ["[PAD]", "[UNK]", "[CLS]", "[SEP]", "[MASK]"] + \
+        [f"t{i}" for i in range(95)]
+    cls = PagedDecodeEngine if layout == "paged" else DecodeEngine
+    return cls(Args(model="bert-tiny", device="cuda", kv_dtype=kv,
+                    serve_dtype=serve_dtype, decode_slots=4,
+                    decode_max_len=64, max_new_tokens=8, **kw),
+               tokenizer=WordPieceTokenizer(vocab), buckets=(16, 32))
+
+
+def _held_to_eager(eng):
+    """Wrap the engine's replay: after each replay, the same program runs
+    eagerly on the same inputs (every program writes the same cache state
+    when run twice) and its output is held to the replay's, bit for bit;
+    the eager run's K1 launches go to a discarded tally."""
+    orig, seen = eng._replay, []
+
+    def replay(key, batch, keys, fn=None):
+        got = orig(key, batch, keys, fn)
+        if got is not None:
+            with flash.capturing_launches():     # not a served launch
+                want = eng._eager(batch, keys, fn)
+            seen.append((key, np.array_equal(got, want)))
+        return got
+
+    eng._replay = replay
+    return seen
+
+
+def _decode_prompts(n, seed=0, lo=3, hi=28):
+    r = np.random.RandomState(seed)
+    return [list(r.randint(5, 99, r.randint(lo, hi))) for _ in range(n)]
+
+
+@pytest.mark.parametrize("layout,kv,serve_dtype", [
+    ("slots", "auto", "auto"), ("paged", "auto", "auto"),
+    ("paged", "auto", "bf16"), ("paged", "int8", "bf16"),
+    ("slots", "int8", "int8")])
+def test_decode_programs_captured_equal_eager(cuda_device, layout, kv,
+                                              serve_dtype):
+    """Every decode-path program (prefill + insert per bucket, the decode
+    step, the chunk, the COW copy) is captured at warmup and replayed
+    after; each replay equals the same program run eagerly, bit for bit;
+    no capture after warmup; the prefill and decode programs launch no K1
+    (the routing rules) and the infill program launches one per layer."""
+    from pdnlp_tpu_torch.serve.decode import DecodeBatcher
+
+    eng = _decode_engine(layout, kv, serve_dtype)
+    seen = _held_to_eager(eng)
+    b = DecodeBatcher(eng).start()
+    b.warmup()
+    captures = eng.metrics.retraces.value
+    assert captures == len(eng._graphs) >= 3
+    b.eos_id = -1
+    ps = _decode_prompts(12)
+    flash.reset_launch_count()
+    streams = [b.submit_ids(p, max_new_tokens=8) for p in ps]
+    streams += [b.submit_ids(p, max_new_tokens=8) for p in ps[:3]]
+    outs = [s.result(timeout=120) for s in streams]
+    b.stop()
+    assert flash.launch_count() == 0
+    assert outs[-3:] == outs[:3]
+    assert eng.metrics.retraces.value == captures
+    assert seen and all(ok for _, ok in seen), \
+        [k for k, ok in seen if not ok]
+    if layout == "paged":
+        assert eng.leak_check()["ok"]
+    eng.infill_ids([ps[0]])                 # its capture
+    flash.reset_launch_count()
+    eng.infill_ids([ps[0]])
+    assert flash.launch_count() == eng.cfg.num_layers
+
+
+def test_decode_on_the_card_equals_a_cold_recompute(cuda_device):
+    """Incremental decode equals, bit for bit, the same chain recomputed
+    from zeroed caches in the same geometry (same buckets, rows and
+    ``[slots, 1]`` program), both through the captured graphs."""
+    eng = _decode_engine("slots")
+
+    def chain():
+        eng.reset_cache()
+        ps = _decode_prompts(3, seed=4)
+        out = [eng.prefill_ids(ps, [0, 1, 2])]
+        tok = np.zeros((eng.slots,), np.int32)
+        pos = np.zeros((eng.slots,), np.int32)
+        tok[:3] = out[0].argmax(-1)
+        pos[:3] = [len(p) for p in ps]
+        for _ in range(6):
+            lg = eng.decode_batch(tok, pos, live=3)
+            out.append(lg)
+            tok[:3] = lg[:3].argmax(-1)
+            pos[:3] += 1
+        return out
+
+    a, b = chain(), chain()
+    for t, (x, y) in enumerate(zip(a, b)):
+        assert np.array_equal(x, y), f"step {t}"
+
+
+def test_decode_graphs_keep_their_addresses_across_swaps(cuda_device,
+                                                         tmp_path):
+    """A checkpoint swap and a head swap copy in place: the graphs keep
+    their addresses and answer with the new weights, as eager does."""
+    from pdnlp_tpu_torch.models import convert
+    from pdnlp_tpu_torch.train import checkpoint as ckpt
+
+    eng, other = _decode_engine("paged"), _decode_engine("paged", seed=9)
+    seen = _held_to_eager(eng)
+    eng.warmup_decode()
+    ptrs = (eng._cache_k.data_ptr(), eng.head.transform.weight.data_ptr())
+    ids = _decode_prompts(1, seed=5)
+    before = eng.infill_ids(ids)
+    path = str(tmp_path / "other.pt")
+    ckpt.save_params(path, other.state_dict(), model_name="bert-tiny",
+                     vocab_size=100)
+    eng.load_checkpoint(path)
+    head = str(tmp_path / "head.msgpack")
+    ckpt.save(head, convert.head_to_jax(
+        {k: v.cpu() for k, v in other.head.state_dict().items()}))
+    eng.load_lm_head(head)
+    after = eng.infill_ids(ids)
+    assert (eng._cache_k.data_ptr(),
+            eng.head.transform.weight.data_ptr()) == ptrs
+    assert not np.array_equal(before, after)
+    np.testing.assert_array_equal(after, other.infill_ids(ids))
+    assert all(ok for _, ok in seen)

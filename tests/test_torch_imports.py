@@ -70,7 +70,10 @@ def test_no_module_imports_jax_or_the_jax_package():
             "pdnlp_tpu_torch/obs/request.py",
             "pdnlp_tpu_torch/obs/exporter.py",
             "pdnlp_tpu_torch/parallel/watchdog.py",
-            "pdnlp_tpu_torch/data/native.py"} <= rel
+            "pdnlp_tpu_torch/data/native.py",
+            "pdnlp_tpu_torch/models/decoder.py",
+            "pdnlp_tpu_torch/serve/decode.py",
+            "pdnlp_tpu_torch/serve/kvpage.py"} <= rel
     bad = {f"{p.relative_to(REPO)}: {root}" for p in paths
            for root in _imported_roots(p) if root in FORBIDDEN}
     assert not bad, sorted(bad)
@@ -132,6 +135,26 @@ def test_entry_points_default_to_cuda_and_raise_without_a_card(tmp_path):
     r = subprocess.run(
         [sys.executable, "-m", "pdnlp_tpu_torch.serve.cli", "--model",
          "bert-tiny", "--vocab_path", str(vocab), "--device", "cuda"],
+        input="天地\n", capture_output=True, text=True, timeout=120,
+        cwd=str(tmp_path), env={**os.environ, "PYTHONPATH": str(REPO)})
+    assert r.returncode != 0 and "no CUDA device" in r.stderr
+    assert r.stdout == ""
+
+
+def test_decode_cli_raises_without_a_card(tmp_path):
+    """``serve.cli --decode`` defaults to cuda too, and exits through
+    ``resolve_device`` where there is none — no decode on the CPU unless
+    asked for."""
+    from pdnlp_tpu_torch.data.tokenizer import build_vocab
+
+    if torch.cuda.is_available():
+        pytest.skip("a card is present: cuda is available, nothing to refuse")
+    vocab = tmp_path / "vocab.txt"
+    vocab.write_text("\n".join(build_vocab(["天地人"], size=16)) + "\n",
+                     encoding="utf-8")
+    r = subprocess.run(
+        [sys.executable, "-m", "pdnlp_tpu_torch.serve.cli", "--decode",
+         "--model", "bert-tiny", "--vocab_path", str(vocab)],
         input="天地\n", capture_output=True, text=True, timeout=120,
         cwd=str(tmp_path), env={**os.environ, "PYTHONPATH": str(REPO)})
     assert r.returncode != 0 and "no CUDA device" in r.stderr

@@ -136,10 +136,15 @@ def test_msgpack_round_trips_int8_and_artifact_bytes_equal_flax(tree,
         assert f.read() == flax_bytes
 
 
-def test_quantize_tool_refusals(tmp_path):
+def test_quantize_tool_refusals(tree, tmp_path):
+    """An int8 artifact is not quantized again (and gets no KV tables)."""
     from pdnlp_tpu_torch.tools import quantize_ckpt
 
-    assert quantize_ckpt.main(["x.pt", "--kv_calib", "bert-tiny"]) == 2
+    src = str(tmp_path / "x.int8.pt")
+    ckpt.save_params(src, quant.quantize_state(convert.from_jax_params(tree)),
+                     model_name="bert-tiny", vocab_size=128)
+    assert quantize_ckpt.main([src, "--kv_calib", "bert-tiny"]) == 1
+    assert not os.path.exists(str(tmp_path / "x.int8.kvscales.msgpack"))
     assert quantize_ckpt.artifact_path("a/b-cls.pt") == "a/b-cls.int8.pt"
     assert quantize_ckpt.artifact_path("b.msgpack") == "b.int8.msgpack"
 
