@@ -29,7 +29,7 @@ pack --pipeline auto``, 6c length-aware training: bucket, pack and
 multi-width pack routes, kernel vs plain, on a corpus with the length
 profile of the JAX package's synthetic corpus, 6d the sync, prefetch and
 resident pipelines bit for bit), 7 data-parallel training (7a dp, two gloo
-ranks sharing the card, fp32 and bf16, 10 full-width and 3 packed 64-row
+ranks sharing the card, fp32 and bf16, 3 full-width and 3 packed 64-row
 global batches against one process on the same batches, replicas
 bit-equal, K1-K5 counted per rank per step; 7b zero, FSDP2 with remat, at
 world 1 over NCCL, its consolidated checkpoint served by ``serve.cli``; 7c
@@ -73,7 +73,25 @@ the kill; 10c ``serve.cli --decode --replicas 1
 --kv_layout paged`` as a process beside 10b; 10d one decode step's wall
 eager against captured and its device time beside its byte bound, each
 prefill bucket's wall, and a closed burst's tokens/s, TTFT and inter-token
-p50/p99), then the kernels' times at every shape these paths give them.
+p50/p99), 11 speculative decoding and the disaggregated pools at the same
+geometry (the KV budget against the card's allocator; in fp32 and bf16
+a plain pass over 10a's mixed streams and burst, then three drafters —
+identical weights, int8 weights, a seeded bert-small — at ``draft_k`` 4
+on the same streams: fp32 tokens equal plain greedy's for every stream
+and drafter, bf16's free-running agreement reported; the ``[8, 5]``
+verify window teacher-forced against the plain step, the same greedy
+token wherever the plain top-2 margin exceeds 0.1, every replay held to
+its eager run; the verify's wall and device time beside the ``[8, 1]``
+step's; acceptance, rounds and burst tokens/s per drafter; 0 captures
+after warmup and 0 leaked pages on both engines; in fp32 ``set_draft_k``
+4 -> 2 -> 0 -> 4 capturing only the new verify width and a drafter killed
+mid-burst; 11b three engines split 1 prefill + 2 decode over the local
+and the socket handoff, tokens equal to one interleaved batcher's bit for
+bit in fp32 and bf16, a live re-split and a decode engine's death
+mid-storm, the export held to eager and an import read back, handoffs,
+pages, bytes and export-to-ack p50/p99; 11c ``serve.cli --decode
+--speculate`` and ``--disagg local`` as processes, equal to 10c's plain
+tokens), then the kernels' times at every shape these paths give them.
 Any failure raises and the script exits non-zero.  Without a card, or
 away from the repo, it prints no result and exits non-zero.  The line
 before the last is the ``{"kernels": [...]}`` record; the last is
@@ -125,8 +143,9 @@ def param_atol(steps):
 
 
 BUCKETS = (32, 64, 128)
-#: 6c: steps per length-aware route (the multi-width route: 2 per width)
-LENGTH_STEPS = 20
+#: 6c: steps per length-aware route (the bucket route: 2 per width; the
+#: multi-width route: 2 per width; cut from 20 to give phase 11 its time)
+LENGTH_STEPS = 6
 MULTI_WIDTH_STEPS_PER_WIDTH = 2
 #: corpus sizes: the profile corpus gives the pack route more than
 #: LENGTH_STEPS rows of 32 in one epoch; 6d's split gives epochs of
@@ -538,23 +557,40 @@ def serve_run(torch, flash, engine, texts, mode, want, dtype):
     return rec
 
 
-def cli_run(vocab_path, ckpt_path, texts, want_labels):
+def cli_start(vocab_path, ckpt_path, texts):
+    """``serve.cli`` on ``ckpt_path`` as a started process, fed the first 6
+    of ``texts`` (checked by :func:`cli_check`, while other work runs)."""
     lines = texts[:6]
-    r = subprocess.run(
+    p = subprocess.Popen(
         [sys.executable, "-m", "pdnlp_tpu_torch.serve.cli", "--device",
          "cuda", "--model", "bert-base", "--vocab_path", vocab_path,
          "--checkpoint", ckpt_path, "--max_wait_ms", "20",
          "--metrics_path", os.path.join(os.path.dirname(ckpt_path),
                                         "cli_metrics.json")],
-        input="\n".join(lines) + "\n", capture_output=True, text=True,
-        timeout=400, cwd=REPO, env={**os.environ, "PYTHONPATH": REPO})
-    out = r.stdout.strip().splitlines()
-    print(f"[cli] exit={r.returncode} answers={len(out)} "
+        stdin=subprocess.PIPE, stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+        text=True, cwd=REPO, env={**os.environ, "PYTHONPATH": REPO})
+    p.stdin.write("\n".join(lines) + "\n")
+    p.stdin.flush()
+    return p, lines
+
+
+def cli_check(started, want_labels):
+    """The started ``serve.cli`` exits 0 with an answer per line, each
+    decided label equal to the plain path's."""
+    p, lines = started
+    try:
+        so, se = p.communicate(timeout=400)   # closes stdin: end of input
+    finally:
+        if p.poll() is None:
+            p.kill()
+            p.wait()
+    out = so.strip().splitlines()
+    print(f"[cli] exit={p.returncode} answers={len(out)} "
           f"first={out[:2]!r}")
-    if r.returncode != 0 or len(out) != len(lines) or \
+    if p.returncode != 0 or len(out) != len(lines) or \
             any(x.startswith("ERROR") for x in out):
-        fail(f"serve.cli: exit {r.returncode}, {len(out)} answers for "
-             f"{len(lines)} lines\n{r.stderr[-3000:]}")
+        fail(f"serve.cli: exit {p.returncode}, {len(out)} answers for "
+             f"{len(lines)} lines\n{se[-3000:]}")
     got = [int(x.split("\t")[0]) for x in out]
     checked = [(g, w) for g, w in zip(got, want_labels) if w is not None]
     if any(g != w for g, w in checked):
@@ -939,15 +975,14 @@ def training_runs(torch, flash, fused_ce, base, vocab_size, batches, device,
     return out
 
 
-def entry_point_run(work, corpus_path, vocab_path, data_limit, extra=(),
-                    want_pipeline=None, tag="train_out"):
+def entry_point_start(work, corpus_path, vocab_path, data_limit, extra=(),
+                      want_pipeline=None, tag="train_out"):
     """Phase 6b: ``python -m pdnlp_tpu_torch.train.single`` as a user runs
     it (hidden dropout on, attention dropout 0 so the kernels train, dev
-    every 10 steps, ``extra`` flags), to exit 0 with a 【train】 line for
-    every step of the steps/epoch it prints, the pipeline
-    ``want_pipeline``, its report and its checkpoint."""
-    import re
-
+    every 10 steps, ``extra`` flags), started; :func:`entry_point_check`
+    holds it to exit 0 with a 【train】 line for every step of the
+    steps/epoch it prints, the pipeline ``want_pipeline``, its report and
+    its checkpoint."""
     out_dir = os.path.join(work, tag)
     cmd = [sys.executable, "-m", "pdnlp_tpu_torch.train.single", "--device",
            "cuda", "--model", "bert-base", "--data_path", corpus_path,
@@ -955,11 +990,27 @@ def entry_point_run(work, corpus_path, vocab_path, data_limit, extra=(),
            "--attn_dropout", "0", "--data_limit", str(data_limit),
            "--dev", "true", "--eval_step", "10", "--seed", str(SEED),
            *extra]
-    t0 = time.monotonic()
-    r = subprocess.run(cmd, capture_output=True, text=True, timeout=600,
-                       cwd=REPO, env={**os.environ, "PYTHONPATH": REPO})
+    p = subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+                         text=True, cwd=REPO,
+                         env={**os.environ, "PYTHONPATH": REPO})
+    return (p, time.monotonic(), out_dir, data_limit, tuple(extra),
+            want_pipeline)
+
+
+def entry_point_check(started):
+    """:func:`entry_point_start`'s run, waited for and held to its checks:
+    ``(checkpoint, record)``."""
+    import re
+
+    p, t0, out_dir, data_limit, extra, want_pipeline = started
+    try:
+        stdout, stderr = p.communicate(timeout=600)
+    finally:
+        if p.poll() is None:
+            p.kill()
+            p.wait()
     wall = time.monotonic() - t0
-    lines = r.stdout.splitlines()
+    lines = stdout.splitlines()
     train = [ln for ln in lines if ln.startswith("【train】")]
     head = next((ln for ln in lines if ln.startswith("device:")), "")
     m = re.search(r"steps/epoch: (\d+)\s+pipeline: (\w+)", head)
@@ -969,23 +1020,23 @@ def entry_point_run(work, corpus_path, vocab_path, data_limit, extra=(),
         steps = steps if steps == steps_fixed else None
     ckpt = os.path.join(out_dir, "single-cls.pt")
     print(f"[train.single] {' '.join(extra) or 'full width'}: "
-          f"exit={r.returncode} in {wall:.1f} s, {len(train)} 【train】 lines "
+          f"exit={p.returncode} in {wall:.1f} s, {len(train)} 【train】 lines "
           f"(want {steps}), pipeline {pipeline}")
     for ln in lines:
         if not ln.startswith("【train】") or ln in (train[:1] + train[-1:]):
             print(f"[train.single] {ln}")
-    ok = (r.returncode == 0 and steps and len(train) == steps
+    ok = (p.returncode == 0 and steps and len(train) == steps
           and (want_pipeline is None or pipeline == want_pipeline)
           and any(ln.startswith("耗时：") for ln in lines)
           and any("precision    recall  f1-score   support" in ln
                   for ln in lines)
           and os.path.exists(ckpt))
     if not ok:
-        fail(f"train.single {' '.join(extra)}: exit {r.returncode}, "
+        fail(f"train.single {' '.join(extra)}: exit {p.returncode}, "
              f"{len(train)} train lines of {steps}, pipeline {pipeline} "
              f"(want {want_pipeline}), checkpoint {os.path.exists(ckpt)}\n"
-             f"{r.stderr[-3000:]}")
-    return ckpt, {"exit": r.returncode, "seconds": wall, "extra": list(extra),
+             f"{stderr[-3000:]}")
+    return ckpt, {"exit": p.returncode, "seconds": wall, "extra": list(extra),
                   "train_lines": len(train), "pipeline": pipeline,
                   "checkpoint": ckpt}
 
@@ -1292,10 +1343,10 @@ def pipeline_runs(torch, flash, fused_ce, base, vocab_size, device, card):
 
 #: 7a-7c: every run trains from the seeded weights on DP_STEPS 64-row
 #: global batches of 6a's corpus (32 x 128 per rank; cut from 10 to keep
-#: the whole run near half its time limit), then PACKED_STEPS packed ones
-#: (two of the pack route's 32-row batches each, so the ranks carry
-#: different weight mass)
-DP_STEPS = 6
+#: the whole run near half its time limit, then from 6 to 3 for phase 11),
+#: then PACKED_STEPS packed ones (two of the pack route's 32-row batches
+#: each, so the ranks carry different weight mass)
+DP_STEPS = 3
 PACKED_STEPS = 3
 DP_WORLD = 2
 #: 7b's placement, fixed from a measurement on the H100: FSDP2 over gloo on
@@ -1506,7 +1557,7 @@ def data_parallel_runs(torch, base, vocab_size, full, packed, device, card,
     top2 = np.sort(want, axis=-1)[:, -2:]
     labels = [int(w.argmax()) if (t[1] - t[0]) > 2 * LOGIT_ATOL["float32"]
               else None for w, t in zip(want, top2)]
-    cli_run(vocab_path, zero["checkpoint"], texts, labels[:6])
+    rec7["cli_labels"] = labels[:6]
     rec7["runs"]["zero"] = {"world": ZERO_WORLD, "backend": backend,
                             "reason": ZERO_REASON,
                             "shard_fraction": zero["shard_fraction"],
@@ -1538,10 +1589,9 @@ def entry_points_7de(work, corpus_path, vocab_path, data_limit):
     """7d: ``train.multi --strategy dp`` at world 1 with the default
     backend (NCCL), a few steps; 7e: ``train.spawn --strategy dp
     --num_processes 2 --dist_backend gloo`` at full width, steps per epoch
-    ceil(single's / 2).  Both run at once, as users run them; each must
-    exit 0 with a 【train】 line per step and its checkpoint."""
-    import re
-
+    ceil(single's / 2).  Both started at once, as users run them, beside
+    7a-7c; :func:`entry_points_7de_check` holds each to exit 0 with a
+    【train】 line per step and its checkpoint."""
     common = ["--device", "cuda", "--model", "bert-base", "--data_path",
               corpus_path, "--vocab_path", vocab_path, "--attn_dropout", "0",
               "--seed", str(SEED), "--strategy", "dp"]
@@ -1567,6 +1617,13 @@ def entry_points_7de(work, corpus_path, vocab_path, data_limit):
                                  stdout=subprocess.PIPE,
                                  stderr=subprocess.PIPE, text=True)
              for k, c in cmds.items()}
+    return cmds, procs, t0
+
+
+def entry_points_7de_check(started):
+    import re
+
+    cmds, procs, t0 = started
     outs = {}
     try:
         for k, p in procs.items():
@@ -1601,22 +1658,26 @@ def entry_points_7de(work, corpus_path, vocab_path, data_limit):
               and f"process 0/{world}" in head and os.path.exists(ckpt))
         if not ok:
             fail(f"{k}: {rec}\n{err[-3000:]}")
-    print(f"[dp] 7d and 7e ran at once in {wall:.1f} s")
+    print(f"[dp] 7d and 7e ran at once, beside 7a-7c, in {wall:.1f} s")
     return recs
 
 
 # ----------------------------------------------------------------- phase 8
 
-#: 8a: K steps per captured graph; 14 fixed-width batches give 3 captured
-#: groups and 2 eager single steps
+#: 8a: K steps per captured graph; 10 fixed-width batches give 2 captured
+#: groups and 2 eager single steps (cut from 14 for phase 11's time); the
+#: bucket and pack epochs are of FUSED_EXAMPLES of 6c's corpus (cut from
+#: all 3,400: about 32 bucket and 7 pack steps, every one checked)
 FUSE = 4
-FUSED_STEPS = 14
-#: 8b: captured groups and eager steps timed per shape
-TIMED_GROUPS = 5
-TIMED_EAGER = 20
-#: 8d: steps of the resumed runs (a snapshot every RESUME_EVERY)
-RESUME_STEPS = 20
-RESUME_EVERY = 10
+FUSED_STEPS = 10
+FUSED_EXAMPLES = 1100
+#: 8b: captured groups and eager steps timed per shape (cut from 5 and 20)
+TIMED_GROUPS = 2
+TIMED_EAGER = 6
+#: 8d: steps of the resumed runs (a snapshot every RESUME_EVERY; cut from
+#: 20 and 10)
+RESUME_STEPS = 8
+RESUME_EVERY = 4
 
 
 def sum_launches(obj, into=None):
@@ -1685,9 +1746,10 @@ def fused_runs(torch, flash, fused_ce, base, vocab_size, device, card,
                batches, length_base):
     """Phase 8a: per dtype (dropout 0.1, attention dropout 0, a warmup
     schedule and an EMA, so K1-K5, the dropout stream, the rates and the
-    EMA are all in the graph), fixed width (14 batches of 32 x 128:
-    3 captured groups, 2 eager steps), one bucket-mode epoch and one
-    pack-mode epoch of 6c's corpus with ``fuse_steps`` 4, each against the
+    EMA are all in the graph), fixed width (10 batches of 32 x 128:
+    2 captured groups, 2 eager steps), one bucket-mode epoch and one
+    pack-mode epoch of :data:`FUSED_EXAMPLES` of 6c's corpus with
+    ``fuse_steps`` 4, each against the
     same batches run eagerly from the same weights and generator: per-step
     losses, params and EMA bit for bit; launches counted replay-aware,
     K1-K3 x12 and K4/K5 x1 per step; one graph per width."""
@@ -1699,7 +1761,8 @@ def fused_runs(torch, flash, fused_ce, base, vocab_size, device, card,
                 groups, total = fixed_groups(batches[:FUSED_STEPS],
                                              device), FUSED_STEPS
             else:
-                args = length_base.replace(dtype=dtype, length_mode=mode)
+                args = length_base.replace(dtype=dtype, length_mode=mode,
+                                           data_limit=FUSED_EXAMPLES)
                 groups, total = pipeline_groups(args, device)
             args = args.replace(dropout=0.1, attn_dropout=0.0,
                                 fuse_steps=FUSE, ema_decay=0.999,
@@ -1870,6 +1933,15 @@ def _train_single(work, tag, corpus_path, vocab_path, data_limit, extra):
                             env={**os.environ, "PYTHONPATH": REPO}), out_dir
 
 
+def stop_all(procs):
+    """Kill and reap every process of ``procs`` still running (a phase that
+    failed does not leave its started processes behind)."""
+    for p in procs:
+        if p.poll() is None:
+            p.kill()
+            p.wait()
+
+
 def _finish(procs, timeout=600):
     """``{name: (returncode, stdout, stderr)}``; every process is stopped."""
     outs = {}
@@ -1885,34 +1957,12 @@ def _finish(procs, timeout=600):
     return outs
 
 
-def loop_runs(torch, work, corpus_path, vocab_path, card, tool_ckpts,
-              during):
-    """Phases 8c-8e, as processes on the card beside ``during()`` (the
-    in-process 8a, whose results this returns too).
-
-    8c: ``train.single --fuse_steps 4 --warmup_compile true --trace true
-    --profile_dir <d> --resume_every 10 --log_every 5 --probe_steps 3``
-    (dev every 10 steps) exits 0 and prints its probe's rate, its span
-    file read back holds all eight phases, its profiler trace exists.  8d: for fp32, bf16 and fp32 with
-    ``--fuse_steps 2``, a 20-step run snapshotting every 10 steps; its
-    step-10 snapshot (retained as ``.prev`` when step 20's was published)
-    is copied aside, and a run resumed from the copy trains steps 11-20:
-    its final params equal the first run's bit for bit; then a snapshot
-    corrupted on purpose falls back to its ``.prev`` with the warning.
-    8e: ``tools.evaluate`` and ``tools.predict`` over a directory holding
-    ``tool_ckpts`` and 8c's weights as ``.pt`` and as a ``.msgpack`` the
-    port wrote: every file loads, and the ``.msgpack`` gives its
-    ``.pt``'s loss, accuracy and argmax.  The resumed runs and the tools
-    run together, after 8c and the first runs."""
-    import contextlib
-    import io
-    import shutil
-
-    from pdnlp_tpu_torch.obs import PHASES, StepBreakdown
-    from pdnlp_tpu_torch.obs.export import load_records
-    from pdnlp_tpu_torch.train import checkpoint as ckpt
-
-    limit = int(RESUME_STEPS * 32 / 0.92) + 1        # 640 train examples
+def loop_start(work, corpus_path, vocab_path):
+    """The first processes of 8c-8e (:func:`loop_runs`), started: 8c and
+    the three uninterrupted 8d runs.  They start with phase 7, whose
+    times are printed, not claimed, so phase 8's in-process 8a runs
+    beside the resumed runs and the tools only."""
+    limit = int(RESUME_STEPS * 32 / 0.92) + 1        # 256 train examples
     if int(limit * 0.92) != RESUME_STEPS * 32:
         fail(f"8d: data_limit {limit} gives {int(limit * 0.92)} examples")
     prof_dir = os.path.join(work, "fused_prof")
@@ -1928,11 +1978,44 @@ def loop_runs(torch, work, corpus_path, vocab_path, card, tool_ckpts,
         procs[f"8d {name} run 1"], dirs[name] = _train_single(
             work, f"resume_{name.replace(' ', '_')}", corpus_path,
             vocab_path, limit, (*extra, "--resume_every", str(RESUME_EVERY)))
-    t0 = time.monotonic()
-    try:
-        in_process = during()
-    finally:
-        outs = _finish(procs)
+    return {"procs": procs, "dirs": dirs, "runs": runs, "limit": limit,
+            "prof_dir": prof_dir, "t0": time.monotonic(), "work": work,
+            "corpus_path": corpus_path, "vocab_path": vocab_path}
+
+
+def loop_runs(torch, started, card, tool_ckpts, during):
+    """Phases 8c-8e, as processes on the card (:func:`loop_start`'s, then
+    the resumed runs and the tools beside ``during()``, the in-process 8a,
+    whose results this returns too).
+
+    8c: ``train.single --fuse_steps 4 --warmup_compile true --trace true
+    --profile_dir <d> --resume_every 10 --log_every 5 --probe_steps 3``
+    (dev every 10 steps) exits 0 and prints its probe's rate, its span
+    file read back holds all eight phases, its profiler trace exists.  8d: for fp32, bf16 and fp32 with
+    ``--fuse_steps 2``, a RESUME_STEPS-step run snapshotting every
+    RESUME_EVERY steps; its first snapshot (retained as ``.prev`` when the
+    last was published) is copied aside, and a run resumed from the copy
+    trains the rest:
+    its final params equal the first run's bit for bit; then a snapshot
+    corrupted on purpose falls back to its ``.prev`` with the warning.
+    8e: ``tools.evaluate`` and ``tools.predict`` over a directory holding
+    ``tool_ckpts`` and 8c's weights as ``.pt`` and as a ``.msgpack`` the
+    port wrote: every file loads, and the ``.msgpack`` gives its
+    ``.pt``'s loss, accuracy and argmax.  The resumed runs and the tools
+    run together, after 8c and the first runs."""
+    import contextlib
+    import io
+    import shutil
+
+    from pdnlp_tpu_torch.obs import PHASES, StepBreakdown
+    from pdnlp_tpu_torch.obs.export import load_records
+    from pdnlp_tpu_torch.train import checkpoint as ckpt
+
+    work, corpus_path, vocab_path = (started["work"], started["corpus_path"],
+                                     started["vocab_path"])
+    dirs, runs, limit = started["dirs"], started["runs"], started["limit"]
+    prof_dir, t0 = started["prof_dir"], started["t0"]
+    outs = _finish(started["procs"])
     rc, out, err = outs["8c"]
     lines = out.splitlines()
     span_file = os.path.join(dirs["8c"], "trace", "trace_proc0.jsonl")
@@ -1960,31 +2043,38 @@ def loop_runs(torch, work, corpus_path, vocab_path, card, tool_ckpts,
         fail(f"8c: exit {rc}, phases {phases}, profiler {prof_files}, "
              f"probe line {probed}\n{err[-3000:]}")
     procs = {}
-    for name, extra in runs.items():
-        rc, _out, err = outs[f"8d {name} run 1"]
-        snap = os.path.join(dirs[name], "resume-single.pt")
-        meta = (ckpt.load_manifest(ckpt.prev_path(snap)) or {}).get("meta")
-        if rc != 0 or meta != {"step": RESUME_EVERY,
-                               "steps_per_epoch": RESUME_STEPS}:
-            fail(f"8d {name} run 1: exit {rc}, .prev meta {meta}\n"
-                 f"{err[-3000:]}")
-        copy = os.path.join(work, f"step10_{name.replace(' ', '_')}.pt")
-        shutil.copyfile(ckpt.prev_path(snap), copy)
-        shutil.copyfile(ckpt.manifest_path(ckpt.prev_path(snap)),
-                        ckpt.manifest_path(copy))
-        procs[name], _ = _train_single(
-            work, f"resumed_{name.replace(' ', '_')}", corpus_path,
-            vocab_path, limit, (*extra, "--resume_from", copy))
-    tools_dir = tools_dir_8e(work, {**tool_ckpts, "fused-cls.pt": ckpt_8c})
-    common = ["--device", "cuda", "--model", "bert-base", "--data_path",
-              corpus_path, "--vocab_path", vocab_path, "--data_limit", "700",
-              "--output_dir", tools_dir, "--seed", str(SEED)]
-    for t in ("evaluate", "predict"):
-        procs[t] = subprocess.Popen(
-            [sys.executable, "-m", f"pdnlp_tpu_torch.tools.{t}", *common],
-            cwd=REPO, stdout=subprocess.PIPE, stderr=subprocess.PIPE,
-            text=True, env={**os.environ, "PYTHONPATH": REPO})
-    outs = _finish(procs)
+    try:
+        for name, extra in runs.items():
+            rc, _out, err = outs[f"8d {name} run 1"]
+            snap = os.path.join(dirs[name], "resume-single.pt")
+            meta = (ckpt.load_manifest(ckpt.prev_path(snap)) or {}) \
+                .get("meta")
+            if rc != 0 or meta != {"step": RESUME_EVERY,
+                                   "steps_per_epoch": RESUME_STEPS}:
+                fail(f"8d {name} run 1: exit {rc}, .prev meta {meta}\n"
+                     f"{err[-3000:]}")
+            copy = os.path.join(work, f"step{RESUME_EVERY}_"
+                                      f"{name.replace(' ', '_')}.pt")
+            shutil.copyfile(ckpt.prev_path(snap), copy)
+            shutil.copyfile(ckpt.manifest_path(ckpt.prev_path(snap)),
+                            ckpt.manifest_path(copy))
+            procs[name], _ = _train_single(
+                work, f"resumed_{name.replace(' ', '_')}", corpus_path,
+                vocab_path, limit, (*extra, "--resume_from", copy))
+        tools_dir = tools_dir_8e(work, {**tool_ckpts,
+                                        "fused-cls.pt": ckpt_8c})
+        common = ["--device", "cuda", "--model", "bert-base", "--data_path",
+                  corpus_path, "--vocab_path", vocab_path, "--data_limit",
+                  "700", "--output_dir", tools_dir, "--seed", str(SEED)]
+        for t in ("evaluate", "predict"):
+            procs[t] = subprocess.Popen(
+                [sys.executable, "-m", f"pdnlp_tpu_torch.tools.{t}",
+                 *common], cwd=REPO, stdout=subprocess.PIPE,
+                stderr=subprocess.PIPE, text=True,
+                env={**os.environ, "PYTHONPATH": REPO})
+        in_process = during()
+    finally:
+        outs = _finish(procs)
     rec["8d"] = {}
     for name in runs:
         rc, out, err = outs[name]
@@ -2018,7 +2108,8 @@ def loop_runs(torch, work, corpus_path, vocab_path, card, tool_ckpts,
     rec["8e"] = tools_check_8e(outs, sorted([*tool_ckpts, "fused-cls.pt",
                                              "fused-cls.msgpack"]))
     rec["wall_s"] = time.monotonic() - t0
-    print(f"[fused] 8c-8e ran beside 8a in {rec['wall_s']:.1f} s")
+    print(f"[fused] 8c-8e ran beside phase 7 and 8a in "
+          f"{rec['wall_s']:.1f} s")
     return rec, in_process, os.path.join(tools_dir, "fused-cls.msgpack")
 
 
@@ -2120,18 +2211,18 @@ def _infer(engine, batch):
 
 def forward_turns(torch, engine, batch, card, label):
     """Wall per forward (logits on the host), eager and captured in turns
-    — eager, captured, captured, eager, 20 forwards each — host clock;
-    then the device's busy share over 5 forwards of each."""
+    — eager, captured, captured, eager, 10 forwards each (cut from 20) —
+    host clock; then the device's busy share over 5 forwards of each."""
     res = {"eager": [], "captured": []}
     fns = {"eager": lambda: engine.forward_eager(batch),
            "captured": lambda: _infer(engine, batch)}
     for name in ("eager", "captured", "captured", "eager"):
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        for _ in range(20):
+        for _ in range(10):
             fns[name]()
         torch.cuda.synchronize()
-        res[name].append((time.perf_counter() - t0) / 20 * 1e3)
+        res[name].append((time.perf_counter() - t0) / 10 * 1e3)
     prof = {name: profile_calls(torch, fn, 5, card, f"9a {label} {name}")
             for name, fn in fns.items()}
     print(f"[tier] {label} forward wall eager "
@@ -2597,8 +2688,8 @@ DECODE_MIXED, DECODE_BURST = 50, 32
 #: bf16 compute
 DECODE_CONFIGS = (("float32", "auto", "auto"), ("bfloat16", "bf16", "auto"),
                   ("bfloat16 int8-KV", "bf16", "int8"))
-#: decode steps of the cold-recompute chain
-CHAIN_STEPS = 12
+#: decode steps of the cold-recompute chain (cut from 12)
+CHAIN_STEPS = 8
 #: bert-base at full width: (layers, hidden, vocab)
 DECODE_SHAPE = (12, 768, 21128)
 #: int8 KV against bf16 KV, both under bf16 compute, teacher-forced on the
@@ -2715,9 +2806,9 @@ def decode_bound(eng, dtype):
 
 def decode_times(torch, eng, ps, dtype, card, label):
     """10d for one engine: one decode step's wall, eager against captured
-    in turns (eager, captured, captured, eager; 20 steps each, host clock,
+    in turns (eager, captured, captured, eager; 10 steps each, host clock,
     each step ending in its logits on the host), both steps' device time,
-    the byte bound, and each prefill bucket's wall (10 calls)."""
+    the byte bound, and each prefill bucket's wall (5 calls)."""
     import numpy as np
 
     tok, pos = seat(eng, ps)
@@ -2729,10 +2820,10 @@ def decode_times(torch, eng, ps, dtype, card, label):
     wall = {"eager": [], "captured": []}
     for name in ("eager", "captured", "captured", "eager"):
         t0 = time.perf_counter()
-        for _ in range(20):
+        for _ in range(10):
             fns[name]()
-        wall[name].append((time.perf_counter() - t0) / 20 * 1e3)
-    dev = {name: device_ms(torch, fn, n=20) for name, fn in fns.items()}
+        wall[name].append((time.perf_counter() - t0) / 10 * 1e3)
+    dev = {name: device_ms(torch, fn, n=10) for name, fn in fns.items()}
     prof = profile_calls(torch, fns["captured"], 5, card,
                          f"10d {label} decode step, captured")
     bound_ms, bound_by, wbytes, kvbytes = decode_bound(eng, dtype)
@@ -2742,9 +2833,9 @@ def decode_times(torch, eng, ps, dtype, card, label):
         slots = [eng.slots] * eng.prefill_rows      # the guard takes them
         eng.prefill_ids(ids, slots)
         t0 = time.perf_counter()
-        for _ in range(10):
+        for _ in range(5):
             eng.prefill_ids(ids, slots)
-        prefill_ms[b] = (time.perf_counter() - t0) / 10 * 1e3
+        prefill_ms[b] = (time.perf_counter() - t0) / 5 * 1e3
     eng.reset_cache()
     rec = {"step_wall_ms": wall, "step_device_ms": dev, "profile": prof,
            "bound_ms": bound_ms, "bound_by": bound_by,
@@ -2796,8 +2887,8 @@ def decode_config_run(torch, flash, args, ckpt, label, ps, mixed, burst,
     engines with every program held to eager, the cold recompute, paged
     against slot tokens, prefix hits, zero captures over the mixed
     streams, zero leaked pages, K1 on infill only, then the times.
-    Returns the record and the paged engine's chain (:func:`cold_chain`,
-    fed ``forced``)."""
+    Returns the record, the paged engine's chain (:func:`cold_chain`, fed
+    ``forced``) and the paged engine (phase 11's primary)."""
     import numpy as np
 
     from pdnlp_tpu_torch.models import decoder
@@ -2934,9 +3025,9 @@ def decode_config_run(torch, flash, args, ckpt, label, ps, mixed, burst,
         problems.append(f"infill K1 vs plain {rec['infill_max_abs_err']}")
     if problems:
         fail(f"10a {label}: " + "; ".join(problems))
-    del slot, pag, engines
+    del slot, engines
     torch.cuda.empty_cache()
-    return rec, chain
+    return rec, chain, pag
 
 
 def _cli_10c(work, vocab_path, ckpt, texts):
@@ -2968,12 +3059,14 @@ def _cli_10c_check(p, out, stdin, n):
     toks = [r for r in rows if r[1] == "tok"]
     errors = [r for r in rows if r[1] == "ERROR"]
     rec = {"exit": p.returncode, "gen_lines": len(gens),
-           "tok_lines": len(toks), "errors": len(errors)}
+           "tok_lines": len(toks), "errors": len(errors),
+           "pieces": cli_pieces(so)}
     if p.returncode == 0:
         snap = json.load(open(os.path.join(out, "metrics.json")))["replicas"]
         rec["tokens_out"] = snap["0"]["decode"]["tokens_out_total"]
         rec["layout"] = snap["0"]["kv"]["layout"]
-    print(f"[decode] 10c serve.cli --decode: {json.dumps(rec)}")
+    print(f"[decode] 10c serve.cli --decode: "
+          f"{json.dumps({k: v for k, v in rec.items() if k != 'pieces'})}")
     if p.returncode != 0 or gens != set(range(n)) or errors or \
             not toks or rec.get("tokens_out") != len(toks) or \
             rec.get("layout") != "paged":
@@ -3114,15 +3207,18 @@ def decode_phase(torch, flash, base, ckpt, work, vocab_path, card, lap):
     args = base.replace(decode_slots=DECODE_SLOTS,
                         decode_max_len=DECODE_MAX_LEN,
                         max_new_tokens=DECODE_NEW)
-    recs, chains = {}, {}
+    recs, chains, paged = {}, {}, {}
     for label, serve_dtype, kv in DECODE_CONFIGS:
         forced = None
         if kv == "int8":     # teacher-forced on bf16's greedy tokens
             forced = [chains["bfloat16"][0]] + [
                 lg.argmax(-1) for lg in chains["bfloat16"][1:]]
-        recs[label], chains[label] = decode_config_run(
+        recs[label], chains[label], pag = decode_config_run(
             torch, flash, args.replace(serve_dtype=serve_dtype, kv_dtype=kv),
             ckpt, label, ps, mixed, burst, card, forced)
+        if kv == "auto":     # phase 11's primaries: fp32 and bf16
+            paged[label] = pag
+        del pag
     recs["int8_kv"] = int8_kv_parity(chains["bfloat16"],
                                      chains["bfloat16 int8-KV"],
                                      recs["bfloat16"]["tokens"],
@@ -3130,6 +3226,9 @@ def decode_phase(torch, flash, base, ckpt, work, vocab_path, card, lap):
     lap("10a, 10d")
     texts = make_requests(rng, CHARS, 8)
     proc, out, stdin = _cli_10c(work, vocab_path, ckpt, texts)
+    # 11c's processes start here, beside 10b and 10c, and are checked in
+    # phase 11 against 10c's tokens (off phase 11's timed runs)
+    spec_cli = cli_11c_start(work, vocab_path, ckpt, texts)
     try:
         rps = decode_prompts(rng, 24, 16, 200, vocab)
         targs = args.replace(trace=True,
@@ -3139,9 +3238,555 @@ def decode_phase(torch, flash, base, ckpt, work, vocab_path, card, lap):
             exact=False)
         recs["router_fp32"] = decode_router_run(torch, targs, ckpt, rps,
                                                 card, exact=True)
+    except BaseException:
+        stop_all(p for p, _ in spec_cli.values())  # 11 will not check them
+        raise
     finally:
         recs["cli"] = _cli_10c_check(proc, out, stdin, len(texts))
     lap("10b, 10c")
+    return recs, spec_cli, paged
+
+
+# ---------------------------------------------------------------- phase 11
+
+#: 11a: drafted tokens per round, and the drafters: (label, model,
+#: serve_dtype or None for the primary's, loads the primary's checkpoint)
+DRAFT_K = 4
+DRAFTERS = (("identical", "bert-base", None, True),
+            ("int8 weights", "bert-base", "int8", True),
+            ("bert-small seeded", "bert-small", None, False))
+#: 11a configurations: (label, serve_dtype)
+SPEC_CONFIGS = (("float32", "auto"), ("bfloat16", "bf16"))
+#: the teacher-forced verify check: a greedy token is decided where the
+#: plain step's top-2 margin exceeds this (10a's int8-KV rule); steps of
+#: the plain chain, three windows of DRAFT_K + 1
+VERIFY_MARGIN = 0.1
+VERIFY_STEPS = 3 * (DRAFT_K + 1)
+
+
+def kv_budget_engine(torch, args, card, label):
+    """C1 on the card, on 11b's third engine: a paged engine built under a
+    ``--kv_hbm_mb`` of exactly its pages and the two guard pages requests
+    from the caching allocator no more than the budget plus the non-KV
+    tensors listed (the trunk's and the head's parameters and buffers),
+    and ``kv_snapshot()["cache_bytes"]`` is the caches' bytes, under the
+    budget.  The bytes are the allocator's ``requested_bytes.all.current``:
+    what tensors asked for, before its block rounding, which
+    ``memory_allocated`` adds (reported beside).  Returns the engine."""
+    from pdnlp_tpu_torch.models import decoder
+    from pdnlp_tpu_torch.serve.decode import PagedDecodeEngine
+
+    def sizes(tensors):
+        seen, total = set(), 0
+        for t in tensors:
+            if t.device.type == "cuda" and t.data_ptr() not in seen:
+                seen.add(t.data_ptr())
+                total += t.numel() * t.element_size()
+        return total
+
+    def requested():
+        torch.cuda.synchronize()
+        return (torch.cuda.memory_stats().get("requested_bytes.all.current"),
+                torch.cuda.memory_allocated())
+
+    layers, hidden, _ = DECODE_SHAPE
+    itemsize = 4 if args.serve_dtype == "auto" else 2
+    page_bytes = 2 * layers * hidden * itemsize * args.kv_page_sz
+    pages = DECODE_SLOTS * -(-DECODE_MAX_LEN // args.kv_page_sz)
+    budget_mb = (pages + decoder.GUARD_PAGES) * page_bytes / 2**20
+    r0, a0 = requested()
+    eng = PagedDecodeEngine(args.replace(kv_hbm_mb=budget_mb))
+    r1, a1 = requested()
+    listed = {name: sizes([*m.parameters(), *m.buffers()])
+              for name, m in (("trunk", eng.model), ("lm head", eng.head))}
+    budget = eng.budget.budget_bytes
+    cache = eng._cache_k.nbytes + eng._cache_v.nbytes
+    rec = {"budget_bytes": budget,
+           "requested_delta": None if r0 is None else r1 - r0,
+           "allocated_delta": a1 - a0, "non_kv_listed": listed,
+           "cache_bytes": cache,
+           "snapshot_cache_bytes": eng.kv_snapshot()["cache_bytes"],
+           "pages": eng.n_pages, "guard_pages": decoder.GUARD_PAGES}
+    print(f"[decode] 11 C1 KV budget on the card, {label}: "
+          f"{json.dumps(rec)} — {card}")
+    if rec["requested_delta"] is None or \
+            rec["requested_delta"] > budget + sum(listed.values()) or \
+            not rec["snapshot_cache_bytes"] == cache <= budget or \
+            eng.n_pages != pages:
+        fail(f"11 C1: the engine allocated past its KV budget: {rec}")
+    return eng
+
+
+def verify_margin_check(eng, ps, card, label):
+    """The verify window against the plain step, teacher-forced: a chain of
+    :data:`VERIFY_STEPS` plain ``[slots, 1]`` steps from ``ps``, then the
+    same tokens through ``[slots, k+1]`` verify windows from the same
+    prefill.  Every window position whose plain top-2 margin exceeds
+    :data:`VERIFY_MARGIN` must give the plain step's greedy token; the
+    largest logit difference is reported.  Every replay here, the verify's
+    included, is held to its eager run bit for bit."""
+    import numpy as np
+
+    seen = []
+    held_to_eager(eng, seen)
+    try:
+        tok, pos = seat(eng, ps)
+        n, pos0 = len(ps), pos.copy()
+        tokens, logits = [tok[:n].copy()], []
+        for _ in range(VERIFY_STEPS):
+            lg = eng.decode_batch(tok, pos, live=n)
+            logits.append(lg[:n])
+            tok[:n] = lg[:n].argmax(-1)
+            pos[:n] += 1
+            tokens.append(tok[:n].copy())
+        eng.reset_cache()
+        seat(eng, ps)
+        err, decided, agree = 0.0, 0, 0
+        k1 = DRAFT_K + 1
+        for t in range(0, VERIFY_STEPS, k1):
+            window = np.zeros((eng.slots, k1), np.int32)
+            for j in range(k1):
+                window[:n, j] = tokens[t + j]
+            nreal = np.zeros((eng.slots,), np.int32)
+            nreal[:n] = k1
+            vl = eng.verify_ids(window, pos0 + t, nreal, live=n)
+            for j in range(k1):
+                ref = logits[t + j]
+                err = max(err, float(np.abs(vl[:n, j] - ref).max()))
+                top2 = np.sort(ref, axis=-1)[:, -2:]
+                clear = (top2[:, 1] - top2[:, 0]) > VERIFY_MARGIN
+                decided += int(clear.sum())
+                agree += int((vl[:n, j].argmax(-1)
+                              == ref.argmax(-1))[clear].sum())
+        eng.reset_cache()
+    finally:
+        del eng._replay
+    rec = {"positions": n * VERIFY_STEPS, "decided": decided,
+           "agree": agree, "max_abs_err": err,
+           "replays_held": len(seen),
+           "unequal": sorted({str(k) for k, ok in seen if not ok})}
+    print(f"[spec] 11a {label} verify vs plain step, teacher-forced: "
+          f"{json.dumps(rec)} — {card}")
+    if agree != decided or rec["unequal"] or not seen:
+        fail(f"11a {label}: the verify window disagrees with the plain "
+             f"step: {rec}")
+    return rec
+
+
+def verify_times(torch, eng, ps, card, label):
+    """The ``[8, k+1]`` verify's captured wall (host tokens to host logits,
+    turns of 10: step, verify, verify, step) and device time beside the
+    ``[8, 1]`` step's."""
+    import numpy as np
+
+    tok, pos = seat(eng, ps)
+    n = len(ps)
+    k1 = DRAFT_K + 1
+    window = np.zeros((eng.slots, k1), np.int32)
+    window[:, 0] = tok
+    window[:, 1:] = tok[:, None]
+    nreal = np.full((eng.slots,), k1, np.int32)
+    fns = {"step": lambda: eng.decode_batch(tok, pos, live=n),
+           "verify": lambda: eng.verify_ids(window, pos, nreal, live=n)}
+    wall = {"step": [], "verify": []}
+    for name in ("step", "verify", "verify", "step"):
+        t0 = time.perf_counter()
+        for _ in range(10):
+            fns[name]()
+        wall[name].append((time.perf_counter() - t0) / 10 * 1e3)
+    dev = {name: device_ms(torch, fn, n=10) for name, fn in fns.items()}
+    eng.reset_cache()
+    rec = {"wall_ms": wall, "device_ms": dev, "k1": k1}
+    print(f"[spec] 11a {label}: [{eng.slots}, {k1}] verify wall "
+          f"{' / '.join(f'{t:.3f}' for t in wall['verify'])} ms, device "
+          f"{fmt_ms(dev['verify'])} ms; [{eng.slots}, 1] step wall "
+          f"{' / '.join(f'{t:.3f}' for t in wall['step'])} ms, device "
+          f"{fmt_ms(dev['step'])} ms (captured) — {card}")
+    return rec
+
+
+def timed_streams(frontend, ps):
+    """:func:`decode_streams` and its wall seconds."""
+    t0 = time.monotonic()
+    outs = decode_streams(frontend, ps, DECODE_NEW)
+    return outs, time.monotonic() - t0
+
+
+def spec_drafter_run(eng, dr, label, mixed, burst, refs, exact, card):
+    """One drafter paired with ``eng``: warmup, the mixed streams and the
+    burst; tokens against plain greedy's (``refs``), acceptance, rounds,
+    captures after warmup on both engines, leaked pages."""
+    from pdnlp_tpu_torch.serve.decode import DecodeBatcher
+
+    eng.reset_cache()
+    dr.reset_cache()
+    b = DecodeBatcher(eng, drafter=dr, draft_k=DRAFT_K)
+    b.warmup()
+    caps = (eng.metrics.retraces.value, dr.metrics.retraces.value)
+    b.start()
+    try:
+        mixed_out, _ = timed_streams(b, mixed)
+        burst_out, burst_s = timed_streams(b, burst)
+    finally:
+        b.stop()
+    snap = b.spec_snapshot()
+    eng.prefix.clear()
+    leaks = [e.leak_check()["ok"] for e in (eng, dr)]
+    rec = {"drafter": label, "rounds": snap["rounds"],
+           "accept_rate": snap["accept_rate"],
+           "draft_tokens": snap["draft_tokens"],
+           "mixed_equal": sum(a == r for a, r in zip(mixed_out, refs[0])),
+           "burst_equal": sum(a == r for a, r in zip(burst_out, refs[1])),
+           "streams": [len(mixed), len(burst)],
+           "burst_tokens_per_s": sum(map(len, burst_out)) / burst_s,
+           "captures_after_warmup": [eng.metrics.retraces.value - caps[0],
+                                     dr.metrics.retraces.value - caps[1]],
+           "leak_ok": leaks,
+           "delivered_all": all(len(o) == DECODE_NEW
+                                for o in mixed_out + burst_out)}
+    print(f"[spec] 11a {label}: {json.dumps(rec)} — {card}")
+    if any(rec["captures_after_warmup"]) or not all(leaks) or \
+            not rec["delivered_all"] or not rec["rounds"] or \
+            (exact and (rec["mixed_equal"] != len(mixed)
+                        or rec["burst_equal"] != len(burst))):
+        fail(f"11a {label}: {rec}")
+    return rec
+
+
+def spec_chaos(eng, dr, ps, refs, card):
+    """fp32, the identical drafter: ``set_draft_k`` 4 -> 2 -> 0 -> 4
+    captures only the verify widths not seen before; then the drafter
+    killed mid-burst degrades the pair, loudly, with every stream's tokens
+    delivered once and equal to plain greedy's."""
+    from pdnlp_tpu_torch.serve.decode import DecodeBatcher
+
+    eng.reset_cache()
+    dr.reset_cache()
+    b = DecodeBatcher(eng, drafter=dr, draft_k=DRAFT_K).start()
+    widths = []
+    try:
+        for k in (2, 0, DRAFT_K):
+            before = eng.metrics.retraces.value
+            b.set_draft_k(k)
+            ok = decode_streams(b, ps[:8], DECODE_NEW) == refs[:8]
+            widths.append({"k": k, "captures": eng.metrics.retraces.value
+                           - before, "equal": ok})
+    finally:
+        b.stop()
+    eng.reset_cache()
+    dr.reset_cache()
+    b = DecodeBatcher(eng, drafter=dr, draft_k=DRAFT_K).start()
+    b.eos_id = -1
+    try:
+        streams = [b.submit_ids(p, max_new_tokens=DECODE_NEW) for p in ps]
+        t0 = time.monotonic()
+        # mid-burst: a quarter of its tokens out
+        while b.metrics.tokens_out_total.value < len(ps) * DECODE_NEW // 4 \
+                and time.monotonic() - t0 < 60:
+            time.sleep(0.001)
+        b.kill_drafter(RuntimeError("injected drafter kill (chip smoke)"))
+        outs = [s.result(timeout=300) for s in streams]
+    finally:
+        b.stop()
+    rec = {"set_draft_k": widths,
+           "kill": {"degraded": b.drafter is None,
+                    "drafter_deaths": b.metrics.drafter_deaths_total.value,
+                    "equal": sum(o == r for o, r in zip(outs, refs)),
+                    "streams": len(ps),
+                    "streamed_equal_result": all(
+                        list(s.tokens(timeout=5)) == o
+                        for s, o in zip(streams, outs)),
+                    "leak_ok": [eng.leak_check()["ok"],
+                                dr.leak_check()["ok"]]}}
+    print(f"[spec] 11a float32 identical drafter, knob and kill: "
+          f"{json.dumps(rec)} — {card}")
+    want = [1, 0, 0]
+    if [w["captures"] for w in widths] != want or \
+            not all(w["equal"] for w in widths) or \
+            not rec["kill"]["degraded"] or \
+            rec["kill"]["equal"] != len(ps) or \
+            not rec["kill"]["streamed_equal_result"] or \
+            not all(rec["kill"]["leak_ok"]):
+        fail(f"11a set_draft_k / drafter kill: {rec}")
+    return rec
+
+
+def disagg_storm(torch, engines, mixed, refs, transport, card, label,
+                 chaos=None):
+    """11b: the three engines split 1 prefill + 2 decode behind
+    ``DisaggDecodeRouter`` over ``transport``; the mixed streams; tokens
+    against the interleaved batcher's (``refs``) bit for bit — the same
+    programs at the same shapes give every token, in bf16 too — captures
+    after warmup, leaked pages, handoffs, pages, bytes and export-to-ack
+    time.
+    ``chaos``: ``"resplit"`` moves the split to 2 + 1 mid-storm,
+    ``"kill"`` kills a decode engine mid-storm."""
+    from pdnlp_tpu_torch.serve.decode import DisaggDecodeRouter, PrefillWorker
+
+    for e in engines:
+        e.reset_cache()
+    router = DisaggDecodeRouter(engines, prefill_engines=1,
+                                transport=transport)
+    router.warmup()
+    caps = [e.metrics.retraces.value for e in engines]
+    router.start()
+    sep = engines[0].tokenizer.sep_id
+    try:
+        for u in router._units:
+            u.eos_id = -1
+        t0 = time.monotonic()
+        streams = [router.submit_ids(p, max_new_tokens=DECODE_NEW)
+                   for p in mixed]
+        if chaos is not None:
+            victim = router._units[1]
+            while victim.metrics.tokens_out_total.value < \
+                    len(mixed) * DECODE_NEW // 8 and \
+                    time.monotonic() - t0 < 60:
+                time.sleep(0.001)
+            if chaos == "resplit":
+                router.set_prefill_share(0.666666)
+            else:
+                router.kill(1, RuntimeError("injected decode kill"))
+        outs = [s.result(timeout=300) for s in streams]
+        wall = time.monotonic() - t0
+        hs = router.health_summary()
+        pre = [u for u in router._units if isinstance(u, PrefillWorker)]
+    finally:
+        router.stop()
+    from pdnlp_tpu_torch.utils.metrics import merged_percentiles
+
+    ho = merged_percentiles([u.metrics.handoff_ms for u in pre], (50, 99))
+    alive = [e for i, e in enumerate(engines)
+             if not (chaos == "kill" and i == 1)]
+    for e in engines:
+        e.prefix.clear()
+    # after a re-split a rebuilt unit stops at [SEP]: a stream then ends
+    # early, at the reference's [SEP]
+    whole = [o == r or (chaos == "resplit" and o == r[:len(o)]
+                        and r[len(o)] == sep)
+             for o, r in zip(outs, refs)]
+    nbytes = sum(int(u.metrics.handoff_bytes_total.value) for u in pre)
+    rec = {"transport": transport, "chaos": chaos, "streams": len(mixed),
+           "equal": sum(o == r for o, r in zip(outs, refs)),
+           "whole": sum(whole),
+           "streamed_equal_result": all(list(s.tokens(timeout=5)) == o
+                                        for s, o in zip(streams, outs)),
+           "handoffs": hs["handoffs"], "handoff_failures":
+               hs["handoff_failures"],
+           "pages": sum(int(u.metrics.handoff_pages_total.value)
+                        for u in pre),
+           "bytes": nbytes,
+           "bytes_per_handoff": nbytes / max(1, hs["handoffs"]),
+           "handoff_ms_p50_p99": ho, "wall_s": wall,
+           "tokens_per_s": sum(map(len, outs)) / wall,
+           "captures_after_warmup": [e.metrics.retraces.value - c
+                                     for e, c in zip(engines, caps)],
+           "leak_ok": [e.leak_check()["ok"] for e in alive]}
+    print(f"[disagg] 11b {label}: {json.dumps(rec)} — {card}")
+    if any(rec["captures_after_warmup"]) or not all(rec["leak_ok"]) or \
+            rec["whole"] != len(mixed) or \
+            not rec["streamed_equal_result"] or \
+            (chaos != "resplit" and rec["equal"] != len(mixed)) or \
+            (chaos is None and (rec["handoffs"] != len(mixed)
+                                or rec["handoff_failures"])):
+        fail(f"11b {label}: {rec}")
+    for e in engines:
+        e.reset_cache()
+    return rec
+
+
+def handoff_held(torch, eng, other, p, card):
+    """One stream's export held to its eager run bit for bit, its import
+    into ``other`` read back by ``other``'s export equal to the payload,
+    and the zero page still zero on both."""
+    from pdnlp_tpu_torch.serve.decode import DecodeStream
+
+    for e in (eng, other):
+        e.reset_cache()
+    seen = []
+    held_to_eager(eng, seen)
+    try:
+        eng.attach_stream(0, DecodeStream(p, DECODE_NEW), share=False)
+        eng.prefill_ids([p], [0])
+        pk, pv = eng.export_pages(0)
+    finally:
+        del eng._replay
+    other.attach_stream(1, DecodeStream(p, DECODE_NEW), share=False)
+    other.import_pages(1, pk, pv)
+    bk, bv = other.export_pages(1)
+    rec = {"export_equal_eager": bool(seen) and all(ok for _, ok in seen),
+           "import_round_trip": torch.equal(bk, pk) and torch.equal(bv, pv),
+           "zero_page_zero": [not bool(e._cache_k[:, e.n_pages].any())
+                              for e in (eng, other)],
+           "payload_bytes": pk.nbytes + pv.nbytes,
+           "payload_shape": list(pk.shape), "dtype": str(pk.dtype)}
+    print(f"[disagg] 11b handoff held: {json.dumps(rec)} — {card}")
+    for e in (eng, other):
+        e.reset_cache()
+    if not (rec["export_equal_eager"] and rec["import_round_trip"]
+            and all(rec["zero_page_zero"])):
+        fail(f"11b handoff programs: {rec}")
+    return rec
+
+
+def _cli_11c(work, vocab_path, ckpt, texts, tag, extra):
+    """``serve.cli --decode`` with 10c's flags and ``extra`` as a started
+    process fed ``texts``."""
+    out = os.path.join(work, f"cli_11c_{tag}")
+    os.makedirs(out, exist_ok=True)
+    cmd = [sys.executable, "-m", "pdnlp_tpu_torch.serve.cli", "--decode",
+           "--kv_layout", "paged", "--device", "cuda", "--model",
+           "bert-base", "--vocab_path", vocab_path, "--checkpoint", ckpt,
+           "--decode_max_len", str(DECODE_MAX_LEN), "--max_new_tokens", "16",
+           "--output_dir", out, "--metrics_path",
+           os.path.join(out, "metrics.json"), *extra]
+    p = subprocess.Popen(cmd, cwd=REPO, stdin=subprocess.PIPE,
+                         stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+                         text=True, env={**os.environ, "PYTHONPATH": REPO})
+    return p, "\n".join(texts) + "\n"
+
+
+def _cli_11c_check(p, stdin, tag, want, card):
+    """The process exits 0 and streams 10c's plain ``--decode`` pieces,
+    line for line."""
+    try:
+        so, se = p.communicate(stdin, timeout=600)
+    finally:
+        if p.poll() is None:
+            p.kill()
+            p.wait()
+    got = cli_pieces(so)
+    rec = {"exit": p.returncode, "lines": len(got),
+           "equal_lines": sum(got.get(i) == w for i, w in want.items()),
+           "tokens": sum(map(len, got.values()))}
+    print(f"[spec] 11c serve.cli --decode {tag}: {json.dumps(rec)} — {card}")
+    if p.returncode != 0 or rec["equal_lines"] != len(want) or \
+            len(got) != len(want):
+        fail(f"11c serve.cli --decode {tag}: {rec}\n{se[-3000:]}")
+    return rec
+
+
+def cli_pieces(stdout):
+    """``{line: [token pieces]}`` of ``serve.cli --decode``'s ``tok``
+    lines."""
+    pieces = {}
+    for row in (x.split("\t", 2) for x in stdout.splitlines() if "\t" in x):
+        if row[1] == "tok":
+            pieces.setdefault(int(row[0]), []).append(row[2])
+        elif row[1] == "gen":
+            pieces.setdefault(int(row[0]), [])
+    return pieces
+
+
+def cli_11c_start(work, vocab_path, ckpt, texts):
+    """11c's two ``serve.cli --decode`` processes, started."""
+    return {tag: _cli_11c(work, vocab_path, ckpt, texts, tag, extra)
+            for tag, extra in (
+                ("--speculate", ("--speculate", ckpt, "--draft_k",
+                                 str(DRAFT_K))),
+                ("--disagg local", ("--disagg", "local", "--prefill_engines",
+                                    "1", "--decode_engines", "2")))}
+
+
+def spec_phase(torch, flash, base, ckpt, card, lap, procs, cli_want,
+               primaries):
+    """Phase 11: speculative decoding and the disaggregated pools at
+    bert-base full width (module doc); ``procs``: 11c's started
+    processes (:func:`cli_11c_start`), held to ``cli_want``;
+    ``primaries``: 10a's paged engines by configuration, the primaries
+    here."""
+    import numpy as np
+
+    from pdnlp_tpu_torch.serve.decode import DecodeBatcher, PagedDecodeEngine
+
+    rng = np.random.RandomState(SEED + 10)
+    vocab = DECODE_SHAPE[2]
+    # 10a's prompts, drawn again from 10's seed: 8 + 1 (a row per slot),
+    # the mixed, the burst
+    ps = decode_prompts(rng, 9, 24, 120, vocab)[:DECODE_SLOTS]
+    mixed = decode_prompts(rng, DECODE_MIXED, 3, 200, vocab)
+    burst = decode_prompts(rng, DECODE_BURST, 16, 200, vocab)
+    args = base.replace(decode_slots=DECODE_SLOTS,
+                        decode_max_len=DECODE_MAX_LEN,
+                        max_new_tokens=DECODE_NEW, kv_page_sz=16)
+    recs = {}
+    flash.reset_launch_count()
+    int8_drafter = None
+    try:
+        for label, serve_dtype in SPEC_CONFIGS:
+            exact = label == "float32"
+            a = args.replace(serve_dtype=serve_dtype)
+            eng = primaries.pop(label)
+            eng.reset_cache()
+            plain = DecodeBatcher(eng)
+            plain.warmup()
+            eng.warmup_handoff()
+            plain.start()
+            try:
+                ref_mixed, _ = timed_streams(plain, mixed)
+                ref_burst, burst_s = timed_streams(plain, burst)
+            finally:
+                plain.stop()
+            eng.prefix.clear()
+            rec = {"plain_burst_tokens_per_s":
+                   sum(map(len, ref_burst)) / burst_s}
+            print(f"[spec] 11a {label} plain: burst of {len(burst)} x "
+                  f"{DECODE_NEW} {rec['plain_burst_tokens_per_s']:.1f} "
+                  f"tokens/s — {card}")
+            eng.warmup_verify(DRAFT_K + 1)
+            rec["verify_margin"] = verify_margin_check(eng, ps, card, label)
+            rec["verify_times"] = verify_times(torch, eng, ps, card, label)
+            drafters = {}
+            for dlabel, model, dtype_d, loads in DRAFTERS:
+                if dtype_d == "int8" and int8_drafter is not None:
+                    dr = int8_drafter      # int8 weights compute in bf16
+                else:
+                    dr = PagedDecodeEngine(
+                        a.replace(model=model,
+                                  serve_dtype=dtype_d or serve_dtype),
+                        prefix_share=False)
+                    if loads:
+                        dr.load_checkpoint(ckpt)
+                    if dtype_d == "int8":
+                        int8_drafter = dr
+                drafters[dlabel] = dr
+                rec[dlabel] = spec_drafter_run(
+                    eng, dr, f"{label} {dlabel} drafter", mixed, burst,
+                    (ref_mixed, ref_burst), exact, card)
+            if exact:
+                rec["chaos"] = spec_chaos(eng, drafters["identical"], burst,
+                                          ref_burst, card)
+            lap(f"11a {label}")
+            # 11b: the primary, the identical drafter's engine and one more
+            e2 = kv_budget_engine(torch, a, card, label)
+            recs[f"c1 {label}"] = e2.kv_snapshot()
+            e2.load_checkpoint(ckpt)
+            trio = [eng, drafters["identical"], e2]
+            for e in trio:
+                e.warmup_decode()
+                e.warmup_handoff()
+            if exact:
+                rec["handoff_held"] = handoff_held(torch, eng, e2, mixed[1],
+                                                   card)
+            for transport, chaos in (
+                    (("local", None), ("local", "resplit"), ("local", "kill"))
+                    if exact else (("local", None), ("socket", None))):
+                name = transport + ("" if chaos is None else f" {chaos}")
+                rec[f"disagg {name}"] = disagg_storm(
+                    torch, trio, mixed, ref_mixed, transport, card,
+                    f"{label} {name}", chaos)
+            recs[label] = rec
+            del eng, e2, trio, drafters
+            torch.cuda.empty_cache()
+            lap(f"11b {label}")
+        recs["launches"] = flash.launch_count()
+        if recs["launches"]:
+            fail(f"11: K1 launched {recs['launches']} times on the verify, "
+                 "decode, prefill and handoff programs")
+    finally:
+        recs["cli"] = {tag: _cli_11c_check(p, stdin, tag, cli_want, card)
+                       for tag, (p, stdin) in procs.items()}
+    lap("11c")
     return recs
 
 
@@ -3525,7 +4170,6 @@ def main():
             seg_main = packed["segment_ids"]
         del plain, engine
         torch.cuda.empty_cache()
-    cli_run(vocab_path, ckpt_path, texts, cli_labels[:6])
 
     # 5. times at the main path's packed 8 x 128 shape
     times = time_kernels(torch, F, flash, seg_main, device, card)
@@ -3558,19 +4202,6 @@ def main():
                            batches, device, card)
     train_launches = trains["float32"]["launches"]
     lap("6a")
-    # 6b. the training entry point at full width, then with the packed
-    # rows and the pipeline's default (resident); the serve engine loads
-    # both checkpoints
-    ckpt_trained, single_rec = entry_point_run(work, corpus_path, vocab_path,
-                                               data_limit)
-    serves(build_engine, base, ckpt_trained, texts)
-    ckpt_packed, single_pack_rec = entry_point_run(
-        work, profile_path, vocab_path, PROFILE_EXAMPLES,
-        extra=("--length_mode", "pack", "--pipeline", "auto"),
-        want_pipeline="resident", tag="train_pack_out")
-    serves(build_engine, base, ckpt_packed, texts)
-    torch.cuda.empty_cache()
-    lap("6b")
     # 6c. length-aware training: bucket, pack, multi-width pack
     full_ms = {d: trains[d]["step_ms_kernel"] for d in trains}
     lengths = length_runs(torch, flash, fused_ce, routes, full, vocab_size,
@@ -3594,20 +4225,47 @@ def main():
                       f"{float(b['example_weight'][32:].sum()):.0f}"
                       for b in dp_packed))
     torch.cuda.empty_cache()
-    dp = data_parallel_runs(torch, train_args, vocab_size, dp_full,
-                            dp_packed, device, card, work, texts, vocab_path,
-                            full_ms)
-    dp["entry_points"] = entry_points_7de(work, corpus_path, vocab_path,
-                                          data_limit)
+    # 6b (the training entry point at full width, then with the packed rows
+    # and the pipeline's default, resident; phase 4's serve.cli), 7d, 7e
+    # and 8c-8e's first runs are processes on the card beside 7a-7c, whose
+    # times are printed, not claimed
+    started_6b = [entry_point_start(work, corpus_path, vocab_path,
+                                    data_limit),
+                  entry_point_start(
+                      work, profile_path, vocab_path, PROFILE_EXAMPLES,
+                      extra=("--length_mode", "pack", "--pipeline", "auto"),
+                      want_pipeline="resident", tag="train_pack_out")]
+    cli4 = cli_start(vocab_path, ckpt_path, texts)
+    started_7de = entry_points_7de(work, corpus_path, vocab_path, data_limit)
+    started_8 = loop_start(work, corpus_path, vocab_path)
+    try:
+        dp = data_parallel_runs(torch, train_args, vocab_size, dp_full,
+                                dp_packed, device, card, work, texts,
+                                vocab_path, full_ms)
+        # serve.cli on zero's checkpoint as a process beside 7d and 7e
+        cli7 = cli_start(vocab_path, dp["zero_checkpoint"], texts)
+        dp["entry_points"] = entry_points_7de_check(started_7de)
+        cli_check(cli7, dp.pop("cli_labels"))
+        (ckpt_trained, single_rec), (ckpt_packed, single_pack_rec) = \
+            [entry_point_check(st) for st in started_6b]
+        cli_check(cli4, cli_labels[:6])
+    except BaseException:
+        stop_all([cli4[0], *(st[0] for st in started_6b),
+                  *started_7de[1].values(), *started_8["procs"].values()])
+        raise
+    # the serve engine loads 6b's two checkpoints and 7e's
+    serves(build_engine, base, ckpt_trained, texts)
+    serves(build_engine, base, ckpt_packed, texts)
     serves(build_engine, base, dp["entry_points"]["7e train.spawn"][
         "checkpoint"], texts)
-    lap("7")
+    lap("6b, 7")
     # 8. the training loop: captured K-step groups against eager steps,
     # their times, the entry point with every loop flag, resume, the tools
-    # (8c-8e run as processes beside 8a; 8b's times are taken alone)
+    # (8c and 8d's first runs started beside phase 7, the resumed runs and
+    # the tools run beside 8a; 8b's times are taken alone)
     torch.cuda.empty_cache()
     loop_rec, fused, msgpack_8c = loop_runs(
-        torch, work, corpus_path, vocab_path, card,
+        torch, started_8, card,
         {"single-cls.pt": ckpt_trained, "zero-cls.pt": dp["zero_checkpoint"]},
         lambda: fused_runs(torch, flash, fused_ce, train_args, vocab_size,
                            device, card, batches, length_base))
@@ -3626,8 +4284,15 @@ def main():
     # 10. generative decoding: slot and paged engines, fp32, bf16 and int8
     # KV, the router through a kill, serve.cli --decode
     torch.cuda.empty_cache()
-    decode = decode_phase(torch, flash, base, ckpt_path, work, vocab_path,
-                          card, lap)
+    decode, spec_cli, primaries = decode_phase(torch, flash, base, ckpt_path,
+                                               work, vocab_path, card, lap)
+    # 11. speculative decoding and the disaggregated pools: three drafters,
+    # the split pools over both transports, serve.cli --speculate and
+    # --disagg against 10c's tokens
+    torch.cuda.empty_cache()
+    spec = spec_phase(torch, flash, base, ckpt_path, card, lap, spec_cli,
+                      decode["cli"]["pieces"], primaries)
+    del primaries
     launches_by_path = {
         "serving packed (K1)": {"flash_fwd": main_launches},
         "6a fixed width fp32": train_launches,
@@ -3645,7 +4310,9 @@ def main():
         **{f"10a {d} decode streams": {"flash_fwd": decode[d][
             "launches_decode"]} for d, _, _ in DECODE_CONFIGS},
         **{f"10a {d} infill": {"flash_fwd": decode[d]["launches_infill"]}
-           for d, _, _ in DECODE_CONFIGS}}
+           for d, _, _ in DECODE_CONFIGS},
+        "11 speculation and the split pools": {"flash_fwd":
+                                                spec["launches"]}}
     print(f"[launches] per path (counts set to 0 just before each, read "
           f"just after): {json.dumps(launches_by_path)}")
     # 6 times: K1-K3 at every training shape of the paths, K4/K5 at the
@@ -3680,6 +4347,7 @@ def main():
         "fused_ce_times": ce_times, "fused_ce_pack_times": ce_pack_times,
         "flash_build": occupancy, "fused": fused, "fused_times": fused_ms,
         "loop": loop_rec, "serving_tier": tier, "decode": decode,
+        "speculation": spec,
         "phase_seconds": clock,
         "seconds": time.monotonic() - t_start}
     print(f"[summary] {json.dumps(summary)}")

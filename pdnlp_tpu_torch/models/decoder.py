@@ -463,8 +463,8 @@ def paged_verify_step(model: BertClassifier, head: MLMHead,
     """Speculative verify: the :func:`paged_chunk_step` body with the LM
     head over EVERY window position, ``[B, K1, vocab]`` fp32.  Rejected
     positions stay in the cache, invisible behind the position mask, and
-    the next round overwrites them in place.  (Its engine caller is
-    speculative decoding, ROADMAP A10b.)"""
+    the next round overwrites them in place.  Its engine caller is
+    ``serve.decode.PagedDecodeEngine.verify_ids``."""
     x = _paged_window(model, tokens, pages_k, pages_v, page_table, start,
                       nreal, kv_scales, dtype)
     return lm_logits(model, head, x, dtype=dtype), pages_k, pages_v

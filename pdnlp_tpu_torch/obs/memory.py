@@ -90,7 +90,7 @@ class KVBudgetExceeded(RuntimeError):
 
 class KVBudget:
     """Declared KV-cache budget for one decode engine
-    (``pdnlp_tpu/obs/memory.py``'s, unchanged).
+    (``pdnlp_tpu/obs/memory.py``'s, with the guard counted).
 
     The engine preallocates its cache once (slots or pages, updated in
     place — decode never allocates), so the budget decides at two doors:
@@ -98,7 +98,11 @@ class KVBudget:
     - **construction**: :meth:`cap_slots` / :meth:`cap_pages` return how
       many slots or pages the budget covers — the engine allocates that
       many (noted on stderr when capped below the request) and refuses
-      outright when not even one maximum-length stream fits;
+      outright when not even one maximum-length stream fits.  The port's
+      engines allocate guard storage beside what they serve (a guard
+      slot, or the zero and sink pages: ``models.decoder``), and the
+      ``guard`` argument charges it to the same budget, so the whole
+      allocation stays under ``--kv_hbm_mb``;
     - **admission**: :meth:`check_stream` refuses a stream whose worst
       case (``prompt + max_new_tokens`` positions) cannot fit.
 
@@ -112,32 +116,39 @@ class KVBudget:
         self._live = 0
         self._lock = threading.Lock()
 
-    def cap_slots(self, requested: int, slot_bytes: int) -> int:
+    def cap_slots(self, requested: int, slot_bytes: int,
+                  guard: int = 0) -> int:
         """Slots the budget covers (``requested`` when unbudgeted); raises
-        :class:`KVBudgetExceeded` when it cannot cover one."""
+        :class:`KVBudgetExceeded` when it cannot cover one.  ``guard``
+        slots the engine allocates beside the served ones (never served)
+        are paid out of the same budget."""
         if self.budget_bytes is None:
             return int(requested)
-        fit = self.budget_bytes // max(1, int(slot_bytes))
+        fit = self.budget_bytes // max(1, int(slot_bytes)) - int(guard)
         if fit < 1:
             raise KVBudgetExceeded(
                 f"kv_hbm_mb={self.budget_bytes / 2**20:.1f} cannot hold "
                 f"even one decode slot ({slot_bytes / 2**20:.1f} MB of KV "
-                "at this max_len/model) — raise --kv_hbm_mb or shrink "
+                f"at this max_len/model, {guard} guard slot(s) paid first) "
+                "— raise --kv_hbm_mb or shrink "
                 "--decode_max_len")
         return min(int(requested), int(fit))
 
     def cap_pages(self, requested: int, page_bytes: int,
-                  min_pages: int = 1) -> int:
+                  min_pages: int = 1, guard: int = 0) -> int:
         """Pages the budget covers (``requested`` when unbudgeted);
         ``min_pages`` is one maximum-length stream's pages — a budget that
-        cannot cover it refuses here instead of deadlocking every claim."""
+        cannot cover it refuses here instead of deadlocking every claim.
+        ``guard`` pages (allocated beside the pool, never handed out) are
+        paid out of the same budget."""
         if self.budget_bytes is None:
             return int(requested)
-        fit = self.budget_bytes // max(1, int(page_bytes))
+        fit = self.budget_bytes // max(1, int(page_bytes)) - int(guard)
         if fit < int(min_pages):
             raise KVBudgetExceeded(
                 f"kv_hbm_mb={self.budget_bytes / 2**20:.1f} covers only "
-                f"{fit} KV pages ({page_bytes / 2**20:.2f} MB/page) but "
+                f"{max(fit, 0)} KV pages ({page_bytes / 2**20:.2f} MB/page, "
+                f"{guard} guard pages paid first) but "
                 f"one maximum-length stream needs {min_pages} — raise "
                 "--kv_hbm_mb or shrink --decode_max_len/--kv_page_sz")
         return min(int(requested), int(fit))

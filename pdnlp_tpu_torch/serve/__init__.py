@@ -1,7 +1,8 @@
 """Serving: the classifier engine, dynamic batcher, replica router, int8
 weights, offline scorer and metrics; generative decoding (the slot and
-paged KV-cache engines, continuous batching, the decode router); and the
-``python -m pdnlp_tpu_torch.serve.cli`` entry point."""
+paged KV-cache engines, continuous batching, speculative decoding, the
+decode router and the disaggregated prefill/decode pools with their KV
+handoff); and the ``python -m pdnlp_tpu_torch.serve.cli`` entry point."""
 from pdnlp_tpu_torch.serve.batcher import (  # noqa: F401
     DEFAULT_BUCKETS, AdmissionControl, DeadlineExceeded, DynamicBatcher,
     LoadShedError, QueueFullError, pick_bucket, resolve_serve_pack,
@@ -9,9 +10,15 @@ from pdnlp_tpu_torch.serve.batcher import (  # noqa: F401
 )
 from pdnlp_tpu_torch.serve.decode import (  # noqa: F401
     DecodeBatcher, DecodeEngine, DecodeRouter, DecodeStream,
-    PagedDecodeEngine, detokenize,
+    DisaggDecodeRouter, PagedDecodeEngine, PrefillWorker, detokenize,
 )
 from pdnlp_tpu_torch.serve.engine import InferenceEngine, build_engine  # noqa: F401
+from pdnlp_tpu_torch.serve.fleet import (  # noqa: F401
+    ModelSpec, parse_speculate_spec,
+)
+from pdnlp_tpu_torch.serve.handoff import (  # noqa: F401
+    HandoffChannel, HandoffError, HandoffServer, decode_frame, encode_frame,
+)
 from pdnlp_tpu_torch.serve.kvpage import KVPagesExhausted  # noqa: F401
 from pdnlp_tpu_torch.serve.metrics import (  # noqa: F401
     DecodeMetrics, ReplicaMetrics, RouterMetrics, ServeMetrics,

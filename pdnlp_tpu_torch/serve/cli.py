@@ -33,13 +33,24 @@ a refusal):
         --model bert-base --vocab_path output/vocab.txt [--checkpoint c.pt] \
         [--replicas 2] [--kv_layout paged|slots] [--kv_dtype int8] \
         [--decode_slots 8] [--decode_max_len 256] [--max_new_tokens 32] \
-        [--kv_hbm_mb 512] [--kv_page_sz 16]
+        [--kv_hbm_mb 512] [--kv_page_sz 16] \
+        [--speculate [model=]ckpt[:dtype] [--draft_k 4]] \
+        [--disagg off|on|local|socket --prefill_engines 1 --decode_engines 2]
 
 ``--replicas`` engines share the card behind ``serve.decode.DecodeRouter``;
-each captures one CUDA graph per decode shape at warmup.  Speculation and
-the disaggregated pools (``--speculate``, ``--draft_k``, ``--disagg``,
-``--prefill_engines``, ``--decode_engines``) are ROADMAP A10b, the
-controller A9b; each is refused by name.
+each captures one CUDA graph per decode shape at warmup.  ``--speculate``
+pairs every replica with a drafter engine (a bare checkpoint path keeps
+the primary's architecture; ``model=ckpt`` names another one, ``:int8``
+or ``:bf16`` its precision) that drafts ``--draft_k`` tokens per round;
+``--disagg`` splits the engines into prefill and decode pools
+(``serve.decode.DisaggDecodeRouter``; ``on`` = ``local``, ``socket`` sends
+every KV handoff over the framed loopback transport), sized by
+``--prefill_engines`` and ``--decode_engines`` (or ``--replicas``).  Both
+need ``--kv_layout paged`` and exclude each other.  Without
+``--checkpoint`` every entry point serves the newest checkpoint in
+``--output_dir`` (``train.checkpoint.latest``), and the seeded init
+weights, with a warning, only when there is none.  The serving controller
+(``--controller`` and the fleet flags) is ROADMAP A9b, refused by name.
 """
 from __future__ import annotations
 
@@ -58,11 +69,6 @@ NOT_PORTED = {
     "--canary_fraction": "the multi-model fleet (ROADMAP A9b)",
     "--degrade_at": "the multi-model fleet (ROADMAP A9b)",
     "--rollout": "the multi-model fleet (ROADMAP A9b)",
-    "--speculate": "speculative decoding (ROADMAP A10b)",
-    "--draft_k": "speculative decoding (ROADMAP A10b)",
-    "--disagg": "disaggregated prefill/decode (ROADMAP A10b)",
-    "--prefill_engines": "disaggregated prefill/decode (ROADMAP A10b)",
-    "--decode_engines": "disaggregated prefill/decode (ROADMAP A10b)",
 }
 
 
@@ -96,13 +102,13 @@ def build_router(args, replicas: int, *, checkpoint: Optional[str] = None,
     """N replica engines on the one device behind the replica router
     (``serve_tpu.py:build_router``).  The engines share one tokenizer; the
     same factory builds an ejected replica's replacement on
-    ``ReplicaRouter.relaunch``.  Each replica loads ``checkpoint`` during
-    its warmup."""
+    ``ReplicaRouter.relaunch``.  Each replica loads ``checkpoint`` (the
+    newest in ``--output_dir`` without one) during its warmup."""
     from pdnlp_tpu_torch.data.tokenizer import (
         WordPieceTokenizer, get_or_build_vocab,
     )
     from pdnlp_tpu_torch.serve.batcher import DEFAULT_BUCKETS
-    from pdnlp_tpu_torch.serve.engine import InferenceEngine
+    from pdnlp_tpu_torch.serve.engine import InferenceEngine, latest_checkpoint
     from pdnlp_tpu_torch.serve.router import ReplicaRouter
 
     tok = tokenizer or WordPieceTokenizer(get_or_build_vocab(args))
@@ -110,12 +116,13 @@ def build_router(args, replicas: int, *, checkpoint: Optional[str] = None,
     def factory(index: int) -> InferenceEngine:
         return InferenceEngine(args, tokenizer=tok)
 
+    checkpoint = latest_checkpoint(args, checkpoint)
     engines = [factory(i) for i in range(replicas)]
     if checkpoint:
         print(f"serving {checkpoint} on {replicas} replicas", file=sys.stderr)
     else:
-        print("WARNING: no --checkpoint — serving untrained init weights "
-              "(smoke mode)", file=sys.stderr)
+        print("WARNING: no checkpoint found — serving untrained init "
+              "weights (smoke mode)", file=sys.stderr)
     return ReplicaRouter(
         engines, engine_factory=factory, buckets=buckets or DEFAULT_BUCKETS,
         max_batch_size=max_batch_size, max_wait_ms=max_wait_ms,
@@ -128,47 +135,105 @@ def build_router(args, replicas: int, *, checkpoint: Optional[str] = None,
 
 def build_decode_pool(args, replicas: int, *,
                       checkpoint: Optional[str] = None, tokenizer=None,
-                      buckets=None, max_waiting: int = 256):
-    """Generative serving pool (``serve_tpu.py:build_decode_pool`` without
-    speculation and the disaggregated pools): ``replicas`` decode engines
-    on the card — :class:`~pdnlp_tpu_torch.serve.decode.PagedDecodeEngine`
-    under ``--kv_layout paged`` (the default), ``DecodeEngine`` under
-    ``slots`` — behind a ``DecodeRouter`` (one replica included: the
-    router is the one submit/kill/snapshot surface).  The engines share
-    one tokenizer and one tracer; each loads ``checkpoint``."""
+                      buckets=None, max_waiting: int = 256,
+                      speculate: Optional[str] = None, draft_k: int = 4,
+                      disagg: str = "off", prefill_engines: int = 1):
+    """Generative serving pool (``serve_tpu.py:build_decode_pool``):
+    ``replicas`` decode engines on the card —
+    :class:`~pdnlp_tpu_torch.serve.decode.PagedDecodeEngine` under
+    ``--kv_layout paged`` (the default), ``DecodeEngine`` under ``slots``
+    — behind a ``DecodeRouter`` (one replica included: the router is the
+    one submit/kill/snapshot surface).  The engines share one tokenizer
+    and one tracer; each loads ``checkpoint`` (the newest in
+    ``--output_dir`` without one).
+
+    ``speculate`` (``model=ckpt[:dtype]`` or a bare checkpoint path)
+    pairs every replica with a drafter: a ``PagedDecodeEngine`` without
+    prefix sharing, in the primary's slots and positions, of the named
+    architecture (the primary's for a bare path) and precision, drafting
+    ``draft_k`` tokens per round.  ``disagg`` (``local`` | ``socket``)
+    splits the engines into ``prefill_engines`` prefill-role engines and
+    the rest decode-role behind a ``DisaggDecodeRouter``."""
     from pdnlp_tpu_torch.data.tokenizer import (
         WordPieceTokenizer, get_or_build_vocab,
     )
     from pdnlp_tpu_torch.serve.batcher import DEFAULT_BUCKETS
     from pdnlp_tpu_torch.serve.decode import (
-        DecodeEngine, DecodeRouter, PagedDecodeEngine,
+        DecodeEngine, DecodeRouter, DisaggDecodeRouter, PagedDecodeEngine,
     )
+    from pdnlp_tpu_torch.serve.engine import latest_checkpoint
+    from pdnlp_tpu_torch.serve.fleet import parse_speculate_spec
 
     if args.kv_layout not in ("paged", "slots"):
         sys.exit(f"serve.cli: --kv_layout takes paged|slots, got "
                  f"{args.kv_layout!r}")
+    paged = args.kv_layout == "paged"
+    if disagg != "off":
+        if not paged:
+            sys.exit("serve.cli: --disagg needs --kv_layout paged (the "
+                     "handoff moves page custody between engines)")
+        if speculate:
+            sys.exit("serve.cli: --disagg and --speculate are exclusive "
+                     "for now — decode-role engines run without drafters")
+        if replicas < 2:
+            sys.exit("serve.cli: --disagg needs --replicas >= 2 (at least "
+                     "one engine per role)")
+    if speculate and not paged:
+        sys.exit("serve.cli: --speculate needs --kv_layout paged (draft "
+                 "custody lives in the page table)")
+    dspec = parse_speculate_spec(speculate) if speculate else None
     tok = tokenizer or WordPieceTokenizer(get_or_build_vocab(args))
-    cls = PagedDecodeEngine if args.kv_layout == "paged" else DecodeEngine
+    cls = PagedDecodeEngine if paged else DecodeEngine
     engines = [cls(args, tokenizer=tok, buckets=buckets or DEFAULT_BUCKETS)
                for _ in range(replicas)]
     for e in engines[1:]:
         e.tracer = engines[0].tracer   # one span/hop stream for the pool
+    checkpoint = latest_checkpoint(args, checkpoint)
     if checkpoint:
         for e in engines:
             e.load_checkpoint(checkpoint)
         print(f"decoding from {checkpoint} on {replicas} replica(s)",
               file=sys.stderr)
     else:
-        print("WARNING: no --checkpoint — decoding from untrained init "
+        print("WARNING: no checkpoint found — decoding from untrained init "
               "weights (smoke mode)", file=sys.stderr)
+    drafters = None
+    if dspec is not None:
+        # the drafter serves its own architecture and precision; a bare
+        # path keeps the primary's architecture (a distilled checkpoint)
+        dargs = args
+        if "=" in speculate:
+            dargs = dargs.replace(model=dspec.model_id)
+        if dspec.dtype != "auto":
+            dargs = dargs.replace(serve_dtype=dspec.dtype)
+        drafters = [PagedDecodeEngine(
+            dargs, tokenizer=tok, buckets=buckets or DEFAULT_BUCKETS,
+            tracer=engines[0].tracer, slots=e.slots, max_len=e.max_len,
+            prefix_share=False) for e in engines]
+        if dspec.checkpoint:
+            for d in drafters:
+                d.load_checkpoint(dspec.checkpoint)
+        print(f"speculating: drafter {dspec.model_id} "
+              f"({dspec.checkpoint or '<init weights>'} [{dspec.dtype}]) "
+              f"drafts k={draft_k} per round", file=sys.stderr)
+    if disagg != "off":
+        print(f"disaggregated pools: {prefill_engines} prefill / "
+              f"{replicas - prefill_engines} decode engine(s), {disagg} "
+              "handoff", file=sys.stderr)
+        return DisaggDecodeRouter(
+            engines, prefill_engines=prefill_engines,
+            max_waiting=max_waiting, default_max_new=args.max_new_tokens,
+            transport=disagg)
     return DecodeRouter(engines, max_waiting=max_waiting,
-                        default_max_new=args.max_new_tokens)
+                        default_max_new=args.max_new_tokens,
+                        drafters=drafters, draft_k=draft_k)
 
 
 def serve_decode(args, *, replicas: int, checkpoint: Optional[str],
                  tokenizer, buckets, max_queue: int,
-                 deadline_ms: Optional[float],
-                 metrics_path: Optional[str]) -> None:
+                 deadline_ms: Optional[float], metrics_path: Optional[str],
+                 speculate: Optional[str] = None, draft_k: int = 4,
+                 disagg: str = "off", prefill_engines: int = 1) -> None:
     """The ``--decode`` online loop (``serve_tpu.py:serve_decode``): one
     prompt per stdin line, tokens streamed to stdout as they decode.
     Results drain in submission order; a window of in-flight streams
@@ -178,7 +243,9 @@ def serve_decode(args, *, replicas: int, checkpoint: Optional[str],
 
     pool = build_decode_pool(args, replicas, checkpoint=checkpoint,
                              tokenizer=tokenizer, buckets=buckets,
-                             max_waiting=max_queue)
+                             max_waiting=max_queue, speculate=speculate,
+                             draft_k=draft_k, disagg=disagg,
+                             prefill_engines=prefill_engines)
     engine = pool.engine(0)
     pool.start()
     pool.warmup()
@@ -208,7 +275,7 @@ def serve_decode(args, *, replicas: int, checkpoint: Optional[str],
     prompt_budget = max(1, engine.max_len - max_new)
     # enough streams in flight to keep every slot claimable, capped at the
     # waiting-queue bound so pipelining never walks into the reject tier
-    window = min(2 * sum(b.engine.slots for b in pool.batchers), max_queue)
+    window = min(2 * replicas * engine.slots, max_queue)
     inflight: deque = deque()
 
     def emit(idx, stream) -> None:
@@ -285,6 +352,11 @@ def main(argv=None) -> None:
     argv, in_path = pop_cli_flag(argv, "--input")
     argv, out_path = pop_cli_flag(argv, "--output")
     argv, metrics_path = pop_cli_flag(argv, "--metrics_path")
+    argv, speculate = pop_cli_flag(argv, "--speculate")
+    argv, draft_k = pop_cli_flag(argv, "--draft_k", 4, int)
+    argv, disagg = pop_cli_flag(argv, "--disagg", "off")
+    argv, prefill_engines = pop_cli_flag(argv, "--prefill_engines", 1, int)
+    argv, decode_engines = pop_cli_flag(argv, "--decode_engines", None, int)
     decode_mode = "--decode" in argv
     if decode_mode:
         argv.remove("--decode")
@@ -295,14 +367,34 @@ def main(argv=None) -> None:
         if in_path or serve_pack != "auto" or args.serve_long_widths:
             sys.exit("serve.cli: --decode is the generative online path — "
                      "drop --input/--serve_pack/--serve_long_widths")
+        if disagg == "on":
+            disagg = "local"   # "on" is shorthand for the in-process handoff
+        if disagg not in ("off", "local", "socket"):
+            sys.exit("serve.cli: --disagg takes off|on|local|socket")
+        if disagg != "off" and decode_engines is not None:
+            # explicit pool sizes: the fleet is their sum, and --replicas
+            # (if given) must agree rather than silently losing engines
+            total = prefill_engines + decode_engines
+            if replicas not in (1, total):
+                sys.exit("serve.cli: --replicas disagrees with "
+                         "--prefill_engines + --decode_engines")
+            replicas = total
         _install_signal_handlers()
         tok = WordPieceTokenizer(get_or_build_vocab(args))
         encoder = "native" if native.attach(tok) else "python"
         print(f"encoder: {encoder}", file=sys.stderr)
         serve_decode(args, replicas=replicas, checkpoint=checkpoint,
                      tokenizer=tok, buckets=buckets, max_queue=max_queue,
-                     deadline_ms=deadline, metrics_path=metrics_path)
+                     deadline_ms=deadline, metrics_path=metrics_path,
+                     speculate=speculate, draft_k=draft_k, disagg=disagg,
+                     prefill_engines=prefill_engines)
         return
+    if speculate:
+        sys.exit("serve.cli: --speculate is the generative path — "
+                 "speculative decoding needs --decode")
+    if disagg != "off" or decode_engines is not None:
+        sys.exit("serve.cli: --disagg splits the generative decode fleet — "
+                 "it needs --decode")
     long_widths = parse_long_widths(args.serve_long_widths)
     if long_widths and in_path:
         sys.exit("serve.cli: --serve_long_widths is the online path's "

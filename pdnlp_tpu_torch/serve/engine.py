@@ -483,16 +483,30 @@ class InferenceEngine:
         self.infer_packed(batch, segments=1)
 
 
+def latest_checkpoint(args, checkpoint: Optional[str] = None
+                      ) -> Optional[str]:
+    """``checkpoint``, or without one the newest checkpoint in
+    ``args.output_dir`` (``serve_tpu.py:_latest_checkpoint``;
+    ``train.checkpoint.latest``): the port's ``.pt`` files first, then
+    JAX's ``.msgpack``.  None when there is none."""
+    if checkpoint:
+        return checkpoint
+    return ckpt.latest(args.output_dir) \
+        or ckpt.latest(args.output_dir, ".msgpack")
+
+
 def build_engine(args, *, checkpoint: Optional[str] = None,
                  tokenizer: Optional[WordPieceTokenizer] = None
                  ) -> InferenceEngine:
-    """Engine with ``checkpoint`` loaded; without one it serves the seeded
-    init weights and says so (a smoke mode)."""
+    """Engine with ``checkpoint`` loaded — without one, the newest
+    checkpoint in ``--output_dir``; only when there is none does it serve
+    the seeded init weights, and says so (a smoke mode)."""
     engine = InferenceEngine(args, tokenizer=tokenizer)
+    checkpoint = latest_checkpoint(args, checkpoint)
     if checkpoint:
         engine.load_checkpoint(checkpoint)
         print(f"serving {checkpoint}", file=sys.stderr)
     else:
-        print("WARNING: no --checkpoint — serving untrained init weights "
-              "(smoke mode)", file=sys.stderr)
+        print("WARNING: no checkpoint found — serving untrained init "
+              "weights (smoke mode)", file=sys.stderr)
     return engine

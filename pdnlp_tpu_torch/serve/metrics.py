@@ -24,9 +24,9 @@ The replica router adds :class:`RouterMetrics` (admission tiers, requeues,
 retries, hedges, ejections, swaps, recovery) and :class:`ReplicaMetrics`
 (replica-labelled queue depth, occupancy and failure counters).
 Generative decoding adds :class:`DecodeMetrics` (tokens, TTFT and
-inter-token gaps, the KV and page gauges; its speculation and handoff
-counters stay at 0 until ROADMAP A10b).  The fleet metrics come with the
-fleet (A9b).
+inter-token gaps, the KV and page gauges, and the speculation and handoff
+counters that ``serve.decode``'s drafter pairs and split pools move).
+The fleet metrics come with the fleet (A9b).
 """
 from __future__ import annotations
 

@@ -1,6 +1,7 @@
 """Metrics (``pdnlp_tpu/utils/metrics.py``): the serving observability
 primitives ``Counter`` / ``Gauge`` / ``Histogram`` (thread-safe,
-JSON-snapshot friendly, aggregated by ``serve.metrics.ServeMetrics``), the
+JSON-snapshot friendly, aggregated by ``serve.metrics.ServeMetrics``) and
+``merged_percentiles`` over several histograms' windows, the
 input pipeline's ``TransportStats`` and the eval report
 ``classification_report``, byte for byte."""
 from __future__ import annotations
@@ -96,6 +97,25 @@ class Histogram:
             "p95": ps[1],
             "p99": ps[2],
         }
+
+
+def merged_percentiles(hists: Sequence[Histogram],
+                       ps: Sequence[float]) -> List[Optional[float]]:
+    """Percentiles over the POOLED recent windows of several histograms —
+    one fleet-level p99, not an average of per-instrument p99s (averaging
+    percentiles understates the tail whenever load is uneven across
+    units, which is exactly when the pool-split controller must act).
+    Returns ``None`` per requested percentile when no histogram has
+    observations yet."""
+    windows = []
+    for h in hists:
+        with h._lock:
+            if h._recent:
+                windows.append(np.asarray(h._recent))
+    if not windows:
+        return [None] * len(ps)
+    pooled = np.concatenate(windows)
+    return [float(v) for v in np.percentile(pooled, list(ps))]
 
 
 class TransportStats:

@@ -1,7 +1,9 @@
 """Card tests of the PyTorch port: the CUDA kernels (flash forward K1,
 flash backward K2/K3, fused classifier CE K4/K5) against their plain
-PyTorch twins, their occupancy and tensor-core instructions, and the
-serving engine with the kernel against the plain path, on an NVIDIA card.
+PyTorch twins, their occupancy and tensor-core instructions, the serving
+engine with the kernel against the plain path, and the decode engines'
+captured programs (speculation's verify and the handoff's export and
+import included) against their eager runs, on an NVIDIA card.
 
 Whether a card is present is decided inside the ``cuda_device`` fixture,
 so every worker collects the same tests; without a card each one skips.
@@ -997,18 +999,22 @@ def test_resume_across_fuse_settings_on_the_card(cuda_device, tmp_path):
 
 # ------------------------------------------------- generative decoding
 
-def _decode_engine(layout="paged", kv="auto", serve_dtype="auto", **kw):
+def _decode_engine(layout="paged", kv="auto", serve_dtype="auto",
+                   prefix_share=True, **kw):
     from pdnlp_tpu_torch.data.tokenizer import WordPieceTokenizer
     from pdnlp_tpu_torch.serve.decode import DecodeEngine, PagedDecodeEngine
     from pdnlp_tpu_torch.utils.config import Args
 
     vocab = ["[PAD]", "[UNK]", "[CLS]", "[SEP]", "[MASK]"] + \
         [f"t{i}" for i in range(95)]
-    cls = PagedDecodeEngine if layout == "paged" else DecodeEngine
-    return cls(Args(model="bert-tiny", device="cuda", kv_dtype=kv,
-                    serve_dtype=serve_dtype, decode_slots=4,
-                    decode_max_len=64, max_new_tokens=8, **kw),
-               tokenizer=WordPieceTokenizer(vocab), buckets=(16, 32))
+    args = Args(model="bert-tiny", device="cuda", kv_dtype=kv,
+                serve_dtype=serve_dtype, decode_slots=4, decode_max_len=64,
+                max_new_tokens=8, **kw)
+    if layout == "paged":
+        return PagedDecodeEngine(args, tokenizer=WordPieceTokenizer(vocab),
+                                 buckets=(16, 32), prefix_share=prefix_share)
+    return DecodeEngine(args, tokenizer=WordPieceTokenizer(vocab),
+                        buckets=(16, 32))
 
 
 def _held_to_eager(eng):
@@ -1127,3 +1133,90 @@ def test_decode_graphs_keep_their_addresses_across_swaps(cuda_device,
     assert not np.array_equal(before, after)
     np.testing.assert_array_equal(after, other.infill_ids(ids))
     assert all(ok for _, ok in seen)
+
+
+def _run_streams(frontend, ps, max_new=8):
+    for u in getattr(frontend, "_units", None) or \
+            getattr(frontend, "batchers", [frontend]):
+        u.eos_id = -1
+    streams = [frontend.submit_ids(p, max_new_tokens=max_new) for p in ps]
+    return [s.result(timeout=120) for s in streams]
+
+
+@pytest.mark.parametrize("kv", ["auto", "int8"], ids=["fp32", "int8-kv"])
+def test_speculation_on_the_card_equals_plain_decode(cuda_device, kv):
+    """A captured primary + drafter pair (identical weights) speculates
+    plain greedy's tokens bit for bit; every replay, the ``[slots, k+1]``
+    verify included, equals its eager run; nothing is captured after
+    warmup on either engine; both engines drain clean."""
+    from pdnlp_tpu_torch.serve.decode import DecodeBatcher
+
+    eng = _decode_engine("paged", kv, kv_page_sz=8)
+    dr = _decode_engine("paged", kv, kv_page_sz=8, prefix_share=False)
+    held = [_held_to_eager(eng), _held_to_eager(dr)]
+    ps = _decode_prompts(10, seed=6)
+    plain = DecodeBatcher(eng).start()
+    plain.warmup()
+    ref = _run_streams(plain, ps)
+    plain.stop()
+    b = DecodeBatcher(eng, drafter=dr, draft_k=4)
+    b.warmup()
+    caps = (eng.metrics.retraces.value, dr.metrics.retraces.value)
+    assert any(k[0][0] == "verify" for k in eng._graphs)
+    b.start()
+    outs = _run_streams(b, ps)
+    snap = b.spec_snapshot()
+    b.stop()
+    assert outs == ref
+    assert snap["rounds"] > 0 and snap["accept_rate"] > 0.5
+    assert (eng.metrics.retraces.value, dr.metrics.retraces.value) == caps
+    seen = held[0] + held[1]
+    assert seen and all(ok for _, ok in seen), \
+        [k for k, ok in seen if not ok]
+    assert any(k[0] == "verify" for k, _ in held[0])
+    assert eng.leak_check()["ok"] and dr.leak_check()["ok"]
+    # a new k captures its verify width once; an old one captures nothing
+    b2 = DecodeBatcher(eng, drafter=dr, draft_k=4).start()
+    for k, new in ((2, 1), (0, 0), (4, 0), (2, 0)):
+        before = eng.metrics.retraces.value
+        b2.set_draft_k(k)
+        assert _run_streams(b2, ps[:4]) == ref[:4]
+        assert eng.metrics.retraces.value - before == new, k
+    b2.stop()
+
+
+@pytest.mark.parametrize("transport", ["local", "socket"])
+def test_disaggregated_pools_on_the_card(cuda_device, transport):
+    """Three captured engines split 1 + 2: the export and import programs
+    replay (the export equal to its eager run), the tokens equal one
+    interleaved batcher's, nothing is captured after warmup, the zero page
+    stays zero and every allocator drains."""
+    from pdnlp_tpu_torch.serve.decode import DecodeBatcher, DisaggDecodeRouter
+
+    engines = [_decode_engine("paged", kv_page_sz=8) for _ in range(3)]
+    held = [_held_to_eager(e) for e in engines]
+    ps = _decode_prompts(10, seed=8)
+    b = DecodeBatcher(engines[0]).start()
+    b.warmup()
+    ref = _run_streams(b, ps)
+    b.stop()
+    router = DisaggDecodeRouter(engines, prefill_engines=1,
+                                transport=transport)
+    router.warmup()
+    caps = [e.metrics.retraces.value for e in engines]
+    for e in engines:
+        assert {k[0][0] for k in e._graphs} >= {"export", "import"}
+    router.start()
+    outs = _run_streams(router, ps)
+    hs = router.health_summary()
+    router.stop()
+    assert outs == ref
+    assert hs["handoffs"] == len(ps) and hs["handoff_failures"] == 0
+    assert [e.metrics.retraces.value for e in engines] == caps
+    seen = [x for h in held for x in h]
+    assert seen and all(ok for _, ok in seen), \
+        [k for k, ok in seen if not ok]
+    assert any(k[0] == "export" for k, _ in seen)
+    for e in engines:
+        assert e.leak_check()["ok"]
+        assert not e._cache_k[:, e.n_pages].any()

@@ -4,9 +4,11 @@ weights and seeded numpy inputs, the engines' greedy tokens against JAX's
 engines on the same converted checkpoint, and the twins of
 ``tests/test_decode.py`` on the port's engines (the bitwise contract, slot
 reuse, continuous batching, determinism, zero new programs after warmup,
-the KV budget doors, hop chains, the router kill), the JAX-written LM head
-and ``.kvscales.msgpack`` loading into the port, and ``serve.cli
---decode``.
+the KV budget doors with the guard inside the budget, hop chains, the
+router kill), the JAX-written LM head and ``.kvscales.msgpack`` loading
+into the port, each speculation and handoff piece on a bert-tiny pair,
+the serving entry points' fallback to the newest checkpoint, and
+``serve.cli --decode`` with its refusals.
 
 Tolerance: logits and K/V at 2e-4 in fp32 (the forward tolerance of
 ``tests/test_torch_model.py``); int8 K/V codes equal; greedy tokens equal.
@@ -44,8 +46,8 @@ from pdnlp_tpu_torch.obs.memory import KVBudget, KVBudgetExceeded
 from pdnlp_tpu_torch.obs.request import validate_chains
 from pdnlp_tpu_torch.ops import attention as tattn
 from pdnlp_tpu_torch.serve import (
-    DecodeBatcher, DecodeEngine, DecodeRouter, PagedDecodeEngine,
-    detokenize,
+    DecodeBatcher, DecodeEngine, DecodeRouter, DecodeStream,
+    PagedDecodeEngine, detokenize,
 )
 from pdnlp_tpu_torch.utils.config import Args
 
@@ -761,9 +763,25 @@ def test_kv_budget_doors(tok, eng4):
                      buckets=BUCKETS)
     capped = DecodeEngine(make_args(kv_hbm_mb=2.2 * slot_mb), tokenizer=tok,
                           buckets=BUCKETS)
-    assert capped.slots == 2
+    # the guard slot is paid out of the budget: 2 slots' bytes = 1 served
+    # slot + the guard
+    assert capped.slots == 1
     assert capped.kv_snapshot()["budget_mb"] == pytest.approx(
         2.2 * slot_mb, abs=1e-3)
+    # what is allocated stays under the budget, and the snapshot says what
+    # is allocated: both layouts and a drafter's pool
+    paged = PagedDecodeEngine(make_args(kv_hbm_mb=2.2 * slot_mb),
+                              tokenizer=tok, buckets=BUCKETS, page_sz=16)
+    drafter = PagedDecodeEngine(make_args(kv_hbm_mb=2.2 * slot_mb),
+                                tokenizer=tok, buckets=BUCKETS, page_sz=16,
+                                prefix_share=False)
+    for eng in (capped, paged, drafter):
+        allocated = eng._cache_k.nbytes + eng._cache_v.nbytes
+        assert allocated <= eng.budget.budget_bytes
+        assert eng.kv_snapshot()["cache_bytes"] == allocated
+    assert paged.n_pages == 6 - decoder.GUARD_PAGES    # 6 pages' bytes
+    assert eng4.kv_snapshot()["cache_bytes"] == \
+        eng4._cache_k.nbytes + eng4._cache_v.nbytes
     b = DecodeBatcher(capped).start()
     with pytest.raises(KVBudgetExceeded):
         b.submit_ids(list(range(5, 15)), max_new_tokens=10_000)
@@ -785,8 +803,12 @@ def test_kv_budget_doors(tok, eng4):
     plain.stop()
     bgt = KVBudget(1.0)
     assert bgt.cap_slots(8, 2**19) == 2
+    assert bgt.cap_slots(8, 2**19, guard=1) == 1
+    assert bgt.cap_pages(8, 2**17, min_pages=2, guard=2) == 6
     with pytest.raises(KVBudgetExceeded):
         bgt.cap_slots(8, 2**21)
+    with pytest.raises(KVBudgetExceeded):
+        bgt.cap_slots(8, 2**19, guard=2)
     with pytest.raises(KVBudgetExceeded):
         bgt.check_stream(tokens_total=2048, token_bytes=1024)
     bgt.set_live(4096)
@@ -873,29 +895,170 @@ def test_router_all_replicas_dead_fails_loudly(eng4):
     router.stop()
 
 
-def test_a10b_pieces_raise_by_name(tok, eng4):
-    eng = PagedDecodeEngine(make_args(), tokenizer=tok, buckets=BUCKETS)
-    for call in (lambda: eng.verify_ids(None, None, None, 0),
-                 lambda: eng.warmup_verify(3),
-                 lambda: eng.split_draft_custody(0, 1),
-                 lambda: eng.commit_draft(0, 1)):
-        with pytest.raises(NotImplementedError,
-                           match=r"speculative decoding \(ROADMAP A10b\)"):
-            call()
-    for call in (lambda: eng.export_pages(0), lambda: eng.begin_handoff(0),
-                 lambda: eng.import_pages(0, None, None),
-                 lambda: eng.warmup_handoff()):
-        with pytest.raises(NotImplementedError,
-                           match=r"disaggregated prefill/decode "
-                                 r"\(ROADMAP A10b\)"):
-            call()
-    b = DecodeBatcher(eng4)
-    with pytest.raises(NotImplementedError, match="A10b"):
-        b.accept_handoff(None, 0, 0, None, None)
-    with pytest.raises(NotImplementedError, match="A10b"):
-        b.set_draft_k(2)
-    with pytest.raises(NotImplementedError, match="A10b"):
-        DecodeRouter([eng4]).apply_knob("draft_k", 2)
+@pytest.fixture(scope="module")
+def pair(tok):
+    """A warmed bert-tiny primary + drafter paged pair and a started
+    batcher over it, for the speculation and handoff pieces one by one."""
+    eng = PagedDecodeEngine(make_args(), tokenizer=tok, buckets=BUCKETS,
+                            page_sz=8)
+    dr = PagedDecodeEngine(make_args(), tokenizer=tok, buckets=BUCKETS,
+                           page_sz=8, prefix_share=False)
+    DecodeBatcher(eng, drafter=dr, draft_k=3).warmup()
+    eng.warmup_handoff()
+    return eng, dr
+
+
+def _seat(eng, slot, ids, max_new=8, share=True):
+    stream = DecodeStream(ids, max_new)
+    eng.attach_stream(slot, stream, share=share)
+    first = eng.prefill_ids([ids], [slot])[0]
+    return stream, int(first.argmax())
+
+
+def _piece_verify(eng, dr, tok):
+    _, first = _seat(eng, 0, [5, 6, 7, 8, 9])
+    window = np.zeros((eng.slots, 4), np.int32)
+    window[0] = [first, 5, 6, 7]
+    nreal = np.asarray([4, 0, 0, 0], np.int32)
+    pos = np.asarray([5, 0, 0, 0], np.int32)
+    out = eng.verify_ids(window, pos, nreal, live=1)
+    assert out.shape == (eng.slots, 4, tok.vocab_size)
+    assert np.isfinite(out).all()
+    # position 0 of the window is the plain decode step's logits
+    step = eng.decode_batch(window[:, 0], pos, live=1)
+    np.testing.assert_allclose(out[0, 0], step[0], atol=1e-5)
+    eng.detach_slot(0)
+
+
+def _piece_warmup_verify(eng, dr, tok):
+    r0 = eng.metrics.retraces.value
+    eng.warmup_verify(4)                   # warmed by the batcher
+    assert eng.metrics.retraces.value == r0
+    eng.warmup_verify(6)                   # a new width: once
+    eng.warmup_verify(6)
+    assert eng.metrics.retraces.value == r0 + 1
+
+
+def _piece_draft_custody(eng, dr, tok):
+    from pdnlp_tpu_torch.serve.kvpage import draft_owner
+
+    stream = DecodeStream([5, 6, 7], 30)    # 33 positions: 5 pages of 8
+    dr.attach_stream(1, stream)
+    owned = dr.allocator._owned
+    dr.split_draft_custody(1, 3)            # page 0 committed, 1-4 drafts
+    assert len(owned[stream.rid]) == 1
+    assert len(owned[draft_owner(stream.rid)]) == 4
+    dr.commit_draft(1, 17)                  # positions 0-16: pages 0-2
+    assert len(owned[stream.rid]) == 3
+    assert len(owned[draft_owner(stream.rid)]) == 2
+    assert dr.allocator.leak_check()["ok"]
+    dr.detach_slot(1)                       # both owners released
+    assert dr.leak_check()["ok"]
+
+
+def _piece_export_import(eng, dr, tok):
+    stream, _ = _seat(eng, 2, [9, 8, 7, 6, 5, 4, 3, 2, 1], share=False)
+    pk, pv = eng.export_pages(2)
+    assert tuple(pk.shape) == (2, eng.pages_per_stream, 8, 2, 64)
+    staged, pages = eng.begin_handoff(2)
+    eng.allocator.release_owner(staged)
+    stream2 = DecodeStream(stream.prompt_ids, 8)
+    dr_free = eng.allocator.free_pages
+    eng.attach_stream(3, stream2, share=False)
+    eng.import_pages(3, pk, pv)
+    again = eng.export_pages(3)
+    assert torch.equal(again[0], pk) and torch.equal(again[1], pv)
+    eng.detach_slot(3)
+    assert eng.allocator.free_pages == dr_free
+    assert eng.leak_check()["ok"]
+
+
+def _piece_warmup_handoff(eng, dr, tok):
+    r0 = eng.metrics.retraces.value
+    eng.warmup_handoff()
+    assert eng.metrics.retraces.value == r0
+    assert not eng._cache_k[:, eng.n_pages].any()      # the zero page
+
+
+def _piece_batcher_knobs(eng, dr, tok):
+    b = DecodeBatcher(eng, drafter=dr, draft_k=3)
+    assert not b.accept_handoff(DecodeStream([5], 2), 1, 5, None, None)
+    b.start()
+    try:
+        assert b.set_draft_k(2) == 2 and b.draft_k == 2
+        b.kill_drafter(RuntimeError("chaos"))
+        b.eos_id = -1
+        s = b.submit_ids([5, 6, 7, 8], max_new_tokens=5)
+        assert len(s.result(timeout=60)) == 5
+        assert b.drafter is None
+        assert b.metrics.drafter_deaths_total.value == 1
+    finally:
+        b.stop()
+    router = DecodeRouter([eng], drafters=[dr], draft_k=3)
+    router.apply_knob("draft_k", 1)
+    assert router.knob_values() == {"draft_k": 1}
+    assert dr.leak_check()["ok"] and eng.leak_check()["ok"]
+
+
+A10B_PIECES = {
+    "verify_ids": _piece_verify,
+    "warmup_verify": _piece_warmup_verify,
+    "split_draft_custody+commit_draft": _piece_draft_custody,
+    "export_pages+begin_handoff+import_pages": _piece_export_import,
+    "warmup_handoff": _piece_warmup_handoff,
+    "accept_handoff+set_draft_k+kill_drafter+apply_knob":
+        _piece_batcher_knobs,
+}
+
+
+@pytest.mark.parametrize("piece", sorted(A10B_PIECES))
+def test_a10b_piece_runs_on_a_bert_tiny_pair(tok, pair, piece):
+    """Each speculation and handoff piece of the engine, batcher and router
+    runs on a bert-tiny pair (the slice's own tests hold them to JAX:
+    ``tests/test_torch_speculate.py``, ``tests/test_torch_disagg.py``)."""
+    A10B_PIECES[piece](*pair, tok)
+
+
+def test_serving_falls_back_to_the_newest_checkpoint(corpus_path, tmp_path):
+    """Without ``--checkpoint`` every serving entry point loads the newest
+    checkpoint in ``--output_dir`` (``train.checkpoint.latest``), as the
+    JAX script does: ``train.single`` writes one, and the engine built
+    without a path gives the logits of the one built with it, exactly."""
+    from pdnlp_tpu_torch.serve import cli
+    from pdnlp_tpu_torch.serve.engine import build_engine, latest_checkpoint
+    from pdnlp_tpu_torch.train import checkpoint as tckpt
+    from pdnlp_tpu_torch.train import single
+
+    out = str(tmp_path / "out")
+    args = Args(device="cpu", model="bert-tiny", data_path=corpus_path,
+                vocab_path=str(tmp_path / "vocab.txt"), output_dir=out,
+                data_limit=60, train_batch_size=16)
+    single.main(args)
+    newest = tckpt.latest(out)
+    assert newest and newest.endswith("single-cls.pt")
+    assert latest_checkpoint(args) == newest
+    fallback = build_engine(args)
+    explicit = build_engine(args, checkpoint=newest)
+    assert fallback.checkpoint_path == newest
+    ids = [[2, 5, 6, 7, 3], [2, 9, 10, 3]]
+    np.testing.assert_array_equal(fallback.infer_ids(ids, 16),
+                                  explicit.infer_ids(ids, 16))
+    assert not np.array_equal(
+        fallback.infer_ids(ids, 16),
+        build_engine(args.replace(output_dir=str(tmp_path / "none")))
+        .infer_ids(ids, 16))
+    pool = cli.build_decode_pool(args, 1)
+    assert pool.engine(0).checkpoint_path == newest
+    router = cli.build_router(args, 2)
+    assert router._checkpoint_path == newest
+    r = subprocess.run(
+        [sys.executable, "-m", "pdnlp_tpu_torch.serve.cli", "--device",
+         "cpu", "--model", "bert-tiny", "--vocab_path", args.vocab_path,
+         "--output_dir", out],
+        input="天地人\n好坏大小\n", capture_output=True, text=True,
+        timeout=120, cwd=str(tmp_path), env={**os.environ, "PYTHONPATH": REPO})
+    assert r.returncode == 0, r.stderr
+    assert f"serving {newest}" in r.stderr and "WARNING" not in r.stderr
 
 
 # ---------------------------------------------------------------- the CLI
@@ -929,12 +1092,40 @@ def test_cli_decode_streams_tok_and_gen_lines(vocab, tmp_path):
     assert snap["decode"]["streams_total"] == 3
 
 
-def test_cli_decode_refuses_a10b_and_a9b_flags():
+CLI_REFUSALS = {
+    "speculate without --decode": (["--speculate", "d.pt"],
+                                   "needs --decode"),
+    "disagg without --decode": (["--disagg", "local"], "needs --decode"),
+    "disagg mode": (["--decode", "--disagg", "sideways"],
+                    "off|on|local|socket"),
+    "replicas against pool sizes": (
+        ["--decode", "--disagg", "local", "--prefill_engines", "1",
+         "--decode_engines", "2", "--replicas", "2"], "disagrees"),
+    "disagg on slots": (["--decode", "--disagg", "on", "--replicas", "2",
+                         "--kv_layout", "slots"], "--kv_layout paged"),
+    "disagg with speculate": (["--decode", "--disagg", "on", "--replicas",
+                               "2", "--speculate", "d.pt"], "exclusive"),
+    "disagg on one engine": (["--decode", "--disagg", "socket"], ">= 2"),
+    "speculate on slots": (["--decode", "--speculate", "d.pt",
+                            "--kv_layout", "slots"], "--kv_layout paged"),
+    "controller": (["--decode", "--controller", "1"], "A9b"),
+}
+
+
+@pytest.mark.parametrize("case", sorted(CLI_REFUSALS))
+def test_cli_decode_refuses_a10b_and_a9b_flags(vocab, tmp_path, case):
+    """``--speculate``, ``--draft_k``, ``--disagg``, ``--prefill_engines``
+    and ``--decode_engines`` are taken, and refused where JAX's script
+    refuses them (``serve_tpu.py``: paged only, exclusive, two engines at
+    least, ``--replicas`` agreeing with the pool sizes, ``--decode``
+    only), before any engine is built; the controller is A9b's.  The
+    tokens they serve: ``tests/test_torch_speculate.py`` and
+    ``tests/test_torch_disagg.py``."""
     from pdnlp_tpu_torch.serve import cli
 
-    for flag, what in (("--speculate", "A10b"), ("--draft_k", "A10b"),
-                       ("--disagg", "A10b"), ("--prefill_engines", "A10b"),
-                       ("--decode_engines", "A10b"),
-                       ("--controller", "A9b")):
-        with pytest.raises(SystemExit, match=what):
-            cli.main(["--decode", "--device", "cpu", flag, "1"])
+    vocab_path = str(tmp_path / "vocab.txt")
+    save_vocab(vocab, vocab_path)
+    flags, what = CLI_REFUSALS[case]
+    with pytest.raises(SystemExit, match=what):
+        cli.main(["--device", "cpu", "--model", "bert-tiny", "--vocab_path",
+                  vocab_path, "--output_dir", str(tmp_path), *flags])

@@ -15,6 +15,7 @@ import pytest
 import torch
 
 from pdnlp_tpu.serve import kvpage as jkvpage
+from pdnlp_tpu_torch.models import decoder
 from pdnlp_tpu_torch.serve import kvpage as tkvpage
 from pdnlp_tpu_torch.data.tokenizer import WordPieceTokenizer, build_vocab
 from pdnlp_tpu_torch.obs.exporter import prometheus_lines
@@ -296,7 +297,7 @@ def test_paged_layout_admits_more_streams_at_equal_hbm(tok, pag):
     budget = 2.2 * slot_mb
     capped_slot = DecodeEngine(make_args(kv_hbm_mb=budget), tokenizer=tok,
                                buckets=BUCKETS)
-    assert capped_slot.slots == 2
+    assert capped_slot.slots == 1          # the guard slot paid first
     capped_pag = paged_engine(tok, kv_hbm_mb=budget, decode_slots=8)
     assert capped_pag.slots == 8
     per_stream = pages_needed(8, capped_pag.page_sz)
@@ -305,7 +306,9 @@ def test_paged_layout_admits_more_streams_at_equal_hbm(tok, pag):
 
 def test_pool_exhaustion_queues_without_deadlock(tok):
     probe = paged_engine(tok)
-    floor_mb = (probe.page_bytes * probe.pages_per_stream) / 2**20
+    # the floor: one maximum-length stream's pages and the guard pages
+    floor_mb = (probe.page_bytes * (probe.pages_per_stream
+                                    + decoder.GUARD_PAGES)) / 2**20
     tight = paged_engine(tok, kv_hbm_mb=1.05 * floor_mb)
     assert tight.n_pages == tight.pages_per_stream
     b = DecodeBatcher(tight, replica=0)
