@@ -91,7 +91,30 @@ bit in fp32 and bf16, a live re-split and a decode engine's death
 mid-storm, the export held to eager and an import read back, handoffs,
 pages, bytes and export-to-ack p50/p99; 11c ``serve.cli --decode
 --speculate`` and ``--disagg local`` as processes, equal to 10c's plain
-tokens), then the kernels' times at every shape these paths give them.
+tokens), 12 the serving control plane (12a the multi-model fleet of
+``serve.cli.build_fleet`` — a bf16 primary of two replicas, a bf16
+candidate, an int8 cheap model, each group captured at warmup with K1
+inside — under shadow 1.0 over 120 requests: every caller answered by the
+primary, equal to the plain attention path in the bf16 band, every shadow
+chain ended ``shadow=True``, argmax parity on every decided row; a burst
+past ``degrade_at`` re-routed to the cheap model, each ``degrade`` hop
+before its dispatch, the cheap pool's p50/p99 beside the primary's; the
+controller's replica law draining an idle primary replica to warm standby
+and a flash replay bringing it back; the rollout law stepping the canary
+0.05 -> 0.25 -> 0.5 -> 1.0 on a steady replay; a regressing candidate
+rolled back on parity, its queued requests answered by the primary; no
+capture after warmup, every request and decision chain complete,
+``tools.trace decisions`` exit 0; 12b the decode laws in fp32 on phase
+11's engines: the speculation law switching a bert-small drafter off at
+once and halving an int8 drafter 4 -> 2 -> 1 -> 0, each new verify width
+captured once under the capture lock while another engine replays, tokens
+equal plain greedy's; the split law growing the prefill pool of 11b's 1 +
+2 split on a prefill-heavy burst, tokens equal one interleaved batcher's;
+12c ``serve.cli --fleet ... --controller on --shadow_fraction 1`` and
+``serve.cli --decode --speculate ... --controller on`` as processes
+started beside 10b, held to 12a's labels and 10c's tokens, and
+``train.single --flight_recorder`` in 8c's run), then the kernels' times
+at every shape these paths give them.
 Any failure raises and the script exits non-zero.  Without a card, or
 away from the repo, it prints no result and exits non-zero.  The line
 before the last is the ``{"kernels": [...]}`` record; the last is
@@ -1971,7 +1994,8 @@ def loop_start(work, corpus_path, vocab_path):
         work, "fused_out", corpus_path, vocab_path, 700,
         ("--fuse_steps", "4", "--warmup_compile", "true", "--trace", "true",
          "--profile_dir", prof_dir, "--resume_every", "10", "--log_every",
-         "5", "--probe_steps", "3", "--dev", "true", "--eval_step", "10"))
+         "5", "--probe_steps", "3", "--dev", "true", "--eval_step", "10",
+         "--flight_recorder", os.path.join(work, "fused_flight.jsonl")))
     runs = {"fp32": ("--dtype", "float32"), "bf16": ("--dtype", "bfloat16"),
             "fp32 fuse 2": ("--dtype", "float32", "--fuse_steps", "2")}
     for name, extra in runs.items():
@@ -1989,9 +2013,12 @@ def loop_runs(torch, started, card, tool_ckpts, during):
     whose results this returns too).
 
     8c: ``train.single --fuse_steps 4 --warmup_compile true --trace true
-    --profile_dir <d> --resume_every 10 --log_every 5 --probe_steps 3``
-    (dev every 10 steps) exits 0 and prints its probe's rate, its span
-    file read back holds all eight phases, its profiler trace exists.  8d: for fp32, bf16 and fp32 with
+    --profile_dir <d> --resume_every 10 --log_every 5 --probe_steps 3
+    --flight_recorder <f>`` (dev every 10 steps) exits 0 and prints its
+    probe's rate, its span file read back holds all eight phases, its
+    profiler trace exists, its flight recorder holds a line with the
+    ``memory``, ``train`` and ``transport`` sources (12c).  8d: for fp32,
+    bf16 and fp32 with
     ``--fuse_steps 2``, a RESUME_STEPS-step run snapshotting every
     RESUME_EVERY steps; its first snapshot (retained as ``.prev`` when the
     last was published) is copied aside, and a run resumed from the copy
@@ -2026,12 +2053,21 @@ def loop_runs(torch, started, card, tool_ckpts, during):
     prof_files = [f for _, _, fs in os.walk(prof_dir) for f in fs] \
         if os.path.isdir(prof_dir) else []
     ckpt_8c = os.path.join(dirs["8c"], "single-cls.pt")
+    flight = os.path.join(work, "fused_flight.jsonl")
+    flight_lines = []
+    if os.path.exists(flight):
+        with open(flight) as f:
+            flight_lines = [json.loads(x) for x in f if x.strip()]
+    flight_sources = sorted(flight_lines[-1]) if flight_lines else []
     rec = {"8c": {"exit": rc, "phases": phases, "profile_files": prof_files,
+                  "flight_lines": len(flight_lines),
+                  "flight_sources": flight_sources,
                   "lines": [ln for ln in lines if not ln.startswith(" ")][:60]}}
     print(f"[fused] 8c train.single --fuse_steps 4 --warmup_compile true "
           f"--trace true --profile_dir --resume_every 10 --log_every 5 "
-          f"--probe_steps 3: exit {rc}; span file phases {phases}; "
-          f"profiler files {prof_files}")
+          f"--probe_steps 3 --flight_recorder: exit {rc}; span file phases "
+          f"{phases}; profiler files {prof_files}; 12c flight recorder "
+          f"{len(flight_lines)} line(s), sources {flight_sources}")
     for ln in lines:
         if ln.startswith(("[warmup]", "step graphs", "耗时", "steps/s",
                           "【train】", "[obs] spans", "[profiler]",
@@ -2042,6 +2078,9 @@ def loop_runs(torch, started, card, tool_ckpts, during):
             not probed or not os.path.exists(ckpt_8c):
         fail(f"8c: exit {rc}, phases {phases}, profiler {prof_files}, "
              f"probe line {probed}\n{err[-3000:]}")
+    if not {"memory", "train", "transport"} <= set(flight_sources):
+        fail(f"12c: train.single --flight_recorder wrote "
+             f"{len(flight_lines)} line(s), sources {flight_sources}")
     procs = {}
     try:
         for name, extra in runs.items():
@@ -3226,9 +3265,10 @@ def decode_phase(torch, flash, base, ckpt, work, vocab_path, card, lap):
     lap("10a, 10d")
     texts = make_requests(rng, CHARS, 8)
     proc, out, stdin = _cli_10c(work, vocab_path, ckpt, texts)
-    # 11c's processes start here, beside 10b and 10c, and are checked in
-    # phase 11 against 10c's tokens (off phase 11's timed runs)
+    # 11c's and 12c's processes start here, beside 10b and 10c, and are
+    # checked in phases 11 and 12 against 10c's tokens (off the timed runs)
     spec_cli = cli_11c_start(work, vocab_path, ckpt, texts)
+    ctl_cli = cli_12c_start(work, vocab_path, ckpt, texts)
     try:
         rps = decode_prompts(rng, 24, 16, 200, vocab)
         targs = args.replace(trace=True,
@@ -3239,12 +3279,13 @@ def decode_phase(torch, flash, base, ckpt, work, vocab_path, card, lap):
         recs["router_fp32"] = decode_router_run(torch, targs, ckpt, rps,
                                                 card, exact=True)
     except BaseException:
-        stop_all(p for p, _ in spec_cli.values())  # 11 will not check them
+        stop_all([*(p for p, _ in spec_cli.values()),   # 11 and 12 will
+                  *(p for p, _, _ in ctl_cli.values())])  # not check them
         raise
     finally:
         recs["cli"] = _cli_10c_check(proc, out, stdin, len(texts))
     lap("10b, 10c")
-    return recs, spec_cli, paged
+    return recs, spec_cli, ctl_cli, paged
 
 
 # ---------------------------------------------------------------- phase 11
@@ -3694,7 +3735,8 @@ def spec_phase(torch, flash, base, ckpt, card, lap, procs, cli_want,
     bert-base full width (module doc); ``procs``: 11c's started
     processes (:func:`cli_11c_start`), held to ``cli_want``;
     ``primaries``: 10a's paged engines by configuration, the primaries
-    here."""
+    here.  Returns ``(records, kept)``: ``kept`` holds the fp32 engines,
+    streams and plain tokens phase 12b drives the decode laws on."""
     import numpy as np
 
     from pdnlp_tpu_torch.serve.decode import DecodeBatcher, PagedDecodeEngine
@@ -3709,7 +3751,7 @@ def spec_phase(torch, flash, base, ckpt, card, lap, procs, cli_want,
     args = base.replace(decode_slots=DECODE_SLOTS,
                         decode_max_len=DECODE_MAX_LEN,
                         max_new_tokens=DECODE_NEW, kv_page_sz=16)
-    recs = {}
+    recs, kept = {}, {"mixed": mixed, "burst": burst}
     flash.reset_launch_count()
     int8_drafter = None
     try:
@@ -3776,6 +3818,10 @@ def spec_phase(torch, flash, base, ckpt, card, lap, procs, cli_want,
                     torch, trio, mixed, ref_mixed, transport, card,
                     f"{label} {name}", chaos)
             recs[label] = rec
+            if exact:
+                kept.update({"trio": trio, "refs": (ref_mixed, ref_burst),
+                             "bert-small": drafters["bert-small seeded"],
+                             "int8": int8_drafter})
             del eng, e2, trio, drafters
             torch.cuda.empty_cache()
             lap(f"11b {label}")
@@ -3787,6 +3833,756 @@ def spec_phase(torch, flash, base, ckpt, card, lap, procs, cli_want,
         recs["cli"] = {tag: _cli_11c_check(p, stdin, tag, cli_want, card)
                        for tag, (p, stdin) in procs.items()}
     lap("11c")
+    return recs, kept
+
+
+# ---------------------------------------------------------------- phase 12
+
+#: 12a: the fleet (serve.cli --fleet spec: model id = role), its requests
+#: (drawn as phase 9's are), its admission bound (the degrade band sits at
+#: the 5/8 default, 40 requests' worth of tokens on the packed path)
+FLEET_SPEC = ("primary={c}:bf16:2,candidate={c}:bf16:1:candidate,"
+              "cheap={c}:int8:1:cheap")
+FLEET_REQUESTS, FLEET_MAX_QUEUE = 120, 64
+#: 12a: the degrade burst's submitting threads and its cap
+BURST_THREADS, BURST_CAP = 16, 800
+#: the controllers' tick on the card (the smoke's time scale: JAX's
+#: defaults are 1 s ticks, 5-15 s cooldowns and a 10 s window)
+TICK_S = 0.02
+#: 12b: the split law's prefill-heavy burst: long prompts, few new tokens
+SPLIT_STREAMS, SPLIT_NEW = 96, 4
+#: 12c: the fleet CLI's lines
+CLI_FLEET_LINES = 24
+
+
+def fleet_texts():
+    """12a's caller requests (and 12c's), drawn as phase 9's are."""
+    import numpy as np
+
+    return make_requests(np.random.RandomState(SEED + 12), CHARS,
+                         FLEET_REQUESTS)
+
+
+def wait_until(pred, timeout, what):
+    """Poll ``pred`` until it holds; fail naming ``what`` at ``timeout``."""
+    deadline = time.monotonic() + timeout
+    while not pred():
+        if time.monotonic() > deadline:
+            fail(f"timed out after {timeout} s waiting for {what}")
+        time.sleep(0.005)
+
+
+def fast_spec(name, **kw):
+    """The default ``KnobSpec`` of ``name`` with the smoke's cooldown."""
+    from pdnlp_tpu_torch.serve.controller import KnobSpec, default_specs
+
+    d = default_specs()[name]
+    base = dict(cooldown_s=5 * TICK_S, hysteresis=d.hysteresis,
+                signal=d.signal, noise_floor=d.noise_floor,
+                integer=d.integer)
+    base.update(kw)
+    return {name: KnobSpec(name, d.lo, d.hi, **base)}
+
+
+def controller(router, tracer, start=True, **kw):
+    """A ``ServeController`` on the smoke's tick (its thread started
+    unless ``start`` is false: then the caller drives ``step()``), with
+    only the laws ``kw`` asks for: the flush-age and admission laws off,
+    the replica law off unless ``scale_patience`` is given, no eval window
+    inside the run (its outcomes resolve at ``stop``) and, for the
+    rollout, JAX's own test margin."""
+    from pdnlp_tpu_torch.serve.controller import ServeController
+
+    kw.setdefault("manage_flush", False)
+    kw.setdefault("manage_admission", False)
+    kw.setdefault("scale_patience", 10 ** 6)
+    kw.setdefault("eval_window_s", 600.0)
+    kw.setdefault("revert_margin", 10.0)
+    ctl = ServeController(router, interval_s=TICK_S, tracer=tracer, **kw)
+    return ctl.start() if start else ctl
+
+
+def actions(tracer, knob):
+    """``[(old, new), ...]`` of ``knob``'s recorded actuations, in order."""
+    out = []
+    for r in tracer.records():
+        a = r.get("attrs") or {}
+        if r.get("name") == "decision" and a.get("phase") == "action" \
+                and a.get("knob") == knob:
+            out.append((a.get("old"), a.get("new")))
+    return out
+
+
+def captures(fleet):
+    """Every engine's capture count, by group and replica."""
+    return {mid: [g.engine(i).metrics.retraces.value
+                  for i in range(len(g.states))]
+            for mid, g in fleet.groups.items()}
+
+
+def degrade_burst(fleet, texts):
+    """12a's burst past ``degrade_at``: ``BURST_THREADS`` threads submit
+    until the fleet has degraded some arrivals (or ``BURST_CAP`` went
+    in); returns ``(futures, refused)``."""
+    import threading
+
+    lock, futs, refused = threading.Lock(), [], []
+    stop = threading.Event()
+    it = iter(itertools.islice(itertools.cycle(texts), BURST_CAP))
+
+    def submit():
+        while not stop.is_set():
+            with lock:
+                t = next(it, None)
+            if t is None:
+                return
+            try:
+                f = fleet.submit(t, deadline_ms=300_000)
+            except Exception as e:  # noqa: BLE001 — counted, reported
+                with lock:
+                    refused.append(type(e).__name__)
+                continue
+            with lock:
+                futs.append(f)
+            if fleet.metrics.degraded_total.value >= 8:
+                stop.set()
+
+    threads = [threading.Thread(target=submit) for _ in range(BURST_THREADS)]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(timeout=300)
+    return futs, refused
+
+
+def chain_hops(records):
+    """``{request id: [hop attrs, ...]}`` in time order."""
+    from pdnlp_tpu_torch.obs.request import chains
+
+    return {rid: [dict(h.get("attrs") or {}) for h in ch]
+            for rid, ch in chains(records).items()}
+
+
+def answered_by(chain):
+    """The model whose ``complete`` hop ends ``chain`` (None: none)."""
+    return next((h.get("model") for h in reversed(chain)
+                 if h.get("hop") == "complete"), None)
+
+
+def regressed_checkpoint(ckpt, path, model, vocab_size):
+    """``ckpt`` with its classifier's rows rolled by one: the same trunk,
+    an answer of another class on every row — 12a's regressing
+    candidate.  (Two seeded random bert-bases answer one class for almost
+    every input, so another seed's checkpoint can agree with the primary
+    everywhere.)"""
+    import torch
+
+    from pdnlp_tpu_torch.train import checkpoint as tc
+
+    sd = dict(tc.params_from_raw(tc.load_raw(ckpt), ckpt, model_name=model))
+    for k in ("classifier.weight", "classifier.bias"):
+        sd[k] = torch.roll(sd[k], 1, 0)
+    tc.save_params(path, sd, model_name=model, vocab_size=vocab_size)
+    return path
+
+
+def fleet_phase(torch, flash, base, ckpt, work, card, tier_burst):
+    """12a: the multi-model fleet at bert-base width (module doc):
+    ``serve.cli.build_fleet`` from ``FLEET_SPEC`` (bf16 primary x2, bf16
+    candidate, int8 cheap; buckets 32/64/128, packed), every group
+    captured at warmup with K1 inside; three front doors over those
+    groups in turn.  (1) The rollout law on a steady replay, on the
+    shadow evidence it gathers: the canary 0.05 -> 0.25 -> 0.5 -> 1.0.
+    (2) At canary 0, a closed burst shadowing every request, with a
+    controller sensing every tick (its p50/p99 printed beside 9a's bf16
+    burst, ``tier_burst``, not claimed): the callers' answers come from
+    the primary and equal the plain attention path's (bf16 band), every
+    shadow chain ends ``shadow=True``, argmax parity on every decided row;
+    a burst past ``degrade_at``, re-routed with its hop before the cheap
+    pool's dispatch, nothing lost; the replica law draining an idle
+    primary replica to standby and a flash replay bringing it back.  (3)
+    The candidate swapped in place to a regressing checkpoint
+    (:func:`regressed_checkpoint`) at canary 0.5: the parity regression
+    rolls it back, the law stays down, the drained requests answered by
+    the primary.  No capture after warmup in any group; every request
+    and decision chain complete.  Returns ``(record, the plain path's
+    logits of 12c's lines)``."""
+    import numpy as np
+
+    from pdnlp_tpu_torch.obs.decision import validate_decisions
+    from pdnlp_tpu_torch.obs.request import validate_chains
+    from pdnlp_tpu_torch.serve import (
+        FleetRouter, RolloutPlan, build_engine, cli, parse_fleet_spec,
+        score_texts,
+    )
+    from pdnlp_tpu_torch.serve.replay import (
+        replay, shape_arrivals, synth_arrivals,
+    )
+
+    texts = fleet_texts()
+    args = base.replace(max_seq_len=128)
+    plain = build_engine(args.replace(serve_dtype="bf16",
+                                      attention_impl="xla"), checkpoint=ckpt)
+    _, want = score_texts(plain, texts, buckets=BUCKETS, batch_size=8)
+    regressed = regressed_checkpoint(
+        ckpt, os.path.join(work, "bert-base-regressed.pt"), args.model,
+        plain.tokenizer.vocab_size)
+    del plain
+    torch.cuda.empty_cache()
+    top2 = np.sort(want, axis=-1)[:, -2:]
+    decided = (top2[:, 1] - top2[:, 0]) > 2 * LOGIT_ATOL["bfloat16"]
+    targs = args.replace(trace=True, trace_dir=os.path.join(work, "trace_12"))
+    t0 = time.monotonic()
+    rollout = cli.build_fleet(
+        targs, parse_fleet_spec(FLEET_SPEC.format(c=ckpt)), buckets=BUCKETS,
+        max_batch_size=8, max_wait_ms=5.0, max_queue=FLEET_MAX_QUEUE,
+        shadow_fraction=1.0)
+    groups, tracer = rollout.groups, rollout.tracer
+    fronts, ctl, rec = [rollout], None, {}
+
+    def front(**kw):
+        f = FleetRouter(groups, primary="primary", candidate="candidate",
+                        cheap="cheap", tracer=tracer, **kw).start()
+        fronts.append(f)
+        return f
+
+    def lap12(name):
+        rec["seconds"][name] = time.monotonic() - t0 - sum(
+            rec["seconds"].values())
+
+    def results(futs):
+        outs = []
+        for f in futs:
+            try:
+                outs.append(f.result(timeout=300))
+            except Exception as e:  # noqa: BLE001 — counted as lost
+                outs.append(e)
+        return outs
+
+    try:
+        rollout.start()
+        if not rollout.wait_ready(600):
+            fail("12a: the fleet's groups did not finish their warmup")
+        rec["seconds"] = {}
+        lap12("build and warmup")
+        caps = captures(rollout)
+        rec["captures_at_warmup"] = caps
+        torch.cuda.synchronize()
+        flash.reset_launch_count()
+        # (1) the rollout law on a steady replay
+        ctl = controller(rollout, tracer, rollout=RolloutPlan(patience=2),
+                         specs=fast_spec("canary_fraction"))
+        srep = replay(rollout.submit_ids, shape_arrivals(
+            synth_arrivals(300, 300.0, seed=SEED + 13), "steady"),
+            result_timeout=300)
+        wait_until(lambda: rollout.canary_fraction == 1.0, 30,
+                   "12a: the rollout law reaching canary 1.0")
+        ctl.stop()
+        steps = [n for _, n in actions(tracer, "canary_fraction")]
+        rec["rollout"] = {"steps": steps, "replay": srep.as_dict(),
+                          "canary_routed":
+                              rollout.metrics.canary_routed_total.value,
+                          "shadow": rollout.shadow_report.snapshot()[
+                              "checked"], "rollbacks": ctl.rollbacks_total}
+        print(f"[fleet] 12a rollout: {json.dumps(rec['rollout'])} — {card}")
+        if steps != [0.05, 0.25, 0.5, 1.0] or srep.lost or \
+                srep.ok != srep.submitted or ctl.rollbacks_total:
+            fail(f"12a rollout: {rec['rollout']}")
+        lap12("rollout")
+        # (2) canary 0, shadow 1.0: a closed burst under a controller that
+        # only senses; callers answered by the primary, parity checked
+        fleet = front(shadow_fraction=1.0)
+        shadow_logits = {}
+        resolve = fleet._resolve
+
+        def keep(p):    # the shadow's logits, by its primary's request id
+            if p.shadow._logits is not None:
+                shadow_logits[p.primary.rid] = np.asarray(p.shadow._logits)
+            resolve(p)
+
+        fleet._resolve = keep
+        ctl = controller(fleet, tracer)
+        futs = [fleet.submit(t, deadline_ms=300_000) for t in texts]
+        got = np.stack([f.result(timeout=300) for f in futs])
+        ctl.stop()
+        wait_until(lambda: fleet.shadow_report.checked >= len(texts), 60,
+                   "12a: every shadow pair resolved")
+        lat = [(f.completed_at - f.born) * 1e3 for f in futs]
+        err = float(np.abs(got - want).max())
+        sh = [shadow_logits.get(f.rid) for f in futs]
+        same = [s is not None and int(s.argmax()) == int(g.argmax())
+                for s, g in zip(sh, got)]
+        rep = fleet.shadow_report.snapshot()
+        hops = chain_hops(tracer.records())
+        models = {answered_by(hops[f.rid]) for f in futs}
+        rec["shadow"] = {
+            "requests": len(texts), "max_abs_err_vs_plain": err,
+            "decided": int(decided.sum()),
+            "parity_decided": sum(s for s, d in zip(same, decided) if d),
+            "parity_all": sum(same),
+            "burst_p50_p99_ms": [float(np.percentile(lat, 50)),
+                                 float(np.percentile(lat, 99))],
+            "9a_bf16_burst_p50_p99_ms": list(tier_burst),
+            "report": {k: rep[k] for k in ("checked", "matches",
+                                           "mismatches", "shadow_failed",
+                                           "voided")},
+            "answered_by": sorted(map(str, models))}
+        print(f"[fleet] 12a shadow 1.0 burst, controller sensing: "
+              f"{json.dumps(rec['shadow'])} — {card}")
+        if err > LOGIT_ATOL["bfloat16"] or models != {"primary"} or \
+                rec["shadow"]["parity_decided"] != int(decided.sum()) or \
+                rep["checked"] != len(texts) or rep["shadow_failed"]:
+            fail(f"12a shadow: {rec['shadow']}")
+        lap12("shadow")
+        # a burst past degrade_at: overflow re-routed to the cheap model
+        fleet.apply_knob("shadow_fraction", 0.0)
+        bfuts, refused = degrade_burst(fleet, texts)
+        outs = results(bfuts)
+        hops = chain_hops(tracer.records())
+        degraded = [f for f in bfuts
+                    if any(h.get("hop") == "degrade" for h in hops[f.rid])]
+        order_ok = 0
+        for f in degraded:
+            names = [h.get("hop") for h in hops[f.rid]]
+            first = names.index("dispatch") if "dispatch" in names else -1
+            if 0 <= names.index("degrade") < first and \
+                    hops[f.rid][first].get("model") == "cheap":
+                order_ok += 1
+        by_model = {}
+        for f in bfuts:
+            by_model.setdefault(answered_by(hops[f.rid]), []).append(
+                (f.completed_at - f.born) * 1e3 if f.completed_at else None)
+        rec["degrade"] = {
+            "submitted": len(bfuts), "refused": len(refused),
+            "degraded_total": fleet.metrics.degraded_total.value,
+            "degraded_chains": len(degraded), "hop_before_dispatch": order_ok,
+            "lost": sum(isinstance(o, Exception) for o in outs),
+            "p50_p99_ms": {str(m): [float(np.percentile(v, 50)),
+                                    float(np.percentile(v, 99))]
+                           for m, v in by_model.items()
+                           if v and None not in v}}
+        print(f"[fleet] 12a degrade burst: {json.dumps(rec['degrade'])} "
+              f"(cheap: int8, primary: bf16) — {card}")
+        if not degraded or order_ok != len(degraded) or \
+                rec["degrade"]["lost"] or \
+                len(degraded) != rec["degrade"]["degraded_total"]:
+            fail(f"12a degrade: {rec['degrade']}")
+        lap12("degrade")
+        # the replica law: idle -> a primary replica to standby; a flash
+        # replay -> back through the warmup gate.  The replay itself ticks
+        # the controller (every 10th arrival), so the flash's queue is
+        # sensed whatever the host's thread scheduling
+        ctl = controller(fleet, tracer, start=False, scale_patience=3,
+                         specs=fast_spec("replicas"))
+
+        def idle_tick():
+            ctl.step()
+            return fleet.active_count == 1
+
+        wait_until(idle_tick, 30,
+                   "12a: the replica law draining an idle replica")
+        standby_at = dict(groups["primary"].states)
+        back_at = []
+
+        def flash_tick(i):     # arrivals 225-324 are the flash (x8 rate)
+            if i % 10 == 0:
+                ctl.step()
+                if fleet.active_count == 2 and not back_at:
+                    back_at.append(i)
+
+        frep = replay(fleet.submit_ids, shape_arrivals(
+            synth_arrivals(500, 200.0, seed=SEED + 12), "flash"),
+            result_timeout=300, on_tick=flash_tick)
+        ctl.stop()
+        if fleet.active_count != 2:
+            fail(f"12a: the flash replay left {fleet.active_count} primary "
+                 f"replica(s) active: {actions(tracer, 'replicas')}")
+        wait_until(lambda: list(groups["primary"].states.values())
+                   == ["healthy", "healthy"], 120,
+                   "12a: the reactivated replica through its warmup")
+        rec["replicas"] = {"standby_states": standby_at,
+                           "actions": actions(tracer, "replicas"),
+                           "back_at_arrival": back_at,
+                           "flash_replay": frep.as_dict(),
+                           "states": groups["primary"].states,
+                           "captures": captures(fleet)}
+        print(f"[fleet] 12a replica law: {json.dumps(rec['replicas'])} — "
+              f"{card}")
+        if rec["replicas"]["actions"][:2] != [(2, 1), (1, 2)] or \
+                frep.lost or frep.ok != frep.submitted or \
+                rec["replicas"]["captures"] != caps:
+            fail(f"12a replica law: {rec['replicas']}")
+        lap12("replicas")
+        # (3) a regressing candidate swapped in place, canary 0.5; its
+        # partial packs held in its queue (the drain has work), and only
+        # the parity evidence may decide, so the p99 bound is lifted
+        cand = groups["candidate"]
+        swap = cand.swap_checkpoint(regressed)
+        cand.apply_knob("max_wait_ms", 60_000.0)
+        fleet = front(shadow_fraction=1.0, canary_fraction=0.5)
+        ctl = controller(fleet, tracer, rollout=RolloutPlan(
+            patience=2, p99_floor_ms=600_000.0),
+            specs=fast_spec("canary_fraction"))
+        rfuts = [fleet.submit(t, deadline_ms=300_000) for t in texts[:100]]
+        wait_until(lambda: ctl.rollbacks_total >= 1, 60,
+                   "12a: the parity regression rolling the canary back")
+        cand.apply_knob("max_wait_ms", 5.0)
+        held = time.monotonic() + 20 * TICK_S
+        while time.monotonic() < held:      # the law stays down
+            if fleet.canary_fraction != 0.0:
+                fail("12a: the rolled-back canary came back up")
+            time.sleep(TICK_S)
+        routs = results(rfuts)
+        ctl.stop()
+        hops = chain_hops(tracer.records())
+        drained = [i for i, f in enumerate(rfuts)
+                   if any(h.get("hop") == "rollback" for h in hops[f.rid])]
+        by_primary = sum(
+            answered_by(hops[rfuts[i].rid]) == "primary"
+            and not isinstance(routs[i], Exception)
+            and (not decided[i] or int(routs[i].argmax())
+                 == int(want[i].argmax())) for i in drained)
+        cause = next(r["attrs"] for r in tracer.records()
+                     if r.get("name") == "decision"
+                     and r["attrs"].get("cause_rollback"))
+        rep = fleet.shadow_report
+        rec["rollback"] = {
+            "swap": swap, "rollbacks": ctl.rollbacks_total,
+            "parity_bad": cause.get("cause_parity_bad"),
+            "aborted": ctl.snapshot()["rollout"]["aborted"],
+            "parity_checked": rep.parity_checked,
+            "mismatch_rate": rep.mismatch_rate,
+            "drained": len(drained), "drained_answered_by_primary":
+                by_primary,
+            "rolled_back_requests":
+                fleet.metrics.rolled_back_requests_total.value,
+            "lost": sum(isinstance(o, Exception) for o in routs),
+            "canary": fleet.canary_fraction}
+        print(f"[fleet] 12a rollback: {json.dumps(rec['rollback'])} — "
+              f"{card}")
+        if swap["swapped"] != [0] or ctl.rollbacks_total < 1 or \
+                rec["rollback"]["parity_bad"] is not True or \
+                not rec["rollback"]["aborted"] or fleet.canary_fraction or \
+                rec["rollback"]["lost"] or not drained or \
+                by_primary != len(drained) or \
+                len(drained) != rec["rollback"]["rolled_back_requests"]:
+            fail(f"12a rollback: {rec['rollback']}")
+        lap12("rollback")
+    finally:
+        if ctl is not None:
+            ctl.stop()
+        for f in reversed(fronts):
+            f.stop()
+    torch.cuda.synchronize()
+    lap12("stop")
+    rec["launches"] = flash.launch_count()
+    rec["captures_after"] = captures(rollout)
+    rec["retraces_post_warmup"] = rollout.retraces_post_warmup
+    records = tracer.records()
+    chains_rep = validate_chains(records)
+    dec = validate_decisions(records)
+    path = tracer.flush()
+    p = subprocess.run([sys.executable, "-m", "pdnlp_tpu_torch.tools.trace",
+                        "decisions", path], cwd=REPO, capture_output=True,
+                       text=True, env={**os.environ, "PYTHONPATH": REPO},
+                       timeout=300)
+    rec["chains"] = {k: chains_rep[k] for k in ("checked", "shadowed",
+                                                "degraded", "rolled_back")}
+    rec["chains"]["incomplete"] = len(chains_rep["incomplete"])
+    rec["decisions"] = {"checked": dec["checked"],
+                        "incomplete": len(dec["incomplete"]),
+                        "tools_trace_exit": p.returncode,
+                        "table_tail": p.stdout.strip().splitlines()[-1:]}
+    print(f"[fleet] 12a K1 launches {rec['launches']}, captures "
+          f"{rec['captures_after']} (at warmup {caps}), chains "
+          f"{rec['chains']}, decisions {rec['decisions']} — {card}")
+    if rec["launches"] <= 0 or rec["captures_after"] != caps or \
+            rec["retraces_post_warmup"] or rec["chains"]["incomplete"] or \
+            rec["decisions"]["incomplete"] or p.returncode != 0:
+        fail(f"12a: launches, captures or chains: {rec}\n{p.stderr[-2000:]}")
+    del rollout, fleet, fronts, groups
+    torch.cuda.empty_cache()
+    return rec, want[:CLI_FLEET_LINES]
+
+
+def verify_widths(eng):
+    """The ``[slots, k+1]`` verify widths ``eng`` has captured."""
+    return {key[0][2] for key in eng._graphs if key[0][0] == "verify"}
+
+
+def spec_law_run(eng, dr, label, ps, refs, other, other_ps, other_refs,
+                 card, **law):
+    """12b: ``eng`` + ``dr`` at ``draft_k`` 4 behind ``DecodeRouter`` under
+    the speculation law (``law``: its bands); ``ps`` streamed (up to three
+    times) until the law has switched speculation off, tokens held to
+    ``refs``.  Meanwhile a plain batcher on ``other`` replays its own
+    programs (``other_ps`` held to ``other_refs``): a verify width the law
+    visits is captured mid-traffic, under the process-wide capture lock,
+    without touching those replays."""
+    import threading
+
+    from pdnlp_tpu_torch.obs.decision import validate_decisions
+    from pdnlp_tpu_torch.obs.trace import Tracer
+    from pdnlp_tpu_torch.serve.decode import DecodeBatcher, DecodeRouter
+    from pdnlp_tpu_torch.serve.engine import CAPTURE_LOCK
+
+    for e in (eng, dr, other):
+        e.reset_cache()
+    router = DecodeRouter([eng], drafters=[dr], draft_k=DRAFT_K)
+    router.warmup()
+    widths0, caps0 = verify_widths(eng), eng.metrics.retraces.value
+    dcaps0 = dr.metrics.retraces.value
+    locked = []
+    verify = eng._verify_fn
+
+    def verify_fn(t):          # runs only inside a capture on the card
+        locked.append(CAPTURE_LOCK.locked())
+        return verify(t)
+
+    eng._verify_fn = verify_fn
+    router.start()
+    plain = DecodeBatcher(other).start()
+    side = {}
+    t = threading.Thread(target=lambda: side.setdefault(
+        "outs", decode_streams(plain, other_ps, DECODE_NEW)))
+    tr = Tracer(enabled=True)
+    ctl = controller(router, tr, specs=fast_spec("draft_k"), **law)
+    equal = streams = 0
+    try:
+        t.start()
+        for _ in range(3):
+            outs = decode_streams(router, ps, DECODE_NEW)
+            equal += sum(a == b for a, b in zip(outs, refs))
+            streams += len(ps)
+            if router.knob_values()["draft_k"] == 0:
+                break
+        t.join(timeout=300)
+        k_end = router.knob_values()["draft_k"]
+    finally:
+        ctl.stop()
+        router.stop()
+        plain.stop()
+        del eng._verify_fn
+    visited = [n for _, n in actions(tr, "draft_k")]
+    new = {k + 1 for k in visited if k > 0} - widths0
+    rec = {"drafter": label, "law": law, "k_path": visited,
+           "equal": equal, "streams": streams, "concurrent_equal":
+               sum(a == b for a, b in zip(side.get("outs", []), other_refs)),
+           "concurrent_streams": len(other_ps),
+           "new_widths": sorted(new),
+           "captures_after_warmup": eng.metrics.retraces.value - caps0,
+           "drafter_captures_after_warmup": dr.metrics.retraces.value - dcaps0,
+           "captures_under_lock": f"{sum(locked)}/{len(locked)}",
+           "decisions_complete": not validate_decisions(
+               tr.records())["incomplete"],
+           "leak_ok": [e.leak_check()["ok"] for e in (eng, dr, other)]}
+    eng.prefix.clear()
+    other.prefix.clear()
+    print(f"[decode] 12b speculation law, {label} drafter: captures after "
+          f"warmup = {rec['captures_after_warmup']} = new widths the law "
+          f"visited {rec['new_widths']}; {json.dumps(rec)} — {card}")
+    if k_end != 0 or rec["equal"] != streams or \
+            rec["concurrent_equal"] != len(other_ps) or \
+            rec["captures_after_warmup"] != len(new) or \
+            rec["drafter_captures_after_warmup"] or not all(locked) or \
+            len(locked) != 2 * len(new) or not all(rec["leak_ok"]) or \
+            not rec["decisions_complete"]:
+        fail(f"12b speculation law {label}: {rec}")
+    return rec
+
+
+def split_law_run(trio, ps, card):
+    """12b: 11b's three engines split 1 + 2 under the pool-split law; a
+    prefill-heavy burst (long prompts, ``SPLIT_NEW`` tokens each) grows
+    the prefill pool by one engine; the tokens equal one interleaved
+    batcher's bit for bit; nothing captured after warmup, nothing
+    leaked."""
+    from pdnlp_tpu_torch.obs.decision import validate_decisions
+    from pdnlp_tpu_torch.obs.trace import Tracer
+    from pdnlp_tpu_torch.serve.decode import DecodeBatcher, DisaggDecodeRouter
+
+    for e in trio:
+        e.reset_cache()
+    ref = DecodeBatcher(trio[0]).start()
+    try:
+        refs = [s.result(timeout=300) for s in
+                [ref.submit_ids(p, max_new_tokens=SPLIT_NEW) for p in ps]]
+    finally:
+        ref.stop()
+    trio[0].prefix.clear()
+    router = DisaggDecodeRouter(trio, prefill_engines=1)
+    router.warmup()
+    caps = [e.metrics.retraces.value for e in trio]
+    router.start()
+    tr = Tracer(enabled=True)
+    # a cooldown longer than the run: one re-split per burst (JAX's 10 s
+    # keeps the law from flapping on the backlog a move itself creates)
+    ctl = controller(router, tr, specs=fast_spec("prefill_share",
+                                                 cooldown_s=30.0))
+    equal = streams = 0
+    try:
+        for _ in range(3):      # until the law has moved the split
+            outs = [s.result(timeout=300) for s in
+                    [router.submit_ids(p, max_new_tokens=SPLIT_NEW)
+                     for p in ps]]
+            equal += sum(a == b for a, b in zip(outs, refs))
+            streams += len(ps)
+            if router.knob_values()["prefill_share"] > 0.5:
+                break
+        hs = router.health_summary()
+    finally:
+        ctl.stop()
+        router.stop()
+    for e in trio:
+        e.prefix.clear()
+    rec = {"streams": streams, "equal": equal,
+           "actions": actions(tr, "prefill_share"),
+           "decisions_complete": not validate_decisions(
+               tr.records())["incomplete"],
+           "pools": {k: v["engines"] for k, v in hs["by_pool"].items()},
+           "captures_after_warmup": [e.metrics.retraces.value - c
+                                     for e, c in zip(trio, caps)],
+           "leak_ok": [e.leak_check()["ok"] for e in trio]}
+    print(f"[decode] 12b split law: {json.dumps(rec)} — {card}")
+    if rec["equal"] != streams or rec["actions"] != [
+            (0.333333, 0.666666)] or rec["pools"] != {"prefill": 2,
+                                                      "decode": 1} or \
+            any(rec["captures_after_warmup"]) or not all(rec["leak_ok"]) \
+            or not rec["decisions_complete"]:
+        fail(f"12b split law: {rec}")
+    for e in trio:
+        e.reset_cache()
+    return rec
+
+
+def decode_laws(torch, flash, kept, card):
+    """12b: the decode laws in fp32 on phase 11's engines (module doc)."""
+    import numpy as np
+
+    rng = np.random.RandomState(SEED + 12)
+    heavy = decode_prompts(rng, SPLIT_STREAMS, 150, 240, DECODE_SHAPE[2])
+    mixed, burst = kept["mixed"], kept["burst"]
+    ref_mixed, ref_burst = kept["refs"]
+    eng, other = kept["trio"][0], kept["trio"][2]
+    torch.cuda.synchronize()
+    flash.reset_launch_count()
+    rec = {"speculation": [
+        # acceptance ~0 is the catastrophic band: straight to k = 0
+        spec_law_run(eng, kept["bert-small"], "bert-small seeded", mixed,
+                     ref_mixed, other, burst, ref_burst, card),
+        # acceptance ~0.88 under a 0.99 floor (and no deepening band):
+        # halve, halve, then off
+        spec_law_run(eng, kept["int8"], "int8 weights", mixed, ref_mixed,
+                     other, burst, ref_burst, card, accept_floor=0.99,
+                     accept_high=1.0)]}
+    rec["split"] = split_law_run(kept["trio"], heavy, card)
+    torch.cuda.synchronize()
+    rec["launches"] = flash.launch_count()
+    if rec["speculation"][0]["k_path"] != [0] or \
+            rec["speculation"][1]["k_path"] != [2, 1, 0]:
+        fail(f"12b: the speculation law's k paths "
+             f"{[r['k_path'] for r in rec['speculation']]}")
+    if rec["launches"]:
+        fail(f"12b: K1 launched {rec['launches']} times on the decode "
+             "programs")
+    return rec
+
+
+def _cli_12c(work, vocab_path, ckpt, tag, extra):
+    """A 12c ``serve.cli`` process, started (its input comes at the
+    check)."""
+    out = os.path.join(work, f"cli_12c_{tag}")
+    os.makedirs(out, exist_ok=True)
+    cmd = [sys.executable, "-m", "pdnlp_tpu_torch.serve.cli", "--device",
+           "cuda", "--model", "bert-base", "--vocab_path", vocab_path,
+           "--output_dir", out, "--metrics_path",
+           os.path.join(out, "metrics.json"), "--trace", "true",
+           "--trace_dir", os.path.join(out, "trace"), *extra]
+    p = subprocess.Popen(cmd, cwd=REPO, stdin=subprocess.PIPE,
+                         stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+                         text=True, env={**os.environ, "PYTHONPATH": REPO})
+    return p, out
+
+
+def cli_12c_start(work, vocab_path, ckpt, decode_texts):
+    """12c's ``serve.cli --fleet ... --controller on --shadow_fraction 1``
+    (fed 12a's first ``CLI_FLEET_LINES`` requests) and ``serve.cli
+    --decode --speculate ... --controller on`` (fed 10c's prompts),
+    started: ``{tag: (Popen, output dir, stdin)}``."""
+    fleet_in = "\n".join(fleet_texts()[:CLI_FLEET_LINES]) + "\n"
+    decode_in = "\n".join(decode_texts) + "\n"
+    return {
+        "--fleet": (*_cli_12c(work, vocab_path, ckpt, "fleet", (
+            "--fleet", FLEET_SPEC.format(c=ckpt), "--controller", "on",
+            "--shadow_fraction", "1", "--max_wait_ms", "5")), fleet_in),
+        "--decode --speculate": (*_cli_12c(work, vocab_path, ckpt, "decode", (
+            "--decode", "--kv_layout", "paged", "--checkpoint", ckpt,
+            "--decode_max_len", str(DECODE_MAX_LEN), "--max_new_tokens",
+            "16", "--speculate", ckpt, "--draft_k", str(DRAFT_K),
+            "--controller", "on")), decode_in)}
+
+
+def _decisions_exit(out):
+    """``tools.trace decisions`` over a 12c process's span file."""
+    path = os.path.join(out, "trace", "trace_proc0.jsonl")
+    return subprocess.run(
+        [sys.executable, "-m", "pdnlp_tpu_torch.tools.trace", "decisions",
+         path], cwd=REPO, capture_output=True, text=True, timeout=300,
+        env={**os.environ, "PYTHONPATH": REPO}).returncode
+
+
+def cli_12c_check(procs, fleet_want, decode_want, card):
+    """12c: the fleet CLI's answers are 12a's primary's (plain-path labels
+    on every decided row), every line shadowed, nothing captured after
+    warmup; the decode CLI's tokens are 10c's plain pieces (12b's
+    greedy), line for line; both traces' decision chains complete."""
+    import numpy as np
+
+    n_fleet = CLI_FLEET_LINES
+    top2 = np.sort(fleet_want, axis=-1)[:, -2:]
+    labels = [int(w.argmax()) if (t[1] - t[0]) > 2 * LOGIT_ATOL["bfloat16"]
+              else None for w, t in zip(fleet_want, top2)]
+    recs = {}
+    for tag, (p, out, stdin) in procs.items():
+        try:
+            so, se = p.communicate(stdin, timeout=600)
+        finally:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+        rec = {"exit": p.returncode, "decisions_exit": _decisions_exit(out),
+               "controller_on": "[controller]" in se}
+        if tag == "--fleet":
+            got = [x.split("\t")[0] for x in so.strip().splitlines()]
+            snap = json.load(open(os.path.join(out, "metrics.json"))) \
+                if os.path.exists(os.path.join(out, "metrics.json")) else {}
+            fl = snap.get("fleet", {})
+            rec.update({
+                "answers": len(got),
+                "equal_decided": sum(str(w) == g for w, g in zip(labels, got)
+                                     if w is not None),
+                "decided": sum(w is not None for w in labels),
+                "shadows": fl.get("shadows_total"),
+                "retraces_post_warmup": {
+                    m: sum(r["retraces_post_warmup"]
+                           for r in v["replicas"].values())
+                    for m, v in snap.get("models", {}).items()}})
+            ok = rec["answers"] == n_fleet and \
+                rec["equal_decided"] == rec["decided"] and \
+                rec["shadows"] == n_fleet and \
+                not any(rec["retraces_post_warmup"].values())
+        else:
+            got = cli_pieces(so)
+            rec.update({"lines": len(got), "equal_lines": sum(
+                got.get(i) == w for i, w in decode_want.items())})
+            ok = rec["lines"] == len(decode_want) and \
+                rec["equal_lines"] == len(decode_want)
+        print(f"[cli] 12c serve.cli {tag} --controller on: "
+              f"{json.dumps(rec)} — {card}")
+        if not ok or p.returncode != 0 or rec["decisions_exit"] != 0 or \
+                not rec["controller_on"]:
+            fail(f"12c serve.cli {tag}: {rec}\n{se[-3000:]}")
+        recs[tag] = rec
     return recs
 
 
@@ -4284,15 +5080,38 @@ def main():
     # 10. generative decoding: slot and paged engines, fp32, bf16 and int8
     # KV, the router through a kill, serve.cli --decode
     torch.cuda.empty_cache()
-    decode, spec_cli, primaries = decode_phase(torch, flash, base, ckpt_path,
-                                               work, vocab_path, card, lap)
+    decode, spec_cli, ctl_cli, primaries = decode_phase(
+        torch, flash, base, ckpt_path, work, vocab_path, card, lap)
     # 11. speculative decoding and the disaggregated pools: three drafters,
     # the split pools over both transports, serve.cli --speculate and
     # --disagg against 10c's tokens
     torch.cuda.empty_cache()
-    spec = spec_phase(torch, flash, base, ckpt_path, card, lap, spec_cli,
-                      decode["cli"]["pieces"], primaries)
+    try:
+        spec, kept = spec_phase(torch, flash, base, ckpt_path, card, lap,
+                                spec_cli, decode["cli"]["pieces"], primaries)
+    except BaseException:
+        stop_all(p for p, _, _ in ctl_cli.values())
+        raise
     del primaries
+    # 12. the serving control plane: the fleet with the controller's laws
+    # (12a), the decode laws on phase 11's fp32 engines (12b), serve.cli
+    # --fleet / --decode --speculate with --controller on (12c)
+    torch.cuda.empty_cache()
+    try:
+        fleet_rec, fleet_want = fleet_phase(
+            torch, flash, base, ckpt_path, work, card,
+            (tier["bfloat16"]["p50_ms"], tier["bfloat16"]["p99_ms"]))
+        lap("12a")
+        laws = decode_laws(torch, flash, kept, card)
+        del kept
+        torch.cuda.empty_cache()
+        lap("12b")
+    except BaseException:
+        stop_all(p for p, _, _ in ctl_cli.values())   # 12c is not checked
+        raise
+    ctl_cli_rec = cli_12c_check(ctl_cli, fleet_want, decode["cli"]["pieces"],
+                                card)
+    lap("12c")
     launches_by_path = {
         "serving packed (K1)": {"flash_fwd": main_launches},
         "6a fixed width fp32": train_launches,
@@ -4312,7 +5131,9 @@ def main():
         **{f"10a {d} infill": {"flash_fwd": decode[d]["launches_infill"]}
            for d, _, _ in DECODE_CONFIGS},
         "11 speculation and the split pools": {"flash_fwd":
-                                                spec["launches"]}}
+                                                spec["launches"]},
+        "12a fleet": {"flash_fwd": fleet_rec["launches"]},
+        "12b decode laws": {"flash_fwd": laws["launches"]}}
     print(f"[launches] per path (counts set to 0 just before each, read "
           f"just after): {json.dumps(launches_by_path)}")
     # 6 times: K1-K3 at every training shape of the paths, K4/K5 at the
@@ -4348,6 +5169,8 @@ def main():
         "flash_build": occupancy, "fused": fused, "fused_times": fused_ms,
         "loop": loop_rec, "serving_tier": tier, "decode": decode,
         "speculation": spec,
+        "control_plane": {"fleet": fleet_rec, "decode_laws": laws,
+                          "cli": ctl_cli_rec},
         "phase_seconds": clock,
         "seconds": time.monotonic() - t_start}
     print(f"[summary] {json.dumps(summary)}")

@@ -6,10 +6,11 @@ zero-duration ``Tracer.mark`` records named ``"decision"`` under one
 ``new``, flattened ``cause_*`` attrs) and one ``outcome`` (``result``
 ``kept`` | ``reverted`` | ``degraded`` ...).
 
-The decoder records one when a drafter dies and its pair degrades to
-plain decode (``draft_k`` forced to 0).  The serving controller that
-makes the other decisions, and the ``trace`` CLI's decision table, are
-ROADMAP A9b.
+The serving controller (``serve.controller.ServeController``) records
+one per knob turn; the decoder records one when a drafter dies and its
+pair degrades to plain decode (``draft_k`` forced to 0).
+:func:`format_decisions` is ``python -m pdnlp_tpu_torch.tools.trace
+decisions``'s table.
 """
 from __future__ import annotations
 
@@ -123,3 +124,52 @@ def validate_decisions(records: Sequence[Dict]) -> Dict:
         elif outcome.get("result") == "kept":
             report["kept"] += 1
     return report
+
+
+def format_decisions(records: Sequence[Dict]) -> str:
+    """The ``tools.trace decisions`` table: one line per decision —
+    cause -> action (knob old -> new) -> outcome with its
+    evaluation-window delta — followed by the integrity verdict."""
+    by_id = decision_chains(records)
+    if not by_id:
+        return "no decision records found"
+    ordered = sorted(by_id.items(),
+                     key=lambda kv: float(kv[1][0].get("t0", 0.0)))
+    t_first = float(ordered[0][1][0].get("t0", 0.0))
+    header = (f"{'t+s':>8} {'knob':<16} {'old':>10} {'new':>10} "
+              f"{'outcome':<9} {'delta':>8}  cause")
+    lines = [f"{len(ordered)} decision(s)", header, "-" * len(header)]
+    bad = 0
+    for did, chain in ordered:
+        attrs = [dict(r.get("attrs") or {}) for r in chain]
+        action = next((a for a in attrs if a.get("phase") == "action"), {})
+        outcome = next((a for a in attrs if a.get("phase") == "outcome"),
+                       {})
+        issues = decision_issues(chain)
+        if issues:
+            bad += 1
+        t = float(chain[0].get("t0", 0.0)) - t_first
+
+        def num(v):
+            if isinstance(v, bool) or not isinstance(v, (int, float)):
+                return str(v)
+            return f"{v:.4g}"
+
+        delta = outcome.get("delta_ratio")
+        cause = "  ".join(
+            f"{k[len('cause_'):]}={num(v)}"
+            for k, v in sorted(action.items()) if k.startswith("cause_"))
+        revert_of = action.get("revert_of")
+        if revert_of:
+            cause = f"revert_of={revert_of}  " + cause
+        lines.append(
+            f"{t:>8.3f} {str(action.get('knob')):<16} "
+            f"{num(action.get('old')):>10} {num(action.get('new')):>10} "
+            f"{str(outcome.get('result', 'MISSING')):<9} "
+            f"{f'{delta:+.1%}' if isinstance(delta, (int, float)) else 'n/a':>8}"
+            f"  {cause}")
+        if issues:
+            lines.append(f"         ^ INCOMPLETE ({did}): "
+                         + "; ".join(issues))
+    lines.append(f"chains: {len(ordered) - bad}/{len(ordered)} complete")
+    return "\n".join(lines)

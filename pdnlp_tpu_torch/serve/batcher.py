@@ -297,8 +297,8 @@ class AdmissionControl:
                           designated cheap model instead of queued here —
                           overload degrades answer QUALITY before it drops
                           requests.  The re-route itself lives in the
-                          fleet front door (the fleet router,
-                          ROADMAP A9b); a pool walking this ladder
+                          fleet front door (``serve.fleet.FleetRouter``);
+                          a pool walking this ladder
                           with no cheap model behind it treats the band as
                           an early shed tier (the pre-fleet behavior,
                           reached ``shed_at - degrade_at`` requests sooner)

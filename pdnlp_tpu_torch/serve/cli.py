@@ -49,8 +49,32 @@ every KV handoff over the framed loopback transport), sized by
 need ``--kv_layout paged`` and exclude each other.  Without
 ``--checkpoint`` every entry point serves the newest checkpoint in
 ``--output_dir`` (``train.checkpoint.latest``), and the seeded init
-weights, with a warning, only when there is none.  The serving controller
-(``--controller`` and the fleet flags) is ROADMAP A9b, refused by name.
+weights, with a warning, only when there is none.
+
+The multi-model fleet (``serve.fleet.FleetRouter``, ``serve_tpu.py
+--fleet``):
+
+    printf '...\n' | python -m pdnlp_tpu_torch.serve.cli --model bert-base \
+        --vocab_path output/vocab.txt \
+        --fleet prod=a.pt:bf16:2,next=b.pt:bf16:1:candidate,cheap=a.pt:int8:1:cheap \
+        [--shadow_fraction 1] [--canary_fraction 0] [--degrade_at N] \
+        [--rollout auto|off] [--controller on] [--min_replicas 1]
+
+One replica pool per ``id=checkpoint:dtype:replicas[:role]`` entry (roles
+``primary`` / ``candidate`` / ``cheap``; dtype ``bf16`` | ``int8`` |
+``auto``), all with the same buckets and pack mode, behind one front door:
+``--shadow_fraction`` duplicates that share of primary traffic onto the
+candidate (callers always get the primary's answer), ``--canary_fraction``
+routes real traffic to it, and the degrade band (``--degrade_at``, 5/8 of
+``--max_queue`` by default when a cheap model exists) re-routes overload to
+the cheap model.  ``--controller on`` (with ``--replicas N`` > 1,
+``--fleet`` or ``--decode``) starts the feedback controller
+(``serve.controller.ServeController``) after warmup: replica count (warm
+standby, never below ``--min_replicas``), hedge, flush age, admission, and
+with a candidate the canary rollout law (``--rollout off`` turns off only
+that); on ``--decode`` the speculation and pool-split laws.  Its state is a
+``/metrics`` source and its summary rides ``/healthz``; every knob turn is
+a decision record (``python -m pdnlp_tpu_torch.tools.trace decisions``).
 """
 from __future__ import annotations
 
@@ -59,17 +83,6 @@ import signal
 import sys
 from collections import deque
 from typing import Optional
-
-#: serve_tpu.py paths the port does not have yet -> where ROADMAP queues them
-NOT_PORTED = {
-    "--min_replicas": "the serving controller (ROADMAP A9b)",
-    "--controller": "the serving controller (ROADMAP A9b)",
-    "--fleet": "the multi-model fleet (ROADMAP A9b)",
-    "--shadow_fraction": "the multi-model fleet (ROADMAP A9b)",
-    "--canary_fraction": "the multi-model fleet (ROADMAP A9b)",
-    "--degrade_at": "the multi-model fleet (ROADMAP A9b)",
-    "--rollout": "the multi-model fleet (ROADMAP A9b)",
-}
 
 
 class _ShutdownRequested(KeyboardInterrupt):
@@ -85,6 +98,11 @@ def _install_signal_handlers() -> None:
             signal.signal(sig, _on_signal)
         except ValueError:  # not the main thread (embedded use): skip
             return
+
+
+def switched_on(mode) -> bool:
+    """``--controller``/``--rollout`` values: anything but off/false/0."""
+    return mode not in ("off", "false", "0", None)
 
 
 def parse_long_widths(spec: str) -> tuple:
@@ -131,6 +149,65 @@ def build_router(args, replicas: int, *, checkpoint: Optional[str] = None,
         serve_pack=serve_pack, pack_max_segments=args.pack_max_segments,
         long_widths=long_widths, checkpoint_path=checkpoint,
         tracer=engines[0].tracer)
+
+
+def build_fleet(args, specs, *, tokenizer=None, buckets=None,
+                max_batch_size: int = 8, max_wait_ms: float = 5.0,
+                max_queue: int = 256, deadline_ms: Optional[float] = None,
+                hedge_ms: Optional[float] = None, stall_timeout: float = 10.0,
+                serve_pack: str = "auto", shadow_fraction: float = 0.0,
+                canary_fraction: float = 0.0,
+                degrade_at: Optional[int] = None):
+    """A multi-model fleet from ``--fleet`` :class:`ModelSpec` rows
+    (``serve_tpu.py:build_fleet``): one :class:`ReplicaRouter` of the
+    port's engines per model id — each spec's checkpoint, serve dtype and
+    replica count, every group with the same buckets and pack mode, so a
+    request drained from one group meets a shape the other captured —
+    composed by a :class:`FleetRouter` front door.  The primary pool gets
+    the degrade band (``degrade_at``, 5/8 of ``max_queue`` by default,
+    between the backpressure and shed defaults) only when a cheap model
+    exists to absorb it.  All engines share one tokenizer."""
+    from pdnlp_tpu_torch.data.tokenizer import (
+        WordPieceTokenizer, get_or_build_vocab,
+    )
+    from pdnlp_tpu_torch.serve.batcher import DEFAULT_BUCKETS
+    from pdnlp_tpu_torch.serve.engine import InferenceEngine
+    from pdnlp_tpu_torch.serve.fleet import FleetRouter
+    from pdnlp_tpu_torch.serve.router import ReplicaRouter
+
+    tok = tokenizer or WordPieceTokenizer(get_or_build_vocab(args))
+    roles = {s.role: s.model_id for s in specs}
+    if degrade_at is None and "cheap" in roles:
+        degrade_at = (max_queue * 5) // 8
+    groups, tracer = {}, None
+    for spec in specs:
+        # each model serves at ITS declared precision
+        sargs = args.replace(serve_dtype=spec.dtype)
+
+        def factory(index: int, _sargs=sargs):
+            return InferenceEngine(_sargs, tokenizer=tok)
+
+        engines = [factory(i) for i in range(spec.replicas)]
+        tracer = tracer if tracer is not None else engines[0].tracer
+        print(f"fleet[{spec.model_id}] ({spec.role}): {spec.replicas} "
+              f"replica(s) of {spec.checkpoint or '<init weights>'} "
+              f"[{spec.dtype}]", file=sys.stderr)
+        groups[spec.model_id] = ReplicaRouter(
+            engines, engine_factory=factory,
+            buckets=buckets or DEFAULT_BUCKETS,
+            max_batch_size=max_batch_size, max_wait_ms=max_wait_ms,
+            max_queue=max_queue, default_deadline_ms=deadline_ms,
+            hedge_ms=hedge_ms, stall_timeout=stall_timeout,
+            serve_pack=serve_pack,
+            degrade_at=degrade_at if spec.role == "primary" else None,
+            pack_max_segments=args.pack_max_segments,
+            checkpoint_path=spec.checkpoint, model_id=spec.model_id,
+            tracer=tracer)
+    return FleetRouter(groups, primary=roles["primary"],
+                       candidate=roles.get("candidate"),
+                       cheap=roles.get("cheap"),
+                       shadow_fraction=shadow_fraction,
+                       canary_fraction=canary_fraction, tracer=tracer)
 
 
 def build_decode_pool(args, replicas: int, *,
@@ -233,12 +310,15 @@ def serve_decode(args, *, replicas: int, checkpoint: Optional[str],
                  tokenizer, buckets, max_queue: int,
                  deadline_ms: Optional[float], metrics_path: Optional[str],
                  speculate: Optional[str] = None, draft_k: int = 4,
-                 disagg: str = "off", prefill_engines: int = 1) -> None:
+                 disagg: str = "off", prefill_engines: int = 1,
+                 controller_mode: str = "off") -> None:
     """The ``--decode`` online loop (``serve_tpu.py:serve_decode``): one
     prompt per stdin line, tokens streamed to stdout as they decode.
     Results drain in submission order; a window of in-flight streams
     keeps the decode slots full (continuous batching needs waiting streams
-    to claim freed slots)."""
+    to claim freed slots).  ``controller_mode`` on starts the feedback
+    controller after warmup: the speculation law turns ``draft_k``, the
+    pool-split law ``prefill_share``."""
     from pdnlp_tpu_torch.serve.decode import detokenize
 
     pool = build_decode_pool(args, replicas, checkpoint=checkpoint,
@@ -256,15 +336,27 @@ def serve_decode(args, *, replicas: int, checkpoint: Optional[str],
           "exit); tokens stream as `<line>\\ttok\\t<piece>`",
           file=sys.stderr)
 
+    controller = None
+    if switched_on(controller_mode):
+        from pdnlp_tpu_torch.serve.controller import ServeController
+
+        controller = ServeController(pool, tracer=engine.tracer).start()
+        print("[controller] decode control plane on (speculation law turns "
+              "draft_k, the split law prefill_share; tools.trace "
+              "decisions)", file=sys.stderr)
+
     exporter = None
     if args.metrics_port or args.flight_recorder:
         from pdnlp_tpu_torch.obs import memory_snapshot
         from pdnlp_tpu_torch.obs.exporter import build_from_args
 
-        exporter = build_from_args(
-            args, {"decode": pool.snapshot, "memory": memory_snapshot},
-            "flight_decode.jsonl",
-            health_sources={"decode": pool.health_summary})
+        sources = {"decode": pool.snapshot, "memory": memory_snapshot}
+        health = {"decode": pool.health_summary}
+        if controller is not None:
+            sources["controller"] = controller.snapshot
+            health["controller"] = controller.health_summary
+        exporter = build_from_args(args, sources, "flight_decode.jsonl",
+                                   health_sources=health)
         if exporter is not None and exporter.port is not None:
             print(f"[obs] /metrics + /healthz on "
                   f"http://127.0.0.1:{exporter.port}", file=sys.stderr)
@@ -309,6 +401,8 @@ def serve_decode(args, *, replicas: int, checkpoint: Optional[str],
         while inflight:
             emit(*inflight.popleft())
         pool.stop(drain=True)
+        if controller is not None:
+            controller.stop()
         if exporter is not None:
             exporter.stop(final_flight=True)
         snap = pool.snapshot()
@@ -335,10 +429,6 @@ def main(argv=None) -> None:
     from pdnlp_tpu_torch.utils.config import parse_cli, pop_cli_flag
 
     argv = list(sys.argv[1:] if argv is None else argv)
-    for flag, what in NOT_PORTED.items():
-        if flag in argv:
-            sys.exit(f"serve.cli: {flag} needs {what}, which the PyTorch "
-                     "port does not have yet")
     argv, checkpoint = pop_cli_flag(argv, "--checkpoint")
     argv, buckets_s = pop_cli_flag(argv, "--buckets")
     argv, max_batch = pop_cli_flag(argv, "--max_batch_size", 8, int)
@@ -349,6 +439,15 @@ def main(argv=None) -> None:
     argv, hedge_ms = pop_cli_flag(argv, "--hedge_ms", None, float)
     argv, stall_s = pop_cli_flag(argv, "--replica_stall_s", 10.0, float)
     argv, serve_pack = pop_cli_flag(argv, "--serve_pack", "auto")
+    argv, controller_mode = pop_cli_flag(argv, "--controller", "off")
+    argv, min_replicas = pop_cli_flag(argv, "--min_replicas", 1, int)
+    argv, fleet_spec = pop_cli_flag(argv, "--fleet")
+    argv, shadow_fraction = pop_cli_flag(argv, "--shadow_fraction", 0.0,
+                                         float)
+    argv, canary_fraction = pop_cli_flag(argv, "--canary_fraction", 0.0,
+                                         float)
+    argv, degrade_at = pop_cli_flag(argv, "--degrade_at", None, int)
+    argv, rollout_mode = pop_cli_flag(argv, "--rollout", "auto")
     argv, in_path = pop_cli_flag(argv, "--input")
     argv, out_path = pop_cli_flag(argv, "--output")
     argv, metrics_path = pop_cli_flag(argv, "--metrics_path")
@@ -364,9 +463,10 @@ def main(argv=None) -> None:
     buckets = (tuple(int(b) for b in buckets_s.split(",")) if buckets_s
                else DEFAULT_BUCKETS)
     if decode_mode:
-        if in_path or serve_pack != "auto" or args.serve_long_widths:
+        if fleet_spec or in_path or serve_pack != "auto" or \
+                args.serve_long_widths:
             sys.exit("serve.cli: --decode is the generative online path — "
-                     "drop --input/--serve_pack/--serve_long_widths")
+                     "drop --fleet/--input/--serve_pack/--serve_long_widths")
         if disagg == "on":
             disagg = "local"   # "on" is shorthand for the in-process handoff
         if disagg not in ("off", "local", "socket"):
@@ -387,7 +487,8 @@ def main(argv=None) -> None:
                      tokenizer=tok, buckets=buckets, max_queue=max_queue,
                      deadline_ms=deadline, metrics_path=metrics_path,
                      speculate=speculate, draft_k=draft_k, disagg=disagg,
-                     prefill_engines=prefill_engines)
+                     prefill_engines=prefill_engines,
+                     controller_mode=controller_mode)
         return
     if speculate:
         sys.exit("serve.cli: --speculate is the generative path — "
@@ -400,14 +501,35 @@ def main(argv=None) -> None:
         sys.exit("serve.cli: --serve_long_widths is the online path's "
                  "chunked prefill; offline --input scoring truncates at the "
                  "largest bucket — drop one")
+    if fleet_spec and in_path:
+        sys.exit("serve.cli: --fleet is the online multi-model path; "
+                 "offline --input scoring serves ONE model — drop one")
+    if fleet_spec and replicas > 1:
+        sys.exit("serve.cli: --fleet and --replicas are exclusive — each "
+                 "fleet spec entry names its own replica count "
+                 "(id=checkpoint:dtype:replicas:role)")
+    if fleet_spec and long_widths:
+        sys.exit("serve.cli: --serve_long_widths is not served by --fleet "
+                 "(its groups share the short buckets) — drop one")
     _install_signal_handlers()
 
     tok = WordPieceTokenizer(get_or_build_vocab(args))
     encoder = "native" if native.attach(tok) else "python"
     print(f"encoder: {encoder}", file=sys.stderr)
 
-    router = None
-    if replicas > 1 and not in_path:
+    router = fleet = None
+    if fleet_spec:
+        from pdnlp_tpu_torch.serve.fleet import parse_fleet_spec
+
+        fleet = build_fleet(
+            args, parse_fleet_spec(fleet_spec), tokenizer=tok,
+            buckets=buckets, max_batch_size=max_batch, max_wait_ms=max_wait,
+            max_queue=max_queue, deadline_ms=deadline, hedge_ms=hedge_ms,
+            stall_timeout=stall_s, serve_pack=serve_pack,
+            shadow_fraction=shadow_fraction,
+            canary_fraction=canary_fraction, degrade_at=degrade_at)
+        engine = fleet.engine(0)  # metrics/tracer anchor
+    elif replicas > 1 and not in_path:
         router = build_router(
             args, replicas, checkpoint=checkpoint, tokenizer=tok,
             buckets=buckets, max_batch_size=max_batch, max_wait_ms=max_wait,
@@ -418,6 +540,30 @@ def main(argv=None) -> None:
     else:
         engine = build_engine(args, checkpoint=checkpoint, tokenizer=tok)
 
+    pool = fleet if fleet is not None else router
+    # the controller rides the router or the fleet (whose primary group
+    # carries the tuning surface, plus the rollout law with a candidate);
+    # it starts after warmup, so its first window never reads captures as
+    # serving latency
+    controller = None
+    if switched_on(controller_mode):
+        if pool is None:
+            print("WARNING: --controller needs --replicas N > 1 or --fleet "
+                  "(online mode) — running without a control plane",
+                  file=sys.stderr)
+        else:
+            from pdnlp_tpu_torch.serve.controller import (
+                RolloutPlan, ServeController,
+            )
+
+            rollout = None
+            if fleet is not None and fleet.candidate is not None \
+                    and switched_on(rollout_mode):
+                rollout = RolloutPlan()
+            controller = ServeController(pool, min_replicas=min_replicas,
+                                         rollout=rollout,
+                                         tracer=engine.tracer)
+
     # live telemetry: Prometheus /metrics + JSON /healthz off the hot path,
     # plus the bounded flight-recorder JSONL
     exporter = None
@@ -425,11 +571,17 @@ def main(argv=None) -> None:
         from pdnlp_tpu_torch.obs import memory_snapshot
         from pdnlp_tpu_torch.obs.exporter import build_from_args
 
-        sources = ({"serve": router.snapshot, "memory": memory_snapshot}
-                   if router is not None
+        sources = ({"serve": pool.snapshot, "memory": memory_snapshot}
+                   if pool is not None
                    else {"serve": engine.metrics.snapshot,
                          "memory": engine.memory_snapshot})
-        exporter = build_from_args(args, sources, "flight_serve.jsonl")
+        health = {"fleet": fleet.health_summary} if fleet is not None \
+            else {}
+        if controller is not None:
+            sources["controller"] = controller.snapshot
+            health["controller"] = controller.health_summary
+        exporter = build_from_args(args, sources, "flight_serve.jsonl",
+                                   health_sources=health or None)
         if exporter is not None and exporter.port is not None:
             print(f"[obs] /metrics + /healthz on "
                   f"http://127.0.0.1:{exporter.port}", file=sys.stderr)
@@ -438,7 +590,7 @@ def main(argv=None) -> None:
         """Metrics snapshot + spans on every exit path."""
         if exporter is not None:
             exporter.stop(final_flight=True)
-        snap = router.snapshot() if router is not None \
+        snap = pool.snapshot() if pool is not None \
             else {**engine.metrics.snapshot(),
                   "memory": engine.memory_snapshot()}
         if metrics_path:
@@ -471,15 +623,24 @@ def main(argv=None) -> None:
             flush_artifacts()
         return
 
-    if router is not None:
-        frontend = router.start()
-        if not router.wait_ready():
+    if pool is not None:
+        frontend = pool.start()
+        if not pool.wait_ready():
             frontend.stop(drain=False)
             sys.exit("serve.cli: no replica finished warmup — refusing to "
                      "serve nothing")
-        n_rep, per_replica = replicas, router.engine(0).pad_rows(max_batch) \
-            * (router.pack_segments if router.packed else 1)
-        packed = router.packed
+        if controller is not None:
+            controller.start()
+            print(f"[controller] feedback control plane on (min_replicas="
+                  f"{min_replicas}; decisions land in the trace — "
+                  "tools.trace decisions)", file=sys.stderr)
+        # a fleet's window is sized to its primary pool (caller traffic
+        # lands there; candidate and cheap take policy-routed overflow)
+        group = fleet.groups[fleet.primary] if fleet is not None else router
+        n_rep = len(group.states)
+        per_replica = group.engine(0).pad_rows(max_batch) \
+            * (group.pack_segments if group.packed else 1)
+        packed = group.packed
     else:
         frontend = DynamicBatcher(
             engine, buckets=buckets, max_batch_size=max_batch,
@@ -527,6 +688,11 @@ def main(argv=None) -> None:
         print(f"[serve] {e} — draining {len(inflight)} in-flight "
               "request(s), then shutting down", file=sys.stderr)
     finally:
+        # the controller stops actuating first (and resolves its pending
+        # evaluations, so the flushed trace validates), then every accepted
+        # request is answered, then the frontend drains
+        if controller is not None:
+            controller.stop()
         while inflight:
             emit(inflight.popleft())
         frontend.stop(drain=True)

@@ -2637,7 +2637,7 @@ class DisaggDecodeRouter:
 
     The pool split is live: :meth:`set_prefill_share` (the
     ``prefill_share`` knob; the law that turns it is the serving
-    controller's, ROADMAP A9b) retires units on the shrinking side,
+    controller's pool-split law) retires units on the shrinking side,
     rebuilds them in the other role, and re-homes their streams through
     the front door (re-prefill; greedy decode is deterministic, so the
     continuation is unchanged).  Engines keep their captured graphs

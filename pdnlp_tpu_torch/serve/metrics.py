@@ -26,7 +26,8 @@ retries, hedges, ejections, swaps, recovery) and :class:`ReplicaMetrics`
 Generative decoding adds :class:`DecodeMetrics` (tokens, TTFT and
 inter-token gaps, the KV and page gauges, and the speculation and handoff
 counters that ``serve.decode``'s drafter pairs and split pools move).
-The fleet metrics come with the fleet (A9b).
+The multi-model fleet (``serve.fleet.FleetRouter``) adds
+:class:`FleetMetrics`: how its traffic policy split the caller stream.
 """
 from __future__ import annotations
 
@@ -319,4 +320,51 @@ class DecodeMetrics:
             "kv_pages_live": self.kv_pages_live.value,
             "kv_pages_free": self.kv_pages_free.value,
             "peak_live_streams": self.peak_live_streams.value,
+        }
+
+
+class FleetMetrics:
+    """Fleet-front-door observability (``FleetRouter``): how the traffic
+    policy split the caller stream across models.  Per-model serving
+    metrics stay on each group's own :class:`RouterMetrics` /
+    :class:`ReplicaMetrics` — the fleet snapshot keys those by model id so
+    the exporter can label them — and these counters are the policy's own
+    receipts:
+
+    - ``requests_total`` — caller submissions through the fleet door;
+    - ``canary_routed_total`` — caller requests the canary fraction sent
+      to the candidate (their answers are the candidate's);
+    - ``shadows_total`` / ``shadow_dropped_total`` — shadow duplicates
+      admitted on the candidate / refused at its door (callers unaffected
+      either way);
+    - ``degraded_total`` — degrade-band arrivals re-routed to the cheap
+      model instead of shed;
+    - ``degrade_fallthrough_total`` — degrade-band arrivals with no cheap
+      model registered (fell through to the shed tier, loudly);
+    - ``rollbacks_total`` / ``rolled_back_requests_total`` — canary
+      rollback events / requests drained candidate -> primary by them.
+    """
+
+    def __init__(self) -> None:
+        self.requests_total = Counter()
+        self.canary_routed_total = Counter()
+        self.shadows_total = Counter()
+        self.shadow_dropped_total = Counter()
+        self.degraded_total = Counter()
+        self.degrade_fallthrough_total = Counter()
+        self.rollbacks_total = Counter()
+        self.rolled_back_requests_total = Counter()
+
+    def snapshot(self) -> Dict:
+        return {
+            "requests_total": self.requests_total.value,
+            "canary_routed_total": self.canary_routed_total.value,
+            "shadows_total": self.shadows_total.value,
+            "shadow_dropped_total": self.shadow_dropped_total.value,
+            "degraded_total": self.degraded_total.value,
+            "degrade_fallthrough_total":
+                self.degrade_fallthrough_total.value,
+            "rollbacks_total": self.rollbacks_total.value,
+            "rolled_back_requests_total":
+                self.rolled_back_requests_total.value,
         }

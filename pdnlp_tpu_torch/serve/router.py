@@ -55,8 +55,8 @@ survives overload and replica death.
   to a **warm standby** (:meth:`deactivate_replica`: its queue moves to
   peers, its engine keeps its graphs and its worker keeps beating) and
   brought back through the same warmup-gated path a relaunch uses
-  (:meth:`activate_replica`).  The control plane that drives them comes
-  with ROADMAP A9b.
+  (:meth:`activate_replica`).  The control plane that drives them is
+  ``serve.controller.ServeController``.
 
 On one card, N replicas are N engines on the same device, each with its
 own CUDA stream and graph pool.  Single-replica serving is untouched:

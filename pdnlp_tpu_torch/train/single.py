@@ -11,7 +11,7 @@ pass over dev with the classification report.
         [--fuse_steps 4] [--warmup_compile true] [--grads_dtype compute] \\
         [--resume_every 50] [--resume_from auto|<path>] [--ckpt_async false] \\
         [--trace true] [--trace_dir <d>] [--profile_dir <d>] [--log_every 10] \\
-        [--probe_steps 30]
+        [--probe_steps 30] [--metrics_port 9100] [--flight_recorder <f>]
 
 ``--length_mode bucket`` pads each batch to the smallest covering width of
 ``--length_buckets``; ``pack`` puts several examples in each row, with the
@@ -23,7 +23,9 @@ split on the card when it can, else prefetches on a side stream).
 CUDA graph (``train.steps.build_multi_step``); ``--resume_every`` /
 ``--resume_from`` snapshot and restore the whole train state bit for bit;
 ``--trace`` writes the phase spans and prints the breakdown table
-(``train.trainer``).
+(``train.trainer``); ``--metrics_port`` serves ``/metrics`` and
+``/healthz`` (sources ``memory``, ``train``, ``transport``) and
+``--flight_recorder`` appends their snapshots to a JSONL file.
 
 Runs on ``cuda`` unless ``--device cpu`` is given.  With ``--attn_dropout``
 above 0 (the default 0.1) training attention takes the plain path, as in
@@ -40,10 +42,6 @@ import sys
 NOT_PORTED = {
     "--elastic": (None, "elastic restart (ROADMAP A11)"),
     "--heartbeat_interval": (None, "heartbeats (ROADMAP A11)"),
-    "--metrics_port": (None, "the live exporter in the training loop "
-                             "(ROADMAP A9b; serve.cli has it)"),
-    "--flight_recorder": (None, "the flight recorder in the training loop "
-                                "(ROADMAP A9b; serve.cli has it)"),
     "--init_from": (None, "pretrained warm start (ROADMAP A12)"),
 }
 

@@ -308,6 +308,31 @@ class Trainer:
             tr.add_listener(breakdown.feed)
             sampler = MemorySampler(tracer=tr)
             tr.add_listener(sampler.feed)
+        # live telemetry (--metrics_port / --flight_recorder): Prometheus
+        # /metrics + JSON /healthz off the hot path, plus a bounded
+        # flight-recorder JSONL, so a killed run still leaves evidence.
+        # Sources snapshot live objects at scrape time; the step loop
+        # never sees the exporter
+        exporter = None
+        if getattr(args, "metrics_port", 0) \
+                or getattr(args, "flight_recorder", None):
+            from pdnlp_tpu_torch.obs import memory_snapshot
+            from pdnlp_tpu_torch.obs.exporter import build_from_args
+
+            sources = {"memory": (sampler.snapshot if sampler is not None
+                                  else memory_snapshot)}
+            if breakdown is not None:
+                sources["train"] = breakdown.summary
+            if getattr(pipeline, "stats", None) is not None:
+                sources["transport"] = pipeline.stats.snapshot
+            pidx = torch.distributed.get_rank() \
+                if collectives.world_size() > 1 else 0
+            exporter = build_from_args(args, sources,
+                                       f"flight_proc{pidx}.jsonl",
+                                       process_index=pidx)
+            if exporter is not None and exporter.port is not None:
+                rank0_print(f"[obs] /metrics + /healthz on "
+                            f"http://127.0.0.1:{exporter.port}")
         resume_every = getattr(args, "resume_every", None)
         attn_impl = self._routed_attn()
         start = time.time()
@@ -390,6 +415,12 @@ class Trainer:
             if breakdown is not None:
                 tr.remove_listener(breakdown.feed)
                 tr.remove_listener(sampler.feed)
+            if exporter is not None:
+                # the last flight-recorder line on every exit path
+                try:
+                    exporter.stop(final_flight=True)
+                except Exception:  # noqa: BLE001 — never mask the error
+                    pass
             if self._ckpt_writer is not None:
                 try:     # keep the newest snapshot; never mask the error
                     self._ckpt_writer.wait(timeout=60.0)

@@ -1,9 +1,11 @@
 """Card tests of the PyTorch port: the CUDA kernels (flash forward K1,
 flash backward K2/K3, fused classifier CE K4/K5) against their plain
 PyTorch twins, their occupancy and tensor-core instructions, the serving
-engine with the kernel against the plain path, and the decode engines'
+engine with the kernel against the plain path, the decode engines'
 captured programs (speculation's verify and the handoff's export and
-import included) against their eager runs, on an NVIDIA card.
+import included) against their eager runs, and the multi-model fleet's
+captured engines under shadowing and a canary rollback, on an NVIDIA
+card.
 
 Whether a card is present is decided inside the ``cuda_device`` fixture,
 so every worker collects the same tests; without a card each one skips.
@@ -11,6 +13,8 @@ This file imports no JAX, so it also runs on a machine that has none:
 
     python -m pytest --noconftest -m cuda tests/test_torch_cuda.py
 """
+import time
+
 import numpy as np
 import pytest
 import torch
@@ -1220,3 +1224,63 @@ def test_disaggregated_pools_on_the_card(cuda_device, transport):
     for e in engines:
         assert e.leak_check()["ok"]
         assert not e._cache_k[:, e.n_pages].any()
+
+
+def test_fleet_on_the_card(cuda_device):
+    """The multi-model fleet on the card: a bf16 primary of two replicas,
+    an identical bf16 candidate and an int8 cheap model, each group
+    captured at warmup with K1 inside.  Shadowing every request, the
+    callers get the primary's answers (equal to its eager forward at the
+    bf16 bound), shadow parity is whole, K1 launched; a canary fraction
+    dropped to 0 drains the candidate's queue to the primary with nothing
+    lost; nothing is captured after warmup and every chain is complete."""
+    from pdnlp_tpu_torch.obs.request import validate_chains
+    from pdnlp_tpu_torch.obs.trace import Tracer
+    from pdnlp_tpu_torch.serve import FleetRouter, ReplicaRouter
+
+    tracer = Tracer(enabled=True)
+    groups = {}
+    for mid, dtype, n in (("prod", "bf16", 2), ("next", "bf16", 1),
+                          ("cheap", "int8", 1)):
+        engines = [_tier_engine(dtype) for _ in range(n)]
+        groups[mid] = ReplicaRouter(
+            engines, buckets=(32, 64, 128), max_batch_size=8,
+            max_wait_ms=5.0, serve_pack="on", model_id=mid, tracer=tracer,
+            degrade_at=40 if mid == "prod" else None, max_queue=64)
+    fleet = FleetRouter(groups, primary="prod", candidate="next",
+                        cheap="cheap", shadow_fraction=1.0, tracer=tracer)
+    fleet.start()
+    r = np.random.RandomState(5)
+    ids = [[2] + list(r.randint(5, 99, r.randint(3, 60))) + [3]
+           for _ in range(24)]
+    try:
+        assert fleet.wait_ready(300)
+        flash.reset_launch_count()
+        outs = [f.result(timeout=120) for f in
+                [fleet.submit_ids(i, deadline_ms=120_000) for i in ids]]
+        launches = flash.launch_count()
+        fleet.apply_knob("shadow_fraction", 0.0)
+        fleet.apply_knob("canary_fraction", 1.0)
+        futs = [fleet.submit_ids(i, deadline_ms=120_000) for i in ids[:8]]
+        fleet.apply_knob("canary_fraction", 0.0)
+        drained = [f.result(timeout=120) for f in futs]
+        deadline = time.monotonic() + 30
+        while fleet.shadow_report.checked < len(ids) \
+                and time.monotonic() < deadline:
+            time.sleep(0.02)
+    finally:
+        fleet.stop()
+    eng = groups["prod"].engine(0)
+    from pdnlp_tpu_torch.data.collate import pad_ids_to_bucket
+
+    for i, out in zip(ids[:8], outs[:8]):
+        b = pad_ids_to_bucket([i], 64 if len(i) <= 64 else 128, 1)
+        np.testing.assert_allclose(out, eng.forward_eager(b)[0], atol=5e-2)
+    assert launches > 0
+    rep = fleet.shadow_report
+    assert rep.parity_checked == len(ids) and rep.mismatches == 0
+    assert len(drained) == 8 and all(np.isfinite(d).all() for d in drained)
+    assert fleet.metrics.rollbacks_total.value == 1
+    assert fleet.retraces_post_warmup == 0
+    report = validate_chains(tracer.records())
+    assert not report["incomplete"] and report["shadowed"] == len(ids)

@@ -1108,7 +1108,17 @@ CLI_REFUSALS = {
     "disagg on one engine": (["--decode", "--disagg", "socket"], ">= 2"),
     "speculate on slots": (["--decode", "--speculate", "d.pt",
                             "--kv_layout", "slots"], "--kv_layout paged"),
-    "controller": (["--decode", "--controller", "1"], "A9b"),
+    "fleet with --decode": (["--decode", "--fleet", "a=x.pt"],
+                            "drop --fleet"),
+    "fleet with --input": (["--fleet", "a=x.pt", "--input", "in.txt"],
+                           "serves ONE model"),
+    "fleet with --replicas": (["--fleet", "a=x.pt", "--replicas", "2"],
+                              "exclusive"),
+    "fleet with long widths": (["--fleet", "a=x.pt", "--model",
+                                "bert-tiny-long", "--serve_long_widths",
+                                "256"], "--serve_long_widths"),
+    "disagg with --fleet": (["--fleet", "a=x.pt", "--disagg", "local"],
+                            "needs --decode"),
 }
 
 
@@ -1118,8 +1128,9 @@ def test_cli_decode_refuses_a10b_and_a9b_flags(vocab, tmp_path, case):
     and ``--decode_engines`` are taken, and refused where JAX's script
     refuses them (``serve_tpu.py``: paged only, exclusive, two engines at
     least, ``--replicas`` agreeing with the pool sizes, ``--decode``
-    only), before any engine is built; the controller is A9b's.  The
-    tokens they serve: ``tests/test_torch_speculate.py`` and
+    only), before any engine is built; so are the fleet flags, where
+    JAX's script refuses ``--fleet``: with ``--decode``, ``--input``,
+    ``--replicas`` or long widths.  The tokens they serve: ``tests/test_torch_speculate.py`` and
     ``tests/test_torch_disagg.py``."""
     from pdnlp_tpu_torch.serve import cli
 

@@ -7,7 +7,10 @@ on three warmed bert-tiny paged engines shared by the module; the export
 payloads against JAX's engine on the same weights, the frames across the
 two packages byte for byte, the split pools' tokens against JAX's router,
 the int8 KV handoff, and ``serve.cli --decode --disagg``.  The
-controller's split law (``test_split_law_*``) is ROADMAP A9b.
+controller's split law (``test_split_law_*``) runs the same scripted fake
+router through JAX's ``ServeController`` and the port's: the same
+actuations and outcomes (``tests.test_torch_controller.twin``).  The
+split router's ``control_snapshot()`` key tree is JAX's.
 
 Tolerance: payloads at 2e-5 in fp32, int8 codes equal; tokens equal."""
 import os
@@ -505,3 +508,135 @@ def test_cli_disagg_gives_plain_decode_tokens(vocab, tmp_path, mode):
     assert snap["transport"] == mode and len(snap["replicas"]) == 3
     assert snap["replicas"]["0"]["pool"] == "prefill"
     assert snap["replicas"]["0"]["decode"]["handoffs_total"] == 4
+
+
+# ---------------------------------------------- controller split law
+
+class FakeDisaggRouter:
+    """Router-shaped double exposing exactly what the pool-split law
+    consumes: the ``prefill_share`` knob pair, the per-pool backlogs and
+    the two latency signals, quantized like the real router
+    (``tests/test_disagg.py:FakeDisaggRouter``, with the tracer of
+    package ``P``)."""
+
+    def __init__(self, P, n=3):
+        self.n = n
+        self.k = 1
+        self.pb = 0.0
+        self.db = 0.0
+        self.ttft = 40.0
+        self.itok = 12.0
+        self.applied = []
+        self.tracer = P.Tracer(enabled=True)
+
+    @property
+    def _step(self):
+        return round(1.0 / self.n, 6)
+
+    def knob_values(self):
+        return {"prefill_share": round(self.k * self._step, 6),
+                "prefill_share_step": self._step}
+
+    def apply_knob(self, name, value):
+        if name != "prefill_share":
+            raise KeyError(name)
+        self.k = max(1, min(self.n - 1, int(round(float(value) * self.n))))
+        self.applied.append((name, round(self.k * self._step, 6)))
+
+    def control_snapshot(self):
+        return {
+            "router": {"requests_total": 0, "deadline_expired_total": 0,
+                       "queue_depth": 0.0, "admission": {}},
+            "active": 1, "standby": 0,
+            "knobs": self.knob_values(),
+            "latency": {"ttft_p50_ms": self.ttft,
+                        "ttft_p99_ms": self.ttft,
+                        "inter_token_p50_ms": self.itok,
+                        "inter_token_p99_ms": self.itok},
+            "by_pool": {"prefill": {"backlog": self.pb},
+                        "decode": {"backlog": self.db}},
+        }
+
+
+def _split_controller(P, n=3, **kw):
+    from tests.test_elastic import FakeClock
+
+    r = FakeDisaggRouter(P, n=n)
+    clk = FakeClock()
+    kw.setdefault("eval_window_s", 5.0)
+    c = P.ServeController(r, clock=clk, tracer=r.tracer, **kw)
+    assert c.step() is None  # first tick only primes the counter deltas
+    clk.advance(1.0)
+    return c, r, clk
+
+
+def _split_tick(c, r, clk, pb=0.0, db=0.0, dt=1.0):
+    r.pb, r.db = pb, db
+    s = c.step()
+    clk.advance(dt)
+    return s
+
+
+def _split_grows_and_shrinks(P):
+    c, r, clk = _split_controller(P, n=3)
+    _split_tick(c, r, clk, pb=5.0)   # flapping pressure: no verdict
+    _split_tick(c, r, clk)
+    _split_tick(c, r, clk, pb=5.0)
+    _split_tick(c, r, clk)
+    assert r.applied == []
+    _split_tick(c, r, clk, pb=5.0)   # two consecutive: one quantum
+    _split_tick(c, r, clk, pb=5.0)
+    assert r.applied == [("prefill_share", 0.666666)]
+    assert r.knob_values()["prefill_share"] == 0.666666
+    clk.advance(11.0)
+    _split_tick(c, r, clk, db=5.0)
+    _split_tick(c, r, clk, db=5.0)
+    assert r.applied[-1] == ("prefill_share", 0.333333)
+    clk.advance(6.0)
+    for _ in range(2):
+        _split_tick(c, r, clk)
+    c.stop()
+    rep = P.decision.validate_decisions(r.tracer.records())
+    assert rep["incomplete"] == {}
+    assert rep["by_knob"].get("prefill_share", 0) >= 2
+    return [(c, r)]
+
+
+def test_split_law_grows_and_shrinks_on_sustained_backlog():
+    from tests.test_torch_controller import twin
+
+    log = twin(_split_grows_and_shrinks)
+    acts = [(a["old"], a["new"], a["signal"]) for a in log[0][0]
+            if a["phase"] == "action"]
+    assert acts == [(0.333333, 0.666666, "inter_token_p99_ms"),
+                    (0.666666, 0.333333, "ttft_p99_ms")]
+
+
+def _split_never_empties(P):
+    c, r, clk = _split_controller(P, n=2)
+    for _ in range(5):
+        _split_tick(c, r, clk, pb=9.0)
+    assert r.applied == []
+    return [(c, r)]
+
+
+def test_split_law_never_empties_a_pool():
+    from tests.test_torch_controller import twin
+
+    twin(_split_never_empties)
+
+
+def test_disagg_control_snapshot_keys_match_jax(fleet, tok, jax_weights):
+    """``DisaggDecodeRouter.control_snapshot()`` has JAX's key tree — the
+    split law reads ``latency.ttft_p99_ms`` / ``inter_token_p99_ms`` and
+    ``by_pool.<pool>.backlog`` there — and the same knobs."""
+    from tests.test_torch_controller import key_tree
+
+    ours = DisaggDecodeRouter(fleet, prefill_engines=1)
+    ref = JaxDisagg([jax_engine(tok, jax_weights) for _ in range(3)],
+                    prefill_engines=1)
+    got, want = ours.control_snapshot(), ref.control_snapshot()
+    assert key_tree(got) == key_tree(want)
+    assert {"ttft_p99_ms", "inter_token_p99_ms"} <= set(got["latency"])
+    assert "backlog" in got["by_pool"]["prefill"]
+    assert ours.knob_values() == ref.knob_values()

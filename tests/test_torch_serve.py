@@ -223,5 +223,10 @@ def test_cli_online_stdin_and_offline_file(vocab, tmp_path):
     assert r.returncode == 0, r.stderr
     out = (tmp_path / "out.txt").read_text(encoding="utf-8").splitlines()
     assert [x.split("\t")[2] for x in out] == TEXTS
-    r = _cli(common + ["--controller", "on"], "", tmp_path)
-    assert r.returncode != 0 and "ROADMAP A9b" in r.stderr
+    r = _cli(common + ["--replicas", "2", "--controller", "on",
+                       "--min_replicas", "1"],
+             "\n".join(TEXTS) + "\n", tmp_path)
+    assert r.returncode == 0, r.stderr
+    assert "[controller] feedback control plane on" in r.stderr
+    assert [x.split("\t")[0] for x in r.stdout.strip().splitlines()] == \
+        [x.split("\t")[0] for x in lines]

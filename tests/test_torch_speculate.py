@@ -5,7 +5,10 @@ one warmed primary + drafter pair shared by the module), the verify
 window's logits against JAX's engine on the same weights, the speculative
 tokens against JAX's speculating batcher, a rejected round followed by an
 accepted one, and ``serve.cli --decode --speculate``.  The controller's
-speculation law (``test_law_*``) is ROADMAP A9b and has no twin here.
+speculation law (``test_law_*``) runs the same scripted fake router through
+JAX's ``ServeController`` and the port's: the same actuations and
+outcomes (``tests.test_torch_controller.twin``).  The decode router's
+``control_snapshot()`` key tree is JAX's.
 
 Tolerance: verify logits at 2e-5 in fp32 (int8 KV: the same bound on the
 same int8 codes); tokens equal."""
@@ -440,3 +443,177 @@ def test_cli_speculate_gives_plain_decode_tokens(vocab, tmp_path):
     assert snap["speculation"]["draft_k"] == 3
     assert snap["speculation"]["rounds"] > 0
     assert snap["drafter"]["kv"]["layout"] == "paged"
+
+
+# ------------------------------------------------- the speculation law
+
+class FakeSpecRouter:
+    """Router-shaped double exposing exactly what the speculation law
+    consumes: a ``draft_k`` knob and cumulative draft/accept counters the
+    test scripts per tick (``tests/test_speculate.py:FakeSpecRouter``,
+    with the tracer of package ``P``)."""
+
+    def __init__(self, P, k=6):
+        self.knobs = {"draft_k": k}
+        self.drafted = 0
+        self.accepted = 0
+        self.applied = []
+        self.tracer = P.Tracer(enabled=True)
+
+    def feed(self, rate, n=1000):
+        self.drafted += n
+        self.accepted += int(n * rate)
+
+    def knob_values(self):
+        return dict(self.knobs)
+
+    def apply_knob(self, name, value):
+        if name != "draft_k":
+            raise KeyError(name)
+        self.knobs[name] = value
+        self.applied.append((name, value))
+
+    def control_snapshot(self):
+        return {
+            "router": {"requests_total": 0, "deadline_expired_total": 0,
+                       "queue_depth": 0.0, "admission": {}},
+            "active": 1, "standby": 0,
+            "knobs": dict(self.knobs),
+            "speculation": {"draft_tokens": self.drafted,
+                            "accepted_tokens": self.accepted},
+        }
+
+
+def _spec_controller(P, k=6, **kw):
+    from tests.test_elastic import FakeClock
+
+    r = FakeSpecRouter(P, k=k)
+    clk = FakeClock()
+    kw.setdefault("eval_window_s", 5.0)
+    c = P.ServeController(r, clock=clk, tracer=r.tracer, **kw)
+    assert c.step() is None  # first tick only primes the counter deltas
+    clk.advance(1.0)
+    return c, r, clk
+
+
+def _spec_tick(c, r, clk, rate=None, dt=1.0):
+    if rate is not None:
+        r.feed(rate)
+    s = c.step()
+    clk.advance(dt)
+    return s
+
+
+def _law_halves(P):
+    c, r, clk = _spec_controller(P, k=6)
+    _spec_tick(c, r, clk, rate=0.20)
+    assert r.knobs["draft_k"] == 6  # one low tick is not a verdict
+    _spec_tick(c, r, clk, rate=0.20)
+    assert r.knobs["draft_k"] == 3
+    clk.advance(6.0)  # clear the knob cooldown
+    _spec_tick(c, r, clk, rate=0.20)
+    _spec_tick(c, r, clk, rate=0.20)
+    assert r.knobs["draft_k"] == 1
+    clk.advance(6.0)
+    _spec_tick(c, r, clk, rate=0.10)  # < floor/2: catastrophic
+    _spec_tick(c, r, clk, rate=0.10)
+    assert r.knobs["draft_k"] == 0
+    c.stop()
+    rep = P.decision.validate_decisions(r.tracer.records())
+    assert rep["incomplete"] == {}
+    assert rep["by_knob"].get("draft_k", 0) >= 3
+    return [(c, r)]
+
+
+def test_law_halves_then_disables_on_low_acceptance():
+    from tests.test_torch_controller import twin
+
+    log = twin(_law_halves)
+    assert [(a["old"], a["new"]) for a in log[0][0]
+            if a["phase"] == "action"] == [(6, 3), (3, 1), (1, 0)]
+
+
+def _law_deepens(P):
+    c, r, clk = _spec_controller(P, k=6)
+    _spec_tick(c, r, clk, rate=0.95)
+    assert r.knobs["draft_k"] == 7
+    _spec_tick(c, r, clk, rate=0.95)  # cooldown holds: no double-step
+    assert r.knobs["draft_k"] == 7
+    clk.advance(6.0)
+    _spec_tick(c, r, clk, rate=0.95)
+    assert r.knobs["draft_k"] == 8
+    clk.advance(6.0)
+    _spec_tick(c, r, clk, rate=0.95)  # at the ceiling: the law stands still
+    assert r.knobs["draft_k"] == 8
+    c.stop()
+    assert P.decision.validate_decisions(r.tracer.records())[
+        "incomplete"] == {}
+    return [(c, r)]
+
+
+def test_law_deepens_on_high_acceptance_capped():
+    from tests.test_torch_controller import twin
+
+    twin(_law_deepens)
+
+
+def _law_dormant(P):
+    c, r, clk = _spec_controller(P, k=6)
+    for _ in range(4):
+        _spec_tick(c, r, clk)  # no feed: accept_rate is None
+    assert r.applied == []
+    c2, r2, clk2 = _spec_controller(P, k=0)
+    for _ in range(4):
+        _spec_tick(c2, r2, clk2, rate=0.10)  # counters move, but k=0
+    assert r2.applied == []
+    return [(c, r), (c2, r2)]
+
+
+def test_law_dormant_without_drafting():
+    from tests.test_torch_controller import twin
+
+    twin(_law_dormant)
+
+
+def _law_reverts(P):
+    c, r, clk = _spec_controller(P, k=0)
+    _spec_tick(c, r, clk, rate=0.90)  # baseline sense: spec_waste 0.1
+    assert c.inject("draft_k", 6, "test revert probe")
+    assert r.knobs["draft_k"] == 6
+    for _ in range(8):  # mid-band rate: law silent, waste regresses
+        _spec_tick(c, r, clk, rate=0.50)
+    assert r.knobs["draft_k"] == 0
+    assert c.reverts_total >= 1
+    c.stop()
+    rep = P.decision.validate_decisions(r.tracer.records())
+    assert rep["incomplete"] == {}
+    assert rep["reverted"] >= 1
+    return [(c, r)]
+
+
+def test_law_auto_reverts_regressing_reenable():
+    from tests.test_torch_controller import twin
+
+    twin(_law_reverts)
+
+
+def test_decode_router_control_snapshot_keys_match_jax(spair, tok,
+                                                       jax_weights):
+    """``DecodeRouter.control_snapshot()`` of a speculating pair has JAX's
+    key tree — the speculation law reads ``speculation.draft_tokens`` /
+    ``accepted_tokens`` and the knobs there — and a plain router's knobs
+    are JAX's (none)."""
+    from pdnlp_tpu.serve import DecodeRouter as JaxRouter
+    from tests.test_torch_controller import key_tree
+
+    eng, dr = spair
+    ours = DecodeRouter([eng], drafters=[dr], draft_k=DRAFT_K)
+    jeng = jax_engine(tok, jax_weights)
+    jdr = jax_engine(tok, jax_weights, prefix_share=False)
+    ref = JaxRouter([jeng], drafters=[jdr], draft_k=DRAFT_K)
+    got, want = ours.control_snapshot(), ref.control_snapshot()
+    assert key_tree(got) == key_tree(want)
+    assert {"draft_tokens", "accepted_tokens"} <= set(got["speculation"])
+    assert ours.knob_values() == ref.knob_values() == {"draft_k": DRAFT_K}
+    assert DecodeRouter([eng]).knob_values() == \
+        JaxRouter([jeng]).knob_values() == {}

@@ -423,14 +423,14 @@ def test_entry_point_refusals(tmp_path):
 
     from pdnlp_tpu_torch.train import multi
 
-    for argv in (["--metrics_port", "9000"], ["--flight_recorder", "f"],
-                 ["--elastic", "1"], ["--heartbeat_interval", "5"],
+    for argv in (["--elastic", "1"], ["--heartbeat_interval", "5"],
                  ["--init_from", "x.msgpack"]):
         with pytest.raises(SystemExit, match="does not have yet"):
             single.refuse_not_ported(argv)
     ported = ["--length_mode", "pack", "--pipeline", "resident",
               "--fuse_steps", "4", "--resume_every", "10", "--grads_dtype",
-              "compute", "--trace", "1", "--profile_dir", "p"]
+              "compute", "--trace", "1", "--profile_dir", "p",
+              "--metrics_port", "9000", "--flight_recorder", "f"]
     assert single.refuse_not_ported(ported) == ported
     table = multi.MULTI_NOT_PORTED
     assert multi.refuse_not_ported(["--fuse_steps", "1", "--dev", "1"],
