@@ -113,8 +113,26 @@ equal plain greedy's; the split law growing the prefill pool of 11b's 1 +
 12c ``serve.cli --fleet ... --controller on --shadow_fraction 1`` and
 ``serve.cli --decode --speculate ... --controller on`` as processes
 started beside 10b, held to 12a's labels and 10c's tokens, and
-``train.single --flight_recorder`` in 8c's run), then the kernels' times
-at every shape these paths give them.
+``train.single --flight_recorder`` in 8c's run), 13 pretraining and the
+managed trainers (13a ``train.pretrain.run_pretrain`` on bert-base: masked
+LM on the profile corpus packed 64 x 128, bf16, span masking, attention
+dropout 0, about 36 steps at JAX's warmup-cosine rate: K1-K3 12 launches a
+step and K4/K5 none, the loss falling, the mask fraction on the card in
+0.12-0.18, one step at a fixed mask on the kernel route against the plain
+route — fp32 loss, every gradient before the update and the params,
+bf16 loss; K1-K3 at its packed 64 x 128 rows against their twins in both
+dtypes among the kernels' times — the artifact read back bit for bit, a
+profiled split of the step and the tied decoder's GEMMs; 13b the
+supervised stage from 13a's artifact with K1-K5, ``load_encoder(head=True)``
+against its file, and ``train.single --init_from <it> --init_head true``
+at rate 0 as a process beside 13c, its first dev pass equal to the warm
+start's; 13c ``AutoTrainer`` on bert-base, bf16, ``fuse_steps`` 4 (K1-K5
+inside the graphs), an eval and a save every 8 of 24 steps with the train
+state, rotation to 2 dirs plus the best, the best adopted bit for bit, a
+resume from ``checkpoint-16`` ending on the uninterrupted run's losses,
+params and AdamW moments bit for bit; the ``Accelerator``'s user loop for 8
+fp32 steps against ``build_parallel_trainer``'s bit for bit), then the
+kernels' times at every shape these paths give them.
 Any failure raises and the script exits non-zero.  Without a card, or
 away from the repo, it prints no result and exits non-zero.  The line
 before the last is the ``{"kernels": [...]}`` record; the last is
@@ -154,6 +172,12 @@ CE_TOL = {"float32": (1e-5, 1e-5), "bfloat16": (1e-2, 1e-2)}
 TRAIN_LOSS_ATOL = {"float32": 1e-3, "bfloat16": 5e-2}
 TRAIN_STEPS = 20
 LEARNING_RATE = 3e-5
+#: gradients of one step, kernel route vs plain route from the same
+#: weights and batch, fp32: each parameter's largest |difference| over its
+#: largest gradient, taken as at least 1e-3 of the model's largest (the key
+#: biases' gradients are rounding alone: a softmax does not see a shift of
+#: a query's scores); the flash tests' gradient bound
+GRAD_RTOL = 5e-5
 
 
 def param_atol(steps):
@@ -324,6 +348,25 @@ def _err(got, want, tol):
     d = (g - w).abs()
     return d.max().item(), bool((d <= atol + rtol * w.abs()).all()
                                 and g.isfinite().all())
+
+
+def grad_error(torch, got, want):
+    """``(name, ratio)`` of the parameter whose gradient in ``got`` is
+    farthest from ``want``'s, on ``GRAD_RTOL``'s scale; NaN where either
+    is not finite, so that ``ratio <= GRAD_RTOL`` fails."""
+    top = torch.stack([w.abs().max() for w in want.values()]).max()
+    worst = (None, 0.0)
+    for name, w in want.items():
+        g = got[name]
+        ratio = ((g - w).abs().max() / torch.maximum(
+            w.abs().max(), 1e-3 * top)).item()
+        if not bool(g.isfinite().all()):
+            ratio = float("nan")
+        if not ratio <= worst[1]:
+            worst = (name, ratio)
+            if ratio != ratio:
+                break
+    return worst
 
 
 def backward_cases(torch, flash, mask_bias, device, packed_segs):
@@ -810,22 +853,22 @@ SPLIT = (("K1", ("flash_fwd_kernel",)), ("K2", ("flash_bwd_dq_kernel",)),
          ("GEMM", ("gemm", "nvjet", "xmma", "cutlass", "splitk")))
 
 
-def split_device_time(rows):
+def split_device_time(rows, split=SPLIT):
     """``{part: device ms}`` over the profiler's per-kernel rows."""
-    out = {name: 0.0 for name, _ in SPLIT}
+    out = {name: 0.0 for name, _ in split}
     out["other"] = 0.0
     for ms, _n, key in rows:
         low = key.lower()
-        part = next((name for name, frags in SPLIT
+        part = next((name for name, frags in split
                      if any(f in low for f in frags)), "other")
         out[part] += ms
     return out
 
 
-def profile_calls(torch, fn, n, card, label):
+def profile_calls(torch, fn, n, card, label, split=SPLIT):
     """Device time by kernel over ``n`` calls of ``fn`` (``torch.profiler``),
     the device's busy share of that window's wall time and its split by
-    part (:func:`split_device_time`)."""
+    part (:func:`split_device_time` over ``split``)."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -857,7 +900,7 @@ def profile_calls(torch, fn, n, card, label):
         print(f"[profile] {label}: device time not measured (the profiler "
               f"saw no device kernels) — {card}")
         return None
-    split = split_device_time(rows)
+    split = split_device_time(rows, split)
     print(f"[profile] {label}: {n} calls, wall {wall_ms:.3f} ms, device "
           f"busy {busy:.3f} ms ({100 * busy / wall_ms:.1f}%) — {card}")
     print(f"[profile]   split: " + ", ".join(
@@ -1846,9 +1889,10 @@ def fused_runs(torch, flash, fused_ce, base, vocab_size, device, card,
 
 def fused_times(torch, base, vocab_size, device, card, batch128, batch32,
                 batch512):
-    """Phase 8b (printed, not claimed): per dtype and shape (32 x 128, and
-    bucket 32 x 32), the eager step against the captured one (host clock
-    to a synchronize: TIMED_EAGER re-fed eager steps, TIMED_GROUPS re-fed
+    """Phase 8b (printed, not claimed): per shape (32 x 128 in fp32 and
+    bf16, bucket 32 x 32 in bf16), the eager step against the captured
+    one (host clock to a synchronize: TIMED_EAGER re-fed eager steps,
+    TIMED_GROUPS re-fed
     replays of a 4-step group), the eager step also as ``--fuse_steps`` 1
     builds it (AdamW not capturable; the two eager states timed in turns,
     twice each), each one's device busy share over 3 calls
@@ -1862,10 +1906,12 @@ def fused_times(torch, base, vocab_size, device, card, batch128, batch32,
     from pdnlp_tpu_torch.train.steps import build_multi_step, build_train_step
 
     out = {}
-    shapes = [(label, host, dtype, TIMED_EAGER, TIMED_GROUPS)
-              for dtype in ("float32", "bfloat16")
-              for label, host in (("32x128", batch128),
-                                  ("bucket 32x32", batch32))]
+    # fp32 at 32 x 128 only (its bucket 32 x 32 timing cut for phase 13's
+    # time), bf16 at every shape
+    shapes = [("32x128", batch128, "float32", TIMED_EAGER, TIMED_GROUPS)]
+    shapes += [(label, host, "bfloat16", TIMED_EAGER, TIMED_GROUPS)
+               for label, host in (("32x128", batch128),
+                                   ("bucket 32x32", batch32))]
     shapes.append(("packed 32x512", batch512, "bfloat16", 3, 1))
     for label, host, dtype, n_eager, n_groups in shapes:
         args = base.replace(dtype=dtype, dropout=0.1, attn_dropout=0.0,
@@ -4586,6 +4632,486 @@ def cli_12c_check(procs, fleet_want, decode_want, card):
     return recs
 
 
+# ---------------------------------------------------------------- phase 13
+
+
+#: 13a: masked-LM pretraining of bert-base on the profile corpus's packed
+#: 64 x 128 rows (every text but the dev split's: about 11 steps an
+#: epoch), 3 epochs at JAX's pretraining rate
+PRETRAIN_EPOCHS = 3
+PRETRAIN_LR = 2e-4
+WANT_MLM_STEP = {"flash_fwd": 12, "flash_bwd_dq": 12, "flash_bwd_dkv": 12,
+                 "fused_ce_fwd": 0, "fused_ce_bwd": 0}
+#: 13b: the supervised stage's labeled texts (after the first SFT_LIMIT of
+#: the profile corpus: 4 steps of 32), and the warm-started train.single's
+#: corpus slice (6 steps at rate 0, a dev pass after each)
+SFT_LIMIT = 3000
+SFT_EXAMPLES = 128
+WARM_LIMIT = 200
+#: 13c: AutoTrainer over 24 steps (768 train examples of the profile
+#: corpus), fuse_steps 4, an eval and a save every 8; Accelerator's loop
+AUTO_LIMIT = 835
+AUTO_STEPS = 24
+AUTO_EVERY = 8
+ACCEL_STEPS = 8
+#: 13a's profiled step, split by part (the first match wins): the MLM head
+#: is the softmax over the vocabulary (its decoder GEMM is among the GEMMs,
+#: timed alone as well); the embedding gather and its index backward
+MLM_SPLIT = (("K1", ("flash_fwd_kernel",)), ("K2", ("flash_bwd_dq_kernel",)),
+             ("K3", ("flash_bwd_dkv_kernel",)),
+             ("MLM head log_softmax", ("softmax",)),
+             ("embedding index", ("index", "embedding")),
+             ("LayerNorm", ("layer_norm",)),
+             ("optimizer", ("multi_tensor_apply", "adam")),
+             ("GEMM", ("gemm", "nvjet", "xmma", "cutlass", "splitk")))
+
+
+def _differences(launches, counts_before):
+    return {k: launches[k] - counts_before[k] for k in launches}
+
+
+def decoder_gemm_ms(torch, device, card, rows=8192, H=768, V=21128):
+    """The tied decoder's three GEMMs of one bf16 step (logits, d(hidden),
+    d(word)), device time, beside their operations' bound."""
+    g = torch.Generator(device=device).manual_seed(SEED)
+    h = torch.randn(rows, H, device=device, generator=g,
+                    dtype=torch.bfloat16)
+    w = torch.randn(V, H, device=device, generator=g, dtype=torch.bfloat16)
+    d = torch.randn(rows, V, device=device, generator=g, dtype=torch.bfloat16)
+
+    def three():
+        h @ w.t()
+        d @ w
+        d.t() @ h
+
+    # CUDA events: the three products take about a millisecond, far above
+    # the host's pacing of back-to-back launches
+    ms = time_ms(torch, three, iters=20, warmup=3)
+    b_ms, by = bound(2 * (rows * H + V * H + rows * V), 3 * 2 * rows * H * V,
+                     "bfloat16")
+    print(f"[pretrain] tied decoder GEMMs of a step (bf16 [{rows}, {H}] x "
+          f"[{H}, {V}], forward and both backward products): {ms:.4f} ms "
+          f"(CUDA events, 20 back to back), bound {b_ms:.4f} ms ({by}) — "
+          f"{card}")
+    return {"ms": ms, "bound_ms": b_ms, "bound_by": by}
+
+
+def pretrain_phase(torch, flash, fused_ce, work, vocab_path, profile_path,
+                   device, card):
+    """13a: ``run_pretrain`` on bert-base in bf16 (module doc); returns the
+    record and the artifact's path."""
+    from pdnlp_tpu_torch.data.tokenizer import load_vocab
+    from pdnlp_tpu_torch.models import convert
+    from pdnlp_tpu_torch.train import checkpoint as ckpt
+    from pdnlp_tpu_torch.train import pretrain
+    from pdnlp_tpu_torch.train.optim import build_optimizer
+    from pdnlp_tpu_torch.train.steps import restore_state, snapshot_state
+    from pdnlp_tpu_torch.utils.config import Args
+
+    args = Args(strategy="pretrain", model="bert-base", device="cuda",
+                seed=SEED, vocab_path=vocab_path, data_path=profile_path,
+                data_limit=PROFILE_EXAMPLES, dtype="bfloat16",
+                train_batch_size=64, epochs=PRETRAIN_EPOCHS,
+                learning_rate=PRETRAIN_LR, dropout=0.1, attn_dropout=0.0,
+                mlm_span=True, output_dir=os.path.join(work, "pretrain"),
+                ckpt_name="pretrained-mlm.msgpack", log_every=10 ** 9)
+    seen = {"losses": [], "per_step": [], "batches": [], "events": []}
+
+    def on_step(state, batch, m):
+        now = launch_counts(flash, fused_ce)
+        seen["per_step"].append(_differences(now, seen["counts"]))
+        seen["counts"] = now
+        seen["losses"].append(m["loss"])
+        seen["batches"].append(batch)
+        seen["state"] = state
+        ev = torch.cuda.Event(enable_timing=True)
+        ev.record()
+        seen["events"].append(ev)
+
+    torch.cuda.synchronize()
+    reset_counts(flash, fused_ce)
+    seen["counts"] = launch_counts(flash, fused_ce)
+    t0 = time.perf_counter()
+    path = pretrain.run_pretrain(args, on_step=on_step)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    totals = launch_counts(flash, fused_ce)
+    state = seen["state"]
+    steps = state.step
+    losses = [float(x) for x in seen["losses"]]
+    ev = seen["events"]
+    step_ms = ev[4].elapsed_time(ev[-1]) / (len(ev) - 5)
+    bad = [i for i, c in enumerate(seen["per_step"]) if c != WANT_MLM_STEP]
+    first, last = sum(losses[:5]) / 5, sum(losses[-5:]) / 5
+    ids = seen["batches"][0]["input_ids"]
+    cfg = state.model.cfg
+    mask_id = load_vocab(vocab_path).index("[MASK]")
+    sel = pretrain.mask_tokens(pretrain.mask_generator(SEED, 0, device), ids,
+                               mask_id, cfg.vocab_size, args.mlm_prob,
+                               span=True)[2]
+    frac = float(sel.sum() / (ids >= pretrain.N_SPECIALS).sum())
+    raw = ckpt.load(path)
+    trunk, head = convert.mlm_artifact_from_jax(raw)
+    live = state.model.state_dict()
+    back = {**trunk, **{f"mlm.{k}": v for k, v in head.items()}}
+    same = (set(back) == {k for k in live if not k.startswith(
+        ("pooler.", "classifier."))} and all(
+        torch.equal(back[k], live[k].cpu()) for k in back))
+    print(f"[pretrain] 13a bert-base MLM, packed 64 x 128 of "
+          f"{profile_path}, bf16, span masking, attention dropout 0, "
+          f"{steps} steps in {wall:.1f} s (the corpus, init and artifact "
+          f"included): loss {losses[0]:.4f} -> {losses[-1]:.4f} (mean of "
+          f"the first 5 {first:.4f}, of the last 5 {last:.4f}); mask "
+          f"fraction on the card {frac:.4f} of maskable positions "
+          f"(band 0.12-0.18) — {card}")
+    print(f"[pretrain] launches over {steps} steps: {totals} (every step "
+          f"{WANT_MLM_STEP}: {'yes' if not bad else f'no, steps {bad}'}); "
+          f"step wall {step_ms:.3f} ms (CUDA events, steps 5-{steps}) — "
+          f"{card}")
+    print(f"[pretrain] artifact {path}: {len(back)} tensors, loads back bit "
+          f"for bit: {same} — {card}")
+    if bad or not last < first or not 0.12 <= frac <= 0.18 or not same \
+            or not all(x == x for x in losses):
+        fail(f"13a: launches per step {bad[:3]}, loss {first} -> {last}, "
+             f"mask fraction {frac}, artifact round trip {same}")
+    step = pretrain.build_mlm_step(cfg, args, mask_id)
+    cycle = itertools.cycle(seen["batches"][:3])
+    prof = profile_calls(
+        torch, lambda: step(state, next(cycle)), 3, card,
+        "pretraining step, bert-base MLM 64 x 128 packed, bf16",
+        split=MLM_SPLIT)
+    head_gemm = decoder_gemm_ms(torch, device, card)
+    batch = seen["batches"][0]
+    del seen
+    # one step at a fixed mask, kernel route against plain route, from the
+    # same weights (the pretrained ones, with a fresh AdamW at a constant
+    # rate): fp32, the loss, every gradient before the update (a first
+    # Adam step moves each weight by about lr whatever its gradient, so the
+    # params alone cannot tell a wrong one) and the params; bf16, the loss
+    # (K2/K3 in bf16 at this shape are held to their twins in the 6 times)
+    fixed = args.replace(dtype="float32", learning_rate=LEARNING_RATE)
+    st = state
+    st.optimizer, st.scheduler = build_optimizer(st.model, fixed)
+    del state
+    torch.cuda.empty_cache()
+    masked = pretrain.mask_tokens(pretrain.mask_generator(SEED, 0, device),
+                                  batch["input_ids"], mask_id,
+                                  cfg.vocab_size, span=True)
+    snap = snapshot_state(st)
+    out = {}
+    for dtype in ("float32", "bfloat16"):
+        for route in ("auto", "xla"):
+            restore_state(st, snap)
+            reset_counts(flash, fused_ce)
+            m = pretrain.mlm_update(st, batch, masked, fixed.replace(
+                dtype=dtype, attention_impl=route))
+            fp32 = dtype == "float32"
+            out[(dtype, route)] = (
+                float(m["loss"]), launch_counts(flash, fused_ce),
+                {k: v.detach().clone() for k, v in
+                 st.model.state_dict().items()} if fp32 else None,
+                {k: p.grad.detach().clone() for k, p in
+                 st.model.named_parameters() if p.grad is not None}
+                if fp32 else None)
+    (lk, ck, pk, gk), (lp, cp, pp, gp) = out[("float32", "auto")], \
+        out[("float32", "xla")]
+    # every parameter but the classifier's pooler and head has a gradient
+    trained = {k for k, _ in st.model.named_parameters()
+               if not k.startswith(("pooler.", "classifier."))}
+    if not set(gk) == set(gp) == trained:
+        fail(f"13a: gradients of {sorted(set(gk) ^ trained)[:4]} / "
+             f"{sorted(set(gp) ^ trained)[:4]} missing or unexpected")
+    d_par = torch.stack([(pk[k] - pp[k]).abs().max() for k in pk]
+                        ).max().item()
+    g_name, g_err = grad_error(torch, gk, gp)
+    d_bf = abs(out[("bfloat16", "auto")][0] - out[("bfloat16", "xla")][0])
+    print(f"[pretrain] one step at a fixed mask, kernel route vs plain "
+          f"route: fp32 loss {lk:.6f} vs {lp:.6f} (|diff| {abs(lk - lp):.3e},"
+          f" atol {TRAIN_LOSS_ATOL['float32']}), gradients of {len(gk)} "
+          f"params: worst {g_name} at {g_err:.3e} of its scale (rtol "
+          f"{GRAD_RTOL:g}), max |param diff| {d_par:.3e} (atol "
+          f"{param_atol(1):.1e}); bf16 loss |diff| {d_bf:.3e} (atol "
+          f"{TRAIN_LOSS_ATOL['bfloat16']}); kernel route launched {ck}, "
+          f"plain {cp} — {card}")
+    del st, snap, pk, pp, gk, gp, out
+    torch.cuda.empty_cache()
+    if not (abs(lk - lp) <= TRAIN_LOSS_ATOL["float32"] and
+            g_err <= GRAD_RTOL and d_par <= param_atol(1) and
+            d_bf <= TRAIN_LOSS_ATOL["bfloat16"]) or \
+            ck != WANT_MLM_STEP or any(cp.values()):
+        fail(f"13a: kernel route vs plain route at a fixed mask: loss "
+             f"{abs(lk - lp)}, gradient {g_name} {g_err}, params {d_par}, "
+             f"bf16 loss {d_bf}, launches {ck} / {cp}")
+    rec = {"steps": steps, "losses": losses, "loss_first5": first,
+           "loss_last5": last, "mask_fraction": frac, "launches": totals,
+           "step_ms": step_ms, "wall_s": wall, "profile": prof,
+           "decoder_gemms": head_gemm, "artifact_bit_equal": same,
+           "fixed_mask": {"loss_diff_fp32": abs(lk - lp),
+                          "grad_worst_fp32": [g_name, g_err],
+                          "param_diff_fp32": d_par, "loss_diff_bf16": d_bf}}
+    return rec, path, batch["segment_ids"].cpu().numpy()
+
+
+def supervised_phase(torch, flash, fused_ce, work, vocab_path, profile_path,
+                     mlm_path, card):
+    """13b: the supervised stage from 13a's artifact with K1-K5, and
+    ``load_encoder(head=True)`` against its file; returns the record and
+    the stage's artifact."""
+    from pdnlp_tpu_torch.models import convert
+    from pdnlp_tpu_torch.train import checkpoint as ckpt
+    from pdnlp_tpu_torch.train import pretrain
+    from pdnlp_tpu_torch.utils.config import Args
+
+    args = Args(strategy="sft", model="bert-base", device="cuda", seed=SEED,
+                vocab_path=vocab_path, data_path=profile_path,
+                data_limit=SFT_LIMIT, pretrain_limit=SFT_EXAMPLES,
+                dtype="bfloat16", train_batch_size=32, epochs=1,
+                lr_schedule="warmup_linear", attn_dropout=0.0, dev=False,
+                init_from=mlm_path, output_dir=os.path.join(work,
+                                                            "pretrain"),
+                ckpt_name="pretrained.msgpack")
+    torch.cuda.synchronize()
+    reset_counts(flash, fused_ce)
+    t0 = time.perf_counter()
+    path = pretrain.run_supervised_stage(args)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    totals = launch_counts(flash, fused_ce)
+    steps = SFT_EXAMPLES // 32
+    want = {"flash_fwd": 12 * steps, "flash_bwd_dq": 12 * steps,
+            "flash_bwd_dkv": 12 * steps, "fused_ce_fwd": steps,
+            "fused_ce_bwd": steps}
+    saved = convert.from_jax_params(ckpt.load(path))
+    got = pretrain.load_encoder(path, {k: torch.empty_like(v)
+                                       for k, v in saved.items()}, head=True)
+    same = all(torch.equal(got[k], saved[k]) for k in saved)
+    print(f"[pretrain] 13b supervised stage from {mlm_path}: {steps} steps "
+          f"of 32 in {wall:.1f} s, launches {totals} (want {want}); "
+          f"load_encoder(head=True) equals {path}: {same} — {card}")
+    if totals != want or not same:
+        fail(f"13b: launches {totals} (want {want}), head load {same}")
+    return {"steps": steps, "launches": totals, "wall_s": wall,
+            "head_load_equal": same}, path
+
+
+def warm_start_start(work, vocab_path, profile_path, sft_path):
+    """13b's ``train.single --init_from <sft> --init_head true``, started:
+    fp32, rate 0 (the weights stay the warm start's), a dev pass after each
+    step."""
+    return _train_single(
+        work, "warm_start_out", profile_path, vocab_path, WARM_LIMIT,
+        ("--init_from", sft_path, "--init_head", "true", "--dev", "true",
+         "--eval_step", "1", "--learning_rate", "0"))
+
+
+def warm_start_check(torch, started, vocab_path, profile_path, sft_path,
+                     card):
+    """The warm-started process exits 0 and its first dev pass equals the
+    warm start's dev loss and accuracy, computed here from the same
+    file."""
+    import re
+
+    from pdnlp_tpu_torch.train.setup import setup_data, setup_model
+    from pdnlp_tpu_torch.train.steps import build_eval_step
+    from pdnlp_tpu_torch.train.trainer import Trainer
+    from pdnlp_tpu_torch.utils.config import Args
+    from pdnlp_tpu_torch.utils.logging import fmt_dev
+
+    p, _out = started
+    outs = _finish({"13b": p})["13b"]
+    rc, stdout, stderr = outs
+    dev = [ln for ln in stdout.splitlines() if ln.startswith("【dev】")]
+    args = Args(model="bert-base", device="cuda", seed=SEED,
+                vocab_path=vocab_path, data_path=profile_path,
+                data_limit=WARM_LIMIT, attn_dropout=0.0, init_from=sft_path,
+                init_head=True)
+    _, dev_loader, tok = setup_data(args)
+    cfg, state = setup_model(args, tok.vocab_size)
+    loss, acc = Trainer(args, cfg, state, None, build_eval_step(args),
+                        state.model.embeddings.word.device).dev(dev_loader)
+    want = fmt_dev(loss, acc)
+    got = dev[0] if dev else None
+    close = False
+    if got:
+        g_loss, g_acc = (float(x) for x in re.fullmatch(
+            r"【dev】 loss：(\S+) accuracy：(\S+)", got).groups())
+        close = abs(g_loss - loss) <= 2e-6 and abs(g_acc - acc) <= 1e-4
+    print(f"[pretrain] 13b train.single --init_from {os.path.basename(sft_path)}"
+          f" --init_head true (rate 0): exit {rc}, {len(dev)} dev passes; "
+          f"first {got!r} against the warm start's {want!r} computed here: "
+          f"{close} — {card}")
+    del state
+    torch.cuda.empty_cache()
+    if rc != 0 or not close:
+        fail(f"13b train.single warm start: exit {rc}, first dev {got} vs "
+             f"{want}\n{stderr[-3000:]}")
+    return {"exit": rc, "dev_passes": len(dev), "first_dev": got,
+            "warm_start_dev": want}
+
+
+class _Recorder:
+    """A trainer's K-step dispatch with each group's losses kept."""
+
+    def __init__(self, inner, out):
+        self.inner, self.out = inner, out
+
+    def __getattr__(self, name):
+        return getattr(self.inner, name)
+
+    def __call__(self, state, batch):
+        m = self.inner(state, batch)
+        self.out.append(m["loss"])
+        return m
+
+
+def _auto_run(torch, targs, losses):
+    from pdnlp_tpu_torch.train.auto import AutoTrainer
+
+    at = AutoTrainer(targs)
+    at._trainer.multi_step = _Recorder(at._trainer.multi_step, losses)
+    return at, at.train()
+
+
+def managed_phase(torch, flash, fused_ce, work, vocab_path, profile_path,
+                  corpus_path, card):
+    """13c: AutoTrainer (bf16, fuse_steps 4, rotation, best adoption,
+    resume bit for bit) and Accelerator's loop against
+    ``build_parallel_trainer`` (module doc)."""
+    import dataclasses
+    import shutil
+
+    from pdnlp_tpu_torch.train import checkpoint as ckpt
+    from pdnlp_tpu_torch.train.accel import Accelerator
+    from pdnlp_tpu_torch.train.auto import TRAIN_STATE, TrainerArgs
+    from pdnlp_tpu_torch.train.run import build_parallel_trainer
+    from pdnlp_tpu_torch.train.setup import setup_data, setup_model
+    from pdnlp_tpu_torch.train.steps import build_train_step
+    from pdnlp_tpu_torch.utils.config import Args
+
+    out = os.path.join(work, "auto")
+    targs = TrainerArgs(
+        output_dir=out, model="bert-base", device="cuda", seed=SEED,
+        data_path=profile_path, vocab_path=vocab_path, data_limit=AUTO_LIMIT,
+        bf16=True, fuse_steps=4, eval_steps=AUTO_EVERY,
+        save_steps=AUTO_EVERY, logging_steps=AUTO_EVERY, save_total_limit=2,
+        save_optimizer_state=True, attn_dropout=0.0)
+    torch.cuda.synchronize()
+    reset_counts(flash, fused_ce)
+    t0 = time.perf_counter()
+    first_losses = []
+    at, m = _auto_run(torch, targs, first_losses)
+    wall = time.perf_counter() - t0
+    auto_launches = launch_counts(flash, fused_ce)
+    dirs = sorted(d for d in os.listdir(out) if d.startswith("checkpoint-"))
+    best = os.path.basename(at.best_ckpt or "")
+    live = at._trainer.state.model.state_dict()
+    best_file = ckpt.load_params(os.path.join(at.best_ckpt, "model.msgpack"),
+                                 live)
+    adopted = all(torch.equal(best_file[k], live[k].cpu()) for k in live)
+    graphs = at._trainer.multi_step.graphs
+    replays = sum(g.replays for g in graphs.values())
+    rotation = [d for d in dirs if d != best]
+    print(f"[auto] 13c AutoTrainer bert-base bf16, fuse_steps 4: "
+          f"{m['global_step']} steps in {wall:.1f} s (train_runtime "
+          f"{m['train_runtime']:.2f} s, {m['train_samples_per_second']:.1f} "
+          f"samples/s), {len(graphs)} step graph(s), {replays} replays; "
+          f"dirs left {dirs} (best {best}, adopted bit for bit: {adopted}); "
+          f"launches {auto_launches} — {card}")
+    want_k = {"flash_bwd_dq": 12 * AUTO_STEPS, "flash_bwd_dkv": 12 *
+              AUTO_STEPS, "fused_ce_fwd": AUTO_STEPS,
+              "fused_ce_bwd": AUTO_STEPS}
+    if m["global_step"] != AUTO_STEPS or len(rotation) > 2 or \
+            best not in dirs or not adopted or replays != AUTO_STEPS // 4 \
+            or any(auto_launches[k] != v for k, v in want_k.items()) or \
+            auto_launches["flash_fwd"] < 12 * AUTO_STEPS:
+        fail(f"13c AutoTrainer: {m}, dirs {dirs}, best {best}, adopted "
+             f"{adopted}, replays {replays}, launches {auto_launches}")
+    del at, live, best_file
+    torch.cuda.empty_cache()
+    # the resume: checkpoint-16 in a directory of its own, trained to 24
+    out2 = os.path.join(work, "auto_resumed")
+    mid = f"checkpoint-{AUTO_STEPS - AUTO_EVERY}"
+    shutil.copytree(os.path.join(out, mid), os.path.join(out2, mid))
+    resumed_losses = []
+    t0 = time.perf_counter()
+    rt, m2 = _auto_run(torch, dataclasses.replace(
+        targs, output_dir=out2,
+        resume_from_checkpoint=os.path.join(out2, mid)), resumed_losses)
+    wall2 = time.perf_counter() - t0
+    del rt
+    torch.cuda.empty_cache()
+    a = torch.cat(first_losses)[AUTO_STEPS - AUTO_EVERY:]
+    b = torch.cat(resumed_losses)
+    end = f"checkpoint-{AUTO_STEPS}"
+    s1 = ckpt.load_state(os.path.join(out, end, TRAIN_STATE))[0]
+    s2 = ckpt.load_state(os.path.join(out2, end, TRAIN_STATE))[0]
+    params_equal = all(torch.equal(s1["model"][k], s2["model"][k])
+                       for k in s1["model"])
+    moments_equal = all(
+        torch.equal(x, s2["optimizer"]["state"][i][n])
+        for i, st in s1["optimizer"]["state"].items()
+        for n, x in st.items() if isinstance(x, torch.Tensor))
+    losses_equal = a.shape == b.shape and torch.equal(a, b)
+    print(f"[auto] resumed from {mid} in {wall2:.1f} s: global step "
+          f"{m2['global_step']}, losses of steps {AUTO_STEPS - AUTO_EVERY + 1}"
+          f"-{AUTO_STEPS} bit for bit: {losses_equal}; {end}'s train state "
+          f"params {params_equal}, AdamW moments {moments_equal} — {card}")
+    del s1, s2
+    if m2["global_step"] != AUTO_STEPS or not (losses_equal and params_equal
+                                               and moments_equal):
+        fail(f"13c resume: step {m2['global_step']}, losses {losses_equal}, "
+             f"params {params_equal}, moments {moments_equal}")
+    # Accelerator's user loop against build_parallel_trainer, fp32
+    args = Args(strategy="accelerate", model="bert-base", device="cuda",
+                seed=SEED, vocab_path=vocab_path, data_path=corpus_path,
+                data_limit=700, attn_dropout=0.0,
+                learning_rate=LEARNING_RATE)
+    reset_counts(flash, fused_ce)
+    acc = Accelerator(args)
+    train_loader, _, tok = setup_data(args)
+    _, state = setup_model(args, tok.vocab_size)
+    state, prepared = acc.prepare(state, train_loader)
+    step = acc.compile_step(build_train_step(args, acc.device))
+    prepared.set_epoch(0)
+    got = []
+    for batch in itertools.islice(prepared, ACCEL_STEPS):
+        got.append(step(state, batch)["loss"])
+    accel_launches = launch_counts(flash, fused_ce)
+    acc_params = {k: v.detach().clone() for k, v in
+                  state.model.state_dict().items()}
+    del state
+    trainer, loader, _ = build_parallel_trainer(args, mode="dp")
+    loader.set_epoch(0)
+    want = [trainer.train_step(trainer.state, trainer.put(b))["loss"]
+            for b in itertools.islice(loader, ACCEL_STEPS)]
+    ref = trainer.state.model.state_dict()
+    acc_equal = torch.equal(torch.stack(got), torch.stack(want))
+    acc_params_equal = all(torch.equal(acc_params[k], ref[k]) for k in ref)
+    print(f"[accel] 13c Accelerator's loop, bert-base fp32, {ACCEL_STEPS} "
+          f"steps at world {acc.num_devices}: losses "
+          f"{float(got[0]):.6f} -> {float(got[-1]):.6f}, equal to "
+          f"build_parallel_trainer's bit for bit: {acc_equal}, params "
+          f"{acc_params_equal}; launches {accel_launches} — {card}")
+    del trainer, acc_params, ref
+    torch.cuda.empty_cache()
+    if not (acc_equal and acc_params_equal):
+        fail("13c Accelerator: losses or params differ from "
+             "build_parallel_trainer's")
+    return {"auto": {"steps": m["global_step"], "wall_s": wall,
+                     "train_runtime_s": m["train_runtime"],
+                     "samples_per_s": m["train_samples_per_second"],
+                     "dirs": dirs, "best": best, "best_adopted": adopted,
+                     "graphs": len(graphs), "replays": replays,
+                     "launches": auto_launches},
+            "resume": {"from": mid, "wall_s": wall2,
+                       "losses_equal": losses_equal,
+                       "params_equal": params_equal,
+                       "moments_equal": moments_equal},
+            "accelerator": {"steps": ACCEL_STEPS, "losses_equal": acc_equal,
+                            "params_equal": acc_params_equal,
+                            "launches": accel_launches}}
+
+
 # ------------------------------------------------------- phase 6 times
 
 
@@ -4809,6 +5335,7 @@ def main():
 
     from pdnlp_tpu_torch.data.packing import pack_id_lists
     from pdnlp_tpu_torch.ops.attention import mask_bias
+    from pdnlp_tpu_torch.parallel.runtime import shutdown
     from pdnlp_tpu_torch.train.setup import setup_data
     from pdnlp_tpu_torch.serve import score_texts
     from pdnlp_tpu_torch.serve.engine import build_engine, InferenceEngine
@@ -5112,6 +5639,31 @@ def main():
     ctl_cli_rec = cli_12c_check(ctl_cli, fleet_want, decode["cli"]["pieces"],
                                 card)
     lap("12c")
+    # 13. pretraining and the managed trainers: the MLM run (13a), the
+    # supervised stage and train.single warm-started from it (13b, the
+    # process beside 13c), AutoTrainer and Accelerator (13c)
+    torch.cuda.empty_cache()
+    pre, mlm_path, mlm_seg = pretrain_phase(
+        torch, flash, fused_ce, work, vocab_path, profile_path, device, card)
+    lap("13a")
+    sft, sft_path = supervised_phase(torch, flash, fused_ce, work,
+                                     vocab_path, profile_path, mlm_path,
+                                     card)
+    torch.cuda.empty_cache()
+    lap("13b")
+    warm = warm_start_start(work, vocab_path, profile_path, sft_path)
+    try:
+        managed = managed_phase(torch, flash, fused_ce, work, vocab_path,
+                                profile_path, corpus_path, card)
+        lap("13c")
+        sft["train_single"] = warm_start_check(torch, warm, vocab_path,
+                                               profile_path, sft_path, card)
+    except BaseException:
+        stop_all([warm[0]])
+        raise
+    finally:
+        shutdown()      # the process group 13b's and 13c's runners joined
+    lap("13b train.single")
     launches_by_path = {
         "serving packed (K1)": {"flash_fwd": main_launches},
         "6a fixed width fp32": train_launches,
@@ -5133,7 +5685,11 @@ def main():
         "11 speculation and the split pools": {"flash_fwd":
                                                 spec["launches"]},
         "12a fleet": {"flash_fwd": fleet_rec["launches"]},
-        "12b decode laws": {"flash_fwd": laws["launches"]}}
+        "12b decode laws": {"flash_fwd": laws["launches"]},
+        "13a pretraining": pre["launches"],
+        "13b supervised stage": sft["launches"],
+        "13c AutoTrainer": managed["auto"]["launches"],
+        "13c Accelerator": managed["accelerator"]["launches"]}
     print(f"[launches] per path (counts set to 0 just before each, read "
           f"just after): {json.dumps(launches_by_path)}")
     # 6 times: K1-K3 at every training shape of the paths, K4/K5 at the
@@ -5150,6 +5706,9 @@ def main():
     for w, seg in packed_segs.items():
         shape_times[f"32x{w} packed"] = time_backward(
             torch, F, flash, mask_bias, device, card, seg=seg)
+    # 13a's shape: the packed 64 x 128 rows of its first batch
+    shape_times["64x128 packed (13a)"] = time_backward(
+        torch, F, flash, mask_bias, device, card, seg=mlm_seg)
     ce_times = time_fused_ce(torch, F, fused_ce, device, card)
     ce_pack_times = {name: time_fused_ce(torch, F, fused_ce, device, card,
                                          rows=rows)
@@ -5171,6 +5730,7 @@ def main():
         "speculation": spec,
         "control_plane": {"fleet": fleet_rec, "decode_laws": laws,
                           "cli": ctl_cli_rec},
+        "pretraining": {"mlm": pre, "supervised": sft, "managed": managed},
         "phase_seconds": clock,
         "seconds": time.monotonic() - t_start}
     print(f"[summary] {json.dumps(summary)}")

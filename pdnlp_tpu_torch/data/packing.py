@@ -1,6 +1,7 @@
 """Packed rows: many examples per fixed-width row
 (``pdnlp_tpu/data/packing.py``).
 
+Pretraining: :func:`pack_texts` fills masked-LM rows with whole texts.
 Training (``--length_mode pack``): :class:`PackedClassificationDataset`
 packs an encoded split best-fit-decreasing into rows with segment channels,
 and :class:`MultiWidthPackedDataset` packs each length bucket at its own
@@ -19,6 +20,35 @@ import numpy as np
 import torch
 
 from pdnlp_tpu_torch.data.collate import EncodedDataset
+
+
+def pack_texts(tok, texts: Sequence[str], max_seq_len: int = 128
+               ) -> Dict[str, np.ndarray]:
+    """The masked-LM pretraining rows: ``[CLS] text [SEP]`` segments
+    appended to the last row while they fit, a new row when one does not
+    (a greedy fill of the last row only, in the texts' order, as the JAX
+    package's ``pack_texts``; not the best-fit packer above).
+
+    Returns ``{"input_ids", "segment_ids"}``, ``[N, S]`` int32;
+    ``segment_ids`` is 1-based per text within a row, 0 on padding.  A text
+    longer than ``S - 2`` tokens is truncated to fill a row exactly."""
+    S = max_seq_len
+    rows: List[List[int]] = []
+    segs: List[List[int]] = []
+    for text in texts:
+        ids = tok.encode_ids(text, S)
+        if not rows or len(rows[-1]) + len(ids) > S:
+            rows.append([])
+            segs.append([])
+        seg = (segs[-1][-1] + 1) if segs[-1] else 1
+        rows[-1].extend(ids)
+        segs[-1].extend([seg] * len(ids))
+    input_ids = np.zeros((len(rows), S), np.int32)
+    segment_ids = np.zeros((len(rows), S), np.int32)
+    for i, (r, s) in enumerate(zip(rows, segs)):
+        input_ids[i, : len(r)] = r
+        segment_ids[i, : len(s)] = s
+    return {"input_ids": input_ids, "segment_ids": segment_ids}
 
 
 class _BfdPacker:

@@ -27,6 +27,10 @@ head (``{"transform", "ln", "bias"}``, the JAX ``init_lm_head`` tree, to
 transform's ``qscale``) and the int8 KV-cache scale tables
 (``{"k_scale", "v_scale"}``, ``[L, N, D]`` each, the ``.kvscales.msgpack``
 sidecar).
+
+Pretraining's artifact is the trunk's encoder trees plus the ``mlm`` head
+and no pooler or classifier (:func:`mlm_artifact_to_jax` and back); a
+warm start reads only the trees it keeps (:func:`from_jax_trees`).
 """
 from __future__ import annotations
 
@@ -39,6 +43,10 @@ _DENSE = ("q", "k", "v", "o", "up", "down")
 #: the int8 per-output-channel scale leaf (``serve.quant``)
 QSCALE = "qscale"
 _LN = ("attn_ln", "mlp_ln")
+#: the top-level trees of an encoder (what a warm start reads by default)
+#: and of a classifier
+ENCODER_TREES = ("embeddings", "layers")
+CLASSIFIER_TREES = ENCODER_TREES + ("pooler", "classifier")
 
 
 def num_layers(tree: Dict[str, Any]) -> int:
@@ -52,32 +60,45 @@ def _t(a) -> torch.Tensor:
 
 def from_jax_params(tree: Dict[str, Any]) -> Dict[str, torch.Tensor]:
     """JAX parameter tree (numpy leaves) -> the port's ``state_dict``."""
-    emb = tree["embeddings"]
-    sd = {
-        "embeddings.word": _t(emb["word"]),
-        "embeddings.position": _t(emb["position"]),
-        "embeddings.token_type": _t(emb["token_type"]),
-        "embeddings.ln.scale": _t(emb["ln"]["scale"]),
-        "embeddings.ln.bias": _t(emb["ln"]["bias"]),
-    }
-    layers = tree["layers"]
-    if "gate" in layers:
-        raise ValueError("MoE parameter trees are not ported yet (ROADMAP A11)")
-    for i in range(num_layers(tree)):
-        for name in _DENSE:
-            sd[f"layers.{i}.{name}.weight"] = _t(
-                np.asarray(layers[name]["kernel"])[i].T)
-            if QSCALE in layers[name]:
-                sd[f"layers.{i}.{name}.{QSCALE}"] = _t(
-                    np.asarray(layers[name][QSCALE])[i])
-            sd[f"layers.{i}.{name}.bias"] = _t(
-                np.asarray(layers[name]["bias"])[i])
-        for name in _LN:
-            sd[f"layers.{i}.{name}.scale"] = _t(
-                np.asarray(layers[name]["scale"])[i])
-            sd[f"layers.{i}.{name}.bias"] = _t(
-                np.asarray(layers[name]["bias"])[i])
+    return from_jax_trees(tree, CLASSIFIER_TREES)
+
+
+def from_jax_trees(tree: Dict[str, Any], names) -> Dict[str, torch.Tensor]:
+    """The ``state_dict`` entries of the JAX tree's top-level trees
+    ``names`` (of ``embeddings``, ``layers``, ``pooler``, ``classifier``)
+    only; a missing tree raises ``KeyError``."""
+    sd: Dict[str, torch.Tensor] = {}
+    if "embeddings" in names:
+        emb = tree["embeddings"]
+        sd.update({
+            "embeddings.word": _t(emb["word"]),
+            "embeddings.position": _t(emb["position"]),
+            "embeddings.token_type": _t(emb["token_type"]),
+            "embeddings.ln.scale": _t(emb["ln"]["scale"]),
+            "embeddings.ln.bias": _t(emb["ln"]["bias"]),
+        })
+    if "layers" in names:
+        layers = tree["layers"]
+        if "gate" in layers:
+            raise ValueError(
+                "MoE parameter trees are not ported yet (ROADMAP A11)")
+        for i in range(num_layers(tree)):
+            for name in _DENSE:
+                sd[f"layers.{i}.{name}.weight"] = _t(
+                    np.asarray(layers[name]["kernel"])[i].T)
+                if QSCALE in layers[name]:
+                    sd[f"layers.{i}.{name}.{QSCALE}"] = _t(
+                        np.asarray(layers[name][QSCALE])[i])
+                sd[f"layers.{i}.{name}.bias"] = _t(
+                    np.asarray(layers[name]["bias"])[i])
+            for name in _LN:
+                sd[f"layers.{i}.{name}.scale"] = _t(
+                    np.asarray(layers[name]["scale"])[i])
+                sd[f"layers.{i}.{name}.bias"] = _t(
+                    np.asarray(layers[name]["bias"])[i])
     for name in ("pooler", "classifier"):
+        if name not in names:
+            continue
         sd[f"{name}.weight"] = _t(np.asarray(tree[name]["kernel"]).T)
         if QSCALE in tree[name]:
             sd[f"{name}.{QSCALE}"] = _t(tree[name][QSCALE])
@@ -103,7 +124,8 @@ def to_jax_params(state_dict: Dict[str, torch.Tensor]) -> Dict[str, Any]:
     return _sorted(_to_jax_params(state_dict))
 
 
-def _to_jax_params(state_dict: Dict[str, torch.Tensor]) -> Dict[str, Any]:
+def _to_jax_params(state_dict: Dict[str, torch.Tensor],
+                   heads=("pooler", "classifier")) -> Dict[str, Any]:
     def a(key) -> np.ndarray:
         return state_dict[key].detach().cpu().numpy()
 
@@ -140,7 +162,7 @@ def _to_jax_params(state_dict: Dict[str, torch.Tensor]) -> Dict[str, Any]:
         "layers": layers,
         **{name: dense(name, a(f"{name}.weight").T, a(f"{name}.bias"),
                        lambda: a(f"{name}.{QSCALE}"))
-           for name in ("pooler", "classifier")},
+           for name in heads},
     }
 
 
@@ -169,6 +191,36 @@ def head_to_jax(state_dict: Dict[str, torch.Tensor]) -> Dict[str, Any]:
     return _sorted({"transform": tr,
                     "ln": {"scale": a("ln.scale"), "bias": a("ln.bias")},
                     "bias": a("bias")})
+
+
+def mlm_artifact_to_jax(state_dict: Dict[str, torch.Tensor],
+                        head_state_dict: Dict[str, torch.Tensor]
+                        ) -> Dict[str, Any]:
+    """The masked-LM stage's artifact (JAX ``train/pretrain.py:
+    _mlm_artifact``): the trunk's ``embeddings`` and ``layers`` plus the
+    ``mlm`` head tree, without pooler or classifier — numpy leaves, keys in
+    flax's order, so ``.msgpack`` bytes equal the JAX package's."""
+    tree = _to_jax_params(state_dict, heads=())
+    tree["mlm"] = head_to_jax(head_state_dict)
+    return _sorted(tree)
+
+
+def mlm_artifact_from_jax(tree: Dict[str, Any]):
+    """An MLM artifact's tree -> ``(trunk entries, MLMHead state_dict)``:
+    the trunk's ``embeddings.*`` and ``layers.*`` only (the artifact has no
+    pooler or classifier)."""
+    return from_jax_trees(tree, ENCODER_TREES), head_from_jax(tree["mlm"])
+
+
+def widen(tree: Any) -> Any:
+    """``tree`` with its bfloat16 leaves (which the msgpack codec returns
+    as torch tensors) as fp32 numpy arrays: a bf16 rotation save loads
+    into fp32 weights like any other file."""
+    if isinstance(tree, dict):
+        return {k: widen(v) for k, v in tree.items()}
+    if isinstance(tree, torch.Tensor):
+        return tree.to(torch.float32).numpy()
+    return tree
 
 
 def kv_scales_from_jax(tree: Dict[str, Any]):

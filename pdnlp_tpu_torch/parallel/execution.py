@@ -30,6 +30,7 @@ from pdnlp_tpu_torch.models.config import BertConfig, args_overrides, get_config
 from pdnlp_tpu_torch.parallel import collectives
 from pdnlp_tpu_torch.parallel.sharding import check_mode, wrap
 from pdnlp_tpu_torch.train.optim import build_optimizer
+from pdnlp_tpu_torch.train.setup import warm_start
 from pdnlp_tpu_torch.train.steps import (
     TrainObjective, TrainState, build_eval_step, build_train_step,
     compute_grads, init_ema, matmul_weights,
@@ -65,7 +66,10 @@ def setup_sharded_model(args, vocab_size: int, mesh, mode: str = "dp",
     """``(cfg, state)`` on this rank's card (or the CPU), placed by
     ``mode``; ``explicit_collectives`` leaves the objective unwrapped (the
     shard_map step reduces the gradients itself) after broadcasting rank
-    0's weights.  ``total_steps`` sizes the optional ``--lr_schedule``."""
+    0's weights.  ``total_steps`` sizes the optional ``--lr_schedule``.
+    ``--init_from`` loads before the placement (``train.setup.
+    warm_start``): under ``zero`` the loaded leaves go to their shards, and
+    an EMA starts from the warm-started weights."""
     check_mode(mode)
     check_zero(args, mode)
     device = resolve_device(args.device)
@@ -76,7 +80,8 @@ def setup_sharded_model(args, vocab_size: int, mesh, mode: str = "dp",
                      attn_dropout=args.attn_dropout, **args_overrides(args))
     init_gen, dropout_gen = set_seed(args.seed, device)
     dropout_gen.manual_seed(dropout_seed(args.seed, dist.get_rank()))
-    model = BertClassifier(cfg, generator=init_gen).to(device)
+    model = warm_start(BertClassifier(cfg, generator=init_gen).to(device),
+                       args)
     group = mesh.get_group()
     objective = TrainObjective(model, args, device, group=group)
     if explicit_collectives:

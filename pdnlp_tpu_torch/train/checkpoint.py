@@ -295,9 +295,21 @@ def params_payload(path: str, state_dict: Mapping[str, torch.Tensor], *,
     if is_msgpack(path):
         from pdnlp_tpu_torch.models.convert import to_jax_params
 
-        return to_jax_params(cpu)
+        if all(v.dtype != torch.bfloat16 for v in cpu.values()):
+            return to_jax_params(cpu)
+        # bf16 weights (a managed run's rotation save): the tree is built
+        # in fp32 (numpy has no bfloat16) and its leaves cast back, which
+        # is exact, so the file holds the bf16 values JAX's would
+        tree = to_jax_params({k: v.to(torch.float32) for k, v in cpu.items()})
+        return _bf16_leaves(tree)
     return {"format": FORMAT, "model": model_name,
             "vocab_size": int(vocab_size), "state_dict": cpu}
+
+
+def _bf16_leaves(tree):
+    if isinstance(tree, dict):
+        return {k: _bf16_leaves(v) for k, v in tree.items()}
+    return torch.from_numpy(tree).to(torch.bfloat16)
 
 
 def check_state(state_dict: Mapping[str, torch.Tensor],
@@ -324,10 +336,10 @@ def params_from_raw(raw: Any, path: str, *,
                     ) -> Dict[str, torch.Tensor]:
     """A decoded parameter file -> the port's CPU ``state_dict``."""
     if is_msgpack(path):
-        from pdnlp_tpu_torch.models.convert import from_jax_params
+        from pdnlp_tpu_torch.models.convert import from_jax_params, widen
 
         try:
-            return from_jax_params(raw)
+            return from_jax_params(widen(raw))
         except (KeyError, TypeError, IndexError) as e:
             raise ValueError(f"{path!r} does not hold a BERT classifier's "
                              f"parameter tree (missing {e})") from None

@@ -18,7 +18,8 @@
 - ``amp``: DDP with ``--dtype bfloat16`` (bf16 needs no loss scaler).
 
 Explicit flags override those defaults (``--remat false``, ``--dtype``,
-``--mode zero``).  Runs on ``cuda`` unless ``--device cpu`` is given, over
+``--mode zero``); ``--init_from`` / ``--init_head`` warm-start the model
+before it is placed (under zero the loaded weights are what is sharded).  Runs on ``cuda`` unless ``--device cpu`` is given, over
 NCCL there and gloo on the CPU (``--dist_backend`` names another); every
 run forms a process group, of one rank too.  Each rank's step runs the
 flash kernels and the fused CE kernels at ``--attn_dropout 0``.  The

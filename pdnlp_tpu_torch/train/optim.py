@@ -81,29 +81,50 @@ def make_schedule(args, total_steps) -> Optional[Callable[[int], float]]:
         return lambda c: (_linear(0.0, lr, w, c) if c < w
                           else _linear(lr, 0.0, total_steps - w, c - w))
     if args.lr_schedule == "warmup_cosine":
-        decay = total_steps - w
-        if decay <= 0:
-            raise ValueError(f"warmup_cosine needs total_steps > warmup "
-                             f"steps, got {total_steps} <= {w}")
-
-        def cosine(c):
-            if c < w:
-                return _linear(0.0, lr, w, c)
-            t = min(c - w, decay)
-            return lr * 0.5 * (1.0 + math.cos(math.pi * t / decay))
-
-        return cosine
+        return warmup_cosine(lr, w, total_steps)
     raise ValueError(f"unknown lr_schedule {args.lr_schedule!r} "
                      "(warmup_linear|warmup_cosine)")
 
 
-def build_optimizer(model: torch.nn.Module, args, total_steps=None):
+def warmup_cosine(lr: float, warmup: int, total_steps: int
+                  ) -> Callable[[int], float]:
+    """``optax.warmup_cosine_decay_schedule(0, lr, warmup, total_steps)``:
+    a linear rise over ``warmup`` updates, then a cosine to 0 over the
+    remaining ``total_steps - warmup`` (raises when none remain, as optax
+    does)."""
+    decay = total_steps - warmup
+    if decay <= 0:
+        raise ValueError(f"warmup_cosine needs total_steps > warmup "
+                         f"steps, got {total_steps} <= {warmup}")
+
+    def cosine(c):
+        if c < warmup:
+            return _linear(0.0, lr, warmup, c)
+        t = min(c - warmup, decay)
+        return lr * 0.5 * (1.0 + math.cos(math.pi * t / decay))
+
+    return cosine
+
+
+def pretrain_schedule(lr: float, total_steps: int) -> Callable[[int], float]:
+    """Masked-LM pretraining's rate: warmup over the first 6% of the
+    updates (at least one), then cosine decay to 0 — JAX
+    ``train/pretrain.py``'s ``warmup_cosine_decay_schedule(0, lr,
+    max(1, total * 6 // 100), total)``, whose warmup is not
+    ``--warmup_ratio``'s ``int(total * ratio)``."""
+    return warmup_cosine(lr, max(1, total_steps * 6 // 100), total_steps)
+
+
+def build_optimizer(model: torch.nn.Module, args, total_steps=None,
+                    schedule: Optional[Callable[[int], float]] = None):
     """``(AdamW, LambdaLR or None)`` from ``Args`` (lr 3e-5, betas
     0.9/0.999, eps 1e-6, decay 0.01 by default).  Step the scheduler after
     each optimizer step: update ``k`` (from 0) then runs at
-    ``schedule(k)``.  Capturable on a card under ``--fuse_steps`` above
-    1 (module docstring); the state is allocated up front on every device
-    (:func:`init_state`)."""
+    ``schedule(k)``.  ``schedule`` (the rate at each update count) takes
+    the place of ``--lr_schedule``'s, as the JAX ``build_optimizer``'s
+    does: pretraining passes :func:`pretrain_schedule`.  Capturable on a
+    card under ``--fuse_steps`` above 1 (module docstring); the state is
+    allocated up front on every device (:func:`init_state`)."""
     params = list(model.parameters())
     capturable = (params[0].device.type == "cuda"
                   and getattr(args, "fuse_steps", 1) > 1
@@ -120,7 +141,8 @@ def build_optimizer(model: torch.nn.Module, args, total_steps=None):
         groups, lr=lr, betas=(args.adam_b1, args.adam_b2), eps=args.adam_eps,
         capturable=capturable)
     init_state(opt)
-    schedule = make_schedule(args, total_steps)
+    if schedule is None:
+        schedule = make_schedule(args, total_steps)
     if schedule is None:
         return opt, None
     lr = args.learning_rate

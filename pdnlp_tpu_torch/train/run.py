@@ -36,12 +36,14 @@ from pdnlp_tpu_torch.utils.metrics import classification_report
 
 def build_parallel_trainer(args, *, mode: str = "dp",
                            explicit_collectives: bool = False,
-                           scale_batch: bool = True
+                           scale_batch: bool = True, train_override=None
                            ) -> Tuple[Trainer, object, object]:
     """``(trainer, train_loader, dev_loader)`` wired for the strategy, on
     the process group of ``args`` and the environment (joined here when it
-    is not yet).  Refuses, as JAX does, the length modes on the
-    explicit-collectives step."""
+    is not yet).  ``train_override`` swaps the train split's examples (the
+    supervised pretraining stage); the dev split and the rest are shared.
+    Refuses, as JAX does, the length modes on the explicit-collectives
+    step."""
     if explicit_collectives and resolve_length_mode(args) != "full":
         raise ValueError(
             "--length_mode bucket/pack is wired into the dp/zero strategies "
@@ -55,7 +57,8 @@ def build_parallel_trainer(args, *, mode: str = "dp",
     num_shards, shard_id, mult = local_data_extent(mesh)
     train_loader, dev_loader, tok = setup_data(
         args, num_shards=num_shards, shard_id=shard_id,
-        device_batch_mult=mult, scatter=not scale_batch)
+        device_batch_mult=mult, scatter=not scale_batch,
+        train_override=train_override)
     cfg, state = setup_sharded_model(
         args, tok.vocab_size, mesh, mode,
         total_steps=len(train_loader) * args.epochs,
@@ -76,6 +79,27 @@ def build_parallel_trainer(args, *, mode: str = "dp",
         f"{device.type}  model: {args.model}  dtype: {args.dtype}  global "
         f"batch: {global_batch}  steps/epoch: {len(train_loader)}  "
         f"pipeline: {pipeline.mode}")
+    return trainer, train_loader, dev_loader
+
+
+def build_single_trainer(args) -> Tuple[Trainer, object, object]:
+    """``(trainer, train_loader, dev_loader)`` on one device, unwrapped:
+    ``train.single``'s assembly (the seeded split, the model on
+    ``args.device``, the ``--pipeline``, the single-device step, which
+    ``--fuse_steps`` captures as CUDA graphs on the card)."""
+    from pdnlp_tpu_torch.train.setup import setup_model
+    from pdnlp_tpu_torch.train.steps import build_eval_step, build_train_step
+
+    train_loader, dev_loader, tok = setup_data(args)
+    cfg, state = setup_model(args, tok.vocab_size,
+                             total_steps=len(train_loader) * args.epochs)
+    device = next(state.model.parameters()).device
+    pipeline = setup_pipeline(args, train_loader, device)
+    rank0_print(f"device: {device.type}  model: {args.model}  "
+                f"dtype: {args.dtype}  steps/epoch: {len(train_loader)}  "
+                f"pipeline: {pipeline.mode}")
+    trainer = Trainer(args, cfg, state, build_train_step(args, device),
+                      build_eval_step(args), device, pipeline=pipeline)
     return trainer, train_loader, dev_loader
 
 

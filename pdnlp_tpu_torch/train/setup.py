@@ -31,7 +31,8 @@ from pdnlp_tpu_torch.utils.seeding import set_seed
 
 
 def setup_data(args, *, num_shards: int = 1, shard_id: int = 0,
-               device_batch_mult: int = 1, scatter: bool = False
+               device_batch_mult: int = 1, scatter: bool = False,
+               train_override=None
                ) -> Tuple[DataLoader, DataLoader, WordPieceTokenizer]:
     """(train_loader, dev_loader, tokenizer) of shard ``shard_id`` of
     ``num_shards`` (one per rank).
@@ -45,9 +46,12 @@ def setup_data(args, *, num_shards: int = 1, shard_id: int = 0,
     ``P("data")`` placement splits one batch, so the step count does not
     shrink (``data.sampler.BatchBlockSampler``).  The dev loader is sharded
     like JAX's (strided, wrapped to equal length), unshuffled, padded to
-    ``max_seq_len``."""
+    ``max_seq_len``.  ``train_override`` replaces the train split's
+    examples (the supervised pretraining stage), the dev split kept."""
     train, dev = split_data(load_data(args.data_path), seed=args.seed,
                             limit=args.data_limit, ratio=args.ratio)
+    if train_override is not None:
+        train = list(train_override)
     tok = WordPieceTokenizer(get_or_build_vocab(args))
     col = Collator(tok, args.max_seq_len)
     train_enc = EncodedDataset(train, tok, args.max_seq_len)
@@ -143,14 +147,37 @@ def setup_model(args, vocab_size: int, total_steps=None
     """(cfg, train state) on ``args.device``, seeded the reference's way
     (one seed): weights from a CPU generator, so one seed gives the same
     weights on any device; dropout from a generator on the device.
-    ``total_steps`` sizes the optional ``--lr_schedule``."""
+    ``total_steps`` sizes the optional ``--lr_schedule``.  ``--init_from``
+    warm-starts the encoder (with ``--init_head`` the pooler and classifier
+    too) from a pretraining artifact (:func:`warm_start`)."""
     device = resolve_device(args.device)
     cfg = get_config(args.model, vocab_size=vocab_size,
                      num_labels=args.num_labels, dropout=args.dropout,
                      attn_dropout=args.attn_dropout, **args_overrides(args))
     init_gen, dropout_gen = set_seed(args.seed, device)
-    model = BertClassifier(cfg, generator=init_gen).to(device)
+    model = warm_start(BertClassifier(cfg, generator=init_gen).to(device),
+                       args)
     optimizer, scheduler = build_optimizer(model, args, total_steps)
     ema = init_ema(model) if args.ema_decay > 0 else None
     return cfg, TrainState(model, optimizer, scheduler, dropout_gen, ema,
                            objective=TrainObjective(model, args, device))
+
+
+def warm_start(model: BertClassifier, args) -> BertClassifier:
+    """``model`` with the encoder of ``args.init_from`` loaded in place
+    (``train.pretrain.load_encoder``; with ``args.init_head`` the pooler
+    and classifier too); unchanged without ``init_from``.  Callers load
+    before any placement wrapper, so under ``zero`` the loaded values are
+    what FSDP2 shards, and before the EMA is taken, so it starts from
+    them."""
+    if not getattr(args, "init_from", None):
+        return model
+    import torch
+
+    from pdnlp_tpu_torch.train.pretrain import load_encoder
+
+    loaded = load_encoder(args.init_from, model.state_dict(),
+                          head=getattr(args, "init_head", False))
+    with torch.no_grad():
+        model.load_state_dict(loaded)
+    return model

@@ -11,7 +11,8 @@ pass over dev with the classification report.
         [--fuse_steps 4] [--warmup_compile true] [--grads_dtype compute] \\
         [--resume_every 50] [--resume_from auto|<path>] [--ckpt_async false] \\
         [--trace true] [--trace_dir <d>] [--profile_dir <d>] [--log_every 10] \\
-        [--probe_steps 30] [--metrics_port 9100] [--flight_recorder <f>]
+        [--probe_steps 30] [--metrics_port 9100] [--flight_recorder <f>] \\
+        [--init_from <pretrain artifact> [--init_head true]]
 
 ``--length_mode bucket`` pads each batch to the smallest covering width of
 ``--length_buckets``; ``pack`` puts several examples in each row, with the
@@ -26,6 +27,8 @@ CUDA graph (``train.steps.build_multi_step``); ``--resume_every`` /
 (``train.trainer``); ``--metrics_port`` serves ``/metrics`` and
 ``/healthz`` (sources ``memory``, ``train``, ``transport``) and
 ``--flight_recorder`` appends their snapshots to a JSONL file.
+``--init_from`` warm-starts the encoder from a pretraining artifact
+(``train.pretrain``), ``--init_head true`` the pooler and classifier too.
 
 Runs on ``cuda`` unless ``--device cpu`` is given.  With ``--attn_dropout``
 above 0 (the default 0.1) training attention takes the plain path, as in
@@ -42,7 +45,6 @@ import sys
 NOT_PORTED = {
     "--elastic": (None, "elastic restart (ROADMAP A11)"),
     "--heartbeat_interval": (None, "heartbeats (ROADMAP A11)"),
-    "--init_from": (None, "pretrained warm start (ROADMAP A12)"),
 }
 
 
@@ -64,24 +66,11 @@ def refuse_not_ported(argv, table=NOT_PORTED, prog: str = "train.single"):
 
 def main(args) -> float:
     from pdnlp_tpu_torch.data.corpus import LABELS
-    from pdnlp_tpu_torch.data.pipeline import setup_pipeline
-    from pdnlp_tpu_torch.train.run import try_resume
-    from pdnlp_tpu_torch.train.setup import setup_data, setup_model
-    from pdnlp_tpu_torch.train.steps import build_eval_step, build_train_step
-    from pdnlp_tpu_torch.train.trainer import Trainer
+    from pdnlp_tpu_torch.train.run import build_single_trainer, try_resume
     from pdnlp_tpu_torch.utils.logging import rank0_print
     from pdnlp_tpu_torch.utils.metrics import classification_report
 
-    train_loader, dev_loader, tok = setup_data(args)
-    cfg, state = setup_model(args, tok.vocab_size,
-                             total_steps=len(train_loader) * args.epochs)
-    device = next(state.model.parameters()).device
-    pipeline = setup_pipeline(args, train_loader, device)
-    rank0_print(f"device: {device.type}  model: {args.model}  "
-                f"dtype: {args.dtype}  steps/epoch: {len(train_loader)}  "
-                f"pipeline: {pipeline.mode}")
-    trainer = Trainer(args, cfg, state, build_train_step(args, device),
-                      build_eval_step(args), device, pipeline=pipeline)
+    trainer, train_loader, dev_loader = build_single_trainer(args)
     try_resume(trainer, args)
     minutes = trainer.train(train_loader, dev_loader)
     # dev doubles as the test set (single-gpu-cls.py:241-247)

@@ -40,6 +40,25 @@ class Args:
                                                   # erf; models.config.
                                                   # args_overrides)
 
+    # --- pretraining and warm starts (train.pretrain) ---
+    init_from: Optional[str] = None               # pretrain artifact: the
+                                                  # encoder's warm start
+    init_head: bool = False                       # --init_from also restores
+                                                  # pooler + classifier (a
+                                                  # supervised-stage file)
+    mlm_prob: float = 0.15                        # masked-LM selection rate
+    mlm_span: bool = True                         # n-gram spans of 1-4
+                                                  # tokens (whole-word
+                                                  # masking's analog)
+    pretrain_limit: Optional[int] = None          # cap on pretrain texts
+    pretrain_ckpt_every: Optional[int] = None     # epoch-curve artifacts
+                                                  # every N epochs
+    sft_epochs: int = 0                           # supervised stage: epochs
+                                                  # over the labeled texts
+                                                  # outside the fine-tune
+                                                  # slice (0 = off)
+    sft_lr: float = 3e-5                          # its peak learning rate
+
     # --- optimization ---
     learning_rate: float = 3e-5
     label_smoothing: float = 0.0                  # CE target smoothing eps
@@ -82,6 +101,9 @@ class Args:
                                                   # on cpu) | nccl | gloo;
                                                   # JAX picks its transport
                                                   # itself
+    accel_config: Optional[str] = None            # Accelerator machine-config
+                                                  # file (JSON or YAML;
+                                                  # train.accel)
 
     # --- precision, kernels, input ---
     dtype: str = "float32"                        # float32|bfloat16 compute

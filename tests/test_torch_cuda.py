@@ -1284,3 +1284,62 @@ def test_fleet_on_the_card(cuda_device):
     assert fleet.retraces_post_warmup == 0
     report = validate_chains(tracer.records())
     assert not report["incomplete"] and report["shadowed"] == len(ids)
+
+
+# ------------------------------------------------------------ pretraining
+
+
+def _mlm_batch(B=8, S=128, V=120, seed=5):
+    rng = np.random.RandomState(seed)
+    seg = _segments(B, S, rng)
+    ids = rng.randint(5, V, (B, S)).astype(np.int32)
+    ids[seg == 0] = 0
+    return {"input_ids": ids, "segment_ids": seg}
+
+
+def test_mlm_step_kernel_route_matches_plain(cuda_device):
+    """One fp32 masked-LM step of bert-tiny on packed rows at one fixed
+    mask, the kernel route (K1 forward, K2/K3 backward in both layers, the
+    segment form) against the plain route from the same weights: the loss
+    within 1e-4, every gradient before the update within 5e-5 of its
+    largest (at least 1e-3 of the model's largest: the key biases'
+    gradients are rounding alone) and the params within 2 x lr (an Adam
+    update moves a weight by about lr whatever the gradient's size, so
+    only the gradients can tell a wrong one)."""
+    from pdnlp_tpu_torch.data.pipeline import to_device
+    from pdnlp_tpu_torch.train import pretrain
+    from pdnlp_tpu_torch.utils.config import Args
+
+    batch = to_device(_mlm_batch(), cuda_device)
+    masked = pretrain.mask_tokens(
+        pretrain.mask_generator(0, 0, cuda_device), batch["input_ids"], 4,
+        120, span=True)
+    out = {}
+    for route in ("auto", "xla"):
+        args = Args(model="bert-tiny", device="cuda", dropout=0.0,
+                    attn_dropout=0.0, attention_impl=route,
+                    learning_rate=1e-3)
+        _, state = pretrain.setup_pretrain(args, 120)
+        flash.reset_launch_count()
+        m = pretrain.mlm_update(state, batch, masked, args)
+        torch.cuda.synchronize()
+        out[route] = (float(m["loss"]), flash.launch_counts(),
+                      {k: v.detach().clone() for k, v in
+                       state.model.state_dict().items()},
+                      {k: p.grad.detach().clone() for k, p in
+                       state.model.named_parameters()
+                       if p.grad is not None})
+    (lk, ck, pk, gk), (lp, cp, pp, gp) = out["auto"], out["xla"]
+    assert ck == {"flash_fwd": 2, "flash_bwd_dq": 2, "flash_bwd_dkv": 2}
+    assert not any(cp.values())
+    assert abs(lk - lp) <= 1e-4
+    # every parameter but the classifier's pooler and head has a gradient
+    assert gk.keys() == gp.keys() == {
+        k for k, _ in state.model.named_parameters()
+        if not k.startswith(("pooler.", "classifier."))}
+    top = max(g.abs().max().item() for g in gp.values())
+    for k in gp:
+        assert gk[k].isfinite().all(), k
+        assert (gk[k] - gp[k]).abs().max().item() <= 5e-5 * max(
+            gp[k].abs().max().item(), 1e-3 * top), k
+    assert all((pk[k] - pp[k]).abs().max().item() <= 2e-3 for k in pk)

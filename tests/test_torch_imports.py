@@ -73,7 +73,10 @@ def test_no_module_imports_jax_or_the_jax_package():
             "pdnlp_tpu_torch/data/native.py",
             "pdnlp_tpu_torch/models/decoder.py",
             "pdnlp_tpu_torch/serve/decode.py",
-            "pdnlp_tpu_torch/serve/kvpage.py"} <= rel
+            "pdnlp_tpu_torch/serve/kvpage.py",
+            "pdnlp_tpu_torch/train/pretrain.py",
+            "pdnlp_tpu_torch/train/auto.py",
+            "pdnlp_tpu_torch/train/accel.py"} <= rel
     bad = {f"{p.relative_to(REPO)}: {root}" for p in paths
            for root in _imported_roots(p) if root in FORBIDDEN}
     assert not bad, sorted(bad)

@@ -423,16 +423,19 @@ def test_entry_point_refusals(tmp_path):
 
     from pdnlp_tpu_torch.train import multi
 
-    for argv in (["--elastic", "1"], ["--heartbeat_interval", "5"],
-                 ["--init_from", "x.msgpack"]):
+    for argv in (["--elastic", "1"], ["--heartbeat_interval", "5"]):
         with pytest.raises(SystemExit, match="does not have yet"):
             single.refuse_not_ported(argv)
     ported = ["--length_mode", "pack", "--pipeline", "resident",
               "--fuse_steps", "4", "--resume_every", "10", "--grads_dtype",
               "compute", "--trace", "1", "--profile_dir", "p",
-              "--metrics_port", "9000", "--flight_recorder", "f"]
+              "--metrics_port", "9000", "--flight_recorder", "f",
+              "--init_from", "x.msgpack", "--init_head", "true"]
     assert single.refuse_not_ported(ported) == ported
     table = multi.MULTI_NOT_PORTED
+    assert multi.refuse_not_ported(["--init_from", "x.msgpack",
+                                    "--init_head", "true"], table) == \
+        ["--init_from", "x.msgpack", "--init_head", "true"]
     assert multi.refuse_not_ported(["--fuse_steps", "1", "--dev", "1"],
                                    table) == ["--dev", "1"]
     with pytest.raises(SystemExit, match="ROADMAP A7"):
