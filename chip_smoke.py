@@ -131,8 +131,23 @@ inside the graphs), an eval and a save every 8 of 24 steps with the train
 state, rotation to 2 dirs plus the best, the best adopted bit for bit, a
 resume from ``checkpoint-16`` ending on the uninterrupted run's losses,
 params and AdamW moments bit for bit; the ``Accelerator``'s user loop for 8
-fp32 steps against ``build_parallel_trainer``'s bit for bit), then the
-kernels' times at every shape these paths give them.
+fp32 steps against ``build_parallel_trainer``'s bit for bit), 14 the MoE
+model and the model-axis strategies (14a ``train.multi --strategy ep`` on
+bert-base-moe at ``{"data": 1, "expert": 1}``, top-2 grouped at capacity
+factor 1.25, fixed and packed 32 x 128 rows in fp32 and bf16, 8 steps each:
+K1-K5 every step, the loss's second pass over the same rows below its first,
+the aux per layer at init, dropped assignments, one fp32 step's gradients
+kernel route against plain route, grouped at capacity factor E against
+dense, a profiled split and the expert GEMMs beside their bound; 14b
+``--fuse_steps 4`` captured against eager bit for bit in fp32 and bf16; 14c
+tp ``{"data": 1, "model": 2}`` on bert-base and ep ``{"data": 1, "expert":
+2}`` on bert-base-moe over two gloo ranks on the card against one process,
+each rank's shards, bytes and all-reduces, the weights both ranks
+replicate bit-equal, run beside 14d and 14e; 14d
+``--init_from`` 13a's artifact upcycled into bert-base-moe against a numpy
+recompute of JAX's rule; 14e the MoE checkpoint served, captured against
+eager bit for bit in fp32 and bf16, 12 K1 launches in each captured
+forward, int8 against bf16, ``serve.cli`` as a process), then the kernels' times at every shape these paths give them.
 Any failure raises and the script exits non-zero.  Without a card, or
 away from the repo, it prints no result and exits non-zero.  The line
 before the last is the ``{"kernels": [...]}`` record; the last is
@@ -623,13 +638,13 @@ def serve_run(torch, flash, engine, texts, mode, want, dtype):
     return rec
 
 
-def cli_start(vocab_path, ckpt_path, texts):
+def cli_start(vocab_path, ckpt_path, texts, model="bert-base"):
     """``serve.cli`` on ``ckpt_path`` as a started process, fed the first 6
     of ``texts`` (checked by :func:`cli_check`, while other work runs)."""
     lines = texts[:6]
     p = subprocess.Popen(
         [sys.executable, "-m", "pdnlp_tpu_torch.serve.cli", "--device",
-         "cuda", "--model", "bert-base", "--vocab_path", vocab_path,
+         "cuda", "--model", model, "--vocab_path", vocab_path,
          "--checkpoint", ckpt_path, "--max_wait_ms", "20",
          "--metrics_path", os.path.join(os.path.dirname(ckpt_path),
                                         "cli_metrics.json")],
@@ -5115,9 +5130,606 @@ def managed_phase(torch, flash, fused_ce, work, vocab_path, profile_path,
 # ------------------------------------------------------- phase 6 times
 
 
+# ---------------------------------------------------------------- phase 14
+
+#: 14a: steps per MoE run — its first 4 batches twice: the second pass over
+#: the same rows is the learning check (the corpus's labels are random)
+MOE_STEPS = 8
+MOE_BATCHES = 4
+MOE_LR = 1e-4
+WANT_MOE_STEP = WANT_DP_STEP
+#: a layer's aux at a fresh gate: 1.0 is perfectly balanced
+MOE_AUX_BAND = (0.99, 1.5)
+#: grouped dispatch at capacity >= T against dense (tests/test_moe.py:102)
+MOE_DISPATCH_ATOL = 2e-5
+#: 14c: JAX's tolerances (tests/test_parallel.py:161-166, tests/test_moe.py
+#: :176-182): (loss rtol, params atol)
+MODEL_AXIS_TOL = {"tp": (1e-5, 2e-5), "ep": (1e-4, 3e-5)}
+MODEL_AXIS_STEPS = 3
+#: 14a's device split: the embeddings' index backward, then the routing's
+#: sort and scan and the dispatch's gathers and scatters as their own
+#: parts; "GEMM" holds the expert products with the attention's and the
+#: classifier's (cuBLAS kernel names end in "cublas": no bare "cub" here)
+MOE_SPLIT = SPLIT[:5] + (
+    ("embedding backward", ("indexing_backward",)),
+    ("dispatch", ("index", "gather", "scatter", "scan", "sort")),
+) + SPLIT[5:]
+
+
+def moe_argv(vocab_path, data_path, data_limit, dtype, out, extra=()):
+    """``train.multi --strategy ep``'s command line for 14a."""
+    return ["--strategy", "ep", "--device", "cuda", "--seed", str(SEED),
+            "--vocab_path", vocab_path, "--data_path", data_path,
+            "--data_limit", str(data_limit), "--dropout", "0.0",
+            "--attn_dropout", "0.0", "--learning_rate", str(MOE_LR),
+            "--dtype", dtype, "--log_every", str(10 ** 9), "--output_dir",
+            out, *extra]
+
+
+def moe_aux_and_drops(torch, model, batch, dtype):
+    """(the mean aux of a layer, dropped and routed assignments) of one
+    deterministic forward on ``batch``: each layer's gate logits, read by a
+    forward hook, routed again through ``models.bert.grouped_slots``."""
+    from pdnlp_tpu_torch.models.bert import grouped_slots, route
+
+    cfg = model.cfg
+    logits = []
+    hooks = [layer.gate.register_forward_hook(
+        lambda mod, inp, out: logits.append(out)) for layer in model.layers]
+    try:
+        with torch.no_grad():
+            _, aux = model.classify(batch, dtype=dtype, return_aux=True)
+    finally:
+        for h in hooks:
+            h.remove()
+    dropped = routed = 0
+    for lg in logits:
+        _, idx, _ = route(lg, min(cfg.moe_top_k, cfg.moe_experts))
+        slots = grouped_slots(idx, batch["attention_mask"], cfg.moe_experts,
+                              cfg.moe_capacity_factor)
+        dropped += int((slots.routed & ~slots.kept).sum())
+        routed += int(slots.routed.sum())
+    return float(aux) / len(model.layers), dropped, routed
+
+
+def expert_gemm_ms(torch, model, batch, dtype, card):
+    """The expert products of one step at 14a's shapes (every layer: up and
+    down forward, each one's two backward products), CUDA events, beside
+    their operations' bound."""
+    import math
+
+    cfg = model.cfg
+    T = batch["input_ids"].numel()
+    E, H, I = cfg.moe_experts, cfg.hidden_size, cfg.intermediate_size
+    C = min(int(math.ceil(cfg.moe_capacity_factor * cfg.moe_top_k * T / E)),
+            T)
+    dt = getattr(torch, dtype)
+    g = torch.Generator(device="cuda").manual_seed(SEED)
+
+    def rand(*shape):
+        return torch.randn(*shape, device="cuda", generator=g, dtype=dt)
+
+    x, dy, wu, wd = rand(E, C, H), rand(E, C, H), rand(E, H, I), rand(E, I, H)
+    h, dh = rand(E, C, I), rand(E, C, I)
+
+    def layer():
+        torch.bmm(x, wu)                            # up
+        torch.bmm(h, wd)                            # down
+        torch.bmm(dy, wd.transpose(1, 2))           # d(h)
+        torch.bmm(h.transpose(1, 2), dy)            # d(down)
+        torch.bmm(dh, wu.transpose(1, 2))           # d(x)
+        torch.bmm(x.transpose(1, 2), dh)            # d(up)
+
+    ms = time_ms(torch, layer, iters=10, warmup=2) * cfg.num_layers
+    elem = 4 if dtype == "float32" else 2
+    # each product reads its two operands and writes its result once
+    nbytes = elem * E * (2 * (C * H + H * I + C * I)        # up, d(x)
+                         + 2 * (C * I + I * H + C * H)      # down, d(h)
+                         + (C * I + C * H + I * H)          # d(down)
+                         + (C * H + C * I + H * I))         # d(up)
+    b_ms, by = bound(cfg.num_layers * nbytes,
+                     cfg.num_layers * 6 * 2 * E * C * H * I, dtype)
+    print(f"[moe] expert GEMMs of a step ({cfg.num_layers} layers x 6 "
+          f"products of [{E}, {C}, {H}] x [{E}, {H}, {I}], {dtype}): "
+          f"{ms:.3f} ms (CUDA events), bound {b_ms:.3f} ms ({by}) — {card}")
+    return {"ms": ms, "bound_ms": b_ms, "bound_by": by, "capacity": C}
+
+
+def moe_route_check(torch, flash, fused_ce, args, state, batch, device,
+                    card):
+    """One fp32 step from ``state``'s weights on the kernel route and on
+    the plain route (a fresh AdamW each): the loss and every gradient
+    before the update (``grad_error``, 13a's check)."""
+    from pdnlp_tpu_torch.train.optim import build_optimizer
+    from pdnlp_tpu_torch.train.steps import (
+        TrainObjective, build_train_step, restore_state, snapshot_state,
+    )
+
+    kernel_obj = state.objective
+    state.optimizer, state.scheduler = build_optimizer(state.model, args)
+    snap = snapshot_state(state)
+    out = {}
+    for route in ("auto", "xla"):
+        rargs = args.replace(attention_impl=route, fused_ce=route)
+        restore_state(state, snap)
+        state.objective = TrainObjective(state.model, rargs, device)
+        reset_counts(flash, fused_ce)
+        m = build_train_step(rargs, device)(state, batch)
+        out[route] = (float(m["loss"]), launch_counts(flash, fused_ce),
+                      {k: p.grad.detach().clone() for k, p in
+                       state.model.named_parameters() if p.grad is not None})
+    state.objective = kernel_obj
+    (lk, ck, gk), (lp, cp, gp) = out["auto"], out["xla"]
+    name, err = grad_error(torch, gk, gp)
+    print(f"[moe] 14a backward, one fp32 step kernel route vs plain route "
+          f"from the same weights: loss {lk:.6f} vs {lp:.6f}, gradients of "
+          f"{len(gk)} params: worst {name} at {err:.3e} of its scale (rtol "
+          f"{GRAD_RTOL:g}); launches {ck} / {cp} — {card}")
+    if not (set(gk) == set(gp) and err <= GRAD_RTOL and
+            abs(lk - lp) <= TRAIN_LOSS_ATOL["float32"]) or \
+            ck != WANT_MOE_STEP or any(cp.values()):
+        fail(f"14a: kernel vs plain route: loss {abs(lk - lp)}, gradient "
+             f"{name} {err}, launches {ck} / {cp}")
+    return {"loss_diff": abs(lk - lp), "grad_worst": [name, err]}
+
+
+def moe_dispatch_check(torch, model, device, card):
+    """Grouped dispatch at capacity factor E against dense on one layer of
+    ``model`` (fp32, 32 x 128 x 768 hidden states): within 2e-5."""
+    from pdnlp_tpu_torch.models.bert import moe_mlp
+
+    cfg = model.cfg
+    g = torch.Generator(device=device).manual_seed(SEED)
+    x = torch.randn(32, 128, cfg.hidden_size, device=device, generator=g)
+    layer = model.layers[0]
+    with torch.no_grad():
+        full, a1 = moe_mlp(x, layer, cfg.replace(
+            moe_capacity_factor=float(cfg.moe_experts)))
+        dense, a2 = moe_mlp(x, layer, cfg.replace(moe_dispatch="dense"))
+    err = (full - dense).abs().max().item()
+    print(f"[moe] 14a dispatch: grouped at capacity factor "
+          f"{cfg.moe_experts} vs dense on 32 x 128 fp32: max |diff| "
+          f"{err:.3e} (atol {MOE_DISPATCH_ATOL:g}), aux {float(a1):.6f} vs "
+          f"{float(a2):.6f} — {card}")
+    if not err <= MOE_DISPATCH_ATOL or abs(float(a1) - float(a2)) > 1e-5:
+        fail(f"14a: grouped dispatch at capacity >= T differs from dense by "
+             f"{err}")
+    return err
+
+
+def moe_runs(torch, flash, fused_ce, work, vocab_path, corpus_path,
+             data_limit, profile_path, device, card):
+    """14a: ``train.multi --strategy ep`` at world 1 (module doc); returns
+    the record, the fp32 fixed-width run's checkpoint and its batches."""
+    from pdnlp_tpu_torch.train import multi
+    from pdnlp_tpu_torch.train.checkpoint import save_params
+    from pdnlp_tpu_torch.train.run import build_parallel_trainer
+    from pdnlp_tpu_torch.train.steps import restore_state, snapshot_state
+
+    rec, ckpt_path, fixed_batches = {}, None, None
+    for layout, data_path, limit, extra in (
+            ("fixed", corpus_path, data_limit, ()),
+            ("packed", profile_path, PROFILE_EXAMPLES,
+             ("--length_mode", "pack"))):
+        for dtype in ("float32", "bfloat16"):
+            name = f"{layout} {dtype}"
+            out = os.path.join(work, "moe", layout + dtype)
+            args, knobs = multi.parse(moe_argv(vocab_path, data_path, limit,
+                                               dtype, out, extra))
+            trainer, loader, _ = build_parallel_trainer(args, **knobs)
+            state, step = trainer.state, trainer.train_step
+            cfg = state.model.cfg
+            if args.mesh_shape != {"data": 1, "expert": 1} or \
+                    state.model.shards is not None or \
+                    cfg.num_layers != 12 or cfg.hidden_size != 768 or \
+                    cfg.moe_experts != 4:
+                fail(f"14a: not bert-base-moe whole on a {{'data': 1, "
+                     f"'expert': 1}} mesh: {args.mesh_shape}, {cfg}")
+            loader.set_epoch(0)
+            batches = [trainer.put(b) for b in
+                       itertools.islice(loader, MOE_BATCHES)]
+            aux0, dropped, routed = moe_aux_and_drops(
+                torch, state.model, batches[0], getattr(torch, dtype))
+            snap = snapshot_state(state) if name == "fixed float32" else None
+            losses, per_step = [], []
+            torch.cuda.synchronize()
+            reset_counts(flash, fused_ce)
+            for i in range(MOE_STEPS):
+                if i == 2:
+                    torch.cuda.synchronize()
+                    t0 = time.perf_counter()
+                before = launch_counts(flash, fused_ce)
+                m = step(state, batches[i % MOE_BATCHES])
+                per_step.append(_differences(launch_counts(flash, fused_ce),
+                                             before))
+                losses.append(m["loss"])
+            torch.cuda.synchronize()
+            step_ms = (time.perf_counter() - t0) / (MOE_STEPS - 2) * 1e3
+            totals = launch_counts(flash, fused_ce)
+            losses = [float(x) for x in losses]
+            first = sum(losses[:MOE_BATCHES]) / MOE_BATCHES
+            second = sum(losses[MOE_BATCHES:]) / MOE_BATCHES
+            bad = [i for i, c in enumerate(per_step) if c != WANT_MOE_STEP]
+            shape = tuple(batches[0]["input_ids"].shape)
+            r = {"losses": losses, "first_pass": first,
+                 "second_pass": second, "aux_per_layer_at_init": aux0,
+                 "dropped": dropped, "routed": routed, "launches": totals,
+                 "step_ms": step_ms, "shape": shape}
+            print(f"[moe] 14a bert-base-moe {name} {shape[0]} x {shape[1]} "
+                  f"(train.multi --strategy ep, mesh "
+                  f"{{'data': 1, 'expert': 1}}, top-2 grouped at capacity "
+                  f"factor {cfg.moe_capacity_factor}), {MOE_STEPS} steps: "
+                  f"loss {losses[0]:.4f} -> {losses[-1]:.4f} (first pass "
+                  f"{first:.4f}, second pass over the same rows "
+                  f"{second:.4f}); aux per layer at init {aux0:.4f}; "
+                  f"dropped {dropped} of {routed} routed assignments at "
+                  f"1.25; step {step_ms:.2f} ms (host clock to a sync, "
+                  f"steps 3-{MOE_STEPS}) — {card}")
+            print(f"[moe] 14a {name} launches over {MOE_STEPS} steps: "
+                  f"{totals} (every step {WANT_MOE_STEP}: "
+                  f"{'yes' if not bad else f'no, steps {bad}'}) — {card}")
+            if bad or not second < first or not all(
+                    x == x for x in losses) or not (
+                    MOE_AUX_BAND[0] <= aux0 <= MOE_AUX_BAND[1]):
+                fail(f"14a {name}: launches at steps {bad[:3]}, loss "
+                     f"{first} -> {second}, aux {aux0}")
+            if name == "fixed float32":
+                r["profile"] = profile_calls(
+                    torch, lambda: step(state, batches[0]), 3, card,
+                    "14a MoE step, bert-base-moe 32 x 128 fp32",
+                    split=MOE_SPLIT)
+                r["expert_gemms"] = expert_gemm_ms(torch, state.model,
+                                                   batches[0], dtype, card)
+                r["dispatch_err"] = moe_dispatch_check(torch, state.model,
+                                                       device, card)
+                ckpt_path = os.path.join(work, "moe", "ep-cls.pt")
+                save_params(ckpt_path, state.model.state_dict(),
+                            model_name="bert-base-moe",
+                            vocab_size=cfg.vocab_size)
+                restore_state(state, snap)
+                r["route"] = moe_route_check(torch, flash, fused_ce, args,
+                                             state, batches[0], device, card)
+                fixed_batches = [{k: v.cpu().numpy() for k, v in b.items()}
+                                 for b in batches]
+                del snap
+            rec[name] = r
+            del trainer, state, step, batches
+            torch.cuda.empty_cache()
+    return rec, ckpt_path, fixed_batches
+
+
+def moe_capture(torch, flash, fused_ce, vocab_path, vocab_size, batches,
+                device, card):
+    """14b: ``train.single --model bert-base-moe --fuse_steps 4``'s step:
+    two captured groups of 4 against 8 eager steps from the same seed, bit
+    for bit (losses and params) in fp32 and bf16; the second group
+    replays: no capture after the first."""
+    import numpy as np
+
+    from pdnlp_tpu_torch.data.pipeline import to_device
+    from pdnlp_tpu_torch.train.setup import setup_model
+    from pdnlp_tpu_torch.train.steps import build_multi_step, build_train_step
+    from pdnlp_tpu_torch.utils.config import Args
+
+    out = {}
+    feed = batches * 2
+    for dtype in ("float32", "bfloat16"):
+        args = Args(model="bert-base-moe", device="cuda", seed=SEED,
+                    vocab_path=vocab_path, dtype=dtype, fuse_steps=FUSE,
+                    dropout=0.1, attn_dropout=0.0, learning_rate=MOE_LR)
+        _, se = setup_model(args, vocab_size, total_steps=len(feed))
+        step = build_train_step(args, device)
+        eager = [step(se, to_device(b, device))["loss"] for b in feed]
+        pe = {k: v.detach().clone() for k, v in se.model.state_dict().items()}
+        del se, step
+        torch.cuda.empty_cache()
+        _, sf = setup_model(args, vocab_size, total_steps=len(feed))
+        multi = build_multi_step(build_train_step(args, device), device)
+        reset_counts(flash, fused_ce)
+        fused = []
+        for g in range(len(feed) // FUSE):
+            grp = feed[g * FUSE:(g + 1) * FUSE]
+            stacked = {k: np.stack([b[k] for b in grp]) for k in grp[0]}
+            fused += list(multi(sf, to_device(stacked, device))["loss"])
+        torch.cuda.synchronize()
+        launches = launch_counts(flash, fused_ce)
+        graphs = list(multi.graphs.values())
+        same_loss = torch.equal(torch.stack(eager), torch.stack(fused))
+        pf = sf.model.state_dict()
+        same_par = all(torch.equal(pe[k], pf[k]) for k in pe)
+        out[dtype] = {"losses_equal": same_loss, "params_equal": same_par,
+                      "graphs": len(graphs), "replays": graphs[0].replays,
+                      "capture_s": graphs[0].seconds, "launches": launches,
+                      "pool_bytes": graphs[0].pool_bytes}
+        print(f"[moe] 14b bert-base-moe fuse_steps {FUSE} {dtype}, dropout "
+              f"0.1: {len(feed)} steps as {len(feed) // FUSE} captured "
+              f"groups vs eager: losses bit for bit {same_loss}, params bit "
+              f"for bit {same_par}; {len(graphs)} graph, {graphs[0].replays}"
+              f" replays (no capture after the first), capture "
+              f"{graphs[0].seconds:.2f} s, pool {graphs[0].pool_bytes / 2**20:.0f}"
+              f" MiB; launches {launches} — {card}")
+        want = {k: v * len(feed) for k, v in WANT_MOE_STEP.items()}
+        if not (same_loss and same_par) or len(graphs) != 1 or \
+                graphs[0].replays != len(feed) // FUSE or launches != want:
+            fail(f"14b {dtype}: captured vs eager losses {same_loss}, params "
+                 f"{same_par}, {len(graphs)} graphs, launches {launches}")
+        del sf, multi, graphs, pe, pf
+        torch.cuda.empty_cache()
+    return out
+
+
+MODEL_AXIS_RUNS = (
+    {"name": "tp", "mode": "tp", "model": "bert-base",
+     "mesh_shape": {"data": 1, "model": 2}},
+    {"name": "ep", "mode": "ep", "model": "bert-base-moe",
+     "mesh_shape": {"data": 1, "expert": 2}})
+
+
+def model_axis_start(base, vocab_size, batches, work):
+    """14c's gang, started on a thread (its two ranks are processes on the
+    card beside 14d and 14e): two gloo ranks train tp ``{"data": 1,
+    "model": 2}`` on bert-base and ep ``{"data": 1, "expert": 2}`` on
+    bert-base-moe, fp32, on ``batches``."""
+    import threading
+
+    from pdnlp_tpu_torch.parallel import local
+
+    out_dir = os.path.join(work, "model_axis")
+    os.makedirs(out_dir, exist_ok=True)
+    box = {"t0": time.monotonic()}
+
+    def run():
+        try:
+            box["ranks"] = local.run_gang(
+                local.train_global_batches, 2,
+                base.replace(dist_backend="gloo"),
+                {"runs": [dict(r) for r in MODEL_AXIS_RUNS],
+                 "vocab_size": vocab_size, "batches": batches,
+                 "out_dir": out_dir}, timeout=600)
+        except BaseException as e:   # re-raised by model_axis_runs
+            box["error"] = e
+        box["seconds"] = time.monotonic() - box["t0"]
+
+    box["thread"] = threading.Thread(target=run, daemon=True)
+    box["thread"].start()
+    return box
+
+
+def model_axis_runs(torch, started, base, vocab_size, batches, device,
+                    card):
+    """14c's checks once :func:`model_axis_start`'s gang is done: each
+    run against one process at world 1 on the same global batches."""
+    started["thread"].join(timeout=700)
+    if started["thread"].is_alive():
+        fail("14c: the gang did not finish in 700 s")
+    if "error" in started:
+        raise started["error"]
+    ranks, runs = started["ranks"], MODEL_AXIS_RUNS
+    rec = {"gang_seconds": started["seconds"], "runs": {}}
+    for i, run in enumerate(runs):
+        mode = run["mode"]
+        tag = f"[{mode}]"
+        recs = [r[i] for r in ranks]
+        rtol, atol = MODEL_AXIS_TOL[mode]
+        ref_loss, ref_params, ref_ms = single_reference(
+            torch, base.replace(model=run["model"]), vocab_size, batches,
+            device)
+        got = _ckpt_params(torch, recs[0]["checkpoint"])
+        d_loss = max(abs(a - b) / abs(b)
+                     for a, b in zip(recs[0]["losses"], ref_loss))
+        d_par = _max_diff(got, ref_params)
+        _check_launches(f"14c {mode}", recs, WANT_DP_STEP)
+        mega = recs[0]["megatron"]
+        steps = len(batches)
+        shapes = recs[0]["param_shapes"]
+        if mode == "tp":
+            split = {k: shapes[k] for k in ("layers.0.q.weight",
+                                            "layers.0.up.weight",
+                                            "layers.0.o.weight",
+                                            "layers.0.down.weight")}
+            ok_shapes = split == {"layers.0.q.weight": (384, 768),
+                                  "layers.0.up.weight": (1536, 768),
+                                  "layers.0.o.weight": (768, 384),
+                                  "layers.0.down.weight": (768, 1536)}
+        else:
+            split = {k: shapes[k] for k in ("layers.0.up.kernel",
+                                            "layers.0.down.kernel",
+                                            "layers.0.gate.kernel")}
+            ok_shapes = split == {"layers.0.up.kernel": (2, 768, 3072),
+                                  "layers.0.down.kernel": (2, 3072, 768),
+                                  "layers.0.gate.kernel": (768, 4)}
+        r = {"losses": recs[0]["losses"], "single_losses": ref_loss,
+             "max_loss_rel_diff": d_loss, "max_param_diff": d_par,
+             "param_bytes": [x["param_bytes"] for x in recs],
+             "split_shapes": split, "launches_per_step":
+             recs[0]["launches"][0], "allreduces_per_step":
+             mega["calls"] / steps, "allreduce_bytes_per_step":
+             mega["bytes"] / steps, "allreduce_ms_per_step":
+             mega["seconds"] / steps * 1e3, "rank_step_ms":
+             [x["step_ms"] for x in recs], "single_step_ms": ref_ms}
+        rec["runs"][mode] = r
+        print(f"{tag} 14c {run['model']} {run['mesh_shape']}, 2 gloo ranks "
+              f"on the card, fp32, {steps} steps of 32 x 128: max |loss "
+              f"diff| vs one process {d_loss:.3e} relative (rtol {rtol:g}), "
+              f"max |gathered param diff| {d_par:.3e} (atol {atol:g}); "
+              f"launches per rank per step {recs[0]['launches'][0]} — {card}")
+        print(f"{tag} 14c shards on rank 0: {split}; parameter bytes per "
+              f"rank {r['param_bytes']} (one process: "
+              f"{sum(v.numel() * 4 for v in ref_params.values())}) — {card}")
+        print(f"{tag} 14c Megatron all-reduces per step on rank 0: "
+              f"{r['allreduces_per_step']:.0f} calls, "
+              f"{r['allreduce_bytes_per_step'] / 2**20:.1f} MiB, "
+              f"{r['allreduce_ms_per_step']:.1f} ms (host clock, gloo); step"
+              f" {r['rank_step_ms'][0]:.1f} / {r['rank_step_ms'][1]:.1f} ms "
+              f"per rank vs {ref_ms:.1f} ms in one process (host clock to a "
+              f"sync; printed, not claimed) — {card}")
+        # the weights the group replicates, updated on each rank from the
+        # gradients it computed itself, must stay the same bits
+        replicas_equal = len(set(recs[0]["replicated_digests"])) == 1
+        r["replicated_equal"] = replicas_equal
+        print(f"{tag} 14c replicated weights bit-equal on both ranks after "
+              f"{steps} steps: {replicas_equal} — {card}")
+        if d_loss > rtol or d_par > atol or not ok_shapes or \
+                recs[0]["losses"] != recs[1]["losses"] or not replicas_equal:
+            fail(f"14c {mode}: loss {d_loss}, params {d_par}, shards "
+                 f"{split}, rank losses {recs[0]['losses']} / "
+                 f"{recs[1]['losses']}, replicated digests "
+                 f"{recs[0]['replicated_digests']}")
+    return rec, {f"14c {r['mode']} rank 0": sum_launches(
+        {str(j): c for j, c in enumerate(ranks[0][i]["launches"])})
+        for i, r in enumerate(runs)}
+
+
+def gloo_bf16_probe(torch, card):
+    """Whether gloo all-reduces a bf16 tensor on the card (a world-1 gloo
+    group): the question 14c's fp32 answers around."""
+    import torch.distributed as dist
+
+    g = dist.new_group(backend="gloo")
+    t = torch.ones(1024, device="cuda", dtype=torch.bfloat16)
+    try:
+        dist.all_reduce(t, group=g)
+        torch.cuda.synchronize()
+        answer = f"accepted ({float(t[0])})"
+    except RuntimeError as e:           # the answer, not a path: recorded
+        answer = f"refused: {str(e).splitlines()[0][:120]}"
+    print(f"[tp] gloo all-reduce of a bf16 CUDA tensor: {answer}; 14c runs "
+          f"fp32 — {card}")
+    return answer
+
+
+def upcycle_check(torch, flash, fused_ce, vocab_path, vocab_size, mlm_path,
+                  batch, device, card):
+    """14d: ``--init_from`` phase 13's dense MLM artifact into
+    bert-base-moe: every expert kernel against a numpy recompute of JAX's
+    ``upcycle_layers`` bit for bit, biases copied, the gate the fresh
+    init's, then one step with K1-K5."""
+    import numpy as np
+
+    from pdnlp_tpu_torch.data.pipeline import to_device
+    from pdnlp_tpu_torch.models import convert
+    from pdnlp_tpu_torch.models.bert import BertClassifier
+    from pdnlp_tpu_torch.train import checkpoint as ckpt
+    from pdnlp_tpu_torch.train.setup import setup_model
+    from pdnlp_tpu_torch.train.steps import build_train_step
+    from pdnlp_tpu_torch.utils.config import Args
+
+    args = Args(model="bert-base-moe", device="cuda", seed=SEED,
+                vocab_path=vocab_path, init_from=mlm_path, dropout=0.0,
+                attn_dropout=0.0)
+    cfg, st = setup_model(args, vocab_size)
+    layers = convert.widen(ckpt.load(mlm_path))["layers"]
+    # JAX's rule (train/pretrain.py upcycle_layers), recomputed here: one
+    # RandomState(0), the MLP trees in sorted order, noise 0.01 x the dense
+    # stack's std, drawn [L, E, in, out] at once
+    rs = np.random.RandomState(0)
+    kernels_ok = biases_ok = True
+    for sub in sorted(("up", "down")):
+        dk = np.asarray(layers[sub]["kernel"], np.float32)
+        db = np.asarray(layers[sub]["bias"], np.float32)
+        want = np.broadcast_to(dk[:, None], (dk.shape[0], cfg.moe_experts)
+                               + dk.shape[1:]).copy()
+        want += rs.normal(0.0, 0.01 * max(float(dk.std()), 1e-8),
+                          want.shape).astype(want.dtype)
+        for i, layer in enumerate(st.model.layers):
+            ex = getattr(layer, sub)
+            kernels_ok &= np.array_equal(ex.kernel.detach().cpu().numpy(),
+                                         want[i])
+            biases_ok &= bool((ex.bias.detach().cpu() == torch.from_numpy(
+                db[i])[None]).all())
+    fresh = BertClassifier(cfg, generator=torch.Generator().manual_seed(SEED))
+    gate_ok = all(torch.equal(a.gate.kernel.detach().cpu(), b.gate.kernel)
+                  for a, b in zip(st.model.layers, fresh.layers))
+    q_ok = torch.equal(st.model.layers[3].q.weight.detach().cpu(),
+                       torch.from_numpy(np.ascontiguousarray(
+                           layers["q"]["kernel"][3].T)))
+    del fresh
+    reset_counts(flash, fused_ce)
+    m = build_train_step(args, device)(st, to_device(batch, device))
+    loss = float(m["loss"])
+    launches = launch_counts(flash, fused_ce)
+    print(f"[moe] 14d --init_from {os.path.basename(mlm_path)} (13a's dense "
+          f"MLM artifact) into bert-base-moe: expert kernels equal a numpy "
+          f"recompute of JAX's rule bit for bit {kernels_ok}, biases copied "
+          f"{biases_ok}, gate the fresh init's {gate_ok}, attention copied "
+          f"{q_ok}; one step loss {loss:.4f}, launches {launches} — {card}")
+    if not (kernels_ok and biases_ok and gate_ok and q_ok) or \
+            not loss == loss or launches != WANT_MOE_STEP:
+        fail(f"14d: kernels {kernels_ok}, biases {biases_ok}, gate "
+             f"{gate_ok}, attention {q_ok}, loss {loss}, launches {launches}")
+    del st
+    torch.cuda.empty_cache()
+    return {"kernels_equal": kernels_ok, "biases_equal": biases_ok,
+            "gate_fresh": gate_ok, "loss": loss, "launches": launches}
+
+
+def moe_serving(torch, flash, InferenceEngine, base, ckpt, texts, card):
+    """14e: 14a's checkpoint served: fp32 and bf16 engines, a CUDA graph
+    per shape (padded 8 x 32 / 64 / 128, packed 8 x 128) equal to eager
+    bit for bit, no capture after warmup, K1 in every replay; int8 expert
+    stacks served, predictions against bf16's."""
+    import numpy as np
+
+    from pdnlp_tpu_torch.data.collate import pad_ids_to_bucket
+    from pdnlp_tpu_torch.data.packing import pack_id_lists
+
+    out, preds = {}, {}
+    for serve_dtype in ("auto", "bf16", "int8"):
+        eng = InferenceEngine(base.replace(model="bert-base-moe",
+                                           serve_dtype=serve_dtype))
+        eng.load_checkpoint(ckpt)
+        eng.warmup(BUCKETS, 8)
+        eng.warmup_packed(128, 8, 16)
+        warm = eng.metrics.retraces.value
+        ids = eng.tokenizer.encode_ragged(texts, 128)
+        shapes = {f"padded 8x{b}": pad_ids_to_bucket(
+            [i for i in ids if len(i) <= b][:8], b, 8,
+            pad_id=eng.tokenizer.pad_id) for b in BUCKETS}
+        shapes["packed 8x128"] = pack_id_lists(ids, 128, 8, 16,
+                                               pad_id=eng.tokenizer.pad_id)[0]
+        # the eager forwards first: the count covers the replays alone
+        eager = {name: eng.forward_eager(b) for name, b in shapes.items()
+                 if serve_dtype != "int8"}
+        bitwise, logits = {}, {}
+        flash.reset_launch_count()
+        for name, b in shapes.items():
+            logits[name] = _infer(eng, b)
+        launches = flash.launch_count("flash_fwd")
+        for name, want in eager.items():
+            bitwise[name] = bool(np.array_equal(logits[name], want))
+        after = eng.metrics.retraces.value - warm
+        preds[serve_dtype] = {k: v.argmax(-1) for k, v in logits.items()}
+        label = eng.dtype_label
+        out[label] = {"captures_at_warmup": warm, "captures_after": after,
+                      "bitwise": bitwise, "launches_flash_fwd": launches}
+        print(f"[moe] 14e serving bert-base-moe {label}: {warm} graphs at "
+              f"warmup, {after} captures after; captured == eager bit for "
+              f"bit {bitwise or 'n/a (int8: held to bf16 below)'}; K1 "
+              f"launches over the {len(shapes)} captured forwards "
+              f"{launches} — {card}")
+        if after != 0 or launches != 12 * len(shapes) or \
+                not all(bitwise.values()):
+            fail(f"14e {label}: {after} captures after warmup, {launches} "
+                 f"K1 launches, captured vs eager {bitwise}")
+        if serve_dtype == "auto":
+            top2 = np.sort(logits["padded 8x128"], -1)[:, -2:]
+            clear = (top2[:, 1] - top2[:, 0]) > 2 * LOGIT_ATOL["float32"]
+            out["cli_want"] = [int(p) if c else None for p, c in zip(
+                preds["auto"]["padded 8x128"], clear)]
+        del eng
+        torch.cuda.empty_cache()
+    agree = {k: float((preds["int8"][k] == preds["bf16"][k]).mean())
+             for k in preds["bf16"]}
+    out["int8_vs_bf16_agreement"] = agree
+    print(f"[moe] 14e int8 expert stacks vs bf16, argmax agreement per "
+          f"shape: {agree} — {card}")
+    return out
+
+
 def time_backward(torch, F, flash, mask_bias, device, card, key_mask=None,
-                  seg=None):
-    """K1 with m and l, K2 and K3 at a training shape (N 12, D 64; padded
+                  seg=None, N=12):
+    """K1 with m and l, K2 and K3 at a training shape (N heads, 12 or 6
+    under tp = 2, D 64; padded
     keys of ``key_mask`` or the packed rows of ``seg``, ``[B, S]``),
     beside their twins, ``scaled_dot_product_attention``'s forward and
     backward on the same additive mask (the backward pair as one library
@@ -5129,7 +5741,7 @@ def time_backward(torch, F, flash, mask_bias, device, card, key_mask=None,
     from pdnlp_tpu_torch.data.packing import segment_bias
 
     B, S = (key_mask if seg is None else seg).shape
-    N, D = 12, 64
+    D = 64
     rng = np.random.RandomState(SEED + 4)
     if seg is None:
         kw = {"bias": mask_bias(torch.from_numpy(key_mask).to(device))}
@@ -5664,6 +6276,46 @@ def main():
     finally:
         shutdown()      # the process group 13b's and 13c's runners joined
     lap("13b train.single")
+    # 14. the MoE model and the model-axis strategies: bert-base-moe under
+    # train.multi --strategy ep (14a), its captured steps (14b), tp and ep
+    # over two gloo ranks on the card (14c), upcycling 13a's artifact (14d),
+    # MoE serving with serve.cli beside 14c (14e)
+    torch.cuda.empty_cache()
+    try:
+        moe, moe_ckpt, moe_batches = moe_runs(
+            torch, flash, fused_ce, work, vocab_path, corpus_path,
+            data_limit, profile_path, device, card)
+        lap("14a")
+        moe_cap = moe_capture(torch, flash, fused_ce, vocab_path, vocab_size,
+                              moe_batches, device, card)
+        lap("14b")
+        gloo_bf16 = gloo_bf16_probe(torch, card)
+    finally:
+        shutdown()      # the process group 14a's runner joined
+    # 14c's gang and serve.cli on 14a's checkpoint run as processes beside
+    # 14d and 14e (their times printed, not claimed)
+    moe_texts = [t for t in texts if len(t) <= 126]
+    axis_args = train_args.replace(learning_rate=LEARNING_RATE)
+    axis_batches = batches[:MODEL_AXIS_STEPS]
+    gang14 = model_axis_start(axis_args, vocab_size, axis_batches, work)
+    cli14 = cli_start(vocab_path, moe_ckpt, moe_texts, model="bert-base-moe")
+    try:
+        upcycle = upcycle_check(torch, flash, fused_ce, vocab_path,
+                                vocab_size, mlm_path, batches[0], device,
+                                card)
+        lap("14d")
+        moe_serve = moe_serving(torch, flash, InferenceEngine, base,
+                                moe_ckpt, moe_texts, card)
+        lap("14e")
+    except BaseException:
+        stop_all([cli14[0]])
+        raise
+    cli_check(cli14, moe_serve.pop("cli_want")[:6])
+    axis, axis_launches = model_axis_runs(torch, gang14, axis_args,
+                                          vocab_size, axis_batches, device,
+                                          card)
+    lap("14c")
+    moe_launches = {f"14a {n}": r["launches"] for n, r in moe.items()}
     launches_by_path = {
         "serving packed (K1)": {"flash_fwd": main_launches},
         "6a fixed width fp32": train_launches,
@@ -5689,7 +6341,14 @@ def main():
         "13a pretraining": pre["launches"],
         "13b supervised stage": sft["launches"],
         "13c AutoTrainer": managed["auto"]["launches"],
-        "13c Accelerator": managed["accelerator"]["launches"]}
+        "13c Accelerator": managed["accelerator"]["launches"],
+        **moe_launches,
+        **{f"14b fuse_steps {d}": r["launches"] for d, r in moe_cap.items()},
+        **axis_launches,
+        "14d upcycled step": upcycle["launches"],
+        **{f"14e serving {d}": {"flash_fwd": r["launches_flash_fwd"]}
+           for d, r in moe_serve.items() if isinstance(r, dict)
+           and "launches_flash_fwd" in r}}
     print(f"[launches] per path (counts set to 0 just before each, read "
           f"just after): {json.dumps(launches_by_path)}")
     # 6 times: K1-K3 at every training shape of the paths, K4/K5 at the
@@ -5709,6 +6368,10 @@ def main():
     # 13a's shape: the packed 64 x 128 rows of its first batch
     shape_times["64x128 packed (13a)"] = time_backward(
         torch, F, flash, mask_bias, device, card, seg=mlm_seg)
+    # 14c's tp shape: each rank's 6 of the 12 heads at 32 x 128
+    shape_times["32x128 6 heads (14c tp)"] = time_backward(
+        torch, F, flash, mask_bias, device, card,
+        key_mask=batches[0]["attention_mask"], N=6)
     ce_times = time_fused_ce(torch, F, fused_ce, device, card)
     ce_pack_times = {name: time_fused_ce(torch, F, fused_ce, device, card,
                                          rows=rows)
@@ -5731,6 +6394,9 @@ def main():
         "control_plane": {"fleet": fleet_rec, "decode_laws": laws,
                           "cli": ctl_cli_rec},
         "pretraining": {"mlm": pre, "supervised": sft, "managed": managed},
+        "moe": {"ep_world1": moe, "capture": moe_cap, "model_axis": axis,
+                "gloo_bf16": gloo_bf16, "upcycle": upcycle,
+                "serving": moe_serve},
         "phase_seconds": clock,
         "seconds": time.monotonic() - t_start}
     print(f"[summary] {json.dumps(summary)}")

@@ -28,9 +28,24 @@ Rematerialization (``remat``, the ``jax.checkpoint`` twin) recomputes each
 layer in the backward, with the dropout generator replayed (:func:`_remat`).
 
 Int8 weight-only serving swaps each dense layer for a :class:`QuantLinear`
-(:func:`quantize_linears`), whose ``_dense`` branch is the JAX ``qscale``
-one.  Not in this slice, and refused rather than approximated: MoE layers
-and sequence-parallel (ring) attention.
+and each expert stack for a :class:`QuantExperts` (:func:`quantize_linears`),
+whose branches are the JAX ``qscale`` ones (``_dense``, ``_expert_scale``).
+
+Mixture of experts (``cfg.moe_experts``): each layer's MLP becomes a
+:class:`Gate` ``[H, E]`` and two :class:`Experts` stacks, ``up`` ``[E, H,
+I]`` and ``down`` ``[E, I, H]`` in the JAX layout (per layer instead of
+stacked), run by :func:`moe_mlp`: the fp32 softmax gate, top-k with ties
+to the lower index (``jax.lax.top_k``'s order), renormalised combine
+weights and the masked Switch aux loss, through the grouped (capacity
+slots, static shapes) or the dense dispatch.  ``encode(with_aux=True)``
+and ``classify(return_aux=True)`` return the aux summed over the layers.
+
+Tensor and expert parallelism (``parallel.sharding.shard_model``) leave
+each layer a ``shards`` record: under ``tp`` the layer holds its share of
+the heads and MLP features and runs the Megatron pair
+(``parallel.collectives``) around its blocks, under ``ep`` its share of the
+experts, whose partial combine is summed over the expert group.  Refused
+rather than approximated: sequence-parallel (ring) attention.
 
 The masked-LM head (:class:`MLMHead`, :func:`init_mlm_head`,
 :func:`mlm_logits`) is its own module beside the classifier, as the JAX
@@ -39,9 +54,11 @@ unchanged; its decoder is tied to ``embeddings.word``.
 """
 from __future__ import annotations
 
-from typing import Dict, Optional
+import math
+from typing import Dict, NamedTuple, Optional
 
 import torch
+import torch.distributed as dist
 import torch.nn.functional as F
 from torch import nn
 
@@ -80,11 +97,56 @@ class QuantLinear(nn.Module):
             out_features, dtype=torch.float32, device=device))
 
 
+class Gate(nn.Module):
+    """The MoE router of one layer: a bias-less ``kernel`` ``[H, E]`` (the
+    JAX layout; kept fp32 under int8 serving, as JAX keeps it).  Its
+    forward gives the fp32 gate logits ``[B, S, E]``, so a forward hook
+    sees each layer's routing."""
+
+    def __init__(self, hidden: int, experts: int, device=None):
+        super().__init__()
+        self.kernel = nn.Parameter(torch.empty(hidden, experts,
+                                               device=device))
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return (x @ self.kernel.to(x.dtype)).to(torch.float32)
+
+
+class Experts(nn.Module):
+    """``E`` stacked dense blocks of one layer: ``kernel`` ``[E, in, out]``
+    and ``bias`` ``[E, out]`` (the JAX layout, so no transpose crosses)."""
+
+    def __init__(self, experts: int, fan_in: int, fan_out: int,
+                 device=None):
+        super().__init__()
+        self.kernel = nn.Parameter(torch.empty(experts, fan_in, fan_out,
+                                               device=device))
+        self.bias = nn.Parameter(torch.zeros(experts, fan_out,
+                                             device=device))
+
+
+class QuantExperts(nn.Module):
+    """The int8 form of :class:`Experts` (``serve.quant``): an ``int8``
+    ``kernel`` ``[E, in, out]``, an fp32 ``qscale`` ``[E, out]`` (per
+    expert, per output channel) and an fp32 ``bias``, all buffers."""
+
+    def __init__(self, experts: int, fan_in: int, fan_out: int,
+                 device=None):
+        super().__init__()
+        self.register_buffer("kernel", torch.zeros(
+            experts, fan_in, fan_out, dtype=torch.int8, device=device))
+        self.register_buffer("qscale", torch.ones(
+            experts, fan_out, dtype=torch.float32, device=device))
+        self.register_buffer("bias", torch.zeros(
+            experts, fan_out, dtype=torch.float32, device=device))
+
+
 def quantize_linears(model: nn.Module) -> None:
     """Swap every ``nn.Linear`` of ``model`` for a :class:`QuantLinear`
-    holding its int8 form (``serve.quant.quantize_dense``), in place —
-    JAX's scope: q/k/v/o, up/down, pooler and classifier."""
-    from pdnlp_tpu_torch.serve.quant import quantize_dense
+    and every :class:`Experts` for a :class:`QuantExperts` holding its int8
+    form (``serve.quant``), in place — JAX's scope: q/k/v/o, up/down (dense
+    or expert stacks), pooler and classifier; the MoE gate stays fp32."""
+    from pdnlp_tpu_torch.serve.quant import quantize_dense, quantize_kernel
 
     for parent in list(model.modules()):
         for name, child in list(parent.named_children()):
@@ -96,6 +158,14 @@ def quantize_linears(model: nn.Module) -> None:
                 ql.qscale.copy_(s)
                 ql.bias.copy_(child.bias.detach().to(torch.float32))
                 setattr(parent, name, ql)
+            elif isinstance(child, Experts):
+                q, s = quantize_kernel(child.kernel)
+                qe = QuantExperts(*child.kernel.shape,
+                                  device=child.kernel.device)
+                qe.kernel.copy_(q)
+                qe.qscale.copy_(s)
+                qe.bias.copy_(child.bias.detach().to(torch.float32))
+                setattr(parent, name, qe)
 
 
 def _dense(x: torch.Tensor, lin: nn.Module) -> torch.Tensor:
@@ -108,6 +178,261 @@ def _dense(x: torch.Tensor, lin: nn.Module) -> torch.Tensor:
         y = F.linear(x, lin.weight.to(x.dtype))
         return y * lin.qscale.to(x.dtype) + lin.bias.to(x.dtype)
     return F.linear(x, lin.weight.to(x.dtype), lin.bias.to(x.dtype))
+
+
+def _row_dense(x: torch.Tensor, lin: nn.Module, shards) -> torch.Tensor:
+    """A row-split dense block under ``tp``: this rank's partial product
+    summed over the model group, then the (replicated) bias, added once."""
+    if shards is None or shards.mode != "tp":
+        return _dense(x, lin)
+    from pdnlp_tpu_torch.parallel.collectives import reduce_from_group
+
+    y = reduce_from_group(F.linear(x, lin.weight.to(x.dtype)), shards.group)
+    return y + lin.bias.to(x.dtype)
+
+
+def _experts(x: torch.Tensor, ex: nn.Module) -> torch.Tensor:
+    """``[E, C, in]`` -> ``[E, C, out]``: each expert's product, its int8
+    scale on the OUTPUT (JAX's ``_expert_scale``), then its bias."""
+    y = torch.matmul(x, ex.kernel.to(x.dtype))
+    if isinstance(ex, QuantExperts):
+        y = y * ex.qscale.to(x.dtype)[:, None, :]
+    return y + ex.bias.to(x.dtype)[:, None, :]
+
+
+def top_k_lowest(probs: torch.Tensor, k: int):
+    """``(values, indices)`` of the ``k`` largest along the last axis, ties
+    to the lower index, as ``jax.lax.top_k`` orders them (``torch.topk``
+    promises no order among equal values on the card)."""
+    vals, idx = torch.sort(probs, dim=-1, descending=True, stable=True)
+    return vals[..., :k], idx[..., :k]
+
+
+def _one_hot(idx: torch.Tensor, n: int) -> torch.Tensor:
+    """``idx[..., None] == arange(n)`` as int64: a one-hot that reads no
+    value back to the host (a captured step can hold it)."""
+    return (idx[..., None] == torch.arange(n, device=idx.device)).long()
+
+
+def _gather_sum(table: torch.Tensor, index: torch.Tensor, k: int
+                ) -> torch.Tensor:
+    """``table`` with a zero row appended, gathered at ``index`` (``[n *
+    k]``) and summed over each run of ``k``: ``[n, width]``, in a fixed
+    order — no atomics."""
+    ext = torch.cat([table, table.new_zeros(1, table.shape[-1])])
+    return ext[index].view(-1, k, table.shape[-1]).sum(1)
+
+
+class _SlotDispatch(torch.autograd.Function):
+    """The grouped dispatch's gather, ``x[slot_tok]`` (row ``T`` = zeros),
+    whose backward is the same gather-and-sum as the combine's forward:
+    token ``t``'s gradient is the sum over its ``k`` assignments' slots, in
+    order.  The two maps are inverse on the kept assignments, so neither
+    direction needs an atomic add: a captured step equals eager bit for
+    bit."""
+
+    @staticmethod
+    def forward(ctx, x, slot_tok, slot, k):
+        ctx.save_for_backward(slot)
+        ctx.k = k
+        ext = torch.cat([x, x.new_zeros(1, x.shape[-1])])
+        return ext[slot_tok]
+
+    @staticmethod
+    def backward(ctx, grad):
+        (slot,) = ctx.saved_tensors
+        return _gather_sum(grad, slot, ctx.k), None, None, None
+
+
+class _SlotCombine(torch.autograd.Function):
+    """The grouped combine: token ``t``'s output is the sum over its ``k``
+    assignments of their (weighted) slot rows, in order; the backward
+    gathers each slot's row of the output gradient (``x[slot_tok]``)."""
+
+    @staticmethod
+    def forward(ctx, y, slot, slot_tok, k):
+        ctx.save_for_backward(slot_tok)
+        return _gather_sum(y, slot, k)
+
+    @staticmethod
+    def backward(ctx, grad):
+        (slot_tok,) = ctx.saved_tensors
+        ext = torch.cat([grad, grad.new_zeros(1, grad.shape[-1])])
+        return ext[slot_tok], None, None, None
+
+
+def route(gate_logits: torch.Tensor, k: int):
+    """The routing both dispatches share: ``(probs, top_idx, renorm)`` —
+    the fp32 softmax of the gate logits ``[B, S, E]``, the top ``k``
+    experts of each token (ties to the lower index) and their combine
+    weights renormalised over them."""
+    probs = torch.softmax(gate_logits, -1)
+    top_p, top_idx = top_k_lowest(probs, k)                 # [B, S, k]
+    renorm = top_p / top_p.sum(-1, keepdim=True).clamp_min(1e-9)
+    return probs, top_idx, renorm
+
+
+class Slots(NamedTuple):
+    """The grouped dispatch's slot assignment (:func:`grouped_slots`), per
+    assignment ``[T * k]``, token-major."""
+    expert: torch.Tensor      # its expert
+    pos: torch.Tensor         # its rank among this rank's to its expert
+    routed: torch.Tensor      # a real token's (padding routes nowhere)
+    kept: torch.Tensor        # routed and within the expert's capacity
+    width: int                # the slots a buffer holds per expert
+
+
+def grouped_slots(top_idx: torch.Tensor, mask: Optional[torch.Tensor],
+                  experts: int, capacity_factor: float,
+                  group=None) -> Slots:
+    """Which assignments of ``top_idx`` (``[B, S, k]``) keep an expert
+    slot, as JAX's ``_moe_grouped`` decides: ranked token-major by the
+    GShard position-in-expert cumsum, an assignment keeps its slot iff
+    its position is below ``C = min(ceil(cf * k * T / E), T)``; padding
+    (``mask`` 0) never takes one.  Nothing reads a routing-dependent size
+    back, so a captured step can hold it.
+
+    With a data ``group`` the batch is the group's global one, its rows in
+    rank order, as JAX's jitted step sees it: ``T`` counts every rank's
+    tokens (each holds the same number), and an assignment's position adds
+    the routed assignments of the ranks before this one to its expert (an
+    all-reduce of ``D * E`` counts).  Its slot in this rank's buffers is
+    its rank among this rank's own, below ``min(C, T)``."""
+    B, S, k = top_idx.shape
+    T = B * S
+    dev = top_idx.device
+    expert = top_idx.reshape(-1)                              # [T * k]
+    routed = torch.ones(T * k, dtype=torch.bool, device=dev)
+    if mask is not None:
+        routed = mask.reshape(T, 1).to(torch.bool).expand(T, k).reshape(-1)
+    # the cumsum runs along the last axis of an [E, T * k] table: a scan
+    # down the first axis of [T * k, E] takes one thread per column on the
+    # card (~1.3 ms a layer at 32 x 128)
+    onehot = (_one_hot(expert, experts) * routed[:, None]).t().contiguous()
+    csum = onehot.cumsum(1)
+    pos = (csum - onehot).gather(0, expert[None, :])[0]
+    ranks = 1 if group is None else dist.get_world_size(group)
+    C = min(int(math.ceil(capacity_factor * k * ranks * T / experts)),
+            ranks * T)
+    gpos = pos
+    if ranks > 1:
+        me = dist.get_rank(group)
+        table = torch.zeros(ranks, experts, dtype=torch.float32, device=dev)
+        table[me] = csum[:, -1].to(torch.float32)
+        dist.all_reduce(table, group=group)
+        before = table[:me].sum(0).to(torch.long)             # [E]
+        gpos = pos + before[expert]
+    return Slots(expert, pos, routed, routed & (gpos < C), min(C, T))
+
+
+def moe_mlp(x: torch.Tensor, layer: "EncoderLayer", cfg: BertConfig,
+            mask: Optional[torch.Tensor] = None):
+    """One layer's top-k gated mixture-of-experts MLP (JAX ``moe_mlp``):
+    ``[B, S, H]`` -> ``(out [B, S, H], aux)``.
+
+    The routing is the same for both dispatches and every rank
+    (:func:`route`), and the Switch load-balancing aux is ``E *
+    sum(token_frac * prob_frac)`` over the real tokens (``mask``, ``[B,
+    S]``; 1.0 = balanced).  ``cfg.moe_dispatch``: ``"grouped"`` (capacity
+    slots, :func:`_moe_grouped`) or ``"dense"`` (every expert on every
+    token; exact, O(E): the parity oracle).  With ``layer.data_group`` (the
+    jit strategies over several data ranks) the aux's statistics and the
+    grouped dispatch's capacity are the global batch's, as in JAX's jitted
+    step.
+
+    Under ``ep`` (``layer.shards``) the layer holds experts ``[e0, e0 +
+    E_local)``: it computes their part of the combine, and the parts are
+    summed over the expert group; ``x`` and the combine weights enter
+    through ``copy_to_group``, so their gradients are summed too, while the
+    gate, the routing and the aux, replicated, get the whole gradient on
+    every rank."""
+    dtype = x.dtype
+    E = layer.gate.kernel.shape[-1]
+    probs, top_idx, renorm = route(layer.gate(x), min(cfg.moe_top_k, E))
+    if cfg.moe_dispatch not in ("grouped", "dense"):
+        raise ValueError(
+            f"moe_dispatch={cfg.moe_dispatch!r} — use 'grouped' or 'dense'; "
+            "a silent fallback would quietly benchmark the O(E) path")
+    shards = layer.shards
+    ep = shards is not None and shards.mode == "ep"
+    e0 = shards.index * layer.up.kernel.shape[0] if ep else 0
+    xin, win = x, renorm
+    if ep:
+        from pdnlp_tpu_torch.parallel.collectives import copy_to_group
+
+        xin, win = copy_to_group(x, shards.group), copy_to_group(
+            renorm, shards.group)
+    group = layer.data_group
+    if cfg.moe_dispatch == "grouped":
+        slots = grouped_slots(top_idx, mask, E, cfg.moe_capacity_factor,
+                              group)
+        out = _moe_grouped(xin, layer, slots, win, cfg, e0)
+    else:
+        El = layer.up.kernel.shape[0]
+        onehot = _one_hot(top_idx, E).to(torch.float32)    # [B, S, k, E]
+        combine = torch.einsum("bske,bsk->bse", onehot, win)
+        B, S, H = x.shape
+        h = _gelu(_experts(xin.reshape(1, B * S, H).expand(El, -1, -1),
+                           layer.up), cfg.gelu)
+        y = _experts(h, layer.down).view(El, B, S, H)
+        out = torch.einsum("ebsh,bse->bsh", y,
+                           combine[..., e0: e0 + El].to(dtype))
+    if ep:
+        from pdnlp_tpu_torch.parallel.collectives import reduce_from_group
+
+        out = reduce_from_group(out, shards.group)
+    top1 = _one_hot(top_idx[..., 0], E).to(torch.float32).reshape(-1, E)
+    p2 = probs.reshape(-1, E)
+    if mask is None and group is None:
+        token_frac = top1.mean(0)
+        prob_frac = p2.mean(0)
+    else:
+        m = (torch.ones_like(p2[:, :1]) if mask is None
+             else mask.to(torch.float32).reshape(-1, 1))
+        sums = torch.cat([(top1 * m).sum(0), (p2 * m).sum(0),
+                          m.sum().reshape(1)])
+        if group is not None:
+            # the global batch's statistics, as JAX's jitted step has them
+            from pdnlp_tpu_torch.parallel.collectives import (
+                reduce_from_group,
+            )
+
+            sums = reduce_from_group(sums, group)
+        denom = sums[-1].clamp_min(1.0)
+        token_frac = sums[:E] / denom
+        prob_frac = sums[E: 2 * E] / denom
+    return out, E * (token_frac * prob_frac).sum()
+
+
+def _moe_grouped(x, layer, slots: Slots, renorm, cfg, e0):
+    """Capacity-based dispatch (JAX ``_moe_grouped``), static shapes end to
+    end, on the slots of :func:`grouped_slots`.  Slot tables ``[E_local,
+    width]`` hold the source token (sentinel ``T``: a zero row) and the
+    combine weight; the experts run as batched products over their
+    ``[width, H]`` buffers; the combine sums each token's kept slots in
+    order (:class:`_SlotCombine`).  Dropped assignments add nothing (the
+    caller's residual carries the token)."""
+    B, S, H = x.shape
+    T = B * S
+    El = layer.up.kernel.shape[0]
+    k = slots.expert.numel() // T
+    W = slots.width
+    dev = x.device
+    flat_e = slots.expert
+    local = slots.kept & (flat_e >= e0) & (flat_e < e0 + El)
+    dump = El * W
+    slot = torch.where(local, (flat_e - e0) * W + slots.pos,
+                       torch.full_like(flat_e, dump))         # [T * k]
+    tok = torch.arange(T * k, device=dev) // k
+    slot_tok = torch.full((dump + 1,), T, dtype=torch.long,
+                          device=dev).scatter(0, slot, tok)[:dump]
+    slot_w = torch.zeros(dump + 1, dtype=torch.float32, device=dev).scatter(
+        0, slot, renorm.reshape(-1))[:dump]
+    xe = _SlotDispatch.apply(x.reshape(T, H), slot_tok, slot, k)
+    h = _gelu(_experts(xe.view(El, W, H), layer.up), cfg.gelu)
+    y = _experts(h, layer.down) * slot_w.view(El, W, 1).to(x.dtype)
+    out = _SlotCombine.apply(y.reshape(dump, H), slot, slot_tok, k)
+    return out.view(B, S, H)
 
 
 def _dropout(x: torch.Tensor, rate: float,
@@ -146,48 +471,86 @@ class Embeddings(nn.Module):
 class EncoderLayer(nn.Module):
     """One post-LN encoder block.  Its body runs in :meth:`forward`, so a
     wrapper that acts through a module's forward (FSDP2's per-layer
-    unshard, ``torch.utils.checkpoint``) sees every layer."""
+    unshard, ``torch.utils.checkpoint``) sees every layer.  An MoE layer
+    (``cfg.moe_experts``) holds ``gate``, ``up`` and ``down`` as
+    :class:`Gate` and :class:`Experts`, and its forward returns ``(x,
+    aux)``.  ``shards`` (``parallel.sharding.ModelShards``, None on one
+    device) says which share of the heads, MLP features or experts the
+    layer holds."""
 
     def __init__(self, cfg: BertConfig, device=None):
         super().__init__()
         self.cfg = cfg
-        H, I = cfg.hidden_size, cfg.intermediate_size
+        H, I, E = cfg.hidden_size, cfg.intermediate_size, cfg.moe_experts
         self.q = nn.Linear(H, H, device=device)
         self.k = nn.Linear(H, H, device=device)
         self.v = nn.Linear(H, H, device=device)
         self.o = nn.Linear(H, H, device=device)
         self.attn_ln = LayerNorm(H, device)
-        self.up = nn.Linear(H, I, device=device)
-        self.down = nn.Linear(I, H, device=device)
+        if E:
+            self.gate = Gate(H, E, device)
+            self.up = Experts(E, H, I, device)
+            self.down = Experts(E, I, H, device)
+        else:
+            self.up = nn.Linear(H, I, device=device)
+            self.down = nn.Linear(I, H, device=device)
         self.mlp_ln = LayerNorm(H, device)
+        self.shards = None
+        #: the data group whose global batch the routing's statistics and
+        #: capacity are over (the jit strategies; ``train.steps.
+        #: TrainObjective``)
+        self.data_group = None
+
+    @property
+    def moe(self) -> bool:
+        return bool(self.cfg.moe_experts)
 
     def forward(self, x: torch.Tensor, bias: Optional[torch.Tensor] = None,
                 segment_ids: Optional[torch.Tensor] = None, *,
                 attn_impl: str = "auto",
-                generator: Optional[torch.Generator] = None) -> torch.Tensor:
+                generator: Optional[torch.Generator] = None,
+                mask: Optional[torch.Tensor] = None):
         """``[B, S, H]`` -> ``[B, S, H]``: attention (key ``bias`` or
         packed ``segment_ids``), output projection, residual LayerNorm, MLP,
-        residual LayerNorm; dropout with a ``generator``."""
+        residual LayerNorm; dropout with a ``generator``.  An MoE layer
+        returns ``(x, aux)``; ``mask`` (``[B, S]``) keeps padding out of its
+        routing statistics and capacity slots."""
         cfg = self.cfg
         B, S, _ = x.shape
-        N, D = cfg.num_heads, cfg.head_dim
+        D = cfg.head_dim
         drop = cfg.dropout
         attn_drop = cfg.attn_dropout if generator is not None else 0.0
-        q = _dense(x, self.q).view(B, S, N, D)
-        k = _dense(x, self.k).view(B, S, N, D)
-        v = _dense(x, self.v).view(B, S, N, D)
+        sh = self.shards
+        tp = sh is not None and sh.mode == "tp"
+        xin = x
+        if tp:
+            from pdnlp_tpu_torch.parallel.collectives import copy_to_group
+
+            xin = copy_to_group(x, sh.group)
+        q = _dense(xin, self.q)
+        N = q.shape[-1] // D                 # this rank's heads under tp
+        q = q.view(B, S, N, D)
+        k = _dense(xin, self.k).view(B, S, N, D)
+        v = _dense(xin, self.v).view(B, S, N, D)
         attn = dot_product_attention(q, k, v, bias, impl=attn_impl,
                                      segment_ids=segment_ids,
                                      dropout_rate=attn_drop,
                                      generator=generator)
-        attn = _dense(attn.reshape(B, S, N * D), self.o)
+        attn = _row_dense(attn.reshape(B, S, N * D), self.o, sh)
         x = _layer_norm(x + _dropout(attn, drop, generator),
                         self.attn_ln.scale, self.attn_ln.bias,
                         cfg.layer_norm_eps)
-        h = _dense(_gelu(_dense(x, self.up), cfg.gelu), self.down)
-        return _layer_norm(x + _dropout(h, drop, generator),
-                           self.mlp_ln.scale, self.mlp_ln.bias,
-                           cfg.layer_norm_eps)
+        aux = None
+        if self.moe:
+            h, aux = moe_mlp(x, self, cfg, mask)
+        else:
+            xin = copy_to_group(x, sh.group) if tp else x
+            h = _row_dense(_gelu(_dense(xin, self.up), cfg.gelu), self.down,
+                           sh)
+        x = _layer_norm(x + _dropout(h, drop, generator),
+                        self.mlp_ln.scale, self.mlp_ln.bias,
+                        cfg.layer_norm_eps)
+        return x if aux is None else (x, aux)
 
 
 def _remat(layer: EncoderLayer, x: torch.Tensor, *args,
@@ -271,8 +634,6 @@ class BertClassifier(nn.Module):
                  generator: Optional[torch.Generator] = None,
                  device: Optional[torch.device] = None):
         super().__init__()
-        if cfg.moe_experts:
-            raise ValueError("MoE layers are not ported yet (ROADMAP A11)")
         self.cfg = cfg
         H = cfg.hidden_size
         self.embeddings = Embeddings(cfg, device)
@@ -326,25 +687,33 @@ class BertClassifier(nn.Module):
                segment_ids: Optional[torch.Tensor] = None,
                position_ids: Optional[torch.Tensor] = None,
                generator: Optional[torch.Generator] = None,
-               remat: bool = False) -> torch.Tensor:
+               remat: bool = False, with_aux: bool = False):
         """Hidden states ``[B, S, H]`` in ``dtype``.  ``segment_ids`` (packed
         rows) carries the block-diagonal mask to attention; otherwise the
         key mask comes from ``attention_mask``.  A ``generator`` turns on
         dropout (training).  ``remat`` recomputes each layer's activations
-        in the backward instead of keeping them (:func:`_remat`)."""
+        in the backward instead of keeping them (:func:`_remat`).
+        ``with_aux`` returns ``(hidden, aux)``: the MoE load-balancing
+        loss summed over the layers (fp32; 0 for a dense model)."""
         x = self.embed(input_ids, token_type_ids, dtype, position_ids,
                        generator)
         # fp32 whatever the compute dtype: the kernel adds the mask in fp32,
         # and the plain path casts it to the scores' dtype
         bias = None if segment_ids is not None else mask_bias(attention_mask)
+        aux = torch.zeros((), dtype=torch.float32, device=x.device)
         for layer in self.layers:
             if remat and torch.is_grad_enabled():
-                x = _remat(layer, x, bias, segment_ids, attn_impl=attn_impl,
-                           generator=generator)
+                out = _remat(layer, x, bias, segment_ids, attn_impl=attn_impl,
+                             generator=generator, mask=attention_mask)
             else:
-                x = layer(x, bias, segment_ids, attn_impl=attn_impl,
-                          generator=generator)
-        return x
+                out = layer(x, bias, segment_ids, attn_impl=attn_impl,
+                            generator=generator, mask=attention_mask)
+            if layer.moe:
+                x, a = out
+                aux = aux + a
+            else:
+                x = out
+        return (x, aux) if with_aux else x
 
     def pooled_features(self, h0: torch.Tensor,
                         generator: Optional[torch.Generator] = None
@@ -373,7 +742,7 @@ class BertClassifier(nn.Module):
                  attn_impl: str = "auto", deterministic: bool = True,
                  generator: Optional[torch.Generator] = None,
                  return_pooled: bool = False,
-                 remat: bool = False) -> torch.Tensor:
+                 remat: bool = False, return_aux: bool = False):
         """fp32 logits: ``[B, num_labels]`` for a padded batch, or
         ``[B, M, num_labels]`` per segment for a packed batch (one carrying
         ``cls_positions``, ``segment_ids`` and ``position_ids``).
@@ -381,22 +750,26 @@ class BertClassifier(nn.Module):
         ``deterministic=False`` is the training forward: dropout drawn from
         ``generator`` (required).  ``return_pooled`` returns the pooled
         features (``[B, H]`` / ``[B, M, H]``, in ``dtype``) instead of
-        logits, for ``ops.fused_ce``.  ``remat``: see :meth:`encode`."""
+        logits, for ``ops.fused_ce``.  ``remat``: see :meth:`encode`.
+        ``return_aux`` returns ``(out, aux)``, the MoE load-balancing loss
+        summed over the layers (0 for a dense model)."""
         if not deterministic and generator is None:
             raise ValueError("the training forward (deterministic=False) "
                              "draws dropout from an explicit generator")
         gen = None if deterministic else generator
         packed = "cls_positions" in batch
-        hidden = self.encode(
+        hidden, aux = self.encode(
             batch["input_ids"], batch["token_type_ids"],
             batch["attention_mask"], dtype=dtype, attn_impl=attn_impl,
             segment_ids=batch["segment_ids"] if packed else None,
             position_ids=batch.get("position_ids") if packed else None,
-            generator=gen, remat=remat)
+            generator=gen, remat=remat, with_aux=True)
         head = self.pooled_features if return_pooled else self.pooled_logits
         if not packed:
-            return head(hidden[:, 0, :], gen)
-        pos = batch["cls_positions"].long()
-        hM = torch.take_along_dim(hidden, pos[..., None], dim=1)  # [B, M, H]
-        B, M, H = hM.shape
-        return head(hM.reshape(B * M, H), gen).reshape(B, M, -1)
+            out = head(hidden[:, 0, :], gen)
+        else:
+            pos = batch["cls_positions"].long()
+            hM = torch.take_along_dim(hidden, pos[..., None], dim=1)
+            B, M, H = hM.shape                                 # [B, M, H]
+            out = head(hM.reshape(B * M, H), gen).reshape(B, M, -1)
+        return (out, aux) if return_aux else out

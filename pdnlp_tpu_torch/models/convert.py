@@ -31,6 +31,12 @@ sidecar).
 Pretraining's artifact is the trunk's encoder trees plus the ``mlm`` head
 and no pooler or classifier (:func:`mlm_artifact_to_jax` and back); a
 warm start reads only the trees it keeps (:func:`from_jax_trees`).
+
+An MoE tree (a ``gate`` in ``layers``) stacks its experts as ``[L, E, in,
+out]`` kernels, ``[L, E, out]`` biases and an ``[L, H, E]`` gate; the port
+keeps JAX's layout per layer (``layers.<i>.up.kernel`` ``[E, in, out]``,
+``layers.<i>.gate.kernel`` ``[H, E]``), so those leaves only split and
+stack — the int8 form's ``[L, E, out]`` ``qscale`` too.
 """
 from __future__ import annotations
 
@@ -40,6 +46,8 @@ import numpy as np
 import torch
 
 _DENSE = ("q", "k", "v", "o", "up", "down")
+_ATTN = ("q", "k", "v", "o")
+_EXPERTS = ("up", "down")
 #: the int8 per-output-channel scale leaf (``serve.quant``)
 QSCALE = "qscale"
 _LN = ("attn_ln", "mlp_ln")
@@ -79,11 +87,17 @@ def from_jax_trees(tree: Dict[str, Any], names) -> Dict[str, torch.Tensor]:
         })
     if "layers" in names:
         layers = tree["layers"]
-        if "gate" in layers:
-            raise ValueError(
-                "MoE parameter trees are not ported yet (ROADMAP A11)")
+        moe = "gate" in layers
         for i in range(num_layers(tree)):
-            for name in _DENSE:
+            if moe:
+                sd[f"layers.{i}.gate.kernel"] = _t(
+                    np.asarray(layers["gate"]["kernel"])[i])
+                for name in _EXPERTS:
+                    for leaf in ("kernel", QSCALE, "bias"):
+                        if leaf in layers[name]:
+                            sd[f"layers.{i}.{name}.{leaf}"] = _t(
+                                np.asarray(layers[name][leaf])[i])
+            for name in (_ATTN if moe else _DENSE):
                 sd[f"layers.{i}.{name}.weight"] = _t(
                     np.asarray(layers[name]["kernel"])[i].T)
                 if QSCALE in layers[name]:
@@ -138,7 +152,17 @@ def _to_jax_params(state_dict: Dict[str, torch.Tensor],
         return node
 
     layers: Dict[str, Any] = {}
-    for name in _DENSE:
+    moe = "layers.0.gate.kernel" in state_dict
+    if moe:
+        layers["gate"] = {"kernel": np.stack(
+            [a(f"layers.{i}.gate.kernel") for i in range(L)])}
+        for name in _EXPERTS:
+            layers[name] = {
+                leaf: np.stack([a(f"layers.{i}.{name}.{leaf}")
+                                for i in range(L)])
+                for leaf in ("kernel", QSCALE, "bias")
+                if f"layers.0.{name}.{leaf}" in state_dict}
+    for name in (_ATTN if moe else _DENSE):
         layers[name] = dense(
             f"layers.0.{name}",
             np.stack([a(f"layers.{i}.{name}.weight").T for i in range(L)]),

@@ -9,6 +9,14 @@ card, gloo on the CPU or, when asked for, on the card.
 ``make_global_batch`` has no twin: each rank's loader already yields its
 own shard of the global batch (``train.setup.setup_data``), and nothing
 assembles one global array.
+
+Tensor and expert parallelism add the Megatron pair, which XLA inserts
+from the shardings in the JAX package: :func:`copy_to_group` (identity
+forward, all-reduce backward) at the entry of a block whose weights are
+split over the ``model`` or ``expert`` group, and :func:`reduce_from_group`
+(all-reduce forward, identity backward) after its row-split product or
+partial combine.  Both act on plain local tensors, so the ctypes-bound
+kernels see the local heads as they are.
 """
 from __future__ import annotations
 
@@ -81,3 +89,64 @@ def barrier(group=None) -> None:
     without a process group."""
     if dist.is_initialized():
         dist.barrier(group=group)
+
+
+#: the Megatron pair's all-reduces in this process: calls, bytes and host
+#: seconds (the call to its return), for the step's collective record
+STATS = {"calls": 0, "bytes": 0, "seconds": 0.0}
+
+
+def reset_stats() -> None:
+    STATS.update(calls=0, bytes=0, seconds=0.0)
+
+
+def _all_reduce(t: torch.Tensor, group) -> None:
+    import time
+
+    t0 = time.perf_counter()
+    dist.all_reduce(t, group=group)
+    STATS["calls"] += 1
+    STATS["bytes"] += t.numel() * t.element_size()
+    STATS["seconds"] += time.perf_counter() - t0
+
+
+class _CopyToGroup(torch.autograd.Function):
+    """Identity forward; the gradient summed over ``group`` backward."""
+
+    @staticmethod
+    def forward(ctx, x, group):
+        ctx.group = group
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, grad):
+        grad = grad.contiguous().clone()
+        _all_reduce(grad, ctx.group)
+        return grad, None
+
+
+class _ReduceFromGroup(torch.autograd.Function):
+    """The partial results summed over ``group`` forward; identity
+    backward."""
+
+    @staticmethod
+    def forward(ctx, x, group):
+        out = x.contiguous().clone()
+        _all_reduce(out, group)
+        return out
+
+    @staticmethod
+    def backward(ctx, grad):
+        return grad, None
+
+
+def copy_to_group(x: torch.Tensor, group) -> torch.Tensor:
+    """``x`` unchanged; in the backward its gradient is all-reduced over
+    ``group`` (each rank's split block contributes a part of it)."""
+    return _CopyToGroup.apply(x, group)
+
+
+def reduce_from_group(x: torch.Tensor, group) -> torch.Tensor:
+    """``x`` all-reduced (summed) over ``group``; the gradient passes
+    through unchanged (every rank already holds the whole of it)."""
+    return _ReduceFromGroup.apply(x, group)

@@ -2,21 +2,27 @@
 ``pdnlp_tpu/parallel/execution.py``.
 
 - :func:`setup_sharded_model`: the train state with its placement — the
-  same seeded weights on every rank (a CPU generator), dropout seeded from
-  ``(seed, rank)``, the :class:`~pdnlp_tpu_torch.train.steps.
-  TrainObjective` wrapped by the mode (``parallel.sharding.wrap``), and the
-  optimizer built on the placed parameters (FSDP2's shards).
+  same seeded weights on every rank (a CPU generator), cut to the rank's
+  share under ``tp`` and ``ep`` (``parallel.sharding.shard_model``),
+  dropout seeded from ``(seed, data coordinate)``, the
+  :class:`~pdnlp_tpu_torch.train.steps.TrainObjective` wrapped by the mode
+  (``parallel.sharding.wrap``), and the optimizer built on the placed
+  parameters (FSDP2's shards, or the tp/ep slices).  On the CPU a rank of
+  a tp/ep group of two or more runs one intra-op thread.
 - :func:`make_parallel_train_step` / :func:`make_parallel_eval_step`: the
   single-device step and eval through the wrapper, which inserts the
-  gradient all-reduce (DDP) or all-gather / reduce-scatter (FSDP2); the
-  step's loss and accuracy are summed over the ranks.
+  gradient all-reduce (DDP) or all-gather / reduce-scatter (FSDP2); under
+  ``tp`` and ``ep`` the step all-reduces the gradients over the data axis
+  after the backward; the step's loss and accuracy are summed over the
+  data axis.
 - :func:`make_shardmap_train_step`: the explicit-collectives flavour
   (Horovod's analog): no wrapper; after ``backward`` one hand-written
   all-reduce of every gradient, optionally bf16 on the wire, then the same
   optimizer update on every rank.
 
 Each rank's step is the single-device step: at attention dropout 0 it runs
-the flash kernels K1-K3 in every layer and the fused CE kernels K4/K5.
+the flash kernels K1-K3 in every layer (on the rank's heads under ``tp``)
+and the fused CE kernels K4/K5.
 """
 from __future__ import annotations
 
@@ -28,7 +34,13 @@ import torch.distributed as dist
 from pdnlp_tpu_torch.models.bert import BertClassifier
 from pdnlp_tpu_torch.models.config import BertConfig, args_overrides, get_config
 from pdnlp_tpu_torch.parallel import collectives
-from pdnlp_tpu_torch.parallel.sharding import check_mode, wrap
+from pdnlp_tpu_torch.parallel.mesh import (
+    DATA_AXIS, axis_group, axis_index, axis_size, mesh_shape,
+)
+from pdnlp_tpu_torch.parallel.sharding import (
+    MODE_AXIS, check_mesh, check_mode, check_model, model_shards,
+    shard_model, wrap,
+)
 from pdnlp_tpu_torch.train.optim import build_optimizer
 from pdnlp_tpu_torch.train.setup import warm_start
 from pdnlp_tpu_torch.train.steps import (
@@ -40,8 +52,11 @@ from pdnlp_tpu_torch.utils.seeding import set_seed
 
 
 def dropout_seed(seed: int, rank: int) -> int:
-    """Rank ``rank``'s dropout seed: distinct per rank, as JAX's shard_map
-    step folds ``axis_index`` into its key; rank 0 keeps ``seed``."""
+    """The dropout seed of data coordinate ``rank``: distinct per data
+    shard, as JAX's shard_map step folds ``axis_index`` into its key; 0
+    keeps ``seed``.  Every rank of one model or expert group has the same
+    data coordinate, so it draws the same masks, and the activations its
+    ranks replicate stay equal."""
     return int(seed) + int(rank) * 2 ** 32
 
 
@@ -72,18 +87,36 @@ def setup_sharded_model(args, vocab_size: int, mesh, mode: str = "dp",
     an EMA starts from the warm-started weights."""
     check_mode(mode)
     check_zero(args, mode)
+    shape = mesh_shape(mesh)
+    check_mesh(mode, shape)
     device = resolve_device(args.device)
     if device.type == "cuda":
         device = torch.device("cuda", torch.cuda.current_device())
     cfg = get_config(args.model, vocab_size=vocab_size,
                      num_labels=args.num_labels, dropout=args.dropout,
                      attn_dropout=args.attn_dropout, **args_overrides(args))
+    check_model(cfg, mode, shape, args.model)
+    if device.type == "cpu" and mode in MODE_AXIS and \
+            axis_size(mesh, MODE_AXIS[mode]) > 1:
+        # the weights a model or expert group replicates are updated on
+        # each rank from the gradients it computes itself, and with several
+        # intra-op threads the CPU backward of the embedding gather is not
+        # the same bits from process to process: the replicas would drift
+        torch.set_num_threads(1)
     init_gen, dropout_gen = set_seed(args.seed, device)
-    dropout_gen.manual_seed(dropout_seed(args.seed, dist.get_rank()))
-    model = warm_start(BertClassifier(cfg, generator=init_gen).to(device),
-                       args)
-    group = mesh.get_group()
-    objective = TrainObjective(model, args, device, group=group)
+    dropout_gen.manual_seed(dropout_seed(args.seed,
+                                         axis_index(mesh, DATA_AXIS)))
+    # the full seeded init (and warm start) on the host, then this rank's
+    # share of it: the model at any width is the model at width 1
+    model = warm_start(BertClassifier(cfg, generator=init_gen), args)
+    model = shard_model(model, model_shards(mesh, mode)).to(device)
+    group = axis_group(mesh, DATA_AXIS)
+    # one rank on the data axis: the single-device objective, with no
+    # collective (a captured step can hold it)
+    single = axis_size(mesh, DATA_AXIS) == 1 and not explicit_collectives
+    objective = TrainObjective(model, args, device,
+                               group=None if single else group,
+                               global_aux=not explicit_collectives)
     if explicit_collectives:
         for p in model.parameters():
             dist.broadcast(p.data, src=0, group=group)
@@ -92,7 +125,7 @@ def setup_sharded_model(args, vocab_size: int, mesh, mode: str = "dp",
     optimizer, scheduler = build_optimizer(model, args, total_steps)
     ema = init_ema(model) if args.ema_decay > 0 else None
     return cfg, TrainState(model, optimizer, scheduler, dropout_gen, ema,
-                           objective=objective)
+                           objective=objective, group=group)
 
 
 def _metric_sum(group):
@@ -123,15 +156,25 @@ def _grad_reduce(group, compress, compute: bool):
     return reduce_grads
 
 
-def make_parallel_train_step(args, mesh, device):
-    """The dp / zero step: the wrapped objective's forward and backward
-    (the wrapper's collectives inside), the optimizer on the rank's
-    replica or shard, and the loss and correct count summed over the
-    ranks (each rank's share is already scaled by ``lw / gw``).  Under
-    ``--grads_dtype compute`` DDP's reduction is off and the step reduces
-    the gradients itself (``train.steps.build_train_step``)."""
-    group = mesh.get_group()
-    after = _grad_reduce(group, None, True) if compute_grads(args) else None
+def make_parallel_train_step(args, mesh, device, mode: str = "dp"):
+    """The dp / zero / tp / ep step: the placed objective's forward and
+    backward (the wrapper's or the layers' collectives inside), the
+    optimizer on the rank's replica, shard or slices, and the loss and
+    correct count summed over the data axis (each rank's share is already
+    scaled by ``lw / gw``).  The step reduces the gradients over the data
+    axis itself under ``tp`` and ``ep`` (no wrapper) and under
+    ``--grads_dtype compute``, where DDP's reduction is off
+    (``train.steps.build_train_step``).  Where the data axis has one rank
+    it is the single-device step."""
+    group = axis_group(mesh, DATA_AXIS)
+    if axis_size(mesh, DATA_AXIS) == 1:
+        # nothing to reduce: the single-device step (which fuse_steps can
+        # capture)
+        return build_train_step(args, device)
+    compute = compute_grads(args)
+    after = None
+    if mode in MODE_AXIS or compute:
+        after = _grad_reduce(group, None, compute)
     return build_train_step(args, device, after_backward=after,
                             reduce_metrics=_metric_sum(group))
 
@@ -155,7 +198,7 @@ def make_shardmap_train_step(args, mesh, device, compress_grads: bool = True):
         raise ValueError("--ema_decay runs on the dp strategies — the "
                          "shard_map step does not maintain the EMA and "
                          "would silently evaluate stale weights")
-    group = mesh.get_group()
+    group = axis_group(mesh, DATA_AXIS)
     compress = torch.bfloat16 if compress_grads else None
     # one wire dtype for every gradient, as JAX's shard_map step, which
     # takes no ``--grads_dtype`` (the compute path's gradients are the

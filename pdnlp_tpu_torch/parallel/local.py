@@ -11,7 +11,9 @@ numbers back, where the entry points print lines.
 - :func:`train_global_batches` is such an ``fn``: each strategy of
   ``payload["runs"]`` trains from the seeded weights on the same global
   batches, every rank on its contiguous block of each (as ``P("data")``
-  splits a batch), and reports the global losses, each step's kernel
+  splits a batch; a run's ``mesh_shape`` puts it on a tp/ep mesh, each
+  rank on its data coordinate's block), and reports the global losses,
+  each step's kernel
   launches in this rank, whether the ranks' weights are bit-equal, the
   shard fraction and the eval outputs gathered over the ranks; rank 0
   writes each run's consolidated weights to a file.
@@ -19,6 +21,7 @@ numbers back, where the entry points print lines.
 from __future__ import annotations
 
 import hashlib
+import json
 import os
 import queue
 import tempfile
@@ -51,7 +54,8 @@ def run_gang(fn: Callable, world: int, args, payload=None,
     """``[fn(rank, world, args, payload) for each rank]``, computed by
     ``world`` processes that form one process group (``args.device`` and
     ``args.dist_backend`` pick the card and the backend).  On the CPU the
-    ranks split the cores between them."""
+    ranks split the cores between them (a tp/ep placement then takes its
+    ranks down to one thread each: ``execution.setup_sharded_model``)."""
     import multiprocessing as mp
 
     ctx = mp.get_context("spawn")
@@ -106,10 +110,18 @@ def rank_block(batch: Dict[str, np.ndarray], rank: int, world: int
     return {k: v[rank * n: (rank + 1) * n] for k, v in batch.items()}
 
 
-def params_digest(model: torch.nn.Module) -> str:
-    """A hash of this rank's weights, bit for bit."""
+def params_digest(model: torch.nn.Module, replicated: bool = False) -> str:
+    """A hash of this rank's weights, bit for bit; ``replicated``: only
+    the entries a tp/ep placement does not split (which every rank of a
+    model or expert group holds whole)."""
+    from pdnlp_tpu_torch.parallel.sharding import shard_dim
+
+    shards = getattr(model, "shards", None)
     h = hashlib.sha256()
     for name, p in model.state_dict().items():
+        if replicated and shards is not None and \
+                shard_dim(name, p.shape, shards.mode) is not None:
+            continue
         local = p.to_local() if hasattr(p, "to_local") else p
         h.update(name.encode())
         h.update(local.detach().cpu().contiguous().view(torch.uint8)
@@ -126,9 +138,12 @@ def train_global_batches(rank: int, world: int, args, payload: Dict) -> List:
     batch, if any.  Returns per run: ``losses`` and
     ``accuracies`` (global), ``launches`` (this rank's kernel launches,
     step by step), ``step_ms`` (host clock to a sync, after the first
-    step), ``digests`` (every rank's :func:`params_digest`),
+    step), ``digests`` and ``replicated_digests`` (every rank's
+    :func:`params_digest`, of all its weights and of the unsplit ones),
     ``shard_fraction``, ``eval`` (the gathered ``pred``, ``label`` and
-    ``ew``) and ``allreduce_ms``: with ``payload["allreduce_numel"]``, the
+    ``ew``), ``mesh``, ``megatron`` (the tp/ep all-reduces:
+    ``parallel.collectives.STATS`` over the run's steps),
+    ``param_bytes`` and ``param_shapes`` (this rank's) and ``allreduce_ms``: with ``payload["allreduce_numel"]``, the
     times of three all-reduces of that many fp32 values before the runs
     (host clock to a sync); rank 0 writes the consolidated weights to
     ``payload["out_dir"]/<name>.pt`` (``checkpoint.save_params``)."""
@@ -141,7 +156,9 @@ def train_global_batches(rank: int, world: int, args, payload: Dict) -> List:
         make_parallel_eval_step, make_parallel_train_step,
         make_shardmap_train_step, setup_sharded_model,
     )
-    from pdnlp_tpu_torch.parallel.mesh import make_mesh
+    from pdnlp_tpu_torch.parallel.mesh import (
+        local_data_extent, make_mesh, mesh_shape,
+    )
     from pdnlp_tpu_torch.parallel.sharding import shard_fraction
     from pdnlp_tpu_torch.train import checkpoint as ckpt
 
@@ -156,7 +173,15 @@ def train_global_batches(rank: int, world: int, args, payload: Dict) -> List:
         if device.type == "cuda":
             torch.cuda.synchronize(device)
 
-    mesh = make_mesh(device_type=device.type)
+    meshes = {}
+
+    def mesh_of(shape):
+        key = json.dumps(shape)
+        if key not in meshes:
+            meshes[key] = make_mesh(shape=shape, device_type=device.type)
+        return meshes[key]
+
+    mesh = mesh_of(None)
     allreduce_ms = None
     if payload.get("allreduce_numel"):
         buf = torch.ones(int(payload["allreduce_numel"]), device=device)
@@ -179,27 +204,37 @@ def train_global_batches(rank: int, world: int, args, payload: Dict) -> List:
         explicit = run.pop("explicit_collectives", False)
         compress = run.pop("compress_grads", True)
         rargs = args.replace(**run)
+        rmesh = mesh_of(rargs.mesh_shape)
+        d_size, d_idx, _ = local_data_extent(rmesh)
         cfg, state = setup_sharded_model(
-            rargs, payload["vocab_size"], mesh, mode,
+            rargs, payload["vocab_size"], rmesh, mode,
             total_steps=len(batches), explicit_collectives=explicit)
-        step = (make_shardmap_train_step(rargs, mesh, device, compress)
-                if explicit else make_parallel_train_step(rargs, mesh,
-                                                          device))
+        step = (make_shardmap_train_step(rargs, rmesh, device, compress)
+                if explicit else make_parallel_train_step(rargs, rmesh,
+                                                          device, mode))
         losses, accs, launches, t0 = [], [], [], None
+        collectives.reset_stats()
         for i, host in enumerate(batches):
             if i == 1:
                 sync()
                 t0 = time.perf_counter()
             before = counts()
-            m = step(state, to_device(rank_block(host, rank, world), device))
+            m = step(state, to_device(rank_block(host, d_idx, d_size),
+                                      device))
             after = counts()
             launches.append({k: after[k] - before[k] for k in after})
             losses.append(m["loss"])
             accs.append(m["accuracy"])
         sync()
+        megatron = dict(collectives.STATS)
         step_ms = ((time.perf_counter() - t0) / (len(batches) - 1) * 1e3
                    if t0 is not None else None)
         rec = {"name": name, "allreduce_ms": allreduce_ms,
+               "mesh": mesh_shape(rmesh), "megatron": megatron,
+               "param_bytes": sum(p.numel() * p.element_size()
+                                  for p in state.model.parameters()),
+               "param_shapes": {k: tuple(v.shape) for k, v in
+                                state.model.state_dict().items()},
                "losses": [float(x) for x in losses],
                "accuracies": [float(x) for x in accs],
                "launches": launches, "step_ms": step_ms,
@@ -209,12 +244,15 @@ def train_global_batches(rank: int, world: int, args, payload: Dict) -> List:
         digests = [None] * world
         dist.all_gather_object(digests, digest)
         rec["digests"] = digests
+        replicated = [None] * world
+        dist.all_gather_object(replicated, params_digest(state.model, True))
+        rec["replicated_digests"] = replicated
         if eval_batch is not None:
             ev = make_parallel_eval_step(rargs, state)
             m = ev(state.model, None, to_device(
-                rank_block(eval_batch, rank, world), device))
+                rank_block(eval_batch, d_idx, d_size), device))
             rec["eval"] = [a.cpu().numpy() for a in collectives.output_reduce(
-                m["pred"], m["label"], m["ew"])]
+                m["pred"], m["label"], m["ew"], group=state.group)]
         params = ckpt.consolidate(state.model)
         if rank == 0 and payload.get("out_dir"):
             path = os.path.join(payload["out_dir"], f"{name}.pt")

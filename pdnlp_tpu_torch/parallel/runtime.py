@@ -47,6 +47,13 @@ def _int_env(*names) -> Optional[int]:
     return None
 
 
+def world_size_of(args) -> int:
+    """The world size ``args`` and the environment name (:func:`rendezvous`
+    's rule), without joining anything."""
+    return args.num_processes or _int_env("NUM_PROCESSES", "WORLD_SIZE") \
+        or 1
+
+
 def rendezvous(args) -> Tuple[Optional[str], int, int, int]:
     """``(init_method, world, rank, local_rank)`` from, in order: the
     ``Args`` fields (``coordinator_address``, ``num_processes``,
@@ -59,8 +66,7 @@ def rendezvous(args) -> Tuple[Optional[str], int, int, int]:
     if not coord and os.environ.get("MASTER_ADDR"):
         coord = (f"{os.environ['MASTER_ADDR']}:"
                  f"{os.environ.get('MASTER_PORT', '29500')}")
-    world = args.num_processes or _int_env("NUM_PROCESSES", "WORLD_SIZE") \
-        or 1
+    world = world_size_of(args)
     rank = args.process_id if args.process_id is not None \
         else (_int_env("PROCESS_ID", "RANK") or 0)
     local = _int_env("LOCAL_RANK")

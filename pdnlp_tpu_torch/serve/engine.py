@@ -49,7 +49,9 @@ import torch
 
 from pdnlp_tpu_torch.data.collate import pad_ids_to_bucket
 from pdnlp_tpu_torch.data.tokenizer import WordPieceTokenizer, get_or_build_vocab
-from pdnlp_tpu_torch.models.bert import BertClassifier, quantize_linears
+from pdnlp_tpu_torch.models.bert import (
+    BertClassifier, Experts, Gate, quantize_linears,
+)
 from pdnlp_tpu_torch.models.config import args_overrides, get_config
 from pdnlp_tpu_torch.serve.metrics import ServeMetrics
 from pdnlp_tpu_torch.train import checkpoint as ckpt
@@ -135,8 +137,10 @@ class InferenceEngine:
         with CAPTURE_LOCK:
             self.model = model.to(self.device).eval()
             if self.serve_dtype != "int8":
+                # the matmul weights in the compute dtype (the MoE gate and
+                # expert stacks too): the per-use casts become no-ops
                 for m in self.model.modules():
-                    if isinstance(m, torch.nn.Linear):
+                    if isinstance(m, (torch.nn.Linear, Experts, Gate)):
                         m.to(self.dtype)
         self.checkpoint_path: Optional[str] = None
         self._seen_shapes: set = set()

@@ -15,8 +15,11 @@ transposed: the same float32 division and the same round-half-to-even
 (``torch.round`` as ``np.rint``).
 
 Scope, as in JAX: q/k/v/o, the MLP up/down, pooler and classifier — every
-``<name>.weight`` of an ``nn.Linear``.  Embeddings, LayerNorms and biases
-stay fp32.  A quantized block in a ``state_dict`` is ``<name>.weight``
+``<name>.weight`` of an ``nn.Linear`` — and the MoE expert stacks, each
+``<name>.kernel`` ``[E, in, out]`` with a ``<name>.bias`` (the JAX layout:
+the amax runs over ``in``, one scale per expert and output channel,
+:func:`quantize_kernel`).  Embeddings, LayerNorms, biases and the bias-less
+MoE gate stay fp32.  A quantized block in a ``state_dict`` is ``<name>.weight``
 (int8 ``[out, in]``), ``<name>.qscale`` (fp32 ``[out]``) and
 ``<name>.bias`` (fp32); :func:`is_quantized` recognizes a
 ``tools.quantize_ckpt`` artifact by its ``qscale`` entries, and
@@ -38,6 +41,27 @@ def dense_names(state_dict: Mapping[str, torch.Tensor]) -> Tuple[str, ...]:
     return tuple(k[: -len(".weight")] for k, v in state_dict.items()
                  if k.endswith(".weight") and v.ndim == 2
                  and k[: -len(".weight")] + ".bias" in state_dict)
+
+
+def expert_names(state_dict: Mapping[str, torch.Tensor]
+                 ) -> Tuple[str, ...]:
+    """The module names of the quantizable expert stacks: every
+    ``<name>`` with a 3-D ``<name>.kernel`` and a ``<name>.bias``."""
+    return tuple(k[: -len(".kernel")] for k, v in state_dict.items()
+                 if k.endswith(".kernel") and v.ndim == 3
+                 and k[: -len(".kernel")] + ".bias" in state_dict)
+
+
+def quantize_kernel(kernel: torch.Tensor
+                    ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """A kernel in the JAX layout ``[..., in, out]`` (an expert stack) ->
+    ``(int8, fp32 [..., out])``: JAX's ``quantize_dense`` — amax over
+    ``in`` (axis -2), the same division and rounding."""
+    w = kernel.detach().to(torch.float32)
+    amax = w.abs().amax(dim=-2)
+    scale = torch.where(amax > 0, amax / 127.0, torch.ones_like(amax))
+    q = torch.clamp(torch.round(w / scale[..., None, :]), -127, 127)
+    return q.to(torch.int8), scale
 
 
 def quantize_dense(weight: torch.Tensor
@@ -65,6 +89,13 @@ def quantize_state(state_dict: Mapping[str, torch.Tensor]
         out[f"{name}.weight"] = q
         out[f"{name}.{QSCALE}"] = s
         out[f"{name}.bias"] = state_dict[f"{name}.bias"].to(torch.float32)
+    for name in expert_names(state_dict):
+        if f"{name}.{QSCALE}" in state_dict:
+            continue
+        q, s = quantize_kernel(state_dict[f"{name}.kernel"])
+        out[f"{name}.kernel"] = q
+        out[f"{name}.{QSCALE}"] = s
+        out[f"{name}.bias"] = state_dict[f"{name}.bias"].to(torch.float32)
     return out
 
 
@@ -90,6 +121,15 @@ def quant_error_report(state_dict: Mapping[str, torch.Tensor],
         w = state_dict[f"{name}.weight"].detach().to(torch.float32)
         dq = dequantize_dense(qstate[f"{name}.weight"],
                               qstate[f"{name}.{QSCALE}"])
+        err = float((w - dq).abs().max())
+        denom = float(w.abs().max()) or 1.0
+        out[name] = (err, err / denom)
+    for name in expert_names(state_dict):
+        if f"{name}.{QSCALE}" not in qstate:
+            continue
+        w = state_dict[f"{name}.kernel"].detach().to(torch.float32)
+        dq = (qstate[f"{name}.kernel"].to(torch.float32)
+              * qstate[f"{name}.{QSCALE}"].to(torch.float32)[..., None, :])
         err = float((w - dq).abs().max())
         denom = float(w.abs().max()) or 1.0
         out[name] = (err, err / denom)

@@ -82,6 +82,13 @@ class Accelerator:
         self.mesh = make_mesh(num_devices=self.args.num_devices,
                               shape=self.args.mesh_shape,
                               device_type=self.device.type)
+        if mode not in ("dp", "zero"):
+            raise ValueError(f"the Accelerator places dp or zero, not "
+                             f"{mode!r}: use train.multi --strategy {mode}")
+        from pdnlp_tpu_torch.parallel.mesh import mesh_shape
+        from pdnlp_tpu_torch.parallel.sharding import check_mesh
+
+        check_mesh(mode, mesh_shape(self.mesh))
         self.num_devices = self.mesh.size()
         # prepare() scales loader batches by this; anything sized in steps
         # (the schedule, total_step) is counted on the prepared loaders
@@ -162,8 +169,11 @@ class Accelerator:
         from pdnlp_tpu_torch.parallel.sharding import wrap
         from pdnlp_tpu_torch.train.steps import TrainObjective
 
+        # JAX's Accelerator jits its step over the global batch: an MoE
+        # model's routing is the global batch's here too
         objective = TrainObjective(state.model, self.args, self.device,
-                                   group=self.mesh.get_group())
+                                   group=self.mesh.get_group(),
+                                   global_aux=True)
         state.objective = wrap(objective, self.mode, self.mesh, self.device)
         if self.mode == "zero":
             if state.ema is not None:

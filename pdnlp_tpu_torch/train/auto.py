@@ -7,10 +7,11 @@ cadences for eval and saves, precision, best-model tracking, the seed) and
 :class:`AutoTrainer` owns the run: the loop, an eval every ``eval_steps``,
 a ``checkpoint-<step>/model.msgpack`` per save rotated under
 ``save_total_limit``, the best model adopted at the end by
-``metric_for_best_model``, and a ``compute_metrics`` hook.  On one rank
-in mode ``dp`` it trains ``train.single``'s trainer (DDP over one rank is
-the same arithmetic); over several ranks, or in mode ``zero`` (FSDP2),
-the data-parallel runner's, where ``fuse_steps`` stays 1 (ROADMAP A7).
+``metric_for_best_model``, and a ``compute_metrics`` hook.  It trains the
+data-parallel runner's trainer (``build_parallel_trainer``): on one rank
+in mode ``dp`` that is the single-device step, with no wrapper and no
+collective; over several ranks, or in mode ``zero`` (FSDP2),
+``fuse_steps`` stays 1 (ROADMAP A7).
 
 The loop is ``Trainer.train``'s own: this class supplies the managed
 cadences as ``LoopHooks``, so ``fuse_steps`` (K steps per captured CUDA
@@ -172,9 +173,7 @@ class AutoTrainer:
     def __init__(self, targs: TrainerArgs,
                  compute_metrics: Callable[..., Dict[str, float]] = None):
         from pdnlp_tpu_torch.parallel.runtime import init_runtime
-        from pdnlp_tpu_torch.train.run import (
-            build_parallel_trainer, build_single_trainer,
-        )
+        from pdnlp_tpu_torch.train.run import build_parallel_trainer
 
         if targs.fuse_steps > 1:
             for name in ("logging_steps", "eval_steps", "save_steps"):
@@ -195,17 +194,14 @@ class AutoTrainer:
         self.args = targs.to_args()
         self.compute_metrics = compute_metrics or default_compute_metrics
         _, world = init_runtime(self.args)
-        if targs.mode == "dp" and world == 1:
-            # one rank: train.single's unwrapped trainer, the arithmetic of
-            # DDP over one rank, with a step a CUDA graph can hold
-            built = build_single_trainer(self.args)
-        elif targs.fuse_steps > 1:
+        if targs.fuse_steps > 1 and (targs.mode != "dp" or world > 1):
             raise ValueError(
                 f"fuse_steps={targs.fuse_steps} runs on one rank in mode dp: "
                 "a captured step cannot hold DDP's or FSDP2's collectives "
                 "yet (ROADMAP A7); use fuse_steps=1")
-        else:
-            built = build_parallel_trainer(self.args, mode=targs.mode)
+        # one rank in mode dp: no wrapper and no collective, a step a CUDA
+        # graph can hold
+        built = build_parallel_trainer(self.args, mode=targs.mode)
         self._trainer, self.train_loader, self.dev_loader = built
         self.state_history: List[Tuple[int, str]] = []  # (step, dir)
         if targs.resume_from_checkpoint:

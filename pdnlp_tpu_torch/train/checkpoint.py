@@ -424,9 +424,15 @@ def consolidate(model: torch.nn.Module) -> Dict[str, torch.Tensor]:
     """``model``'s full state dict.  Sharded (FSDP2) weights are gathered
     with ``get_model_state_dict(full_state_dict=True, cpu_offload=True)`` —
     a collective every rank calls, which leaves the whole dict on rank 0
-    and an empty one elsewhere; replicated weights are read as they are."""
+    and an empty one elsewhere; tp/ep slices are all-gathered over their
+    group (``parallel.sharding.gather_full``, on every rank of it);
+    replicated weights are read as they are."""
     if not is_sharded(model):
-        return {k: v.detach() for k, v in model.state_dict().items()}
+        from pdnlp_tpu_torch.parallel.sharding import gather_full
+
+        return gather_full({k: v.detach() for k, v in
+                            model.state_dict().items()},
+                           getattr(model, "shards", None))
     from torch.distributed.checkpoint.state_dict import (
         StateDictOptions, get_model_state_dict,
     )

@@ -1,7 +1,9 @@
-"""Data-parallel training — the twins of ``multi-tpu-jax-cls.py`` (DDP),
+"""Multi-rank training — the twins of ``multi-tpu-jax-cls.py`` (DDP),
 ``multi-tpu-dataparallel-cls.py`` (``nn.DataParallel``),
 ``multi-tpu-zero-cls.py`` (DeepSpeed ZeRO-3), ``multi-tpu-shardmap-cls.py``
-(Horovod) and ``multi-tpu-amp-cls.py`` (DDP + AMP), one process per rank:
+(Horovod), ``multi-tpu-amp-cls.py`` (DDP + AMP), ``multi-tpu-tp-cls.py``
+(tensor parallelism) and ``multi-tpu-moe-cls.py`` (an MoE model under
+expert parallelism), one process per rank:
 
     torchrun --nproc_per_node 2 -m pdnlp_tpu_torch.train.multi --strategy dp
     COORDINATOR_ADDRESS=host0:29500 NUM_PROCESSES=2 PROCESS_ID=$RANK \\
@@ -15,7 +17,13 @@
   the ranks (288 steps at any width);
 - ``zero``: FSDP2 with ``--remat true``;
 - ``shardmap``: the hand-written bf16 gradient all-reduce;
-- ``amp``: DDP with ``--dtype bfloat16`` (bf16 needs no loss scaler).
+- ``amp``: DDP with ``--dtype bfloat16`` (bf16 needs no loss scaler);
+- ``tp``: heads and MLP features split over a ``model`` axis, default
+  mesh ``{"data": 1, "model": world}``;
+- ``ep``: ``bert-base-moe`` with its experts split over an ``expert``
+  axis; the default mesh gives the axis the largest degree that divides
+  both the world and the expert count, and the rest of the ranks to
+  ``data`` (one card: ``{"data": 1, "expert": 1}``).
 
 Explicit flags override those defaults (``--remat false``, ``--dtype``,
 ``--mode zero``); ``--init_from`` / ``--init_head`` warm-start the model
@@ -31,6 +39,7 @@ from __future__ import annotations
 import sys
 
 from pdnlp_tpu_torch.parallel.execution import check_zero
+from pdnlp_tpu_torch.parallel.runtime import world_size_of
 from pdnlp_tpu_torch.parallel.sharding import check_mode
 from pdnlp_tpu_torch.train.single import NOT_PORTED, refuse_not_ported
 
@@ -41,6 +50,8 @@ STRATEGIES = {
     "zero": ({"mode": "zero", "remat": True}, {}),
     "shardmap": ({"mode": "dp"}, {"explicit_collectives": True}),
     "amp": ({"mode": "dp", "dtype": "bfloat16"}, {}),
+    "tp": ({"mode": "tp"}, {}),
+    "ep": ({"mode": "ep", "model": "bert-base-moe"}, {}),
 }
 
 #: what this entry point refuses by name: the single-device table (less
@@ -53,10 +64,28 @@ MULTI_NOT_PORTED = {
                      "collectives (ROADMAP A7)"),
     "--offload_opt_state": ("false", "Adam moments in host memory, FSDP2's "
                             "CPUOffloadPolicy (ROADMAP A7)"),
-    "--elastic": (None, "elastic restart (ROADMAP A11)"),
-    "--heartbeat_interval": (None, "heartbeats (ROADMAP A11)"),
-    "--stall_timeout": (None, "the gang supervisor (ROADMAP A11)"),
+    "--elastic": (None, "elastic restart (ROADMAP A11b)"),
+    "--heartbeat_interval": (None, "heartbeats (ROADMAP A11b)"),
+    "--stall_timeout": (None, "the gang supervisor (ROADMAP A11b)"),
 }
+
+
+def default_mesh(args, world: int):
+    """The mesh a strategy takes when ``--mesh_shape`` is not given, as the
+    JAX scripts choose it: ``tp`` ``{"data": 1, "model": world}``
+    (``multi-tpu-tp-cls.py:29-31``); ``ep`` the largest expert degree
+    ``d <= min(world, experts)`` dividing both, the rest to ``data``
+    (``multi-tpu-moe-cls.py:30-42``); else None (one data axis)."""
+    from pdnlp_tpu_torch.models.config import args_overrides, get_config
+
+    if args.mode == "tp":
+        return {"data": 1, "model": world}
+    if args.mode == "ep":
+        experts = get_config(args.model, **args_overrides(args)).moe_experts
+        e = next((d for d in range(min(world, experts), 0, -1)
+                  if experts % d == 0 and world % d == 0), 1)
+        return {"data": world // e, "expert": e}
+    return None
 
 
 def parse(argv, prog: str = "train.multi"):
@@ -74,6 +103,18 @@ def parse(argv, prog: str = "train.multi"):
     try:
         check_mode(args.mode)
         check_zero(args, args.mode)
+        if args.mesh_shape is None:
+            args = args.replace(mesh_shape=default_mesh(
+                args, world_size_of(args)))
+        # the axes and degrees the mode needs (their sizes against the
+        # world are checked when the mesh is made)
+        from pdnlp_tpu_torch.models.config import args_overrides, get_config
+        from pdnlp_tpu_torch.parallel.sharding import check_mesh, check_model
+
+        dims = args.mesh_shape or {"data": -1}
+        check_mesh(args.mode, dims)
+        check_model(get_config(args.model, **args_overrides(args)),
+                    args.mode, dims, args.model)
     except ValueError as e:
         raise SystemExit(f"{prog}: {e}") from None
     return args, {"mode": args.mode, **knobs}

@@ -35,8 +35,11 @@ to JAX's statistics and invariants, and the loss to JAX's on JAX's mask.
 Training attention with dropout (``--attn_dropout`` above 0, the default
 0.1) takes the plain path, as in the JAX package; at 0 the kernels run.
 The step runs eagerly, one process on one device (JAX's data-parallel
-mesh over one device is the same arithmetic).  JAX's dense-to-MoE
-``upcycle_layers`` waits for MoE (ROADMAP A11).
+mesh over one device is the same arithmetic).  An MoE model's objective
+adds ``moe_aux_coef`` times the load-balancing aux (JAX ``:128``); the
+logged loss stays the bare CE.  A dense artifact loaded into an MoE model
+is *upcycled* (:func:`upcycle_layers`): every expert starts as the dense
+MLP plus seeded noise, the gate fresh — JAX's numbers bit for bit.
 
     python -m pdnlp_tpu_torch.train.pretrain --data_path data/train.json \\
         [--attn_dropout 0] [--sft_epochs 5] [--init_from <artifact>] \\
@@ -134,23 +137,26 @@ def mlm_loss(model: BertClassifier, segment_ids: torch.Tensor,
              masked: Masked, *, dtype: torch.dtype, attn_impl: str = "auto",
              generator: Optional[torch.Generator] = None,
              remat: bool = False):
-    """``(loss, correct, weight)`` of the masked LM on packed rows: the
-    encoder on the corrupted ids (token types 0, the segment mask, dropout
-    with a ``generator``), the tied-decoder head (``model.mlm``), then the
-    CE over the masked positions divided by ``max(sum(w), 1)``; ``correct``
-    counts the masked positions whose argmax is the label."""
+    """``(loss, correct, weight, aux)`` of the masked LM on packed rows:
+    the encoder on the corrupted ids (token types 0, the segment mask,
+    dropout with a ``generator``), the tied-decoder head (``model.mlm``),
+    then the CE over the masked positions divided by ``max(sum(w), 1)``;
+    ``correct`` counts the masked positions whose argmax is the label;
+    ``aux`` is the MoE load-balancing loss over the layers (0 for a dense
+    model)."""
     ids, labels, w = masked
-    hidden = model.encode(ids, torch.zeros_like(ids),
-                          (segment_ids > 0).to(torch.int32), dtype=dtype,
-                          attn_impl=attn_impl, segment_ids=segment_ids,
-                          generator=generator, remat=remat)
+    hidden, aux = model.encode(ids, torch.zeros_like(ids),
+                               (segment_ids > 0).to(torch.int32),
+                               dtype=dtype, attn_impl=attn_impl,
+                               segment_ids=segment_ids, generator=generator,
+                               remat=remat, with_aux=True)
     logits = mlm_logits(model, model.mlm, hidden, dtype=dtype)
     logp = torch.log_softmax(logits, -1)
     ce = -logp.gather(-1, labels.long()[..., None])[..., 0]
     wsum = w.sum().clamp_min(1.0)
     loss = (ce * w).sum() / wsum
     correct = ((logits.argmax(-1) == labels.long()) * w).sum()
-    return loss, correct, wsum
+    return loss, correct, wsum, aux
 
 
 def mlm_update(state: TrainState, batch: Dict[str, torch.Tensor],
@@ -158,12 +164,16 @@ def mlm_update(state: TrainState, batch: Dict[str, torch.Tensor],
     """One pretraining update on ``masked`` (the draw of
     :func:`mask_tokens`): :func:`mlm_loss`, backward, AdamW, the schedule.
     Returns the bare CE and ``mask_acc`` as device scalars."""
-    loss, correct, wsum = mlm_loss(
+    loss, correct, wsum, aux = mlm_loss(
         state.model, batch["segment_ids"], masked,
         dtype=resolve_dtype(args.dtype), attn_impl=args.attention_impl,
         generator=state.generator, remat=bool(args.remat))
+    objective = loss
+    if state.model.cfg.moe_experts:
+        # the aux joins the optimized objective only (JAX :128)
+        objective = loss + state.model.cfg.moe_aux_coef * aux
     state.optimizer.zero_grad(set_to_none=True)
-    loss.backward()
+    objective.backward()
     state.optimizer.step()
     if state.scheduler is not None:
         state.scheduler.step()
@@ -393,13 +403,78 @@ def _artifact_trees(path: str):
     return trees, "mlm" in trees
 
 
+#: the MLP trees an upcycle builds, in the order JAX draws their noise
+#: (its layer trees iterate in sorted key order, as jit leaves a dict)
+UPCYCLED = ("down", "up")
+
+
+def _num_layers(sd: Dict[str, torch.Tensor]) -> int:
+    return 1 + max(int(k.split(".")[1]) for k in sd
+                   if k.startswith("layers."))
+
+
+def upcycle_layers(dense: Dict[str, torch.Tensor],
+                   template: Dict[str, torch.Tensor],
+                   noise_scale: float = 0.01, seed: int = 0
+                   ) -> Dict[str, torch.Tensor]:
+    """Dense -> MoE *sparse upcycling* (JAX ``upcycle_layers``): the
+    ``layers.*`` entries of an MoE model whose every expert starts as the
+    pretrained dense MLP.
+
+    ``dense`` holds a dense trunk's ``layers.*`` entries, ``template`` the
+    MoE model's.  Each expert kernel of ``up`` and ``down`` is the dense
+    kernel (JAX layout ``[in, out]``) plus noise from one
+    ``np.random.RandomState(seed)`` — ``noise_scale`` times the stacked
+    dense kernel's std, drawn ``[L, E, in, out]`` at once, ``down`` before
+    ``up`` — so the experts equal JAX's bit for bit; the biases copy to
+    every expert; the gate keeps the template's fresh values; every other
+    entry must match the template's shape and copies through."""
+    L = _num_layers(template)
+    rs = np.random.RandomState(seed)
+    out: Dict[str, torch.Tensor] = {}
+    for sub in UPCYCLED:
+        dk = np.stack([dense[f"layers.{i}.{sub}.weight"].numpy().T
+                       for i in range(L)])                   # [L, in, out]
+        db = np.stack([dense[f"layers.{i}.{sub}.bias"].numpy()
+                       for i in range(L)])                   # [L, out]
+        want = (L,) + tuple(template[f"layers.0.{sub}.kernel"].shape)
+        E = want[1]
+        if want != (dk.shape[0], E) + dk.shape[1:]:
+            raise ValueError(
+                f"cannot upcycle {sub!r}: dense kernel {dk.shape} does "
+                f"not broadcast to expert shape {want}")
+        kernels = np.broadcast_to(dk[:, None], want).copy()
+        kernels += rs.normal(0.0, noise_scale * max(float(dk.std()), 1e-8),
+                             kernels.shape).astype(kernels.dtype)
+        for i in range(L):
+            out[f"layers.{i}.{sub}.kernel"] = torch.from_numpy(
+                np.ascontiguousarray(kernels[i], np.float32))
+            out[f"layers.{i}.{sub}.bias"] = torch.from_numpy(
+                np.broadcast_to(db[i], (E, db.shape[1])).astype(np.float32))
+    for k, v in template.items():
+        if k in out or not k.startswith("layers."):
+            continue
+        if k.split(".")[2] == "gate":
+            out[k] = v                                       # fresh router
+            continue
+        if k not in dense or tuple(dense[k].shape) != tuple(v.shape):
+            raise ValueError(
+                f"cannot upcycle: {k!r} differs "
+                f"({tuple(dense[k].shape) if k in dense else None} vs "
+                f"{tuple(v.shape)})")
+        out[k] = dense[k]
+    return out
+
+
 def load_encoder(path: str, template: Dict[str, torch.Tensor],
                  head: bool = False) -> Dict[str, torch.Tensor]:
     """``template`` (a fine-tune model's ``state_dict``) with the encoder
     (``embeddings.*``, ``layers.*``) of the file at ``path`` — and with
     ``head=True`` its pooler and classifier, which only a supervised-stage
     file has trained.  Everything else keeps the template's values (a fresh
-    head on a pretrained trunk).  Raises ``ValueError`` for ``head=True`` on
+    head on a pretrained trunk).  A dense file loaded into an MoE template
+    (a gate in the template, none in the file) upcycles its layers
+    (:func:`upcycle_layers`).  Raises ``ValueError`` for ``head=True`` on
     an MLM artifact, for a missing tree and for shapes that differ."""
     trees, has_mlm = _artifact_trees(path)
     if head and has_mlm:
@@ -416,6 +491,16 @@ def load_encoder(path: str, template: Dict[str, torch.Tensor],
                 + ("not a supervised-pretrain checkpoint? (--init_head needs "
                    "one; MLM checkpoints carry no classifier)" if head else
                    "not a pretrain checkpoint?"))
+        gated = "layers.0.gate.kernel" in template
+        if key == "layers" and gated and \
+                "layers.0.gate.kernel" not in trees[key]:
+            tmpl = {k: v for k, v in template.items()
+                    if k.startswith("layers.")}
+            out.update(upcycle_layers(trees[key], tmpl))
+            rank0_print(f"upcycled dense MLPs from {path} into "
+                        f"{tmpl['layers.0.up.kernel'].shape[0]} experts "
+                        "(fresh gate, seeded symmetry-breaking noise)")
+            continue
         got = {k: tuple(v.shape) for k, v in trees[key].items()}
         want = {k: tuple(v.shape) for k, v in template.items()
                 if k.split(".")[0] == key}

@@ -1,10 +1,13 @@
-"""One shared parallel runner behind the data-parallel entry points — the
+"""One shared parallel runner behind the multi-rank entry points — the
 twin of ``pdnlp_tpu/train/run.py``.
 
 The experiment is assembled once and the strategy is three knobs:
 
-- ``mode``: ``"dp"`` (replicated state: DDP) or ``"zero"`` (every weight
-  and moment sharded: FSDP2, DeepSpeed ZeRO-3's analog);
+- ``mode``: ``"dp"`` (replicated state: DDP), ``"zero"`` (every weight
+  and moment sharded: FSDP2, DeepSpeed ZeRO-3's analog), ``"tp"`` (heads
+  and MLP features split over the ``model`` axis) or ``"ep"`` (an MoE
+  model's experts split over the ``expert`` axis); every rank of one
+  model or expert group feeds the same rows;
 - ``explicit_collectives``: no wrapper; the step all-reduces the
   gradients itself, in bf16 on the wire (Horovod's analog);
 - ``scale_batch``: ``True`` gives every rank ``train_batch_size`` rows, so
@@ -26,7 +29,9 @@ from pdnlp_tpu_torch.parallel.execution import (
     make_parallel_eval_step, make_parallel_train_step,
     make_shardmap_train_step, setup_sharded_model,
 )
-from pdnlp_tpu_torch.parallel.mesh import local_data_extent, make_mesh
+from pdnlp_tpu_torch.parallel.mesh import (
+    local_data_extent, make_mesh, mesh_shape,
+)
 from pdnlp_tpu_torch.parallel.runtime import init_runtime
 from pdnlp_tpu_torch.train.setup import setup_data
 from pdnlp_tpu_torch.train.trainer import Trainer
@@ -66,14 +71,14 @@ def build_parallel_trainer(args, *, mode: str = "dp",
     if explicit_collectives:
         train_step = make_shardmap_train_step(args, mesh, device)
     else:
-        train_step = make_parallel_train_step(args, mesh, device)
+        train_step = make_parallel_train_step(args, mesh, device, mode)
     pipeline = setup_pipeline(args, train_loader, device)
     trainer = Trainer(args, cfg, state, train_step,
                       make_parallel_eval_step(args, state), device,
                       pipeline=pipeline)
     global_batch = args.train_batch_size * (num_shards if scale_batch else 1)
     rank0_print(
-        f"mesh: {{'data': {num_shards}}}  process {rank}/{world}  mode: "
+        f"mesh: {mesh_shape(mesh)}  process {rank}/{world}  mode: "
         f"{mode}{' +explicit collectives' if explicit_collectives else ''}"
         f"  backend: {torch.distributed.get_backend()}  device: "
         f"{device.type}  model: {args.model}  dtype: {args.dtype}  global "

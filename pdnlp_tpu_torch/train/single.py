@@ -43,8 +43,8 @@ import sys
 #: JAX training flags whose paths the port does not have yet -> where
 #: ROADMAP queues them; a value in the tuple is the one setting allowed
 NOT_PORTED = {
-    "--elastic": (None, "elastic restart (ROADMAP A11)"),
-    "--heartbeat_interval": (None, "heartbeats (ROADMAP A11)"),
+    "--elastic": (None, "elastic restart (ROADMAP A11b)"),
+    "--heartbeat_interval": (None, "heartbeats (ROADMAP A11b)"),
 }
 
 

@@ -5,6 +5,7 @@ rendezvous over TCP on localhost and run ``train.multi``'s strategy.
     python -m pdnlp_tpu_torch.train.spawn --strategy dp --num_processes 2
     python -m pdnlp_tpu_torch.train.spawn --device cpu --num_processes 2 \\
         --strategy zero --model bert-tiny
+    python -m pdnlp_tpu_torch.train.spawn --strategy tp|ep --num_processes 2
 
 The parent is only a process manager: each worker is this module again
 with ``COORDINATOR_ADDRESS``, ``NUM_PROCESSES``, ``PROCESS_ID`` and
@@ -13,7 +14,7 @@ When a worker fails, the parent stops the whole gang and exits with its
 code: a rank whose peer died would otherwise wait in a collective.
 On one card, two workers share it over ``--dist_backend gloo`` (NCCL
 refuses a second rank on a card).  ``--elastic`` and the heartbeat flags
-(the gang supervisor) are refused: ROADMAP A11.
+(the gang supervisor) are refused: ROADMAP A11b.
 """
 from __future__ import annotations
 

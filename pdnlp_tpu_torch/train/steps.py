@@ -9,6 +9,9 @@ forward, so their gradients land in fp32 (JAX's ``grads_dtype="param"``);
 ``"compute"`` casts the matmul weights to bf16 outside autograd, so their
 gradients are produced in bf16 (``steps.py:164-190`` of the JAX package).
 
+An MoE model's objective adds ``moe_aux_coef`` times the load-balancing
+aux loss (JAX ``steps.py:132-161``); the reported loss stays the bare CE.
+
 Loss semantics: per-example cross-entropy weighted by ``example_weight``,
 so the filler rows of the last batch contribute nothing.  Packed rows give
 per-segment outputs ``[B, M, ·]`` with ``[B, M]`` labels and weights; both
@@ -57,6 +60,10 @@ class TrainState:
     #: the module the step calls: a :class:`TrainObjective` over ``model``,
     #: wrapped in DDP or FSDP2 under data parallelism
     objective: Optional[torch.nn.Module] = None
+    #: the data axis's process group (None: the default group), over which
+    #: eval sums and gathers — under tp/ep the ranks of a model group hold
+    #: the same outputs
+    group: Optional[object] = None
 
     def eval_params(self) -> Dict[str, torch.Tensor]:
         """The weights eval and checkpoints use: the EMA when kept, else
@@ -120,11 +127,20 @@ class TrainObjective(torch.nn.Module):
     ranks is the global loss, and ``weight`` is ``gw``
     (``collectives.weighted_shard_scale``).
 
+    An MoE model adds ``moe_aux_coef * aux`` to the objective.  With
+    ``global_aux`` (the jit strategies' twin) the layers take ``group`` as
+    their data group: the aux sums the routing statistics over it, so it
+    is the global batch's, and the grouped dispatch's capacity is the
+    global batch's, as in JAX's jitted step; the term is scaled by
+    ``world`` (the wrappers average).  Otherwise (the explicit-collectives
+    step, as JAX's shard_map step) each rank routes its own rows, and its
+    aux joins its objective before the ``world * lw / gw`` scale.
+
     ``forward(batch)`` without a generator is the deterministic eval
     forward: fp32 logits, through the same wrapper."""
 
     def __init__(self, model: BertClassifier, args, device,
-                 group=None):
+                 group=None, global_aux: bool = False):
         super().__init__()
         self.model = model
         self.dtype = resolve_dtype(args.dtype)
@@ -133,6 +149,12 @@ class TrainObjective(torch.nn.Module):
         self.fused = resolve_fused_ce(args.fused_ce, device) == "pallas"
         self.remat = bool(getattr(args, "remat", False))
         self.group = group
+        self.aux_coef = model.cfg.moe_aux_coef if model.cfg.moe_experts \
+            else None
+        self.global_aux = global_aux and group is not None
+        if self.aux_coef is not None and self.global_aux:
+            for layer in model.layers:
+                layer.data_group = group
 
     def forward(self, batch: Batch,
                 generator: Optional[torch.Generator] = None):
@@ -140,10 +162,11 @@ class TrainObjective(torch.nn.Module):
         if generator is None:
             return model.classify(batch, dtype=self.dtype,
                                   attn_impl=self.attn_impl)
-        out = model.classify(batch, dtype=self.dtype,
-                             attn_impl=self.attn_impl, deterministic=False,
-                             generator=generator, return_pooled=self.fused,
-                             remat=self.remat)
+        out, aux = model.classify(batch, dtype=self.dtype,
+                                  attn_impl=self.attn_impl,
+                                  deterministic=False, generator=generator,
+                                  return_pooled=self.fused, remat=self.remat,
+                                  return_aux=True)
         out, labels, weights = flat_examples(out, batch["label"],
                                              batch["example_weight"])
         if self.fused:
@@ -157,6 +180,8 @@ class TrainObjective(torch.nn.Module):
             loss, correct, objective = weighted_ce(out, labels, weights,
                                                    smoothing=self.smoothing)
         weight = weights.sum().detach()
+        if self.aux_coef is not None and not self.global_aux:
+            objective = objective + self.aux_coef * aux
         if self.group is not None:
             from pdnlp_tpu_torch.parallel.collectives import (
                 weighted_shard_scale,
@@ -166,6 +191,8 @@ class TrainObjective(torch.nn.Module):
             world = torch.distributed.get_world_size(self.group)
             objective = objective * (world * share)
             loss = loss * share
+            if self.aux_coef is not None and self.global_aux:
+                objective = objective + (world * self.aux_coef) * aux
         return loss, correct, objective, weight
 
 
@@ -180,10 +207,13 @@ def compute_grads(args) -> bool:
 
 
 def matmul_weights(model: torch.nn.Module) -> List[str]:
-    """The weights every matmul casts per use — each ``nn.Linear``'s
-    (JAX's ``cast_kernels``: every ``kernel`` leaf of 2 or more dims)."""
+    """The weights every matmul casts per use — each ``nn.Linear``'s, and
+    each MoE gate's and expert stack's ``kernel`` (JAX's ``cast_kernels``:
+    every ``kernel`` leaf of 2 or more dims)."""
     return [f"{name}.weight" for name, m in model.named_modules()
-            if isinstance(m, torch.nn.Linear)]
+            if isinstance(m, torch.nn.Linear)] + [
+        name for name, p in model.named_parameters()
+        if name.endswith(".kernel") and p.dim() >= 2]
 
 
 def ema_coefficients(decay: float):

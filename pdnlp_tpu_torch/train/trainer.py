@@ -473,12 +473,19 @@ class Trainer:
             rank0_print(fmt_train(epoch, self.args.epochs, step, total, loss))
 
     def _global_count(self, n: int) -> int:
-        """``n`` summed over the ranks (``n`` without a process group)."""
-        if collectives.world_size() == 1:
+        """``n`` summed over the data axis's ranks (``n`` without a
+        process group)."""
+        group = self.state.group
+        if collectives.world_size(group) == 1:
             return n
         t = torch.tensor([n], dtype=torch.float64, device=self.device)
-        torch.distributed.all_reduce(t)
+        torch.distributed.all_reduce(t, group=group)
         return int(t.item())
+
+    @property
+    def _shards(self):
+        """The model's tp/ep slicing (None when it is whole)."""
+        return getattr(self.state.model, "shards", None)
 
     def _dev_and_maybe_save(self, dev_loader) -> None:
         """Eval; keep a copy of the best weights on the card (one write
@@ -499,7 +506,10 @@ class Trainer:
     def _save(self, path: str) -> None:
         """Write the eval weights (the EMA when kept): sharded weights are
         consolidated first, by every rank; rank 0 writes."""
-        params = self.state.ema if self.state.ema is not None \
+        from pdnlp_tpu_torch.parallel.sharding import gather_full
+
+        params = gather_full(self.state.ema, self._shards) \
+            if self.state.ema is not None \
             else ckpt.consolidate(self.state.model)
         if is_rank0():
             ckpt.save_params(path, params, model_name=self.args.model,
@@ -536,23 +546,39 @@ class Trainer:
                 st.model, st.optimizer, options=StateDictOptions(
                     full_state_dict=True, cpu_offload=True))
         else:
+            from pdnlp_tpu_torch.parallel.sharding import (
+                gather_full, map_optimizer_state,
+            )
+
             optim = st.optimizer.state_dict()
+            if self._shards is not None:
+                optim = map_optimizer_state(
+                    optim, st.optimizer, st.model,
+                    lambda n, t: gather_full({n: t}, self._shards)[n])
         gens = [st.generator.get_state()]
         if collectives.world_size() > 1:
             gens = [None] * collectives.world_size()
             torch.distributed.all_gather_object(gens,
                                                 st.generator.get_state())
+        from pdnlp_tpu_torch.parallel.sharding import gather_full
+
         return _host_copy({
             "model": ckpt.consolidate(st.model), "optimizer": optim,
             "scheduler": (st.scheduler.state_dict()
                           if st.scheduler is not None else None),
-            "generators": gens, "ema": st.ema, "step": int(st.step)})
+            "generators": gens,
+            "ema": None if st.ema is None else gather_full(st.ema,
+                                                           self._shards),
+            "step": int(st.step)})
 
     def _best_payload(self, path: str):
         """The best weights' file for ``path`` (sharded weights gathered:
         a collective every rank calls)."""
-        full = {k: v.full_tensor() if hasattr(v, "full_tensor") else v
-                for k, v in self._best_params.items()}
+        from pdnlp_tpu_torch.parallel.sharding import gather_full
+
+        full = gather_full(
+            {k: v.full_tensor() if hasattr(v, "full_tensor") else v
+             for k, v in self._best_params.items()}, self._shards)
         return ckpt.params_payload(path, full,
                                    model_name=self.args.model,
                                    vocab_size=self.cfg.vocab_size)
@@ -605,9 +631,19 @@ class Trainer:
             set_optimizer_state_dict(st.model, st.optimizer,
                                      raw["optimizer"], options=opts)
         else:
+            from pdnlp_tpu_torch.parallel.sharding import (
+                local_slice, map_optimizer_state,
+            )
+
+            optim = raw["optimizer"]
+            if self._shards is not None:
+                optim = map_optimizer_state(
+                    optim, st.optimizer, st.model,
+                    lambda n, t: local_slice({n: t}, self._shards)[n])
             with torch.no_grad():
-                st.model.load_state_dict(raw["model"])
-            _load_optimizer(st.optimizer, raw["optimizer"])
+                st.model.load_state_dict(local_slice(raw["model"],
+                                                     self._shards))
+            _load_optimizer(st.optimizer, optim)
         if st.scheduler is not None:
             st.scheduler.load_state_dict(raw["scheduler"])
         gens = raw["generators"]
@@ -620,9 +656,12 @@ class Trainer:
                 "elastic-width resume is ROADMAP A11")
         st.generator.set_state(gens[rank])
         if st.ema is not None:
+            from pdnlp_tpu_torch.parallel.sharding import local_slice
+
+            ema = local_slice(raw["ema"], self._shards)
             with torch.no_grad():
                 for k, v in st.ema.items():
-                    v.copy_(raw["ema"][k])
+                    v.copy_(ema[k])
         st.step = int(raw["step"])
         st.optimizer.zero_grad(set_to_none=True)
         if self.multi_step is not None:
@@ -630,9 +669,15 @@ class Trainer:
         self._restored_meta = meta
         if os.path.exists(path + "-best"):
             # a bad sidecar must not fail the restore of the main state
+            from pdnlp_tpu_torch.parallel.sharding import (
+                full_template, local_slice,
+            )
+
             try:
-                best = ckpt.load_params(path + "-best",
-                                        st.model.state_dict())
+                best = local_slice(ckpt.load_params(
+                    path + "-best",
+                    full_template(st.model.state_dict(), self._shards)),
+                    self._shards)
                 with open(path + "-best.json") as f:
                     acc = json.load(f)["best_accuracy"]
             except (ckpt.CorruptCheckpointError, OSError, ValueError,
@@ -677,13 +722,14 @@ class Trainer:
         if collect_preds and pending:
             arrays = [torch.cat([m[k] for m in pending])
                       for k in ("pred", "label", "ew")]
-        if collectives.world_size() > 1:
+        group = self.state.group
+        if collectives.world_size(group) > 1:
             sums = torch.tensor([loss_sum, weight, correct],
                                 dtype=torch.float64, device=self.device)
-            torch.distributed.all_reduce(sums)
+            torch.distributed.all_reduce(sums, group=group)
             loss_sum, weight, correct = sums.tolist()
             if arrays is not None:
-                arrays = collectives.output_reduce(*arrays)
+                arrays = collectives.output_reduce(*arrays, group=group)
         y_true, y_pred = [], []
         if arrays is not None:
             pred, label, ew = (a.cpu().numpy() for a in arrays)

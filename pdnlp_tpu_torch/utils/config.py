@@ -39,6 +39,13 @@ class Args:
     gelu: Optional[str] = None                    # erf|tanh (None = config's
                                                   # erf; models.config.
                                                   # args_overrides)
+    moe_dispatch: Optional[str] = None            # grouped|dense (None =
+                                                  # model-config default;
+                                                  # models/config.py)
+    moe_capacity_factor: Optional[float] = None   # grouped-dispatch slots
+                                                  # per expert multiplier
+    moe_top_k: Optional[int] = None               # experts combined/token
+    moe_experts: Optional[int] = None             # expert count override
 
     # --- pretraining and warm starts (train.pretrain) ---
     init_from: Optional[str] = None               # pretrain artifact: the
@@ -80,11 +87,15 @@ class Args:
     ckpt_name: Optional[str] = None               # default "<strategy>-cls.pt"
     strategy: str = "single"                      # single | dp | dataparallel
                                                   # | zero | shardmap | amp
+                                                  # | tp | ep
                                                   # (train.multi's table)
     mode: str = "dp"                              # dp (replicated, DDP) |
-                                                  # zero (FSDP2, ZeRO-3);
-                                                  # tp/ep/pp/sp are refused
-                                                  # (ROADMAP A11)
+                                                  # zero (FSDP2, ZeRO-3) |
+                                                  # tp (heads and MLP
+                                                  # features over "model") |
+                                                  # ep (experts over
+                                                  # "expert"); pp/sp are
+                                                  # refused (ROADMAP A11b)
     remat: bool = False                           # recompute each layer in
                                                   # the backward (zero's
                                                   # default)
@@ -92,8 +103,11 @@ class Args:
     # --- data parallelism (parallel/) ---
     num_devices: Optional[int] = None             # ranks in the mesh (None =
                                                   # the world size)
-    mesh_shape: Optional[dict] = None             # JSON axis -> size; only
-                                                  # "data" (-1 infers it)
+    mesh_shape: Optional[dict] = None             # JSON axis -> size (-1
+                                                  # infers one): "data",
+                                                  # with "model" (tp) or
+                                                  # "expert" (ep), e.g.
+                                                  # {"data": 2, "model": 2}
     coordinator_address: Optional[str] = None     # host:port of rank 0
     num_processes: Optional[int] = None           # world size
     process_id: Optional[int] = None              # this process's rank

@@ -4,8 +4,9 @@ PyTorch twins, their occupancy and tensor-core instructions, the serving
 engine with the kernel against the plain path, the decode engines'
 captured programs (speculation's verify and the handoff's export and
 import included) against their eager runs, and the multi-model fleet's
-captured engines under shadowing and a canary rollback, on an NVIDIA
-card.
+captured engines under shadowing and a canary rollback, and the MoE step
+(captured against eager, the kernel route against the plain one), on an
+NVIDIA card.
 
 Whether a card is present is decided inside the ``cuda_device`` fixture,
 so every worker collects the same tests; without a card each one skips.
@@ -797,9 +798,10 @@ def _fused_vs_eager(device, dropout, **kw):
     from pdnlp_tpu_torch.train.steps import build_multi_step, build_train_step
     from pdnlp_tpu_torch.utils.config import Args
 
-    args = Args(model="bert-tiny", device="cuda", dropout=dropout,
-                attn_dropout=0.0, fuse_steps=4, ema_decay=0.9,
-                lr_schedule="warmup_linear", learning_rate=1e-3, **kw)
+    args = Args(**{"model": "bert-tiny", "device": "cuda",
+                   "dropout": dropout, "attn_dropout": 0.0, "fuse_steps": 4,
+                   "ema_decay": 0.9, "lr_schedule": "warmup_linear",
+                   "learning_rate": 1e-3, **kw})
     batches = _tiny_batches(6)
     _, se = setup_model(args, 120, total_steps=6)
     step = build_train_step(args, device)
@@ -828,6 +830,51 @@ def test_captured_steps_equal_eager_bit_for_bit(cuda_device, dropout):
     assert all(torch.equal(se.ema[k], sf.ema[k]) for k in pe)
     assert torch.equal(se.generator.get_state(), sf.generator.get_state())
     assert len(multi.graphs) == 1 and sf.step == se.step == 6
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_moe_captured_steps_equal_eager_bit_for_bit(cuda_device, dtype):
+    """bert-tiny-moe (grouped dispatch at capacity factor 1.25: static
+    shapes, an atomic-free dispatch and combine): a captured group of four
+    and two eager steps against six eager steps, bit for bit, with K1-K5
+    in the graph."""
+    se, sf, eager, fused, multi = _fused_vs_eager(
+        cuda_device, 0.1, model="bert-tiny-moe", dtype=dtype)
+    assert torch.equal(eager, fused)
+    pe, pf = se.model.state_dict(), sf.model.state_dict()
+    assert all(torch.equal(pe[k], pf[k]) for k in pe)
+    assert len(multi.graphs) == 1
+    g = next(iter(multi.graphs.values()))
+    assert g.launches["flash_fwd"] == 4 * 2 and g.launches[
+        "fused_ce_bwd"] == 4
+
+
+def test_moe_step_kernel_route_matches_plain(cuda_device):
+    """One fp32 step of bert-tiny-moe from the same seeded weights on the
+    kernel route (K1-K5) and the plain route: the loss within 1e-5 and
+    every gradient within 5e-5 of its leaf's largest."""
+    from pdnlp_tpu_torch.data.pipeline import to_device
+    from pdnlp_tpu_torch.train.setup import setup_model
+    from pdnlp_tpu_torch.train.steps import build_train_step
+    from pdnlp_tpu_torch.utils.config import Args
+
+    batch = to_device(_tiny_batches(1, B=16, S=128)[0], cuda_device)
+    out = {}
+    for route in ("auto", "xla"):
+        args = Args(model="bert-tiny-moe", device="cuda", dropout=0.0,
+                    attn_dropout=0.0, attention_impl=route, fused_ce=route)
+        _, st = setup_model(args, 120)
+        flash.reset_launch_count()
+        m = build_train_step(args, cuda_device)(st, batch)
+        out[route] = (float(m["loss"]), flash.launch_counts()["flash_fwd"],
+                      {n: p.grad for n, p in st.model.named_parameters()})
+    (lk, nk, gk), (lp, np_, gp) = out["auto"], out["xla"]
+    assert nk == 2 and np_ == 0
+    assert abs(lk - lp) <= 1e-5
+    top = max(float(g.abs().max()) for g in gp.values())
+    for n in gp:
+        scale = max(float(gp[n].abs().max()), 1e-3 * top)
+        assert float((gk[n] - gp[n]).abs().max()) <= 5e-5 * scale, n
 
 
 def test_replayed_launches_are_counted(cuda_device):

@@ -76,7 +76,11 @@ def test_no_module_imports_jax_or_the_jax_package():
             "pdnlp_tpu_torch/serve/kvpage.py",
             "pdnlp_tpu_torch/train/pretrain.py",
             "pdnlp_tpu_torch/train/auto.py",
-            "pdnlp_tpu_torch/train/accel.py"} <= rel
+            "pdnlp_tpu_torch/train/accel.py",
+            "pdnlp_tpu_torch/models/bert.py",
+            "pdnlp_tpu_torch/models/convert.py",
+            "pdnlp_tpu_torch/models/config.py",
+            "pdnlp_tpu_torch/utils/config.py"} <= rel
     bad = {f"{p.relative_to(REPO)}: {root}" for p in paths
            for root in _imported_roots(p) if root in FORBIDDEN}
     assert not bad, sorted(bad)
@@ -127,7 +131,11 @@ def test_entry_points_default_to_cuda_and_raise_without_a_card(tmp_path):
     from pdnlp_tpu_torch.serve.engine import InferenceEngine
     from pdnlp_tpu_torch.utils.config import Args, parse_cli
 
+    from pdnlp_tpu_torch.train import multi
+
     assert Args().device == "cuda" and parse_cli([]).device == "cuda"
+    for strategy in ("tp", "ep"):
+        assert multi.parse(["--strategy", strategy])[0].device == "cuda"
     if torch.cuda.is_available():
         pytest.skip("a card is present: cuda is available, nothing to refuse")
     tok = WordPieceTokenizer(build_vocab(["天地人"], size=16))

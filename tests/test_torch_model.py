@@ -145,8 +145,17 @@ def test_bert_base_full_width_matches_jax():
 
 
 def test_model_refusals():
-    with pytest.raises(ValueError, match="MoE"):
-        BertClassifier(get_config("bert-tiny-moe", vocab_size=VOCAB))
+    # an MoE model builds now; an unknown dispatch is refused with JAX's
+    # message, as is MoE in the decoder
+    from pdnlp_tpu_torch.models.decoder import _check_dense_trunk
+
+    moe = BertClassifier(get_config("bert-tiny-moe", vocab_size=VOCAB,
+                                    moe_dispatch="sparse"))
+    assert moe.layers[0].up.kernel.shape == (4, 128, 512)
+    with pytest.raises(ValueError, match="moe_dispatch='sparse'"):
+        _port(moe, _padded_batch(1, 16, VOCAB))
+    with pytest.raises(ValueError, match="MoE trunk"):
+        _check_dense_trunk(moe)
     model = BertClassifier(get_config("bert-tiny", vocab_size=VOCAB))
     with pytest.raises(ValueError, match="max_position"):
         _port(model, _padded_batch(1, 129, VOCAB))

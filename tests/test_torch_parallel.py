@@ -131,10 +131,16 @@ def test_init_runtime_is_idempotent_at_world_one(clean_env):
 
 
 @pytest.mark.parametrize("world,num_devices,shape,want", [
-    (4, None, None, 4), (4, 4, None, 4), (4, None, {"data": -1}, 4),
-    (2, None, {"data": 2}, 2)])
+    (4, None, None, {"data": 4}), (4, 4, None, {"data": 4}),
+    (4, None, {"data": -1}, {"data": 4}), (2, None, {"data": 2}, {"data": 2}),
+    (4, None, {"data": 2, "model": 2}, {"data": 2, "model": 2}),
+    (4, None, {"data": -1, "expert": 2}, {"data": 2, "expert": 2})])
 def test_mesh_size(world, num_devices, shape, want):
-    assert mesh.mesh_size(world, num_devices, shape) == want
+    """The mesh covers the world; its axes in JAX's order, the inferred
+    axis filled in."""
+    dims = mesh.mesh_dims(world, num_devices, shape)
+    assert list(dims.items()) == list(want.items())
+    assert int(np.prod(list(dims.values()))) == world
 
 
 @pytest.mark.parametrize("num_devices,shape,match", [
@@ -142,19 +148,29 @@ def test_mesh_size(world, num_devices, shape, want):
     (2, None, "every rank"),
     (None, {"data": 8}, "needs 8 devices, have 4"),
     (None, {"data": -1, "model": -1}, "at most one inferred"),
-    (None, {"data": 2, "model": 2}, "ROADMAP A11"),
+    (None, {"data": 2, "seq": 2}, "ROADMAP A11"),
     (None, {"stage": 4}, "ROADMAP A11"),
     (None, {"rows": 4}, "unknown mesh axes")])
 def test_mesh_errors(num_devices, shape, match):
     with pytest.raises(ValueError, match=match):
-        mesh.mesh_size(4, num_devices, shape)
+        mesh.mesh_dims(4, num_devices, shape)
     assert mesh.KNOWN_AXES == ("data", "model", "expert", "seq", "stage")
 
 
 @pytest.mark.parametrize("mode", ["tp", "ep", "pp", "sp", "fsdp"])
 def test_sharding_refuses_other_modes(mode):
+    """pp and sp stay refused (ROADMAP A11b); tp and ep are modes now, and
+    refuse a mesh without their axis with JAX's messages."""
     from pdnlp_tpu_torch.parallel import sharding
 
+    if mode in ("tp", "ep"):
+        sharding.check_mode(mode)
+        axis = "model" if mode == "tp" else "expert"
+        with pytest.raises(ValueError, match=f"needs an? '{axis}' mesh"):
+            sharding.check_mesh(mode, {"data": 4})
+        with pytest.raises(ValueError, match="also needs a 'data'"):
+            sharding.check_mesh(mode, {axis: 4})
+        return
     with pytest.raises(ValueError, match="A11" if mode != "fsdp"
                        else "unknown"):
         sharding.check_mode(mode)
