@@ -147,7 +147,21 @@ replicate bit-equal, run beside 14d and 14e; 14d
 ``--init_from`` 13a's artifact upcycled into bert-base-moe against a numpy
 recompute of JAX's rule; 14e the MoE checkpoint served, captured against
 eager bit for bit in fp32 and bf16, 12 K1 launches in each captured
-forward, int8 against bf16, ``serve.cli`` as a process), then the kernels' times at every shape these paths give them.
+forward, int8 against bf16, ``serve.cli`` as a process), 15 pipeline and
+sequence parallelism and the elastic gang (15t the transport a CUDA tensor
+takes between two gloo ranks: gloo's own send/recv probed, the fixed
+host staging's bytes checked; 15a ``{"stage": 2}`` on bert-base, fp32 at 4
+and 8 microbatches and bf16 at 4, over two gloo ranks against one
+process, the replicated trees bit-equal, K1-K3 ``6 x M`` launches a step
+on each stage, the bubble and the exchanges; 15b ``{"data": 1, "seq": 2}``
+on bert-base-long at 8 x 1024, the loss and every gradient before the
+update against one process's plain step, the packed ring forward; 15c
+``train.spawn --elastic true`` with rank 1 SIGKILLed (evicted, resumed at
+width 1 with the remapped step) and the solo gang's restart bit for bit,
+beside 15a-15b; 15d ``train.spawn --strategy pp`` on bert-base at 32 x
+128 and ``--strategy sp`` on bert-base-long at 1024, and ``serve.cli`` on
+the pp checkpoint), then the kernels' times at every shape these paths
+give them.
 Any failure raises and the script exits non-zero.  Without a card, or
 away from the repo, it prints no result and exits non-zero.  The line
 before the last is the ``{"kernels": [...]}`` record; the last is
@@ -157,6 +171,7 @@ Numbers are printed beside the card's name and power limit.
 import itertools
 import json
 import os
+import re
 import subprocess
 import sys
 import tempfile
@@ -205,17 +220,24 @@ def param_atol(steps):
 
 
 BUCKETS = (32, 64, 128)
-#: 6c: steps per length-aware route (the bucket route: 2 per width; the
-#: multi-width route: 2 per width; cut from 20 to give phase 11 its time)
+#: 6c: steps per length-aware route (the bucket route: 2 per width; cut
+#: from 20 to give phase 11 its time; the pack route's feed 7a's packed
+#: global batches); the multi-width route: 1 per width (cut from 2 for
+#: phase 15)
 LENGTH_STEPS = 6
-MULTI_WIDTH_STEPS_PER_WIDTH = 2
+MULTI_WIDTH_STEPS_PER_WIDTH = 1
 #: corpus sizes: the profile corpus gives the pack route more than
 #: LENGTH_STEPS rows of 32 in one epoch; 6d's split gives epochs of
-#: about 20 fixed-width and 5 packed steps (cut from 1,400 examples to
-#: keep the whole run near half its time limit); the long corpus has
+#: about 12 fixed-width and 3 packed steps (cut from 1,400 examples, then
+#: from 700, to keep the whole run near its clock); the long corpus has
 #: documents of 129-500 tokens for the 256- and 512-wide rows
 PROFILE_EXAMPLES = 3400
-PIPELINE_EXAMPLES = 700
+PIPELINE_EXAMPLES = 400
+#: 6b's and 7e's entry-point runs: 322 train examples of 6a's corpus (11
+#: steps of 32; cut from 700, 21 steps), and 1,700 of the profile corpus
+#: packed (cut from 3,400), to make room for phase 15
+ENTRY_LIMIT = 350
+ENTRY_PACK_LIMIT = 1700
 LONG_EXAMPLES = 600
 LONG_DOCS = 120
 N_REQUESTS = 64
@@ -236,6 +258,63 @@ def card_line():
     if out.returncode != 0:
         fail(f"nvidia-smi: {out.stderr.strip()}")
     return out.stdout.strip().splitlines()[0]
+
+
+def memoize_seeded_init(keep=1):
+    """Make ``BertClassifier.init_weights`` keep its last ``keep`` seeded
+    inits in this process: the smoke builds bert-base from one seed dozens
+    of times, and ``trunc_normal_`` takes seconds for it on one core.  A
+    repeat with the same config, device and generator state copies the
+    kept weights and leaves the generator where the draws leave it; an
+    unseeded init draws afresh.  Returns the plain method."""
+    import collections
+    import threading
+
+    import torch
+
+    from pdnlp_tpu_torch.models.bert import BertClassifier
+
+    plain = BertClassifier.init_weights
+    if hasattr(plain, "plain"):
+        return plain.plain
+    kept = collections.OrderedDict()
+    lock = threading.Lock()
+
+    @torch.no_grad()
+    def init_weights(self, generator=None):
+        if generator is None:
+            return plain(self, generator)
+        params = list(self.parameters())
+        key = (repr(self.cfg), str(params[0].device),
+               generator.get_state().numpy().tobytes())
+        with lock:
+            hit = kept.get(key)
+        if hit is not None:
+            for p, v in zip(params, hit[0], strict=True):
+                p.copy_(v)
+            generator.set_state(hit[1])
+            return None
+        plain(self, generator)
+        with lock:
+            kept[key] = ([p.detach().clone() for p in params],
+                         generator.get_state())
+            while len(kept) > keep:
+                kept.popitem(last=False)
+        return None
+
+    init_weights.plain = plain
+    init_weights.kept = kept
+    BertClassifier.init_weights = init_weights
+    return plain
+
+
+def memoized_gang(rank, world, args, payload):
+    """``local.train_global_batches`` on a gang rank, with
+    :func:`memoize_seeded_init` (its runs build the model from one seed)."""
+    from pdnlp_tpu_torch.parallel import local
+
+    memoize_seeded_init()
+    return local.train_global_batches(rank, world, args, payload)
 
 
 # ----------------------------------------------------------------- phase 2
@@ -1424,11 +1503,12 @@ def pipeline_runs(torch, flash, fused_ce, base, vocab_size, device, card):
 
 #: 7a-7c: every run trains from the seeded weights on DP_STEPS 64-row
 #: global batches of 6a's corpus (32 x 128 per rank; cut from 10 to keep
-#: the whole run near half its time limit, then from 6 to 3 for phase 11),
-#: then PACKED_STEPS packed ones (two of the pack route's 32-row batches
-#: each, so the ranks carry different weight mass)
-DP_STEPS = 3
-PACKED_STEPS = 3
+#: the whole run near half its time limit, then from 6 to 3 for phase 11,
+#: then to 2 for phase 15), then PACKED_STEPS packed ones (two of the pack
+#: route's 32-row batches each, so the ranks carry different weight mass;
+#: cut from 3 to 2 for phase 15)
+DP_STEPS = 2
+PACKED_STEPS = 2
 DP_WORLD = 2
 #: 7b's placement, fixed from a measurement on the H100: FSDP2 over gloo on
 #: CUDA tensors killed both ranks with SIGSEGV (torch 2.11.0+cu128), so the
@@ -1501,8 +1581,8 @@ def global_packed_batches(pack_batches):
             continue
         out.append({k: np.concatenate([a[k], b[k]]) for k in a})
     if len(out) < PACKED_STEPS:
-        fail("fewer than 3 packed global batches whose ranks' weights "
-             "differ")
+        fail(f"fewer than {PACKED_STEPS} packed global batches whose "
+             "ranks' weights differ")
     return out[:PACKED_STEPS]
 
 
@@ -1531,7 +1611,7 @@ def data_parallel_runs(torch, base, vocab_size, full, packed, device, card,
             {"name": "shardmap bf16 wire", "explicit_collectives": True,
              "compress_grads": True, "batches": full[:PACKED_STEPS]}]
     t0 = time.monotonic()
-    ranks = local.run_gang(local.train_global_batches, DP_WORLD, gang_args,
+    ranks = local.run_gang(memoized_gang, DP_WORLD, gang_args,
                            {"runs": runs, "vocab_size": vocab_size,
                             "batches": batches, "out_dir": out_dir,
                             "allreduce_numel": numel}, timeout=600)
@@ -1748,13 +1828,15 @@ def entry_points_7de_check(started):
 #: 8a: K steps per captured graph; 10 fixed-width batches give 2 captured
 #: groups and 2 eager single steps (cut from 14 for phase 11's time); the
 #: bucket and pack epochs are of FUSED_EXAMPLES of 6c's corpus (cut from
-#: all 3,400: about 32 bucket and 7 pack steps, every one checked)
+#: all 3,400, then from 1,100: about 24 bucket and 5 pack steps, every
+#: one checked)
 FUSE = 4
 FUSED_STEPS = 10
-FUSED_EXAMPLES = 1100
-#: 8b: captured groups and eager steps timed per shape (cut from 5 and 20)
+FUSED_EXAMPLES = 800
+#: 8b: captured groups and eager steps timed per shape (cut from 5 and
+#: 20, then the eager steps from 6)
 TIMED_GROUPS = 2
-TIMED_EAGER = 6
+TIMED_EAGER = 4
 #: 8d: steps of the resumed runs (a snapshot every RESUME_EVERY; cut from
 #: 20 and 10)
 RESUME_STEPS = 8
@@ -2043,9 +2125,9 @@ def _finish(procs, timeout=600):
 
 def loop_start(work, corpus_path, vocab_path):
     """The first processes of 8c-8e (:func:`loop_runs`), started: 8c and
-    the three uninterrupted 8d runs.  They start with phase 7, whose
-    times are printed, not claimed, so phase 8's in-process 8a runs
-    beside the resumed runs and the tools only."""
+    the three uninterrupted 8d runs.  They start with phase 6c and run
+    beside 6c-7, whose times are printed, not claimed, so phase 8's
+    in-process 8a runs beside the resumed runs and the tools only."""
     limit = int(RESUME_STEPS * 32 / 0.92) + 1        # 256 train examples
     if int(limit * 0.92) != RESUME_STEPS * 32:
         fail(f"8d: data_limit {limit} gives {int(limit * 0.92)} examples")
@@ -2208,7 +2290,7 @@ def loop_runs(torch, started, card, tool_ckpts, during):
     rec["8e"] = tools_check_8e(outs, sorted([*tool_ckpts, "fused-cls.pt",
                                              "fused-cls.msgpack"]))
     rec["wall_s"] = time.monotonic() - t0
-    print(f"[fused] 8c-8e ran beside phase 7 and 8a in "
+    print(f"[fused] 8c-8e ran beside phases 6c-7 and 8a in "
           f"{rec['wall_s']:.1f} s")
     return rec, in_process, os.path.join(tools_dir, "fused-cls.msgpack")
 
@@ -3974,6 +4056,29 @@ def actions(tracer, knob):
     return out
 
 
+def replica_law_evidence(acts, back_at, states):
+    """12a's replica law, from what it recorded: the idle fleet parks a
+    primary replica (``(2, 1)``), the flash replay's ticks see it taken
+    back (``(1, 2)``, ``back_at``), and the reactivated replica passes its
+    warmup.  The replay's tail may move the law on: a later park (``(2,
+    1)``) is proof of the warmup too, since ``deactivate_replica`` parks
+    only with two dispatchable replicas.  So the actions alternate from
+    the park, and the replicas end as the last one left them (both
+    healthy, or one healthy and one standby).  None when it holds, else
+    what is missing."""
+    if acts[:2] != [(2, 1), (1, 2)] or not back_at:
+        return (f"no park and reactivation during the flash: actions {acts}"
+                f", reactivation seen at arrival {back_at}")
+    if any(a != ((2, 1) if i % 2 == 0 else (1, 2))
+           for i, a in enumerate(acts)):
+        return f"actions that do not alternate: {acts}"
+    want = ["healthy", "healthy"] if len(acts) % 2 == 0 \
+        else ["healthy", "standby"]
+    if sorted(states) != want:
+        return f"states {states} after actions {acts}, not {want}"
+    return None
+
+
 def captures(fleet):
     """Every engine's capture count, by group and replica."""
     return {mid: [g.engine(i).metrics.retraces.value
@@ -4255,24 +4360,23 @@ def fleet_phase(torch, flash, base, ckpt, work, card, tier_burst):
             synth_arrivals(500, 200.0, seed=SEED + 12), "flash"),
             result_timeout=300, on_tick=flash_tick)
         ctl.stop()
-        if fleet.active_count != 2:
-            fail(f"12a: the flash replay left {fleet.active_count} primary "
-                 f"replica(s) active: {actions(tracer, 'replicas')}")
-        wait_until(lambda: list(groups["primary"].states.values())
-                   == ["healthy", "healthy"], 120,
-                   "12a: the reactivated replica through its warmup")
-        rec["replicas"] = {"standby_states": standby_at,
-                           "actions": actions(tracer, "replicas"),
+        acts = actions(tracer, "replicas")
+        if fleet.active_count == 2:     # else parked again after the flash
+            wait_until(lambda: list(groups["primary"].states.values())
+                       == ["healthy", "healthy"], 120,
+                       "12a: the reactivated replica through its warmup")
+        rec["replicas"] = {"standby_states": standby_at, "actions": acts,
                            "back_at_arrival": back_at,
                            "flash_replay": frep.as_dict(),
                            "states": groups["primary"].states,
                            "captures": captures(fleet)}
         print(f"[fleet] 12a replica law: {json.dumps(rec['replicas'])} — "
               f"{card}")
-        if rec["replicas"]["actions"][:2] != [(2, 1), (1, 2)] or \
-                frep.lost or frep.ok != frep.submitted or \
+        bad = replica_law_evidence(acts, back_at,
+                                   list(groups["primary"].states.values()))
+        if bad or frep.lost or frep.ok != frep.submitted or \
                 rec["replicas"]["captures"] != caps:
-            fail(f"12a replica law: {rec['replicas']}")
+            fail(f"12a replica law: {bad}; {rec['replicas']}")
         lap12("replicas")
         # (3) a regressing candidate swapped in place, canary 0.5; its
         # partial packs held in its queue (the drain has work), and only
@@ -5932,6 +6036,755 @@ def time_fused_ce(torch, F, fused_ce, device, card, T=32, H=768, C=6,
     return out
 
 
+# ---------------------------------------------------------------- phase 15
+
+#: 15a: pp over two gloo ranks on the card, each a stage of 6 layers, on
+#: the first PP_STEPS of 6a's 32 x 128 batches; the runs (fp32 at M = 4
+#: and M = 8, bf16 at M = 4: host staging carries bf16, 15t)
+PP_STEPS = 3
+PP_RUNS = (
+    {"name": "pp float32 M4", "mode": "pp", "mesh_shape": {"stage": 2},
+     "microbatches": 4},
+    {"name": "pp bfloat16 M4", "mode": "pp", "mesh_shape": {"stage": 2},
+     "microbatches": 4, "dtype": "bfloat16"},
+    {"name": "pp float32 M8", "mode": "pp", "mesh_shape": {"stage": 2},
+     "microbatches": 8})
+#: a stage's launches per step under the GPipe schedule: K1-K3 once per
+#: layer of the stage per microbatch; pp's CE is the plain weighted_ce
+PP_LAYERS_PER_STAGE = 6
+#: 15b: sp at a global length of 1024, batch 8, over {"data": 1, "seq": 2}
+SP_LEN = 1024
+SP_ROWS = 8
+SP_TIMED = 1
+#: 15c: the elastic gang's corpus: 414 train rows, 7 steps of 64 at width
+#: 2 (the kill at step 5 comes after the snapshots submitted at steps 2 and
+#: 4), 13 of 32 at width 1; the solo run's: 184 rows, 6 steps of 32
+ELASTIC_LIMIT = 450
+SOLO_LIMIT = 200
+#: the solo restart's bit-for-bit pair trains bert-tiny (the gang of two
+#: above is bert-base at full width): two more bert-base processes with
+#: three 1.3 GB snapshots each crowd phase 15's gang on the card
+SOLO_MODEL = "bert-tiny"
+#: the solo gang saves in the loop: an asynchronous snapshot is not
+#: always published one step after its submit, and a restart without one
+#: is a fresh incarnation, which the fault hook kills again
+SYNC_SAVES = ("--ckpt_async", "false")
+#: 15d: the pp and sp entry points at full width, each on its own corpus
+#: size, model and flags: pp on bert-base at 32 x 128 (101 train rows: 4
+#: steps; a resume snapshot at step 3, the stages' AdamW state gathered),
+#: sp on bert-base-long at a global length of 1024 with batch 8 (27 train
+#: rows: 4 steps; 15b's memory per rank)
+ENTRY15_RUNS = {
+    "pp": (110, "bert-base", ("--resume_every", "3")),
+    "sp": (30, "bert-base-long", ("--max_seq_len", "1024",
+                                  "--train_batch_size", "8",
+                                  "--dev_batch_size", "8"))}
+
+
+def _p2p_rank(rank, payload):
+    """15t on a rank: the port's exchange (``collectives.exchange``, the
+    transport the code fixed) of fp32 and bf16 CUDA tensors, the bytes
+    checked, and its time for one 8 x 128 x 768 fp32 activation; then
+    gloo's own send/recv handed the CUDA tensors on a group of their own
+    (the question the transport answers), its outcome recorded — the last
+    thing the rank does."""
+    import torch
+    import torch.distributed as dist
+
+    from pdnlp_tpu_torch.parallel import collectives
+
+    device = torch.device("cuda", torch.cuda.current_device())
+    peer = 1 - rank
+    out = {"transport": collectives.p2p_transport(
+        torch.zeros(1, device=device))}
+    for dtype in (torch.float32, torch.bfloat16):
+        x = (torch.arange(4096, device=device, dtype=torch.float32)
+             + 1000 * rank).to(dtype)
+        want = (torch.arange(4096, device=device, dtype=torch.float32)
+                + 1000 * peer).to(dtype)
+        y = collectives.exchange(x, peer, x, peer)
+        torch.cuda.synchronize()
+        out[f"port {dtype}"] = bool(torch.equal(y, want))
+    a = torch.randn(8, 128, 768, device=device)
+    times = []
+    for _ in range(6):
+        dist.barrier()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        collectives.exchange(a, peer, a, peer)
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+    out["port_ms_3MiB"] = sorted(times[1:])[len(times[1:]) // 2]
+    return out
+
+
+def gloo_cuda_gang(rank, world, args, payload):
+    """15t's question, in a gang of its own: gloo's send/recv handed CUDA
+    tensors.  Gloo may raise here or abort the process from its I/O
+    thread, so nothing else runs in these ranks."""
+    import torch
+    import torch.distributed as dist
+
+    device = torch.device("cuda", torch.cuda.current_device())
+    peer = 1 - rank
+    x = torch.ones(4096, device=device) * (rank + 1)
+    y = torch.zeros(4096, device=device)
+    try:                    # the probe's answer, not a path: recorded
+        works = [dist.isend(x, peer), dist.irecv(y, peer)]
+        for w in works:
+            w.wait()
+        torch.cuda.synchronize()
+        return ("accepted, bytes "
+                + ("right" if bool((y == peer + 1).all()) else "wrong"))
+    except RuntimeError as e:
+        return f"refused: {str(e).splitlines()[0][:160]}"
+
+
+def gloo_cuda_start(base):
+    """:func:`gloo_cuda_gang`, started on a thread; ``box["answer"]`` once
+    it ends: rank 0's answer, or how the gang died."""
+    import threading
+
+    from pdnlp_tpu_torch.parallel import local
+
+    box = {}
+
+    def run():
+        try:
+            box["answer"] = local.run_gang(
+                gloo_cuda_gang, 2, base.replace(dist_backend="gloo"), {},
+                timeout=120)[0]
+        except RuntimeError as e:        # a rank aborted inside gloo
+            box["answer"] = ("refused: " + " ".join(
+                str(e).split())[-200:] + " (gloo raised its I/O error in "
+                "its own thread: see the gloo::IoException above)")
+
+    box["thread"] = threading.Thread(target=run, daemon=True)
+    box["thread"].start()
+    return box
+
+
+def _sp_rank(rank, world, args, payload):
+    """15b on a rank: one sp train step of bert-base-long on the global
+    batch at learning rate 0 (the update leaves the weights, the summed
+    gradients stay in ``.grad``: rank 0 saves them), its exchanges, SP_TIMED
+    more steps timed; then the packed ring forward on this rank's slice."""
+    import numpy as np
+    import torch
+
+    from pdnlp_tpu_torch.data.pipeline import to_device
+    from pdnlp_tpu_torch.ops.ring import ring_attention
+    from pdnlp_tpu_torch.parallel import collectives
+    from pdnlp_tpu_torch.parallel.execution import setup_sharded_model
+    from pdnlp_tpu_torch.parallel.mesh import make_mesh
+    from pdnlp_tpu_torch.parallel.sp import make_sp_train_step
+
+    device = torch.device("cuda", torch.cuda.current_device())
+    shape = {"data": 1, "seq": world}
+    mesh = make_mesh(shape=shape, device_type="cuda")
+    a = payload["args"].replace(mesh_shape=shape)
+    _, state = setup_sharded_model(a, payload["vocab_size"], mesh, "sp")
+    step = make_sp_train_step(a, mesh, device)
+    batch = to_device(payload["batch"], device)
+    torch.cuda.reset_peak_memory_stats(device)
+    collectives.reset_p2p_stats()
+    m = step(state, batch)
+    loss = float(m["loss"])
+    p2p = dict(collectives.P2P_STATS)
+    if rank == 0:
+        torch.save({n: p.grad.detach().cpu()
+                    for n, p in state.model.named_parameters()},
+                   payload["grads_path"])
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(SP_TIMED):
+        step(state, batch)
+    torch.cuda.synchronize()
+    step_ms = (time.perf_counter() - t0) / SP_TIMED * 1e3
+    peak = torch.cuda.max_memory_allocated(device)
+    del state, step
+    w = SP_LEN // world
+    sl = slice(rank * w, (rank + 1) * w)
+    q, k, v = (torch.from_numpy(np.ascontiguousarray(x[:, sl])).to(device)
+               for x in payload["qkv"])
+    seg = torch.from_numpy(np.ascontiguousarray(
+        payload["seg"][:, sl])).to(device)
+    with torch.no_grad():
+        ring = ring_attention(q, k, v, None, mesh.get_group("seq"),
+                              segment_ids=seg).cpu().numpy()
+    torch.cuda.empty_cache()
+    return {"loss": loss, "p2p": p2p, "step_ms": step_ms,
+            "peak_bytes": peak, "ring": ring}
+
+
+def parallel_gang(rank, world, args, payload):
+    """Phase 15's two gloo ranks on the card: 15a's pp runs
+    (``local.train_global_batches``), then 15b's sp step, then 15t's
+    exchange probe."""
+    from pdnlp_tpu_torch.parallel import local
+
+    memoize_seeded_init()
+    t0 = time.monotonic()
+    pp = local.train_global_batches(rank, world, args, payload["pp"])
+    t1 = time.monotonic()
+    sp = _sp_rank(rank, world, args, payload["sp"])
+    t2 = time.monotonic()
+    p2p = _p2p_rank(rank, payload)
+    return {"pp": pp, "sp": sp, "p2p": p2p,
+            "seconds": {"15a": t1 - t0, "15b": t2 - t1,
+                        "15t": time.monotonic() - t2}}
+
+
+def parallel_start(base, vocab_size, batches, work):
+    """The gang of :func:`parallel_gang`, started on a thread (its ranks
+    are processes on the card, beside the one-process references and 15c's
+    processes), with 15b's seeded batch and packed ring inputs."""
+    import threading
+
+    import numpy as np
+
+    from pdnlp_tpu_torch.parallel import local
+
+    out_dir = os.path.join(work, "pp_out")
+    os.makedirs(out_dir, exist_ok=True)
+    rng = np.random.RandomState(SEED + 15)
+    sp = {"batch": sp_batch(rng, vocab_size),
+          "qkv": [rng.randn(2, SP_LEN, 12, 64).astype(np.float32)
+                  for _ in range(3)],
+          "seg": sp_segments(rng, 2, SP_LEN),
+          "args": base.replace(model="bert-base-long", max_seq_len=SP_LEN,
+                               learning_rate=0.0, dist_backend="gloo"),
+          "vocab_size": vocab_size,
+          "grads_path": os.path.join(work, "sp_grads.pt")}
+    payload = {"pp": {"runs": [dict(r) for r in PP_RUNS],
+                      "vocab_size": vocab_size, "batches": batches,
+                      "out_dir": out_dir},
+               "sp": sp}
+    box = {"t0": time.monotonic(), "sp": sp}
+
+    def run():
+        try:
+            box["ranks"] = local.run_gang(
+                parallel_gang, 2, base.replace(dist_backend="gloo"),
+                payload, timeout=900)
+        except BaseException as e:   # re-raised by parallel_join
+            box["error"] = e
+        box["seconds"] = time.monotonic() - box["t0"]
+
+    box["thread"] = threading.Thread(target=run, daemon=True)
+    box["thread"].start()
+    return box
+
+
+def parallel_join(started):
+    started["thread"].join(timeout=1000)
+    if started["thread"].is_alive():
+        fail("15: the gang did not finish in 1,000 s")
+    if "error" in started:
+        raise started["error"]
+    return started["ranks"]
+
+
+def transport_check(ranks, gloo, card):
+    """15t: how a CUDA tensor crosses between two gloo ranks on the card.
+    The code fixed ``collectives.GLOO_CUDA_P2P`` from this probe; the run
+    fails unless the fixed transport moves fp32 and bf16 bytes intact (and
+    fails if the code hands gloo CUDA tensors that gloo refuses)."""
+    from pdnlp_tpu_torch.parallel import collectives
+
+    p = ranks[0]["p2p"]
+    rec = {"fixed": collectives.GLOO_CUDA_P2P, "gloo_send_recv_cuda": gloo,
+           **p}
+    print(f"[p2p] 15t gloo send/recv handed a CUDA tensor: {gloo}; the "
+          f"port's transport for CUDA tensors over gloo: "
+          f"{rec['transport']!r} ("
+          + ("pinned-host staging" if rec["transport"] == "host"
+             else "the CUDA tensor itself")
+          + f", collectives.GLOO_CUDA_P2P, fixed from this probe); fp32 "
+          f"bytes intact {rec['port torch.float32']}, bf16 "
+          f"{rec['port torch.bfloat16']}; one 8 x 128 x 768 fp32 "
+          f"activation each way {rec['port_ms_3MiB']:.3f} ms (host clock, "
+          f"median of 5) — {card}")
+    if not (rec["port torch.float32"] and rec["port torch.bfloat16"]):
+        fail(f"15t: the fixed transport corrupted the bytes: {rec}")
+    if rec["transport"] == "device" and not gloo.startswith("accepted"):
+        fail(f"15t: the code hands CUDA tensors to gloo, which {gloo}")
+    return rec
+
+
+def pp_check(torch, ranks, refs, steps, card):
+    """15a: bert-base at ``{"stage": 2}`` over two gloo ranks on the card
+    (``ranks``: each rank's ``PP_RUNS`` records), each run held to one
+    process on the same global batches (``refs`` per dtype): the loss per
+    step and the gathered params (fp32: 14c's tp bounds; bf16: 7a's), the
+    replicated trees bit-equal across the stages, every stage's K1/K2/K3
+    launches per step the GPipe schedule's; the step time, the bubble
+    (theory and measured idle share) and the exchange per step printed."""
+    rec = {"runs": {}}
+    launches = {}
+    for i, run in enumerate(PP_RUNS):
+        name, M = run["name"], run["microbatches"]
+        dtype = run.get("dtype", "float32")
+        recs = [r[i] for r in ranks]
+        ref_loss, ref_params, ref_ms = refs[dtype]
+        got = _ckpt_params(torch, recs[0]["checkpoint"])
+        d_par = _max_diff(got, ref_params)
+        if dtype == "float32":
+            d_loss = max(abs(a - b) / abs(b)
+                         for a, b in zip(recs[0]["losses"], ref_loss))
+            loss_tol, par_tol = MODEL_AXIS_TOL["tp"]
+        else:
+            d_loss = max(abs(a - b)
+                         for a, b in zip(recs[0]["losses"], ref_loss))
+            loss_tol, par_tol = TRAIN_LOSS_ATOL[dtype], param_atol(steps)
+        n = PP_LAYERS_PER_STAGE * M
+        want = {"flash_fwd": n, "flash_bwd_dq": n, "flash_bwd_dkv": n,
+                "fused_ce_fwd": 0, "fused_ce_bwd": 0}
+        _check_launches(f"15a {name}", recs, want)
+        equal = len(set(recs[0]["replicated_digests"])) == 1
+        bubble = 1 / (M + 1)
+        idle = []
+        for r in recs:
+            tl = r["timeline"][1:] or r["timeline"]
+            busy = sum(x["busy_s"] for x in tl)
+            wall = sum(x["step_s"] for x in tl)
+            idle.append(1 - busy / wall if wall else float("nan"))
+        p2p = recs[0]["p2p"], recs[1]["p2p"]
+        r = {"losses": recs[0]["losses"], "single_losses": ref_loss,
+             "max_loss_diff": d_loss, "max_param_diff": d_par,
+             "replicated_bit_equal": equal,
+             "rank_step_ms": [x["step_ms"] for x in recs],
+             "rank_timed_step_ms": [
+                 1e3 * sum(t["step_s"] for t in x["timeline"][1:])
+                 / max(1, len(x["timeline"]) - 1) for x in recs],
+             "single_step_ms": ref_ms, "bubble_theory": bubble,
+             "idle_share_measured": idle,
+             "exchange_bytes_per_step": [x["bytes"] / steps for x in p2p],
+             "exchange_ms_per_step": [1e3 * x["seconds"] / steps
+                                      for x in p2p],
+             "exchanges_per_step": [x["calls"] / steps for x in p2p],
+             "launches_per_step": [x["launches"][0] for x in recs]}
+        rec["runs"][name] = r
+        launches[f"15a {name} stage 0"] = sum_launches(
+            {str(j): c for j, c in enumerate(recs[0]["launches"])})
+        launches[f"15a {name} stage 1"] = sum_launches(
+            {str(j): c for j, c in enumerate(recs[1]["launches"])})
+        print(f"[pp] 15a bert-base {{'stage': 2}}, {name}, 2 gloo ranks on "
+              f"the card, {steps} steps of 32 x 128: max loss diff vs one "
+              f"process {d_loss:.3e} ({'rel' if dtype == 'float32' else 'abs'}"
+              f", tol {loss_tol:g}), max |gathered param diff| "
+              f"{d_par:.3e} (atol {par_tol:.1e}); embeddings and head "
+              f"bit-equal across the stages: {equal}; launches per stage "
+              f"per step {r['launches_per_step']} (want {want}) — {card}")
+        print(f"[pp] 15a {name}: step {r['rank_step_ms'][0]:.1f} / "
+              f"{r['rank_step_ms'][1]:.1f} ms per stage (host clock to a "
+              f"sync; the step synchronizes the card around each stretch of "
+              f"compute for the idle share, which these times include), one "
+              f"process {ref_ms:.1f} ms; bubble (S-1)/(M+S-1) = {bubble:.3f}, "
+              f"measured idle share {idle[0]:.3f} / {idle[1]:.3f}; exchange "
+              f"per step {r['exchanges_per_step'][0]:.0f} calls, "
+              f"{r['exchange_bytes_per_step'][0] / 2**20:.1f} MiB sent by "
+              f"stage 0, {r['exchange_ms_per_step'][0]:.1f} / "
+              f"{r['exchange_ms_per_step'][1]:.1f} ms (host clock, the "
+              f"wait for the peer included; 15c's processes ran beside: "
+              f"printed, not claimed) — {card}")
+        if d_loss > loss_tol or d_par > par_tol or not equal or \
+                recs[0]["losses"] != recs[1]["losses"]:
+            fail(f"15a {name}: loss {d_loss}, params {d_par}, replicated "
+                 f"equal {equal}, rank losses {recs[0]['losses']} / "
+                 f"{recs[1]['losses']}")
+    rec["checkpoint"] = ranks[0][0]["checkpoint"]
+    return rec, launches
+
+
+def sp_batch(rng, vocab_size):
+    """15b's global batch: SP_ROWS rows of SP_LEN tokens, each padded
+    after a seeded length of at least half the row."""
+    import numpy as np
+
+    lens = rng.randint(SP_LEN // 2, SP_LEN + 1, SP_ROWS)
+    mask = (np.arange(SP_LEN)[None, :] < lens[:, None]).astype(np.int32)
+    ids = rng.randint(5, vocab_size, (SP_ROWS, SP_LEN)).astype(np.int32)
+    ids[:, 0] = 2
+    return {"input_ids": ids * mask,
+            "token_type_ids": np.zeros_like(ids),
+            "attention_mask": mask,
+            "label": rng.randint(0, 6, SP_ROWS).astype(np.int32),
+            "example_weight": np.ones(SP_ROWS, np.float32)}
+
+
+def sp_segments(rng, B, S):
+    """Packed segment IDs whose segments of 60-300 tokens straddle the
+    shards' boundary at S / 2, with a padding tail."""
+    import numpy as np
+
+    seg = np.zeros((B, S), np.int32)
+    for b in range(B):
+        pos, sid = 0, 0
+        while pos < S - 40:
+            ln = int(rng.randint(60, 300))
+            sid += 1
+            seg[b, pos: pos + ln] = sid
+            pos += ln
+    return seg
+
+
+def sp_reference(torch, sp, device):
+    """15b's one-process side, computed while the gang runs: the plain
+    full-length step at the same seeded weights (its loss, every gradient
+    before the update on the host, its time over SP_TIMED more steps) and
+    the one-process segment route of the packed ring's inputs."""
+    from pdnlp_tpu_torch.data.pipeline import to_device
+    from pdnlp_tpu_torch.ops.attention import dot_product_attention
+    from pdnlp_tpu_torch.train.setup import setup_model
+    from pdnlp_tpu_torch.train.steps import build_train_step
+
+    plain = sp["args"].replace(attention_impl="xla")
+    _, state = setup_model(plain, sp["vocab_size"])
+    step = build_train_step(plain, device)
+    dev_batch = to_device(sp["batch"], device)
+    loss = float(step(state, dev_batch)["loss"])
+    grads = {n: p.grad.detach().cpu()
+             for n, p in state.model.named_parameters()}
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    for _ in range(SP_TIMED):
+        step(state, dev_batch)
+    torch.cuda.synchronize()
+    ms = (time.perf_counter() - t1) / SP_TIMED * 1e3
+    del state, step
+    q, k, v = (torch.from_numpy(x).to(device) for x in sp["qkv"])
+    with torch.no_grad():
+        ring = dot_product_attention(
+            q, k, v, impl="xla",
+            segment_ids=torch.from_numpy(sp["seg"]).to(device)).cpu().numpy()
+    torch.cuda.empty_cache()
+    return {"loss": loss, "grads": grads, "ms": ms, "ring": ring}
+
+
+def sp_check(torch, ranks, ref, sp, card):
+    """15b: bert-base-long at a global length of 1024, batch 8, over
+    ``{"data": 1, "seq": 2}``, two gloo ranks on the card, fp32: the loss
+    and every gradient before the update against one process's plain
+    full-length step (``GRAD_RTOL``, 13a's scale); each hop's exchange and
+    the step time beside the one process's; the packed ring forward with
+    segments across the boundary against the one-process segment route."""
+    import numpy as np
+
+    got = torch.load(sp["grads_path"], weights_only=True)
+    worst, ratio = grad_error(torch, got, ref["grads"])
+    ref_loss, ref_ms, seg = ref["loss"], ref["ms"], sp["seg"]
+    d_loss = abs(ranks[0]["loss"] - ref_loss) / abs(ref_loss)
+    ring = np.concatenate([r["ring"] for r in ranks], axis=1)
+    d_ring = float(np.abs(ring - ref["ring"]).max())
+    cross = int(sum((seg[b, SP_LEN // 2 - 1] == seg[b, SP_LEN // 2])
+                    and seg[b, SP_LEN // 2] > 0 for b in range(2)))
+    p2p = ranks[0]["p2p"]
+    hops = 12 * 1                        # one hop a layer over two ranks
+    rec = {"loss": ranks[0]["loss"], "single_loss": ref_loss,
+           "loss_rel_diff": d_loss, "worst_grad": worst,
+           "grad_ratio": ratio, "ring_packed_max_abs_err": d_ring,
+           "segments_across_boundary": cross,
+           "exchanges_step1": p2p["calls"], "exchange_bytes_step1":
+           p2p["bytes"], "exchange_ms_step1": 1e3 * p2p["seconds"],
+           "rank_step_ms": [r["step_ms"] for r in ranks],
+           "single_step_ms": ref_ms,
+           "rank_peak_gb": [r["peak_bytes"] / 2**30 for r in ranks]}
+    print(f"[sp] 15b bert-base-long {{'data': 1, 'seq': 2}}, 2 gloo ranks on "
+          f"the card, fp32, {SP_ROWS} x {SP_LEN} (512 per rank): loss "
+          f"{ranks[0]['loss']:.6f} vs one process's plain full-length step "
+          f"{ref_loss:.6f} (rel {d_loss:.2e}); worst gradient before the "
+          f"update {worst} at {ratio:.2e} of its scale (GRAD_RTOL "
+          f"{GRAD_RTOL:g}) — {card}")
+    print(f"[sp] 15b exchanges in one step on rank 0: {p2p['calls']} "
+          f"({hops} forward hops of K/V and of the key bias, {hops} backward "
+          f"hops of the K/V cotangent), {p2p['bytes'] / 2**20:.1f} MiB sent, "
+          f"{1e3 * p2p['seconds']:.1f} ms (host clock, the wait for the "
+          f"peer included), "
+          f"{1e3 * p2p['seconds'] / max(1, p2p['calls']):.2f} ms and "
+          f"{p2p['bytes'] / max(1, p2p['calls']) / 2**20:.2f} MiB per "
+          f"exchange; step {rec['rank_step_ms'][0]:.1f} / "
+          f"{rec['rank_step_ms'][1]:.1f} ms per rank vs {ref_ms:.1f} ms for "
+          f"one process's plain full-length step (host clock to a sync, "
+          f"{SP_TIMED} timed step(s); 15c-15d's processes and 15a's gang "
+          f"ran beside: printed, not claimed); peak memory per rank "
+          f"{rec['rank_peak_gb'][0]:.1f} / {rec['rank_peak_gb'][1]:.1f} GB "
+          f"— {card}")
+    print(f"[sp] 15b packed ring forward, 2 x {SP_LEN}, {cross} row(s) with "
+          f"a segment across the shard boundary: max |ring - one-process "
+          f"segment route| {d_ring:.3e} (atol {KERNEL_ATOL['float32']}) "
+          f"— {card}")
+    if not (d_loss <= MODEL_AXIS_TOL["tp"][0] and ratio <= GRAD_RTOL
+            and d_ring <= KERNEL_ATOL["float32"] and cross >= 1):
+        fail(f"15b: loss rel {d_loss}, gradient {worst} {ratio}, packed "
+             f"ring {d_ring}, rows across the boundary {cross}")
+    return rec
+
+
+def _timed_spawn(argv, env_extra=None):
+    """A started ``python -m`` process whose output lines are read with
+    their arrival times (host clock), in its own session (the elastic
+    supervisor's workers are stopped with it)."""
+    import threading
+
+    env = {k: v for k, v in os.environ.items()
+           if k not in ("COORDINATOR_ADDRESS", "NUM_PROCESSES", "PROCESS_ID",
+                        "MASTER_ADDR", "WORLD_SIZE", "RANK", "LOCAL_RANK",
+                        "PDNLP_FAULT_STEP", "PDNLP_FAULT_PROC",
+                        "PDNLP_FAULT_KIND", "PDNLP_SPAWN_PORT")}
+    env.update(PYTHONPATH=REPO, PYTHONUNBUFFERED="1", **(env_extra or {}))
+    p = subprocess.Popen([sys.executable, "-m", *argv], cwd=REPO, env=env,
+                         stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+                         text=True, start_new_session=True)
+    lines = {"out": [], "err": []}
+
+    def read(stream, key):
+        for ln in stream:
+            lines[key].append((time.monotonic(), ln.rstrip("\n")))
+
+    threads = [threading.Thread(target=read, args=(p.stdout, "out"),
+                                daemon=True),
+               threading.Thread(target=read, args=(p.stderr, "err"),
+                                daemon=True)]
+    for t in threads:
+        t.start()
+    return {"proc": p, "lines": lines, "threads": threads,
+            "t0": time.monotonic()}
+
+
+def _timed_finish(started, timeout=600):
+    """``(returncode, stdout lines with times, stderr lines with times)``;
+    the process's session is killed if it is still running."""
+    import signal
+
+    p = started["proc"]
+    try:
+        p.wait(timeout=timeout)
+    except subprocess.TimeoutExpired:
+        pass                        # killed below
+    finally:
+        if p.poll() is None:
+            os.killpg(os.getpgid(p.pid), signal.SIGKILL)
+            p.wait()
+        for t in started["threads"]:
+            t.join(timeout=10)
+    return p.returncode, started["lines"]["out"], started["lines"]["err"]
+
+
+def _elastic_argv(corpus_path, vocab_path, out_dir, limit, width,
+                  extra=(), model="bert-base"):
+    return ["pdnlp_tpu_torch.train.spawn", "--device", "cuda", "--model",
+            model, "--data_path", corpus_path, "--vocab_path",
+            vocab_path, "--output_dir", out_dir, "--attn_dropout", "0",
+            "--dropout", "0", "--seed", str(SEED), "--data_limit",
+            str(limit), "--strategy", "dp", "--dist_backend", "gloo",
+            "--elastic", "true", "--num_processes", str(width),
+            "--resume_every", "2", "--restart_backoff", "0.2", *extra]
+
+
+def elastic_start(work, corpus_path, vocab_path):
+    """15c's processes, started: the gang of two with rank 1 SIGKILLed at
+    step 5, the solo gang SIGKILLed at step 3, and the solo gang
+    undisturbed (the bit-for-bit reference)."""
+    kill = {"PDNLP_FAULT_KIND": "sigkill"}
+    runs = {
+        "shrink": (_elastic_argv(corpus_path, vocab_path,
+                                 os.path.join(work, "elastic_shrink"),
+                                 ELASTIC_LIMIT, 2),
+                   {**kill, "PDNLP_FAULT_STEP": "5", "PDNLP_FAULT_PROC": "1"}),
+        "solo": (_elastic_argv(corpus_path, vocab_path,
+                               os.path.join(work, "elastic_solo"),
+                               SOLO_LIMIT, 1, SYNC_SAVES, SOLO_MODEL),
+                 {**kill, "PDNLP_FAULT_STEP": "3", "PDNLP_FAULT_PROC": "0"}),
+        "control": (_elastic_argv(corpus_path, vocab_path,
+                                  os.path.join(work, "elastic_control"),
+                                  SOLO_LIMIT, 1, SYNC_SAVES, SOLO_MODEL),
+                    {})}
+    return {k: _timed_spawn(argv, env) for k, (argv, env) in runs.items()}
+
+
+def elastic_check(torch, started, work, card):
+    """15c: the gang of two evicts rank 1 and finishes at width 1 (rc 0,
+    JAX's chaos lines, the remapped step), with the seconds from the
+    supervisor's verdict to the first resumed step; the solo gang's
+    params equal the undisturbed run's bit for bit."""
+    outs = {k: _timed_finish(s) for k, s in started.items()}
+    rc, out, err = outs["shrink"]
+    text_out = "\n".join(ln for _, ln in out)
+    text_err = "\n".join(ln for _, ln in err)
+    verdict = next((t for t, ln in err if "gang failure" in ln), None)
+    resumed = next((t for t, ln in out if ln.startswith("resumed from")),
+                   None)
+    first = next((t for t, ln in out if resumed is not None and t >= resumed
+                  and ln.startswith("【train】")), None)
+    m = re.search(r"elastic resume: remapped step (\d+) \(of (\d+)/epoch at "
+                  r"save time\) -> (\d+) \(of (\d+)/epoch", text_out)
+    steps = re.findall(r"step：(\d+)/(\d+)", text_out)
+    ok = (rc == 0 and "evicting dead rank(s) [1]" in text_err
+          and "resuming at width 1" in text_err and "restart 1/" in text_err
+          and m is not None and int(m.group(4)) > int(m.group(2))
+          and steps and steps[-1][0] == steps[-1][1]
+          and os.path.exists(os.path.join(work, "elastic_shrink",
+                                          "dp-cls.pt")))
+    gap = first - verdict if first is not None and verdict is not None \
+        else None
+    rec = {"exit": rc, "remapped": m.group(0) if m else None,
+           "verdict_to_first_resumed_step_s": gap,
+           "wall_s": time.monotonic() - started["shrink"]["t0"],
+           "lines": [ln for _, ln in err if ln.startswith("[elastic]")]}
+    for ln in rec["lines"]:
+        print(f"[elastic] 15c {ln[:300]}")
+    print(f"[elastic] 15c train.spawn --elastic true --num_processes 2 "
+          f"--strategy dp --dist_backend gloo, bert-base fp32, rank 1 "
+          f"SIGKILLed at step 5: exit {rc}; {rec['remapped']}; last step "
+          f"{steps[-1] if steps else None}; supervisor's verdict to the "
+          f"first resumed step's line "
+          f"{'n/a' if gap is None else f'{gap:.1f}'} s (host clock, ran "
+          f"beside 15a-15b) — {card}")
+    if not ok:
+        fail(f"15c shrink: exit {rc}\n{text_out[-2000:]}\n{text_err[-3000:]}")
+    rc_s, out_s, err_s = outs["solo"]
+    rc_c, _, err_c = outs["control"]
+    text_s = "\n".join(ln for _, ln in out_s)
+    same = False
+    if rc_s == 0 and rc_c == 0:
+        a = _ckpt_params(torch, os.path.join(work, "elastic_solo",
+                                             "dp-cls.pt"))
+        b = _ckpt_params(torch, os.path.join(work, "elastic_control",
+                                             "dp-cls.pt"))
+        same = a.keys() == b.keys() and all(torch.equal(a[k], b[k])
+                                            for k in a)
+    restarted = any("restart 1/" in ln for _, ln in err_s)
+    rec["solo"] = {"exit": rc_s, "control_exit": rc_c, "restarted":
+                   restarted, "bit_for_bit": same}
+    print(f"[elastic] 15c solo gang ({SOLO_MODEL}, width 1) SIGKILLed at "
+          f"step 3: exit "
+          f"{rc_s}, restarted {restarted}, "
+          f"{'resumed' if 'resumed from' in text_s else 'not resumed'}; its "
+          f"params equal the undisturbed run's bit for bit: {same} — {card}")
+    if not (same and restarted and "resumed from" in text_s):
+        fail(f"15c solo: exit {rc_s}/{rc_c}\n"
+             + "\n".join(ln for _, ln in err_s)[-3000:])
+    return rec
+
+
+def entry15_start(work, corpus_path, vocab_path):
+    """15d: ``train.spawn --strategy pp`` and ``--strategy sp`` over two
+    gloo ranks on the card at full width (``ENTRY15_RUNS``), started."""
+    runs = {}
+    for s, (limit, model, extra) in ENTRY15_RUNS.items():
+        runs[s] = _timed_spawn(
+            ["pdnlp_tpu_torch.train.spawn", "--device", "cuda", "--model",
+             model, "--data_path", corpus_path, "--vocab_path",
+             vocab_path, "--output_dir", os.path.join(work, f"entry_{s}"),
+             "--attn_dropout", "0", "--seed", str(SEED), "--data_limit",
+             str(limit), "--strategy", s, "--num_processes", "2",
+             "--dist_backend", "gloo", *extra])
+    return runs
+
+
+def entry15_check(started, work, card):
+    """15d: each exits 0 with its mesh line, a 【train】 line per step, the
+    test report and its consolidated checkpoint (the pp one's path
+    returned for ``serve.cli``); pp's resume snapshot holds the AdamW
+    state of every parameter of the full model (both stages')."""
+    from pdnlp_tpu_torch.train import checkpoint as ckpt_io
+
+    rec = {}
+    for s, st in started.items():
+        rc, out, err = _timed_finish(st)
+        text = "\n".join(ln for _, ln in out)
+        mesh = next((ln for _, ln in out if ln.startswith("mesh:")), "")
+        spe = re.search(r"steps/epoch: (\d+)", mesh)
+        train = [ln for _, ln in out if ln.startswith("【train】")]
+        ckpt = os.path.join(work, f"entry_{s}", f"{s}-cls.pt")
+        ok = (rc == 0 and spe is not None and len(train) == int(spe.group(1))
+              and "test loss" in text and os.path.exists(ckpt))
+        snap = None
+        if ok and s == "pp":
+            raw, meta, _ = ckpt_io.load_state(
+                os.path.join(work, "entry_pp", "resume-pp.pt"))
+            snap = {"step": meta.get("step"),
+                    "params": len(raw["model"]),
+                    "adam_states": len(raw["optimizer"]["state"])}
+            ok = set(raw["optimizer"]["state"]) == set(raw["model"])
+            del raw
+        rec[s] = {"exit": rc, "mesh": mesh, "train_lines": len(train),
+                  "checkpoint": ckpt, "snapshot": snap,
+                  "wall_s": time.monotonic() - st["t0"]}
+        print(f"[entry] 15d train.spawn --strategy {s}: exit {rc}, {mesh}; "
+              f"{len(train)} 【train】 lines"
+              + ("" if snap is None else
+                 f"; resume snapshot at step {snap['step']}: AdamW state of "
+                 f"{snap['adam_states']} of the full model's "
+                 f"{snap['params']} parameters")
+              + f" — {card}")
+        if not ok:
+            fail(f"15d {s}: exit {rc}\n{text[-2000:]}\n"
+                 + "\n".join(ln for _, ln in err)[-3000:])
+    return rec
+
+
+def parallel_phase(torch, work, vocab_path, corpus_path, base, vocab_size,
+                   batches, texts, device, card, lap):
+    """Phase 15: one gang of two gloo ranks on the card runs pp at
+    ``{"stage": 2}`` (15a), sp at ``{"data": 1, "seq": 2}`` (15b) and the
+    transport probe (15t), while this process computes their one-process
+    references; the elastic gang (15c) and the pp and sp entry points (15d)
+    run as processes beside them; then ``serve.cli`` on 15d's pp
+    checkpoint."""
+    import numpy as np
+
+    from pdnlp_tpu_torch.serve import score_texts
+    from pdnlp_tpu_torch.serve.engine import build_engine
+
+    steps = batches[:PP_STEPS]
+    probe = gloo_cuda_start(base)
+    el = elastic_start(work, corpus_path, vocab_path)
+    entry = entry15_start(work, corpus_path, vocab_path)
+    gang = parallel_start(base, vocab_size, steps, work)
+    try:
+        refs = {d: single_reference(torch, base.replace(dtype=d), vocab_size,
+                                    steps, device)
+                for d in ("float32", "bfloat16")}
+        sp_ref = sp_reference(torch, gang["sp"], device)
+        ranks = parallel_join(gang)
+        print(f"[pp] 15a-15b, 15t: the gang of two ran in "
+              f"{gang['seconds']:.1f} s (rank 0: "
+              + ", ".join(f"{k} {v:.1f} s"
+                          for k, v in ranks[0]["seconds"].items())
+              + f"), beside the references and 15c-15d — {card}")
+        lap("15a, 15b, 15t")
+        probe["thread"].join(timeout=200)
+        transport = transport_check(ranks, probe.get("answer", "no answer"),
+                                    card)
+        pp, launches = pp_check(torch, [r["pp"] for r in ranks], refs,
+                                len(steps), card)
+        del refs
+        sp = sp_check(torch, [r["sp"] for r in ranks], sp_ref, gang["sp"],
+                      card)
+        del sp_ref
+        elastic = elastic_check(torch, el, work, card)
+        entries = entry15_check(entry, work, card)
+    except BaseException:
+        for s in list(el.values()) + list(entry.values()):
+            _timed_finish(s, timeout=0)
+        raise
+    ckpt = entries["pp"]["checkpoint"]
+    plain = build_engine(base.replace(attention_impl="xla"), checkpoint=ckpt)
+    _, want = score_texts(plain, texts, buckets=BUCKETS, batch_size=8)
+    del plain
+    top2 = np.sort(want, axis=-1)[:, -2:]
+    labels = [int(w.argmax()) if (t[1] - t[0]) > 2 * LOGIT_ATOL["float32"]
+              else None for w, t in zip(want, top2)]
+    cli_check(cli_start(vocab_path, ckpt, texts), labels[:6])
+    print(f"[entry] 15d serve.cli --checkpoint {ckpt}: labels equal the "
+          f"one-process model's on the decided lines — {card}")
+    lap("15c, 15d")
+    return {"transport": transport, "pp": pp, "sp": sp, "elastic": elastic,
+            "entry_points": entries}, launches
+
+
 def main():
     import torch
 
@@ -5942,6 +6795,7 @@ def main():
         from pdnlp_tpu_torch.ops import cuda_lib, flash, fused_ce
     except ImportError as e:
         sys.exit(f"chip_smoke: run it from a checkout of the repo ({e})")
+    memoize_seeded_init()
     import numpy as np
     import torch.nn.functional as F
 
@@ -5999,6 +6853,24 @@ def main():
     rng = np.random.RandomState(SEED)
     vocab_path = os.path.join(work, "vocab.txt")
     vocab_size = build_vocab_file(vocab_path, rng, CHARS)
+    if sys.argv[1:] == ["--phase", "15"]:
+        # phase 15 alone, on phase 6a's corpus and phase 4's requests (a
+        # development run: it prints no result line)
+        texts = make_requests(rng, CHARS, N_REQUESTS)
+        corpus_path = os.path.join(work, "train.json")
+        write_corpus(corpus_path, rng, 700)
+        train_args = Args(model="bert-base", device="cuda", seed=SEED,
+                          vocab_path=vocab_path, data_path=corpus_path,
+                          data_limit=700, dropout=0.0, attn_dropout=0.0,
+                          learning_rate=LEARNING_RATE)
+        loader = setup_data(train_args)[0]
+        loader.set_epoch(0)
+        par, par_launches = parallel_phase(
+            torch, work, vocab_path, corpus_path, train_args, vocab_size,
+            list(loader)[:TRAIN_STEPS], texts, device, card, lap)
+        print(f"[launches] {json.dumps(par_launches)}")
+        print(f"[summary] {json.dumps(par)}")
+        return
     prng = np.random.RandomState(SEED + 6)
     profile_path = os.path.join(work, "profile.json")
     write_profile_corpus(profile_path, prng, PROFILE_EXAMPLES)
@@ -6137,16 +7009,35 @@ def main():
                            batches, device, card)
     train_launches = trains["float32"]["launches"]
     lap("6a")
-    # 6c. length-aware training: bucket, pack, multi-width pack
-    full_ms = {d: trains[d]["step_ms_kernel"] for d in trains}
-    lengths = length_runs(torch, flash, fused_ce, routes, full, vocab_size,
-                          device, card, full_ms)
-    lap("6c")
-    # 6d. the pipelines, bit for bit
-    pipes = pipeline_runs(torch, flash, fused_ce,
-                          length_base.replace(data_limit=PIPELINE_EXAMPLES),
-                          vocab_size, device, card)
-    lap("6d")
+    # 6b's two entry-point runs (the training entry point at full width,
+    # then with the packed rows and the pipeline's default, resident) and
+    # 8c-8d's first runs are processes on the card from here on, beside
+    # 6c-7, whose times are printed, not claimed
+    started_6b = [entry_point_start(work, corpus_path, vocab_path,
+                                    ENTRY_LIMIT),
+                  entry_point_start(
+                      work, profile_path, vocab_path, ENTRY_PACK_LIMIT,
+                      extra=("--length_mode", "pack", "--pipeline", "auto"),
+                      want_pipeline="resident", tag="train_pack_out")]
+    started_8 = loop_start(work, corpus_path, vocab_path)
+    print(f"[length] 6c and 6d run beside 6b's and 8c-8d's processes: their "
+          f"step times and device busy are printed, not claimed — {card}")
+    try:
+        # 6c. length-aware training: bucket, pack, multi-width pack
+        full_ms = {d: trains[d]["step_ms_kernel"] for d in trains}
+        lengths = length_runs(torch, flash, fused_ce, routes, full,
+                              vocab_size, device, card, full_ms)
+        lap("6c")
+        # 6d. the pipelines, bit for bit
+        pipes = pipeline_runs(
+            torch, flash, fused_ce,
+            length_base.replace(data_limit=PIPELINE_EXAMPLES), vocab_size,
+            device, card)
+        lap("6d")
+    except BaseException:
+        stop_all([*(st[0] for st in started_6b),
+                  *started_8["procs"].values()])
+        raise
     # 7. data-parallel training: two gloo ranks on the card, zero over
     # NCCL, the entry points
     dp_loader = setup_data(train_args.replace(train_batch_size=64))[0]
@@ -6160,19 +7051,12 @@ def main():
                       f"{float(b['example_weight'][32:].sum()):.0f}"
                       for b in dp_packed))
     torch.cuda.empty_cache()
-    # 6b (the training entry point at full width, then with the packed rows
-    # and the pipeline's default, resident; phase 4's serve.cli), 7d, 7e
-    # and 8c-8e's first runs are processes on the card beside 7a-7c, whose
-    # times are printed, not claimed
-    started_6b = [entry_point_start(work, corpus_path, vocab_path,
-                                    data_limit),
-                  entry_point_start(
-                      work, profile_path, vocab_path, PROFILE_EXAMPLES,
-                      extra=("--length_mode", "pack", "--pipeline", "auto"),
-                      want_pipeline="resident", tag="train_pack_out")]
+    # phase 4's serve.cli, 7d and 7e are processes on the card beside 7a-7c
+    # (with 6b's and 8c-8d's, started at 6c), whose times are printed, not
+    # claimed
     cli4 = cli_start(vocab_path, ckpt_path, texts)
-    started_7de = entry_points_7de(work, corpus_path, vocab_path, data_limit)
-    started_8 = loop_start(work, corpus_path, vocab_path)
+    started_7de = entry_points_7de(work, corpus_path, vocab_path,
+                                   ENTRY_LIMIT)
     try:
         dp = data_parallel_runs(torch, train_args, vocab_size, dp_full,
                                 dp_packed, device, card, work, texts,
@@ -6307,14 +7191,22 @@ def main():
         moe_serve = moe_serving(torch, flash, InferenceEngine, base,
                                 moe_ckpt, moe_texts, card)
         lap("14e")
+        cli_check(cli14, moe_serve.pop("cli_want")[:6])
+        axis, axis_launches = model_axis_runs(torch, gang14, axis_args,
+                                              vocab_size, axis_batches,
+                                              device, card)
+        lap("14c")
     except BaseException:
         stop_all([cli14[0]])
         raise
-    cli_check(cli14, moe_serve.pop("cli_want")[:6])
-    axis, axis_launches = model_axis_runs(torch, gang14, axis_args,
-                                          vocab_size, axis_batches, device,
-                                          card)
-    lap("14c")
+    # 15. pipeline and sequence parallelism and the elastic gang: the
+    # transport probe (15t), pp and sp over two gloo ranks (15a, 15b), the
+    # elastic gang and the pp / sp entry points as processes beside them
+    # (15c, 15d)
+    torch.cuda.empty_cache()
+    par, par_launches = parallel_phase(
+        torch, work, vocab_path, corpus_path, train_args, vocab_size,
+        batches, texts, device, card, lap)
     moe_launches = {f"14a {n}": r["launches"] for n, r in moe.items()}
     launches_by_path = {
         "serving packed (K1)": {"flash_fwd": main_launches},
@@ -6346,6 +7238,7 @@ def main():
         **{f"14b fuse_steps {d}": r["launches"] for d, r in moe_cap.items()},
         **axis_launches,
         "14d upcycled step": upcycle["launches"],
+        **par_launches,
         **{f"14e serving {d}": {"flash_fwd": r["launches_flash_fwd"]}
            for d, r in moe_serve.items() if isinstance(r, dict)
            and "launches_flash_fwd" in r}}
@@ -6372,6 +7265,10 @@ def main():
     shape_times["32x128 6 heads (14c tp)"] = time_backward(
         torch, F, flash, mask_bias, device, card,
         key_mask=batches[0]["attention_mask"], N=6)
+    # 15a's microbatch: 8 rows of the 32 x 128 batch, 12 heads
+    shape_times["8x128 pp microbatch (15a)"] = time_backward(
+        torch, F, flash, mask_bias, device, card,
+        key_mask=batches[0]["attention_mask"][:8])
     ce_times = time_fused_ce(torch, F, fused_ce, device, card)
     ce_pack_times = {name: time_fused_ce(torch, F, fused_ce, device, card,
                                          rows=rows)
@@ -6397,6 +7294,7 @@ def main():
         "moe": {"ep_world1": moe, "capture": moe_cap, "model_axis": axis,
                 "gloo_bf16": gloo_bf16, "upcycle": upcycle,
                 "serving": moe_serve},
+        "parallel": par,
         "phase_seconds": clock,
         "seconds": time.monotonic() - t_start}
     print(f"[summary] {json.dumps(summary)}")

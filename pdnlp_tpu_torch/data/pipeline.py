@@ -459,7 +459,8 @@ class DeviceResidentPipeline(InputPipeline):
                 yield batch, n, n > 1, ex
 
 
-def build_pipeline(args, loader, device=None) -> InputPipeline:
+def build_pipeline(args, loader, device=None,
+                   allow_resident: bool = True) -> InputPipeline:
     """The mode decision, in one place.
 
     ``args.pipeline``: ``auto`` picks ``resident`` when eligible, else
@@ -467,7 +468,9 @@ def build_pipeline(args, loader, device=None) -> InputPipeline:
     is refused raises with the reason.  Resident needs the loader's
     ``EncodedDataset`` (one rectangular encoding: not a collator, not a
     multi-width packed split), a split that fits ``--pipeline_hbm_mb``,
-    and a single-process run.  ``device`` defaults to ``args.device``.
+    a single-process run, and the plain data-axis placement
+    (``allow_resident``: the sp and pp steps slice their batches across
+    the seq or stage axis).  ``device`` defaults to ``args.device``.
     """
     from pdnlp_tpu_torch.utils.config import resolve_device
 
@@ -479,7 +482,10 @@ def build_pipeline(args, loader, device=None) -> InputPipeline:
         else torch.device(device)
     enc = getattr(loader, "encoded", None)
     refusal = None
-    if enc is None or not hasattr(enc, "arrays"):
+    if not allow_resident:
+        refusal = ("this strategy slices batches across seq/stage axes — "
+                   "the resident gather assumes plain data-axis placement")
+    elif enc is None or not hasattr(enc, "arrays"):
         refusal = ("loader has no resident-eligible EncodedDataset "
                    "(collator-driven batches may change per epoch; a "
                    "multi-width packed split has no single rectangular "
@@ -496,6 +502,10 @@ def build_pipeline(args, loader, device=None) -> InputPipeline:
                        f"--pipeline_hbm_mb {budget // 2**20} MB budget")
     if mode == "resident" and refusal is not None:
         raise ValueError(f"pipeline='resident' refused: {refusal}")
+    if not allow_resident:
+        from pdnlp_tpu_torch.utils.logging import rank0_print
+
+        rank0_print(f"pipeline: resident refused — {refusal}")
     if mode == "auto":
         mode = "resident" if refusal is None else "prefetch"
     cls = {"resident": DeviceResidentPipeline,
@@ -504,11 +514,12 @@ def build_pipeline(args, loader, device=None) -> InputPipeline:
     return cls(loader, device)
 
 
-def setup_pipeline(args, loader, device=None) -> InputPipeline:
+def setup_pipeline(args, loader, device=None,
+                   allow_resident: bool = True) -> InputPipeline:
     """The obs tracer configured from ``--trace`` first (the resident
     pipeline's one-time upload must land in the trace), then
     :func:`build_pipeline`."""
     from pdnlp_tpu_torch.obs.trace import configure_from_args
 
     configure_from_args(args)
-    return build_pipeline(args, loader, device)
+    return build_pipeline(args, loader, device, allow_resident)

@@ -44,8 +44,16 @@ Tensor and expert parallelism (``parallel.sharding.shard_model``) leave
 each layer a ``shards`` record: under ``tp`` the layer holds its share of
 the heads and MLP features and runs the Megatron pair
 (``parallel.collectives``) around its blocks, under ``ep`` its share of the
-experts, whose partial combine is summed over the expert group.  Refused
-rather than approximated: sequence-parallel (ring) attention.
+experts, whose partial combine is summed over the expert group.
+
+Sequence parallelism (``parallel.sp``): with a ``seq_group`` the batch is
+this rank's ``[B, S_local]`` slice of the sequence.  Positions are offset
+by the slice's start, attention is ring attention over the group
+(``ops.ring``), and the head reads shard 0's [CLS] row (or, for packed
+rows, each segment's [CLS] wherever it lies) through a ``psum`` over the
+group, so every rank computes the same logits.  MoE layers refuse the ring
+path, as in JAX.  Pipeline parallelism (``parallel.pp``) runs the same
+layers, a stage's slice at a time.
 
 The masked-LM head (:class:`MLMHead`, :func:`init_mlm_head`,
 :func:`mlm_logits`) is its own module beside the classifier, as the JAX
@@ -509,12 +517,14 @@ class EncoderLayer(nn.Module):
                 segment_ids: Optional[torch.Tensor] = None, *,
                 attn_impl: str = "auto",
                 generator: Optional[torch.Generator] = None,
-                mask: Optional[torch.Tensor] = None):
+                mask: Optional[torch.Tensor] = None, seq_group=None):
         """``[B, S, H]`` -> ``[B, S, H]``: attention (key ``bias`` or
         packed ``segment_ids``), output projection, residual LayerNorm, MLP,
         residual LayerNorm; dropout with a ``generator``.  An MoE layer
         returns ``(x, aux)``; ``mask`` (``[B, S]``) keeps padding out of its
-        routing statistics and capacity slots."""
+        routing statistics and capacity slots.  With a ``seq_group`` ``x``
+        is this rank's slice of the sequence and attention runs the ring
+        over the group (``bias`` then is the ``[B, S_local]`` key bias)."""
         cfg = self.cfg
         B, S, _ = x.shape
         D = cfg.head_dim
@@ -532,10 +542,18 @@ class EncoderLayer(nn.Module):
         q = q.view(B, S, N, D)
         k = _dense(xin, self.k).view(B, S, N, D)
         v = _dense(xin, self.v).view(B, S, N, D)
-        attn = dot_product_attention(q, k, v, bias, impl=attn_impl,
-                                     segment_ids=segment_ids,
-                                     dropout_rate=attn_drop,
-                                     generator=generator)
+        if seq_group is not None:
+            from pdnlp_tpu_torch.ops.ring import ring_attention
+
+            attn = ring_attention(q, k, v, bias, seq_group,
+                                  dropout_rate=attn_drop,
+                                  generator=generator,
+                                  segment_ids=segment_ids)
+        else:
+            attn = dot_product_attention(q, k, v, bias, impl=attn_impl,
+                                         segment_ids=segment_ids,
+                                         dropout_rate=attn_drop,
+                                         generator=generator)
         attn = _row_dense(attn.reshape(B, S, N * D), self.o, sh)
         x = _layer_norm(x + _dropout(attn, drop, generator),
                         self.attn_ln.scale, self.attn_ln.bias,
@@ -662,19 +680,21 @@ class BertClassifier(nn.Module):
     def embed(self, input_ids: torch.Tensor, token_type_ids: torch.Tensor,
               dtype: torch.dtype,
               position_ids: Optional[torch.Tensor] = None,
-              generator: Optional[torch.Generator] = None) -> torch.Tensor:
+              generator: Optional[torch.Generator] = None,
+              shard_offset: int = 0) -> torch.Tensor:
         """Embedding sum (fp32) -> compute dtype -> LayerNorm -> dropout
         (with a ``generator``).  Explicit ``position_ids`` (packed rows
         restart per segment) carry their own bound; row positions must fit
-        the table."""
+        the table.  ``shard_offset`` is the first row position of a
+        sequence slice (sequence parallelism)."""
         emb = self.embeddings
         S = input_ids.shape[1]
         if position_ids is None:
-            if S > self.cfg.max_position:
+            if shard_offset + S > self.cfg.max_position:
                 raise ValueError(
-                    f"sequence length {S} exceeds max_position "
-                    f"{self.cfg.max_position}")
-            pos = emb.position[:S][None]
+                    f"sequence length {shard_offset + S} exceeds "
+                    f"max_position {self.cfg.max_position}")
+            pos = emb.position[shard_offset: shard_offset + S][None]
         else:
             pos = emb.position[position_ids.long()]
         x = (emb.word[input_ids.long()] + pos
@@ -687,27 +707,51 @@ class BertClassifier(nn.Module):
                segment_ids: Optional[torch.Tensor] = None,
                position_ids: Optional[torch.Tensor] = None,
                generator: Optional[torch.Generator] = None,
-               remat: bool = False, with_aux: bool = False):
+               remat: bool = False, with_aux: bool = False,
+               seq_group=None):
         """Hidden states ``[B, S, H]`` in ``dtype``.  ``segment_ids`` (packed
         rows) carries the block-diagonal mask to attention; otherwise the
         key mask comes from ``attention_mask``.  A ``generator`` turns on
         dropout (training).  ``remat`` recomputes each layer's activations
         in the backward instead of keeping them (:func:`_remat`).
         ``with_aux`` returns ``(hidden, aux)``: the MoE load-balancing
-        loss summed over the layers (fp32; 0 for a dense model)."""
+        loss summed over the layers (fp32; 0 for a dense model).  With a
+        ``seq_group`` the inputs are this rank's slice of the sequence
+        (JAX ``encode``'s ``seq_axis``): positions start at the slice's
+        offset and attention runs the ring."""
+        shard_offset = 0
+        if seq_group is not None:
+            from pdnlp_tpu_torch.parallel.collectives import world_size
+
+            if self.cfg.moe_experts:
+                raise ValueError("MoE layers are not supported on the "
+                                 "sequence-parallel (ring attention) path")
+            S = input_ids.shape[1]
+            shard_offset = torch.distributed.get_rank(seq_group) * S
+            if position_ids is None and \
+                    S * world_size(seq_group) > self.cfg.max_position:
+                raise ValueError("global sequence exceeds max_position")
         x = self.embed(input_ids, token_type_ids, dtype, position_ids,
-                       generator)
-        # fp32 whatever the compute dtype: the kernel adds the mask in fp32,
-        # and the plain path casts it to the scores' dtype
-        bias = None if segment_ids is not None else mask_bias(attention_mask)
+                       generator, shard_offset)
+        if segment_ids is not None:
+            bias = None
+        elif seq_group is not None:
+            # the same additive mask, squeezed to the [B, S_local] rows the
+            # ring rotates with its K/V block
+            bias = mask_bias(attention_mask)[:, 0, 0, :]
+        else:
+            # fp32 whatever the compute dtype: the kernel adds the mask in
+            # fp32, and the plain path casts it to the scores' dtype
+            bias = mask_bias(attention_mask)
         aux = torch.zeros((), dtype=torch.float32, device=x.device)
+        ring = {} if seq_group is None else {"seq_group": seq_group}
         for layer in self.layers:
             if remat and torch.is_grad_enabled():
                 out = _remat(layer, x, bias, segment_ids, attn_impl=attn_impl,
-                             generator=generator, mask=attention_mask)
+                             generator=generator, mask=attention_mask, **ring)
             else:
                 out = layer(x, bias, segment_ids, attn_impl=attn_impl,
-                            generator=generator, mask=attention_mask)
+                            generator=generator, mask=attention_mask, **ring)
             if layer.moe:
                 x, a = out
                 aux = aux + a
@@ -742,7 +786,8 @@ class BertClassifier(nn.Module):
                  attn_impl: str = "auto", deterministic: bool = True,
                  generator: Optional[torch.Generator] = None,
                  return_pooled: bool = False,
-                 remat: bool = False, return_aux: bool = False):
+                 remat: bool = False, return_aux: bool = False,
+                 seq_group=None):
         """fp32 logits: ``[B, num_labels]`` for a padded batch, or
         ``[B, M, num_labels]`` per segment for a packed batch (one carrying
         ``cls_positions``, ``segment_ids`` and ``position_ids``).
@@ -752,7 +797,14 @@ class BertClassifier(nn.Module):
         features (``[B, H]`` / ``[B, M, H]``, in ``dtype``) instead of
         logits, for ``ops.fused_ce``.  ``remat``: see :meth:`encode`.
         ``return_aux`` returns ``(out, aux)``, the MoE load-balancing loss
-        summed over the layers (0 for a dense model)."""
+        summed over the layers (0 for a dense model).
+
+        With a ``seq_group`` (sequence parallelism) the batch's token
+        channels are this rank's slice of the sequence: shard 0's [CLS] row
+        is broadcast by a masked ``psum`` over the group, and a packed
+        batch's global ``cls_positions`` are gathered from the slice each
+        lands in, the same way (JAX ``classify``'s ``seq_axis``); every
+        rank then computes the same head."""
         if not deterministic and generator is None:
             raise ValueError("the training forward (deterministic=False) "
                              "draws dropout from an explicit generator")
@@ -763,13 +815,31 @@ class BertClassifier(nn.Module):
             batch["attention_mask"], dtype=dtype, attn_impl=attn_impl,
             segment_ids=batch["segment_ids"] if packed else None,
             position_ids=batch.get("position_ids") if packed else None,
-            generator=gen, remat=remat, with_aux=True)
+            generator=gen, remat=remat, with_aux=True, seq_group=seq_group)
         head = self.pooled_features if return_pooled else self.pooled_logits
+        if seq_group is not None:
+            from pdnlp_tpu_torch.parallel.collectives import psum
+
+            me = torch.distributed.get_rank(seq_group)
         if not packed:
-            out = head(hidden[:, 0, :], gen)
+            h0 = hidden[:, 0, :]
+            if seq_group is not None:
+                h0 = psum(h0 * float(me == 0), seq_group)
+            out = head(h0, gen)
         else:
             pos = batch["cls_positions"].long()
-            hM = torch.take_along_dim(hidden, pos[..., None], dim=1)
+            if seq_group is None:
+                hM = torch.take_along_dim(hidden, pos[..., None], dim=1)
+            else:
+                # the offsets are global, ``hidden`` this rank's slice: each
+                # rank gathers the offsets inside its slice, the psum
+                # assembles the [B, M, H] rows on every rank
+                S_local = hidden.shape[1]
+                local = pos - me * S_local
+                inb = (local >= 0) & (local < S_local)
+                hM = torch.take_along_dim(
+                    hidden, local.clamp(0, S_local - 1)[..., None], dim=1)
+                hM = psum(hM * inb[..., None].to(hidden.dtype), seq_group)
             B, M, H = hM.shape                                 # [B, M, H]
             out = head(hM.reshape(B * M, H), gen).reshape(B, M, -1)
         return (out, aux) if return_aux else out

@@ -15,7 +15,7 @@ Two consumers of the phase breakdown:
 
   It also maintains ``last_step`` / ``steps_per_sec`` (EWMA of the step
   rate) — the heartbeat metadata that lets the launcher-side
-  gang monitor (ROADMAP A11) tell a SLOW gang
+  gang monitor (``parallel.watchdog.GangMonitor``) tell a SLOW gang
   (beats arriving, step counter advancing, rate depressed) from a DEAD one
   (beats stopped) without guessing from file mtimes.
 

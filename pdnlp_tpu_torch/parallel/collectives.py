@@ -150,3 +150,130 @@ def reduce_from_group(x: torch.Tensor, group) -> torch.Tensor:
     """``x`` all-reduced (summed) over ``group``; the gradient passes
     through unchanged (every rank already holds the whole of it)."""
     return _ReduceFromGroup.apply(x, group)
+
+
+class _AllReduceSum(torch.autograd.Function):
+    """``psum``: the sum over ``group`` forward, and the cotangents summed
+    over ``group`` backward (JAX's transpose of ``psum``) — every rank's
+    input reaches every rank's output."""
+
+    @staticmethod
+    def forward(ctx, x, group):
+        ctx.group = group
+        out = x.contiguous().clone()
+        _all_reduce(out, group)
+        return out
+
+    @staticmethod
+    def backward(ctx, grad):
+        grad = grad.contiguous().clone()
+        _all_reduce(grad, ctx.group)
+        return grad, None
+
+
+def psum(x: torch.Tensor, group) -> torch.Tensor:
+    """``x`` summed over ``group``, differentiable both ways (JAX's
+    ``lax.psum`` in a ``shard_map`` body)."""
+    return _AllReduceSum.apply(x, group)
+
+
+# ---------------------------------------------------- neighbour exchange
+
+#: how a CUDA tensor crosses between two gloo ranks: "device" hands the
+#: CUDA tensor to gloo's send/recv, "host" stages it through a pinned host
+#: buffer and exchanges the CPU tensor.  Fixed from the two-rank probe on
+#: the H100 (``chip_smoke.py`` phase 15t, :func:`p2p_transport`), never
+#: chosen by catching an error.
+GLOO_CUDA_P2P = "host"
+
+#: the point-to-point exchanges in this process: calls, bytes sent and host
+#: seconds (the call to its return), for the ring's and the pipeline's
+#: exchange records
+P2P_STATS = {"calls": 0, "bytes": 0, "seconds": 0.0}
+
+
+def reset_p2p_stats() -> None:
+    P2P_STATS.update(calls=0, bytes=0, seconds=0.0)
+
+
+def p2p_transport(t: torch.Tensor, group=None) -> str:
+    """How ``t`` travels between two ranks of ``group``: ``"device"`` (the
+    tensor itself: NCCL on the card, or any backend on a CPU tensor) or
+    ``"host"`` (a CUDA tensor over gloo: :data:`GLOO_CUDA_P2P`)."""
+    if t.device.type == "cpu" or dist.get_backend(group) == "nccl":
+        return "device"
+    return GLOO_CUDA_P2P
+
+
+def _global(group, rank: int) -> int:
+    return rank if group is None else dist.get_global_rank(group, rank)
+
+
+def exchange(send: Optional[torch.Tensor], dst: Optional[int],
+             like: Optional[torch.Tensor], src: Optional[int],
+             group=None) -> Optional[torch.Tensor]:
+    """One point-to-point step: ``send`` to group rank ``dst`` and a tensor
+    shaped and typed as ``like`` received from group rank ``src``, both in
+    flight at once (either side may be None).  Returns the received tensor
+    on ``like``'s device.  Under the ``"host"`` transport each side goes
+    through a pinned host buffer (a copy off the card, gloo's send of the
+    CPU tensor, a copy back on).  ``P2P_STATS`` counts the call, the bytes
+    sent and the host seconds, waiting for the peer included."""
+    import time
+
+    t0 = time.perf_counter()
+    works, staged, buf = [], None, None
+    ref = send if send is not None else like
+    host = p2p_transport(ref, group) == "host"
+    if send is not None:
+        staged = send.detach().contiguous()
+        if host:
+            staged = torch.empty(staged.shape, dtype=staged.dtype,
+                                 pin_memory=True).copy_(staged)
+        works.append(dist.isend(staged, _global(group, dst), group=group))
+        P2P_STATS["bytes"] += staged.numel() * staged.element_size()
+    if like is not None:
+        buf = torch.empty(like.shape, dtype=like.dtype,
+                          device="cpu" if host else like.device,
+                          pin_memory=host)
+        works.append(dist.irecv(buf, _global(group, src), group=group))
+    for w in works:
+        w.wait()
+    if buf is not None and host:
+        buf = buf.to(like.device)
+    P2P_STATS["calls"] += 1
+    P2P_STATS["seconds"] += time.perf_counter() - t0
+    return buf
+
+
+def _permute(x: torch.Tensor, group, shift: int) -> torch.Tensor:
+    n = world_size(group)
+    if shift % n == 0:
+        return x.clone()
+    me = dist.get_rank(group)
+    return exchange(x, (me + shift) % n, x, (me - shift) % n, group)
+
+
+class _PPermute(torch.autograd.Function):
+    """JAX's ``lax.ppermute`` by a cyclic ``shift``: rank ``r`` sends to
+    ``r + shift`` and receives from ``r - shift``; backward sends the
+    cotangent by ``-shift``, the transpose of the permutation."""
+
+    @staticmethod
+    def forward(ctx, x, group, shift):
+        ctx.group, ctx.shift = group, shift
+        return _permute(x, group, shift)
+
+    @staticmethod
+    def backward(ctx, grad):
+        return _permute(grad.contiguous(), ctx.group, -ctx.shift), None, None
+
+
+def ppermute(x: torch.Tensor, group, shift: int = 1) -> torch.Tensor:
+    """``x`` of rank ``r - shift`` of ``group`` (cyclic), on every rank;
+    differentiable (the cotangent travels back by ``-shift``).  Every rank
+    of the group calls it with the same shapes, in the same order, so the
+    hops of a backward pair up across the ranks as the forward's do."""
+    if x.requires_grad:
+        return _PPermute.apply(x, group, shift)
+    return _permute(x, group, shift)

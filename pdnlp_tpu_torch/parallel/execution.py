@@ -15,6 +15,9 @@
   ``tp`` and ``ep`` the step all-reduces the gradients over the data axis
   after the backward; the step's loss and accuracy are summed over the
   data axis.
+- ``pp`` and ``sp`` place here too (the stage's layer slice, or the whole
+  model on every rank of a seq group); their steps are
+  ``parallel.pp.make_pp_train_step`` and ``parallel.sp.make_sp_train_step``.
 - :func:`make_shardmap_train_step`: the explicit-collectives flavour
   (Horovod's analog): no wrapper; after ``backward`` one hand-written
   all-reduce of every gradient, optionally bf16 on the wire, then the same
@@ -35,7 +38,8 @@ from pdnlp_tpu_torch.models.bert import BertClassifier
 from pdnlp_tpu_torch.models.config import BertConfig, args_overrides, get_config
 from pdnlp_tpu_torch.parallel import collectives
 from pdnlp_tpu_torch.parallel.mesh import (
-    DATA_AXIS, axis_group, axis_index, axis_size, mesh_shape,
+    DATA_AXIS, SEQ_AXIS, STAGE_AXIS, axis_group, axis_index, axis_size,
+    mesh_shape,
 )
 from pdnlp_tpu_torch.parallel.sharding import (
     MODE_AXIS, check_mesh, check_mode, check_model, model_shards,
@@ -58,6 +62,30 @@ def dropout_seed(seed: int, rank: int) -> int:
     data coordinate, so it draws the same masks, and the activations its
     ranks replicate stay equal."""
     return int(seed) + int(rank) * 2 ** 32
+
+
+def dropout_coordinate(mesh, mode: str) -> int:
+    """The coordinate a rank's dropout stream folds in: its data index, and
+    under ``pp`` and ``sp`` its place along ``stage`` or ``seq`` too (JAX
+    folds ``axis_index`` of both into the key), so each stage and each
+    sequence slice draws its own masks."""
+    coord = axis_index(mesh, DATA_AXIS)
+    axis = {"pp": STAGE_AXIS, "sp": SEQ_AXIS}.get(mode)
+    if axis is not None:
+        coord = coord * axis_size(mesh, axis) + axis_index(mesh, axis)
+    return coord
+
+
+def check_sp(args, cfg) -> None:
+    """JAX's sequence-parallel refusals: the EMA (``sp.py:106-109``) and
+    MoE layers (``bert.py:333-335``)."""
+    if args.ema_decay > 0:
+        raise ValueError("--ema_decay runs on the jit strategies (dp/zero/"
+                         "tp/ep) — the sequence-parallel step does not "
+                         "maintain the EMA tree")
+    if cfg.moe_experts:
+        raise ValueError("MoE layers are not supported on the "
+                         "sequence-parallel (ring attention) path")
 
 
 def check_zero(args, mode: str) -> None:
@@ -96,6 +124,12 @@ def setup_sharded_model(args, vocab_size: int, mesh, mode: str = "dp",
                      num_labels=args.num_labels, dropout=args.dropout,
                      attn_dropout=args.attn_dropout, **args_overrides(args))
     check_model(cfg, mode, shape, args.model)
+    if mode == "pp":
+        from pdnlp_tpu_torch.parallel.pp import check_pp
+
+        check_pp(args, cfg, shape[STAGE_AXIS])
+    if mode == "sp":
+        check_sp(args, cfg)
     if device.type == "cpu" and mode in MODE_AXIS and \
             axis_size(mesh, MODE_AXIS[mode]) > 1:
         # the weights a model or expert group replicates are updated on
@@ -105,15 +139,23 @@ def setup_sharded_model(args, vocab_size: int, mesh, mode: str = "dp",
         torch.set_num_threads(1)
     init_gen, dropout_gen = set_seed(args.seed, device)
     dropout_gen.manual_seed(dropout_seed(args.seed,
-                                         axis_index(mesh, DATA_AXIS)))
+                                         dropout_coordinate(mesh, mode)))
     # the full seeded init (and warm start) on the host, then this rank's
     # share of it: the model at any width is the model at width 1
     model = warm_start(BertClassifier(cfg, generator=init_gen), args)
-    model = shard_model(model, model_shards(mesh, mode)).to(device)
+    model = shard_model(model, model_shards(mesh, mode))
+    if mode == "pp":
+        from pdnlp_tpu_torch.parallel.pp import stage_model, stage_of
+
+        model = stage_model(model, stage_of(mesh, cfg.num_layers))
+    model = model.to(device)
     group = axis_group(mesh, DATA_AXIS)
     # one rank on the data axis: the single-device objective, with no
-    # collective (a captured step can hold it)
-    single = axis_size(mesh, DATA_AXIS) == 1 and not explicit_collectives
+    # collective (a captured step can hold it); pp and sp steps reduce
+    # their gradients themselves, and pp's MoE statistics are each
+    # microbatch's own
+    single = (axis_size(mesh, DATA_AXIS) == 1 or mode in ("pp", "sp")) \
+        and not explicit_collectives
     objective = TrainObjective(model, args, device,
                                group=None if single else group,
                                global_aux=not explicit_collectives)

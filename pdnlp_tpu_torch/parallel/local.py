@@ -16,7 +16,8 @@ numbers back, where the entry points print lines.
   each step's kernel
   launches in this rank, whether the ranks' weights are bit-equal, the
   shard fraction and the eval outputs gathered over the ranks; rank 0
-  writes each run's consolidated weights to a file.
+  writes each run's consolidated weights to a file.  A run in mode
+  ``pp`` or ``sp`` takes the pipeline's or the ring's step.
 """
 from __future__ import annotations
 
@@ -117,11 +118,14 @@ def params_digest(model: torch.nn.Module, replicated: bool = False) -> str:
     from pdnlp_tpu_torch.parallel.sharding import shard_dim
 
     shards = getattr(model, "shards", None)
+    staged = getattr(model, "stage", None) is not None
     h = hashlib.sha256()
     for name, p in model.state_dict().items():
         if replicated and shards is not None and \
                 shard_dim(name, p.shape, shards.mode) is not None:
             continue
+        if replicated and staged and name.startswith("layers."):
+            continue            # a pipeline stage's own layers
         local = p.to_local() if hasattr(p, "to_local") else p
         h.update(name.encode())
         h.update(local.detach().cpu().contiguous().view(torch.uint8)
@@ -143,7 +147,10 @@ def train_global_batches(rank: int, world: int, args, payload: Dict) -> List:
     ``shard_fraction``, ``eval`` (the gathered ``pred``, ``label`` and
     ``ew``), ``mesh``, ``megatron`` (the tp/ep all-reduces:
     ``parallel.collectives.STATS`` over the run's steps),
-    ``param_bytes`` and ``param_shapes`` (this rank's) and ``allreduce_ms``: with ``payload["allreduce_numel"]``, the
+    ``param_bytes`` and ``param_shapes`` (this rank's), ``p2p`` (the
+    neighbour exchanges of pp and sp: ``collectives.P2P_STATS`` over the
+    run's steps), ``timeline`` (pp: each step's busy and wall seconds on
+    this stage) and ``allreduce_ms``: with ``payload["allreduce_numel"]``, the
     times of three all-reduces of that many fp32 values before the runs
     (host clock to a sync); rank 0 writes the consolidated weights to
     ``payload["out_dir"]/<name>.pt`` (``checkpoint.save_params``)."""
@@ -209,11 +216,25 @@ def train_global_batches(rank: int, world: int, args, payload: Dict) -> List:
         cfg, state = setup_sharded_model(
             rargs, payload["vocab_size"], rmesh, mode,
             total_steps=len(batches), explicit_collectives=explicit)
-        step = (make_shardmap_train_step(rargs, rmesh, device, compress)
-                if explicit else make_parallel_train_step(rargs, rmesh,
-                                                          device, mode))
+        timeline = []
+        if mode == "pp":
+            from pdnlp_tpu_torch.parallel.pp import (
+                make_pp_eval_step, make_pp_train_step,
+            )
+
+            step = make_pp_train_step(rargs, rmesh, device,
+                                      rargs.microbatches, timeline=timeline)
+        elif mode == "sp":
+            from pdnlp_tpu_torch.parallel.sp import make_sp_train_step
+
+            step = make_sp_train_step(rargs, rmesh, device)
+        else:
+            step = (make_shardmap_train_step(rargs, rmesh, device, compress)
+                    if explicit else make_parallel_train_step(
+                        rargs, rmesh, device, mode))
         losses, accs, launches, t0 = [], [], [], None
         collectives.reset_stats()
+        collectives.reset_p2p_stats()
         for i, host in enumerate(batches):
             if i == 1:
                 sync()
@@ -227,10 +248,12 @@ def train_global_batches(rank: int, world: int, args, payload: Dict) -> List:
             accs.append(m["accuracy"])
         sync()
         megatron = dict(collectives.STATS)
+        p2p = dict(collectives.P2P_STATS)
         step_ms = ((time.perf_counter() - t0) / (len(batches) - 1) * 1e3
                    if t0 is not None else None)
         rec = {"name": name, "allreduce_ms": allreduce_ms,
                "mesh": mesh_shape(rmesh), "megatron": megatron,
+               "p2p": p2p, "timeline": timeline,
                "param_bytes": sum(p.numel() * p.element_size()
                                   for p in state.model.parameters()),
                "param_shapes": {k: tuple(v.shape) for k, v in
@@ -248,7 +271,15 @@ def train_global_batches(rank: int, world: int, args, payload: Dict) -> List:
         dist.all_gather_object(replicated, params_digest(state.model, True))
         rec["replicated_digests"] = replicated
         if eval_batch is not None:
-            ev = make_parallel_eval_step(rargs, state)
+            if mode == "pp":
+                ev = make_pp_eval_step(rargs, rmesh, device,
+                                       rargs.microbatches)
+            elif mode == "sp":
+                from pdnlp_tpu_torch.parallel.sp import make_sp_eval_step
+
+                ev = make_sp_eval_step(rargs, rmesh)
+            else:
+                ev = make_parallel_eval_step(rargs, state)
             m = ev(state.model, None, to_device(
                 rank_block(eval_batch, d_idx, d_size), device))
             rec["eval"] = [a.cpu().numpy() for a in collectives.output_reduce(

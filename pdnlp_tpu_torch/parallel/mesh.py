@@ -7,11 +7,11 @@ rank of the process group drives one card, and the mesh is a
 ``init_device_mesh(device_type, sizes, mesh_dim_names=names)``, so on a
 ``{"data": D, "model": M}`` mesh rank ``r`` sits at ``(r // M, r % M)``.
 The default is one ``("data",)`` axis over the world.  A second axis is
-``model`` (tensor parallelism) or ``expert`` (expert parallelism);
+``model`` (tensor parallelism), ``expert`` (expert parallelism), ``seq``
+(sequence parallelism: ring attention over the ranks of the axis) or
+``stage`` (pipeline parallelism: each rank holds a slice of the layers);
 ``--num_devices`` and ``--mesh_shape`` are checked with JAX's messages
-(one ``-1`` entry is inferred).  The ``seq`` and ``stage`` axes belong to
-the strategies still to be ported (sequence and pipeline parallelism:
-ROADMAP A11b) and are refused.
+(one ``-1`` entry is inferred).
 """
 from __future__ import annotations
 
@@ -22,12 +22,12 @@ import torch.distributed as dist
 DATA_AXIS = "data"
 MODEL_AXIS = "model"
 EXPERT_AXIS = "expert"
+SEQ_AXIS = "seq"
+STAGE_AXIS = "stage"
 
 #: every axis name a mesh of the JAX package may declare: "data" (all
 #: strategies), "model" (tp), "expert" (ep), "seq" (sp), "stage" (pp)
 KNOWN_AXES = ("data", "model", "expert", "seq", "stage")
-#: the axes of the strategies still to port
-REFUSED_AXES = ("seq", "stage")
 
 
 def mesh_dims(world: int, num_devices: Optional[int] = None,
@@ -53,12 +53,6 @@ def mesh_dims(world: int, num_devices: Optional[int] = None,
     dims = {a: int(n) for a, n in shape.items()}
     if list(dims.values()).count(-1) > 1:
         raise ValueError(f"at most one inferred (-1) axis: {shape}")
-    refused = [a for a in dims if a in REFUSED_AXES]
-    if refused:
-        raise ValueError(
-            f"mesh axes {refused} belong to sequence or pipeline "
-            "parallelism, which the PyTorch port does not have yet (ROADMAP "
-            "A11b); its axes are 'data', 'model' and 'expert'")
     if MODEL_AXIS in dims and EXPERT_AXIS in dims:
         raise ValueError(f"mesh {dims}: one of 'model' (tp) or 'expert' "
                          "(ep), not both")
@@ -119,16 +113,26 @@ def axis_index(mesh, axis: str) -> int:
 
 
 def axis_group(mesh, axis: str):
-    """The process group of the ranks that differ only along ``axis``."""
-    return mesh.get_group(axis)
+    """The process group of the ranks that differ only along ``axis``;
+    where the mesh has no such axis, this rank alone (a group of one,
+    made on first use by every rank, as ``new_group`` needs)."""
+    if axis in (mesh.mesh_dim_names or ()):
+        return mesh.get_group(axis)
+    alone = getattr(mesh, "_self_groups", None)
+    if alone is None:
+        alone = [dist.new_group([r]) for r in range(dist.get_world_size())]
+        mesh._self_groups = alone
+    return alone[dist.get_rank()]
 
 
 def local_data_extent(mesh, axis: str = DATA_AXIS) -> Tuple[int, int, int]:
     """``(num_shards, shard_id, mult)`` for the data loader: this rank's
     slice of the global batch — the data axis's size and this rank's
     coordinate on it, at the per-device batch (``mult`` 1), where a JAX
-    process feeds all of its devices' rows.  Every rank of one model or
-    expert group feeds the same rows (JAX ``train/run.py:69-73``)."""
+    process feeds all of its devices' rows.  Every rank of one model,
+    expert, seq or stage group feeds the same rows (JAX ``train/run.py:
+    69-73``); a mesh with no data axis (``{"stage": S}``, a stage-major
+    pipeline) has every rank feed the whole batch."""
     names = mesh.mesh_dim_names or ()
     if axis not in names:
         return 1, 0, 1

@@ -28,6 +28,16 @@ to this rank's share:
   expert dim; the gate and everything else replicate.  Each rank combines
   its experts' part, summed over the expert group.
 
+- ``"pp"``: pipeline parallelism over the ``stage`` axis: each rank holds
+  a contiguous slice of the layers, the embeddings and the head whole
+  (``parallel.pp``);
+- ``"sp"``: sequence parallelism over the ``seq`` axis: every weight
+  replicated, each rank a slice of the sequence, ring attention between
+  them (``parallel.sp``).
+
+Neither wraps the objective: their steps run their own exchanges and
+reduce the gradients themselves.
+
 Under ``tp`` and ``ep`` each rank takes its slices of one full seeded init
 (the model at any width is the model at width 1), the replicated weights
 get identical gradients on every rank of a model or expert group, and the
@@ -45,20 +55,18 @@ from typing import Dict, Mapping, Optional
 import torch
 
 from pdnlp_tpu_torch.parallel.mesh import (
-    DATA_AXIS, EXPERT_AXIS, MODEL_AXIS, axis_group, axis_index, axis_size,
+    DATA_AXIS, EXPERT_AXIS, MODEL_AXIS, SEQ_AXIS, STAGE_AXIS, axis_group,
+    axis_index, axis_size,
 )
 
-MODES = ("dp", "zero", "tp", "ep")
-REFUSED = {"pp": "pipeline parallelism", "sp": "sequence parallelism"}
-#: the mesh axis each model-axis mode splits
+MODES = ("dp", "zero", "tp", "ep", "pp", "sp")
+#: the mesh axis each model-axis mode splits the weights over
 MODE_AXIS = {"tp": MODEL_AXIS, "ep": EXPERT_AXIS}
+#: the second mesh axis each mode places over, beside ``data``
+PLACE_AXIS = {**MODE_AXIS, "pp": STAGE_AXIS, "sp": SEQ_AXIS}
 
 
 def check_mode(mode: str) -> None:
-    if mode in REFUSED:
-        raise ValueError(f"mode {mode!r} ({REFUSED[mode]}) is not in the "
-                         "PyTorch port yet (ROADMAP A11b); use dp, zero, tp "
-                         "or ep")
     if mode not in MODES:
         raise ValueError(f"unknown sharding mode {mode!r}; use one of "
                          f"{MODES}")
@@ -66,9 +74,19 @@ def check_mode(mode: str) -> None:
 
 def check_mesh(mode: str, shape: Mapping[str, int]) -> None:
     """The mesh axes ``mode`` needs, with JAX's ``state_shardings``
-    messages; ``dp`` and ``zero`` place over the ``data`` axis alone."""
+    messages (``setup_pp_model``'s for ``pp``); ``dp`` and ``zero`` place
+    over the ``data`` axis alone, ``pp`` over ``stage`` with an optional
+    ``data``, ``sp`` over ``data`` and ``seq``."""
     check_mode(mode)
     shape = dict(shape)
+    if mode == "pp" and STAGE_AXIS not in shape:
+        raise ValueError(
+            f"pp needs a {STAGE_AXIS!r} mesh axis; got {shape} — "
+            'pass --mesh_shape \'{"stage": S}\'')
+    if mode == "sp" and SEQ_AXIS not in shape:
+        raise ValueError(
+            f"sp needs a {SEQ_AXIS!r} mesh axis; got {shape} — "
+            'pass --mesh_shape \'{"data": D, "seq": N}\'')
     if mode == "tp" and MODEL_AXIS not in shape:
         raise ValueError(
             f"tp needs a {MODEL_AXIS!r} mesh axis; got {shape} — "
@@ -77,18 +95,20 @@ def check_mesh(mode: str, shape: Mapping[str, int]) -> None:
         raise ValueError(
             f"ep needs an {EXPERT_AXIS!r} mesh axis; got {shape} "
             '— pass --mesh_shape \'{"data": D, "expert": E}\'')
-    if mode in MODE_AXIS and DATA_AXIS not in shape:
+    if mode in ("tp", "ep", "sp") and DATA_AXIS not in shape:
         raise ValueError(
             f"{mode} also needs a {DATA_AXIS!r} mesh axis for the batch "
             f"(size 1 is fine); got {shape} — pass --mesh_shape "
-            f'\'{{"{DATA_AXIS}": 1, "{MODE_AXIS[mode]}": N}}\'')
+            f'\'{{"{DATA_AXIS}": 1, "{PLACE_AXIS[mode]}": N}}\'')
+    # an axis of one rank places nothing (JAX replicates over it)
     other = [a for a in shape if a != DATA_AXIS
-             and a != MODE_AXIS.get(mode)]
+             and a != PLACE_AXIS.get(mode) and shape[a] != 1]
     if other:
-        raise ValueError(f"mode {mode} places over "
-                         f"{[DATA_AXIS] + ([MODE_AXIS[mode]] if mode in MODE_AXIS else [])}"
-                         f"; the mesh {shape} also has {other} (--mode tp "
-                         "splits 'model', --mode ep 'expert')")
+        axes = [DATA_AXIS] + ([PLACE_AXIS[mode]] if mode in PLACE_AXIS
+                              else [])
+        raise ValueError(f"mode {mode} places over {axes}; the mesh {shape} "
+                         f"also has {other} (--mode tp splits 'model', ep "
+                         "'expert', pp 'stage', sp 'seq')")
 
 
 @dataclasses.dataclass
@@ -231,10 +251,10 @@ def wrap(objective: torch.nn.Module, mode: str, mesh, device
     axis for ``dp`` (its broadcast at construction leaves rank 0's weights
     on every rank), FSDP2 for ``zero``, sharding in place (build the
     optimizer after).  No wrapper for ``dp`` where the data axis has one
-    rank (nothing to reduce), nor for ``tp`` and ``ep``, whose step
-    reduces the data-axis gradients itself."""
+    rank (nothing to reduce), nor for ``tp``, ``ep``, ``pp`` and ``sp``,
+    whose steps reduce the gradients themselves."""
     check_mode(mode)
-    if mode in MODE_AXIS or (mode == "dp"
+    if mode in PLACE_AXIS or (mode == "dp"
                              and axis_size(mesh, DATA_AXIS) == 1):
         return objective
     if mode == "dp":

@@ -10,14 +10,20 @@ port's copy of the ``Heartbeat`` and ``GangMonitor`` of
   freshness, and classifies the gang as ``crashed`` (a child exited
   nonzero) or ``stalled`` (a heartbeat older than the timeout), naming the
   dead ranks.  ``serve.router`` reads its replicas through it.
-
-The elastic gang supervisor and restart (``GangSupervisor``) come with
-elastic training (ROADMAP A11).
+- **GangSupervisor** (launcher side, ``train.spawn --elastic true``): on
+  a failure verdict the whole gang is killed and relaunched from the newest
+  resume snapshot, at the surviving width when the verdict names dead
+  ranks, after a capped exponential backoff and within a restart budget.
+  The resume is bit for bit at the same width; at another width the data
+  position is remapped by epoch fraction (``train.trainer``).  The unit of
+  restart is the whole gang: a lone replacement rank cannot rejoin a
+  process group whose peers are wedged in a collective.
 """
 from __future__ import annotations
 
 import json
 import os
+import sys
 import time
 from typing import Callable, Dict, List, Optional
 
@@ -259,3 +265,85 @@ class GangMonitor:
                 time.sleep(0.1)
             if p.poll() is None:
                 p.kill()
+
+
+class GangSupervisor:
+    """Degrade-don't-die gang supervision: relaunch, evict, back off (the
+    JAX package's policy loop over :class:`GangMonitor` verdicts, its
+    ``[elastic]`` lines word for word):
+
+    - **restart** the whole gang from the newest snapshot on any failure;
+    - **evict** when the verdict names dead ranks (crashed, or beats
+      stopped — never merely slow): the next incarnation launches at the
+      surviving width, and the workers' resume remaps the data position.
+      A verdict that condemns the ENTIRE gang (a startup rendezvous
+      wedge, a whole-gang stall) restarts at full width: there is no
+      survivor set to degrade to;
+    - **capped exponential backoff** between restarts;
+    - **restart budget**: after ``max_restarts`` failures it gives up with
+      the final verdict on stderr and returns 1.
+
+    ``launch(width)`` returns the new gang's processes; ``sleep`` and
+    ``clock`` are injectable for tests."""
+
+    def __init__(self, launch, output_dir: str, num_processes: int, *,
+                 stall_timeout: float = 300.0, max_restarts: int = 2,
+                 shrink: bool = True, min_processes: int = 1,
+                 backoff: float = 1.0, backoff_cap: float = 30.0,
+                 poll_interval: float = 0.2,
+                 clock: Callable[[], float] = time.time,
+                 sleep: Callable[[float], None] = time.sleep,
+                 log: Optional[Callable[[str], None]] = None):
+        self.launch = launch
+        self.output_dir = output_dir
+        self.num_processes = int(num_processes)
+        self.stall_timeout = stall_timeout
+        self.max_restarts = int(max_restarts)
+        self.shrink = bool(shrink)
+        self.min_processes = max(1, int(min_processes))
+        self.backoff = float(backoff)
+        self.backoff_cap = float(backoff_cap)
+        self.poll_interval = poll_interval
+        self._clock = clock
+        self._sleep = sleep
+        self._log = log if log is not None else (
+            lambda msg: print(msg, file=sys.stderr, flush=True))
+        self.restarts = 0
+        self.width = self.num_processes
+        self.widths_launched: List[int] = []
+
+    def run(self) -> int:
+        while True:
+            self.widths_launched.append(self.width)
+            procs = self.launch(self.width)
+            mon = GangMonitor(procs, self.output_dir, self.width,
+                              stall_timeout=self.stall_timeout,
+                              clock=self._clock)
+            verdict = None
+            while verdict is None:
+                self._sleep(self.poll_interval)
+                verdict = mon.poll()
+            if verdict["kind"] == "done":
+                return 0
+            mon.kill_gang()
+            if self.restarts >= self.max_restarts:
+                self._log(f"[elastic] giving up after {self.restarts} "
+                          f"restarts: {verdict}")
+                return 1
+            self.restarts += 1
+            dead = verdict.get("dead_ranks") or []
+            if self.shrink and dead and len(dead) < self.width:
+                new_width = max(self.min_processes, self.width - len(dead))
+                if new_width != self.width:
+                    self._log(f"[elastic] evicting dead rank(s) {dead} — "
+                              f"resuming at width {new_width} (was "
+                              f"{self.width})")
+                    self.width = new_width
+            delay = min(self.backoff_cap,
+                        self.backoff * (2 ** (self.restarts - 1)))
+            self._log(f"[elastic] gang failure {verdict} — restart "
+                      f"{self.restarts}/{self.max_restarts} at width "
+                      f"{self.width} from latest snapshot (backoff "
+                      f"{delay:.1f}s)")
+            if delay > 0:
+                self._sleep(delay)

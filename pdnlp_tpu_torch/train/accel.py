@@ -106,7 +106,8 @@ class Accelerator:
 
         - ``num_processes`` -> ``Args.num_devices``, checked against the
           world size (every rank is a device of the mesh);
-        - ``mesh_shape`` -> the mesh's axes (only ``data`` in the port);
+        - ``mesh_shape`` -> the mesh's axes (``data``; another axis of one
+          rank is replicated over, as JAX's dp placement does);
         - ``mixed_precision`` ``bf16``/``fp16`` -> bf16 compute;
         - ``distributed_type: DEEPSPEED`` -> mode ``zero``, else ``dp``
           (a ``mode`` key names it directly);

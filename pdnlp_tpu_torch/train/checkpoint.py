@@ -426,7 +426,14 @@ def consolidate(model: torch.nn.Module) -> Dict[str, torch.Tensor]:
     a collective every rank calls, which leaves the whole dict on rank 0
     and an empty one elsewhere; tp/ep slices are all-gathered over their
     group (``parallel.sharding.gather_full``, on every rank of it);
+    pipeline stages' layer slices are gathered over the stage group
+    (``parallel.pp.gather_stages``, host copies on every rank of it);
     replicated weights are read as they are."""
+    stage = getattr(model, "stage", None)
+    if stage is not None:
+        from pdnlp_tpu_torch.parallel.pp import gather_stages
+
+        return gather_stages(model.state_dict(), stage)
     if not is_sharded(model):
         from pdnlp_tpu_torch.parallel.sharding import gather_full
 

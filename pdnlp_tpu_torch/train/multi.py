@@ -2,8 +2,10 @@
 ``multi-tpu-dataparallel-cls.py`` (``nn.DataParallel``),
 ``multi-tpu-zero-cls.py`` (DeepSpeed ZeRO-3), ``multi-tpu-shardmap-cls.py``
 (Horovod), ``multi-tpu-amp-cls.py`` (DDP + AMP), ``multi-tpu-tp-cls.py``
-(tensor parallelism) and ``multi-tpu-moe-cls.py`` (an MoE model under
-expert parallelism), one process per rank:
+(tensor parallelism), ``multi-tpu-moe-cls.py`` (an MoE model under
+expert parallelism), ``multi-tpu-pp-cls.py`` (GPipe stages) and
+``multi-tpu-sp-cls.py`` (ring attention over a seq axis), one process per
+rank:
 
     torchrun --nproc_per_node 2 -m pdnlp_tpu_torch.train.multi --strategy dp
     COORDINATOR_ADDRESS=host0:29500 NUM_PROCESSES=2 PROCESS_ID=$RANK \\
@@ -23,7 +25,13 @@ expert parallelism), one process per rank:
 - ``ep``: ``bert-base-moe`` with its experts split over an ``expert``
   axis; the default mesh gives the axis the largest degree that divides
   both the world and the expert count, and the rest of the ranks to
-  ``data`` (one card: ``{"data": 1, "expert": 1}``).
+  ``data`` (one card: ``{"data": 1, "expert": 1}``);
+- ``pp``: the layers in ``world`` contiguous stage slices, default mesh
+  ``{"stage": world}``, ``--microbatches`` M (4) per step;
+- ``sp``: the sequence split over a ``seq`` axis with ring attention,
+  default mesh ``{"data": 1, "seq": world}``.
+
+``--mode pp|sp`` (the JAX spawn launcher's flag) runs the same paths.
 
 Explicit flags override those defaults (``--remat false``, ``--dtype``,
 ``--mode zero``); ``--init_from`` / ``--init_head`` warm-start the model
@@ -38,7 +46,7 @@ from __future__ import annotations
 
 import sys
 
-from pdnlp_tpu_torch.parallel.execution import check_zero
+from pdnlp_tpu_torch.parallel.execution import check_sp, check_zero
 from pdnlp_tpu_torch.parallel.runtime import world_size_of
 from pdnlp_tpu_torch.parallel.sharding import check_mode
 from pdnlp_tpu_torch.train.single import NOT_PORTED, refuse_not_ported
@@ -52,21 +60,19 @@ STRATEGIES = {
     "amp": ({"mode": "dp", "dtype": "bfloat16"}, {}),
     "tp": ({"mode": "tp"}, {}),
     "ep": ({"mode": "ep", "model": "bert-base-moe"}, {}),
+    "pp": ({"mode": "pp"}, {}),
+    "sp": ({"mode": "sp"}, {}),
 }
 
-#: what this entry point refuses by name: the single-device table (less
-#: what it has), plus the data-parallel paths still to port
+#: what this entry point refuses by name: the single-device table, plus
+#: the data-parallel paths still to port
 MULTI_NOT_PORTED = {
-    **{k: v for k, v in NOT_PORTED.items()
-       if k not in ("--elastic", "--heartbeat_interval")},
+    **NOT_PORTED,
     "--fuse_steps": ("1", "K steps per dispatch under a process group: "
                      "the captured graph needs NCCL's capturable "
                      "collectives (ROADMAP A7)"),
     "--offload_opt_state": ("false", "Adam moments in host memory, FSDP2's "
                             "CPUOffloadPolicy (ROADMAP A7)"),
-    "--elastic": (None, "elastic restart (ROADMAP A11b)"),
-    "--heartbeat_interval": (None, "heartbeats (ROADMAP A11b)"),
-    "--stall_timeout": (None, "the gang supervisor (ROADMAP A11b)"),
 }
 
 
@@ -75,11 +81,17 @@ def default_mesh(args, world: int):
     JAX scripts choose it: ``tp`` ``{"data": 1, "model": world}``
     (``multi-tpu-tp-cls.py:29-31``); ``ep`` the largest expert degree
     ``d <= min(world, experts)`` dividing both, the rest to ``data``
-    (``multi-tpu-moe-cls.py:30-42``); else None (one data axis)."""
+    (``multi-tpu-moe-cls.py:30-42``); ``pp`` ``{"stage": world}`` and
+    ``sp`` ``{"data": 1, "seq": world}`` (JAX ``train/run.py:188, 234``);
+    else None (one data axis)."""
     from pdnlp_tpu_torch.models.config import args_overrides, get_config
 
     if args.mode == "tp":
         return {"data": 1, "model": world}
+    if args.mode == "pp":
+        return {"stage": world}
+    if args.mode == "sp":
+        return {"data": 1, "seq": world}
     if args.mode == "ep":
         experts = get_config(args.model, **args_overrides(args)).moe_experts
         e = next((d for d in range(min(world, experts), 0, -1)
@@ -113,20 +125,30 @@ def parse(argv, prog: str = "train.multi"):
 
         dims = args.mesh_shape or {"data": -1}
         check_mesh(args.mode, dims)
-        check_model(get_config(args.model, **args_overrides(args)),
-                    args.mode, dims, args.model)
+        cfg = get_config(args.model, **args_overrides(args))
+        check_model(cfg, args.mode, dims, args.model)
+        if args.mode == "pp" and dims["stage"] > 0:
+            from pdnlp_tpu_torch.parallel.pp import check_pp
+
+            check_pp(args, cfg, dims["stage"])
+        if args.mode == "sp":
+            check_sp(args, cfg)
     except ValueError as e:
         raise SystemExit(f"{prog}: {e}") from None
     return args, {"mode": args.mode, **knobs}
 
 
-def main(argv) -> float:
+def main(argv, prog: str = "train.multi") -> float:
     from pdnlp_tpu_torch.parallel.runtime import shutdown
-    from pdnlp_tpu_torch.train.run import run_parallel
+    from pdnlp_tpu_torch.train import run
 
-    args, knobs = parse(argv)
+    args, knobs = parse(argv, prog=prog)
     try:
-        return run_parallel(args, **knobs)
+        if args.mode == "pp":
+            return run.run_pipeline(args)
+        if args.mode == "sp":
+            return run.run_sp(args)
+        return run.run_parallel(args, **knobs)
     finally:
         shutdown()
 

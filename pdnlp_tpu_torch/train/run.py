@@ -15,6 +15,11 @@ The experiment is assembled once and the strategy is three knobs:
   ``DistributedSampler`` math: 288 single, 144 at 2-way); ``False`` keeps
   ``nn.DataParallel``'s semantics: one ``train_batch_size``-row global
   batch split over the ranks, the step count unchanged.
+
+Sequence and pipeline parallelism have their own assembly beside it
+(:func:`build_sp_trainer`, :func:`build_pipeline_trainer`), as in JAX:
+the same data, model and ``Trainer``, with the sp or pp placement and
+steps.
 """
 from __future__ import annotations
 
@@ -134,6 +139,73 @@ def run_parallel(args, **strategy) -> float:
     trainer, train_loader, dev_loader = build_parallel_trainer(args,
                                                                **strategy)
     try_resume(trainer, args)
+    return _train_and_test(trainer, train_loader, dev_loader)
+
+
+def _length_refusal(args, what: str) -> None:
+    if resolve_length_mode(args) != "full":
+        raise ValueError(what)
+
+
+def _device(args):
+    return torch.device("cuda", torch.cuda.current_device()) \
+        if args.device.startswith("cuda") else torch.device("cpu")
+
+
+def build_sp_trainer(args) -> Tuple[Trainer, object, object]:
+    """``(trainer, train_loader, dev_loader)`` for the sequence-parallel
+    (ring attention) path, default mesh ``{"data": 1, "seq": world}``:
+    each rank loads its data shard's rows at full length, and the step
+    takes its slice of the sequence (``parallel.sp``).  Refuses, as JAX
+    does, the length modes and a mesh whose data and seq axes both span
+    processes."""
+    from pdnlp_tpu_torch.parallel.mesh import SEQ_AXIS, axis_size
+    from pdnlp_tpu_torch.parallel.sp import (
+        make_sp_eval_step, make_sp_train_step,
+    )
+
+    _length_refusal(
+        args, "--length_mode bucket/pack is not wired into the sequence-"
+        "parallel TRAINER: the ring/step layer speaks the packed channel "
+        "layout (per-hop shard-local masks, cross-shard [CLS] gather), but "
+        "this entrypoint's loader assumes one full-width shape per step — "
+        "use the dp/zero strategies for length-aware training")
+    rank, world = init_runtime(args)
+    device = _device(args)
+    mesh = make_mesh(num_devices=args.num_devices,
+                     shape=args.mesh_shape or {"data": 1, SEQ_AXIS: world},
+                     device_type=device.type)
+    num_shards, shard_id, mult = local_data_extent(mesh)
+    if world > 1 and num_shards > 1 and axis_size(mesh, SEQ_AXIS) > 1:
+        raise ValueError(
+            "a mesh whose data AND seq axes both span processes needs "
+            "per-process partial batches with seq slicing — order the mesh "
+            "so one of the two axes stays process-local")
+    train_loader, dev_loader, tok = setup_data(
+        args, num_shards=num_shards, shard_id=shard_id,
+        device_batch_mult=mult)
+    cfg, state = setup_sharded_model(
+        args, tok.vocab_size, mesh, "sp",
+        total_steps=len(train_loader) * args.epochs)
+    # resident refused: the ring slices each batch along seq, not the plain
+    # data-axis placement the resident gather produces
+    pipeline = setup_pipeline(args, train_loader, device,
+                              allow_resident=False)
+    trainer = Trainer(args, cfg, state,
+                      make_sp_train_step(args, mesh, device),
+                      make_sp_eval_step(args, mesh), device,
+                      pipeline=pipeline)
+    n = axis_size(mesh, SEQ_AXIS)
+    rank0_print(f"mesh: {mesh_shape(mesh)}  process {rank}/{world}  ring "
+                f"axis: {SEQ_AXIS} (local seq {args.max_seq_len // n})  "
+                f"backend: {torch.distributed.get_backend()}  device: "
+                f"{device.type}  model: {args.model}  dtype: {args.dtype}  "
+                f"steps/epoch: {len(train_loader)}  pipeline: "
+                f"{pipeline.mode}")
+    return trainer, train_loader, dev_loader
+
+
+def _train_and_test(trainer, train_loader, dev_loader) -> float:
     minutes = trainer.train(train_loader, dev_loader)
     result = trainer.test(dev_loader)
     rank0_print(f"test loss：{result['loss']:.6f} "
@@ -141,3 +213,64 @@ def run_parallel(args, **strategy) -> float:
     rank0_print(classification_report(result["y_true"], result["y_pred"],
                                       LABELS))
     return minutes
+
+
+def run_sp(args) -> float:
+    """Train and test on the sequence-parallel path; returns wall-clock
+    minutes."""
+    return _train_and_test(*build_sp_trainer(args))
+
+
+def build_pipeline_trainer(args) -> Tuple[Trainer, object, object]:
+    """``(trainer, train_loader, dev_loader)`` for the pipeline (GPipe)
+    path, default mesh ``{"stage": world}``: each rank feeds its data
+    shard's rows (the whole batch without a data axis; every stage of a
+    pipeline is given the same rows) and holds its stage's layers
+    (``parallel.pp``).  Refuses the length modes, as JAX does."""
+    from pdnlp_tpu_torch.parallel.mesh import STAGE_AXIS, axis_size
+    from pdnlp_tpu_torch.parallel.pp import (
+        make_pp_eval_step, make_pp_train_step,
+    )
+
+    _length_refusal(
+        args, "--length_mode bucket/pack is not supported on the pipeline "
+        "(GPipe) path: stages run one fixed microbatch shape and the per-"
+        "segment head gather lives on the last stage only — use the "
+        "dp/zero strategies")
+    rank, world = init_runtime(args)
+    device = _device(args)
+    mesh = make_mesh(num_devices=args.num_devices,
+                     shape=args.mesh_shape or {STAGE_AXIS: world},
+                     device_type=device.type)
+    num_shards, shard_id, mult = local_data_extent(mesh)
+    train_loader, dev_loader, tok = setup_data(
+        args, num_shards=num_shards, shard_id=shard_id,
+        device_batch_mult=mult)
+    cfg, state = setup_sharded_model(
+        args, tok.vocab_size, mesh, "pp",
+        total_steps=len(train_loader) * args.epochs)
+    # resident refused: every stage of a pipeline takes the same rows, not
+    # the plain data-axis placement the resident gather produces
+    pipeline = setup_pipeline(args, train_loader, device,
+                              allow_resident=False)
+    trainer = Trainer(
+        args, cfg, state,
+        make_pp_train_step(args, mesh, device, args.microbatches),
+        make_pp_eval_step(args, mesh, device, args.microbatches), device,
+        pipeline=pipeline)
+    S = axis_size(mesh, STAGE_AXIS)
+    rank0_print(f"mesh: {mesh_shape(mesh)}  process {rank}/{world}  stages:"
+                f" {S} x {cfg.num_layers // S} layers  microbatches: "
+                f"{args.microbatches}  backend: "
+                f"{torch.distributed.get_backend()}  device: {device.type}  "
+                f"model: {args.model}  dtype: {args.dtype}  steps/epoch: "
+                f"{len(train_loader)}  pipeline: {pipeline.mode}")
+    return trainer, train_loader, dev_loader
+
+
+def run_pipeline(args) -> float:
+    """Train and test on the pipeline path, resuming first where
+    ``--resume_from`` names a snapshot; returns wall-clock minutes."""
+    trainer, train_loader, dev_loader = build_pipeline_trainer(args)
+    try_resume(trainer, args)
+    return _train_and_test(trainer, train_loader, dev_loader)

@@ -42,10 +42,10 @@ import sys
 
 #: JAX training flags whose paths the port does not have yet -> where
 #: ROADMAP queues them; a value in the tuple is the one setting allowed
-NOT_PORTED = {
-    "--elastic": (None, "elastic restart (ROADMAP A11b)"),
-    "--heartbeat_interval": (None, "heartbeats (ROADMAP A11b)"),
-}
+#: (every flag of the single-device trainer is ported: ``--elastic`` is
+#: read by ``train.spawn`` alone and ignored here, as JAX ignores it, and
+#: ``--heartbeat_interval`` beats from the loop)
+NOT_PORTED: dict = {}
 
 
 def refuse_not_ported(argv, table=NOT_PORTED, prog: str = "train.single"):

@@ -5,7 +5,10 @@ rendezvous over TCP on localhost and run ``train.multi``'s strategy.
     python -m pdnlp_tpu_torch.train.spawn --strategy dp --num_processes 2
     python -m pdnlp_tpu_torch.train.spawn --device cpu --num_processes 2 \\
         --strategy zero --model bert-tiny
-    python -m pdnlp_tpu_torch.train.spawn --strategy tp|ep --num_processes 2
+    python -m pdnlp_tpu_torch.train.spawn --strategy tp|ep|pp|sp \
+        --num_processes 2
+    python -m pdnlp_tpu_torch.train.spawn --strategy dp --num_processes 2 \
+        --elastic true [--resume_every 2] [--stall_timeout 300]
 
 The parent is only a process manager: each worker is this module again
 with ``COORDINATOR_ADDRESS``, ``NUM_PROCESSES``, ``PROCESS_ID`` and
@@ -13,12 +16,23 @@ with ``COORDINATOR_ADDRESS``, ``NUM_PROCESSES``, ``PROCESS_ID`` and
 When a worker fails, the parent stops the whole gang and exits with its
 code: a rank whose peer died would otherwise wait in a collective.
 On one card, two workers share it over ``--dist_backend gloo`` (NCCL
-refuses a second rank on a card).  ``--elastic`` and the heartbeat flags
-(the gang supervisor) are refused: ROADMAP A11b.
+refuses a second rank on a card).
+
+``--elastic true`` makes the parent a gang supervisor
+(``parallel.watchdog.GangSupervisor``, JAX's ``multi-tpu-spawn-cls.py
+:52-112``), for a gang of any width, one included: the workers beat
+every ``--heartbeat_interval`` seconds and snapshot the whole train state
+every ``--resume_every`` steps; when a worker dies or the stalest beat is
+older than ``--stall_timeout``, the parent kills the gang, evicts the dead
+ranks (``--elastic_shrink``) and relaunches the rest from the newest
+snapshot (``--resume_from auto``), with a capped exponential backoff and
+``--max_restarts`` restarts.  A snapshot from another width resumes with
+its data position remapped by epoch fraction (``train.trainer``).
 """
 from __future__ import annotations
 
 import os
+import shutil
 import socket
 import subprocess
 import sys
@@ -84,13 +98,55 @@ def spawn(argv, width: int) -> int:
         _stop(procs)
 
 
+def elastic(argv, args) -> int:
+    """Run the gang under the supervisor (module docstring): a previous
+    run's ``auto`` snapshot is discarded (a fresh gang would "resume" at its
+    last step), the heartbeat directory cleared, and every incarnation
+    launched with the heartbeat, snapshot and resume flags at its width."""
+    from pdnlp_tpu_torch.parallel.watchdog import (
+        GangSupervisor, heartbeat_dir,
+    )
+    from pdnlp_tpu_torch.train import checkpoint as ckpt
+
+    # a user-supplied --resume_from is the opposite intent (continue THAT
+    # run) and is left alone
+    if not args.resume_from or args.resume_from == "auto":
+        ckpt.discard(args.resume_path())
+        ckpt.discard(args.resume_path() + "-best")
+        best_json = args.resume_path() + "-best.json"
+        if os.path.exists(best_json):
+            os.remove(best_json)
+    shutil.rmtree(heartbeat_dir(args.output_dir), ignore_errors=True)
+    worker = list(argv) + [
+        "--heartbeat_interval", str(args.heartbeat_interval or 2.0),
+        "--resume_every", str(args.resume_every or 10)]
+    if not args.resume_from:
+        worker += ["--resume_from", "auto"]
+    port = os.environ.get("PDNLP_SPAWN_PORT")
+
+    def launch(width):
+        # --num_processes last wins; each incarnation rendezvouses at its
+        # width on a port of its own (a killed gang's listener may linger)
+        return launch_gang(worker + ["--num_processes", str(width)], width,
+                           int(port) if port else free_port())
+
+    return GangSupervisor(
+        launch, args.output_dir, args.num_processes or 1,
+        stall_timeout=args.stall_timeout, max_restarts=args.max_restarts,
+        shrink=args.elastic_shrink, min_processes=args.min_processes,
+        backoff=args.restart_backoff,
+        backoff_cap=args.restart_backoff_cap).run()
+
+
 def main(argv) -> int:
     from pdnlp_tpu_torch.train import multi
 
     args, _ = multi.parse(argv, prog="train.spawn")
     if os.environ.get("PROCESS_ID") is None and args.process_id is None:
+        if args.elastic:
+            return elastic(argv, args)
         return spawn(argv, args.num_processes or 1)
-    multi.main(argv)
+    multi.main(argv, prog="train.spawn")
     return 0
 
 

@@ -32,6 +32,21 @@ saved step, so the resumed run continues bit for bit; a saved step inside
 a fused group is refused.  The best dev weights ride along in
 ``<path>-best`` / ``-best.json``.
 
+Elastic resume: a snapshot saved at another data-parallel width (another
+steps-per-epoch, in its manifest and its payload: a snapshot published
+just before a kill may lack the manifest) restores the params and AdamW's
+state
+exactly, consolidated and re-sliced for this run's placement; the data
+position continues by epoch fraction (:meth:`Trainer._remap_elastic_width`,
+JAX's rule and line).  JAX's dropout streams are stateless (``fold_in(rng,
+step, axis_index)``), so there is nothing to carry to the new width: each
+rank's generator is seeded afresh from ``dropout_seed(seed, rank)`` and the
+remapped step, and the run prints so.  The gang supervisor's side:
+``--heartbeat_interval`` beats once per step (``parallel.watchdog.
+Heartbeat``), and ``PDNLP_FAULT_STEP`` / ``PDNLP_FAULT_PROC`` /
+``PDNLP_FAULT_KIND`` (``sigkill``, else exit 13) kill one rank at a step of
+a fresh (not resumed) incarnation, JAX's chaos hook.
+
 Telemetry: ``--trace`` records the eight phases as spans (the obs
 tracer), folded into a ``StepBreakdown`` (fed to a ``RegressionDetector``)
 and a ``MemorySampler``; the table and the span file are written in a
@@ -170,6 +185,9 @@ class Trainer:
         self._ckpt_writer = None
         self._steps_per_epoch: Optional[int] = None
         self._restored_meta: Optional[Dict] = None
+        #: the snapshot came from another width: its generators are not
+        #: this run's, which are seeded afresh at the remapped step
+        self._reseed = False
         #: (minutes since train start, dev accuracy) per in-loop eval
         self.eval_history: list = []
         self._t0: Optional[float] = None
@@ -335,6 +353,19 @@ class Trainer:
                             f"http://127.0.0.1:{exporter.port}")
         resume_every = getattr(args, "resume_every", None)
         attn_impl = self._routed_attn()
+        rank = torch.distributed.get_rank() \
+            if collectives.world_size() > 1 else 0
+        heartbeat = None
+        if getattr(args, "heartbeat_interval", 0) > 0:
+            from pdnlp_tpu_torch.parallel.watchdog import Heartbeat
+
+            heartbeat = Heartbeat(args.output_dir, rank,
+                                  args.heartbeat_interval)
+        # the chaos hook: PDNLP_FAULT_STEP kills rank PDNLP_FAULT_PROC at
+        # that step, on a fresh (not resumed) incarnation only, so the
+        # restarted gang survives
+        fault_step = int(os.environ.get("PDNLP_FAULT_STEP", "0"))
+        fault_proc = int(os.environ.get("PDNLP_FAULT_PROC", "0"))
         start = time.time()
         try:
             if getattr(args, "warmup_compile", False):
@@ -349,12 +380,16 @@ class Trainer:
             for epoch in range(1, args.epochs + 1):
                 if gstep + spe <= start_step:
                     gstep += spe       # a whole epoch done before the restart
+                    if heartbeat is not None:
+                        heartbeat.beat(step=gstep)
                     continue
                 pipeline.set_epoch(epoch - 1)
                 groups = tr.wrap_iter("data_wait", self._groups(pipeline))
                 for batch, n, fused, n_examples in groups:
                     if gstep + n <= start_step:   # done before the restart
                         gstep += n
+                        if heartbeat is not None:  # long fast-forwards beat
+                            heartbeat.beat(step=gstep)
                         continue
                     if gstep < start_step:
                         # the restored step falls inside this group: running
@@ -365,6 +400,16 @@ class Trainer:
                             f"covers steps {gstep + 1}..{gstep + n}) — resume "
                             "with the fuse_steps the snapshot was saved "
                             "under, or 1")
+                    if fault_step and start_step == 0 and \
+                            gstep >= fault_step and rank == fault_proc:
+                        if os.environ.get("PDNLP_FAULT_KIND") == "sigkill":
+                            # the preemption shape: no flush, no teardown;
+                            # the peers wedge in their next collective
+                            # until the supervisor notices
+                            import signal
+
+                            os.kill(os.getpid(), signal.SIGKILL)
+                        os._exit(13)
                     seq = int(batch["input_ids"].shape[-1])
                     with tr.span("step_dispatch", step=gstep + n, n=n,
                                  bucket=seq,
@@ -381,6 +426,8 @@ class Trainer:
                     gstep += n
                     examples += n_examples
                     profiler.step(gstep)
+                    if heartbeat is not None:
+                        heartbeat.beat(step=gstep)
                     if resume_every and \
                             gstep // resume_every != prev // resume_every:
                         with tr.span("ckpt_save", step=gstep):
@@ -487,6 +534,35 @@ class Trainer:
         """The model's tp/ep slicing (None when it is whole)."""
         return getattr(self.state.model, "shards", None)
 
+    @property
+    def _stage(self):
+        """The model's pipeline stage (None off the pp path)."""
+        return getattr(self.state.model, "stage", None)
+
+    def _full(self, params: Dict[str, torch.Tensor]
+              ) -> Dict[str, torch.Tensor]:
+        """A ``state_dict``-shaped mapping of this rank's weights -> the
+        full model's (tp/ep slices or pipeline stages gathered: a
+        collective)."""
+        if self._stage is not None:
+            from pdnlp_tpu_torch.parallel.pp import gather_stages
+
+            return gather_stages(params, self._stage)
+        from pdnlp_tpu_torch.parallel.sharding import gather_full
+
+        return gather_full(params, self._shards)
+
+    def _local(self, full: Dict[str, torch.Tensor]
+               ) -> Dict[str, torch.Tensor]:
+        """The full model's weights -> this rank's share (its tp/ep
+        slices, or its stage's layers and the replicated trees)."""
+        from pdnlp_tpu_torch.parallel.sharding import local_slice
+
+        if self._stage is not None:
+            mine = self.state.model.state_dict()
+            return {k: v for k, v in full.items() if k in mine}
+        return local_slice(full, self._shards)
+
     def _dev_and_maybe_save(self, dev_loader) -> None:
         """Eval; keep a copy of the best weights on the card (one write
         after training, the same end state as the reference's save on
@@ -545,6 +621,11 @@ class Trainer:
             optim = get_optimizer_state_dict(
                 st.model, st.optimizer, options=StateDictOptions(
                     full_state_dict=True, cpu_offload=True))
+        elif self._stage is not None:
+            from pdnlp_tpu_torch.parallel.pp import gather_optimizer_state
+
+            optim = gather_optimizer_state(st.optimizer, st.model,
+                                           self._stage)
         else:
             from pdnlp_tpu_torch.parallel.sharding import (
                 gather_full, map_optimizer_state,
@@ -569,16 +650,17 @@ class Trainer:
             "generators": gens,
             "ema": None if st.ema is None else gather_full(st.ema,
                                                            self._shards),
-            "step": int(st.step)})
+            "step": int(st.step),
+            # also in the payload: a snapshot published just before a kill
+            # may lack the manifest that carries it
+            "steps_per_epoch": self._steps_per_epoch})
 
     def _best_payload(self, path: str):
         """The best weights' file for ``path`` (sharded weights gathered:
         a collective every rank calls)."""
-        from pdnlp_tpu_torch.parallel.sharding import gather_full
-
-        full = gather_full(
+        full = self._full(
             {k: v.full_tensor() if hasattr(v, "full_tensor") else v
-             for k, v in self._best_params.items()}, self._shards)
+             for k, v in self._best_params.items()})
         return ckpt.params_payload(path, full,
                                    model_name=self.args.model,
                                    vocab_size=self.cfg.vocab_size)
@@ -620,14 +702,20 @@ class Trainer:
         and moments are resharded from the consolidated file."""
         raw, meta, _used = ckpt.load_state(path)
         st = self.state
-        if ckpt.is_sharded(st.model):
+        if ckpt.is_sharded(st.model) or self._stage is not None:
+            # zero's and pp's optimizer state is keyed by parameter name
+            # (a stage loads its own subset of the gathered state)
             from torch.distributed.checkpoint.state_dict import (
                 StateDictOptions, set_model_state_dict,
                 set_optimizer_state_dict,
             )
 
             opts = StateDictOptions(full_state_dict=True)
-            set_model_state_dict(st.model, raw["model"], options=opts)
+            if self._stage is None:
+                set_model_state_dict(st.model, raw["model"], options=opts)
+            else:
+                with torch.no_grad():
+                    st.model.load_state_dict(self._local(raw["model"]))
             set_optimizer_state_dict(st.model, st.optimizer,
                                      raw["optimizer"], options=opts)
         else:
@@ -641,24 +729,20 @@ class Trainer:
                     optim, st.optimizer, st.model,
                     lambda n, t: local_slice({n: t}, self._shards)[n])
             with torch.no_grad():
-                st.model.load_state_dict(local_slice(raw["model"],
-                                                     self._shards))
+                st.model.load_state_dict(self._local(raw["model"]))
             _load_optimizer(st.optimizer, optim)
         if st.scheduler is not None:
             st.scheduler.load_state_dict(raw["scheduler"])
         gens = raw["generators"]
         rank = torch.distributed.get_rank() \
             if collectives.world_size() > 1 else 0
-        if len(gens) != max(1, collectives.world_size()):
-            raise ValueError(
-                f"snapshot {path!r} holds {len(gens)} ranks' dropout "
-                f"generators, this run has {collectives.world_size()} — "
-                "elastic-width resume is ROADMAP A11")
-        st.generator.set_state(gens[rank])
+        # another width: the saved ranks' streams are not this run's; each
+        # rank's is seeded afresh once the remapped step is known
+        self._reseed = len(gens) != max(1, collectives.world_size())
+        if not self._reseed:
+            st.generator.set_state(gens[rank])
         if st.ema is not None:
-            from pdnlp_tpu_torch.parallel.sharding import local_slice
-
-            ema = local_slice(raw["ema"], self._shards)
+            ema = self._local(raw["ema"])
             with torch.no_grad():
                 for k, v in st.ema.items():
                     v.copy_(ema[k])
@@ -666,18 +750,27 @@ class Trainer:
         st.optimizer.zero_grad(set_to_none=True)
         if self.multi_step is not None:
             self.multi_step.reset()
-        self._restored_meta = meta
+        self._restored_meta = {
+            **({"steps_per_epoch": raw["steps_per_epoch"]}
+               if raw.get("steps_per_epoch") else {}), **(meta or {})}
         if os.path.exists(path + "-best"):
             # a bad sidecar must not fail the restore of the main state
-            from pdnlp_tpu_torch.parallel.sharding import (
-                full_template, local_slice,
-            )
+            from pdnlp_tpu_torch.parallel.sharding import full_template
 
             try:
-                best = local_slice(ckpt.load_params(
-                    path + "-best",
-                    full_template(st.model.state_dict(), self._shards)),
-                    self._shards)
+                if self._stage is not None:
+                    # the full shapes: the file's own, each checked
+                    # against this stage's entries of the same name
+                    raw_best, _, used = ckpt.read_verified(path + "-best")
+                    best = self._local(ckpt.params_from_raw(raw_best, used))
+                    mine = st.model.state_dict()
+                    if any(v.shape != mine[k].shape
+                           for k, v in best.items()):
+                        raise ValueError("best sidecar shapes differ")
+                else:
+                    best = self._local(ckpt.load_params(
+                        path + "-best",
+                        full_template(st.model.state_dict(), self._shards)))
                 with open(path + "-best.json") as f:
                     acc = json.load(f)["best_accuracy"]
             except (ckpt.CorruptCheckpointError, OSError, ValueError,
@@ -692,16 +785,51 @@ class Trainer:
                 self.best_accuracy = acc
 
     def _resume_start(self, spe: int) -> int:
-        """The step to fast-forward to: the restored state's, refused when
-        the snapshot was saved at another steps-per-epoch (another data-
-        parallel width: ROADMAP A11)."""
+        """The step to fast-forward to: the restored state's, remapped when
+        the snapshot was saved at another width (:meth:`_remap_elastic_
+        width`), with the dropout generators of a new width seeded at it."""
+        step = self._remap_elastic_width(int(self.state.step), spe)
+        if self._reseed:
+            from pdnlp_tpu_torch.parallel.execution import dropout_seed
+
+            rank = torch.distributed.get_rank() \
+                if collectives.world_size() > 1 else 0
+            seed = (dropout_seed(self.args.seed, rank) * 1_000_003 + step) \
+                % 2 ** 63
+            self.state.generator.manual_seed(seed)
+            rank0_print(f"elastic resume: dropout generators seeded afresh "
+                        f"at width {max(1, collectives.world_size())} from "
+                        f"dropout_seed(seed, rank) and step {step}")
+            self._reseed = False
+        return step
+
+    def _remap_elastic_width(self, start_step: int, spe: int) -> int:
+        """Map a restored step counter onto THIS run's steps-per-epoch
+        (JAX ``Trainer._remap_elastic_width``).
+
+        Same width (or a fresh start): identity, and the resume stays bit
+        for bit.  A snapshot saved at another data-parallel width carries
+        its ``steps_per_epoch`` in the manifest; the data position then
+        continues by EPOCH FRACTION (ceil: rows the old optimizer already
+        consumed are never re-applied; at most one new-width batch's worth
+        is skipped instead), rounded up to a fused group's boundary.  The
+        step counter is rebased to the remapped value, so later snapshots,
+        the fast-forward and the log lines speak this width's units.  The
+        optimizer state is restored exactly."""
         meta, self._restored_meta = (self._restored_meta or {}), None
-        old = meta.get("steps_per_epoch")
-        if self.state.step and old and old != spe:
-            raise ValueError(
-                f"the snapshot was saved at {old} steps per epoch, this run "
-                f"has {spe} — elastic-width resume is ROADMAP A11")
-        return int(self.state.step)
+        old_spe = meta.get("steps_per_epoch")
+        if not start_step or not old_spe or old_spe == spe:
+            return start_step
+        remapped = -(-start_step * spe // old_spe)  # ceil
+        if self.multi_step is not None and self.fuse > 1:
+            remapped = -(-remapped // self.fuse) * self.fuse
+        rank0_print(
+            f"elastic resume: remapped step {start_step} (of {old_spe}/epoch "
+            f"at save time) -> {remapped} (of {spe}/epoch at this width); "
+            "data position continues by epoch fraction, optimizer state is "
+            "exact")
+        self.state.step = remapped
+        return remapped
 
     # ------------------------------------------------------------------- eval
     def _evaluate(self, loader, collect_preds: bool) -> Dict:

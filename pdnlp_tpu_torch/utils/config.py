@@ -87,15 +87,17 @@ class Args:
     ckpt_name: Optional[str] = None               # default "<strategy>-cls.pt"
     strategy: str = "single"                      # single | dp | dataparallel
                                                   # | zero | shardmap | amp
-                                                  # | tp | ep
+                                                  # | tp | ep | pp | sp
                                                   # (train.multi's table)
     mode: str = "dp"                              # dp (replicated, DDP) |
                                                   # zero (FSDP2, ZeRO-3) |
                                                   # tp (heads and MLP
                                                   # features over "model") |
                                                   # ep (experts over
-                                                  # "expert"); pp/sp are
-                                                  # refused (ROADMAP A11b)
+                                                  # "expert") | pp (layer
+                                                  # slices over "stage") |
+                                                  # sp (the sequence over
+                                                  # "seq", ring attention)
     remat: bool = False                           # recompute each layer in
                                                   # the backward (zero's
                                                   # default)
@@ -103,11 +105,16 @@ class Args:
     # --- data parallelism (parallel/) ---
     num_devices: Optional[int] = None             # ranks in the mesh (None =
                                                   # the world size)
+    microbatches: int = 4                         # pipeline (pp) microbatch
+                                                  # count; bubble is
+                                                  # (S-1)/(M+S-1)
     mesh_shape: Optional[dict] = None             # JSON axis -> size (-1
                                                   # infers one): "data",
                                                   # with "model" (tp) or
                                                   # "expert" (ep), e.g.
-                                                  # {"data": 2, "model": 2}
+                                                  # {"data": 2, "model": 2};
+                                                  # "stage" (pp) or "seq"
+                                                  # (sp)
     coordinator_address: Optional[str] = None     # host:port of rank 0
     num_processes: Optional[int] = None           # world size
     process_id: Optional[int] = None              # this process's rank
@@ -261,6 +268,26 @@ class Args:
                                                   # write on a writer thread
                                                   # (train.async_ckpt); false =
                                                   # the whole save in the loop
+
+    # --- failure detection / elastic restart (parallel/watchdog.py) ---
+    heartbeat_interval: float = 0.0               # seconds; 0 = no heartbeat
+    elastic: bool = False                         # spawn launcher: restart on
+                                                  # failure
+    elastic_shrink: bool = True                   # evict dead ranks and
+                                                  # resume the gang at the
+                                                  # surviving width; false =
+                                                  # always restart at full
+                                                  # width
+    min_processes: int = 1                        # never shrink the gang
+                                                  # below this width
+    stall_timeout: float = 300.0                  # launcher stall detector
+                                                  # (pre-first-beat grace is
+                                                  # 4x this, covering startup)
+    max_restarts: int = 2                         # gang restarts before giving
+                                                  # up
+    restart_backoff: float = 1.0                  # seconds before restart 1;
+                                                  # doubles per restart
+    restart_backoff_cap: float = 30.0             # exponential backoff ceiling
 
     def replace(self, **kw) -> "Args":
         return dataclasses.replace(self, **kw)

@@ -193,15 +193,18 @@ def test_accelerator_from_config_file(tmp_path, monkeypatch):
     assert acc.mode == "zero" and acc.dtype == "float32"
     assert dict(zip(acc.mesh.mesh_dim_names, acc.mesh.shape)) == {"data": 1}
     # a tp mesh: two devices this world of one does not have (JAX's
-    # make_mesh message); a stage axis stays refused (ROADMAP A11b)
+    # make_mesh message); a stage axis of one rank is replicated over, as
+    # JAX's Accelerator places dp on it
     tp = tmp_path / "tp.yaml"
     tp.write_text("mesh_shape:\n  data: 1\n  model: 2\n")
     with pytest.raises(ValueError, match="needs 2 devices, have 1"):
         Accelerator.from_config(str(tp), args=tiny_args())
     pp = tmp_path / "pp.yaml"
     pp.write_text("mesh_shape:\n  data: 1\n  stage: 1\n")
-    with pytest.raises(ValueError, match="ROADMAP A11"):
-        Accelerator.from_config(str(pp), args=tiny_args())
+    acc = Accelerator.from_config(str(pp), args=tiny_args())
+    assert acc.mode == "dp" and acc.num_devices == 1
+    assert dict(zip(acc.mesh.mesh_dim_names, acc.mesh.shape)) == {
+        "data": 1, "stage": 1}
     import builtins
 
     real_import = builtins.__import__

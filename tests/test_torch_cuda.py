@@ -4,9 +4,10 @@ PyTorch twins, their occupancy and tensor-core instructions, the serving
 engine with the kernel against the plain path, the decode engines'
 captured programs (speculation's verify and the handoff's export and
 import included) against their eager runs, and the multi-model fleet's
-captured engines under shadowing and a canary rollback, and the MoE step
-(captured against eager, the kernel route against the plain one), on an
-NVIDIA card.
+captured engines under shadowing and a canary rollback, the MoE step
+(captured against eager, the kernel route against the plain one), and
+pipeline and sequence parallelism over two gloo ranks and the elastic
+gang's solo restart, on an NVIDIA card.
 
 Whether a card is present is decided inside the ``cuda_device`` fixture,
 so every worker collects the same tests; without a card each one skips.
@@ -1390,3 +1391,134 @@ def test_mlm_step_kernel_route_matches_plain(cuda_device):
         assert (gk[k] - gp[k]).abs().max().item() <= 5e-5 * max(
             gp[k].abs().max().item(), 1e-3 * top), k
     assert all((pk[k] - pp[k]).abs().max().item() <= 2e-3 for k in pk)
+
+
+# ------------------------------------- pipeline, sequence, elastic (A11b)
+
+
+def test_pp_two_gloo_ranks_on_the_card_match_a_single_process(cuda_device,
+                                                              tmp_path):
+    """Pipeline parallelism on one card: two gloo ranks, a stage of
+    bert-tiny's one layer each, 4 microbatches of 8 rows; the losses and
+    the gathered weights are one process's on the same batches (1e-5,
+    2e-5), the embeddings and head bit-equal on both stages, and every
+    stage launched K1-K3 once per microbatch per step (no K4/K5: pp's CE
+    is the plain one, as in JAX)."""
+    from pdnlp_tpu_torch.parallel import local
+    from pdnlp_tpu_torch.train import setup, steps
+    from pdnlp_tpu_torch.utils.config import Args
+
+    batches = _tiny_batches(3, B=32, S=128, vocab=100)
+    args = Args(device="cuda", dist_backend="gloo", model="bert-tiny",
+                dropout=0.0, attn_dropout=0.0, learning_rate=1e-3)
+    r0, r1 = local.run_gang(local.train_global_batches, 2, args,
+                            {"runs": [{"name": "pp", "mode": "pp",
+                                       "mesh_shape": {"stage": 2},
+                                       "microbatches": 4}],
+                             "vocab_size": 100, "batches": batches,
+                             "out_dir": str(tmp_path)}, timeout=300)
+    got = r0[0]
+    assert len(set(got["replicated_digests"])) == 1
+    want_step = {"flash_fwd": 4, "flash_bwd_dq": 4, "flash_bwd_dkv": 4,
+                 "fused_ce_fwd": 0, "fused_ce_bwd": 0}
+    assert got["launches"] == r1[0]["launches"] == [want_step] * 3
+    _, state = setup.setup_model(args, 100)
+    step = steps.build_train_step(args, cuda_device)
+    for b, loss in zip(batches, got["losses"]):
+        m = step(state, {k: torch.from_numpy(v).to(cuda_device)
+                         for k, v in b.items()})
+        assert abs(float(m["loss"]) - loss) <= 1e-5 * abs(loss)
+    params = torch.load(got["checkpoint"], weights_only=True)["state_dict"]
+    for k, v in state.model.state_dict().items():
+        torch.testing.assert_close(params[k], v.cpu(), atol=2e-5, rtol=0)
+
+
+def _ring_rank(rank, world, args, payload):
+    from pdnlp_tpu_torch.ops.ring import ring_attention
+    from pdnlp_tpu_torch.parallel.mesh import make_mesh
+
+    device = torch.device("cuda", torch.cuda.current_device())
+    mesh = make_mesh(shape={"seq": world}, device_type="cuda")
+    w = payload["q"].shape[1] // world
+    q, k, v = (torch.from_numpy(np.ascontiguousarray(
+        payload[x][:, rank * w:(rank + 1) * w])).to(device).requires_grad_()
+        for x in "qkv")
+    bias = torch.from_numpy(np.ascontiguousarray(
+        payload["bias"][:, rank * w:(rank + 1) * w])).to(device)
+    out = ring_attention(q, k, v, bias, mesh.get_group("seq"))
+    (out ** 2).sum().backward()
+    return [t.detach().cpu().numpy() for t in (out, q.grad, k.grad, v.grad)]
+
+
+def test_sp_ring_on_the_card_matches_plain_attention(cuda_device):
+    """The ring over two gloo ranks on the card (its K/V hops staged
+    through host memory) = the plain full-length attention: outputs 2e-5,
+    the q/k/v gradients of the summed squares 5e-5."""
+    from pdnlp_tpu_torch.ops.attention import dot_product_attention
+    from pdnlp_tpu_torch.parallel import local
+    from pdnlp_tpu_torch.utils.config import Args
+
+    rng = np.random.RandomState(3)
+    B, S, N, D = 2, 256, 4, 64
+    payload = {x: rng.randn(B, S, N, D).astype(np.float32) for x in "qkv"}
+    mask = (rng.rand(B, S) > 0.2).astype(np.float32)
+    mask[:, 0] = 1
+    payload["bias"] = ((1.0 - mask) * -1e9).astype(np.float32)
+    ranks = local.run_gang(_ring_rank, 2,
+                           Args(device="cuda", dist_backend="gloo"),
+                           payload, timeout=300)
+    got = [np.concatenate([r[i] for r in ranks], axis=1) for i in range(4)]
+    q, k, v = (torch.from_numpy(payload[x]).to(cuda_device).requires_grad_()
+               for x in "qkv")
+    bias = torch.from_numpy(payload["bias"]).to(cuda_device)[:, None, None]
+    want = dot_product_attention(q, k, v, bias, impl="xla")
+    (want ** 2).sum().backward()
+    np.testing.assert_allclose(got[0], want.detach().cpu().numpy(),
+                               atol=2e-5)
+    for g, t in zip(got[1:], (q, k, v)):
+        np.testing.assert_allclose(g, t.grad.cpu().numpy(), atol=5e-5)
+
+
+def test_elastic_solo_restart_on_the_card_is_bitwise(cuda_device, tmp_path):
+    """``train.spawn --elastic true`` with one worker on the card, SIGKILLed
+    at step 3 and restarted from its step-2 snapshot, ends on the
+    undisturbed run's weights bit for bit."""
+    import json
+    import os
+    import subprocess
+    import sys
+
+    repo = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    rng = np.random.RandomState(0)
+    chars = "天地人你我他好坏大小上下来去爱恨喜怒哀乐高兴悲伤讨厌愤怒"
+    corpus_path = str(tmp_path / "train.json")
+    with open(corpus_path, "w", encoding="utf-8") as f:
+        json.dump([[" ".join(rng.choice(list(chars), rng.randint(4, 30))),
+                    int(rng.randint(0, 6))] for _ in range(200)], f,
+                  ensure_ascii=False)
+    env = {k: v for k, v in os.environ.items()
+           if not k.startswith("PDNLP_FAULT")}
+    env["PYTHONPATH"] = repo
+    common = ["--device", "cuda", "--model", "bert-tiny", "--data_path",
+              corpus_path, "--vocab_path", str(tmp_path / "v.txt"),
+              "--data_limit", "200", "--max_seq_len", "32",
+              "--train_batch_size", "8", "--dropout", "0",
+              "--attn_dropout", "0", "--strategy", "dp", "--elastic", "true",
+              "--num_processes", "1", "--resume_every", "2",
+              "--ckpt_async", "false", "--restart_backoff", "0.2"]
+    outs = {}
+    for name, fault in (("control", {}), ("killed", {
+            "PDNLP_FAULT_STEP": "3", "PDNLP_FAULT_PROC": "0",
+            "PDNLP_FAULT_KIND": "sigkill"})):
+        r = subprocess.run(
+            [sys.executable, "-m", "pdnlp_tpu_torch.train.spawn", *common,
+             "--output_dir", str(tmp_path / name)], cwd=repo,
+            env={**env, **fault}, capture_output=True, text=True,
+            timeout=600)
+        assert r.returncode == 0, r.stderr[-3000:]
+        outs[name] = r
+    assert "restart 1/" in outs["killed"].stderr
+    a, b = (torch.load(str(tmp_path / n / "dp-cls.pt"),
+                       weights_only=True)["state_dict"]
+            for n in ("control", "killed"))
+    assert all(torch.equal(a[k], b[k]) for k in a)

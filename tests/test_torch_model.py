@@ -189,3 +189,39 @@ def test_checkpoint_round_trip_and_shape_check(tiny, tmp_path):
     other = BertClassifier(get_config("bert-tiny", vocab_size=VOCAB + 1))
     with pytest.raises(ValueError, match="embeddings.word has shape"):
         ckpt.load_params(path, other.state_dict())
+
+
+def test_seeded_init_is_cached_bit_for_bit(monkeypatch):
+    """``chip_smoke.memoize_seeded_init``: a seeded init asked for again
+    is copied from the smoke process's memo — the weights the plain init
+    draws and the generator left where the draws leave it; another seed
+    and another config draw afresh; the memo keeps one init."""
+    import importlib.util
+    import pathlib
+
+    spec = importlib.util.spec_from_file_location(
+        "chip_smoke", pathlib.Path(__file__).parents[1] / "chip_smoke.py")
+    smoke = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(smoke)
+    cfg = get_config("bert-tiny", vocab_size=100)
+
+    def seeded(c, seed):
+        g = torch.Generator().manual_seed(seed)
+        return (BertClassifier(c, generator=g).state_dict(),
+                torch.rand(4, generator=g))
+
+    plain = seeded(cfg, 3)
+    # restored after the test: the memo patches the class
+    monkeypatch.setattr(BertClassifier, "init_weights",
+                        BertClassifier.init_weights)
+    smoke.memoize_seeded_init()
+    runs = [seeded(cfg, s) for s in (3, 3, 4)]
+    (a, ra), (b, rb), (c, rc) = runs
+    for x, rx in ((a, ra), (b, rb)):
+        assert all(torch.equal(plain[0][k], x[k]) for k in x)
+        assert torch.equal(plain[1], rx)
+    assert not torch.equal(a["layers.0.q.weight"], c["layers.0.q.weight"])
+    assert not torch.equal(ra, rc)
+    d = seeded(get_config("bert-tiny", vocab_size=101), 3)[0]
+    assert d["embeddings.word"].shape == (101, 128)
+    assert len(BertClassifier.init_weights.kept) == 1

@@ -134,7 +134,10 @@ def test_init_runtime_is_idempotent_at_world_one(clean_env):
     (4, None, None, {"data": 4}), (4, 4, None, {"data": 4}),
     (4, None, {"data": -1}, {"data": 4}), (2, None, {"data": 2}, {"data": 2}),
     (4, None, {"data": 2, "model": 2}, {"data": 2, "model": 2}),
-    (4, None, {"data": -1, "expert": 2}, {"data": 2, "expert": 2})])
+    (4, None, {"data": -1, "expert": 2}, {"data": 2, "expert": 2}),
+    (4, None, {"data": 2, "seq": 2}, {"data": 2, "seq": 2}),
+    (4, None, {"stage": 4}, {"stage": 4}),
+    (4, None, {"data": 2, "stage": -1}, {"data": 2, "stage": 2})])
 def test_mesh_size(world, num_devices, shape, want):
     """The mesh covers the world; its axes in JAX's order, the inferred
     axis filled in."""
@@ -148,8 +151,8 @@ def test_mesh_size(world, num_devices, shape, want):
     (2, None, "every rank"),
     (None, {"data": 8}, "needs 8 devices, have 4"),
     (None, {"data": -1, "model": -1}, "at most one inferred"),
-    (None, {"data": 2, "seq": 2}, "ROADMAP A11"),
-    (None, {"stage": 4}, "ROADMAP A11"),
+    (None, {"data": 4, "seq": 2}, "needs 8 devices, have 4"),
+    (None, {"stage": -1, "seq": -1}, "at most one inferred"),
     (None, {"rows": 4}, "unknown mesh axes")])
 def test_mesh_errors(num_devices, shape, match):
     with pytest.raises(ValueError, match=match):
@@ -159,8 +162,9 @@ def test_mesh_errors(num_devices, shape, match):
 
 @pytest.mark.parametrize("mode", ["tp", "ep", "pp", "sp", "fsdp"])
 def test_sharding_refuses_other_modes(mode):
-    """pp and sp stay refused (ROADMAP A11b); tp and ep are modes now, and
-    refuse a mesh without their axis with JAX's messages."""
+    """tp, ep, pp and sp are modes, and refuse a mesh without their axis
+    with JAX's messages (pp's is ``setup_pp_model``'s); an unknown mode is
+    refused."""
     from pdnlp_tpu_torch.parallel import sharding
 
     if mode in ("tp", "ep"):
@@ -171,8 +175,14 @@ def test_sharding_refuses_other_modes(mode):
         with pytest.raises(ValueError, match="also needs a 'data'"):
             sharding.check_mesh(mode, {axis: 4})
         return
-    with pytest.raises(ValueError, match="A11" if mode != "fsdp"
-                       else "unknown"):
+    if mode in ("pp", "sp"):
+        sharding.check_mode(mode)
+        axis = "stage" if mode == "pp" else "seq"
+        with pytest.raises(ValueError, match=f"{mode} needs a '{axis}' mesh"):
+            sharding.check_mesh(mode, {"data": 4})
+        sharding.check_mesh(mode, {"data": 2, axis: 2})
+        return
+    with pytest.raises(ValueError, match="unknown"):
         sharding.check_mode(mode)
 
 

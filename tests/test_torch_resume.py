@@ -112,12 +112,13 @@ def test_resume_is_bitwise(tmp_path):
     assert t.state.step == 4
 
 
-def test_single_resume_flags_are_bitwise(corpus_path, tmp_path):
+def test_single_resume_flags_are_bitwise(corpus_path, tmp_path, capsys):
     """``train.single --resume_every 4`` over 8 steps, then a run with
     ``--resume_from`` the step-4 snapshot (retained as ``.prev`` when step
     8's was published) trains steps 5-8 to the same final weights, bit for
     bit, at ``--fuse_steps`` 1 and 2; a snapshot from another steps-per-
-    epoch is refused."""
+    epoch resumes with its step remapped by epoch fraction, as JAX's
+    ``Trainer._remap_elastic_width`` does (4 of 8 -> 8 of 16)."""
     from pdnlp_tpu_torch.train import single
 
     vocab = str(tmp_path / "vocab.txt")
@@ -140,9 +141,13 @@ def test_single_resume_flags_are_bitwise(corpus_path, tmp_path):
         w1 = torch.load(a1.ckpt_path(), weights_only=True)["state_dict"]
         w2 = torch.load(a2.ckpt_path(), weights_only=True)["state_dict"]
         assert all(torch.equal(w1[k], w2[k]) for k in w1), fuse
-    with pytest.raises(ValueError, match="steps per epoch"):
-        single.main(base.replace(output_dir=str(tmp_path / "c"),
-                                 train_batch_size=8, resume_from=copy))
+    capsys.readouterr()
+    single.main(base.replace(output_dir=str(tmp_path / "c"),
+                             train_batch_size=8, resume_from=copy))
+    out = capsys.readouterr().out
+    assert "elastic resume: remapped step 4 (of 8/epoch at save time) -> 8 " \
+        "(of 16/epoch at this width)" in out
+    assert "step：16/16" in out
 
 
 def _resume_gang(rank, world, args, payload):

@@ -129,17 +129,41 @@ def test_spawn_matches_single_process(spawn_run, single_run):
 
 
 @pytest.mark.parametrize("argv,match", [
-    (["--elastic", "true"], "ROADMAP A11"),
-    (["--heartbeat_interval", "2"], "ROADMAP A11"),
+    (["--strategy", "pp", "--model", "bert-tiny", "--mesh_shape",
+      '{"stage": 3}'], "must divide num_layers"),
+    (["--strategy", "sp", "--model", "bert-tiny-moe"],
+     "MoE layers are not supported"),
     (["--offload_opt_state", "true"], "ROADMAP A7"),
     (["--fuse_steps", "2"], "ROADMAP A7"),
     (["--strategy", "zero", "--dtype", "bfloat16", "--grads_dtype",
       "compute"], "ROADMAP A7"),
-    (["--mode", "pp"], "ROADMAP A11"),
-    (["--strategy", "pp"], "--strategy must be one of")])
+    (["--mode", "pp", "--mesh_shape", '{"data": 2}'],
+     "pp needs a 'stage' mesh axis"),
+    (["--strategy", "fsdp"], "--strategy must be one of")])
 def test_refusals_name_the_missing_path(argv, match):
+    """What the launcher refuses, by name: JAX's own refusals on the pp
+    and sp paths, the data-parallel paths still to port (ROADMAP A7), and
+    an unknown strategy."""
     with pytest.raises(SystemExit, match=match):
         multi.parse(argv, prog="train.spawn")
+
+
+@pytest.mark.parametrize("argv,field,value", [
+    (["--elastic", "true"], "elastic", True),
+    (["--heartbeat_interval", "2"], "heartbeat_interval", 2.0),
+    (["--stall_timeout", "60"], "stall_timeout", 60.0),
+    (["--strategy", "pp"], "mesh_shape", {"stage": 1}),
+    (["--strategy", "sp"], "mesh_shape", {"data": 1, "seq": 1}),
+    (["--strategy", "sp", "--ema_decay", "0.9"], None, "--ema_decay")])
+def test_elastic_and_model_axis_flags_parse(argv, field, value):
+    """The elastic flags and the pp / sp strategies parse, with JAX's
+    default meshes at the world of one; EMA on sp is JAX's refusal."""
+    if field is None:
+        with pytest.raises(SystemExit, match=value):
+            multi.parse(argv, prog="train.spawn")
+        return
+    args, knobs = multi.parse(argv, prog="train.spawn")
+    assert getattr(args, field) == value
 
 
 @pytest.mark.parametrize("strategy,want", [

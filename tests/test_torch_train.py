@@ -418,14 +418,30 @@ def test_trainer_run_prints_the_reference_lines(corpus_path, tmp_path,
     assert engine.classify_texts(["天地人"])[1].shape == (1, 6)
 
 
-def test_entry_point_refusals(tmp_path):
+def test_entry_point_refusals(tmp_path, corpus_path):
+    """What the entry points take and refuse: ``train.single`` takes
+    ``--elastic`` (read by the spawn launcher alone, ignored here as JAX
+    ignores it) and ``--heartbeat_interval``, whose loop beats once a step
+    (``parallel.watchdog.Heartbeat``, as JAX's trainer does); the data-
+    parallel paths still to port are refused by name (ROADMAP A7)."""
+    from pdnlp_tpu_torch.parallel.watchdog import heartbeat_file
     from pdnlp_tpu_torch.train import single
-
     from pdnlp_tpu_torch.train import multi
+    from pdnlp_tpu_torch.train.run import build_single_trainer
 
     for argv in (["--elastic", "1"], ["--heartbeat_interval", "5"]):
-        with pytest.raises(SystemExit, match="does not have yet"):
-            single.refuse_not_ported(argv)
+        assert single.refuse_not_ported(argv) == argv
+    args = Args(device="cpu", model="bert-tiny", data_path=corpus_path,
+                vocab_path=str(tmp_path / "v.txt"), data_limit=80,
+                max_seq_len=16, train_batch_size=16, dropout=0.0,
+                attn_dropout=0.0, output_dir=str(tmp_path),
+                heartbeat_interval=1e-9, log_every=10 ** 9, pipeline="sync")
+    trainer, loader, _ = build_single_trainer(args)
+    trainer.train(loader)
+    import json
+
+    with open(heartbeat_file(str(tmp_path), 0)) as f:
+        assert json.load(f)["step"] == len(loader)
     ported = ["--length_mode", "pack", "--pipeline", "resident",
               "--fuse_steps", "4", "--resume_every", "10", "--grads_dtype",
               "compute", "--trace", "1", "--profile_dir", "p",
