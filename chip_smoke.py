@@ -1834,9 +1834,9 @@ FUSE = 4
 FUSED_STEPS = 10
 FUSED_EXAMPLES = 800
 #: 8b: captured groups and eager steps timed per shape (cut from 5 and
-#: 20, then the eager steps from 6)
+#: 20, then the eager steps from 6 and from 4, for phase 16)
 TIMED_GROUPS = 2
-TIMED_EAGER = 4
+TIMED_EAGER = 3
 #: 8d: steps of the resumed runs (a snapshot every RESUME_EVERY; cut from
 #: 20 and 10)
 RESUME_STEPS = 8
@@ -1984,18 +1984,15 @@ def fused_runs(torch, flash, fused_ce, base, vocab_size, device, card,
     return out
 
 
-def fused_times(torch, base, vocab_size, device, card, batch128, batch32,
-                batch512):
-    """Phase 8b (printed, not claimed): per shape (32 x 128 in fp32 and
-    bf16, bucket 32 x 32 in bf16), the eager step against the captured
+def fused_times(torch, base, vocab_size, device, card, batch128):
+    """Phase 8b (printed, not claimed): at 32 x 128 in bf16, the eager step
+    against the captured
     one (host clock to a synchronize: TIMED_EAGER re-fed eager steps,
     TIMED_GROUPS re-fed
     replays of a 4-step group), the eager step also as ``--fuse_steps`` 1
     builds it (AdamW not capturable; the two eager states timed in turns,
     twice each), each one's device busy share over 3 calls
-    (``torch.profiler``), the graph's pool bytes and capture time; at the
-    widest graph, packed 32 x 512 in bf16, the same with 3 eager steps and
-    one replay."""
+    (``torch.profiler``), the graph's pool bytes and capture time."""
     import numpy as np
 
     from pdnlp_tpu_torch.data.pipeline import to_device
@@ -2003,13 +2000,10 @@ def fused_times(torch, base, vocab_size, device, card, batch128, batch32,
     from pdnlp_tpu_torch.train.steps import build_multi_step, build_train_step
 
     out = {}
-    # fp32 at 32 x 128 only (its bucket 32 x 32 timing cut for phase 13's
-    # time), bf16 at every shape
-    shapes = [("32x128", batch128, "float32", TIMED_EAGER, TIMED_GROUPS)]
-    shapes += [(label, host, "bfloat16", TIMED_EAGER, TIMED_GROUPS)
-               for label, host in (("32x128", batch128),
-                                   ("bucket 32x32", batch32))]
-    shapes.append(("packed 32x512", batch512, "bfloat16", 3, 1))
+    # bf16 at 32 x 128, where capture takes the host off the step (fp32's
+    # and the bucket 32 x 32 and packed 32 x 512 timings cut for phases 13
+    # and 16's time; PERF.md keeps PR 8's numbers)
+    shapes = [("32x128", batch128, "bfloat16", TIMED_EAGER, TIMED_GROUPS)]
     for label, host, dtype, n_eager, n_groups in shapes:
         args = base.replace(dtype=dtype, dropout=0.1, attn_dropout=0.0,
                             fuse_steps=FUSE)
@@ -2032,19 +2026,15 @@ def fused_times(torch, base, vocab_size, device, card, batch128, batch32,
             torch.cuda.synchronize()
             return (time.perf_counter() - t0) / n_eager * 1e3
 
-        plain = turns = None
-        if n_groups > 1:
-            # the default eager step (``fuse_steps`` 1: AdamW with a
-            # host-float rate, not capturable), in turns with this run's
-            _, pstate = setup_model(args.replace(fuse_steps=1), vocab_size)
-            for _ in range(3):
-                step(pstate, one)
-            turns = [eager(state), eager(pstate), eager(state), eager(pstate)]
-            eager_ms, plain = (turns[0] + turns[2]) / 2, \
-                (turns[1] + turns[3]) / 2
-            del pstate
-        else:
-            eager_ms = eager(state)
+        # the default eager step (``fuse_steps`` 1: AdamW with a host-float
+        # rate, not capturable), in turns with this run's
+        _, pstate = setup_model(args.replace(fuse_steps=1), vocab_size)
+        for _ in range(3):
+            step(pstate, one)
+        turns = [eager(state), eager(pstate), eager(state), eager(pstate)]
+        eager_ms, plain = (turns[0] + turns[2]) / 2, \
+            (turns[1] + turns[3]) / 2
+        del pstate
         t0 = time.perf_counter()
         for _ in range(n_groups):
             multi(state, group)
@@ -2071,7 +2061,7 @@ def fused_times(torch, base, vocab_size, device, card, batch128, batch32,
 
         def pct(x):
             return "not measured" if x is None else f"{100 * x:.1f}%"
-        plain_txt = "" if plain is None else \
+        plain_txt = \
             f" (turns {' / '.join(f'{t:.3f}' for t in turns)}; --fuse_steps" \
             f" 1, AdamW not capturable: {plain:.3f} ms)"
         print(f"[fused] 8b {name}: eager step {eager_ms:.3f} ms"
@@ -6039,9 +6029,10 @@ def time_fused_ce(torch, F, fused_ce, device, card, T=32, H=768, C=6,
 # ---------------------------------------------------------------- phase 15
 
 #: 15a: pp over two gloo ranks on the card, each a stage of 6 layers, on
-#: the first PP_STEPS of 6a's 32 x 128 batches; the runs (fp32 at M = 4
-#: and M = 8, bf16 at M = 4: host staging carries bf16, 15t)
-PP_STEPS = 3
+#: the first PP_STEPS of 6a's 32 x 128 batches (cut from 3 for phase
+#: 16); the runs (fp32 at M = 4 and M = 8, bf16 at M = 4: host staging
+#: carries bf16, 15t)
+PP_STEPS = 2
 PP_RUNS = (
     {"name": "pp float32 M4", "mode": "pp", "mesh_shape": {"stage": 2},
      "microbatches": 4},
@@ -6785,6 +6776,398 @@ def parallel_phase(torch, work, vocab_path, corpus_path, base, vocab_size,
             "entry_points": entries}, launches
 
 
+# ---------------------------------------------------------------- phase 16
+
+#: phase 16: every run trains bert-base at 32 x 128 from the seeded weights
+#: on the same OFFLOAD_STEPS batches of 6a's corpus, at world 1 over NCCL
+#: in this process (one card gives one NCCL rank); the peak device memory
+#: is read over the steps after the first two
+OFFLOAD_STEPS = 4
+#: 16a: offload must drop the steady peak by this share of the moments'
+#: bytes (2 x 4 B x the parameter count)
+OFFLOAD_DROP = 0.9
+#: 16b: bf16 ``--grads_dtype compute`` under zero against dp, as
+#: tests/test_torch_fuse.py holds the compute path (losses 2e-2; the
+#: updates' relative norm 0.06 whole, 0.15 a matmul weight, 0.4 a leaf,
+#: bar the key biases, whose gradients are rounding alone)
+COMPUTE_LOSS_ATOL = 2e-2
+COMPUTE_UPDATE_REL = (0.06, 0.15, 0.4)
+#: 16c: two replays of a K-step group against 2 x K eager steps
+FUSED_GROUPS = 2
+
+
+def world1_run(torch, flash, fused_ce, args, mode, vocab_size, batches,
+               device, save_at=None, resume=None):
+    """One run of ``mode`` (dp or zero) at world 1 over the process
+    group: ``setup_sharded_model`` + ``make_parallel_train_step`` on
+    ``batches``, from the seeded weights or from the snapshot ``resume``
+    (its steps skipped).  Returns the losses, the params and the EMA made
+    whole (host), the kernels' launches over the run, the mean step time
+    and the peak device memory after the first two steps (above what the
+    process held before the run), the moments' placement after each step,
+    the bytes staged per step, under ``--grads_dtype compute`` the params
+    it started from (host), and with ``save_at`` the path of the snapshot
+    written after that step."""
+    from pdnlp_tpu_torch.data.pipeline import to_device
+    from pdnlp_tpu_torch.parallel.execution import (
+        make_parallel_eval_step, make_parallel_train_step,
+        setup_sharded_model,
+    )
+    from pdnlp_tpu_torch.parallel.mesh import make_mesh
+    from pdnlp_tpu_torch.train import checkpoint as ckpt
+    from pdnlp_tpu_torch.train.trainer import Trainer
+
+    import gc
+
+    # the memory this run's peak is read against: what the process held
+    # before it (an earlier FSDP2 run's cycles collected first)
+    gc.collect()
+    torch.cuda.synchronize()
+    before = torch.cuda.memory_allocated(device)
+    mesh = make_mesh(device_type="cuda")
+    cfg, state = setup_sharded_model(args, vocab_size, mesh, mode,
+                                     total_steps=len(batches))
+    init = None
+    if args.grads_dtype == "compute":
+        init = {k: v.detach().to("cpu", copy=True) for k, v in
+                ckpt.consolidate(state.model).items()}
+    step = make_parallel_train_step(args, mesh, device, mode)
+    trainer = Trainer(args, cfg, state, step,
+                      make_parallel_eval_step(args, state), device)
+    start = 0
+    if resume is not None:
+        trainer.load_resume(resume)
+        start = state.step
+    torch.cuda.synchronize()
+    reset_counts(flash, fused_ce)
+    losses, placed, t0, snapshot = [], [], None, None
+    for i in range(start, len(batches)):
+        if i == 2:
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats(device)
+            t0 = time.perf_counter()
+        losses.append(step(state, to_device(batches[i], device))["loss"])
+        if args.offload_opt_state:
+            moments = [v for st in state.optimizer.state.values()
+                       for k, v in st.items()
+                       if k in ("exp_avg", "exp_avg_sq")]
+            placed.append(all(v.device.type == "cpu" and v.is_pinned()
+                              for v in moments) and len(moments) > 0)
+        if save_at == i + 1:
+            snapshot = os.path.join(args.output_dir, f"{mode}-step{i + 1}.pt")
+            trainer.save_resume(snapshot)
+    torch.cuda.synchronize()
+    rec = {"losses": [float(x) for x in losses],
+           "launches": launch_counts(flash, fused_ce),
+           "params": {k: v.detach().cpu() for k, v in
+                      ckpt.consolidate(state.model).items()},
+           "ema": None if state.ema is None else {
+               k: v.detach().cpu()
+               for k, v in trainer._full_tree(state.ema).items()},
+           "placed": placed, "snapshot": snapshot, "init": init,
+           "staged_bytes": getattr(state.optimizer, "staged_bytes", 0)}
+    if t0 is not None:
+        rec["step_ms"] = (time.perf_counter() - t0) / (len(batches) - 2) \
+            * 1e3
+        rec["peak_bytes"] = torch.cuda.max_memory_allocated(device) - before
+    del trainer, state, step
+    gc.collect()
+    torch.cuda.empty_cache()
+    return rec
+
+
+def _update_rel(got, want, start, skip=()):
+    """Per-parameter and whole relative norms of ``got``'s update against
+    ``want``'s, from ``start`` (``state_dict``-shaped, host)."""
+    per, num, den = {}, 0.0, 0.0
+    for k, s in start.items():
+        g = (got[k].double() - s.double())
+        w = (want[k].double() - s.double())
+        d = float(((g - w) ** 2).sum())
+        n = float((w ** 2).sum())
+        num, den = num + d, den + n
+        if k not in skip:
+            per[k] = (d / max(n, 1e-60)) ** 0.5
+    return per, (num / max(den, 1e-60)) ** 0.5
+
+
+def offload_phase(torch, flash, fused_ce, base, vocab_size, batches, device,
+                  card, work):
+    """Phase 16, at world 1 over NCCL in this process: 16a dp and zero with
+    and without ``--offload_opt_state``; 16b zero with the EMA and with
+    bf16 ``--grads_dtype compute`` against dp; 16c dp with ``--fuse_steps
+    4`` whose step all-reduces its gradients explicitly, captured; 16d a dp
+    snapshot resumed under zero and a zero snapshot under dp.  Returns the
+    record and the launches per path."""
+    from pdnlp_tpu_torch.parallel import runtime
+
+    batches = batches[:OFFLOAD_STEPS]
+    out_dir = os.path.join(work, "phase16")
+    os.makedirs(out_dir, exist_ok=True)
+    base = base.replace(output_dir=out_dir, dist_backend="auto")
+    numel = param_count(torch, base.model, vocab_size)
+    moment_bytes = 2 * 4 * numel
+    rec, launches = {"world": 1, "moment_bytes": moment_bytes}, {}
+
+    def run(name, args, mode, **kw):
+        r = world1_run(torch, flash, fused_ce, args, mode, vocab_size,
+                       batches, device, **kw)
+        launches[name] = r["launches"]
+        return r
+
+    runtime.init_runtime(base.replace(fuse_steps=FUSE))
+    try:
+        backend = torch.distributed.get_backend()
+        if backend != "nccl":
+            fail(f"16: the process group runs {backend}, not nccl")
+        # 16a: the moments in pinned host memory, bit for bit (with the
+        # EMA, which 16b reads)
+        t0 = time.monotonic()
+        runs = {}
+        dtype = "float32"
+        args = base.replace(dtype=dtype, ema_decay=0.999)
+        for mode in ("dp", "zero"):
+            on = run(f"16a {mode} {dtype}", args, mode, save_at=2)
+            off = run(f"16a {mode} {dtype} offload",
+                      args.replace(offload_opt_state=True), mode)
+            runs[mode] = on
+            same = on["losses"] == off["losses"] and all(
+                torch.equal(on[t][k], off[t][k])
+                for t in ("params", "ema") for k in on["params"])
+            drop = on["peak_bytes"] - off["peak_bytes"]
+            r = {"bitwise": same, "placed_every_step": all(off["placed"])
+                 and len(off["placed"]) == OFFLOAD_STEPS,
+                 "peak_bytes": on["peak_bytes"],
+                 "peak_bytes_offload": off["peak_bytes"],
+                 "peak_drop_share": drop / moment_bytes,
+                 "step_ms": on["step_ms"],
+                 "step_ms_offload": off["step_ms"],
+                 "staged_bytes_per_step": off["staged_bytes"],
+                 "launches_per_step": {k: v // OFFLOAD_STEPS for k, v in
+                                       off["launches"].items()}}
+            rec[f"16a {mode} {dtype}"] = r
+            print(f"[offload] 16a {mode} {dtype}: params and losses bit for "
+                  f"bit {same} (the EMA too); moments pinned on the host "
+                  f"after every step {r['placed_every_step']}; the run's "
+                  f"steady peak "
+                  f"{on['peak_bytes'] / 2**20:.1f} -> "
+                  f"{off['peak_bytes'] / 2**20:.1f} MiB, a drop of "
+                  f"{r['peak_drop_share']:.3f} x the moments' "
+                  f"{moment_bytes / 2**20:.1f} MiB (needs "
+                  f"{OFFLOAD_DROP}); step {on['step_ms']:.1f} -> "
+                  f"{off['step_ms']:.1f} ms, "
+                  f"{off['staged_bytes'] / 2**20:.1f} MiB staged per step "
+                  f"(host clock to a sync; printed, not claimed) — {card}")
+            if not same or not r["placed_every_step"] or \
+                    r["peak_drop_share"] < OFFLOAD_DROP:
+                fail(f"16a {mode} {dtype}: bitwise {same}, placed "
+                     f"{off['placed']}, peak drop {r['peak_drop_share']:.3f}")
+            if off["launches"] != {k: v * OFFLOAD_STEPS
+                                   for k, v in WANT_DP_STEP.items()}:
+                fail(f"16a {mode} {dtype}: launches {off['launches']}")
+        rec["seconds"] = {"16a": time.monotonic() - t0}
+        # 16b: the EMA (16a's on-device runs) and bf16 compute under zero
+        # against dp
+        t0 = time.monotonic()
+        ema = runs
+        d_par = _max_diff(ema["zero"]["params"], ema["dp"]["params"])
+        d_ema = _max_diff(ema["zero"]["ema"], ema["dp"]["ema"])
+        d_loss = max(abs(a - b) for a, b in zip(ema["zero"]["losses"],
+                                                 ema["dp"]["losses"]))
+        moved = _max_diff(ema["zero"]["ema"], ema["zero"]["params"])
+        rec["16b ema"] = {"max_param_diff": d_par, "max_ema_diff": d_ema,
+                          "max_loss_diff": d_loss,
+                          "ema_vs_params": moved}
+        print(f"[offload] 16b zero --ema_decay 0.999 vs dp at world 1: max "
+              f"|EMA diff| {d_ema:.3e}, |param diff| {d_par:.3e} (atol "
+              f"{param_atol(OFFLOAD_STEPS):.1e}), |loss diff| {d_loss:.3e} "
+              f"(atol {TRAIN_LOSS_ATOL['float32']}); the EMA is "
+              f"{moved:.3e} off the params — {card}")
+        if max(d_par, d_ema) > param_atol(OFFLOAD_STEPS) or \
+                d_loss > TRAIN_LOSS_ATOL["float32"] or moved == 0.0:
+            fail(f"16b ema: params {d_par:.3e}, ema {d_ema:.3e}, loss "
+                 f"{d_loss:.3e}, moved {moved:.3e}")
+        bf = base.replace(dtype="bfloat16", grads_dtype="compute")
+        comp = {m: run(f"16b {m} compute", bf, m) for m in ("dp", "zero")}
+        start = comp["dp"]["init"]
+        keys = [k for k in start if k.endswith(".k.bias")]
+        per, whole = _update_rel(comp["zero"]["params"],
+                                 comp["dp"]["params"], start, skip=keys)
+        d_loss = max(abs(a - b) for a, b in zip(comp["zero"]["losses"],
+                                                 comp["dp"]["losses"]))
+        from pdnlp_tpu_torch.models.bert import BertClassifier
+        from pdnlp_tpu_torch.models.config import get_config
+        from pdnlp_tpu_torch.train.steps import matmul_weights
+
+        with torch.device("meta"):
+            mm = set(matmul_weights(BertClassifier(get_config(
+                base.model, vocab_size=vocab_size))))
+        worst_mm = max(v for k, v in per.items() if k in mm)
+        worst = max(per.values())
+        rec["16b compute"] = {"max_loss_diff": d_loss, "update_rel": whole,
+                              "update_rel_matmul": worst_mm,
+                              "update_rel_leaf": worst,
+                              "bitwise": all(torch.equal(
+                                  comp["zero"]["params"][k],
+                                  comp["dp"]["params"][k]) for k in start)}
+        print(f"[offload] 16b zero bf16 --grads_dtype compute vs dp at world "
+              f"1: max |loss diff| {d_loss:.3e} (atol {COMPUTE_LOSS_ATOL}), "
+              f"update rel {whole:.4f} whole, {worst_mm:.4f} matmul, "
+              f"{worst:.4f} leaf (limits {COMPUTE_UPDATE_REL}), bit for bit "
+              f"{rec['16b compute']['bitwise']} — {card}")
+        lim = COMPUTE_UPDATE_REL
+        if d_loss > COMPUTE_LOSS_ATOL or whole > lim[0] or \
+                worst_mm > lim[1] or worst > lim[2]:
+            fail(f"16b compute: loss {d_loss:.3e}, update {whole:.4f} / "
+                 f"{worst_mm:.4f} / {worst:.4f}")
+        rec["seconds"]["16b"] = time.monotonic() - t0
+        # 16d: a dp snapshot resumed under zero, a zero one under dp
+        t0 = time.monotonic()
+        for src, dst in (("dp", "zero"), ("zero", "dp")):
+            snap = runs[src]["snapshot"]
+            res = run(f"16d {src} -> {dst}", args, dst, resume=snap)
+            ref = runs[dst]
+            d = _max_diff(res["params"], ref["params"])
+            same = all(torch.equal(res["params"][k], ref["params"][k])
+                       for k in ref["params"])
+            rec[f"16d {src} -> {dst}"] = {"max_param_diff": d,
+                                          "bitwise": same,
+                                          "resumed_losses": res["losses"]}
+            print(f"[offload] 16d a {src} snapshot at step 2 resumed under "
+                  f"{dst} for steps 3-{OFFLOAD_STEPS}: max |param diff| vs "
+                  f"the undisturbed {dst} run {d:.3e} (atol "
+                  f"{param_atol(OFFLOAD_STEPS):.1e}), bit for bit {same} — "
+                  f"{card}")
+            if d > param_atol(OFFLOAD_STEPS) or \
+                    len(res["losses"]) != OFFLOAD_STEPS - 2:
+                fail(f"16d {src} -> {dst}: params {d:.3e}, "
+                     f"{len(res['losses'])} resumed steps")
+        rec["seconds"]["16d"] = time.monotonic() - t0
+        # 16c: the fused dp step with a real all-reduce in the graph
+        t0 = time.monotonic()
+        rec["16c"], launches["16c fused dp replays"] = fused_group_check(
+            torch, flash, fused_ce, base, vocab_size, device, card)
+        rec["seconds"]["16c"] = time.monotonic() - t0
+        print("[offload] seconds per part: " + ", ".join(
+            f"{k} {v:.1f}" for k, v in rec["seconds"].items()))
+    finally:
+        runtime.shutdown()
+    return rec, launches
+
+
+def fused_group_check(torch, flash, fused_ce, base, vocab_size, device,
+                      card):
+    """Phase 16c: dp at world 1 over NCCL with ``--fuse_steps`` 4 and the
+    step's gradient all-reduce built in explicitly (at data width 1 the
+    wrapper adds none), so the captured graph holds a real NCCL
+    all-reduce: two replays against eight eager steps of the same step
+    from the same weights, bit for bit; one capture, made before the
+    replays (none after); K1-K5 counted from the replays."""
+    from pdnlp_tpu_torch.data.pipeline import to_device
+    from pdnlp_tpu_torch.parallel.execution import (
+        make_parallel_train_step, setup_sharded_model,
+    )
+    from pdnlp_tpu_torch.parallel.mesh import make_mesh
+    from pdnlp_tpu_torch.train.steps import build_multi_step
+
+    import numpy as np
+
+    args = base.replace(fuse_steps=FUSE)
+    mesh = make_mesh(device_type="cuda")
+    loader_batches = seeded_batches(args, vocab_size)[:FUSE * FUSED_GROUPS]
+
+    def fresh():
+        _, state = setup_sharded_model(args, vocab_size, mesh, "dp",
+                                       total_steps=len(loader_batches),
+                                       explicit_reduce=True)
+        step = make_parallel_train_step(args, mesh, device, "dp",
+                                        explicit_reduce=True)
+        return state, step
+
+    state, step = fresh()
+    capturable = all(g["capturable"] for g in state.optimizer.param_groups)
+    eager = [step(state, to_device(b, device))["loss"]
+             for b in loader_batches]
+    pe = {k: v.detach().clone() for k, v in state.model.state_dict().items()}
+    del state
+    state, step = fresh()
+    multi = build_multi_step(step, device)
+    groups = [to_device({k: np.stack(
+        [b[k] for b in loader_batches[g * FUSE:(g + 1) * FUSE]])
+        for k in loader_batches[0]}, device) for g in range(FUSED_GROUPS)]
+    t0 = time.perf_counter()
+    multi.capture(state, groups[0])
+    torch.cuda.synchronize()
+    capture_s = time.perf_counter() - t0
+    graphs_before = len(multi.graphs)
+    reset_counts(flash, fused_ce)
+    fused = []
+    nccl = None
+    for g, batch in enumerate(groups):
+        if g == FUSED_GROUPS - 1:
+            nccl = nccl_in_replay(torch, lambda: multi(state, batch), fused)
+        else:
+            fused += list(multi(state, batch)["loss"])
+    torch.cuda.synchronize()
+    launched = launch_counts(flash, fused_ce)
+    pf = state.model.state_dict()
+    same = torch.equal(torch.stack(eager).cpu(), torch.stack(fused).cpu()) \
+        and all(torch.equal(pe[k], pf[k]) for k in pe)
+    g = next(iter(multi.graphs.values()))
+    rec = {"steps": len(fused), "bitwise": same, "capturable": capturable,
+           "graphs": len(multi.graphs), "captures_after_warmup":
+           len(multi.graphs) - graphs_before, "replays": g.replays,
+           "launches": launched, "capture_s": capture_s,
+           "pool_bytes": multi.pool_bytes, "nccl_kernels": nccl,
+           "ddp": isinstance(state.objective,
+                             torch.nn.parallel.DistributedDataParallel)}
+    want = {k: v * FUSE * FUSED_GROUPS for k, v in WANT_DP_STEP.items()}
+    print(f"[offload] 16c dp --fuse_steps {FUSE} at world 1 over NCCL, the "
+          f"gradient all-reduce explicit in the step: {FUSED_GROUPS} replays"
+          f" vs {len(eager)} eager steps bit for bit {same}; graphs "
+          f"{rec['graphs']}, captures after warmup "
+          f"{rec['captures_after_warmup']}, replays {g.replays}; launches "
+          f"from the replays {launched}; NCCL kernels in a profiled replay "
+          f"{nccl} (printed); capture {capture_s:.2f} s, pool "
+          f"{multi.pool_bytes / 2**20:.1f} MiB — {card}")
+    if not same or rec["captures_after_warmup"] or g.replays != \
+            FUSED_GROUPS or launched != want or rec["ddp"] or not capturable:
+        fail(f"16c: {rec}")
+    del state, multi
+    torch.cuda.empty_cache()
+    return rec, launched
+
+
+def seeded_batches(args, vocab_size):
+    """6a's first batches of 32 x 128 (host), read again."""
+    from pdnlp_tpu_torch.train.setup import setup_data
+
+    loader = setup_data(args.replace(fuse_steps=1))[0]
+    loader.set_epoch(0)
+    out = []
+    for b in loader:
+        out.append(b)
+        if len(out) == FUSE * FUSED_GROUPS:
+            break
+    return out
+
+
+def nccl_in_replay(torch, fn, into):
+    """Run ``fn`` (one replay; its losses appended to ``into``) under
+    ``torch.profiler``: the names of the NCCL kernels the device ran, or
+    None where the trace shows no device time."""
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        into += list(fn()["loss"])
+        torch.cuda.synchronize()
+    names = sorted({e.key for e in prof.key_averages()
+                    if "nccl" in e.key.lower()
+                    and getattr(e, "device_time_total", 0) > 0})
+    return names or None
+
+
 def main():
     import torch
 
@@ -6853,6 +7236,24 @@ def main():
     rng = np.random.RandomState(SEED)
     vocab_path = os.path.join(work, "vocab.txt")
     vocab_size = build_vocab_file(vocab_path, rng, CHARS)
+    if sys.argv[1:] == ["--phase", "16"]:
+        # phase 16 alone, on phase 6a's corpus (a development run: it
+        # prints no result line)
+        corpus_path = os.path.join(work, "train.json")
+        write_corpus(corpus_path, rng, 700)
+        train_args = Args(model="bert-base", device="cuda", seed=SEED,
+                          vocab_path=vocab_path, data_path=corpus_path,
+                          data_limit=700, dropout=0.0, attn_dropout=0.0,
+                          learning_rate=LEARNING_RATE)
+        loader = setup_data(train_args)[0]
+        loader.set_epoch(0)
+        off, off_launches = offload_phase(
+            torch, flash, fused_ce, train_args, vocab_size,
+            list(loader)[:TRAIN_STEPS], device, card, work)
+        lap("16")
+        print(f"[launches] {json.dumps(off_launches)}")
+        print(f"[summary] {json.dumps(off)}")
+        return
     if sys.argv[1:] == ["--phase", "15"]:
         # phase 15 alone, on phase 6a's corpus and phase 4's requests (a
         # development run: it prints no result line)
@@ -7090,10 +7491,8 @@ def main():
                            device, card, batches, length_base))
     serves(build_engine, base, msgpack_8c, texts)
     lap("8a, 8c-8e")
-    batch32 = next(b for b in routes["bucket"][1]
-                   if b["input_ids"].shape[1] == 32)
     fused_ms = fused_times(torch, train_args, vocab_size, device, card,
-                           batches[0], batch32, packed_batches[512])
+                           batches[0])
     lap("8b")
     # 9. the serving tier: captured engines in fp32, bf16 and int8, two
     # replicas behind the router, serve.cli with every tier flag
@@ -7207,6 +7606,14 @@ def main():
     par, par_launches = parallel_phase(
         torch, work, vocab_path, corpus_path, train_args, vocab_size,
         batches, texts, device, card, lap)
+    # 16. the configurations the port refused before: offloaded moments
+    # (16a), the EMA and bf16 compute under zero (16b), a captured step
+    # with its NCCL all-reduce (16c), resumes across modes (16d)
+    torch.cuda.empty_cache()
+    off, off_launches = offload_phase(torch, flash, fused_ce, train_args,
+                                      vocab_size, batches, device, card,
+                                      work)
+    lap("16")
     moe_launches = {f"14a {n}": r["launches"] for n, r in moe.items()}
     launches_by_path = {
         "serving packed (K1)": {"flash_fwd": main_launches},
@@ -7239,6 +7646,7 @@ def main():
         **axis_launches,
         "14d upcycled step": upcycle["launches"],
         **par_launches,
+        **off_launches,
         **{f"14e serving {d}": {"flash_fwd": r["launches_flash_fwd"]}
            for d, r in moe_serve.items() if isinstance(r, dict)
            and "launches_flash_fwd" in r}}
@@ -7295,6 +7703,7 @@ def main():
                 "gloo_bf16": gloo_bf16, "upcycle": upcycle,
                 "serving": moe_serve},
         "parallel": par,
+        "offload": off,
         "phase_seconds": clock,
         "seconds": time.monotonic() - t_start}
     print(f"[summary] {json.dumps(summary)}")

@@ -185,6 +185,11 @@ def _dense(x: torch.Tensor, lin: nn.Module) -> torch.Tensor:
         # the product; this plain product does not)
         y = F.linear(x, lin.weight.to(x.dtype))
         return y * lin.qscale.to(x.dtype) + lin.bias.to(x.dtype)
+    if getattr(lin, "compute_unit", False):
+        # an FSDP2 unit of its own (zero under --grads_dtype compute): the
+        # module call is where FSDP2 gathers its weight in the compute
+        # dtype and hooks the reduce of its gradient; the same product
+        return lin(x)
     return F.linear(x, lin.weight.to(x.dtype), lin.bias.to(x.dtype))
 
 

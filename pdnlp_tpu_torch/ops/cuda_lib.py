@@ -99,7 +99,8 @@ def build_all(names: Optional[Sequence[str]] = None) -> Dict[str, float]:
     t0 = time.monotonic()
     procs = {}
     for n in todo:
-        tmp = _target(n).with_name(f"{_target(n).name}.{os.getpid()}.tmp")
+        tmp = _target(n).with_name(f"{_target(n).name}.{os.getpid()}."
+                                   f"{threading.get_ident()}.tmp")
         procs[n] = (tmp, subprocess.Popen(
             [compiler, *NVCC_FLAGS, "-o", str(tmp), str(CSRC_DIR / SOURCES[n])],
             stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))
@@ -125,7 +126,13 @@ def load(name: str) -> KernelLibrary:
     with _LOCK:
         if name in _LOADED:
             return _LOADED[name]
-        took = build_all([name]).get(name)
+    # the build runs outside the lock: each one writes a file of its own
+    # and publishes it with one rename, so two threads building the same
+    # library publish the same bytes, and the first load below wins
+    took = build_all([name]).get(name)
+    with _LOCK:
+        if name in _LOADED:
+            return _LOADED[name]
         target = _target(name)
         log = _log_path(target)
         kl = KernelLibrary(name, target, ctypes.CDLL(str(target)),

@@ -50,25 +50,41 @@ def weighted_shard_scale(local_weight: torch.Tensor, group=None
     return local_weight / gw, gw
 
 
+#: DDP's bucket cap (``bucket_cap_mb`` 25): :func:`grad_reduce` sends the
+#: gradients in buckets of at most this many bytes
+BUCKET_BYTES = 25 * 2 ** 20
+
+
 def grad_reduce(grads: Sequence[torch.Tensor], group=None,
                 compress_dtype: Optional[torch.dtype] = None) -> None:
-    """Mean-reduce ``grads`` across the ranks, in place, in one collective
-    over one flat buffer.  ``compress_dtype=torch.bfloat16`` puts bf16 on
-    the wire (Horovod's ``Compression.fp16`` analog): the buffer is cast
-    down, reduced, divided and cast back."""
-    grads = [g for g in grads if g is not None]
-    if not grads:
-        return
-    flat = torch.cat([g.reshape(-1) for g in grads])
-    if compress_dtype is not None:
-        flat = flat.to(compress_dtype)
-    dist.all_reduce(flat, group=group)
-    flat = flat.to(grads[0].dtype) / dist.get_world_size(group)
-    offset = 0
-    for g in grads:
-        n = g.numel()
-        g.copy_(flat[offset: offset + n].view_as(g))
-        offset += n
+    """Mean-reduce ``grads`` across the ranks, in place, one collective per
+    flat bucket of at most :data:`BUCKET_BYTES`, in reverse order (the
+    order DDP's buckets become ready in; a gradient larger than the cap
+    gets a bucket of its own).  Each value is reduced on its own, so the
+    bucketing changes no bits.  ``compress_dtype=torch.bfloat16`` puts
+    bf16 on the wire (Horovod's ``Compression.fp16`` analog): a bucket is
+    cast down, reduced, divided and cast back.  No host sync and nothing
+    allocated outside a captured graph's pool, so a CUDA graph can hold it
+    on NCCL."""
+    buckets, size = [], None
+    for g in reversed([g for g in grads if g is not None]):
+        nbytes = g.numel() * g.element_size()
+        if size is None or size + nbytes > BUCKET_BYTES:
+            buckets.append([])
+            size = 0
+        buckets[-1].append(g)
+        size += nbytes
+    for bucket in buckets:
+        flat = torch.cat([g.reshape(-1) for g in bucket])
+        if compress_dtype is not None:
+            flat = flat.to(compress_dtype)
+        dist.all_reduce(flat, group=group)
+        flat = flat.to(bucket[0].dtype) / dist.get_world_size(group)
+        offset = 0
+        for g in bucket:
+            n = g.numel()
+            g.copy_(flat[offset: offset + n].view_as(g))
+            offset += n
 
 
 def output_reduce(*arrays: torch.Tensor, group=None) -> List[torch.Tensor]:
@@ -91,13 +107,30 @@ def barrier(group=None) -> None:
         dist.barrier(group=group)
 
 
-#: the Megatron pair's all-reduces in this process: calls, bytes and host
-#: seconds (the call to its return), for the step's collective record
+#: the Megatron pair's all-reduces in this process: calls, bytes and host seconds (the call to its
+#: return), for the step's collective record.  A replayed CUDA graph runs
+#: no host code: :func:`add_stats` credits each replay with the calls and
+#: bytes its capture recorded
 STATS = {"calls": 0, "bytes": 0, "seconds": 0.0}
 
 
 def reset_stats() -> None:
     STATS.update(calls=0, bytes=0, seconds=0.0)
+
+
+def stats_counts() -> dict:
+    """The calls and bytes of :data:`STATS` and :data:`P2P_STATS` now."""
+    return {f"{name}.{k}": table[k] for name, table in
+            (("stats", STATS), ("p2p", P2P_STATS)) for k in ("calls", "bytes")}
+
+
+def add_stats(counts: dict, times: int = 1) -> None:
+    """Add ``times`` x ``counts`` (a :func:`stats_counts` difference: what
+    a capture recorded) to the tables — the collectives of ``times``
+    replays."""
+    for key, n in counts.items():
+        name, k = key.split(".")
+        (STATS if name == "stats" else P2P_STATS)[k] += times * n
 
 
 def _all_reduce(t: torch.Tensor, group) -> None:

@@ -29,7 +29,7 @@ and the fused CE kernels K4/K5.
 """
 from __future__ import annotations
 
-from typing import Tuple
+from typing import Optional, Tuple
 
 import torch
 import torch.distributed as dist
@@ -46,6 +46,7 @@ from pdnlp_tpu_torch.parallel.sharding import (
     shard_model, wrap,
 )
 from pdnlp_tpu_torch.train.optim import build_optimizer
+from pdnlp_tpu_torch.train.precision import resolve_dtype
 from pdnlp_tpu_torch.train.setup import warm_start
 from pdnlp_tpu_torch.train.steps import (
     TrainObjective, TrainState, build_eval_step, build_train_step,
@@ -88,33 +89,86 @@ def check_sp(args, cfg) -> None:
                          "sequence-parallel (ring attention) path")
 
 
-def check_zero(args, mode: str) -> None:
-    """Raise for what the port does not run under ``zero`` yet (ROADMAP
-    A7): the EMA, and ``--grads_dtype compute``."""
-    if mode != "zero":
+#: the modes whose step ``--fuse_steps`` K > 1 captures as one CUDA graph
+#: (K steps, their collectives inside); pp, sp and the explicit-
+#: collectives step run K = 1, as JAX's ``eff_k`` does
+CAPTURED_MODES = ("dp", "tp", "ep")
+
+OFFLOAD_REFUSAL = (
+    "--offload_opt_state works with the jit dp/zero strategies, not "
+    "shard_map, fused multi-steps, or tp — the staged host<->device "
+    "transfers are only wired into the plain data-axis train step")
+
+
+def check_strategy(args, mode: str, explicit_collectives: bool = False
+                   ) -> None:
+    """What the multi-rank paths refuse: JAX's offload rule
+    (``train/run.py:54-59``, its wording), and ``--fuse_steps`` above 1
+    under zero, which the port does not capture yet (ROADMAP A7)."""
+    fuse = getattr(args, "fuse_steps", 1)
+    if getattr(args, "offload_opt_state", False) and (
+            explicit_collectives or fuse > 1 or mode == "tp"):
+        raise ValueError(OFFLOAD_REFUSAL)
+    if mode == "zero" and fuse > 1:
+        raise ValueError(
+            "--fuse_steps above 1 under zero is not in the PyTorch port yet "
+            "(ROADMAP A7): FSDP2's own streams and events are not known to "
+            "capture in a CUDA graph; use --fuse_steps 1, or dp")
+
+
+def fused_reduce(args, mesh, mode: str,
+                 explicit_reduce: Optional[bool] = None) -> bool:
+    """Does the dp step reduce its gradients itself?  ``explicit_reduce``
+    when given (True forces it, at data width 1 too), else under
+    ``--fuse_steps`` K > 1 over several data ranks: no DDP (its reducer's
+    hooks and futures do not capture), the explicit bucketed all-reduce of
+    ``collectives.grad_reduce`` instead, in DDP's bucket order and at its
+    values (a mean of fp32 gradients), which a CUDA graph holds on NCCL.
+    Never for another mode."""
+    if mode != "dp":
+        return False
+    if explicit_reduce is not None:
+        return explicit_reduce
+    return getattr(args, "fuse_steps", 1) > 1 and \
+        axis_size(mesh, DATA_AXIS) > 1
+
+
+def check_capture_backend(args, mode: str, device, group=None,
+                          explicit_reduce: bool = False) -> None:
+    """A captured step on the card holds its collectives, which only NCCL
+    can put in a CUDA graph: refuse ``--fuse_steps`` K > 1 on ``cuda``
+    over another backend where the step has a collective."""
+    if device.type != "cuda" or getattr(args, "fuse_steps", 1) <= 1 or \
+            mode not in CAPTURED_MODES or not dist.is_initialized():
         return
-    if args.ema_decay > 0:
-        raise ValueError("--ema_decay under zero is not in the PyTorch port "
-                         "yet (ROADMAP A7): the EMA would shadow FSDP2's "
-                         "shards; use dp")
-    if compute_grads(args):
-        raise ValueError("--grads_dtype compute under zero is not in the "
-                         "PyTorch port yet (ROADMAP A7): FSDP2 gathers and "
-                         "reduces whole modules in one dtype; use dp")
+    if (collectives.world_size() > 1 or explicit_reduce) and \
+            dist.get_backend(group) != "nccl":
+        raise ValueError(
+            f"--fuse_steps {args.fuse_steps} on cuda captures each group of "
+            "steps, its collectives included, in one CUDA graph, which needs "
+            f"NCCL; this process group runs {dist.get_backend(group)} — "
+            "use --dist_backend nccl (the default on cuda) or --fuse_steps 1")
 
 
 def setup_sharded_model(args, vocab_size: int, mesh, mode: str = "dp",
-                        total_steps=None, explicit_collectives: bool = False
+                        total_steps=None, explicit_collectives: bool = False,
+                        explicit_reduce: Optional[bool] = None
                         ) -> Tuple[BertConfig, TrainState]:
     """``(cfg, state)`` on this rank's card (or the CPU), placed by
     ``mode``; ``explicit_collectives`` leaves the objective unwrapped (the
     shard_map step reduces the gradients itself) after broadcasting rank
-    0's weights.  ``total_steps`` sizes the optional ``--lr_schedule``.
-    ``--init_from`` loads before the placement (``train.setup.
-    warm_start``): under ``zero`` the loaded leaves go to their shards, and
-    an EMA starts from the warm-started weights."""
+    0's weights, and so does ``explicit_reduce`` under dp (default
+    :func:`fused_reduce`; ``True`` forces it, a process group of one
+    rank included, so a captured step holds a real all-reduce).
+    ``total_steps`` sizes the optional ``--lr_schedule``.  ``--init_from``
+    loads before the placement (``train.setup.warm_start``): under
+    ``zero`` the loaded leaves go to their shards, and an EMA starts from
+    the warm-started weights, placed as the params are (one shard per
+    rank under zero).  AdamW is capturable only where ``--fuse_steps``
+    captures the step (:data:`CAPTURED_MODES`), and keeps its moments in
+    host memory under ``--offload_opt_state``."""
     check_mode(mode)
-    check_zero(args, mode)
+    check_strategy(args, mode, explicit_collectives)
     shape = mesh_shape(mesh)
     check_mesh(mode, shape)
     device = resolve_device(args.device)
@@ -137,6 +191,7 @@ def setup_sharded_model(args, vocab_size: int, mesh, mode: str = "dp",
         # intra-op threads the CPU backward of the embedding gather is not
         # the same bits from process to process: the replicas would drift
         torch.set_num_threads(1)
+    explicit_reduce = fused_reduce(args, mesh, mode, explicit_reduce)
     init_gen, dropout_gen = set_seed(args.seed, device)
     dropout_gen.manual_seed(dropout_seed(args.seed,
                                          dropout_coordinate(mesh, mode)))
@@ -155,7 +210,7 @@ def setup_sharded_model(args, vocab_size: int, mesh, mode: str = "dp",
     # their gradients themselves, and pp's MoE statistics are each
     # microbatch's own
     single = (axis_size(mesh, DATA_AXIS) == 1 or mode in ("pp", "sp")) \
-        and not explicit_collectives
+        and not explicit_collectives and not explicit_reduce
     objective = TrainObjective(model, args, device,
                                group=None if single else group,
                                global_aux=not explicit_collectives)
@@ -163,8 +218,14 @@ def setup_sharded_model(args, vocab_size: int, mesh, mode: str = "dp",
         for p in model.parameters():
             dist.broadcast(p.data, src=0, group=group)
     else:
-        objective = wrap(objective, mode, mesh, device)
-    optimizer, scheduler = build_optimizer(model, args, total_steps)
+        objective = wrap(objective, mode, mesh, device,
+                         compute_dtype=(resolve_dtype(args.dtype)
+                                        if compute_grads(args) else None),
+                         explicit_reduce=explicit_reduce)
+    captured = mode in CAPTURED_MODES and not explicit_collectives
+    optimizer, scheduler = build_optimizer(
+        model, args, total_steps,
+        capturable=captured and getattr(args, "fuse_steps", 1) > 1)
     ema = init_ema(model) if args.ema_decay > 0 else None
     return cfg, TrainState(model, optimizer, scheduler, dropout_gen, ema,
                            objective=objective, group=group)
@@ -185,40 +246,51 @@ def _grad_reduce(group, compress, compute: bool):
     weights' gradients (bf16 values) go in bf16 whatever ``compress``, as
     JAX's all-reduce of the bf16 gradient leaves does."""
     def reduce_grads(state: TrainState) -> None:
-        named = list(state.model.named_parameters())
-        if compute:
-            mm = set(matmul_weights(state.model))
-            collectives.grad_reduce([p.grad for n, p in named if n in mm],
-                                    group=group,
-                                    compress_dtype=torch.bfloat16)
-            named = [(n, p) for n, p in named if n not in mm]
-        collectives.grad_reduce([p.grad for _, p in named], group=group,
-                                compress_dtype=compress)
+        reduce_model_grads(state.model, group, compress, compute)
 
     return reduce_grads
 
 
-def make_parallel_train_step(args, mesh, device, mode: str = "dp"):
+def reduce_model_grads(model, group, compress=None,
+                       compute: bool = False) -> None:
+    """:func:`_grad_reduce`'s reduction of ``model``'s gradients, in
+    ``collectives.grad_reduce``'s buckets."""
+    named = list(model.named_parameters())
+    if compute:
+        mm = set(matmul_weights(model))
+        collectives.grad_reduce([p.grad for n, p in named if n in mm],
+                                group=group, compress_dtype=torch.bfloat16)
+        named = [(n, p) for n, p in named if n not in mm]
+    collectives.grad_reduce([p.grad for _, p in named], group=group,
+                            compress_dtype=compress)
+
+
+def make_parallel_train_step(args, mesh, device, mode: str = "dp",
+                             explicit_reduce: Optional[bool] = None):
     """The dp / zero / tp / ep step: the placed objective's forward and
     backward (the wrapper's or the layers' collectives inside), the
     optimizer on the rank's replica, shard or slices, and the loss and
     correct count summed over the data axis (each rank's share is already
     scaled by ``lw / gw``).  The step reduces the gradients over the data
-    axis itself under ``tp`` and ``ep`` (no wrapper) and under
-    ``--grads_dtype compute``, where DDP's reduction is off
-    (``train.steps.build_train_step``).  Where the data axis has one rank
-    it is the single-device step."""
+    axis itself under ``tp`` and ``ep`` (no wrapper) and under dp with
+    ``explicit_reduce`` (default :func:`fused_reduce`: the fused dp step,
+    in DDP's buckets; under ``--grads_dtype compute`` the matmul weights'
+    bf16 gradients go in bf16, as through DDP the step does itself,
+    ``train.steps.build_train_step``).  Where the data axis has one rank
+    and nothing is forced it is the single-device step."""
     group = axis_group(mesh, DATA_AXIS)
-    if axis_size(mesh, DATA_AXIS) == 1:
+    explicit_reduce = fused_reduce(args, mesh, mode, explicit_reduce)
+    sharded = mode == "zero"
+    if axis_size(mesh, DATA_AXIS) == 1 and not explicit_reduce:
         # nothing to reduce: the single-device step (which fuse_steps can
         # capture)
-        return build_train_step(args, device)
-    compute = compute_grads(args)
+        return build_train_step(args, device, sharded=sharded)
     after = None
-    if mode in MODE_AXIS or compute:
-        after = _grad_reduce(group, None, compute)
+    if mode in MODE_AXIS or explicit_reduce:
+        after = _grad_reduce(group, None, compute_grads(args))
     return build_train_step(args, device, after_backward=after,
-                            reduce_metrics=_metric_sum(group))
+                            reduce_metrics=_metric_sum(group),
+                            sharded=sharded)
 
 
 def make_parallel_eval_step(args, state: TrainState):

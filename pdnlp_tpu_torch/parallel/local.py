@@ -152,8 +152,15 @@ def train_global_batches(rank: int, world: int, args, payload: Dict) -> List:
     run's steps), ``timeline`` (pp: each step's busy and wall seconds on
     this stage) and ``allreduce_ms``: with ``payload["allreduce_numel"]``, the
     times of three all-reduces of that many fp32 values before the runs
-    (host clock to a sync); rank 0 writes the consolidated weights to
-    ``payload["out_dir"]/<name>.pt`` (``checkpoint.save_params``)."""
+    (host clock to a sync); ``ema`` (with ``--ema_decay``: the EMA tree
+    made whole, numpy, on rank 0) and ``moments`` (AdamW's float moments:
+    how many, how many are plain host tensors and how many of those are
+    pinned, and ``staged_bytes``, what the last step copied between host
+    and device under ``--offload_opt_state``), ``ema_dev`` (dp and zero
+    with an EMA and an eval batch: the Trainer's dev loss and accuracy on
+    the EMA weights); rank 0 writes the
+    consolidated weights to ``payload["out_dir"]/<name>.pt``
+    (``checkpoint.save_params``)."""
     import torch.distributed as dist
 
     from pdnlp_tpu_torch.data.pipeline import to_device
@@ -263,6 +270,26 @@ def train_global_batches(rank: int, world: int, args, payload: Dict) -> List:
                "launches": launches, "step_ms": step_ms,
                "shard_fraction": shard_fraction(state.model,
                                                 state.optimizer)}
+        moments = [v for st in state.optimizer.state.values()
+                   for k, v in st.items() if k in ("exp_avg", "exp_avg_sq")]
+        host = [v for v in moments if not hasattr(v, "to_local")
+                and v.device.type == "cpu"]
+        rec["moments"] = {
+            "count": len(moments), "host": len(host),
+            "offload": hasattr(state.optimizer, "park"),
+            "pinned": sum(bool(v.is_pinned()) for v in host)
+            if torch.cuda.is_available() else 0,
+            "staged_bytes": getattr(state.optimizer, "staged_bytes", 0)}
+        if state.ema is not None:
+            from pdnlp_tpu_torch.parallel.sharding import gather_full
+
+            ema = {k: (v.full_tensor() if hasattr(v, "full_tensor") else v)
+                   for k, v in gather_full(
+                       state.ema, getattr(state.model, "shards", None)
+                   ).items()}
+            if rank == 0:
+                rec["ema"] = {k: v.detach().cpu().numpy().copy()
+                              for k, v in ema.items()}
         digest = params_digest(state.model)
         digests = [None] * world
         dist.all_gather_object(digests, digest)
@@ -284,6 +311,14 @@ def train_global_batches(rank: int, world: int, args, payload: Dict) -> List:
                 rank_block(eval_batch, d_idx, d_size), device))
             rec["eval"] = [a.cpu().numpy() for a in collectives.output_reduce(
                 m["pred"], m["label"], m["ew"], group=state.group)]
+            if state.ema is not None and mode in ("dp", "zero"):
+                # the Trainer's dev pass on the EMA (under zero swapped
+                # into the params' shards)
+                from pdnlp_tpu_torch.train.trainer import Trainer
+
+                rec["ema_dev"] = Trainer(rargs, cfg, state, step, ev,
+                                         device).dev(
+                    [rank_block(eval_batch, d_idx, d_size)])
         params = ckpt.consolidate(state.model)
         if rank == 0 and payload.get("out_dir"):
             path = os.path.join(payload["out_dir"], f"{name}.pt")

@@ -144,36 +144,6 @@ def gather_stages(state: Dict[str, torch.Tensor], stage: Stage
     return {k: merged[k] for k in sorted(merged, key=order)}
 
 
-def gather_optimizer_state(optimizer, model, stage: Stage) -> Dict:
-    """The stage group's AdamW state as one full optimizer state dict of
-    ``torch.distributed.checkpoint`` (``get_optimizer_state_dict``: keyed
-    by parameter name, host copies; a collective over the stage group):
-    every stage's layer slices and the first stage's replicated trees.
-    ``set_optimizer_state_dict`` loads each stage's subset from it, as it
-    loads zero's."""
-    from torch.distributed.checkpoint.state_dict import (
-        StateDictOptions, get_optimizer_state_dict,
-    )
-
-    # without cpu_offload: with it, only global rank 0 gets the state back
-    full = get_optimizer_state_dict(
-        model, optimizer, options=StateDictOptions(full_state_dict=True))
-    mine = {"state": {n: {k: (v.detach().to("cpu") if torch.is_tensor(v)
-                              else v) for k, v in st.items()}
-                      for n, st in full["state"].items()
-                      if stage.index == 0 or not is_replicated(n)},
-            "params": [g["params"] for g in full["param_groups"]]}
-    parts: List = [None] * stage.size
-    dist.all_gather_object(parts, mine, group=stage.group)
-    state = {}
-    for part in parts:
-        state.update(part["state"])
-    groups = [{**g, "params": list(dict.fromkeys(
-        n for part in parts for n in part["params"][i]))}
-        for i, g in enumerate(full["param_groups"])]
-    return {"state": state, "param_groups": groups}
-
-
 def _run_layers(model, x, bias, mask, attn_impl, generator, remat):
     """This stage's layers over ``x``: ``(x, aux)``, the aux summed over
     its MoE layers (0 for a dense model)."""

@@ -101,6 +101,11 @@ def init_runtime(args) -> Tuple[int, int]:
     init_method, world, rank, local = rendezvous(args)
     if device.type == "cuda":
         torch.cuda.set_device(local % torch.cuda.device_count())
+    if backend == "nccl" and getattr(args, "fuse_steps", 1) > 1:
+        # the captured K-step graphs hold NCCL collectives: PyTorch's notes
+        # on CUDA graphs ask for the group's async error handling off
+        # before the group is made
+        os.environ.setdefault("TORCH_NCCL_ASYNC_ERROR_HANDLING", "0")
     if init_method is None:
         dist.init_process_group(backend, store=dist.HashStore(), rank=0,
                                 world_size=1, timeout=TIMEOUT)

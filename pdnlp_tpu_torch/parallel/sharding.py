@@ -245,17 +245,48 @@ def shard_model(model: torch.nn.Module,
     return model
 
 
-def wrap(objective: torch.nn.Module, mode: str, mesh, device
-         ) -> torch.nn.Module:
+def compute_units(model: torch.nn.Module):
+    """The modules zero shards as FSDP2 units of their own under
+    ``--grads_dtype compute``: every ``nn.Linear`` of the encoder layers and
+    the pooler — the matmul weights whose gradients JAX produces and
+    reduces in bf16 (``cast_kernels``).  The forward calls each through
+    its module (``models.bert._dense``), which is where FSDP2 gathers it.
+    The classifier stays in the root unit, in fp32: the fused CE kernels
+    read its weight directly, outside any module call; so do the MoE
+    gate and expert stacks in their layers' units."""
+    units = [m for layer in model.layers for m in layer.modules()
+             if isinstance(m, torch.nn.Linear)]
+    return units + [model.pooler]
+
+
+def wrap(objective: torch.nn.Module, mode: str, mesh, device,
+         compute_dtype: Optional[torch.dtype] = None,
+         explicit_reduce: bool = False) -> torch.nn.Module:
     """``objective`` placed over ``mesh`` by ``mode``: DDP over the data
     axis for ``dp`` (its broadcast at construction leaves rank 0's weights
     on every rank), FSDP2 for ``zero``, sharding in place (build the
     optimizer after).  No wrapper for ``dp`` where the data axis has one
-    rank (nothing to reduce), nor for ``tp``, ``ep``, ``pp`` and ``sp``,
-    whose steps reduce the gradients themselves."""
+    rank (nothing to reduce) or with ``explicit_reduce`` (a fused dp step,
+    which reduces its gradients itself so a CUDA graph can hold the
+    collectives; rank 0's weights are broadcast here instead), nor for
+    ``tp``, ``ep``, ``pp`` and ``sp``, whose steps reduce the gradients
+    themselves.  Under ``zero`` with ``compute_dtype`` (``--grads_dtype
+    compute`` at bf16) the :func:`compute_units` become FSDP2 units of
+    their own whose ``MixedPrecisionPolicy`` gathers the weights and
+    reduce-scatters their gradients in that dtype; the master weights,
+    the moments and every other unit stay fp32."""
     check_mode(mode)
     if mode in PLACE_AXIS or (mode == "dp"
                              and axis_size(mesh, DATA_AXIS) == 1):
+        return objective
+    if mode == "dp" and explicit_reduce:
+        import torch.distributed as dist
+
+        group = axis_group(mesh, DATA_AXIS)
+        with torch.no_grad():
+            for p in objective.parameters():
+                dist.broadcast(p.data, src=dist.get_global_rank(group, 0),
+                               group=group)
         return objective
     if mode == "dp":
         from torch.nn.parallel import DistributedDataParallel
@@ -266,15 +297,38 @@ def wrap(objective: torch.nn.Module, mode: str, mesh, device
         return DistributedDataParallel(
             objective, device_ids=ids,
             process_group=axis_group(mesh, DATA_AXIS))
-    from torch.distributed.fsdp import fully_shard
+    from torch.distributed.fsdp import MixedPrecisionPolicy, fully_shard
 
-    for layer in objective.model.layers:
+    model = objective.model
+    if compute_dtype is not None:
+        policy = MixedPrecisionPolicy(param_dtype=compute_dtype,
+                                      reduce_dtype=compute_dtype)
+        for unit in compute_units(model):
+            fully_shard(unit, mesh=mesh, mp_policy=policy)
+            unit.compute_unit = True
+    for layer in model.layers:
         fully_shard(layer, mesh=mesh)
-    return fully_shard(objective, mesh=mesh)
+    objective = fully_shard(objective, mesh=mesh)
+    objective.casts_kernels = compute_dtype is not None
+    return objective
 
 
-def _local(t: torch.Tensor) -> torch.Tensor:
+def local_shard(t: torch.Tensor) -> torch.Tensor:
+    """A DTensor's shard on this rank (zero's FSDP2 parameters, their
+    moments and EMA), else ``t``."""
     return t.to_local() if hasattr(t, "to_local") else t
+
+
+def as_placed(local: torch.Tensor, param: torch.Tensor) -> torch.Tensor:
+    """``local`` placed as ``param`` is: for a sharded parameter a DTensor
+    of its mesh and placements around this rank's shard, else ``local``."""
+    if not hasattr(param, "device_mesh"):
+        return local
+    from torch.distributed.tensor import DTensor
+
+    return DTensor.from_local(local, param.device_mesh, param.placements,
+                              run_check=False, shape=param.shape,
+                              stride=param.stride())
 
 
 def shard_fraction(model: torch.nn.Module,
@@ -291,13 +345,13 @@ def shard_fraction(model: torch.nn.Module,
                     if torch.is_tensor(v) and v.dim() > 0]
     full = local = 0
     for n, t in tensors:
-        nbytes = _local(t).numel() * t.element_size()
+        nbytes = local_shard(t).numel() * t.element_size()
         split = shards is not None and \
             shard_dim(n, t.shape, shards.mode) is not None
         local += nbytes
         full += nbytes * (shards.size if split else 1)
         if hasattr(t, "to_local"):
-            full += (t.numel() - _local(t).numel()) * t.element_size()
+            full += (t.numel() - local_shard(t).numel()) * t.element_size()
     return local / full if full else 1.0
 
 
@@ -313,18 +367,3 @@ def full_template(state: Mapping[str, torch.Tensor],
             shape[d] *= shards.size
         out[k] = torch.empty(shape, dtype=v.dtype)
     return out
-
-
-def map_optimizer_state(saved: Dict, optimizer: torch.optim.Optimizer,
-                        model: torch.nn.Module, fn) -> Dict:
-    """An optimizer ``state_dict`` with each per-parameter tensor (the
-    moments) replaced by ``fn(parameter name, tensor)``, in index order —
-    the tp/ep slices gathered for a snapshot, or sliced again on load."""
-    names = {id(p): n for n, p in model.named_parameters()}
-    order = [names[id(p)] for g in optimizer.param_groups
-             for p in g["params"]]
-    state = {}
-    for i in sorted(saved["state"]):
-        state[i] = {k: (fn(order[i], v) if torch.is_tensor(v) and v.dim()
-                        else v) for k, v in saved["state"][i].items()}
-    return {**saved, "state": state}

@@ -11,7 +11,10 @@ pieces the user built single-device style:
 
 - the train state is placed by ``mode``: its objective is rebuilt over the
   mesh's group and wrapped in DDP (``"dp"``) or FSDP2 (``"zero"``, whose
-  sharded parameters get a new AdamW with the same groups and schedule);
+  sharded parameters get a new AdamW with the same groups and schedule,
+  whose EMA, if kept, is placed as the params are, and whose matmul
+  weights under ``--grads_dtype compute`` become bf16 units of their own,
+  ``parallel.sharding.wrap``);
 - each loader is re-batched by ``batch_mult`` (1: a rank feeds one card),
   a ``LengthGroupedSampler`` rebuilt at the scaled batch (on this rank's
   shard of the same seeded global batches), and a plain sampler
@@ -168,18 +171,28 @@ class Accelerator:
 
     def _place(self, state) -> None:
         from pdnlp_tpu_torch.parallel.sharding import wrap
-        from pdnlp_tpu_torch.train.steps import TrainObjective
+        from pdnlp_tpu_torch.train.precision import resolve_dtype
+        from pdnlp_tpu_torch.train.steps import TrainObjective, compute_grads
 
         # JAX's Accelerator jits its step over the global batch: an MoE
         # model's routing is the global batch's here too
         objective = TrainObjective(state.model, self.args, self.device,
                                    group=self.mesh.get_group(),
                                    global_aux=True)
-        state.objective = wrap(objective, self.mode, self.mesh, self.device)
+        compute = compute_grads(self.args) and self.mode == "zero"
+        state.objective = wrap(
+            objective, self.mode, self.mesh, self.device,
+            compute_dtype=resolve_dtype(self.args.dtype) if compute
+            else None)
         if self.mode == "zero":
             if state.ema is not None:
-                raise ValueError("--ema_decay under zero is not in the "
-                                 "PyTorch port yet (ROADMAP A7); use dp")
+                # the EMA's values placed as FSDP2 placed the params: one
+                # shard per rank
+                from pdnlp_tpu_torch.train.trainer import _placed_like
+
+                live = state.model.state_dict()
+                state.ema = {k: _placed_like(v.detach().cpu(), live[k])
+                             for k, v in state.ema.items()}
             # FSDP2 replaced the parameters with their shards: AdamW over
             # the new ones, with the same schedule
             from pdnlp_tpu_torch.train.optim import build_optimizer

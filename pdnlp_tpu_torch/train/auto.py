@@ -10,8 +10,10 @@ a ``checkpoint-<step>/model.msgpack`` per save rotated under
 ``metric_for_best_model``, and a ``compute_metrics`` hook.  It trains the
 data-parallel runner's trainer (``build_parallel_trainer``): on one rank
 in mode ``dp`` that is the single-device step, with no wrapper and no
-collective; over several ranks, or in mode ``zero`` (FSDP2),
-``fuse_steps`` stays 1 (ROADMAP A7).
+collective; over several ranks under ``fuse_steps`` above 1 the dp step
+reduces its gradients itself, so the captured graph holds the NCCL
+all-reduce; in mode ``zero`` (FSDP2) ``fuse_steps`` stays 1 (ROADMAP
+A7).
 
 The loop is ``Trainer.train``'s own: this class supplies the managed
 cadences as ``LoopHooks``, so ``fuse_steps`` (K steps per captured CUDA
@@ -193,14 +195,14 @@ class AutoTrainer:
         self.targs = targs
         self.args = targs.to_args()
         self.compute_metrics = compute_metrics or default_compute_metrics
-        _, world = init_runtime(self.args)
-        if targs.fuse_steps > 1 and (targs.mode != "dp" or world > 1):
+        init_runtime(self.args)
+        if targs.fuse_steps > 1 and targs.mode != "dp":
             raise ValueError(
-                f"fuse_steps={targs.fuse_steps} runs on one rank in mode dp: "
-                "a captured step cannot hold DDP's or FSDP2's collectives "
-                "yet (ROADMAP A7); use fuse_steps=1")
-        # one rank in mode dp: no wrapper and no collective, a step a CUDA
-        # graph can hold
+                f"fuse_steps={targs.fuse_steps} runs in mode dp: a captured "
+                "step cannot hold FSDP2's collectives yet (ROADMAP A7); use "
+                "fuse_steps=1")
+        # mode dp under fuse_steps > 1: the step reduces its gradients over
+        # the ranks itself, NCCL inside the captured graph on the card
         built = build_parallel_trainer(self.args, mode=targs.mode)
         self._trainer, self.train_loader, self.dev_loader = built
         self.state_history: List[Tuple[int, str]] = []  # (step, dir)

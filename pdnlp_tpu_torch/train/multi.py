@@ -35,7 +35,16 @@ rank:
 
 Explicit flags override those defaults (``--remat false``, ``--dtype``,
 ``--mode zero``); ``--init_from`` / ``--init_head`` warm-start the model
-before it is placed (under zero the loaded weights are what is sharded).  Runs on ``cuda`` unless ``--device cpu`` is given, over
+before it is placed (under zero the loaded weights are what is sharded).
+``--fuse_steps`` K runs K steps per dispatch under dp, tp and ep, on the
+card as one captured CUDA graph with the step's NCCL collectives inside
+(dp then reduces its gradients through the explicit bucketed all-reduce,
+not DDP); pp, sp and shardmap take K and run one step at a time, as JAX
+does; zero refuses K > 1 (ROADMAP A7).  ``--offload_opt_state`` keeps
+AdamW's moments in host memory under dp and zero (``train.optim.
+OffloadAdamW``), refused, in JAX's words, with shardmap, fused steps and
+tp.  ``--ema_decay`` and ``--grads_dtype compute`` run under zero too.
+Runs on ``cuda`` unless ``--device cpu`` is given, over
 NCCL there and gloo on the CPU (``--dist_backend`` names another); every
 run forms a process group, of one rank too.  Each rank's step runs the
 flash kernels and the fused CE kernels at ``--attn_dropout 0``.  The
@@ -46,7 +55,7 @@ from __future__ import annotations
 
 import sys
 
-from pdnlp_tpu_torch.parallel.execution import check_sp, check_zero
+from pdnlp_tpu_torch.parallel.execution import check_sp, check_strategy
 from pdnlp_tpu_torch.parallel.runtime import world_size_of
 from pdnlp_tpu_torch.parallel.sharding import check_mode
 from pdnlp_tpu_torch.train.single import NOT_PORTED, refuse_not_ported
@@ -64,16 +73,11 @@ STRATEGIES = {
     "sp": ({"mode": "sp"}, {}),
 }
 
-#: what this entry point refuses by name: the single-device table, plus
-#: the data-parallel paths still to port
-MULTI_NOT_PORTED = {
-    **NOT_PORTED,
-    "--fuse_steps": ("1", "K steps per dispatch under a process group: "
-                     "the captured graph needs NCCL's capturable "
-                     "collectives (ROADMAP A7)"),
-    "--offload_opt_state": ("false", "Adam moments in host memory, FSDP2's "
-                            "CPUOffloadPolicy (ROADMAP A7)"),
-}
+#: flags this entry point refuses by name: the single-device table, which
+#: is empty — every JAX flag is ported.  What stays refused is refused by
+#: the rules of :func:`parse` (JAX's offload rule, ``--fuse_steps`` above 1
+#: under zero: ROADMAP A7)
+MULTI_NOT_PORTED = dict(NOT_PORTED)
 
 
 def default_mesh(args, world: int):
@@ -114,7 +118,8 @@ def parse(argv, prog: str = "train.multi"):
     args = parse_cli(argv, base=Args(strategy=strategy, **defaults))
     try:
         check_mode(args.mode)
-        check_zero(args, args.mode)
+        check_strategy(args, args.mode,
+                       knobs.get("explicit_collectives", False))
         if args.mesh_shape is None:
             args = args.replace(mesh_shape=default_mesh(
                 args, world_size_of(args)))

@@ -20,13 +20,23 @@ and captured steps run the same arithmetic.  Otherwise the eager step
 keeps the host-float rate: capturable AdamW's bias correction on the card
 cost the eager step time (PERF.md, PR 8).  The moments are allocated up
 front on every device (:func:`init_state`).
+
+``--offload_opt_state`` (JAX's ``pinned_host`` moments, the DeepSpeed
+``offload_optimizer`` analog) builds :class:`OffloadAdamW`: the float
+moments live in host memory (pinned when a card exists), the params and
+gradients stay on the device, and each step stages the moments onto the
+device a chunk at a time on a side stream, runs the same AdamW update
+there, and copies them back (:meth:`OffloadAdamW.step`).
 """
 from __future__ import annotations
 
+import contextlib
 import math
 from typing import Callable, Dict, List, Optional, Tuple
 
 import torch
+
+from pdnlp_tpu_torch.parallel.sharding import as_placed, local_shard
 
 
 def is_decayed(name: str) -> bool:
@@ -116,18 +126,23 @@ def pretrain_schedule(lr: float, total_steps: int) -> Callable[[int], float]:
 
 
 def build_optimizer(model: torch.nn.Module, args, total_steps=None,
-                    schedule: Optional[Callable[[int], float]] = None):
+                    schedule: Optional[Callable[[int], float]] = None,
+                    capturable: Optional[bool] = None):
     """``(AdamW, LambdaLR or None)`` from ``Args`` (lr 3e-5, betas
     0.9/0.999, eps 1e-6, decay 0.01 by default).  Step the scheduler after
     each optimizer step: update ``k`` (from 0) then runs at
     ``schedule(k)``.  ``schedule`` (the rate at each update count) takes
     the place of ``--lr_schedule``'s, as the JAX ``build_optimizer``'s
     does: pretraining passes :func:`pretrain_schedule`.  Capturable on a
-    card under ``--fuse_steps`` above 1 (module docstring); the state is
-    allocated up front on every device (:func:`init_state`)."""
+    card under ``--fuse_steps`` above 1 (module docstring), unless
+    ``capturable`` says otherwise (a path that runs its steps one at a
+    time); the state is allocated up front on every device
+    (:func:`init_state`), and under ``--offload_opt_state`` its moments
+    moved to host memory (:class:`OffloadAdamW`)."""
     params = list(model.parameters())
-    capturable = (params[0].device.type == "cuda"
-                  and getattr(args, "fuse_steps", 1) > 1
+    if capturable is None:
+        capturable = getattr(args, "fuse_steps", 1) > 1
+    capturable = (capturable and params[0].device.type == "cuda"
                   and not any(hasattr(p, "to_local") for p in params))
     lr = args.learning_rate
     if capturable:
@@ -137,10 +152,13 @@ def build_optimizer(model: torch.nn.Module, args, total_steps=None,
     if capturable:      # one rate tensor per group, as LambdaLR fills them
         for g in groups[1:]:
             g["lr"] = lr.clone()
-    opt = torch.optim.AdamW(
-        groups, lr=lr, betas=(args.adam_b1, args.adam_b2), eps=args.adam_eps,
-        capturable=capturable)
+    offload = getattr(args, "offload_opt_state", False)
+    cls = OffloadAdamW if offload else torch.optim.AdamW
+    opt = cls(groups, lr=lr, betas=(args.adam_b1, args.adam_b2),
+              eps=args.adam_eps, capturable=capturable)
     init_state(opt)
+    if offload:
+        opt.park()
     if schedule is None:
         schedule = make_schedule(args, total_steps)
     if schedule is None:
@@ -155,6 +173,148 @@ def build_optimizer(model: torch.nn.Module, args, total_steps=None,
             g["lr"].fill_(r)
         sched._last_lr = group_lrs(sched, 0)[0]
     return opt, sched
+
+
+#: AdamW's float moments: what ``--offload_opt_state`` keeps in host memory
+MOMENTS = ("exp_avg", "exp_avg_sq")
+
+
+class OffloadAdamW(torch.optim.AdamW):
+    """``torch.optim.AdamW`` whose float moments live in host memory
+    between steps — JAX's ``--offload_opt_state`` (``parallel/
+    execution.py``: the moments in ``pinned_host``, staged to the device
+    for the update and back).  At rest each moment is this rank's shard
+    as a plain host tensor, pinned when a card exists (:meth:`park`).
+
+    :meth:`step` splits the parameters that have gradients into chunks
+    of about :attr:`CHUNK_BYTES` of moments (one parameter at least) and, on a
+    card, pipelines them over a side stream: chunk ``i + 1``'s moments are
+    copied host -> device while AdamW updates chunk ``i`` on the current
+    stream, and chunk ``i``'s copy back follows its update, so at most
+    three chunks' moments are on the device at once.  Each chunk's update
+    is ``AdamW.step`` over that chunk alone (the other gradients held
+    aside), so every parameter gets the arithmetic of the on-device run,
+    bit for bit.  A host read of the moments (a snapshot) calls
+    :meth:`wait` first.  Not capturable: the host-side staging runs every
+    step (JAX refuses offload with fused steps too)."""
+
+    #: moment bytes staged per chunk
+    CHUNK_BYTES = 32 * 2 ** 20
+
+    def __init__(self, *a, **kw):
+        super().__init__(*a, **kw)
+        self._copy = None
+        #: host <-> device bytes the last step moved (both ways)
+        self.staged_bytes = 0
+
+    def _stream(self, device):
+        if device.type != "cuda":
+            return None
+        if self._copy is None:
+            self._copy = torch.cuda.Stream(device)
+        return self._copy
+
+    def wait(self) -> None:
+        """Block until every copy back to host memory has landed."""
+        if self._copy is not None:
+            self._copy.synchronize()
+
+    @torch.no_grad()
+    def park(self) -> None:
+        """Move every moment still on a device (a fresh init, a loaded
+        state dict) to host memory."""
+        pin = torch.cuda.is_available()
+        for group in self.param_groups:
+            for p in group["params"]:
+                st = self.state.get(p, {})
+                for k in MOMENTS:
+                    if k not in st:
+                        continue
+                    v = local_shard(st[k])
+                    if v.device.type == "cpu" and (v.is_pinned() or not pin):
+                        st[k] = v
+                        continue
+                    host = torch.empty(v.shape, dtype=v.dtype,
+                                       pin_memory=pin)
+                    host.copy_(v)
+                    st[k] = host
+
+    def load_state_dict(self, state_dict) -> None:
+        super().load_state_dict(state_dict)
+        self.park()
+
+    def _chunks(self, params):
+        chunks, size = [], None
+        for p in params:
+            nbytes = 2 * local_shard(p).numel() * 4
+            if size is None or size + nbytes > self.CHUNK_BYTES:
+                chunks.append([])
+                size = 0
+            chunks[-1].append(p)
+            size += nbytes
+        return chunks
+
+    @torch.no_grad()
+    def step(self, closure=None):
+        if closure is not None:
+            raise ValueError("OffloadAdamW.step takes no closure")
+        live = [p for g in self.param_groups for p in g["params"]
+                if p.grad is not None]
+        if not live:
+            return None
+        device = local_shard(live[0]).device
+        copy = self._stream(device)
+        main = torch.cuda.current_stream(device) if copy is not None \
+            else None
+        grads = {p: p.grad for p in live}
+        self.staged_bytes = 0
+
+        def on_copy():
+            return torch.cuda.stream(copy) if copy is not None \
+                else contextlib.nullcontext()
+
+        def stage_in(chunk):
+            hosts = []
+            with on_copy():
+                for p in chunk:
+                    st = self.state[p]
+                    for k in MOMENTS:
+                        host = st[k]
+                        dev = torch.empty(host.shape, dtype=host.dtype,
+                                          device=device)
+                        dev.copy_(host, non_blocking=True)
+                        if copy is not None:
+                            dev.record_stream(main)
+                        st[k] = as_placed(dev, p)
+                        hosts.append((st, k, host))
+                        self.staged_bytes += 2 * host.numel() * \
+                            host.element_size()
+            return hosts, copy.record_event() if copy is not None else None
+
+        chunks = self._chunks(live)
+        try:
+            staged = stage_in(chunks[0])
+            for i, chunk in enumerate(chunks):
+                hosts, ready = staged
+                if i + 1 < len(chunks):
+                    staged = stage_in(chunks[i + 1])
+                if ready is not None:
+                    main.wait_event(ready)
+                mine = {id(p) for p in chunk}
+                for p in live:
+                    p.grad = grads[p] if id(p) in mine else None
+                super().step()
+                done = main.record_event() if main is not None else None
+                with on_copy():
+                    if done is not None:
+                        copy.wait_event(done)
+                    for st, k, host in hosts:
+                        host.copy_(local_shard(st[k]), non_blocking=True)
+                        st[k] = host
+        finally:
+            for p in live:
+                p.grad = grads[p]
+        return None
 
 
 def init_state(opt: torch.optim.Optimizer) -> None:

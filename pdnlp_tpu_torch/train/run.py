@@ -31,8 +31,8 @@ from pdnlp_tpu_torch.data.corpus import LABELS
 from pdnlp_tpu_torch.data.pipeline import setup_pipeline
 from pdnlp_tpu_torch.data.sampler import resolve_length_mode
 from pdnlp_tpu_torch.parallel.execution import (
-    make_parallel_eval_step, make_parallel_train_step,
-    make_shardmap_train_step, setup_sharded_model,
+    check_capture_backend, check_strategy, make_parallel_eval_step,
+    make_parallel_train_step, make_shardmap_train_step, setup_sharded_model,
 )
 from pdnlp_tpu_torch.parallel.mesh import (
     local_data_extent, make_mesh, mesh_shape,
@@ -52,8 +52,14 @@ def build_parallel_trainer(args, *, mode: str = "dp",
     the process group of ``args`` and the environment (joined here when it
     is not yet).  ``train_override`` swaps the train split's examples (the
     supervised pretraining stage); the dev split and the rest are shared.
-    Refuses, as JAX does, the length modes on the explicit-collectives
-    step."""
+    Refuses, as JAX does, ``--offload_opt_state`` with the explicit-
+    collectives step, fused steps or tp, and the length modes on the
+    explicit-collectives step; ``--fuse_steps`` above 1 under zero (ROADMAP
+    A7), and on the card over a backend that cannot be captured
+    (``parallel.execution.check_capture_backend``).  The dp, tp and ep
+    steps run ``--fuse_steps`` K as captured K-step graphs on the card; the
+    explicit-collectives step runs K = 1, as JAX's does."""
+    check_strategy(args, mode, explicit_collectives)
     if explicit_collectives and resolve_length_mode(args) != "full":
         raise ValueError(
             "--length_mode bucket/pack is wired into the dp/zero strategies "
@@ -64,6 +70,8 @@ def build_parallel_trainer(args, *, mode: str = "dp",
         if args.device.startswith("cuda") else torch.device("cpu")
     mesh = make_mesh(num_devices=args.num_devices, shape=args.mesh_shape,
                      device_type=device.type)
+    if not explicit_collectives:
+        check_capture_backend(args, mode, device)
     num_shards, shard_id, mult = local_data_extent(mesh)
     train_loader, dev_loader, tok = setup_data(
         args, num_shards=num_shards, shard_id=shard_id,
@@ -80,7 +88,7 @@ def build_parallel_trainer(args, *, mode: str = "dp",
     pipeline = setup_pipeline(args, train_loader, device)
     trainer = Trainer(args, cfg, state, train_step,
                       make_parallel_eval_step(args, state), device,
-                      pipeline=pipeline)
+                      pipeline=pipeline, fusable=not explicit_collectives)
     global_batch = args.train_batch_size * (num_shards if scale_batch else 1)
     rank0_print(
         f"mesh: {mesh_shape(mesh)}  process {rank}/{world}  mode: "
@@ -191,10 +199,12 @@ def build_sp_trainer(args) -> Tuple[Trainer, object, object]:
     # data-axis placement the resident gather produces
     pipeline = setup_pipeline(args, train_loader, device,
                               allow_resident=False)
+    # the ring step runs one step at a time whatever --fuse_steps (JAX's
+    # eff_k)
     trainer = Trainer(args, cfg, state,
                       make_sp_train_step(args, mesh, device),
                       make_sp_eval_step(args, mesh), device,
-                      pipeline=pipeline)
+                      pipeline=pipeline, fusable=False)
     n = axis_size(mesh, SEQ_AXIS)
     rank0_print(f"mesh: {mesh_shape(mesh)}  process {rank}/{world}  ring "
                 f"axis: {SEQ_AXIS} (local seq {args.max_seq_len // n})  "
@@ -257,7 +267,7 @@ def build_pipeline_trainer(args) -> Tuple[Trainer, object, object]:
         args, cfg, state,
         make_pp_train_step(args, mesh, device, args.microbatches),
         make_pp_eval_step(args, mesh, device, args.microbatches), device,
-        pipeline=pipeline)
+        pipeline=pipeline, fusable=False)
     S = axis_size(mesh, STAGE_AXIS)
     rank0_print(f"mesh: {mesh_shape(mesh)}  process {rank}/{world}  stages:"
                 f" {S} x {cfg.num_layers // S} layers  microbatches: "

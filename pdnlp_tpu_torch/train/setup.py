@@ -149,7 +149,14 @@ def setup_model(args, vocab_size: int, total_steps=None
     weights on any device; dropout from a generator on the device.
     ``total_steps`` sizes the optional ``--lr_schedule``.  ``--init_from``
     warm-starts the encoder (with ``--init_head`` the pooler and classifier
-    too) from a pretraining artifact (:func:`warm_start`)."""
+    too) from a pretraining artifact (:func:`warm_start`).  Refuses
+    ``--offload_opt_state`` with JAX's words: it is the mesh strategies'
+    (``parallel.execution``)."""
+    if getattr(args, "offload_opt_state", False):
+        raise ValueError("--offload_opt_state is wired into the mesh "
+                         "strategies (dp/zero via build_parallel_trainer), "
+                         "not this entrypoint — it would be silently ignored "
+                         "here")
     device = resolve_device(args.device)
     cfg = get_config(args.model, vocab_size=vocab_size,
                      num_labels=args.num_labels, dropout=args.dropout,

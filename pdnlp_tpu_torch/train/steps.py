@@ -39,6 +39,7 @@ import torch
 
 from pdnlp_tpu_torch.models.bert import BertClassifier
 from pdnlp_tpu_torch.ops.fused_ce import fused_weighted_ce, resolve_fused_ce
+from pdnlp_tpu_torch.parallel.sharding import local_shard
 from pdnlp_tpu_torch.train.precision import resolve_dtype
 
 Batch = Dict[str, torch.Tensor]
@@ -72,10 +73,49 @@ class TrainState:
             return self.ema
         return {k: v.detach() for k, v in self.model.state_dict().items()}
 
+    @contextlib.contextmanager
+    def ema_swapped(self):
+        """The EMA in the sharded (FSDP2) params' place for the block: each
+        rank copies its EMA shard into its param shard, so the units gather
+        the EMA as they gather the params, and puts the params back after.
+        Every unit is resharded before and after, so no gathered copy of
+        the other weights outlives the swap."""
+        live = self.model.state_dict()
+        units = [m for m in self.objective.modules()
+                 if hasattr(m, "reshard") and hasattr(m, "unshard")]
+        with torch.no_grad():
+            for m in units:
+                m.reshard()
+            saved = {k: local_shard(v).clone() for k, v in live.items()}
+            for k, v in live.items():
+                local_shard(v).copy_(local_shard(self.ema[k]))
+        try:
+            yield
+        finally:
+            with torch.no_grad():
+                for m in units:
+                    m.reshard()
+                for k, v in live.items():
+                    local_shard(v).copy_(saved[k])
+
 
 def init_ema(model: torch.nn.Module) -> Dict[str, torch.Tensor]:
-    """An EMA initialised to the params (distinct fp32 buffers)."""
+    """An EMA initialised to the params, as distinct buffers (JAX's
+    ``jnp.copy``); under zero each entry is a DTensor placed as its
+    parameter: one shard per rank."""
     return {k: v.detach().clone() for k, v in model.state_dict().items()}
+
+
+def ema_update(ema: Dict[str, torch.Tensor], model: torch.nn.Module,
+               d: float, one_minus_d: float) -> None:
+    """``ema = d * ema + (1 - d) * params``, in place, on each rank's
+    shard of every entry (the whole entry where nothing is sharded)."""
+    with torch.no_grad():
+        e = [local_shard(v) for v in ema.values()]
+        torch._foreach_mul_(e, d)
+        torch._foreach_add_(
+            e, [local_shard(p.detach()) for p in model.state_dict().values()],
+            alpha=one_minus_d)
 
 
 def weighted_ce(logits: torch.Tensor, labels: torch.Tensor,
@@ -223,8 +263,8 @@ def ema_coefficients(decay: float):
     return float(d), float(np.float32(1.0) - d)
 
 
-def build_train_step(args, device, after_backward=None, reduce_metrics=None
-                     ) -> Callable[..., Metrics]:
+def build_train_step(args, device, after_backward=None, reduce_metrics=None,
+                     sharded: bool = False) -> Callable[..., Metrics]:
     """The train step for ``args``: ``step(state, batch)`` calls
     ``state.objective`` (which resolved the routes for ``device``), runs
     ``backward``, then ``after_backward(state)`` (the explicit gradient
@@ -236,16 +276,23 @@ def build_train_step(args, device, after_backward=None, reduce_metrics=None
     ``step(state, batch, next_lr=rows)`` is the form a captured graph
     records: instead of stepping the host schedule it copies ``rows`` (one
     0-d device tensor per parameter group) into the groups' rate tensors,
-    which is what the schedule step would have filled."""
+    which is what the schedule step would have filled.
+
+    ``sharded``: the objective is FSDP2's (zero), whose units of the matmul
+    weights cast them for ``--grads_dtype compute`` themselves, so the
+    recompute of ``--remat`` sees the bf16 weights too."""
     d, one_minus_d = ema_coefficients(args.ema_decay)
     compute = compute_grads(args)
-    if compute and getattr(args, "remat", False):
+    if compute and getattr(args, "remat", False) and not sharded:
         raise ValueError("--grads_dtype compute with --remat true: the "
                          "recompute would run on the fp32 weights")
     dtype = resolve_dtype(args.dtype)
 
     def loss_and_backward(state: TrainState, batch: Batch):
-        if not compute:
+        # under zero the FSDP2 units of the matmul weights gather them in
+        # bf16 and reduce their gradients in bf16 themselves
+        # (parallel.sharding.wrap)
+        if not compute or getattr(state.objective, "casts_kernels", False):
             loss, correct, objective, weight = state.objective(
                 batch, state.generator)
             state.optimizer.zero_grad(set_to_none=True)
@@ -258,8 +305,9 @@ def build_train_step(args, device, after_backward=None, reduce_metrics=None
         with torch.no_grad():
             cast = {n: params[n].to(dtype).requires_grad_() for n in names}
         # DDP's hooks sit on the fp32 weights, which these gradients
-        # bypass: its reduction is off, and the step's ``after_backward``
-        # reduces every gradient itself (parallel.execution)
+        # bypass: its reduction is off, and the step reduces every gradient
+        # itself below, the matmul weights' in bf16 (parallel.execution.
+        # reduce_model_grads)
         ddp = isinstance(state.objective,
                          torch.nn.parallel.DistributedDataParallel)
         with state.objective.no_sync() if ddp else contextlib.nullcontext():
@@ -271,6 +319,11 @@ def build_train_step(args, device, after_backward=None, reduce_metrics=None
             objective.backward()
         for n in names:          # the bf16 gradient, widened for AdamW
             params[n].grad = cast[n].grad.to(params[n].dtype)
+        if ddp:
+            from pdnlp_tpu_torch.parallel.execution import reduce_model_grads
+
+            reduce_model_grads(state.model, state.objective.process_group,
+                               compute=True)
         return loss, correct, weight
 
     def train_step(state: TrainState, batch: Batch,
@@ -285,13 +338,7 @@ def build_train_step(args, device, after_backward=None, reduce_metrics=None
         elif state.scheduler is not None:
             state.scheduler.step()
         if state.ema is not None:
-            with torch.no_grad():
-                ema = list(state.ema.values())
-                torch._foreach_mul_(ema, d)
-                torch._foreach_add_(
-                    ema, [p.detach()
-                          for p in state.model.state_dict().values()],
-                    alpha=one_minus_d)
+            ema_update(state.ema, state.model, d, one_minus_d)
         state.step += 1
         loss, correct = loss.detach(), correct.detach()
         if reduce_metrics is not None:
@@ -362,6 +409,21 @@ def _add_launches(counts: Dict[str, int], times: int) -> None:
     fused_ce.add_launches(counts, times)
 
 
+def _counts() -> Dict[str, int]:
+    """The kernels' launch counts and the collectives' call and byte
+    counts now: what a capture records and each replay is credited."""
+    from pdnlp_tpu_torch.parallel.collectives import stats_counts
+
+    return {**_launch_counts(), **stats_counts()}
+
+
+def _add_counts(counts: Dict[str, int], times: int) -> None:
+    from pdnlp_tpu_torch.parallel.collectives import add_stats
+
+    _add_launches(counts, times)
+    add_stats({k: v for k, v in counts.items() if "." in k}, times)
+
+
 class _Graph:
     """One captured group: K train steps on ``inputs``, with the per-step
     rates read from ``lrs`` (``[K + 1, groups]``) and the stacked metrics
@@ -378,6 +440,8 @@ class _Graph:
         self.seconds = seconds
         self.pool_bytes = pool_bytes
         self.replays = 0
+        #: the collectives' call and byte counts its capture recorded
+        self.collectives: Dict[str, int] = {}
 
 
 class _MultiStep:
@@ -399,7 +463,10 @@ class _MultiStep:
       1) and the K rates reach the graph through a device tensor filled
       from the schedule before each replay;
     - the kernels' launch counters are replay-aware: the launches a
-      capture records, once per replay;
+      capture records, once per replay, and so are the collectives' call
+      and byte counts (``parallel.collectives.STATS`` / ``P2P_STATS``):
+      under a process group the step's all-reduces are inside the graph
+      (NCCL), and a replay runs no host code;
     - before the first capture one eager step runs on the capture stream
       (the kernels' libraries load, cuBLAS sets up its workspace) from a
       copy of the state, which is then put back bit for bit: capturing
@@ -449,15 +516,15 @@ class _MultiStep:
         """One eager step on the capture stream, undone after (its
         launches are not counted: it trains nothing)."""
         snap = snapshot_state(state)
-        before = _launch_counts()
+        before = _counts()
         self._stream.wait_stream(torch.cuda.current_stream(self.device))
         with torch.cuda.stream(self._stream):
             self.train_step(state, {key: v[0] for key, v in inputs.items()})
         torch.cuda.current_stream(self.device).wait_stream(self._stream)
         torch.cuda.synchronize(self.device)
         restore_state(state, snap)
-        after = _launch_counts()
-        _add_launches({n: after[n] - before[n] for n in after}, -1)
+        after = _counts()
+        _add_counts({n: after[n] - before[n] for n in after}, -1)
         self._warmed = True
 
     def capture(self, state: TrainState, batches: Batch) -> _Graph:
@@ -487,7 +554,7 @@ class _MultiStep:
         torch.cuda.synchronize(self.device)
         torch.cuda.empty_cache()
         reserved = torch.cuda.memory_reserved(self.device)
-        before, step0 = _launch_counts(), state.step
+        before, step0 = _counts(), state.step
         t0 = time.perf_counter()
         with torch.cuda.graph(graph, pool=self._pool, stream=self._stream):
             ms = [self.train_step(
@@ -497,14 +564,16 @@ class _MultiStep:
             outputs = {m: torch.stack([x[m] for x in ms]) for m in ms[0]}
         seconds = time.perf_counter() - t0
         state.step = step0                   # the capture ran nothing
-        after = _launch_counts()
-        launches = {n: after[n] - before[n] for n in after}
-        _add_launches(launches, -1)
+        after = _counts()
+        counted = {n: after[n] - before[n] for n in after}
+        _add_counts(counted, -1)
+        launches = {n: v for n, v in counted.items() if "." not in n}
         state.optimizer.zero_grad(set_to_none=True)
         if self._pool is None:
             self._pool = graph.pool()
         g = _Graph(graph, k, inputs, lrs, outputs, launches, seconds,
                    torch.cuda.memory_reserved(self.device) - reserved)
+        g.collectives = {n: v for n, v in counted.items() if "." in n}
         self.graphs[key] = g
         return g
 
@@ -520,7 +589,7 @@ class _MultiStep:
         state.step += g.k
         if sched is not None:
             advance_schedule(sched, g.k)
-        _add_launches(g.launches, 1)
+        _add_counts({**g.launches, **g.collectives}, 1)
         # copied out now: a later replay of another graph of the shared
         # pool may reuse this one's output memory
         return {m: v.clone() for m, v in g.outputs.items()}

@@ -63,6 +63,7 @@ all ranks meet at a barrier after the final sync.
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import json
 import os
@@ -143,20 +144,48 @@ def _load_optimizer(opt: torch.optim.Optimizer, saved: Dict) -> None:
 
 def _placed_like(full: torch.Tensor, live: torch.Tensor) -> torch.Tensor:
     """A full host tensor placed as ``live`` is: on its device, or sharded
-    as its DTensor (every rank holds the full value)."""
+    as its DTensor (every rank holds the full value and slices its own
+    shard)."""
     if hasattr(live, "device_mesh"):
         from torch.distributed.tensor import distribute_tensor
 
         return distribute_tensor(full.to(live.device_mesh.device_type),
-                                 live.device_mesh, live.placements)
+                                 live.device_mesh, live.placements,
+                                 src_data_rank=None)
     return full.to(live.device)
+
+
+def _full_value(t: torch.Tensor) -> torch.Tensor:
+    """A DTensor's whole value (a collective), else ``t``."""
+    return t.full_tensor() if hasattr(t, "full_tensor") else t
+
+
+def index_to_names(saved: Dict, names) -> Dict:
+    """An optimizer state dict keyed by index (``Optimizer.state_dict()``,
+    the single/dp/tp/ep snapshots written before the one format) keyed by
+    parameter name instead; a name-keyed one passes through.  ``names``
+    is the full model's parameter names in ``named_parameters`` order:
+    the indices follow the two decay groups (``train.optim.
+    decay_groups``), decayed names first."""
+    if all(isinstance(i, str) for i in saved["state"]):
+        return saved
+    from pdnlp_tpu_torch.train.optim import is_decayed
+
+    order = [n for n in names if is_decayed(n)] + \
+        [n for n in names if not is_decayed(n)]
+    return {"state": {order[i]: v for i, v in saved["state"].items()},
+            "param_groups": [{**g, "params": [order[i] for i in g["params"]]}
+                             for g in saved["param_groups"]]}
 
 
 class Trainer:
     def __init__(self, args, cfg, state: TrainState, train_step: Callable,
                  eval_step: Callable, device: torch.device,
                  pipeline: Optional[InputPipeline] = None,
-                 multi_step=None, tracer=None):
+                 multi_step=None, tracer=None, fusable: bool = True):
+        """``fusable=False``: the step runs one step at a time whatever
+        ``--fuse_steps`` (pp, sp and the explicit-collectives step, as
+        JAX's ``eff_k``)."""
         self.args = args
         self.cfg = cfg
         self.state = state
@@ -164,7 +193,8 @@ class Trainer:
         self.eval_step = eval_step
         self.device = device
         self.pipeline = pipeline
-        self.fuse = max(1, int(getattr(args, "fuse_steps", 1)))
+        self.fuse = max(1, int(getattr(args, "fuse_steps", 1))) \
+            if fusable else 1
         if self.fuse > 1 and device.type == "cuda" \
                 and getattr(args, "remat", False):
             raise ValueError(
@@ -264,7 +294,12 @@ class Trainer:
                             ) -> Optional[float]:
         """Steady-state rate of ``n`` re-fed eager steps on the first
         batch, run on the live state, which is put back from a copy after
-        (bit for bit); None when the copy does not fit on the card."""
+        (bit for bit); None when the copy does not fit on the card, and
+        under ``--offload_opt_state``."""
+        if getattr(self.args, "offload_opt_state", False):
+            # the copy would put the host-resident moments on the card and
+            # probe another step (JAX's rule)
+            return None
         pipeline = self._train_pipeline(train_loader)
         pipeline.set_epoch(0)
         gen = pipeline.macro_batches(1)
@@ -582,9 +617,7 @@ class Trainer:
     def _save(self, path: str) -> None:
         """Write the eval weights (the EMA when kept): sharded weights are
         consolidated first, by every rank; rank 0 writes."""
-        from pdnlp_tpu_torch.parallel.sharding import gather_full
-
-        params = gather_full(self.state.ema, self._shards) \
+        params = self._full_tree(self.state.ema) \
             if self.state.ema is not None \
             else ckpt.consolidate(self.state.model)
         if is_rank0():
@@ -608,48 +641,123 @@ class Trainer:
             self._ckpt_writer = AsyncCheckpointer()
         return self._ckpt_writer
 
+    def _full_tree(self, tree: Dict[str, torch.Tensor]
+                   ) -> Dict[str, torch.Tensor]:
+        """A ``state_dict``-shaped mapping (the EMA) as the full model's:
+        tp/ep slices gathered, zero's DTensors made whole (collectives)."""
+        from pdnlp_tpu_torch.parallel.sharding import gather_full
+
+        return {k: _full_value(v)
+                for k, v in gather_full(tree, self._shards).items()}
+
+    def _named_optimizer_state(self) -> Dict:
+        """AdamW's state as the full model's, keyed by parameter name, in
+        one format for every mode (that of ``torch.distributed.
+        checkpoint``'s full optimizer state dict): each moment made whole
+        (tp/ep slices gathered, zero's shards gathered, host-resident
+        moments staged back first) and copied to the host; under pp every
+        stage's entries gathered over the stage group, the replicated
+        trees' from the first stage.  A collective; every rank gets it."""
+        from pdnlp_tpu_torch.parallel.sharding import as_placed, gather_full
+
+        st = self.state
+        opt = st.optimizer
+        if hasattr(opt, "wait"):
+            opt.wait()        # host-resident moments: the last copy landed
+        names = {id(p): n for n, p in st.model.named_parameters()}
+
+        def whole(name, v, p):
+            if not torch.is_tensor(v) or v.dim() == 0:
+                return v
+            if hasattr(p, "device_mesh"):
+                v = _full_value(as_placed(v.to(p.device_mesh.device_type), p)
+                                if not hasattr(v, "device_mesh") else v)
+            elif self._shards is not None:
+                v = gather_full({name: v.to(p.device)}, self._shards)[name]
+            return v.detach().to("cpu", copy=True)
+
+        state = {}
+        for g in opt.param_groups:
+            for p in g["params"]:
+                n = names[id(p)]
+                state[n] = {k: whole(n, v, p)
+                            for k, v in opt.state.get(p, {}).items()}
+        groups = [{**{k: (float(v) if torch.is_tensor(v) else v)
+                      for k, v in g.items() if k != "params"},
+                   "params": [names[id(p)] for p in g["params"]]}
+                  for g in opt.param_groups]
+        if self._stage is None:
+            return {"state": state, "param_groups": groups}
+        from pdnlp_tpu_torch.parallel.pp import is_replicated
+
+        stage = self._stage
+        mine = {"state": {n: v for n, v in state.items()
+                          if stage.index == 0 or not is_replicated(n)},
+                "params": [g["params"] for g in groups]}
+        parts: list = [None] * stage.size
+        torch.distributed.all_gather_object(parts, mine, group=stage.group)
+        merged = {}
+        for part in parts:
+            merged.update(part["state"])
+        return {"state": merged,
+                "param_groups": [{**g, "params": list(dict.fromkeys(
+                    n for part in parts for n in part["params"][i]))}
+                    for i, g in enumerate(groups)]}
+
+    def _load_named_optimizer_state(self, saved: Dict, names) -> None:
+        """Load a snapshot's AdamW state (either format: :func:`index_to_
+        names`) onto the live optimizer: each of its parameters takes the
+        entry of its name, placed as it is — this rank's tp/ep slice, its
+        zero shard, its stage's subset — then ``Optimizer.load_state_dict``
+        (``_load_optimizer``); host-resident moments go back to host
+        memory."""
+        from pdnlp_tpu_torch.parallel.sharding import local_slice
+
+        saved = index_to_names(saved, names)
+        st = self.state
+        live = {id(p): n for n, p in st.model.named_parameters()}
+
+        def placed(name, v, p):
+            if not torch.is_tensor(v) or v.dim() == 0:
+                return v
+            if hasattr(p, "device_mesh"):
+                return _placed_like(v, p)
+            return local_slice({name: v}, self._shards)[name]
+
+        state, groups, i = {}, [], 0
+        for g, sg in zip(st.optimizer.param_groups, saved["param_groups"]):
+            ids = []
+            for p in g["params"]:
+                n = live[id(p)]
+                if n in saved["state"]:
+                    state[i] = {k: placed(n, v, p)
+                                for k, v in saved["state"][n].items()}
+                ids.append(i)
+                i += 1
+            groups.append({**{k: v for k, v in sg.items() if k != "params"},
+                           "params": ids})
+        _load_optimizer(st.optimizer, {"state": state,
+                                       "param_groups": groups})
+
     def _resume_payload(self) -> Dict:
         """Host copies of the whole train state — collective under a
         process group (sharded state is consolidated, every rank's
-        generator gathered); the full payload on rank 0."""
+        generator gathered); the full payload on rank 0.  AdamW's state is
+        name-keyed in every mode (:meth:`_named_optimizer_state`), so a
+        snapshot of any mode resumes under any other."""
         st = self.state
-        if ckpt.is_sharded(st.model):
-            from torch.distributed.checkpoint.state_dict import (
-                StateDictOptions, get_optimizer_state_dict,
-            )
-
-            optim = get_optimizer_state_dict(
-                st.model, st.optimizer, options=StateDictOptions(
-                    full_state_dict=True, cpu_offload=True))
-        elif self._stage is not None:
-            from pdnlp_tpu_torch.parallel.pp import gather_optimizer_state
-
-            optim = gather_optimizer_state(st.optimizer, st.model,
-                                           self._stage)
-        else:
-            from pdnlp_tpu_torch.parallel.sharding import (
-                gather_full, map_optimizer_state,
-            )
-
-            optim = st.optimizer.state_dict()
-            if self._shards is not None:
-                optim = map_optimizer_state(
-                    optim, st.optimizer, st.model,
-                    lambda n, t: gather_full({n: t}, self._shards)[n])
+        optim = self._named_optimizer_state()
         gens = [st.generator.get_state()]
         if collectives.world_size() > 1:
             gens = [None] * collectives.world_size()
             torch.distributed.all_gather_object(gens,
                                                 st.generator.get_state())
-        from pdnlp_tpu_torch.parallel.sharding import gather_full
-
         return _host_copy({
             "model": ckpt.consolidate(st.model), "optimizer": optim,
             "scheduler": (st.scheduler.state_dict()
                           if st.scheduler is not None else None),
             "generators": gens,
-            "ema": None if st.ema is None else gather_full(st.ema,
-                                                           self._shards),
+            "ema": None if st.ema is None else self._full_tree(st.ema),
             "step": int(st.step),
             # also in the payload: a snapshot published just before a kill
             # may lack the manifest that carries it
@@ -702,35 +810,22 @@ class Trainer:
         and moments are resharded from the consolidated file."""
         raw, meta, _used = ckpt.load_state(path)
         st = self.state
-        if ckpt.is_sharded(st.model) or self._stage is not None:
-            # zero's and pp's optimizer state is keyed by parameter name
-            # (a stage loads its own subset of the gathered state)
+        if ckpt.is_sharded(st.model):
             from torch.distributed.checkpoint.state_dict import (
                 StateDictOptions, set_model_state_dict,
-                set_optimizer_state_dict,
             )
 
-            opts = StateDictOptions(full_state_dict=True)
-            if self._stage is None:
-                set_model_state_dict(st.model, raw["model"], options=opts)
-            else:
-                with torch.no_grad():
-                    st.model.load_state_dict(self._local(raw["model"]))
-            set_optimizer_state_dict(st.model, st.optimizer,
-                                     raw["optimizer"], options=opts)
+            set_model_state_dict(st.model, raw["model"],
+                                 options=StateDictOptions(
+                                     full_state_dict=True))
         else:
-            from pdnlp_tpu_torch.parallel.sharding import (
-                local_slice, map_optimizer_state,
-            )
-
-            optim = raw["optimizer"]
-            if self._shards is not None:
-                optim = map_optimizer_state(
-                    optim, st.optimizer, st.model,
-                    lambda n, t: local_slice({n: t}, self._shards)[n])
             with torch.no_grad():
                 st.model.load_state_dict(self._local(raw["model"]))
-            _load_optimizer(st.optimizer, optim)
+        # one optimizer branch for every mode: the snapshot's name-keyed
+        # state (an index-keyed one of an older snapshot mapped to names
+        # in the saved model's order), placed as this run holds it
+        self._load_named_optimizer_state(raw["optimizer"],
+                                         list(raw["model"]))
         if st.scheduler is not None:
             st.scheduler.load_state_dict(raw["scheduler"])
         gens = raw["generators"]
@@ -745,7 +840,7 @@ class Trainer:
             ema = self._local(raw["ema"])
             with torch.no_grad():
                 for k, v in st.ema.items():
-                    v.copy_(ema[k])
+                    v.copy_(_placed_like(ema[k], v))
         st.step = int(raw["step"])
         st.optimizer.zero_grad(set_to_none=True)
         if self.multi_step is not None:
@@ -839,8 +934,14 @@ class Trainer:
         if self._eval_cache is None or self._eval_cache[0] is not loader:
             self._eval_cache = (loader, [self.put(b) for b in loader])
         params = self.state.ema        # None: the live model's weights
-        pending = [self.eval_step(self.state.model, params, batch)
-                   for batch in self._eval_cache[1]]
+        swap = contextlib.nullcontext()
+        if params is not None and ckpt.is_sharded(self.state.model):
+            # zero: the EMA's shards in the params' place, gathered by the
+            # units as the params are
+            swap, params = self.state.ema_swapped(), None
+        with swap:
+            pending = [self.eval_step(self.state.model, params, batch)
+                       for batch in self._eval_cache[1]]
         loss_sum = weight = correct = 0.0
         for m in pending:
             loss_sum += float(m["loss_sum"])

@@ -101,6 +101,11 @@ class Args:
     remat: bool = False                           # recompute each layer in
                                                   # the backward (zero's
                                                   # default)
+    offload_opt_state: bool = False               # AdamW's moments in host
+                                                  # memory, staged to the
+                                                  # device each step (dp and
+                                                  # zero; train.optim.
+                                                  # OffloadAdamW)
 
     # --- data parallelism (parallel/) ---
     num_devices: Optional[int] = None             # ranks in the mesh (None =

@@ -22,7 +22,7 @@ from pdnlp_tpu_torch.parallel import local
 from pdnlp_tpu_torch.utils.config import Args
 from tests.test_torch_tp import (
     BATCHES, GANG_TIMEOUT, VOCAB, close_to_jax, global_batches, jax_run,
-    port_params, tiny_args,
+    one_process, packed_batches, port_params, tiny_args,
 )
 
 MOE = dict(model="bert-tiny-moe")
@@ -56,7 +56,10 @@ def ep2(tmp_path_factory):
          "attention_impl": "pallas", "fused_ce": "pallas"},
         {"name": "ep_dropout", "mode": "ep", "dropout": 0.1,
          "mesh_shape": {"data": 1, "expert": 2}},
-        {"name": "dp_squeezed", "mode": "dp", "moe_capacity_factor": 0.5}],
+        {"name": "dp_squeezed", "mode": "dp", "moe_capacity_factor": 0.5},
+        {"name": "ep_packed", "mode": "ep", "batches": packed_batches(),
+         "mesh_shape": {"data": 1, "expert": 2}, "attention_impl": "pallas",
+         "fused_ce": "pallas"}],
         tmp_path_factory, "ep2")
 
 
@@ -125,6 +128,21 @@ def test_dp_with_moe_routes_the_global_batch(ep2):
             np.testing.assert_allclose(r["losses"], jl, rtol=1e-4)
         close_to_jax(port_params(ranks[0]), jparams, 3e-5)
     assert ranks[0]["digests"][0] == ranks[0]["digests"][1]
+
+
+def test_ep_on_packed_rows_equals_one_process(ep2):
+    """Packed rows under ``{"data": 1, "expert": 2}``: 3 steps give one
+    process's losses within 1e-6 relative and its params within 3e-5
+    (bit for bit in a reading)."""
+    ranks = ep2["ep_packed"]
+    want_losses, want = one_process(packed_batches(), attention_impl="pallas",
+                                    fused_ce="pallas", **MOE)
+    for r in ranks:
+        np.testing.assert_allclose(r["losses"], want_losses, rtol=1e-6)
+    got = port_params(ranks[0])
+    for k in want:
+        np.testing.assert_allclose(got[k].numpy(), want[k].numpy(),
+                                   atol=3e-5, err_msg=k)
 
 
 def test_ep_dropout_keeps_the_expert_group_equal(ep2):

@@ -13,7 +13,9 @@ unit cases of ``tests/test_chaos.py``:
 - a corrupt file falls back to ``.prev``, an undecodable manifest routes
   to the fallback, a torn publish keeps the good ``.prev``, a checksum
   mismatch is caught, a shape mismatch is not called corruption;
-- the profiler window and ``StepStats``.
+- the profiler window and ``StepStats``;
+- one snapshot format for every mode: each mode's snapshot resumes under
+  the others, held to the file and to JAX's restore (ROADMAP C4).
 
 Bit-for-bit comparisons run on one intra-op thread (the CPU backward with
 several threads differs run to run in the last bit).
@@ -407,3 +409,224 @@ def test_step_stats_rates():
     assert "steps/s" in s.line()
     assert s.line() == JStepStats(288, 9200, 0.5).line()
     assert StepStats(0, 0, 0.0).line() == JStepStats(0, 0, 0.0).line()
+
+
+# ------------------------------------------- one snapshot format (C4)
+
+#: each placement a snapshot is written or resumed under: name -> (mode,
+#: mesh), for the dense model and for the MoE model
+CROSS_DENSE = {"single": ("single", None), "dp": ("dp", {"data": 2}),
+               "tp": ("tp", {"data": 1, "model": 2}),
+               "zero": ("zero", {"data": 2}), "pp": ("pp", {"stage": 2})}
+CROSS_MOE = {"ep": ("ep", {"data": 1, "expert": 2}),
+             "zero": ("zero", {"data": 2}), "pp": ("pp", {"stage": 2})}
+#: (snapshot, resume) pairs: single, dp, tp and ep snapshots under zero
+#: and pp, and zero and pp snapshots under dp, tp and ep ("legacy" is
+#: the single snapshot in the index-keyed format written before)
+CROSS_PAIRS = {
+    "bert-tiny": [(s, t) for s in ("single", "legacy", "dp", "tp")
+                  for t in ("zero", "pp")]
+    + [(s, t) for s in ("zero", "pp") for t in ("dp", "tp")],
+    "bert-tiny-moe": [("ep", "zero"), ("ep", "pp"), ("zero", "ep"),
+                      ("pp", "ep")]}
+
+
+def _cross_trainer(args, mode, mesh):
+    from pdnlp_tpu_torch.train.run import (
+        build_parallel_trainer, build_pipeline_trainer, build_single_trainer,
+    )
+
+    if mode == "single":
+        return build_single_trainer(args)
+    a = args.replace(mode=mode, mesh_shape=mesh)
+    if mode == "pp":
+        return build_pipeline_trainer(a)
+    return build_parallel_trainer(a, mode=mode)
+
+
+def _cross_gang(rank, world, args, payload):
+    """Every source mode of each model trains 2 steps and snapshots; every
+    resume mode loads each snapshot its pairs name onto a fresh state and
+    gathers it back whole: (params, AdamW's state by name, step), which
+    rank 0 returns with the snapshots' own values."""
+    from pdnlp_tpu_torch.parallel import collectives
+    from pdnlp_tpu_torch.train.trainer import _host_copy
+
+    torch.set_num_threads(1)
+    d = payload["dir"]
+    out = {}
+    for model, modes in (("bert-tiny", CROSS_DENSE),
+                         ("bert-tiny-moe", CROSS_MOE)):
+        pairs = CROSS_PAIRS[model]
+        margs = args.replace(model=model)
+        paths = {}
+        for src in dict.fromkeys(s for s, _ in pairs):
+            if src == "legacy":
+                continue
+            mode, mesh = modes[src]
+            t, loader, _ = _cross_trainer(margs, mode, mesh)
+            for batch in list(loader)[:2]:
+                t.train_step(t.state, t.put(batch))
+            paths[src] = os.path.join(d, f"{model}-{src}.pt")
+            t.save_resume(paths[src])
+            if src == "single":
+                # the format before: AdamW's state_dict, keyed by index
+                legacy = t._resume_payload()
+                legacy["optimizer"] = _host_copy(
+                    t.state.optimizer.state_dict())
+                paths["legacy"] = os.path.join(d, f"{model}-legacy.pt")
+                if rank == 0:
+                    ckpt.save_state(paths["legacy"], legacy,
+                                    meta={"step": 2})
+            collectives.barrier()
+        for dst in dict.fromkeys(t for _, t in pairs):
+            mode, mesh = modes[dst]
+            t, _, _ = _cross_trainer(margs, mode, mesh)
+            for src in [s for s, x in pairs if x == dst]:
+                t.load_resume(paths[src])
+                got = {"params": ckpt.consolidate(t.state.model),
+                       "optim": t._named_optimizer_state()["state"],
+                       "step": t.state.step}
+                if rank == 0:
+                    raw, _, _ = ckpt.load_state(paths[src])
+                    out[(model, src, dst)] = _numpy(
+                        {"got": got, "raw": raw})
+            collectives.barrier()
+    return out if rank == 0 else None
+
+
+def _numpy(obj):
+    """``obj`` with its tensors as numpy arrays (what leaves a gang)."""
+    if torch.is_tensor(obj):
+        return obj.detach().numpy().copy()
+    if isinstance(obj, dict):
+        return {k: _numpy(v) for k, v in obj.items()}
+    if isinstance(obj, (list, tuple)):
+        return type(obj)(_numpy(v) for v in obj)
+    return obj
+
+
+def _equal(a, b) -> bool:
+    a, b = np.asarray(a), np.asarray(b)
+    return a.dtype == b.dtype and a.shape == b.shape and \
+        a.tobytes() == b.tobytes()
+
+
+def _moments(optim, names):
+    from pdnlp_tpu_torch.train.trainer import index_to_names
+
+    state = index_to_names(optim, names)["state"]
+    return {m: {n: state[n][m] for n in names}
+            for m in ("exp_avg", "exp_avg_sq")}
+
+
+def _jax_restores(corpus_path, vocab, work, snapshots):
+    """JAX's restore of each snapshot's values under zero (2 virtual
+    devices) and pp at ``{"stage": 2}``: the values are put in a JAX
+    train state, saved with JAX's ``save_resume`` and loaded by a zero
+    and a pp trainer (``Trainer.load_resume``); their (params, mu, nu,
+    count) as the port's state dict names."""
+    import jax
+    import optax
+
+    from pdnlp_tpu.train.run import (
+        build_parallel_trainer, build_pipeline_trainer,
+    )
+    from pdnlp_tpu.utils.config import Args as JArgs
+    from pdnlp_tpu_torch.models import convert
+
+    out = {}
+    for model in ("bert-tiny", "bert-tiny-moe"):
+        base = JArgs(strategy="dp", data_path=corpus_path, vocab_path=vocab,
+                     output_dir=str(work), model=model, data_limit=70,
+                     max_seq_len=16, train_batch_size=8, dropout=0.0,
+                     attn_dropout=0.0)
+        jt = {"zero": build_parallel_trainer(base.replace(num_devices=2),
+                                             mode="zero")[0],
+              "pp": build_pipeline_trainer(base.replace(
+                  mode="pp", mesh_shape={"stage": 2}))[0]}
+        for (m, src), (params, moments, step) in snapshots.items():
+            if m != model:
+                continue
+            live = jt["zero"].state
+            adam = live["opt_state"][0]
+            state = {"params": convert.to_jax_params(params),
+                     "opt_state": (adam._replace(
+                         count=np.asarray(step, np.int32),
+                         mu=convert.to_jax_params(moments["exp_avg"]),
+                         nu=convert.to_jax_params(moments["exp_avg_sq"])),
+                     ) + tuple(live["opt_state"][1:]),
+                     "rng": live["rng"], "step": np.asarray(step, np.int32)}
+            path = str(work / f"{model}-{src}.msgpack")
+            jt["zero"].state, keep = state, jt["zero"].state
+            jt["zero"].save_resume(path)
+            jt["zero"].state = keep
+            for dst, t in jt.items():
+                t.load_resume(path)
+                got = jax.device_get(t.state)
+                adam = next(x for x in got["opt_state"]
+                            if isinstance(x, optax.ScaleByAdamState))
+                back = {k: convert.from_jax_params(
+                    jax.tree_util.tree_map(np.asarray, tree))
+                    for k, tree in (("params", got["params"]),
+                                    ("exp_avg", adam.mu),
+                                    ("exp_avg_sq", adam.nu))}
+                out[(model, src, dst)] = (back, int(adam.count))
+    return out
+
+
+def test_every_mode_resumes_every_other_mode(corpus_path, tmp_path):
+    """One snapshot format for every mode (ROADMAP C4): bert-tiny
+    snapshots of single, dp and tp (and the single one in the index-keyed
+    format written before) resume under zero and under pp at ``{"stage":
+    2}``, zero and pp ones under dp and tp, and bert-tiny-moe's ep ones
+    under zero and pp and back, in two-rank gloo gangs.  Each resumed
+    state, gathered whole, holds the snapshot's params, AdamW moments and
+    step bit for bit, as JAX's restore of the same values does on its
+    virtual devices (``Trainer.load_resume`` under zero and pp, compared
+    bit for bit too)."""
+    from pdnlp_tpu_torch.data.tokenizer import get_or_build_vocab
+    from pdnlp_tpu_torch.parallel import local
+
+    vocab = str(tmp_path / "v.txt")
+    args = _args(data_path=corpus_path, vocab_path=vocab, data_limit=70,
+                 train_batch_size=8, max_seq_len=16, dist_backend="gloo",
+                 ema_decay=0.0, pipeline="sync",
+                 output_dir=str(tmp_path / "out")).replace(
+        dropout=0.0, attn_dropout=0.0)
+    get_or_build_vocab(args)
+    res = local.run_gang(_cross_gang, 2, args, {"dir": str(tmp_path)},
+                         timeout=GANG_TIMEOUT)[0]
+    assert len(res) == sum(len(p) for p in CROSS_PAIRS.values())
+    snaps = {}
+    for (model, src, dst), r in res.items():
+        raw, got = r["raw"], r["got"]
+        names = list(raw["model"])
+        want = _moments(raw["optimizer"], names)
+        assert got["step"] == raw["step"] == 2, (model, src, dst)
+        assert all(_equal(got["params"][k], raw["model"][k])
+                   for k in names), (model, src, dst)
+        for m, tree in want.items():
+            assert all(_equal(got["optim"][n][m], tree[n])
+                       for n in names), (model, src, dst, m)
+        if dst in ("zero", "pp"):
+            snaps[(model, src)] = (
+                {k: torch.from_numpy(v) for k, v in raw["model"].items()},
+                {m: {n: torch.from_numpy(v) for n, v in tree.items()}
+                 for m, tree in want.items()}, raw["step"])
+    # the legacy file holds the single snapshot's state, in the old format
+    single = res[("bert-tiny", "single", "zero")]
+    assert all(_equal(res[("bert-tiny", "legacy", t)]["got"]["optim"][n][m],
+                      single["got"]["optim"][n][m])
+               for t in ("zero", "pp") for n in single["raw"]["model"]
+               for m in ("exp_avg", "exp_avg_sq"))
+    jax_res = _jax_restores(corpus_path, vocab, tmp_path, snaps)
+    assert len(jax_res) == 2 * len(snaps)
+    for (model, src, dst), (back, count) in jax_res.items():
+        got = res[(model, src, dst)]["got"]
+        assert count == got["step"]
+        for n, v in back["params"].items():
+            assert _equal(got["params"][n], v), (model, src, dst, n)
+        for m in ("exp_avg", "exp_avg_sq"):
+            for n, v in back[m].items():
+                assert _equal(got["optim"][n][m], v), (src, dst, m, n)

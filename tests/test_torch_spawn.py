@@ -133,17 +133,22 @@ def test_spawn_matches_single_process(spawn_run, single_run):
       '{"stage": 3}'], "must divide num_layers"),
     (["--strategy", "sp", "--model", "bert-tiny-moe"],
      "MoE layers are not supported"),
-    (["--offload_opt_state", "true"], "ROADMAP A7"),
-    (["--fuse_steps", "2"], "ROADMAP A7"),
+    (["--strategy", "zero", "--fuse_steps", "2"], "ROADMAP A7"),
+    (["--mode", "zero", "--fuse_steps", "4"], "ROADMAP A7"),
     (["--strategy", "zero", "--dtype", "bfloat16", "--grads_dtype",
-      "compute"], "ROADMAP A7"),
+      "compute", "--fuse_steps", "2"], "ROADMAP A7"),
+    (["--offload_opt_state", "true", "--fuse_steps", "2"],
+     "works with the jit dp/zero strategies, not shard_map"),
+    (["--offload_opt_state", "true", "--strategy", "tp"],
+     "works with the jit dp/zero strategies, not shard_map"),
     (["--mode", "pp", "--mesh_shape", '{"data": 2}'],
      "pp needs a 'stage' mesh axis"),
     (["--strategy", "fsdp"], "--strategy must be one of")])
 def test_refusals_name_the_missing_path(argv, match):
     """What the launcher refuses, by name: JAX's own refusals on the pp
-    and sp paths, the data-parallel paths still to port (ROADMAP A7), and
-    an unknown strategy."""
+    and sp paths and of offload (with fused steps, with tp), zero with
+    ``--fuse_steps`` above 1, which the port does not capture yet
+    (ROADMAP A7), and an unknown strategy."""
     with pytest.raises(SystemExit, match=match):
         multi.parse(argv, prog="train.spawn")
 
@@ -187,8 +192,9 @@ def test_strategy_defaults_follow_the_jax_scripts(strategy, want):
 
 
 def test_shardmap_refuses_length_modes_and_ema_and_zero_refuses_ema():
-    """JAX's refusals (``run.py:54-67``, ``execution.py:203-207``), and the
-    EMA under zero, which this slice leaves out."""
+    """JAX's refusals (``run.py:54-67``, ``execution.py:203-207``); the
+    EMA under zero is no longer refused (its tree takes the params'
+    placement), but zero still refuses fused steps (ROADMAP A7)."""
     from pdnlp_tpu_torch.parallel.execution import (
         make_shardmap_train_step, setup_sharded_model,
     )
@@ -201,7 +207,13 @@ def test_shardmap_refuses_length_modes_and_ema_and_zero_refuses_ema():
     with pytest.raises(ValueError, match="shard_map step"):
         make_shardmap_train_step(ema, None, torch.device("cpu"))
     with pytest.raises(ValueError, match="ROADMAP A7"):
-        setup_sharded_model(ema, 100, None, "zero")
+        setup_sharded_model(ema.replace(fuse_steps=2), 100, None, "zero")
+    from pdnlp_tpu_torch.train import multi
+
+    args, _ = multi.parse(["--strategy", "zero", "--ema_decay", "0.5",
+                           "--dtype", "bfloat16", "--grads_dtype",
+                           "compute", "--offload_opt_state", "true"])
+    assert args.ema_decay == 0.5 and args.offload_opt_state
 
 
 def test_a_failing_worker_stops_the_gang(monkeypatch):

@@ -422,8 +422,9 @@ def test_entry_point_refusals(tmp_path, corpus_path):
     """What the entry points take and refuse: ``train.single`` takes
     ``--elastic`` (read by the spawn launcher alone, ignored here as JAX
     ignores it) and ``--heartbeat_interval``, whose loop beats once a step
-    (``parallel.watchdog.Heartbeat``, as JAX's trainer does); the data-
-    parallel paths still to port are refused by name (ROADMAP A7)."""
+    (``parallel.watchdog.Heartbeat``, as JAX's trainer does); the multi-
+    rank entry point refuses no flag by name now, and zero with fused
+    steps by its rule (ROADMAP A7)."""
     from pdnlp_tpu_torch.parallel.watchdog import heartbeat_file
     from pdnlp_tpu_torch.train import single
     from pdnlp_tpu_torch.train import multi
@@ -453,9 +454,12 @@ def test_entry_point_refusals(tmp_path, corpus_path):
                                     "--init_head", "true"], table) == \
         ["--init_from", "x.msgpack", "--init_head", "true"]
     assert multi.refuse_not_ported(["--fuse_steps", "1", "--dev", "1"],
-                                   table) == ["--dev", "1"]
+                                   table) == ["--fuse_steps", "1", "--dev",
+                                              "1"]
+    assert multi.refuse_not_ported(["--fuse_steps", "4"], table) == \
+        ["--fuse_steps", "4"]
     with pytest.raises(SystemExit, match="ROADMAP A7"):
-        multi.refuse_not_ported(["--fuse_steps", "4"], table)
+        multi.parse(["--strategy", "zero", "--fuse_steps", "4"])
     assert multi.refuse_not_ported(["--grads_dtype", "compute"], table) \
         == ["--grads_dtype", "compute"]
     if not torch.cuda.is_available():
