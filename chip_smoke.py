@@ -31,8 +31,8 @@ profile of the JAX package's synthetic corpus, 6d the sync, prefetch and
 resident pipelines bit for bit), 7 data-parallel training (7a dp, two gloo
 ranks sharing the card, fp32 and bf16, 3 full-width and 3 packed 64-row
 global batches against one process on the same batches, replicas
-bit-equal, K1-K5 counted per rank per step; 7b zero, FSDP2 with remat, at
-world 1 over NCCL, its consolidated checkpoint served by ``serve.cli``; 7c
+bit-equal, K1-K5 counted per rank per step; 7b zero (ZeRO-3) with remat,
+at world 1 over NCCL, its consolidated checkpoint served by ``serve.cli``; 7c
 the explicit all-reduce, fp32 and bf16 on the wire; 7d ``python -m
 pdnlp_tpu_torch.train.multi`` over NCCL at world 1 and 7e ``python -m
 pdnlp_tpu_torch.train.spawn --num_processes 2 --dist_backend gloo`` at
@@ -160,8 +160,30 @@ update against one process's plain step, the packed ring forward; 15c
 width 1 with the remapped step) and the solo gang's restart bit for bit,
 beside 15a-15b; 15d ``train.spawn --strategy pp`` on bert-base at 32 x
 128 and ``--strategy sp`` on bert-base-long at 1024, and ``serve.cli`` on
-the pp checkpoint), then the kernels' times at every shape these paths
-give them.
+the pp checkpoint), 16 the configurations refused before (offloaded
+moments, the EMA and bf16 compute under zero, dp's captured step with its
+NCCL all-reduce, resumes across modes), 17a zero's step
+(``parallel.sharding.ZeroObjective``) captured at world 1 over NCCL: two
+replays of a 4-step graph, its all-gathers and reduce-scatters inside,
+against eight eager steps bit for bit in fp32 and bf16 at dropout 0.1
+with an EMA, K1-K5 counted from the replays, its step time and memory
+beside dp's (a process beside 15 and 16), then the kernels' times at
+every shape these paths give them.
+
+``python3 chip_smoke.py --phase 17`` (four cards; a development run with
+no result line, exit 1 on fewer cards) runs phases 1, 2 and 17b: one rank
+per card over NCCL, bert-base at full width, every case held to one
+process on the same global batches — the reference's four-GPU rows
+through ``train.spawn`` (dp, dataparallel, amp, shardmap, zero),
+``torchrun`` (``train.multi``) and ``train.accel`` / ``train.auto`` at one
+and four ranks; dp's and zero's fused steps captured against eager bit
+for bit; offload bit for bit against the on-device gang; bf16
+``--grads_dtype compute``; tp at ``{"data": 2, "model": 2}`` and ep at
+``{"data": 2, "expert": 2}`` eager and captured; pp at ``{"stage": 4}``
+and sp at ``{"data": 1, "seq": 4}`` with device-to-device exchanges; the
+elastic gang 4 -> 3 against an undisturbed run bit for bit; the NCCL
+kernels' device times from ``torch.profiler``.  ``--part gang|elastic|
+entry`` runs one part, and ``--rows 'a|b'`` those entry rows alone.
 Any failure raises and the script exits non-zero.  Without a card, or
 away from the repo, it prints no result and exits non-zero.  The line
 before the last is the ``{"kernels": [...]}`` record; the last is
@@ -235,7 +257,9 @@ PROFILE_EXAMPLES = 3400
 PIPELINE_EXAMPLES = 400
 #: 6b's and 7e's entry-point runs: 322 train examples of 6a's corpus (11
 #: steps of 32; cut from 700, 21 steps), and 1,700 of the profile corpus
-#: packed (cut from 3,400), to make room for phase 15
+#: packed (cut from 3,400), to make room for phase 15.  Not cut further:
+#: the runs write their checkpoints at a dev eval (6b's at step 10, 7e's at
+#: step 5 of 6 at two ranks), and 7e at 7 steps (4 at two ranks) wrote none
 ENTRY_LIMIT = 350
 ENTRY_PACK_LIMIT = 1700
 LONG_EXAMPLES = 600
@@ -258,6 +282,17 @@ def card_line():
     if out.returncode != 0:
         fail(f"nvidia-smi: {out.stderr.strip()}")
     return out.stdout.strip().splitlines()[0]
+
+
+def card_lines():
+    """Every card's ``name, power limit``, as ``nvidia-smi`` reads them."""
+    out = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        timeout=60)
+    if out.returncode != 0:
+        fail(f"nvidia-smi: {out.stderr.strip()}")
+    return "; ".join(out.stdout.strip().splitlines())
 
 
 def memoize_seeded_init(keep=1):
@@ -1510,14 +1545,11 @@ def pipeline_runs(torch, flash, fused_ce, base, vocab_size, device, card):
 DP_STEPS = 2
 PACKED_STEPS = 2
 DP_WORLD = 2
-#: 7b's placement, fixed from a measurement on the H100: FSDP2 over gloo on
-#: CUDA tensors killed both ranks with SIGSEGV (torch 2.11.0+cu128), so the
-#: zero phase runs FSDP2 at world 1 over NCCL; its 2-rank path on the card
-#: is unproven (the CPU tests hold it at 2 ranks over gloo)
+#: 7b's placement: zero runs at world 1 over NCCL on the one card (NCCL
+#: takes one rank of a group per card); its four-rank path is phase 17b's
 ZERO_WORLD = 1
-ZERO_REASON = ("FSDP2 over gloo on CUDA tensors killed both ranks with "
-               "SIGSEGV on torch 2.11.0+cu128, so zero runs at world 1 over "
-               "NCCL here; its 2-rank path on one card is unproven")
+ZERO_REASON = ("zero runs at world 1 over NCCL on one card; its four-rank "
+               "path is phase 17b's (--phase 17, four cards)")
 WANT_DP_STEP = {"flash_fwd": 12, "flash_bwd_dq": 12, "flash_bwd_dkv": 12,
                 "fused_ce_fwd": 1, "fused_ce_bwd": 1}
 #: remat runs each layer's forward again in the backward: K1 twice
@@ -1554,6 +1586,11 @@ def single_reference(torch, args, vocab_size, batches, device):
 
 
 def _ckpt_params(torch, path):
+    """A checkpoint's weights: the port's ``.pt`` or a ``.msgpack``."""
+    from pdnlp_tpu_torch.train import checkpoint as ckpt
+
+    if ckpt.is_msgpack(path):
+        return ckpt.params_from_raw(ckpt.load(path), path)
     return torch.load(path, weights_only=True)["state_dict"]
 
 
@@ -1590,7 +1627,7 @@ def data_parallel_runs(torch, base, vocab_size, full, packed, device, card,
                        work, texts, vocab_path, single_ms):
     """Phase 7a-7c: two gloo ranks on the one card (NCCL refuses a second
     rank on a card) train dp in fp32 and bf16, the explicit-collectives
-    step without and with bf16 on the wire; 7b: zero (FSDP2, remat) in
+    step without and with bf16 on the wire; 7b: zero (ZeRO-3, remat) in
     this process at ZERO_WORLD over NCCL.  Each is held to a single
     process on the same global batches, step by step, and its launches
     counted per rank per step."""
@@ -1683,7 +1720,7 @@ def data_parallel_runs(torch, base, vocab_size, full, packed, device, card,
     if rel > SHARDMAP_RTOL or d_par > param_atol(steps) or \
             rel_c > SHARDMAP_BF16_RTOL or not equal:
         fail("7c: the explicit all-reduce disagrees with dp")
-    # 7b: zero, FSDP2 with remat, in this process
+    # 7b: zero (ZeRO-3) with remat, in this process
     print(f"[dp] 7b {ZERO_REASON}")
     runtime.init_runtime(base.replace(dist_backend="auto"))
     try:
@@ -1699,7 +1736,7 @@ def data_parallel_runs(torch, base, vocab_size, full, packed, device, card,
     zparams = _ckpt_params(torch, zero["checkpoint"])
     d_par = _max_diff(zparams, dp_params)
     d_loss = max(abs(a - b) for a, b in zip(zero["losses"], dp_loss))
-    print(f"[dp] 7b zero (FSDP2, remat) at world {ZERO_WORLD} over "
+    print(f"[dp] 7b zero (ZeRO-3, remat) at world {ZERO_WORLD} over "
           f"{backend}: shard fraction {zero['shard_fraction']:.3f}, max "
           f"|loss diff| vs 7a dp {d_loss:.3e}, max |param diff| {d_par:.3e} "
           f"(atol {param_atol(steps):.1e}), launches per step "
@@ -6820,7 +6857,7 @@ def world1_run(torch, flash, fused_ce, args, mode, vocab_size, batches,
     import gc
 
     # the memory this run's peak is read against: what the process held
-    # before it (an earlier FSDP2 run's cycles collected first)
+    # before it (an earlier zero run's cycles collected first)
     gc.collect()
     torch.cuda.synchronize()
     before = torch.cuda.memory_allocated(device)
@@ -7168,11 +7205,1152 @@ def nccl_in_replay(torch, fn, into):
     return names or None
 
 
+# ---------------------------------------------------------------- phase 17
+
+#: 17a: two replays of a K-step group of zero's step against 2 x K eager
+#: steps of it, at world 1 over NCCL; dp's eager step is timed over
+#: ZERO_TIMED steps after one untimed
+ZERO_GROUPS = 2
+ZERO_TIMED = 3
+
+
+def _timed_steps(torch, step, state, batches, device):
+    """Run ``step`` on each batch: the mean host time to a sync of the
+    steps after the first and the peak device memory they reach above
+    what was allocated before them (the step's transient memory), and the
+    losses."""
+    from pdnlp_tpu_torch.data.pipeline import to_device
+
+    losses = [step(state, to_device(batches[0], device))["loss"]]
+    torch.cuda.synchronize()
+    before = torch.cuda.memory_allocated(device)
+    torch.cuda.reset_peak_memory_stats(device)
+    t0 = time.perf_counter()
+    for b in batches[1:]:
+        losses.append(step(state, to_device(b, device))["loss"])
+    torch.cuda.synchronize()
+    ms = (time.perf_counter() - t0) / max(1, len(batches) - 1) * 1e3
+    return ms, torch.cuda.max_memory_allocated(device) - before, \
+        torch.cuda.memory_allocated(device), losses
+
+
+def zero_capture_check(torch, flash, fused_ce, base, vocab_size, batches,
+                       device, card):
+    """Phase 17a, at world 1 over NCCL in this process: zero's step
+    (``parallel.sharding.ZeroObjective``) at dropout 0.1, attention
+    dropout 0 and an EMA, in fp32 and bf16: ``ZERO_GROUPS`` replays of a
+    ``FUSE``-step graph against as many eager steps of the same step from
+    the same weights — losses, params, EMA and the dropout stream bit for
+    bit; one capture, made before the replays; K1-K5 counted from the
+    replays; the all-gather and reduce-scatter kernels in a profiled
+    replay.  Then in fp32 the eager step's time and transient peak memory
+    beside dp's eager step (over its own state).  Returns
+    the record and the launches per path."""
+    from pdnlp_tpu_torch.data.pipeline import to_device
+    from pdnlp_tpu_torch.parallel import runtime
+    from pdnlp_tpu_torch.parallel.execution import (
+        make_parallel_train_step, setup_sharded_model,
+    )
+    from pdnlp_tpu_torch.parallel.mesh import make_mesh
+    from pdnlp_tpu_torch.parallel.sharding import shard_fraction
+    from pdnlp_tpu_torch.train.steps import build_multi_step
+
+    import gc
+
+    import numpy as np
+
+    n = FUSE * ZERO_GROUPS
+    batches = batches[:n]
+    rec, launches = {"world": 1}, {}
+    runtime.init_runtime(base.replace(fuse_steps=FUSE, dist_backend="auto"))
+    try:
+        if torch.distributed.get_backend() != "nccl":
+            fail(f"17a: the process group runs "
+                 f"{torch.distributed.get_backend()}, not nccl")
+        mesh = make_mesh(device_type="cuda")
+        for dtype in ("float32", "bfloat16"):
+            t0 = time.monotonic()
+            args = base.replace(dtype=dtype, dropout=0.1, attn_dropout=0.0,
+                                fuse_steps=FUSE, ema_decay=0.999)
+
+            def fresh(mode="zero", a=args):
+                _, state = setup_sharded_model(a, vocab_size, mesh, mode,
+                                               total_steps=n)
+                return state, make_parallel_train_step(a, mesh, device, mode)
+
+            se, step = fresh()
+            kind = type(se.objective).__name__
+            frac = shard_fraction(se.model, se.optimizer)
+            capturable = all(g["capturable"]
+                             for g in se.optimizer.param_groups)
+            eager_ms, peak, held, eager = _timed_steps(torch, step, se,
+                                                       batches, device)
+            pe = {k: v.detach().clone()
+                  for k, v in se.model.state_dict().items()}
+            ee = {k: v.detach().clone() for k, v in se.ema.items()}
+            ge = se.generator.get_state()
+            del se, step
+            sf, step = fresh()
+            multi = build_multi_step(step, device)
+            groups = [to_device({k: np.stack(
+                [b[k] for b in batches[g * FUSE:(g + 1) * FUSE]])
+                for k in batches[0]}, device) for g in range(ZERO_GROUPS)]
+            multi.capture(sf, groups[0])
+            torch.cuda.synchronize()
+            graphs = len(multi.graphs)
+            reset_counts(flash, fused_ce)
+            fused, nccl, replay_ms = [], None, None
+            for g, batch in enumerate(groups):
+                if g == ZERO_GROUPS - 1:
+                    nccl = nccl_in_replay(torch, lambda: multi(sf, batch),
+                                          fused)
+                else:
+                    torch.cuda.synchronize()
+                    t1 = time.perf_counter()
+                    fused += list(multi(sf, batch)["loss"])
+                    torch.cuda.synchronize()
+                    replay_ms = (time.perf_counter() - t1) * 1e3
+            torch.cuda.synchronize()
+            launched = launch_counts(flash, fused_ce)
+            pf = sf.model.state_dict()
+            same = torch.equal(torch.stack(eager).cpu(),
+                               torch.stack(fused).cpu()) \
+                and all(torch.equal(pe[k], pf[k]) for k in pe) \
+                and all(torch.equal(ee[k], sf.ema[k]) for k in ee) \
+                and torch.equal(ge, sf.generator.get_state())
+            g0 = next(iter(multi.graphs.values()))
+            want = {k: v * n for k, v in WANT_DP_STEP.items()}
+            r = {"bitwise": same, "objective": kind, "shard_fraction": frac,
+                 "capturable": capturable, "graphs": len(multi.graphs),
+                 "captures_after_warmup": len(multi.graphs) - graphs,
+                 "replays": g0.replays, "launches": launched,
+                 "nccl_kernels": nccl, "eager_step_ms": eager_ms,
+                 "captured_step_ms": replay_ms / FUSE,
+                 "eager_peak_bytes": peak, "held_bytes": held,
+                 "pool_bytes": multi.pool_bytes}
+            launches[f"17a zero captured {dtype}"] = launched
+            del sf, multi, step
+            gc.collect()
+            torch.cuda.empty_cache()
+            if dtype == "float32":
+                # dp's eager step over the same batches
+                st, stp = fresh("dp", args.replace(fuse_steps=1))
+                ms, pk, hd, _ = _timed_steps(
+                    torch, stp, st, batches[:ZERO_TIMED + 1], device)
+                r["dp_step_ms"], r["dp_peak_bytes"] = ms, pk
+                r["dp_held_bytes"] = hd
+                del st, stp
+                gc.collect()
+                torch.cuda.empty_cache()
+            r["seconds"] = time.monotonic() - t0
+            rec[dtype] = r
+            nccl_names = " ".join(nccl or ["none"])
+            print(f"[zero] 17a {dtype} {kind} (--fuse_steps {FUSE}) at world"
+                  f" 1 over NCCL, dropout 0.1, EMA: {ZERO_GROUPS} replays vs "
+                  f"{n} eager steps bit for bit {same} (losses, params, EMA,"
+                  f" dropout stream); graphs {r['graphs']}, captures after "
+                  f"warmup {r['captures_after_warmup']}, replays "
+                  f"{g0.replays}; launches from the replays {launched}; "
+                  f"shard fraction {frac:.3f}; NCCL kernels in a profiled "
+                  f"replay: {nccl_names} — {card}")
+            extra = ""
+            if dtype == "float32":
+                extra = (f"; dp's eager step {r['dp_step_ms']:.1f} ms, peak "
+                         f"+{r['dp_peak_bytes'] / 2**20:.1f} MiB over "
+                         f"{r['dp_held_bytes'] / 2**20:.1f} held")
+            print(f"[zero] 17a {dtype} step times (host clock to a sync; "
+                  f"printed, not claimed): eager {eager_ms:.1f} ms, "
+                  f"captured {r['captured_step_ms']:.1f} ms a step; the "
+                  f"eager step's peak +{peak / 2**20:.1f} MiB over "
+                  f"{held / 2**20:.1f} held, graph pool "
+                  f"{r['pool_bytes'] / 2**20:.1f} MiB{extra} — {card}")
+            if not same or r["captures_after_warmup"] or \
+                    g0.replays != ZERO_GROUPS or launched != want or \
+                    kind != "ZeroObjective" or not capturable or \
+                    frac >= 1.5:
+                fail(f"17a {dtype}: {r}")
+    finally:
+        runtime.shutdown()
+    return rec, launches
+
+
+def zero17a_start(work):
+    """17a as a process (``chip_smoke.py --phase 17a``) on the card, its
+    output to a file: started beside phases 15 and 16."""
+    log = open(os.path.join(work, "phase17a.log"), "w")
+    env = {k: v for k, v in os.environ.items()
+           if k not in ("COORDINATOR_ADDRESS", "NUM_PROCESSES", "PROCESS_ID",
+                        "MASTER_ADDR", "WORLD_SIZE", "RANK", "LOCAL_RANK")}
+    p = subprocess.Popen([sys.executable, os.path.join(REPO, "chip_smoke.py"),
+                          "--phase", "17a"], cwd=REPO, env=env, stdout=log,
+                         stderr=subprocess.STDOUT, text=True)
+    return p, log, time.monotonic()
+
+
+def zero17a_join(started, card):
+    """17a's process, waited for: its ``[zero]`` lines printed here, its
+    record and launches (its ``[summary]`` and ``[launches]`` lines); it
+    fails unless the process exits 0 (17a's checks run in it)."""
+    p, log, t0 = started
+    try:
+        p.wait(timeout=600)
+    except subprocess.TimeoutExpired:
+        p.kill()
+        p.wait()
+    log.close()
+    with open(log.name) as f:
+        lines = f.read().splitlines()
+    for ln in lines:
+        if ln.startswith(("[zero]", "[clock] 17a")):
+            print(ln)
+    rec = next((json.loads(ln[len("[summary] "):]) for ln in lines
+                if ln.startswith("[summary] ")), None)
+    launches = next((json.loads(ln[len("[launches] "):]) for ln in lines
+                     if ln.startswith("[launches] ")), None)
+    print(f"[zero] 17a ran as a process beside phases 15 and 16 in "
+          f"{time.monotonic() - t0:.1f} s (its times printed, not claimed):"
+          f" exit {p.returncode} — {card}")
+    if p.returncode != 0 or rec is None or launches is None:
+        fail("17a: exit {}\n{}".format(p.returncode, "\n".join(lines[-40:])))
+    return rec, launches
+
+
+# ------------------------------------------------------------- phase 17b
+
+#: phase 17b (``--phase 17``, four cards): one rank per card over NCCL,
+#: bert-base at full width, FOUR_ROWS x 128 rows a data rank; every case
+#: held to one process on the same global batches
+FOUR_WORLD = 4
+FOUR_ROWS = 32
+#: the gang's cases train FUSE global batches: one captured group
+FOUR_STEPS = FUSE
+#: fp32 against one process: tests/test_torch_fuse_multi.py's bounds
+FOUR_LOSS_RTOL = 1e-5
+FOUR_PARAM_ATOL = 2e-5
+#: bf16 against one process: the loss band (6a's)
+FOUR_BF16_LOSS_ATOL = TRAIN_LOSS_ATOL["bfloat16"]
+#: the entry points' corpus: 512 train rows, 4 global batches of 128 (a
+#: partial last batch is filled per rank at four ranks and whole at one,
+#: another batch)
+ENTRY17_LIMIT = 557
+#: the elastic case: 736 train rows, 6 steps of 128 at width 4 (a
+#: snapshot at step 4, rank 3 killed at step 5) and 8 of 96 at width 3
+ELASTIC17_LIMIT = 800
+ELASTIC17_KILL = (5, 3)
+#: seconds an entry point's run may take before it is killed (and fails)
+ENTRY17_TIMEOUT = 300
+#: pp at {"stage": 4}: 3 layers a stage, M = 4 microbatches of 8
+PP17_MICROBATCHES = 4
+
+#: the four-GPU rows of the reference's table, through their entry
+#: points: (argv after ``python -m``, batch flag at world 4, at world 1,
+#: the checkpoint it writes, the band it is held in)
+ENTRY17_ROWS = {
+    "train.spawn dp (DDP)": (
+        ["pdnlp_tpu_torch.train.spawn", "--strategy", "dp"],
+        FOUR_ROWS, FOUR_WORLD * FOUR_ROWS, "dp-cls.pt", "float32"),
+    "train.spawn dataparallel": (
+        ["pdnlp_tpu_torch.train.spawn", "--strategy", "dataparallel"],
+        FOUR_WORLD * FOUR_ROWS, FOUR_WORLD * FOUR_ROWS,
+        "dataparallel-cls.pt", "float32"),
+    "train.spawn amp (DDP, bf16)": (
+        ["pdnlp_tpu_torch.train.spawn", "--strategy", "amp"],
+        FOUR_ROWS, FOUR_WORLD * FOUR_ROWS, "amp-cls.pt", "bfloat16"),
+    # Horovod's twin: bf16 gradients on the wire, so the bf16 band
+    "train.spawn shardmap (Horovod)": (
+        ["pdnlp_tpu_torch.train.spawn", "--strategy", "shardmap"],
+        FOUR_ROWS, FOUR_WORLD * FOUR_ROWS, "shardmap-cls.pt", "bfloat16"),
+    "train.spawn zero (ZeRO-3)": (
+        ["pdnlp_tpu_torch.train.spawn", "--strategy", "zero"],
+        FOUR_ROWS, FOUR_WORLD * FOUR_ROWS, "zero-cls.pt", "float32"),
+    "torchrun train.multi dp": (
+        ["torch.distributed.run", "--standalone", "--nproc_per_node",
+         str(FOUR_WORLD), "-m", "pdnlp_tpu_torch.train.multi", "--strategy",
+         "dp"], FOUR_ROWS, FOUR_WORLD * FOUR_ROWS, "dp-cls.pt", "float32"),
+    "train.accel": (
+        ["pdnlp_tpu_torch.train.accel"], FOUR_ROWS,
+        FOUR_WORLD * FOUR_ROWS, "accelerate-cls.pt", "float32"),
+    # its fp32 rotation save at the last step (train.auto saves no .pt)
+    "train.auto": (
+        ["pdnlp_tpu_torch.train.auto"], FOUR_ROWS, FOUR_WORLD * FOUR_ROWS,
+        os.path.join(f"checkpoint-{FUSE}", "model.msgpack"), "float32")}
+
+
+def four_card_plan(world=FOUR_WORLD, size="base", long_len=SP_LEN):
+    """Phase 17b's gang cases in order: ``{"name", "mode", "mesh",
+    "model", "batches", "fuse", "explicit", "extra", "ref", "pair",
+    "profile"}``.  ``batches`` names the global batches (rows per step:
+    ``"g128"`` is ``world x FOUR_ROWS``, ``"g64"`` half of it, ``"g32"``
+    FOUR_ROWS, ``"long"`` sp's); ``ref`` the one-process run it is held
+    to, ``pair`` the earlier case it must equal bit for bit; ``fuse`` K
+    with ``explicit`` None builds the wrapper of ``--fuse_steps`` K, and
+    a captured case (``"captured"`` True) runs its FUSE batches as one
+    replayed group.  ``size`` ``"tiny"`` and a shorter ``long_len`` give
+    the CPU rehearsal's models (bert-tiny and its MoE and long twins)."""
+    half = {"data": world // 2}
+    plan = []
+
+    def case(name, mode, mesh, batches, ref, **kw):
+        plan.append({"name": name, "mode": mode, "mesh": mesh,
+                     "model": kw.pop("model", "bert-base").replace(
+                         "base", size),
+                     "batches": batches, "ref": ref,
+                     "fuse": kw.pop("fuse", 1),
+                     "explicit": kw.pop("explicit", None),
+                     "captured": kw.pop("captured", False),
+                     "pair": kw.pop("pair", None),
+                     "profile": kw.pop("profile", None),
+                     "extra": kw.pop("extra", {})})
+        assert not kw, kw
+
+    data = {"data": world}
+    case("dp DDP", "dp", data, "g128", "g128", profile="nccl")
+    case("dp fused eager", "dp", data, "g128", "g128", fuse=FUSE,
+         explicit=True)
+    case("dp fused captured", "dp", data, "g128", "g128", fuse=FUSE,
+         explicit=True, captured=True, pair="dp fused eager")
+    case("zero", "zero", data, "g128", "g128", profile="nccl")
+    case("zero fused eager", "zero", data, "g128", "g128", fuse=FUSE,
+         profile="nccl")
+    case("zero fused captured", "zero", data, "g128", "g128", fuse=FUSE,
+         captured=True, pair="zero fused eager")
+    case("dp DDP offload", "dp", data, "g128", "g128", pair="dp DDP",
+         extra={"offload_opt_state": True})
+    case("zero offload", "zero", data, "g128", "g128", pair="zero",
+         extra={"offload_opt_state": True})
+    bf16 = {"dtype": "bfloat16", "grads_dtype": "compute"}
+    case("dp compute bf16", "dp", data, "g128", "g128 compute", extra=bf16)
+    case("zero compute bf16", "zero", data, "g128", "g128 compute",
+         extra=bf16)
+    case("zero compute bf16 fused eager", "zero", data, "g128",
+         "g128 compute", fuse=FUSE, extra=bf16)
+    case("zero compute bf16 fused captured", "zero", data, "g128",
+         "g128 compute", fuse=FUSE, captured=True,
+         pair="zero compute bf16 fused eager", extra=bf16)
+    tp = {**half, "model": 2}
+    case("tp eager", "tp", tp, "g64", "g64", fuse=FUSE)
+    case("tp captured", "tp", tp, "g64", "g64", fuse=FUSE, captured=True,
+         pair="tp eager")
+    ep = {**half, "expert": 2}
+    case("ep eager", "ep", ep, "g64", "g64 moe", model="bert-base-moe",
+         fuse=FUSE)
+    case("ep captured", "ep", ep, "g64", "g64 moe", model="bert-base-moe",
+         fuse=FUSE, captured=True, pair="ep eager")
+    # the rehearsal's pp needs a layer a stage: bert-small's four
+    case("pp", "pp", {"stage": world}, "g32", "g32", profile="idle",
+         model="bert-small" if size == "tiny" else "bert-base",
+         extra={"microbatches": PP17_MICROBATCHES})
+    case("sp", "sp", {"data": 1, "seq": world}, "long", "long",
+         model="bert-base-long", profile="nccl",
+         extra={"max_seq_len": long_len})
+    return plan
+
+
+def four_card_refs(size="base", long_len=SP_LEN):
+    """The one-process references: ``{name: (model, the batches, Args
+    overrides)}``."""
+    return {
+        "g128": (f"bert-{size}", "g128", {}),
+        "g128 compute": (f"bert-{size}", "g128",
+                         {"dtype": "bfloat16", "grads_dtype": "compute"}),
+        "g64": (f"bert-{size}", "g64", {}),
+        "g64 moe": (f"bert-{size}-moe", "g64", {}),
+        "g32": ("bert-small" if size == "tiny" else "bert-base", "g32", {}),
+        "long": (f"bert-{size}-long", "long", {"max_seq_len": long_len})}
+
+
+def four_card_batches(base, vocab_size, world=FOUR_WORLD, rows=FOUR_ROWS,
+                      steps=FOUR_STEPS, long_rows=SP_ROWS, long_len=SP_LEN):
+    """The global batches of the gang's cases (host): 6a's corpus at
+    ``world x rows``, half and a quarter of it, and sp's seeded long
+    rows.  A data rank of a case trains its contiguous block of each
+    (``local.rank_block``), which concatenate back to the batch."""
+    import numpy as np
+
+    from pdnlp_tpu_torch.train.setup import setup_data
+
+    out = {}
+    for key, n in (("g128", world * rows), ("g64", world * rows // 2),
+                   ("g32", rows)):
+        loader = setup_data(base.replace(train_batch_size=n))[0]
+        loader.set_epoch(0)
+        out[key] = [b for b, _ in zip(loader, range(steps))]
+        if len(out[key]) < steps:
+            fail(f"17b: {len(out[key])} batches of {n} rows, not {steps}")
+    rng = np.random.RandomState(SEED + 17)
+    out["long"] = []
+    for _ in range(steps):
+        lens = rng.randint(long_len // 2, long_len + 1, long_rows)
+        mask = (np.arange(long_len)[None, :] < lens[:, None]).astype(
+            np.int32)
+        ids = rng.randint(5, vocab_size, (long_rows, long_len)).astype(
+            np.int32)
+        ids[:, 0] = 2
+        out["long"].append({
+            "input_ids": ids * mask, "token_type_ids": np.zeros_like(ids),
+            "attention_mask": mask,
+            "label": rng.randint(0, 6, long_rows).astype(np.int32),
+            "example_weight": np.ones(long_rows, np.float32)})
+    return out
+
+
+def _profiled(torch, fn, device):
+    """``fn()`` under ``torch.profiler`` (a sync before and after): its
+    result, the wall ms (host clock), the device ms of the NCCL kernels
+    (summed), the union ms of every other kernel (the compute's busy
+    time) and the NCCL kernels' names.  On the CPU only the wall."""
+    from torch.profiler import ProfilerActivity, profile
+
+    if device.type != "cuda":
+        t0 = time.perf_counter()
+        out = fn()
+        return out, {"wall_ms": (time.perf_counter() - t0) * 1e3}
+    torch.cuda.synchronize(device)
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize(device)
+        wall = (time.perf_counter() - t0) * 1e3
+    nccl, spans, names = 0.0, [], set()
+    for e in prof.events():
+        if str(getattr(e, "device_type", "")).endswith("CUDA") is False:
+            continue
+        dt = getattr(e, "device_time", None)
+        if dt is None:
+            dt = e.time_range.elapsed_us()
+        if "nccl" in e.name.lower():
+            nccl += dt / 1e3
+            names.add(e.name.split("(")[0][:60])
+        else:
+            spans.append((e.time_range.start, e.time_range.end))
+    busy, end = 0.0, None
+    for s, t in sorted(spans):
+        if end is None or s > end:
+            busy += t - s
+            end = t
+        elif t > end:
+            busy += t - end
+            end = t
+    return out, {"wall_ms": wall, "nccl_ms": nccl, "busy_ms": busy / 1e3,
+                 "nccl_kernels": sorted(names)}
+
+
+def _reference_runs(torch, args, payload, device):
+    """The one-process runs on this rank's card (rank 0 of the gang, the
+    others waiting): ``{ref: (losses, full params on the host, step ms
+    after the first)}``."""
+    from pdnlp_tpu_torch.data.pipeline import to_device
+    from pdnlp_tpu_torch.train.setup import setup_model
+    from pdnlp_tpu_torch.train.steps import build_train_step
+
+    out = {}
+    for ref, (model, key, over) in payload["refs"].items():
+        batches = payload["batches"][key]
+        a = args.replace(model=model, **over)
+        _, st = setup_model(a, payload["vocab_size"],
+                            total_steps=len(batches))
+        step = build_train_step(a, device)
+        losses, t0 = [], None
+        for i, b in enumerate(batches):
+            if i == 1:
+                _sync(torch, device)
+                t0 = time.perf_counter()
+            losses.append(float(step(st, to_device(b, device))["loss"]))
+        _sync(torch, device)
+        ms = (time.perf_counter() - t0) / (len(batches) - 1) * 1e3
+        out[ref] = (losses, {k: v.detach().cpu().clone() for k, v in
+                             st.model.state_dict().items()}, ms)
+        del st, step
+        if device.type == "cuda":
+            torch.cuda.empty_cache()
+    return out
+
+
+def _sync(torch, device):
+    if device.type == "cuda":
+        torch.cuda.synchronize(device)
+
+
+def four_card_gang(rank, world, args, payload):
+    """Phase 17b's gang, one rank per card over NCCL (on the CPU, the
+    rehearsal over gloo): rank 0 first runs the one-process references
+    on its card, then every rank runs each case of ``payload["plan"]``:
+    the placed state from the seeded weights, its step (the wrapper's,
+    the explicit one of ``--fuse_steps`` K, pp's or sp's) on this rank's
+    block of each global batch — eagerly, or as one captured group — the
+    global losses, this rank's kernel launches, step time, peak memory,
+    digest and, where the case asks, a profiled step.  Rank 0 holds each
+    case's gathered params against its reference and its pair and
+    returns the differences; every rank returns its card and records."""
+    import gc
+
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+
+    from pdnlp_tpu_torch.data.pipeline import to_device
+    from pdnlp_tpu_torch.ops import flash, fused_ce
+    from pdnlp_tpu_torch.parallel import collectives
+    from pdnlp_tpu_torch.parallel.execution import (
+        make_parallel_train_step, setup_sharded_model,
+    )
+    from pdnlp_tpu_torch.parallel.local import params_digest, rank_block
+    from pdnlp_tpu_torch.parallel.mesh import (
+        local_data_extent, make_mesh, mesh_shape,
+    )
+    from pdnlp_tpu_torch.parallel.sharding import shard_fraction
+    from pdnlp_tpu_torch.train import checkpoint as ckpt
+    from pdnlp_tpu_torch.train.steps import build_multi_step
+
+    memoize_seeded_init()
+    cuda = args.device.startswith("cuda")
+    device = torch.device("cuda", torch.cuda.current_device()) if cuda \
+        else torch.device("cpu")
+    if cuda:
+        torch.backends.cuda.matmul.allow_tf32 = False
+        torch.backends.cudnn.allow_tf32 = False
+    else:
+        # the CPU backward is the same bits from run to run on one thread
+        torch.set_num_threads(1)
+    out = {"rank": rank, "device": str(device),
+           "card": torch.cuda.get_device_name(device) if cuda else "cpu",
+           "backend": dist.get_backend(), "cases": {}}
+    t0 = time.monotonic()
+    refs = _reference_runs(torch, args, payload, device) if rank == 0 \
+        else {}
+    out["ref_ms"] = {k: v[2] for k, v in refs.items()}
+    out["ref_seconds"] = time.monotonic() - t0
+    dist.barrier()
+    kept = {}
+    for case in payload["plan"]:
+        t1 = time.monotonic()
+        batches = payload["batches"][case["batches"]]
+        a = args.replace(model=case["model"], mesh_shape=case["mesh"],
+                         fuse_steps=case["fuse"], **case["extra"])
+        mesh = make_mesh(shape=case["mesh"], device_type=device.type)
+        d_size, d_idx, _ = local_data_extent(mesh)
+        mode = case["mode"]
+        _, state = setup_sharded_model(a, payload["vocab_size"], mesh, mode,
+                                       total_steps=len(batches),
+                                       explicit_reduce=case["explicit"])
+        if mode == "pp":
+            from pdnlp_tpu_torch.parallel.pp import make_pp_train_step
+
+            step = make_pp_train_step(a, mesh, device, a.microbatches)
+        elif mode == "sp":
+            from pdnlp_tpu_torch.parallel.sp import make_sp_train_step
+
+            step = make_sp_train_step(a, mesh, device)
+        else:
+            step = make_parallel_train_step(a, mesh, device, mode,
+                                            explicit_reduce=case["explicit"])
+        mine = [rank_block(b, d_idx, d_size) for b in batches]
+        _sync(torch, device)
+        gc.collect()
+        before = torch.cuda.memory_allocated(device) if cuda else 0
+        if cuda:
+            torch.cuda.reset_peak_memory_stats(device)
+        flash.reset_launch_count()
+        fused_ce.reset_launch_count()
+        collectives.reset_stats()
+        collectives.reset_p2p_stats()
+        rec = {"wrapper": type(state.objective).__name__
+               if state.objective is not None else None,
+               "mesh": mesh_shape(mesh)}
+        if case["captured"]:
+            multi = build_multi_step(step, device)
+            group = to_device({k: np.stack([b[k] for b in mine])
+                               for k in mine[0]}, device)
+            if cuda:
+                multi.capture(state, group)
+            flash.reset_launch_count()
+            fused_ce.reset_launch_count()
+            _sync(torch, device)
+            t2 = time.perf_counter()
+            losses = [float(x) for x in multi(state, group)["loss"]]
+            _sync(torch, device)
+            rec["step_ms"] = (time.perf_counter() - t2) / len(mine) * 1e3
+            rec["graphs"] = len(multi.graphs) if cuda else 1
+            rec["replays"] = sum(g.replays for g in multi.graphs.values()) \
+                if cuda else 1
+            del multi
+        else:
+            # the steps after the first are timed; a profiled case's last
+            # step runs under the profiler, outside the timed ones
+            timed = len(mine) - (2 if case["profile"] else 1)
+            losses, t2 = [], None
+            for i, b in enumerate(mine):
+                if i == 1:
+                    _sync(torch, device)
+                    t2 = time.perf_counter()
+                if i == timed + 1:
+                    _sync(torch, device)
+                    rec["step_ms"] = (time.perf_counter() - t2) / timed * 1e3
+                tb = to_device(b, device)
+                if case["profile"] and i == len(mine) - 1:
+                    m, prof = _profiled(torch, lambda: step(state, tb),
+                                        device)
+                    rec["profile"] = prof
+                else:
+                    m = step(state, tb)
+                losses.append(float(m["loss"]))
+            _sync(torch, device)
+            if "step_ms" not in rec:
+                rec["step_ms"] = (time.perf_counter() - t2) / timed * 1e3
+        rec["losses"] = losses
+        rec["launches"] = {**{k: flash.launch_count(k)
+                              for k in flash.KERNELS},
+                           **{k: fused_ce.launch_count(k)
+                              for k in fused_ce.KERNELS}}
+        rec["collectives"] = dict(collectives.STATS)
+        rec["p2p"] = dict(collectives.P2P_STATS)
+        if mode in ("pp", "sp"):
+            probe = torch.zeros(4, device=device)
+            grp = mesh.get_group("stage" if mode == "pp" else "seq")
+            rec["p2p_transport"] = collectives.p2p_transport(probe, grp)
+        rec["peak_bytes"] = (torch.cuda.max_memory_allocated(device)
+                             - before) if cuda else None
+        tensors = [p for p in state.model.parameters()] + [
+            v for st in state.optimizer.state.values() for v in st.values()
+            if torch.is_tensor(v) and v.dim() > 0]
+        rec["state_bytes"] = sum(
+            (t.to_local() if hasattr(t, "to_local") else t).numel()
+            * t.element_size() for t in tensors
+            if (t.to_local() if hasattr(t, "to_local") else t).is_cuda)
+        rec["held_bytes"] = torch.cuda.memory_allocated(device) if cuda \
+            else None
+        rec["shard_fraction"] = shard_fraction(state.model, state.optimizer)
+        rec["staged_bytes"] = getattr(state.optimizer, "staged_bytes", 0)
+        digests = [None] * world
+        dist.all_gather_object(digests, params_digest(state.model))
+        rec["digests"] = digests
+        full = ckpt.consolidate(state.model)
+        if rank == 0:
+            full = {k: v.detach().cpu() for k, v in full.items()}
+            ref_losses, ref_params, _ = refs[case["ref"]]
+            rec["ref_loss_rel"] = max(abs(x - y) / abs(y) for x, y in
+                                      zip(losses, ref_losses))
+            rec["ref_loss_abs"] = max(abs(x - y) for x, y in
+                                      zip(losses, ref_losses))
+            rec["ref_param_diff"] = max(
+                float((full[k].float() - ref_params[k].float()).abs().max())
+                for k in ref_params)
+            if case["pair"] is not None:
+                p_losses, p_params, p_digests = kept.pop(case["pair"])
+                rec["pair_bitwise"] = (
+                    losses == p_losses and digests == p_digests
+                    and all(torch.equal(full[k], p_params[k])
+                            for k in p_params))
+            if any(c["pair"] == case["name"] for c in payload["plan"]):
+                kept[case["name"]] = (losses, full, digests)
+        rec["seconds"] = time.monotonic() - t1
+        out["cases"][case["name"]] = rec
+        del state, step, full
+        gc.collect()
+        if cuda:
+            torch.cuda.empty_cache()
+        dist.barrier()
+    numel = sum(v.numel() for v in refs["g128"][1].values()) \
+        if rank == 0 else None
+    out["nccl_alone"] = _nccl_alone(torch, dist, device, world, numel)
+    return out
+
+
+def _nccl_alone(torch, dist, device, world, numel):
+    """The collectives of 17b's steps on idle, synchronized ranks: device
+    ms (the NCCL kernels under ``torch.profiler``, the mean of three) of
+    the all-reduce of bert-base's fp32 gradients in DDP's 25 MiB buckets,
+    of zero's all-gather and reduce-scatter of them in 13 buckets (the 12
+    layers and the rest), and of one ring hop of sp (a rank's K and V at
+    8 x 256 x 768, fp32).  In a training step these kernels also wait for
+    the slowest rank, so the step's NCCL time is this plus the skew."""
+    from pdnlp_tpu_torch.parallel import collectives
+
+    box = [numel]
+    dist.broadcast_object_list(box)
+    numel = int(box[0])
+    cap = collectives.BUCKET_BYTES // 4
+    grads = [torch.ones(min(cap, numel - i), device=device)
+             for i in range(0, numel, cap)]
+    per = -(-numel // (13 * world))
+    shards = [torch.ones(per, device=device) for _ in range(13)]
+    whole = [torch.empty(per * world, device=device) for _ in range(13)]
+    hop = torch.ones(2, 8, SP_LEN // world, 768, device=device)
+
+    def all_reduce():
+        for g in grads:
+            dist.all_reduce(g)
+
+    def gather_scatter():
+        for s, w in zip(shards, whole):
+            collectives.shard_gather(w, s)
+        for s, w in zip(shards, whole):
+            collectives.shard_reduce(s, w)
+
+    def ring_hop():
+        r = dist.get_rank()
+        collectives.exchange(hop, (r + 1) % world, hop, (r - 1) % world)
+
+    out = {"grad_bytes": numel * 4, "hop_bytes": hop.numel() * 4}
+    for name, fn in (("all_reduce", all_reduce),
+                     ("gather_scatter", gather_scatter),
+                     ("ring_hop", ring_hop)):
+        fn()
+        _sync(torch, device)
+        dist.barrier()
+        _, prof = _profiled(torch, lambda: [fn() for _ in range(3)], device)
+        out[f"{name}_ms"] = prof.get("nccl_ms", prof["wall_ms"]) / 3
+        out[f"{name}_wall_ms"] = prof["wall_ms"] / 3
+    collectives.reset_stats()
+    collectives.reset_p2p_stats()
+    return out
+
+
+def _entry17_argv(row, world, work, corpus_path, vocab_path, device_type):
+    """The command of an ENTRY17_ROWS row at ``world`` ranks (after
+    ``python -m``) and its output directory.  train.accel and train.auto
+    run one process per rank, so torchrun starts their four."""
+    prog, bs4, bs1, _, _ = ENTRY17_ROWS[row]
+    model = "bert-tiny" if device_type == "cpu" else "bert-base"
+    tag = re.sub(r"[^a-z0-9]+", "_", row.lower()).strip("_")
+    out = os.path.join(work, f"entry17_{tag}_w{world}")
+    prog = list(prog)
+    if prog[0] == "torch.distributed.run" and world == 1:
+        prog = prog[prog.index("-m") + 1:]
+    elif prog[0] in ("pdnlp_tpu_torch.train.accel",
+                     "pdnlp_tpu_torch.train.auto") and world > 1:
+        prog = ["torch.distributed.run", "--standalone", "--nproc_per_node",
+                str(world), "-m", *prog]
+    bs = bs4 if world > 1 else bs1
+    common = ["--device", device_type, "--model", model,
+              "--data_path", corpus_path, "--vocab_path", vocab_path,
+              "--seed", str(SEED), "--data_limit", str(ENTRY17_LIMIT),
+              "--output_dir", out]
+    if prog[-1] == "pdnlp_tpu_torch.train.auto":
+        return prog + common + [
+            "--attn_dropout", "0", "--dropout", "0",
+            "--per_device_train_batch_size", str(bs), "--logging_steps", "1",
+            "--eval_steps", "1000", "--save_steps", str(FUSE),
+            "--save_dtype", "float32"], out
+    argv = prog + common + ["--attn_dropout", "0", "--dropout", "0",
+                            "--log_every", "1", "--train_batch_size",
+                            str(bs), "--warmup_compile", "true"]
+    if prog[0] == "pdnlp_tpu_torch.train.spawn":
+        argv += ["--num_processes", str(world)]
+    if device_type == "cpu":
+        argv += ["--dist_backend", "gloo"]
+    return argv, out
+
+
+def _entry17_read(rc, out, err, out_dir, row, world):
+    """A row's run, read: its losses (【train】 lines, or train.auto's
+    ``step g/T loss``), samples/s (the Trainer's rates line, train.auto's
+    metrics, or the rows over train.accel's minutes), the mesh line and
+    the checkpoint's params."""
+    lines = [ln for _, ln in out]
+    losses = [float(m.group(1)) for ln in lines for m in
+              [re.search(r"loss：([0-9.]+)", ln)
+               if ln.startswith("【train】") else
+               re.match(r"step \d+/\d+ loss ([0-9.]+)", ln)] if m]
+    rate = None
+    for ln in lines:
+        m = re.search(r"samples/s：([0-9.]+)", ln) or \
+            re.search(r"'train_samples_per_second': ([0-9.]+)", ln)
+        if m:
+            rate = float(m.group(1))
+    minutes = next((float(m.group(1)) for ln in lines
+                    for m in [re.match(r"耗时：([0-9.eE+-]+)分钟", ln)] if m),
+                   None)
+    rows = FOUR_WORLD * FOUR_ROWS
+    if rate is None and minutes:
+        rate = len(losses) * rows / (minutes * 60)
+    head = next((ln for ln in lines if ln.startswith(("mesh:", "devices:"))),
+                "")
+    ckpt = ENTRY17_ROWS[row][3]
+    path = os.path.join(out_dir, ckpt) if ckpt else None
+    return {"exit": rc, "losses": losses, "samples_per_s": rate,
+            "head": head, "world": world,
+            "checkpoint": path if path and os.path.exists(path) else None,
+            "stderr": "\n".join(ln for _, ln in err)[-2000:]}
+
+
+def entry17_runs(torch, work, corpus_path, vocab_path, card, device_type,
+                 rows=None):
+    """Case 1: each row at world 1 (four at a time, one card each) and at
+    world 4 (one row at a time, one rank per card), on the same global
+    batches at dropout 0; each world-4 run held to its world-1 run: losses
+    and the checkpoint's params (fp32), or the loss band (bf16)."""
+    rows = list(rows or ENTRY17_ROWS)
+    runs = {}
+    solo = [r for r in rows if not r.startswith("torchrun")]
+    for i in range(0, len(solo), FOUR_WORLD):
+        started = {}
+        for j, row in enumerate(solo[i:i + FOUR_WORLD]):
+            argv, out = _entry17_argv(row, 1, work, corpus_path, vocab_path,
+                                      device_type)
+            env = {"CUDA_VISIBLE_DEVICES": str(j)} \
+                if device_type == "cuda" else {}
+            started[row] = (_timed_spawn(argv, env), out)
+        for row, (st, out) in started.items():
+            runs[(row, 1)] = _entry17_read(
+                *_timed_finish(st, ENTRY17_TIMEOUT), out, row, 1)
+    for row in rows:
+        argv, out = _entry17_argv(row, FOUR_WORLD, work, corpus_path,
+                                  vocab_path, device_type)
+        runs[(row, FOUR_WORLD)] = _entry17_read(
+            *_timed_finish(_timed_spawn(argv), ENTRY17_TIMEOUT), out, row,
+            FOUR_WORLD)
+    recs, bad = {}, []
+    for row in rows:
+        four = runs[(row, FOUR_WORLD)]
+        one = runs[(row if not row.startswith("torchrun")
+                    else "train.spawn dp (DDP)", 1)]
+        band = ENTRY17_ROWS[row][4]
+        rec = {"world1": {k: v for k, v in one.items() if k != "stderr"},
+               "world4": {k: v for k, v in four.items() if k != "stderr"},
+               "band": band}
+        ok = one["exit"] == 0 and four["exit"] == 0 and four["losses"] \
+            and len(four["losses"]) == len(one["losses"])
+        if ok:
+            rec["loss_rel"] = max(abs(a - b) / abs(b) for a, b in
+                                  zip(four["losses"], one["losses"]))
+            rec["loss_abs"] = max(abs(a - b) for a, b in
+                                  zip(four["losses"], one["losses"]))
+        if ok and band == "float32" and four["checkpoint"] and \
+                one["checkpoint"]:
+            a = _ckpt_params(torch, four["checkpoint"])
+            b = _ckpt_params(torch, one["checkpoint"])
+            rec["param_diff"] = _max_diff(a, b)
+        if ok and one["samples_per_s"] and four["samples_per_s"]:
+            rec["scaling"] = four["samples_per_s"] / one["samples_per_s"]
+        if ok and band == "float32":
+            ok = rec["loss_rel"] <= FOUR_LOSS_RTOL and \
+                rec.get("param_diff", 1.0) <= FOUR_PARAM_ATOL
+        elif ok:
+            ok = rec["loss_abs"] <= FOUR_BF16_LOSS_ATOL
+        want = f"devices: {FOUR_WORLD}" if row == "train.accel" \
+            else f"process 0/{FOUR_WORLD}"
+        ok = bool(ok) and want in four["head"] and (
+            device_type != "cuda" or row == "train.accel"
+            or "backend: nccl" in four["head"])
+        rec["ok"] = ok
+        recs[row] = rec
+        r1, r4 = one["samples_per_s"], four["samples_per_s"]
+        print(f"[four] 17b.1 {row}: world 4 exit {four['exit']} "
+              f"({four['head'][:90]}), {len(four['losses'])} steps of "
+              f"{FOUR_WORLD * FOUR_ROWS} rows; against world 1 (exit "
+              f"{one['exit']}): max loss diff rel "
+              f"{rec.get('loss_rel', float('nan')):.2e} abs "
+              f"{rec.get('loss_abs', float('nan')):.2e}, params "
+              f"{rec.get('param_diff', float('nan')):.2e} ({band} band); "
+              f"samples/s world 1 "
+              f"{'n/a' if r1 is None else f'{r1:.1f}'}, world 4 "
+              f"{'n/a' if r4 is None else f'{r4:.1f}'}, scaling "
+              f"{rec.get('scaling', float('nan')):.2f}x (the rates line, "
+              f"host clock; printed, not claimed) — {card}")
+        if not ok:
+            print(f"[four] 17b.1 {row} FAILED: {rec}\nworld 4:\n"
+                  f"{four['stderr']}\nworld 1:\n{one['stderr']}")
+            bad.append(row)
+    if bad:
+        fail(f"17b.1: {bad}")
+    return recs
+
+
+def elastic17(torch, work, corpus_path, vocab_path, card, device_type,
+              model="bert-base"):
+    """Case 7: ``train.spawn --elastic true`` at four ranks (dp, a
+    snapshot every 4 steps, written in the loop), rank 3 SIGKILLed at
+    step 5: the supervisor evicts it and resumes the three survivors from
+    the step-4 snapshot; then an undisturbed three-rank run resumed from
+    that snapshot (kept as the run's ``.prev``) must end on the elastic
+    run's params bit for bit.  The seconds from the supervisor's verdict
+    to the first resumed step's line (host clock)."""
+    import shutil
+
+    step, proc = ELASTIC17_KILL
+    out = os.path.join(work, "elastic17")
+    argv = ["pdnlp_tpu_torch.train.spawn", "--device", device_type,
+            "--model", model, "--data_path", corpus_path, "--vocab_path",
+            vocab_path, "--output_dir", out, "--attn_dropout", "0",
+            "--dropout", "0", "--seed", str(SEED), "--data_limit",
+            str(ELASTIC17_LIMIT), "--strategy", "dp", "--train_batch_size",
+            str(FOUR_ROWS), "--resume_every", "4", "--ckpt_async", "false",
+            "--restart_backoff", "0.2"]
+    env = {}
+    if device_type == "cpu":
+        # one thread a rank: the CPU backward is the same bits run to run
+        argv += ["--dist_backend", "gloo"]
+        env["OMP_NUM_THREADS"] = "1"
+    rc, o, e = _timed_finish(_timed_spawn(
+        argv + ["--elastic", "true", "--num_processes", str(FOUR_WORLD)],
+        {**env, "PDNLP_FAULT_KIND": "sigkill",
+         "PDNLP_FAULT_STEP": str(step), "PDNLP_FAULT_PROC": str(proc)}),
+        2 * ENTRY17_TIMEOUT)
+    text_err = "\n".join(ln for _, ln in e)
+    verdict = next((t for t, ln in e if "gang failure" in ln), None)
+    resumed = next((t for t, ln in o if ln.startswith("resumed from")), None)
+    first = next((t for t, ln in o if resumed is not None and t >= resumed
+                  and ln.startswith("【train】")), None)
+    gap = first - verdict if first is not None and verdict is not None \
+        else None
+    width = FOUR_WORLD - 1
+    snap = os.path.join(out, "resume-dp.pt")
+    prev = snap + ".prev"
+    control = os.path.join(work, "elastic17_control")
+    os.makedirs(control, exist_ok=True)
+    copy = os.path.join(control, "resume-step4.pt")
+    meta = None
+    if os.path.exists(prev):
+        shutil.copy(prev, copy)
+        shutil.copy(prev + ".manifest.json", copy + ".manifest.json")
+        with open(copy + ".manifest.json") as f:
+            meta = json.load(f).get("meta")
+    rc_c = None
+    same = False
+    if meta and meta.get("step") == 4:
+        argv_c = [a if a != out else control for a in argv]
+        rc_c, _, e_c = _timed_finish(_timed_spawn(
+            argv_c + ["--num_processes", str(width), "--resume_from",
+                      copy], env), ENTRY17_TIMEOUT)
+        if rc == 0 and rc_c == 0:
+            a = _ckpt_params(torch, os.path.join(out, "dp-cls.pt"))
+            b = _ckpt_params(torch, os.path.join(control, "dp-cls.pt"))
+            same = a.keys() == b.keys() and all(torch.equal(a[k], b[k])
+                                                for k in a)
+    rec = {"exit": rc, "control_exit": rc_c, "snapshot_meta": meta,
+           "bit_for_bit": same, "verdict_to_first_resumed_step_s": gap,
+           "lines": [ln for _, ln in e if ln.startswith("[elastic]")]}
+    for ln in rec["lines"]:
+        print(f"[four] 17b.7 {ln[:300]}")
+    print(f"[four] 17b.7 train.spawn --elastic true --num_processes "
+          f"{FOUR_WORLD} --strategy dp, {model}, rank {proc} SIGKILLed at "
+          f"step {step}: exit {rc}; the survivors resumed at width {width} "
+          f"from the step-{(meta or {}).get('step')} snapshot; an "
+          f"undisturbed {width}-rank run resumed from it (exit {rc_c}) ends "
+          f"on the same params bit for bit: {same}; the supervisor's "
+          f"verdict to the first resumed step's line "
+          f"{'n/a' if gap is None else f'{gap:.1f}'} s (host clock) — "
+          f"{card}")
+    if not (same and f"evicting dead rank(s) [{proc}]" in text_err
+            and f"resuming at width {width}" in text_err):
+        fail(f"17b.7: {rec}\n{text_err[-3000:]}")
+    return rec
+
+
+def _want_launches(case, steps):
+    """K1-K5 launches a rank makes over a case's steps: dp, zero, tp (each
+    rank its 6 heads, one launch a layer) and ep as the single step; a pp
+    stage its layers once per microbatch and no K4/K5 (pp's CE is plain);
+    sp's ring is plain (None: printed, not checked)."""
+    if case["mode"] == "sp":
+        return None
+    if case["mode"] == "pp":
+        n = 12 // case["mesh"]["stage"] * case["extra"]["microbatches"]
+        return {"flash_fwd": n * steps, "flash_bwd_dq": n * steps,
+                "flash_bwd_dkv": n * steps, "fused_ce_fwd": 0,
+                "fused_ce_bwd": 0}
+    return {k: v * steps for k, v in WANT_DP_STEP.items()}
+
+
+def four_card_check(ranks, plan, card, cuda=True):
+    """Phase 17b's gang cases held to their bounds, each printed with the
+    card: one rank per card (four distinct devices, NCCL); each case
+    against its one-process reference (fp32 within FOUR_LOSS_RTOL and
+    FOUR_PARAM_ATOL, bf16 in the loss band) and its pair bit for bit;
+    K1-K5 launches per rank; zero's shards below 1.5 / world of the
+    bytes and its step's memory (state plus the step's peak) not above
+    dp's; pp's and sp's exchanges device to device."""
+    world = len(ranks)
+    r0 = ranks[0]
+    devices = sorted({r["device"] for r in ranks})
+    rec = {"devices": devices, "backend": r0["backend"],
+           "cards": sorted({r["card"] for r in ranks}),
+           "ref_step_ms": r0["ref_ms"], "cases": {}}
+    print(f"[four] 17b gang: {world} ranks on {devices} "
+          f"({', '.join(rec['cards'])}), backend {r0['backend']}; the "
+          f"one-process references' step ms on rank 0's card "
+          + ", ".join(f"{k} {v:.1f}" for k, v in r0["ref_ms"].items())
+          + f" — {card}")
+    bad = []
+    if cuda and (len(devices) != world or r0["backend"] != "nccl"):
+        bad.append("one rank per card over NCCL")
+    for case in plan:
+        name = case["name"]
+        c0 = r0["cases"][name]
+        steps = len(c0["losses"])
+        ms = [r["cases"][name]["step_ms"] for r in ranks]
+        bf16 = case["extra"].get("dtype") == "bfloat16"
+        c = {k: v for k, v in c0.items() if k not in ("digests",)}
+        c["step_ms_ranks"] = ms
+        want = _want_launches(case, steps)
+        launches = [r["cases"][name]["launches"] for r in ranks]
+        ok = True
+        if bf16:
+            ok = c0["ref_loss_abs"] <= FOUR_BF16_LOSS_ATOL
+        else:
+            ok = c0["ref_loss_rel"] <= FOUR_LOSS_RTOL and \
+                c0["ref_param_diff"] <= FOUR_PARAM_ATOL
+        if case["pair"] is not None:
+            ok = ok and c0.get("pair_bitwise") is True
+        if want is not None and cuda:
+            ok = ok and all(ln == want for ln in launches)
+        if case["mode"] == "zero" and \
+                not case["extra"].get("offload_opt_state"):
+            # (offloaded moments are plain host tensors, counted whole)
+            ok = ok and c0["shard_fraction"] < 1.5 / world
+        if case["mode"] in ("pp", "sp") and cuda:
+            ok = ok and all(r["cases"][name]["p2p_transport"] == "device"
+                            for r in ranks)
+        if case["captured"]:
+            ok = ok and c0["graphs"] == 1 and c0["replays"] == 1
+        prof = [r["cases"][name].get("profile") for r in ranks]
+        extra = ""
+        if prof[0] and "nccl_ms" in prof[0]:
+            c["nccl_ms_ranks"] = [p["nccl_ms"] for p in prof]
+            c["nccl_kernels"] = prof[0]["nccl_kernels"]
+            extra += (f"; NCCL kernels' device ms in a profiled step "
+                      f"(torch.profiler) {max(c['nccl_ms_ranks']):.2f} "
+                      f"(max over ranks: {', '.join(c['nccl_kernels'])})")
+            if case["profile"] == "idle":
+                c["idle_share_ranks"] = [1 - p["busy_ms"] / p["wall_ms"]
+                                         for p in prof]
+                extra += (f"; idle share of the step's wall (1 - compute "
+                          f"kernels' busy / wall) per stage "
+                          + ", ".join(f"{x:.3f}" for x in
+                                      c["idle_share_ranks"]))
+        rec["cases"][name] = c
+        bits = "" if case["pair"] is None else \
+            f", bit for bit with {case['pair']} {c0.get('pair_bitwise')}"
+        mem = ""
+        if cuda and c0["peak_bytes"] is not None:
+            mem = (f"; state {c0['state_bytes'] / 2**20:.0f} MiB + step "
+                   f"peak {c0['peak_bytes'] / 2**20:.0f} MiB")
+        print(f"[four] 17b {name} ({c0['wrapper']}, mesh {c0['mesh']}, "
+              f"{steps} steps{', one captured group' if case['captured'] else ''}"
+              f"): vs one process ({case['ref']}) loss rel "
+              f"{c0['ref_loss_rel']:.2e} abs {c0['ref_loss_abs']:.2e}, "
+              f"params {c0['ref_param_diff']:.2e}{bits}; launches per rank "
+              f"{launches[0]}; step {max(ms):.1f} ms (max over ranks, host "
+              f"clock){mem}; shard fraction {c0['shard_fraction']:.3f}"
+              f"{extra} — {card}")
+        if not ok:
+            bad.append(name)
+    alone = r0.get("nccl_alone")
+    if alone:
+        rec["nccl_alone"] = alone
+        gb = alone["grad_bytes"]
+        bus = 2 * (world - 1) / world * gb / (alone["all_reduce_ms"] / 1e3)
+        print(f"[four] 17b NCCL alone (idle ranks after a barrier; the "
+              f"NCCL kernels' device ms under torch.profiler, mean of 3): "
+              f"all-reduce of the {gb / 2**20:.0f} MiB fp32 gradients in "
+              f"25 MiB buckets {alone['all_reduce_ms']:.3f} ms "
+              f"({bus / 1e9:.0f} GB/s bus), zero's all-gather + "
+              f"reduce-scatter of them {alone['gather_scatter_ms']:.3f} ms,"
+              f" one ring hop of {alone['hop_bytes'] / 2**20:.1f} MiB "
+              f"{alone['ring_hop_ms']:.3f} ms — {card}")
+    cases = rec["cases"]
+
+    def total(name):
+        c = cases[name]
+        return c["state_bytes"] + c["peak_bytes"]
+
+    if cuda:
+        zero, dp = total("zero fused eager"), total("dp fused eager")
+        rec["zero_vs_dp_memory"] = zero / dp
+        for kind, base in (("dp", "dp DDP"), ("zero", "zero")):
+            on, off = cases[base]["step_ms_ranks"], \
+                cases[f"{base} offload"]["step_ms_ranks"]
+            rec[f"{kind}_offload_share"] = 1 - max(on) / max(off)
+        rec["dp_scaling"] = r0["ref_ms"]["g128"] / max(
+            cases["dp DDP"]["step_ms_ranks"])
+        print(f"[four] 17b memory at {world} ranks: zero's captured step's "
+              f"state + peak {zero / 2**20:.0f} MiB against dp's "
+              f"{dp / 2**20:.0f} MiB ({rec['zero_vs_dp_memory']:.3f}x); "
+              f"offload's staging share of the step "
+              f"dp {rec['dp_offload_share']:.3f}, zero "
+              f"{rec['zero_offload_share']:.3f}; dp's {world}-rank step "
+              f"against one process on the same {world * FOUR_ROWS}-row "
+              f"batch: {rec['dp_scaling']:.2f}x (host clock) — {card}")
+        if zero > dp:
+            bad.append("zero's memory above dp's")
+    if bad:
+        fail(f"17b: {bad}: {json.dumps(rec)[:4000]}")
+    return rec
+
+
+def four_card_phase(torch, base, vocab_size, work, corpus_path, vocab_path,
+                    entry_corpus, card, lap, device_type="cuda",
+                    world=FOUR_WORLD, rows=None, long_len=SP_LEN,
+                    parts=("gang", "elastic", "entry")):
+    """Phase 17b (``--phase 17``): the entry points' rows (17b.1), the
+    gang's cases (17b.2-6: fused dp and zero, offload, compute, tp and
+    ep, pp and sp) and the elastic gang (17b.7), one rank per card over
+    NCCL; ``parts`` names a subset.  On the CPU (``device_type="cpu"``)
+    the same over gloo on the bert-tiny models: the rehearsal of the
+    four-card run."""
+    size = "tiny" if device_type == "cpu" else "base"
+    rec, failed = {}, []
+
+    def part(name, fn):
+        """Run one part; a failing part is reported and the others still
+        run, and the phase fails after them."""
+        if name not in parts:
+            return
+        try:
+            rec[name] = fn()
+        except SystemExit as e:
+            failed.append(f"{name}: {e.code}")
+        except Exception as e:
+            failed.append(f"{name}: {type(e).__name__}: {e}"[:3000])
+        lap(f"17b {name}")
+
+    part("gang", lambda: _four_gang(torch, base, vocab_size, card, world,
+                                    size, long_len, device_type))
+    part("elastic", lambda: elastic17(torch, work, entry_corpus, vocab_path,
+                                      card, device_type, f"bert-{size}"))
+    part("entry", lambda: entry17_runs(torch, work, entry_corpus,
+                                       vocab_path, card, device_type, rows))
+    if failed:
+        fail("17b: " + " | ".join(failed))
+    return rec
+
+
+def _four_gang(torch, base, vocab_size, card, world, size, long_len,
+               device_type):
+    """17b.2-6: the gang's cases, run and checked."""
+    from pdnlp_tpu_torch.parallel import local
+
+    rec = {}
+    plan = four_card_plan(world, size, long_len)
+    refs = four_card_refs(size, long_len)
+    batches = four_card_batches(base, vocab_size, world, long_len=long_len)
+    payload = {"plan": plan, "batches": batches,
+               "refs": {c["ref"]: refs[c["ref"]] for c in plan},
+               "vocab_size": vocab_size}
+    args = base.replace(dist_backend="nccl" if device_type == "cuda"
+                        else "gloo", device=device_type)
+    ranks = local.run_gang(four_card_gang, world, args, payload,
+                           timeout=480)
+    rec["case_seconds"] = {n: ranks[0]["cases"][n]["seconds"]
+                           for n in ranks[0]["cases"]}
+    rec["ref_seconds"] = ranks[0]["ref_seconds"]
+    rec.update(four_card_check(ranks, plan, card,
+                               cuda=device_type == "cuda"))
+    return rec
+
+
 def main():
     import torch
 
     if not torch.cuda.is_available():
         sys.exit("chip_smoke: no CUDA device — this script runs on the card")
+    if sys.argv[1:3] == ["--phase", "17"] and \
+            torch.cuda.device_count() < FOUR_WORLD:
+        sys.exit(f"chip_smoke --phase 17: one rank per card needs "
+                 f"{FOUR_WORLD} cards; this machine has "
+                 f"{torch.cuda.device_count()}")
     sys.path.insert(0, REPO)
     try:
         from pdnlp_tpu_torch.ops import cuda_lib, flash, fused_ce
@@ -7236,6 +8414,49 @@ def main():
     rng = np.random.RandomState(SEED)
     vocab_path = os.path.join(work, "vocab.txt")
     vocab_size = build_vocab_file(vocab_path, rng, CHARS)
+    if sys.argv[1:3] == ["--phase", "17"]:
+        # phase 17b alone on four cards, one rank per card over NCCL (a
+        # development run: it prints no result line); ``--part gang``,
+        # ``elastic`` or ``entry`` runs one part, ``--rows 'a|b'`` those
+        # entry rows
+        opts = dict(zip(sys.argv[3::2], sys.argv[4::2]))
+        corpus_path = os.path.join(work, "train.json")
+        write_corpus(corpus_path, rng, 700)
+        entry_corpus = os.path.join(work, "train17.json")
+        write_corpus(entry_corpus, np.random.RandomState(SEED + 17),
+                     ELASTIC17_LIMIT)
+        train_args = Args(model="bert-base", device="cuda", seed=SEED,
+                          vocab_path=vocab_path, data_path=corpus_path,
+                          data_limit=700, dropout=0.0, attn_dropout=0.0,
+                          learning_rate=LEARNING_RATE)
+        print(f"[four] cards: {card_lines()}")
+        four = four_card_phase(
+            torch, train_args, vocab_size, work, corpus_path, vocab_path,
+            entry_corpus, card, lap,
+            rows=opts["--rows"].split("|") if "--rows" in opts else None,
+            parts=[opts["--part"]] if "--part" in opts
+            else ("gang", "elastic", "entry"))
+        print(f"[summary] {json.dumps(four)}")
+        return
+    if sys.argv[1:3] == ["--phase", "17a"]:
+        # phase 17a alone on one card (the default run starts it as a
+        # process beside phase 16; a development run: no result line)
+        corpus_path = os.path.join(work, "train.json")
+        write_corpus(corpus_path, rng, 700)
+        train_args = Args(model="bert-base", device="cuda", seed=SEED,
+                          vocab_path=vocab_path, data_path=corpus_path,
+                          data_limit=700, dropout=0.0, attn_dropout=0.0,
+                          learning_rate=LEARNING_RATE)
+        loader = setup_data(train_args)[0]
+        loader.set_epoch(0)
+        batches = list(loader)[:TRAIN_STEPS]
+        zc, zc_launches = zero_capture_check(
+            torch, flash, fused_ce, train_args, vocab_size, batches, device,
+            card)
+        lap("17a")
+        print(f"[launches] {json.dumps(zc_launches)}")
+        print(f"[summary] {json.dumps(zc)}")
+        return
     if sys.argv[1:] == ["--phase", "16"]:
         # phase 16 alone, on phase 6a's corpus (a development run: it
         # prints no result line)
@@ -7603,17 +8824,26 @@ def main():
     # elastic gang and the pp / sp entry points as processes beside them
     # (15c, 15d)
     torch.cuda.empty_cache()
-    par, par_launches = parallel_phase(
-        torch, work, vocab_path, corpus_path, train_args, vocab_size,
-        batches, texts, device, card, lap)
-    # 16. the configurations the port refused before: offloaded moments
-    # (16a), the EMA and bf16 compute under zero (16b), a captured step
-    # with its NCCL all-reduce (16c), resumes across modes (16d)
-    torch.cuda.empty_cache()
-    off, off_launches = offload_phase(torch, flash, fused_ce, train_args,
-                                      vocab_size, batches, device, card,
-                                      work)
-    lap("16")
+    # 17a, zero's explicit ZeRO-3 step captured at world 1 over NCCL, runs
+    # as a process (its own NCCL group of one on the card) beside 15 and 16
+    zc_started = zero17a_start(work)
+    try:
+        par, par_launches = parallel_phase(
+            torch, work, vocab_path, corpus_path, train_args, vocab_size,
+            batches, texts, device, card, lap)
+        # 16. the configurations the port refused before: offloaded
+        # moments (16a), the EMA and bf16 compute under zero (16b), a
+        # captured step with its NCCL all-reduce (16c), resumes across
+        # modes (16d)
+        torch.cuda.empty_cache()
+        off, off_launches = offload_phase(torch, flash, fused_ce,
+                                          train_args, vocab_size, batches,
+                                          device, card, work)
+        lap("16")
+        zc, zc_launches = zero17a_join(zc_started, card)
+    finally:
+        stop_all([zc_started[0]])
+    lap("17a")
     moe_launches = {f"14a {n}": r["launches"] for n, r in moe.items()}
     launches_by_path = {
         "serving packed (K1)": {"flash_fwd": main_launches},
@@ -7647,6 +8877,7 @@ def main():
         "14d upcycled step": upcycle["launches"],
         **par_launches,
         **off_launches,
+        **zc_launches,
         **{f"14e serving {d}": {"flash_fwd": r["launches_flash_fwd"]}
            for d, r in moe_serve.items() if isinstance(r, dict)
            and "launches_flash_fwd" in r}}
@@ -7704,6 +8935,7 @@ def main():
                 "serving": moe_serve},
         "parallel": par,
         "offload": off,
+        "zero_capture": zc,
         "phase_seconds": clock,
         "seconds": time.monotonic() - t_start}
     print(f"[summary] {json.dumps(summary)}")

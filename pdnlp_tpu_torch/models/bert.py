@@ -185,11 +185,6 @@ def _dense(x: torch.Tensor, lin: nn.Module) -> torch.Tensor:
         # the product; this plain product does not)
         y = F.linear(x, lin.weight.to(x.dtype))
         return y * lin.qscale.to(x.dtype) + lin.bias.to(x.dtype)
-    if getattr(lin, "compute_unit", False):
-        # an FSDP2 unit of its own (zero under --grads_dtype compute): the
-        # module call is where FSDP2 gathers its weight in the compute
-        # dtype and hooks the reduce of its gradient; the same product
-        return lin(x)
     return F.linear(x, lin.weight.to(x.dtype), lin.bias.to(x.dtype))
 
 
@@ -483,8 +478,8 @@ class Embeddings(nn.Module):
 
 class EncoderLayer(nn.Module):
     """One post-LN encoder block.  Its body runs in :meth:`forward`, so a
-    wrapper that acts through a module's forward (FSDP2's per-layer
-    unshard, ``torch.utils.checkpoint``) sees every layer.  An MoE layer
+    wrapper that acts through a module's forward (``torch.utils.
+    checkpoint``) sees every layer.  An MoE layer
     (``cfg.moe_experts``) holds ``gate``, ``up`` and ``down`` as
     :class:`Gate` and :class:`Experts`, and its forward returns ``(x,
     aux)``.  ``shards`` (``parallel.sharding.ModelShards``, None on one
@@ -587,22 +582,32 @@ def _remat(layer: EncoderLayer, x: torch.Tensor, *args,
     be silently wrong.  So the generator's state is saved here, restored
     at the start of the recompute, and the stream put back where the
     backward found it afterwards (``jax.checkpoint`` replays its keys for
-    free).  Nothing on this path draws from the default streams."""
+    free).  Nothing on this path draws from the default streams.
+
+    The recompute reads the weights the forward read: the layer's own, or
+    the tensors a ``torch.func.functional_call`` put in their place for
+    the forward (zero's gathered weights, ``parallel.sharding.
+    ZeroObjective``), which are gone from the module by the backward."""
     from torch.utils.checkpoint import checkpoint
 
     saved = generator.get_state() if generator is not None else None
+    weights = dict(layer.named_parameters())
     ran = []
 
     def body(x):
-        if not ran or saved is None:      # the forward itself
+        if not ran:                       # the forward itself
             ran.append(True)
             return layer(x, *args, generator=generator, **kw)
-        now = generator.get_state()       # the recompute: replay the masks
-        generator.set_state(saved)
+        now = None                        # the recompute: replay the masks
+        if saved is not None:
+            now = generator.get_state()
+            generator.set_state(saved)
         try:
-            return layer(x, *args, generator=generator, **kw)
+            return torch.func.functional_call(
+                layer, weights, (x, *args), {"generator": generator, **kw})
         finally:
-            generator.set_state(now)
+            if now is not None:
+                generator.set_state(now)
 
     return checkpoint(body, x, use_reentrant=False, preserve_rng_state=False)
 

@@ -87,6 +87,25 @@ def grad_reduce(grads: Sequence[torch.Tensor], group=None,
             offset += n
 
 
+def shard_gather(out: torch.Tensor, shard: torch.Tensor, group=None) -> None:
+    """``out`` (``world x shard.numel()`` values) filled with every rank's
+    ``shard`` in rank order: one all-gather into a flat buffer, counted in
+    :data:`STATS`.  No host sync and nothing allocated, so a CUDA graph can
+    hold it on NCCL (zero's weight gather, ``parallel.sharding.
+    ZeroObjective``)."""
+    _counted(lambda: dist.all_gather_into_tensor(out, shard, group=group),
+             out)
+
+
+def shard_reduce(out: torch.Tensor, flat: torch.Tensor, group=None) -> None:
+    """``out`` = this rank's block of ``flat`` summed over the ranks (one
+    reduce-scatter; ``flat`` holds ``world`` blocks of ``out.numel()``
+    values in rank order), counted in :data:`STATS`.  Capturable on NCCL
+    as :func:`shard_gather` is (zero's gradient reduce)."""
+    _counted(lambda: dist.reduce_scatter_tensor(
+        out, flat, op=dist.ReduceOp.SUM, group=group), flat)
+
+
 def output_reduce(*arrays: torch.Tensor, group=None) -> List[torch.Tensor]:
     """All-gather each per-rank array along its first axis into the global
     one, rank 0's rows first (``dist.all_gather``, tiled).  Every rank
@@ -107,10 +126,17 @@ def barrier(group=None) -> None:
         dist.barrier(group=group)
 
 
-#: the Megatron pair's all-reduces in this process: calls, bytes and host seconds (the call to its
-#: return), for the step's collective record.  A replayed CUDA graph runs
-#: no host code: :func:`add_stats` credits each replay with the calls and
-#: bytes its capture recorded
+#: the step's counted collectives in this process — the Megatron pair's
+#: all-reduces and zero's all-gathers and reduce-scatters: calls, bytes
+#: (each call's input) and host seconds (the call to its return), for the
+#: step's collective record.  A replayed CUDA
+#: graph runs no host code: :func:`add_stats` credits each replay with the
+#: calls and bytes its capture recorded.  On gloo a call returns when its
+#: collective is done, so ``seconds`` is the collectives' wall time; on
+#: NCCL a call only enqueues the collective on the card and returns, so
+#: ``seconds`` is the host's enqueue time, not the collective's: read the
+#: collectives' device time from ``torch.profiler``'s NCCL kernels
+#: (``chip_smoke.py`` phase 17b does)
 STATS = {"calls": 0, "bytes": 0, "seconds": 0.0}
 
 
@@ -133,14 +159,21 @@ def add_stats(counts: dict, times: int = 1) -> None:
         (STATS if name == "stats" else P2P_STATS)[k] += times * n
 
 
-def _all_reduce(t: torch.Tensor, group) -> None:
+def _counted(call, t: torch.Tensor) -> None:
+    """Run the collective ``call`` and count it in :data:`STATS`: one call,
+    ``t``'s bytes, the host seconds to its return (on NCCL the enqueue
+    time: :data:`STATS`)."""
     import time
 
     t0 = time.perf_counter()
-    dist.all_reduce(t, group=group)
+    call()
     STATS["calls"] += 1
     STATS["bytes"] += t.numel() * t.element_size()
     STATS["seconds"] += time.perf_counter() - t0
+
+
+def _all_reduce(t: torch.Tensor, group) -> None:
+    _counted(lambda: dist.all_reduce(t, group=group), t)
 
 
 class _CopyToGroup(torch.autograd.Function):
@@ -220,8 +253,9 @@ def psum(x: torch.Tensor, group) -> torch.Tensor:
 GLOO_CUDA_P2P = "host"
 
 #: the point-to-point exchanges in this process: calls, bytes sent and host
-#: seconds (the call to its return), for the ring's and the pipeline's
-#: exchange records
+#: seconds (the call to its return, the wait for the peer included), for
+#: the ring's and the pipeline's exchange records; on NCCL the wait ends
+#: when the transfer is enqueued on the card, as :data:`STATS`' seconds
 P2P_STATS = {"calls": 0, "bytes": 0, "seconds": 0.0}
 
 
@@ -250,12 +284,16 @@ def exchange(send: Optional[torch.Tensor], dst: Optional[int],
     flight at once (either side may be None).  Returns the received tensor
     on ``like``'s device.  Under the ``"host"`` transport each side goes
     through a pinned host buffer (a copy off the card, gloo's send of the
-    CPU tensor, a copy back on).  ``P2P_STATS`` counts the call, the bytes
-    sent and the host seconds, waiting for the peer included."""
+    CPU tensor, a copy back on).  On NCCL the two sides go as one grouped
+    call (``dist.batch_isend_irecv``, NCCL's group of a send and a
+    receive): posted one by one, a cyclic shift over three or more ranks
+    would have every rank wait on its successor to join the pair's first
+    transfer.  ``P2P_STATS`` counts the call, the bytes sent and the host
+    seconds, waiting for the peer included."""
     import time
 
     t0 = time.perf_counter()
-    works, staged, buf = [], None, None
+    ops, staged, buf = [], None, None
     ref = send if send is not None else like
     host = p2p_transport(ref, group) == "host"
     if send is not None:
@@ -263,13 +301,18 @@ def exchange(send: Optional[torch.Tensor], dst: Optional[int],
         if host:
             staged = torch.empty(staged.shape, dtype=staged.dtype,
                                  pin_memory=True).copy_(staged)
-        works.append(dist.isend(staged, _global(group, dst), group=group))
+        ops.append((dist.isend, staged, _global(group, dst)))
         P2P_STATS["bytes"] += staged.numel() * staged.element_size()
     if like is not None:
         buf = torch.empty(like.shape, dtype=like.dtype,
                           device="cpu" if host else like.device,
                           pin_memory=host)
-        works.append(dist.irecv(buf, _global(group, src), group=group))
+        ops.append((dist.irecv, buf, _global(group, src)))
+    if ops and ref.device.type == "cuda" and dist.get_backend(group) == "nccl":
+        works = dist.batch_isend_irecv([dist.P2POp(op, t, peer, group=group)
+                                        for op, t, peer in ops])
+    else:
+        works = [op(t, peer, group=group) for op, t, peer in ops]
     for w in works:
         w.wait()
     if buf is not None and host:

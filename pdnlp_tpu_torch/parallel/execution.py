@@ -7,11 +7,12 @@
   dropout seeded from ``(seed, data coordinate)``, the
   :class:`~pdnlp_tpu_torch.train.steps.TrainObjective` wrapped by the mode
   (``parallel.sharding.wrap``), and the optimizer built on the placed
-  parameters (FSDP2's shards, or the tp/ep slices).  On the CPU a rank of
+  parameters (zero's shards, or the tp/ep slices).  On the CPU a rank of
   a tp/ep group of two or more runs one intra-op thread.
 - :func:`make_parallel_train_step` / :func:`make_parallel_eval_step`: the
   single-device step and eval through the wrapper, which inserts the
-  gradient all-reduce (DDP) or all-gather / reduce-scatter (FSDP2); under
+  gradient all-reduce (DDP) or all-gather / reduce-scatter (zero's
+  ``parallel.sharding.ZeroObjective``); under
   ``tp`` and ``ep`` the step all-reduces the gradients over the data axis
   after the backward; the step's loss and accuracy are summed over the
   data axis.
@@ -92,7 +93,7 @@ def check_sp(args, cfg) -> None:
 #: the modes whose step ``--fuse_steps`` K > 1 captures as one CUDA graph
 #: (K steps, their collectives inside); pp, sp and the explicit-
 #: collectives step run K = 1, as JAX's ``eff_k`` does
-CAPTURED_MODES = ("dp", "tp", "ep")
+CAPTURED_MODES = ("dp", "zero", "tp", "ep")
 
 OFFLOAD_REFUSAL = (
     "--offload_opt_state works with the jit dp/zero strategies, not "
@@ -103,17 +104,11 @@ OFFLOAD_REFUSAL = (
 def check_strategy(args, mode: str, explicit_collectives: bool = False
                    ) -> None:
     """What the multi-rank paths refuse: JAX's offload rule
-    (``train/run.py:54-59``, its wording), and ``--fuse_steps`` above 1
-    under zero, which the port does not capture yet (ROADMAP A7)."""
+    (``train/run.py:54-59``, its wording)."""
     fuse = getattr(args, "fuse_steps", 1)
     if getattr(args, "offload_opt_state", False) and (
             explicit_collectives or fuse > 1 or mode == "tp"):
         raise ValueError(OFFLOAD_REFUSAL)
-    if mode == "zero" and fuse > 1:
-        raise ValueError(
-            "--fuse_steps above 1 under zero is not in the PyTorch port yet "
-            "(ROADMAP A7): FSDP2's own streams and events are not known to "
-            "capture in a CUDA graph; use --fuse_steps 1, or dp")
 
 
 def fused_reduce(args, mesh, mode: str,
@@ -137,12 +132,13 @@ def check_capture_backend(args, mode: str, device, group=None,
                           explicit_reduce: bool = False) -> None:
     """A captured step on the card holds its collectives, which only NCCL
     can put in a CUDA graph: refuse ``--fuse_steps`` K > 1 on ``cuda``
-    over another backend where the step has a collective."""
+    over another backend where the step has a collective (zero's always
+    has)."""
     if device.type != "cuda" or getattr(args, "fuse_steps", 1) <= 1 or \
             mode not in CAPTURED_MODES or not dist.is_initialized():
         return
-    if (collectives.world_size() > 1 or explicit_reduce) and \
-            dist.get_backend(group) != "nccl":
+    if (collectives.world_size() > 1 or explicit_reduce
+            or mode == "zero") and dist.get_backend(group) != "nccl":
         raise ValueError(
             f"--fuse_steps {args.fuse_steps} on cuda captures each group of "
             "steps, its collectives included, in one CUDA graph, which needs "
@@ -159,14 +155,15 @@ def setup_sharded_model(args, vocab_size: int, mesh, mode: str = "dp",
     shard_map step reduces the gradients itself) after broadcasting rank
     0's weights, and so does ``explicit_reduce`` under dp (default
     :func:`fused_reduce`; ``True`` forces it, a process group of one
-    rank included, so a captured step holds a real all-reduce).
-    ``total_steps`` sizes the optional ``--lr_schedule``.  ``--init_from``
+    rank included, so a captured step holds a real all-reduce).  zero's
+    objective always runs its collectives, at world 1 too
+    (``parallel.sharding.ZeroObjective``).  ``total_steps`` sizes the optional ``--lr_schedule``.  ``--init_from``
     loads before the placement (``train.setup.warm_start``): under
     ``zero`` the loaded leaves go to their shards, and an EMA starts from
     the warm-started weights, placed as the params are (one shard per
     rank under zero).  AdamW is capturable only where ``--fuse_steps``
-    captures the step (:data:`CAPTURED_MODES`), and keeps its moments in
-    host memory under ``--offload_opt_state``."""
+    captures the step (:data:`CAPTURED_MODES`), runs on the shards under
+    zero (``train.optim.ZeroAdamW``), and keeps its moments in host memory under ``--offload_opt_state``."""
     check_mode(mode)
     check_strategy(args, mode, explicit_collectives)
     shape = mesh_shape(mesh)
@@ -206,11 +203,13 @@ def setup_sharded_model(args, vocab_size: int, mesh, mode: str = "dp",
     model = model.to(device)
     group = axis_group(mesh, DATA_AXIS)
     # one rank on the data axis: the single-device objective, with no
-    # collective (a captured step can hold it); pp and sp steps reduce
+    # collective (a captured step can hold it), but for zero's, which
+    # gathers and reduces its shards at any width; pp and sp steps reduce
     # their gradients themselves, and pp's MoE statistics are each
     # microbatch's own
     single = (axis_size(mesh, DATA_AXIS) == 1 or mode in ("pp", "sp")) \
-        and not explicit_collectives and not explicit_reduce
+        and not explicit_collectives and not explicit_reduce \
+        and mode != "zero"
     objective = TrainObjective(model, args, device,
                                group=None if single else group,
                                global_aux=not explicit_collectives)
@@ -276,15 +275,18 @@ def make_parallel_train_step(args, mesh, device, mode: str = "dp",
     ``explicit_reduce`` (default :func:`fused_reduce`: the fused dp step,
     in DDP's buckets; under ``--grads_dtype compute`` the matmul weights'
     bf16 gradients go in bf16, as through DDP the step does itself,
-    ``train.steps.build_train_step``).  Where the data axis has one rank
-    and nothing is forced it is the single-device step."""
+    ``train.steps.build_train_step``).  Under zero the step reduce-scatters
+    the gradients to the shards after the backward
+    (``ZeroObjective.reduce_grads``), at any width.  Where the data axis
+    has one rank and nothing is forced it is the single-device step."""
     group = axis_group(mesh, DATA_AXIS)
     explicit_reduce = fused_reduce(args, mesh, mode, explicit_reduce)
     sharded = mode == "zero"
-    if axis_size(mesh, DATA_AXIS) == 1 and not explicit_reduce:
+    if axis_size(mesh, DATA_AXIS) == 1 and not explicit_reduce \
+            and not sharded:
         # nothing to reduce: the single-device step (which fuse_steps can
         # capture)
-        return build_train_step(args, device, sharded=sharded)
+        return build_train_step(args, device)
     after = None
     if mode in MODE_AXIS or explicit_reduce:
         after = _grad_reduce(group, None, compute_grads(args))
@@ -294,7 +296,7 @@ def make_parallel_train_step(args, mesh, device, mode: str = "dp",
 
 
 def make_parallel_eval_step(args, state: TrainState):
-    """The eval step through the placed objective (FSDP2 unshards the
+    """The eval step through the placed objective (zero's gathers the
     weights in its forward); per-rank outputs, which the ``Trainer``
     sums and all-gathers (``collectives.output_reduce``)."""
     return build_eval_step(args, forward=state.objective)

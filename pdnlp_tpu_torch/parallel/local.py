@@ -54,9 +54,12 @@ def run_gang(fn: Callable, world: int, args, payload=None,
              timeout: float = 600.0) -> List:
     """``[fn(rank, world, args, payload) for each rank]``, computed by
     ``world`` processes that form one process group (``args.device`` and
-    ``args.dist_backend`` pick the card and the backend).  On the CPU the
-    ranks split the cores between them (a tp/ep placement then takes its
-    ranks down to one thread each: ``execution.setup_sharded_model``)."""
+    ``args.dist_backend`` pick the device and the backend).  On ``cuda``
+    rank ``r`` takes card ``r % device_count`` (``runtime.init_runtime``):
+    one rank per card over NCCL where there are ``world`` cards.  On the
+    CPU the ranks split the cores between them (a tp/ep placement then
+    takes its ranks down to one thread each: ``execution.
+    setup_sharded_model``)."""
     import multiprocessing as mp
 
     ctx = mp.get_context("spawn")

@@ -87,11 +87,14 @@ def init_runtime(args) -> Tuple[int, int]:
     (:func:`rendezvous`); returns ``(rank, world)``.
 
     Always forms a group, at world 1 too, so the strategies run the same
-    DDP / FSDP2 code as under ``torchrun --nproc_per_node 1``.  On
-    ``cuda`` each rank takes card ``local_rank`` (``set_device``); ranks
-    past the card count share cards round-robin, which gloo allows and
-    NCCL refuses at its first collective.  Idempotent: a second call
-    returns the group already joined."""
+    DDP / ZeRO-3 code as under ``torchrun --nproc_per_node 1``.  On
+    ``cuda`` each rank takes card ``local_rank`` (``set_device``): one
+    rank per card under ``train.spawn`` (``LOCAL_RANK`` = the worker's
+    rank), ``torchrun`` (its ``LOCAL_RANK``) and ``parallel.local.
+    run_gang`` (no ``LOCAL_RANK``: the rank itself).  Ranks past the card
+    count share cards round-robin, which gloo allows and NCCL refuses at
+    its first collective.  Idempotent: a second call returns the group
+    already joined."""
     if dist.is_initialized():
         return dist.get_rank(), dist.get_world_size()
     from pdnlp_tpu_torch.utils.config import resolve_device

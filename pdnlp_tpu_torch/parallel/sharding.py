@@ -11,13 +11,13 @@ to this rank's share:
   backward hooks, bucket by bucket, overlapping the backward (DDP).  Where
   the data axis has one rank there is nothing to reduce and no wrapper.
 - ``"zero"``: every parameter and, through them, every Adam moment sharded
-  along ``data`` (DeepSpeed ZeRO-3): FSDP2's ``fully_shard`` on each
-  ``EncoderLayer``, then on the root, which holds the embeddings, pooler
-  and classifier.  A layer's weights are all-gathered before its forward
-  and again before its backward, and its gradients reduce-scattered after.
-  FSDP2 shards every parameter along its first dimension, where JAX's
-  shape rule picks the largest divisible one: the bytes per rank are the
-  same ``~1/world``.
+  along ``data`` (DeepSpeed ZeRO-3), by :class:`ZeroObjective`: each
+  parameter a ``Shard(0)`` DTensor (its first dimension split, where
+  JAX's shape rule picks the largest divisible one: the bytes per rank
+  are the same ``~1/world``), all-gathered by the step's own collectives
+  before the forward and the gradients reduce-scattered after the
+  backward, in a fixed order and with no host-side state between calls,
+  so a CUDA graph holds the step on NCCL (``--fuse_steps`` above 1).
 - ``"tp"``: Megatron tensor parallelism over the ``model`` axis, JAX's
   ``_tp_spec``: q/k/v/up split their output features (heads and MLP
   features), o/down their input features; everything else replicates
@@ -245,18 +245,163 @@ def shard_model(model: torch.nn.Module,
     return model
 
 
-def compute_units(model: torch.nn.Module):
-    """The modules zero shards as FSDP2 units of their own under
-    ``--grads_dtype compute``: every ``nn.Linear`` of the encoder layers and
-    the pooler — the matmul weights whose gradients JAX produces and
-    reduces in bf16 (``cast_kernels``).  The forward calls each through
-    its module (``models.bert._dense``), which is where FSDP2 gathers it.
-    The classifier stays in the root unit, in fp32: the fused CE kernels
-    read its weight directly, outside any module call; so do the MoE
-    gate and expert stacks in their layers' units."""
-    units = [m for layer in model.layers for m in layer.modules()
-             if isinstance(m, torch.nn.Linear)]
-    return units + [model.pooler]
+def _place_shards(model: torch.nn.Module, mesh) -> None:
+    """Every parameter of ``model`` replaced, in place, by a ``Shard(0)``
+    DTensor over ``mesh`` (1-D, the data axis): this rank keeps its
+    ``torch.chunk`` block of the first dimension, sliced from the full
+    value every rank holds (no collective)."""
+    from torch.distributed.tensor import Shard, distribute_tensor
+
+    for mod in model.modules():
+        for name, p in list(mod.named_parameters(recurse=False)):
+            setattr(mod, name, torch.nn.Parameter(
+                distribute_tensor(p.detach(), mesh, [Shard(0)],
+                                  src_data_rank=None),
+                requires_grad=p.requires_grad))
+
+
+class _Bucket:
+    """One collective's worth of parameters: their names (as the objective
+    holds them), the DTensor parameters, the dtype they travel in, and
+    each one's slot in a rank's flat block — ``offsets`` and the padded
+    ``chunks`` (``ceil(dim0 / world)`` rows each)."""
+
+    def __init__(self, named, dtype, world):
+        self.names = [n for n, _ in named]
+        self.params = [p for _, p in named]
+        self.dtype = dtype
+        self.chunks, self.offsets, size = [], [], 0
+        for p in self.params:
+            rows = -(-p.shape[0] // world)
+            self.offsets.append(size)
+            self.chunks.append(rows * (p.numel() // max(p.shape[0], 1)))
+            size += self.chunks[-1]
+        #: a rank's block: the sum of the padded chunks
+        self.size = size
+
+
+class ZeroObjective(torch.nn.Module):
+    """zero's placement of a ``TrainObjective`` (ZeRO-3): the step it
+    runs at every ``--fuse_steps``, eager or captured.
+
+    Every parameter is a ``Shard(0)`` DTensor over the data axis, so
+    AdamW's moments (``train.optim.ZeroAdamW``) and the EMA are sharded
+    as the params, and checkpoints, resumes and :func:`shard_fraction`
+    read the DTensors.  Between steps a rank holds its shards alone.  The forward
+    all-gathers the weights (:meth:`gather`: one flat
+    ``collectives.shard_gather`` per bucket — the embeddings, pooler and
+    classifier, then each encoder layer — into a fresh buffer, each weight
+    copied out whole) and runs the
+    objective on them (``torch.func.functional_call``); the full weights
+    are leaves of the backward, and after it :meth:`reduce_grads` sends
+    their gradients through one ``collectives.shard_reduce`` per bucket
+    (in the same order) and gives each parameter its block of the sum over
+    the ranks divided by the world — the mean of the ranks' gradients, the
+    values of JAX's zero step.  No hook, no side stream, no event, no host sync: a
+    CUDA graph holds the whole step, collectives included.
+
+    Under ``--grads_dtype compute`` (``compute_dtype``) the matmul weights
+    (``train.steps.matmul_weights``, the classifier and the MoE stacks
+    included, as JAX casts every kernel) travel in their own buckets in
+    that dtype: gathered in bf16, their bf16 gradients summed in bf16,
+    then widened and divided for the fp32 AdamW, as dp's explicit reduce
+    does (``parallel.execution.reduce_model_grads``)."""
+
+    def __init__(self, objective: torch.nn.Module, mesh,
+                 compute_dtype: Optional[torch.dtype] = None):
+        super().__init__()
+        import torch.distributed as dist
+
+        from pdnlp_tpu_torch.train.steps import matmul_weights
+
+        self.objective = objective
+        self.group = axis_group(mesh, DATA_AXIS)
+        self.world = dist.get_world_size(self.group)
+        model = objective.model
+        _place_shards(model, mesh)
+        cast = {f"model.{n}" for n in matmul_weights(model)} \
+            if compute_dtype is not None else set()
+        units = [f"model.layers.{i}." for i in range(len(model.layers))]
+        # a bucket per encoder layer and one for the rest, split by the
+        # dtype its weights travel in
+        parts: Dict[tuple, list] = {}
+        for n, p in objective.named_parameters():
+            unit = next((u for u in units if n.startswith(u)), None)
+            dtype = compute_dtype if n in cast else p.dtype
+            parts.setdefault((unit, dtype), []).append((n, p))
+        self.buckets = [_Bucket(named, dtype, self.world)
+                        for (_, dtype), named in parts.items()]
+        self.casts_kernels = compute_dtype is not None
+        self._full: Optional[Dict[str, torch.Tensor]] = None
+
+    @torch.no_grad()
+    def gather(self) -> Dict[str, torch.Tensor]:
+        """Every weight whole (fresh tensors, in the bucket's dtype), keyed
+        by its name in the objective."""
+        from pdnlp_tpu_torch.parallel.collectives import shard_gather
+
+        full = {}
+        for b in self.buckets:
+            p0 = b.params[0]
+            send = torch.zeros(b.size, dtype=b.dtype,
+                               device=local_shard(p0).device)
+            for p, off in zip(b.params, b.offsets):
+                mine = local_shard(p).reshape(-1)
+                send[off: off + mine.numel()].copy_(mine)
+            recv = torch.empty(self.world * b.size, dtype=b.dtype,
+                               device=send.device)
+            shard_gather(recv, send, self.group)
+            rows = recv.view(self.world, b.size)
+            for n, p, off, c in zip(b.names, b.params, b.offsets, b.chunks):
+                full[n] = rows[:, off: off + c].reshape(-1)[:p.numel()] \
+                    .view(p.shape)
+        return full
+
+    def forward(self, batch, generator=None):
+        full = self.gather()
+        if generator is not None and torch.is_grad_enabled():
+            full = {n: w.requires_grad_() for n, w in full.items()}
+            self._full = full
+        args = (batch,) if generator is None else (batch, generator)
+        return torch.func.functional_call(self.objective, full, args,
+                                          strict=False)
+
+    @torch.no_grad()
+    def reduce_grads(self) -> None:
+        """The gradients of the last training forward's weights reduced to
+        the shards, bucket by bucket: each parameter's ``.grad`` becomes
+        its block of the mean over the ranks (a DTensor placed as the
+        parameter, in its dtype).  A weight the step did not reach counts
+        as a zero gradient.  The train step calls it after the backward
+        (``train.steps.build_train_step``)."""
+        from pdnlp_tpu_torch.parallel.collectives import shard_reduce
+
+        full, self._full = self._full, None
+        if full is None:
+            raise RuntimeError("reduce_grads needs a training forward first")
+        # the gathered weights go now, each bucket's gradients once sent
+        grads = {n: w.grad for n, w in full.items()}
+        del full
+        for b in self.buckets:
+            dev = local_shard(b.params[0]).device
+            flat = torch.empty(self.world * b.size, dtype=b.dtype,
+                               device=dev)
+            blocks = flat.view(self.world, b.size)
+            for n, p, off, c in zip(b.names, b.params, b.offsets, b.chunks):
+                g = grads.pop(n)
+                g = torch.zeros(p.numel(), dtype=b.dtype, device=dev) \
+                    if g is None else g.reshape(-1).to(b.dtype)
+                pad = self.world * c - g.numel()
+                if pad:
+                    g = torch.cat([g, g.new_zeros(pad)])
+                blocks[:, off: off + c].copy_(g.view(self.world, c))
+            out = torch.empty(b.size, dtype=b.dtype, device=dev)
+            shard_reduce(out, flat, self.group)
+            for p, off in zip(b.params, b.offsets):
+                mine = local_shard(p)
+                g = out[off: off + mine.numel()].view(mine.shape)
+                g = g.to(p.dtype) / self.world
+                p.grad = as_placed(g, p)
 
 
 def wrap(objective: torch.nn.Module, mode: str, mesh, device,
@@ -264,58 +409,43 @@ def wrap(objective: torch.nn.Module, mode: str, mesh, device,
          explicit_reduce: bool = False) -> torch.nn.Module:
     """``objective`` placed over ``mesh`` by ``mode``: DDP over the data
     axis for ``dp`` (its broadcast at construction leaves rank 0's weights
-    on every rank), FSDP2 for ``zero``, sharding in place (build the
-    optimizer after).  No wrapper for ``dp`` where the data axis has one
-    rank (nothing to reduce) or with ``explicit_reduce`` (a fused dp step,
-    which reduces its gradients itself so a CUDA graph can hold the
-    collectives; rank 0's weights are broadcast here instead), nor for
-    ``tp``, ``ep``, ``pp`` and ``sp``, whose steps reduce the gradients
-    themselves.  Under ``zero`` with ``compute_dtype`` (``--grads_dtype
-    compute`` at bf16) the :func:`compute_units` become FSDP2 units of
-    their own whose ``MixedPrecisionPolicy`` gathers the weights and
-    reduce-scatters their gradients in that dtype; the master weights,
-    the moments and every other unit stay fp32."""
+    on every rank), :class:`ZeroObjective` for ``zero``, sharding in place
+    (build the optimizer after).  No wrapper for ``dp`` where the data
+    axis has one rank (nothing to reduce) or with ``explicit_reduce`` (a
+    fused dp step, which reduces its gradients itself so a CUDA graph can
+    hold the collectives; rank 0's weights are broadcast here instead),
+    nor for ``tp``, ``ep``, ``pp`` and ``sp``, whose steps reduce the
+    gradients themselves.  Under ``zero`` with ``compute_dtype``
+    (``--grads_dtype compute`` at bf16) the matmul weights are gathered
+    and their gradients reduce-scattered in that dtype; the master
+    weights and the moments stay fp32."""
     check_mode(mode)
     if mode in PLACE_AXIS or (mode == "dp"
                              and axis_size(mesh, DATA_AXIS) == 1):
         return objective
-    if mode == "dp" and explicit_reduce:
+    if mode == "zero":
+        return ZeroObjective(objective, mesh, compute_dtype)
+    group = axis_group(mesh, DATA_AXIS)
+    if explicit_reduce:
         import torch.distributed as dist
 
-        group = axis_group(mesh, DATA_AXIS)
         with torch.no_grad():
             for p in objective.parameters():
                 dist.broadcast(p.data, src=dist.get_global_rank(group, 0),
                                group=group)
         return objective
-    if mode == "dp":
-        from torch.nn.parallel import DistributedDataParallel
+    from torch.nn.parallel import DistributedDataParallel
 
-        ids = [device.index if device.index is not None
-               else torch.cuda.current_device()] \
-            if device.type == "cuda" else None
-        return DistributedDataParallel(
-            objective, device_ids=ids,
-            process_group=axis_group(mesh, DATA_AXIS))
-    from torch.distributed.fsdp import MixedPrecisionPolicy, fully_shard
-
-    model = objective.model
-    if compute_dtype is not None:
-        policy = MixedPrecisionPolicy(param_dtype=compute_dtype,
-                                      reduce_dtype=compute_dtype)
-        for unit in compute_units(model):
-            fully_shard(unit, mesh=mesh, mp_policy=policy)
-            unit.compute_unit = True
-    for layer in model.layers:
-        fully_shard(layer, mesh=mesh)
-    objective = fully_shard(objective, mesh=mesh)
-    objective.casts_kernels = compute_dtype is not None
-    return objective
+    ids = [device.index if device.index is not None
+           else torch.cuda.current_device()] if device.type == "cuda" \
+        else None
+    return DistributedDataParallel(objective, device_ids=ids,
+                                   process_group=group)
 
 
 def local_shard(t: torch.Tensor) -> torch.Tensor:
-    """A DTensor's shard on this rank (zero's FSDP2 parameters, their
-    moments and EMA), else ``t``."""
+    """A DTensor's shard on this rank (zero's parameters, their moments
+    and EMA), else ``t``."""
     return t.to_local() if hasattr(t, "to_local") else t
 
 

@@ -10,10 +10,11 @@ builds the ``("data",)`` mesh.  ``prepare(state, *loaders)`` then takes the
 pieces the user built single-device style:
 
 - the train state is placed by ``mode``: its objective is rebuilt over the
-  mesh's group and wrapped in DDP (``"dp"``) or FSDP2 (``"zero"``, whose
-  sharded parameters get a new AdamW with the same groups and schedule,
-  whose EMA, if kept, is placed as the params are, and whose matmul
-  weights under ``--grads_dtype compute`` become bf16 units of their own,
+  mesh's group and wrapped in DDP (``"dp"``) or placed by
+  ``parallel.sharding.ZeroObjective`` (``"zero"``, whose sharded
+  parameters get a new AdamW with the same groups and schedule, whose
+  EMA, if kept, is placed as the params are, and whose matmul weights
+  under ``--grads_dtype compute`` are gathered in bf16,
   ``parallel.sharding.wrap``);
 - each loader is re-batched by ``batch_mult`` (1: a rank feeds one card),
   a ``LengthGroupedSampler`` rebuilt at the scaled batch (on this rank's
@@ -186,14 +187,14 @@ class Accelerator:
             else None)
         if self.mode == "zero":
             if state.ema is not None:
-                # the EMA's values placed as FSDP2 placed the params: one
+                # the EMA's values placed as zero placed the params: one
                 # shard per rank
                 from pdnlp_tpu_torch.train.trainer import _placed_like
 
                 live = state.model.state_dict()
                 state.ema = {k: _placed_like(v.detach().cpu(), live[k])
                              for k, v in state.ema.items()}
-            # FSDP2 replaced the parameters with their shards: AdamW over
+            # zero replaced the parameters with their shards: AdamW over
             # the new ones, with the same schedule
             from pdnlp_tpu_torch.train.optim import build_optimizer
 

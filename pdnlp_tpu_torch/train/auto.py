@@ -12,8 +12,8 @@ data-parallel runner's trainer (``build_parallel_trainer``): on one rank
 in mode ``dp`` that is the single-device step, with no wrapper and no
 collective; over several ranks under ``fuse_steps`` above 1 the dp step
 reduces its gradients itself, so the captured graph holds the NCCL
-all-reduce; in mode ``zero`` (FSDP2) ``fuse_steps`` stays 1 (ROADMAP
-A7).
+all-reduce; in mode ``zero`` (``parallel.sharding.ZeroObjective``) the
+shards' all-gathers and reduce-scatters are in the graph too.
 
 The loop is ``Trainer.train``'s own: this class supplies the managed
 cadences as ``LoopHooks``, so ``fuse_steps`` (K steps per captured CUDA
@@ -66,8 +66,9 @@ TRAIN_STATE = "train_state.pt"
 class TrainerArgs:
     """The ``TrainingArguments`` twin: JAX's fields, names and defaults
     (the corpus path is the port's default), plus the port's ``device``,
-    ``vocab_path`` and ``attn_dropout`` (above 0 training attention takes
-    the plain path; at 0 the kernels run)."""
+    ``vocab_path``, ``dropout`` (the model's hidden and pooled dropout) and
+    ``attn_dropout`` (above 0 training attention takes the plain path; at
+    0 the kernels run)."""
 
     output_dir: str = "output/auto"
     num_train_epochs: int = 1
@@ -97,6 +98,7 @@ class TrainerArgs:
     max_seq_len: int = 128
     device: str = "cuda"
     vocab_path: str = "output/vocab.txt"
+    dropout: float = 0.1
     attn_dropout: float = 0.1
 
     def to_args(self) -> Args:
@@ -122,6 +124,7 @@ class TrainerArgs:
             mode=self.mode,
             device=self.device,
             vocab_path=self.vocab_path,
+            dropout=self.dropout,
             attn_dropout=self.attn_dropout,
             # the shared loop evaluates in the loop only under dev, and the
             # managed runtime is reported after the kernels are built and
@@ -148,7 +151,7 @@ def _cast_like(params: Dict[str, torch.Tensor], dtype_name: str
 
 def _load_weights(model: torch.nn.Module,
                   full: Dict[str, torch.Tensor]) -> None:
-    """Full host weights into ``model`` in place (FSDP2 shards: each rank
+    """Full host weights into ``model`` in place (zero's shards: each rank
     keeps its shard of them)."""
     if ckpt.is_sharded(model):
         from torch.distributed.checkpoint.state_dict import (
@@ -196,13 +199,9 @@ class AutoTrainer:
         self.args = targs.to_args()
         self.compute_metrics = compute_metrics or default_compute_metrics
         init_runtime(self.args)
-        if targs.fuse_steps > 1 and targs.mode != "dp":
-            raise ValueError(
-                f"fuse_steps={targs.fuse_steps} runs in mode dp: a captured "
-                "step cannot hold FSDP2's collectives yet (ROADMAP A7); use "
-                "fuse_steps=1")
-        # mode dp under fuse_steps > 1: the step reduces its gradients over
-        # the ranks itself, NCCL inside the captured graph on the card
+        # fuse_steps > 1: the dp step reduces its gradients over the ranks
+        # itself and the zero step gathers and reduces its shards itself,
+        # NCCL inside the captured graph on the card
         built = build_parallel_trainer(self.args, mode=targs.mode)
         self._trainer, self.train_loader, self.dev_loader = built
         self.state_history: List[Tuple[int, str]] = []  # (step, dir)
@@ -224,8 +223,8 @@ class AutoTrainer:
     def train(self) -> Dict[str, float]:
         """The managed run through ``Trainer.train`` with the managed
         cadences as ``LoopHooks``; returns ``train_runtime`` (seconds),
-        ``train_samples_per_second`` (the steps this run trained) and
-        ``global_step``."""
+        ``train_samples_per_second`` (the rows of every data rank in the
+        steps this run trained) and ``global_step``."""
         from pdnlp_tpu_torch.train.trainer import LoopHooks
 
         t = self._trainer
@@ -267,8 +266,11 @@ class AutoTrainer:
                     path, t.state.model.state_dict()))
             rank0_print(f"loaded best model ({targs.metric_for_best_model}="
                         f"{self.best_metric:.4f}) from {self.best_ckpt}")
-        # only the steps this run trained count toward throughput
-        n_examples = max(0, gstep - start_step) * self.args.train_batch_size
+        # only the steps this run trained count toward throughput, each
+        # of them a batch on every rank of the data axis
+        n_examples = max(0, gstep - start_step) * \
+            self.args.train_batch_size * \
+            torch.distributed.get_world_size(t.state.group)
         return {"train_runtime": runtime,
                 "train_samples_per_second":
                     n_examples / runtime if runtime > 0 else 0.0,

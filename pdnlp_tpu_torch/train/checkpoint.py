@@ -416,12 +416,12 @@ def latest(output_dir: str, pattern: str = ".pt") -> Optional[str]:
 
 
 def is_sharded(model: torch.nn.Module) -> bool:
-    """Does ``model`` hold FSDP2 shards (DTensor parameters)?"""
+    """Does ``model`` hold zero's shards (DTensor parameters)?"""
     return any(hasattr(p, "to_local") for p in model.parameters())
 
 
 def consolidate(model: torch.nn.Module) -> Dict[str, torch.Tensor]:
-    """``model``'s full state dict.  Sharded (FSDP2) weights are gathered
+    """``model``'s full state dict.  Sharded (zero) weights are gathered
     with ``get_model_state_dict(full_state_dict=True, cpu_offload=True)`` —
     a collective every rank calls, which leaves the whole dict on rank 0
     and an empty one elsewhere; tp/ep slices are all-gathered over their

@@ -17,7 +17,9 @@ rank:
 - ``dp``: DDP, every rank ``train_batch_size`` rows (144 steps at 2 ranks);
 - ``dataparallel``: one ``train_batch_size``-row global batch split over
   the ranks (288 steps at any width);
-- ``zero``: FSDP2 with ``--remat true``;
+- ``zero``: ZeRO-3 (``parallel.sharding.ZeroObjective``) with ``--remat
+  true``, or ``false`` under ``--fuse_steps`` above 1, whose captured
+  step cannot replay the recompute's generator state;
 - ``shardmap``: the hand-written bf16 gradient all-reduce;
 - ``amp``: DDP with ``--dtype bfloat16`` (bf16 needs no loss scaler);
 - ``tp``: heads and MLP features split over a ``model`` axis, default
@@ -36,11 +38,11 @@ rank:
 Explicit flags override those defaults (``--remat false``, ``--dtype``,
 ``--mode zero``); ``--init_from`` / ``--init_head`` warm-start the model
 before it is placed (under zero the loaded weights are what is sharded).
-``--fuse_steps`` K runs K steps per dispatch under dp, tp and ep, on the
-card as one captured CUDA graph with the step's NCCL collectives inside
-(dp then reduces its gradients through the explicit bucketed all-reduce,
-not DDP); pp, sp and shardmap take K and run one step at a time, as JAX
-does; zero refuses K > 1 (ROADMAP A7).  ``--offload_opt_state`` keeps
+``--fuse_steps`` K runs K steps per dispatch under dp, zero, tp and ep,
+on the card as one captured CUDA graph with the step's NCCL collectives
+inside (dp then reduces its gradients through the explicit bucketed
+all-reduce, not DDP); pp, sp and shardmap take K and run one step at a
+time, as JAX does.  ``--offload_opt_state`` keeps
 AdamW's moments in host memory under dp and zero (``train.optim.
 OffloadAdamW``), refused, in JAX's words, with shardmap, fused steps and
 tp.  ``--ema_decay`` and ``--grads_dtype compute`` run under zero too.
@@ -75,8 +77,7 @@ STRATEGIES = {
 
 #: flags this entry point refuses by name: the single-device table, which
 #: is empty — every JAX flag is ported.  What stays refused is refused by
-#: the rules of :func:`parse` (JAX's offload rule, ``--fuse_steps`` above 1
-#: under zero: ROADMAP A7)
+#: the rules of :func:`parse` (JAX's offload rule)
 MULTI_NOT_PORTED = dict(NOT_PORTED)
 
 
@@ -116,6 +117,11 @@ def parse(argv, prog: str = "train.multi"):
     defaults, knobs = STRATEGIES[strategy]
     argv = refuse_not_ported(argv, MULTI_NOT_PORTED, prog=prog)
     args = parse_cli(argv, base=Args(strategy=strategy, **defaults))
+    if defaults.get("remat") and args.fuse_steps > 1 and not any(
+            a == "--remat" or a.startswith("--remat=") for a in argv):
+        # a strategy's remat default gives way to --fuse_steps: the
+        # captured step refuses the recompute (train.trainer.Trainer)
+        args = args.replace(remat=False)
     try:
         check_mode(args.mode)
         check_strategy(args, args.mode,

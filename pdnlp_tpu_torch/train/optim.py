@@ -21,6 +21,11 @@ keeps the host-float rate: capturable AdamW's bias correction on the card
 cost the eager step time (PERF.md, PR 8).  The moments are allocated up
 front on every device (:func:`init_state`).
 
+Under zero (``parallel.sharding.ZeroObjective``) the parameters are
+``Shard(0)`` DTensors and AdamW is :class:`ZeroAdamW`: the same update on
+each rank's shards as plain tensors, capturable as above, its moments
+built up front as DTensors placed as the parameters.
+
 ``--offload_opt_state`` (JAX's ``pinned_host`` moments, the DeepSpeed
 ``offload_optimizer`` analog) builds :class:`OffloadAdamW`: the float
 moments live in host memory (pinned when a card exists), the params and
@@ -138,12 +143,13 @@ def build_optimizer(model: torch.nn.Module, args, total_steps=None,
     ``capturable`` says otherwise (a path that runs its steps one at a
     time); the state is allocated up front on every device
     (:func:`init_state`), and under ``--offload_opt_state`` its moments
-    moved to host memory (:class:`OffloadAdamW`)."""
+    moved to host memory (:class:`OffloadAdamW`).  Over zero's sharded
+    parameters (DTensors) it is :class:`ZeroAdamW`."""
     params = list(model.parameters())
+    sharded = any(hasattr(p, "to_local") for p in params)
     if capturable is None:
         capturable = getattr(args, "fuse_steps", 1) > 1
-    capturable = (capturable and params[0].device.type == "cuda"
-                  and not any(hasattr(p, "to_local") for p in params))
+    capturable = capturable and params[0].device.type == "cuda"
     lr = args.learning_rate
     if capturable:
         lr = torch.tensor(float(lr), dtype=torch.float32,
@@ -153,7 +159,8 @@ def build_optimizer(model: torch.nn.Module, args, total_steps=None,
         for g in groups[1:]:
             g["lr"] = lr.clone()
     offload = getattr(args, "offload_opt_state", False)
-    cls = OffloadAdamW if offload else torch.optim.AdamW
+    cls = OffloadAdamW if offload else \
+        ZeroAdamW if sharded else torch.optim.AdamW
     opt = cls(groups, lr=lr, betas=(args.adam_b1, args.adam_b2),
               eps=args.adam_eps, capturable=capturable)
     init_state(opt)
@@ -173,6 +180,32 @@ def build_optimizer(model: torch.nn.Module, args, total_steps=None,
             g["lr"].fill_(r)
         sched._last_lr = group_lrs(sched, 0)[0]
     return opt, sched
+
+
+class ZeroAdamW(torch.optim.AdamW):
+    """``torch.optim.AdamW`` over zero's ``Shard(0)`` DTensor parameters
+    whose update runs on each rank's shards as plain tensors: the stock
+    ``step`` (the same foreach or per-tensor arithmetic, capturable or
+    not), fed this rank's blocks of the parameters, their gradients and
+    the moments.  AdamW is elementwise, so the shards' update is the whole
+    tensors' update, placed (JAX's zero step's values).  The state is
+    keyed and saved by the DTensor parameters (DTensor moments), and the
+    update dispatches no DTensor op: nothing on the host between the
+    kernels a captured graph records.  Its state is built up front
+    (:func:`init_state`)."""
+
+    def _init_group(self, group, params, grads, exp_avgs, exp_avg_sqs,
+                    max_exp_avg_sqs, state_steps):
+        for p in group["params"]:
+            if p.grad is None:
+                continue
+            st = self.state[p]
+            params.append(local_shard(p))
+            grads.append(local_shard(p.grad))
+            exp_avgs.append(local_shard(st["exp_avg"]))
+            exp_avg_sqs.append(local_shard(st["exp_avg_sq"]))
+            state_steps.append(st["step"])
+        return False
 
 
 #: AdamW's float moments: what ``--offload_opt_state`` keeps in host memory

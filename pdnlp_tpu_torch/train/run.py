@@ -4,7 +4,7 @@ twin of ``pdnlp_tpu/train/run.py``.
 The experiment is assembled once and the strategy is three knobs:
 
 - ``mode``: ``"dp"`` (replicated state: DDP), ``"zero"`` (every weight
-  and moment sharded: FSDP2, DeepSpeed ZeRO-3's analog), ``"tp"`` (heads
+  and moment sharded: DeepSpeed ZeRO-3's analog), ``"tp"`` (heads
   and MLP features split over the ``model`` axis) or ``"ep"`` (an MoE
   model's experts split over the ``expert`` axis); every rank of one
   model or expert group feeds the same rows;
@@ -54,11 +54,12 @@ def build_parallel_trainer(args, *, mode: str = "dp",
     supervised pretraining stage); the dev split and the rest are shared.
     Refuses, as JAX does, ``--offload_opt_state`` with the explicit-
     collectives step, fused steps or tp, and the length modes on the
-    explicit-collectives step; ``--fuse_steps`` above 1 under zero (ROADMAP
-    A7), and on the card over a backend that cannot be captured
-    (``parallel.execution.check_capture_backend``).  The dp, tp and ep
-    steps run ``--fuse_steps`` K as captured K-step graphs on the card; the
-    explicit-collectives step runs K = 1, as JAX's does."""
+    explicit-collectives step; and ``--fuse_steps`` above 1 on the card
+    over a backend that cannot be captured (``parallel.execution.
+    check_capture_backend``).  The dp, zero, tp and ep steps run
+    ``--fuse_steps`` K as captured K-step graphs on the card (zero through
+    its explicit ZeRO-3 step); the explicit-collectives step runs K = 1,
+    as JAX's does."""
     check_strategy(args, mode, explicit_collectives)
     if explicit_collectives and resolve_length_mode(args) != "full":
         raise ValueError(

@@ -175,7 +175,7 @@ def warm_start(model: BertClassifier, args) -> BertClassifier:
     (``train.pretrain.load_encoder``; with ``args.init_head`` the pooler
     and classifier too); unchanged without ``init_from``.  Callers load
     before any placement wrapper, so under ``zero`` the loaded values are
-    what FSDP2 shards, and before the EMA is taken, so it starts from
+    what zero shards, and before the EMA is taken, so it starts from
     them."""
     if not getattr(args, "init_from", None):
         return model

@@ -15,8 +15,11 @@ with ``COORDINATOR_ADDRESS``, ``NUM_PROCESSES``, ``PROCESS_ID`` and
 ``LOCAL_RANK`` set.  The port is ``PDNLP_SPAWN_PORT`` or else a free one.
 When a worker fails, the parent stops the whole gang and exits with its
 code: a rank whose peer died would otherwise wait in a collective.
-On one card, two workers share it over ``--dist_backend gloo`` (NCCL
-refuses a second rank on a card).
+Worker ``r`` gets ``LOCAL_RANK=r`` and so takes card ``r``
+(``parallel.runtime.init_runtime``): one rank per card, over NCCL (four
+H100s in ``chip_smoke.py --phase 17``).  On one card, two workers can
+share it only over ``--dist_backend gloo`` (NCCL refuses a second rank of
+one group on a card).
 
 ``--elastic true`` makes the parent a gang supervisor
 (``parallel.watchdog.GangSupervisor``, JAX's ``multi-tpu-spawn-cls.py

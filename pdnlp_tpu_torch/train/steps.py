@@ -39,7 +39,7 @@ import torch
 
 from pdnlp_tpu_torch.models.bert import BertClassifier
 from pdnlp_tpu_torch.ops.fused_ce import fused_weighted_ce, resolve_fused_ce
-from pdnlp_tpu_torch.parallel.sharding import local_shard
+from pdnlp_tpu_torch.parallel.sharding import ZeroObjective, local_shard
 from pdnlp_tpu_torch.train.precision import resolve_dtype
 
 Batch = Dict[str, torch.Tensor]
@@ -59,7 +59,7 @@ class TrainState:
     ema: Optional[Dict[str, torch.Tensor]] = None
     step: int = 0
     #: the module the step calls: a :class:`TrainObjective` over ``model``,
-    #: wrapped in DDP or FSDP2 under data parallelism
+    #: wrapped in DDP or placed by ``ZeroObjective`` under data parallelism
     objective: Optional[torch.nn.Module] = None
     #: the data axis's process group (None: the default group), over which
     #: eval sums and gathers — under tp/ep the ranks of a model group hold
@@ -75,17 +75,12 @@ class TrainState:
 
     @contextlib.contextmanager
     def ema_swapped(self):
-        """The EMA in the sharded (FSDP2) params' place for the block: each
-        rank copies its EMA shard into its param shard, so the units gather
-        the EMA as they gather the params, and puts the params back after.
-        Every unit is resharded before and after, so no gathered copy of
-        the other weights outlives the swap."""
+        """The EMA in the sharded (zero) params' place for the block: each
+        rank copies its EMA shard into its param shard, so the objective's
+        forward gathers the EMA as it gathers the params, and puts the
+        params back after."""
         live = self.model.state_dict()
-        units = [m for m in self.objective.modules()
-                 if hasattr(m, "reshard") and hasattr(m, "unshard")]
         with torch.no_grad():
-            for m in units:
-                m.reshard()
             saved = {k: local_shard(v).clone() for k, v in live.items()}
             for k, v in live.items():
                 local_shard(v).copy_(local_shard(self.ema[k]))
@@ -93,8 +88,6 @@ class TrainState:
             yield
         finally:
             with torch.no_grad():
-                for m in units:
-                    m.reshard()
                 for k, v in live.items():
                     local_shard(v).copy_(saved[k])
 
@@ -153,9 +146,9 @@ class TrainObjective(torch.nn.Module):
     objective, weight)`` — the weighted mean bare CE, the weighted correct
     count, what ``backward`` starts from and the batch's weight mass.
 
-    DDP and FSDP2 act only through the forward of the module they wrap, so
-    the whole loss runs in here, the fused CE kernels included: FSDP2's
-    root unit unshards the pooler and the classifier for them.
+    DDP and zero's ``ZeroObjective`` act only through the forward of the
+    module they wrap, so the whole loss runs in here, the fused CE kernels
+    included.
 
     With a process ``group`` the batch is this rank's shard of a global
     batch.  The objective is then scaled by ``world * lw / gw`` (``lw`` the
@@ -278,9 +271,13 @@ def build_train_step(args, device, after_backward=None, reduce_metrics=None,
     0-d device tensor per parameter group) into the groups' rate tensors,
     which is what the schedule step would have filled.
 
-    ``sharded``: the objective is FSDP2's (zero), whose units of the matmul
-    weights cast them for ``--grads_dtype compute`` themselves, so the
-    recompute of ``--remat`` sees the bf16 weights too."""
+    Under zero (``parallel.sharding.ZeroObjective``) the step reduces the
+    gradients to the shards after the backward itself, before
+    ``after_backward``.
+
+    ``sharded``: the objective is zero's, which gathers the matmul weights
+    in bf16 for ``--grads_dtype compute`` itself, so the recompute of
+    ``--remat`` sees the bf16 weights too."""
     d, one_minus_d = ema_coefficients(args.ema_decay)
     compute = compute_grads(args)
     if compute and getattr(args, "remat", False) and not sharded:
@@ -289,9 +286,9 @@ def build_train_step(args, device, after_backward=None, reduce_metrics=None,
     dtype = resolve_dtype(args.dtype)
 
     def loss_and_backward(state: TrainState, batch: Batch):
-        # under zero the FSDP2 units of the matmul weights gather them in
-        # bf16 and reduce their gradients in bf16 themselves
-        # (parallel.sharding.wrap)
+        # under zero the objective gathers the matmul weights in bf16 and
+        # reduces their gradients in bf16 itself (parallel.sharding.
+        # ZeroObjective)
         if not compute or getattr(state.objective, "casts_kernels", False):
             loss, correct, objective, weight = state.objective(
                 batch, state.generator)
@@ -329,6 +326,8 @@ def build_train_step(args, device, after_backward=None, reduce_metrics=None,
     def train_step(state: TrainState, batch: Batch,
                    next_lr: Optional[List[torch.Tensor]] = None) -> Metrics:
         loss, correct, weight = loss_and_backward(state, batch)
+        if isinstance(state.objective, ZeroObjective):
+            state.objective.reduce_grads()
         if after_backward is not None:
             after_backward(state)
         state.optimizer.step()
@@ -611,8 +610,8 @@ def build_eval_step(args, forward=None) -> Callable[..., Metrics]:
     ``model.classify`` when ``params`` is None."""
     dtype = resolve_dtype(args.dtype)
     attn_impl = args.attention_impl
-    # FSDP2 unshards through autograd-visible tensors: no_grad, not
-    # inference_mode, when a wrapper runs the forward
+    # a wrapper's forward (zero's gather into fresh tensors) runs under
+    # no_grad, not inference_mode
     no_grad = torch.inference_mode if forward is None else torch.no_grad
 
     def eval_step(model: BertClassifier, params, batch: Batch) -> Metrics:

@@ -90,7 +90,7 @@ class Args:
                                                   # | tp | ep | pp | sp
                                                   # (train.multi's table)
     mode: str = "dp"                              # dp (replicated, DDP) |
-                                                  # zero (FSDP2, ZeRO-3) |
+                                                  # zero (ZeRO-3) |
                                                   # tp (heads and MLP
                                                   # features over "model") |
                                                   # ep (experts over

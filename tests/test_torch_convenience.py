@@ -287,8 +287,10 @@ def _losses_of(trainer):
 def test_autotrainer_fused_steps(corpus_path, tmp_path):
     """``fuse_steps`` 2: the cadences hold, the global step, the losses
     and the eval equal the unfused run's; a ``fuse_steps`` that does not
-    divide a cadence is refused, and so is one above 1 under zero (a
-    captured step cannot hold FSDP2's collectives)."""
+    divide a cadence is refused.  Under zero ``fuse_steps`` 2 is taken
+    (refused before, ROADMAP A7): zero's step (``ZeroObjective``, the one
+    placement at every K), whose losses and eval equal the unfused zero
+    run's and dp's."""
     common = dict(eval_steps=2, save_steps=2, save_total_limit=2,
                   logging_steps=2, attn_dropout=0.0)
     fused = AutoTrainer(managed(corpus_path, tmp_path, "fused",
@@ -307,9 +309,21 @@ def test_autotrainer_fused_steps(corpus_path, tmp_path):
     with pytest.raises(ValueError, match="must divide"):
         AutoTrainer(managed(corpus_path, tmp_path, "bad", fuse_steps=3,
                             **common))
-    with pytest.raises(ValueError, match="ROADMAP A7"):
-        AutoTrainer(managed(corpus_path, tmp_path, "zero2", fuse_steps=2,
-                            mode="zero", **common))
+    zero = {}
+    for fuse in (2, 1):
+        at = AutoTrainer(managed(corpus_path, tmp_path, f"zero{fuse}",
+                                 fuse_steps=fuse, mode="zero", **common))
+        seen = _losses_of(at._trainer)
+        zero[fuse] = (at.train(), seen, at.evaluate(),
+                      type(at._trainer.state.objective).__name__,
+                      at._trainer.multi_step is not None)
+    (zm, zl, ze, wrapper, multi), (zm1, zl1, ze1, wrapper1, _) = \
+        zero[2], zero[1]
+    assert wrapper == wrapper1 == "ZeroObjective" and multi
+    assert zm["global_step"] == zm1["global_step"] == pm["global_step"]
+    assert zl == zl1 == pl
+    assert ze["eval_loss"] == ze1["eval_loss"] == pytest.approx(
+        pe["eval_loss"], rel=1e-5)
 
 
 def _zero_gang(rank, world, args, payload):
@@ -326,15 +340,18 @@ def _zero_gang(rank, world, args, payload):
     e = at.evaluate()
     return {"sharded": sharded, "fraction": local / total,
             "global_step": m["global_step"], "steps": len(at.train_loader),
+            "rows": m["train_samples_per_second"] * m["train_runtime"],
+            "batch": at.args.train_batch_size,
             "accuracy": e["eval_accuracy"], "best": at.best_ckpt,
             "best_exists": bool(at.best_ckpt)
             and os.path.isdir(at.best_ckpt)}
 
 
 def test_autotrainer_zero_mode(corpus_path, tmp_path):
-    """``mode="zero"`` (FSDP2, the DeepSpeed delegation) in two ranks: the
+    """``mode="zero"`` (ZeRO-3, the DeepSpeed delegation) in two ranks: the
     state is sharded (about half the parameters per rank), the run trains
-    the epoch, rotates and adopts the best model on every rank."""
+    the epoch, rotates and adopts the best model on every rank; its
+    samples/s counts both ranks' rows."""
     from pdnlp_tpu_torch.data.tokenizer import get_or_build_vocab
     from pdnlp_tpu_torch.parallel import local
 
@@ -347,6 +364,8 @@ def test_autotrainer_zero_mode(corpus_path, tmp_path):
     for r in res:
         assert r["sharded"] and r["fraction"] < 0.75, r
         assert r["global_step"] == r["steps"] > 0
+        assert r["rows"] == pytest.approx(
+            2 * r["batch"] * r["global_step"], rel=1e-6)
         assert 0.0 <= r["accuracy"] <= 1.0
     assert res[0]["best"] == res[1]["best"] and res[0]["best_exists"]
 

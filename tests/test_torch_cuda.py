@@ -887,6 +887,65 @@ def test_world1_nccl_captured_dp_step_equals_eager(cuda_device):
 
 
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_zero_captured_step_equals_eager_world1_nccl(cuda_device, dtype):
+    """zero's step (``parallel.sharding.ZeroObjective``, the one it runs
+    at every ``--fuse_steps``) in a world-1 NCCL group at
+    dropout 0.1 with an EMA: one captured group of four, its all-gathers
+    and reduce-scatters inside, against four eager steps of the same step
+    — losses, params, EMA and the dropout stream bit for bit, K1-K5 in the
+    graph."""
+    from pdnlp_tpu_torch.data.pipeline import to_device
+    from pdnlp_tpu_torch.parallel import runtime
+    from pdnlp_tpu_torch.parallel.execution import (
+        make_parallel_train_step, setup_sharded_model,
+    )
+    from pdnlp_tpu_torch.parallel.mesh import make_mesh
+    from pdnlp_tpu_torch.train.steps import build_multi_step
+    from pdnlp_tpu_torch.utils.config import Args
+
+    if torch.distributed.is_initialized():
+        pytest.skip("a process group is already joined in this process")
+    args = Args(model="bert-tiny", device="cuda", dtype=dtype, dropout=0.1,
+                attn_dropout=0.0, fuse_steps=4, learning_rate=1e-3,
+                ema_decay=0.9, dist_backend="nccl")
+    batches = _tiny_batches(4)
+    runtime.init_runtime(args)
+    try:
+        mesh = make_mesh(device_type="cuda")
+
+        def fresh():
+            _, state = setup_sharded_model(args, 120, mesh, "zero",
+                                           total_steps=4)
+            return state, make_parallel_train_step(args, mesh, cuda_device,
+                                                   "zero")
+
+        se, step = fresh()
+        assert type(se.objective).__name__ == "ZeroObjective"
+        eager = torch.stack([step(se, to_device(b, cuda_device))["loss"]
+                             for b in batches])
+        sf, step_f = fresh()
+        multi = build_multi_step(step_f, cuda_device)
+        flash.reset_launch_count()
+        fused_ce.reset_launch_count()
+        stacked = {k: np.stack([b[k] for b in batches]) for k in batches[0]}
+        fused = multi(sf, to_device(stacked, cuda_device))["loss"]
+        torch.cuda.synchronize()
+        assert torch.equal(eager, fused)
+        pe, pf = se.model.state_dict(), sf.model.state_dict()
+        assert all(torch.equal(pe[k].to_local(), pf[k].to_local())
+                   for k in pe)
+        assert all(torch.equal(se.ema[k].to_local(), sf.ema[k].to_local())
+                   for k in se.ema)
+        assert torch.equal(se.generator.get_state(),
+                           sf.generator.get_state())
+        assert len(multi.graphs) == 1
+        assert flash.launch_count("flash_fwd") == 4 * 2
+        assert fused_ce.launch_count("fused_ce_bwd") == 4
+    finally:
+        runtime.shutdown()
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 def test_moe_captured_steps_equal_eager_bit_for_bit(cuda_device, dtype):
     """bert-tiny-moe (grouped dispatch at capacity factor 1.25: static
     shapes, an atomic-free dispatch and combine): a captured group of four

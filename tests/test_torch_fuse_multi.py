@@ -5,17 +5,23 @@ version of the captured graph (held against it on the card in
 
 - ``train.multi``'s trainer (``run.build_parallel_trainer``) with
   ``--fuse_steps 4`` under dp (2 ranks: no DDP, the explicit bucketed
-  all-reduce), tp at ``{"data": 1, "model": 2}`` and ep at ``{"data": 1,
-  "expert": 2}`` ends on the same gang's eager run's params bit for bit,
-  the losses equal;
-- the fused dp step (``train.steps.build_multi_step`` over the explicit
-  reduce) against JAX's ``make_parallel_multi_step`` on 2 virtual
-  devices from the same weights: losses 1e-5 relative, params 2e-5
-  (``tests/test_flash.py``'s fp32 tolerances);
+  all-reduce), zero (2 ranks: ``parallel.sharding.ZeroObjective``, the
+  same step at every K), tp at ``{"data": 1, "model": 2}`` and ep at
+  ``{"data": 1, "expert": 2}`` ends on the same gang's eager run's params
+  bit for bit, the losses equal;
+- the fused dp and zero steps (``train.steps.build_multi_step`` over the
+  explicit reduce, or the explicit shards) against JAX's
+  ``make_parallel_multi_step`` under the same mode on 2 virtual devices
+  from the same weights: losses 1e-5 relative, params 2e-5
+  (``tests/test_flash.py``'s fp32 tolerances), zero's params and moments
+  sharded (``shard_fraction`` below 1.5 / world);
+- bf16 ``--grads_dtype compute``: the fused zero step's bf16 gathers and
+  reduce-scatters end on the fused dp step's params bit for bit;
 - pp, sp and shardmap take K = 4 and run one step at a time (JAX's
-  ``eff_k``), ending where their K = 1 runs end; zero refuses K > 1 by
-  name (ROADMAP A7), and a gloo group on a card would be refused at
-  startup (``parallel.execution.check_capture_backend``);
+  ``eff_k``), ending where their K = 1 runs end; a gloo group on a card
+  would be refused at startup (``parallel.execution.
+  check_capture_backend``), zero's step at any width; zero's strategy
+  default ``--remat true`` gives way to ``--fuse_steps`` above 1;
 - the collectives' counters credit a replay with what its capture
   recorded (``parallel.collectives.add_stats``).
 
@@ -46,6 +52,7 @@ GANG_TIMEOUT = 300
 #: the trainer cases: (mode, knobs, mesh, model)
 CASES = {
     "dp": ("dp", {}, {"data": 2}, "bert-tiny"),
+    "zero": ("zero", {}, {"data": 2}, "bert-tiny"),
     "tp": ("tp", {}, {"data": 1, "model": 2}, "bert-tiny"),
     "ep": ("ep", {}, {"data": 1, "expert": 2}, "bert-tiny-moe"),
     "pp": ("pp", {}, {"stage": 2}, "bert-tiny"),
@@ -86,14 +93,16 @@ def _trainer(args, mode, knobs, mesh):
 def _gang(rank, world, args, payload):
     """Each case's trainer over one epoch at ``--fuse_steps`` K and 1
     (the params made whole, whether a K-step dispatch was built, the
-    losses of every logged step); then the fused dp step on the global
-    batches ``GLOBAL`` stacked as one group."""
+    losses of every logged step); then the fused dp and zero steps on the
+    global batches ``GLOBAL`` stacked as one group, in fp32 and under bf16
+    ``--grads_dtype compute``."""
     from pdnlp_tpu_torch.data.pipeline import to_device
     from pdnlp_tpu_torch.parallel.execution import (
         make_parallel_train_step, setup_sharded_model,
     )
     from pdnlp_tpu_torch.parallel.local import rank_block
     from pdnlp_tpu_torch.parallel.mesh import make_mesh
+    from pdnlp_tpu_torch.parallel.sharding import shard_fraction
     from pdnlp_tpu_torch.train import checkpoint as ckpt
     from pdnlp_tpu_torch.train.steps import build_multi_step
     from pdnlp_tpu_torch.train.trainer import LoopHooks
@@ -114,21 +123,27 @@ def _gang(rank, world, args, payload):
                 "params": {k: v.numpy().copy() for k, v in params.items()},
                 "losses": losses, "fuse": t.fuse, "steps": t.state.step,
                 "multi": t.multi_step is not None}
-    # the fused dp step on the global batches, one group of K
+    # the fused dp and zero steps on the global batches, one group of K
     dev = torch.device("cpu")
     m = make_mesh(shape={"data": 2}, device_type="cpu")
-    a = args.replace(fuse_steps=K)
-    _, state = setup_sharded_model(a, VOCAB, m, "dp")
-    multi = build_multi_step(make_parallel_train_step(a, m, dev, "dp"), dev)
     blocks = [rank_block(b, rank, world) for b in GLOBAL]
     group = {k: np.stack([b[k] for b in blocks]) for k in blocks[0]}
-    metrics = multi(state, to_device(group, dev))
-    out["explicit"] = {
-        "losses": [float(x) for x in metrics["loss"]],
-        "params": {k: v.numpy().copy() for k, v in
-                   ckpt.consolidate(state.model).items()},
-        "ddp": isinstance(state.objective,
-                          torch.nn.parallel.DistributedDataParallel)}
+    for mode, extra in (("dp", {}), ("zero", {}),
+                        ("dp", {"dtype": "bfloat16",
+                                "grads_dtype": "compute"}),
+                        ("zero", {"dtype": "bfloat16",
+                                  "grads_dtype": "compute"})):
+        a = args.replace(fuse_steps=K, **extra)
+        _, state = setup_sharded_model(a, VOCAB, m, mode)
+        multi = build_multi_step(make_parallel_train_step(a, m, dev, mode),
+                                 dev)
+        metrics = multi(state, to_device(group, dev))
+        out[("explicit", mode, bool(extra))] = {
+            "losses": [float(x) for x in metrics["loss"]],
+            "params": {k: v.numpy().copy() for k, v in
+                       ckpt.consolidate(state.model).items()},
+            "wrapper": type(state.objective).__name__,
+            "shard_fraction": shard_fraction(state.model, state.optimizer)}
     return out if rank == 0 else None
 
 
@@ -147,12 +162,13 @@ def gang(corpus_path, tmp_path_factory):
                           timeout=GANG_TIMEOUT)[0]
 
 
-@pytest.mark.parametrize("case", ["dp", "tp", "ep"])
+@pytest.mark.parametrize("case", ["dp", "zero", "tp", "ep"])
 def test_fused_equals_eager_under_a_group(gang, case):
-    """dp, tp and ep at ``--fuse_steps 4`` build the K-step dispatch and
-    end on the eager run's params bit for bit, with the same loss at every
-    step the fused run logs (dp's fused run reduces through the explicit
-    bucketed all-reduce, its eager run through DDP)."""
+    """dp, zero, tp and ep at ``--fuse_steps 4`` build the K-step dispatch
+    and end on the eager run's params bit for bit, with the same loss at
+    every step the fused run logs (dp's fused run reduces through the
+    explicit bucketed all-reduce, its eager run through DDP; zero's runs
+    both gather and reduce-scatter their shards in the same step)."""
     fused, eager = gang[(case, K)], gang[(case, 1)]
     assert fused["multi"] and fused["fuse"] == K
     assert not eager["multi"]
@@ -177,13 +193,20 @@ def test_unfused_paths_take_k_and_run_one_step(gang, case):
         assert np.array_equal(fused["params"][k], v), k
 
 
-def test_fused_dp_matches_jax_multi_step(gang):
-    """The fused dp step (no DDP: the explicit bucketed all-reduce) on 4
-    global batches against JAX's ``make_parallel_multi_step`` (a
-    ``lax.scan``) on a 2-device mesh from the same weights: losses 1e-5
-    relative, params 2e-5."""
-    rec = gang["explicit"]
-    assert not rec["ddp"]
+@pytest.mark.parametrize("mode", ["dp", "zero"])
+def test_fused_dp_matches_jax_multi_step(gang, mode):
+    """The fused dp step (no DDP: the explicit bucketed all-reduce) and the
+    fused zero step (``ZeroObjective``, its params and moments sharded
+    between steps) on 4 global batches against JAX's
+    ``make_parallel_multi_step`` (a ``lax.scan``) under the same mode on a
+    2-device mesh from the same weights: losses 1e-5 relative, params
+    2e-5."""
+    rec = gang[("explicit", mode, False)]
+    if mode == "dp":
+        assert rec["wrapper"] == "TrainObjective"
+    else:
+        assert rec["wrapper"] == "ZeroObjective"
+        assert rec["shard_fraction"] < 1.5 / 2
     _, state = setup.setup_model(Args(device="cpu", model="bert-tiny",
                                       max_seq_len=SEQ, dropout=0.0,
                                       attn_dropout=0.0, learning_rate=LR),
@@ -191,7 +214,7 @@ def test_fused_dp_matches_jax_multi_step(gang):
     jargs = JArgs(model="bert-tiny", max_seq_len=SEQ, dropout=0.0,
                   attn_dropout=0.0, learning_rate=LR, fuse_steps=K)
     jmesh = jax_make_mesh(num_devices=2)
-    cfg, tx, jstate, sh = jax_setup(jargs, VOCAB, jmesh, "dp")
+    cfg, tx, jstate, sh = jax_setup(jargs, VOCAB, jmesh, mode)
     params = convert.to_jax_params(state.model.state_dict())
     jstate["params"] = jax.device_put(
         jax.tree_util.tree_map(jnp.asarray, params), sh["params"])
@@ -210,19 +233,29 @@ def test_fused_dp_matches_jax_multi_step(gang):
 
 
 def test_zero_refuses_fused_steps_and_gloo_capture():
-    """zero with ``--fuse_steps`` above 1 is refused by name (ROADMAP A7)
-    at the entry point and in the assembly; a captured step on a card
-    over gloo is refused at startup."""
+    """zero with ``--fuse_steps`` above 1 is taken at the entry point and
+    in the assembly (refused before, ROADMAP A7), its strategy's
+    ``--remat true`` default then resolved to false (the captured step
+    refuses the recompute) unless ``--remat`` is given; offload with fused
+    steps stays refused; a captured step on a card over gloo is refused
+    at startup — zero's at world 1 too, whose step always holds
+    collectives."""
     from pdnlp_tpu_torch.parallel import execution
     from pdnlp_tpu_torch.train import multi
 
-    with pytest.raises(SystemExit, match="ROADMAP A7"):
-        multi.parse(["--strategy", "zero", "--fuse_steps", "2"])
-    with pytest.raises(ValueError, match="ROADMAP A7"):
-        execution.check_strategy(Args(fuse_steps=4), "zero")
-    execution.check_strategy(Args(fuse_steps=4), "dp")
-    for mode in ("pp", "sp", "tp", "ep"):
+    args, knobs = multi.parse(["--strategy", "zero", "--fuse_steps", "2"])
+    assert args.fuse_steps == 2 and knobs["mode"] == "zero"
+    assert args.remat is False
+    assert multi.parse(["--strategy", "zero"])[0].remat is True
+    assert multi.parse(["--strategy", "zero", "--fuse_steps", "2",
+                        "--remat", "true"])[0].remat is True
+    assert multi.parse(["--mode", "zero", "--fuse_steps", "2"])[0].remat \
+        is False
+    for mode in ("zero", "dp", "pp", "sp", "tp", "ep"):
         execution.check_strategy(Args(fuse_steps=4), mode)
+    with pytest.raises(ValueError, match="works with the jit dp/zero"):
+        execution.check_strategy(Args(fuse_steps=4, offload_opt_state=True),
+                                 "zero")
 
     class Gloo:
         @staticmethod
@@ -240,6 +273,9 @@ def test_zero_refuses_fused_steps_and_gloo_capture():
             execution.check_capture_backend(
                 Args(fuse_steps=4), "dp", torch.device("cuda", 0),
                 explicit_reduce=True)
+        with pytest.raises(ValueError, match="needs NCCL"):
+            execution.check_capture_backend(
+                Args(fuse_steps=4), "zero", torch.device("cuda", 0))
         execution.check_capture_backend(Args(fuse_steps=1), "dp",
                                         torch.device("cuda", 0),
                                         explicit_reduce=True)
@@ -262,3 +298,15 @@ def test_replays_credit_the_collectives():
         "p2p.bytes": 16}
     collectives.add_stats({k: -(after[k] - before[k]) for k in after})
     assert collectives.stats_counts() == before
+
+
+def test_fused_zero_compute_equals_fused_dp(gang):
+    """bf16 ``--grads_dtype compute`` at 2 ranks: the fused zero step
+    gathers the matmul weights in bf16 and reduce-scatters their bf16
+    gradients, summed in bf16 then widened and halved, as the fused dp
+    step all-reduces them: the same losses and params bit for bit."""
+    dp, zero = (gang[("explicit", m, True)] for m in ("dp", "zero"))
+    assert zero["wrapper"] == "ZeroObjective"
+    assert zero["losses"] == dp["losses"]
+    for k, v in dp["params"].items():
+        assert np.array_equal(zero["params"][k], v), k

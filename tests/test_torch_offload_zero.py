@@ -14,8 +14,8 @@
   within 2e-5 in fp32, and JAX's offload is held through the on-device
   run, since JAX's own offload does not run on XLA:CPU
   (``tests/test_parallel.py:269-291``);
-- bf16 ``--grads_dtype compute`` under zero (its matmul weights' FSDP2
-  units gathered and reduce-scattered in bf16, with zero's remat) against
+- bf16 ``--grads_dtype compute`` under zero (its matmul weights gathered
+  and reduce-scattered in bf16, with zero's remat) against
   JAX's zero compute step within ``tests/test_torch_fuse.py``'s bf16
   band: losses 2e-2, the updates' relative norm 0.06 whole, 0.15 per
   matmul weight and 0.4 per leaf.
@@ -245,9 +245,8 @@ def test_zero_compute_grads_matches_jax(gang):
     """bf16 ``--grads_dtype compute`` under zero (with zero's remat):
     every step's loss within 2e-2 of JAX's zero compute step, and the
     updates within the bf16 band of ``tests/test_torch_fuse.py`` (bar
-    :data:`KEY_BIAS` leaf by leaf).  Its matmul weights are FSDP2 units of
-    their own in bf16 (the units' gradients are reduce-scattered in bf16),
-    the rest fp32.  Readings: whole 0.026, leaf 0.12."""
+    :data:`KEY_BIAS` leaf by leaf).  Its matmul weights are gathered in
+    bf16 and their gradients reduce-scattered in bf16, the rest fp32."""
     rec = gang["zero_compute"][0]
     losses, jstate = jax_zero(dtype="bfloat16", grads_dtype="compute",
                               remat=True)
@@ -266,17 +265,40 @@ def test_zero_compute_grads_matches_jax(gang):
 
 
 def test_compute_units_are_the_matmul_weights():
-    """The units zero makes under ``compute``: every encoder ``nn.Linear``
-    and the pooler, all of ``matmul_weights`` bar the classifier (whose
-    weight the fused CE kernels read directly)."""
+    """The weights zero moves in bf16 under ``compute`` (its own buckets,
+    gathered and reduce-scattered in that dtype): every matmul weight of
+    ``matmul_weights``, the classifier's included, as JAX casts every
+    kernel; the rest travel in fp32.  One bucket per encoder layer and
+    dtype, and one for the rest, each weight in exactly one."""
+    import torch.distributed as dist
+
     from pdnlp_tpu_torch.models.bert import BertClassifier
     from pdnlp_tpu_torch.models.config import get_config
-    from pdnlp_tpu_torch.parallel.sharding import compute_units
+    from pdnlp_tpu_torch.parallel import runtime
+    from pdnlp_tpu_torch.parallel.mesh import make_mesh
+    from pdnlp_tpu_torch.parallel.sharding import ZeroObjective
 
+    args = Args(device="cpu", dist_backend="gloo", **tiny())
     model = BertClassifier(get_config("bert-tiny", vocab_size=VOCAB))
-    names = {id(m): n for n, m in model.named_modules()}
-    units = {f"{names[id(u)]}.weight" for u in compute_units(model)}
-    assert units == set(steps.matmul_weights(model)) - {"classifier.weight"}
+    # a group of one (another test of this process may have joined it)
+    joined = dist.is_initialized()
+    runtime.init_runtime(args)
+    try:
+        assert dist.get_world_size() == 1
+        zero = ZeroObjective(
+            steps.TrainObjective(model, args, torch.device("cpu")),
+            make_mesh(shape={"data": 1}, device_type="cpu"), torch.bfloat16)
+    finally:
+        if not joined:
+            runtime.shutdown()
+    moved = {n for b in zero.buckets if b.dtype == torch.bfloat16
+             for n in b.names}
+    assert moved == {f"model.{n}" for n in steps.matmul_weights(model)}
+    assert "model.classifier.weight" in moved
+    names = [n for b in zero.buckets for n in b.names]
+    assert sorted(names) == sorted(n for n, _ in zero.objective
+                                   .named_parameters())
+    assert len(zero.buckets) == 2 * (len(model.layers) + 1)
 
 
 def test_offload_chunks_equal_one_adamw_step():

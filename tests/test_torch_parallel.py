@@ -1,6 +1,6 @@
 """Data-parallel training in the PyTorch port against the JAX package's
 (``pdnlp_tpu/parallel``): the rendezvous and the mesh, the step math, and
-gangs of real ranks on the CPU (gloo, bert-tiny) — dp (DDP), zero (FSDP2),
+gangs of real ranks on the CPU (gloo, bert-tiny) — dp (DDP), zero (ZeRO-3),
 the explicit-collectives (shardmap) step and remat — each held to JAX's
 step on a 2-device mesh of the suite's virtual CPU devices from the same
 weights (the port's seeded init, carried to JAX by ``models.convert``).
@@ -384,7 +384,7 @@ def test_packed_steps_with_unequal_rank_weights_match_jax(packed_data,
 
 
 def test_zero_shards_state_and_consolidates_to_dp(gang2):
-    """FSDP2 holds half of every parameter and moment on each rank (0.5 +-
+    """zero holds half of every parameter and moment on each rank (0.5 +-
     0.05, the twin of ``test_zero_shards_state_memory``); dp holds all;
     zero's consolidated checkpoint equals dp's params."""
     runs, _ = gang2

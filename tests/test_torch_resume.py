@@ -187,7 +187,7 @@ def _resume_gang(rank, world, args, payload):
 
 @pytest.mark.parametrize("mode", ["dp", "zero"])
 def test_strategy_resume_is_bitwise_in_a_gang(corpus_path, tmp_path, mode):
-    """dp (DDP) and zero (FSDP2) at two gloo ranks: a run resumed from the
+    """dp (DDP) and zero (ZeRO-3) at two gloo ranks: a run resumed from the
     step-2 snapshot ends on the uninterrupted run's weights, bit for bit
     (every rank's dropout generator and, under zero, the resharded params
     and moments come back from the one consolidated file)."""
@@ -417,16 +417,24 @@ def test_step_stats_rates():
 #: mesh), for the dense model and for the MoE model
 CROSS_DENSE = {"single": ("single", None), "dp": ("dp", {"data": 2}),
                "tp": ("tp", {"data": 1, "model": 2}),
-               "zero": ("zero", {"data": 2}), "pp": ("pp", {"stage": 2})}
+               "zero": ("zero", {"data": 2}), "pp": ("pp", {"stage": 2}),
+               "zero4": ("zero", {"data": 2})}
+#: sources and resumes run at ``--fuse_steps`` 4: zero's step in the
+#: K-step dispatch a CUDA graph captures on the card
+CROSS_FUSED = {"zero4": 4}
 CROSS_MOE = {"ep": ("ep", {"data": 1, "expert": 2}),
              "zero": ("zero", {"data": 2}), "pp": ("pp", {"stage": 2})}
 #: (snapshot, resume) pairs: single, dp, tp and ep snapshots under zero
 #: and pp, and zero and pp snapshots under dp, tp and ep ("legacy" is
-#: the single snapshot in the index-keyed format written before)
+#: the single snapshot in the index-keyed format written before); zero's
+#: snapshots at ``--fuse_steps`` 4 ("zero4") under dp, zero and pp, and
+#: dp's and zero's under it
 CROSS_PAIRS = {
     "bert-tiny": [(s, t) for s in ("single", "legacy", "dp", "tp")
                   for t in ("zero", "pp")]
-    + [(s, t) for s in ("zero", "pp") for t in ("dp", "tp")],
+    + [(s, t) for s in ("zero", "pp") for t in ("dp", "tp")]
+    + [("zero4", "dp"), ("zero4", "zero"), ("zero4", "pp"),
+       ("dp", "zero4"), ("zero", "zero4")],
     "bert-tiny-moe": [("ep", "zero"), ("ep", "pp"), ("zero", "ep"),
                       ("pp", "ep")]}
 
@@ -464,7 +472,9 @@ def _cross_gang(rank, world, args, payload):
             if src == "legacy":
                 continue
             mode, mesh = modes[src]
-            t, loader, _ = _cross_trainer(margs, mode, mesh)
+            t, loader, _ = _cross_trainer(
+                margs.replace(fuse_steps=CROSS_FUSED.get(src, 1)), mode,
+                mesh)
             for batch in list(loader)[:2]:
                 t.train_step(t.state, t.put(batch))
             paths[src] = os.path.join(d, f"{model}-{src}.pt")
@@ -481,7 +491,9 @@ def _cross_gang(rank, world, args, payload):
             collectives.barrier()
         for dst in dict.fromkeys(t for _, t in pairs):
             mode, mesh = modes[dst]
-            t, _, _ = _cross_trainer(margs, mode, mesh)
+            t, _, _ = _cross_trainer(
+                margs.replace(fuse_steps=CROSS_FUSED.get(dst, 1)), mode,
+                mesh)
             for src in [s for s, x in pairs if x == dst]:
                 t.load_resume(paths[src])
                 got = {"params": ckpt.consolidate(t.state.model),
@@ -579,8 +591,10 @@ def test_every_mode_resumes_every_other_mode(corpus_path, tmp_path):
     """One snapshot format for every mode (ROADMAP C4): bert-tiny
     snapshots of single, dp and tp (and the single one in the index-keyed
     format written before) resume under zero and under pp at ``{"stage":
-    2}``, zero and pp ones under dp and tp, and bert-tiny-moe's ep ones
-    under zero and pp and back, in two-rank gloo gangs.  Each resumed
+    2}``, zero and pp ones under dp and tp, zero's at ``--fuse_steps`` 4
+    under dp, zero and pp, and dp's and zero's under it, and
+    bert-tiny-moe's ep ones under zero and pp and back, in two-rank gloo
+    gangs.  Each resumed
     state, gathered whole, holds the snapshot's params, AdamW moments and
     step bit for bit, as JAX's restore of the same values does on its
     virtual devices (``Trainer.load_resume`` under zero and pp, compared

@@ -133,10 +133,6 @@ def test_spawn_matches_single_process(spawn_run, single_run):
       '{"stage": 3}'], "must divide num_layers"),
     (["--strategy", "sp", "--model", "bert-tiny-moe"],
      "MoE layers are not supported"),
-    (["--strategy", "zero", "--fuse_steps", "2"], "ROADMAP A7"),
-    (["--mode", "zero", "--fuse_steps", "4"], "ROADMAP A7"),
-    (["--strategy", "zero", "--dtype", "bfloat16", "--grads_dtype",
-      "compute", "--fuse_steps", "2"], "ROADMAP A7"),
     (["--offload_opt_state", "true", "--fuse_steps", "2"],
      "works with the jit dp/zero strategies, not shard_map"),
     (["--offload_opt_state", "true", "--strategy", "tp"],
@@ -146,11 +142,29 @@ def test_spawn_matches_single_process(spawn_run, single_run):
     (["--strategy", "fsdp"], "--strategy must be one of")])
 def test_refusals_name_the_missing_path(argv, match):
     """What the launcher refuses, by name: JAX's own refusals on the pp
-    and sp paths and of offload (with fused steps, with tp), zero with
-    ``--fuse_steps`` above 1, which the port does not capture yet
-    (ROADMAP A7), and an unknown strategy."""
+    and sp paths and of offload (with fused steps, with tp), and an
+    unknown strategy."""
     with pytest.raises(SystemExit, match=match):
         multi.parse(argv, prog="train.spawn")
+
+
+@pytest.mark.parametrize("argv,fuse", [
+    (["--strategy", "zero", "--fuse_steps", "2"], 2),
+    (["--mode", "zero", "--fuse_steps", "4"], 4),
+    (["--strategy", "zero", "--dtype", "bfloat16", "--grads_dtype",
+      "compute", "--fuse_steps", "2"], 2)])
+def test_zero_takes_fused_steps(argv, fuse):
+    """zero with ``--fuse_steps`` above 1, refused before (ROADMAP A7), is
+    taken as ``train.spawn`` is typed, the strategy's ``--remat true``
+    default resolved to false (a captured step refuses the recompute on
+    the card, ``train.trainer.Trainer``), and the zero step it builds on
+    the CPU runs its K steps."""
+    from pdnlp_tpu_torch.parallel.execution import check_capture_backend
+
+    args, knobs = multi.parse(argv, prog="train.spawn")
+    assert knobs["mode"] == "zero" and args.fuse_steps == fuse
+    assert args.remat is False
+    check_capture_backend(args, knobs["mode"], torch.device("cpu"))
 
 
 @pytest.mark.parametrize("argv,field,value", [
@@ -194,9 +208,10 @@ def test_strategy_defaults_follow_the_jax_scripts(strategy, want):
 def test_shardmap_refuses_length_modes_and_ema_and_zero_refuses_ema():
     """JAX's refusals (``run.py:54-67``, ``execution.py:203-207``); the
     EMA under zero is no longer refused (its tree takes the params'
-    placement), but zero still refuses fused steps (ROADMAP A7)."""
+    placement), and neither are its fused steps (refused before, ROADMAP
+    A7): the EMA rides in zero's step."""
     from pdnlp_tpu_torch.parallel.execution import (
-        make_shardmap_train_step, setup_sharded_model,
+        check_strategy, make_shardmap_train_step,
     )
     from pdnlp_tpu_torch.train.run import build_parallel_trainer
 
@@ -206,8 +221,7 @@ def test_shardmap_refuses_length_modes_and_ema_and_zero_refuses_ema():
     ema = Args(device="cpu", ema_decay=0.5)
     with pytest.raises(ValueError, match="shard_map step"):
         make_shardmap_train_step(ema, None, torch.device("cpu"))
-    with pytest.raises(ValueError, match="ROADMAP A7"):
-        setup_sharded_model(ema.replace(fuse_steps=2), 100, None, "zero")
+    check_strategy(ema.replace(fuse_steps=2), "zero")
     from pdnlp_tpu_torch.train import multi
 
     args, _ = multi.parse(["--strategy", "zero", "--ema_decay", "0.5",

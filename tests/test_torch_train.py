@@ -423,8 +423,8 @@ def test_entry_point_refusals(tmp_path, corpus_path):
     ``--elastic`` (read by the spawn launcher alone, ignored here as JAX
     ignores it) and ``--heartbeat_interval``, whose loop beats once a step
     (``parallel.watchdog.Heartbeat``, as JAX's trainer does); the multi-
-    rank entry point refuses no flag by name now, and zero with fused
-    steps by its rule (ROADMAP A7)."""
+    rank entry point refuses no flag by name now, and takes zero with
+    fused steps (its explicit ZeRO-3 step)."""
     from pdnlp_tpu_torch.parallel.watchdog import heartbeat_file
     from pdnlp_tpu_torch.train import single
     from pdnlp_tpu_torch.train import multi
@@ -458,8 +458,9 @@ def test_entry_point_refusals(tmp_path, corpus_path):
                                               "1"]
     assert multi.refuse_not_ported(["--fuse_steps", "4"], table) == \
         ["--fuse_steps", "4"]
-    with pytest.raises(SystemExit, match="ROADMAP A7"):
-        multi.parse(["--strategy", "zero", "--fuse_steps", "4"])
+    # zero with fused steps, refused before (ROADMAP A7), is taken
+    zargs, knobs = multi.parse(["--strategy", "zero", "--fuse_steps", "4"])
+    assert knobs["mode"] == "zero" and zargs.fuse_steps == 4
     assert multi.refuse_not_ported(["--grads_dtype", "compute"], table) \
         == ["--grads_dtype", "compute"]
     if not torch.cuda.is_available():
