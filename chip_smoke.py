@@ -143,7 +143,7 @@ dense, a profiled split and the expert GEMMs beside their bound; 14b
 tp ``{"data": 1, "model": 2}`` on bert-base and ep ``{"data": 1, "expert":
 2}`` on bert-base-moe over two gloo ranks on the card against one process,
 each rank's shards, bytes and all-reduces, the weights both ranks
-replicate bit-equal, run beside 14d and 14e; 14d
+replicate bit-equal, run beside 14a-14e; 14d
 ``--init_from`` 13a's artifact upcycled into bert-base-moe against a numpy
 recompute of JAX's rule; 14e the MoE checkpoint served, captured against
 eager bit for bit in fp32 and bf16, 12 K1 launches in each captured
@@ -163,12 +163,18 @@ beside 15a-15b; 15d ``train.spawn --strategy pp`` on bert-base at 32 x
 the pp checkpoint), 16 the configurations refused before (offloaded
 moments, the EMA and bf16 compute under zero, dp's captured step with its
 NCCL all-reduce, resumes across modes), 17a zero's step
-(``parallel.sharding.ZeroObjective``) captured at world 1 over NCCL: two
-replays of a 4-step graph, its all-gathers and reduce-scatters inside,
-against eight eager steps bit for bit in fp32 and bf16 at dropout 0.1
-with an EMA, K1-K5 counted from the replays, its step time and memory
-beside dp's (a process beside 15 and 16), then the kernels' times at
-every shape these paths give them.
+(``parallel.sharding.ZeroObjective``) with its default ``--remat true``
+captured at world 1 over NCCL: two replays of a 4-step graph, its
+all-gathers and reduce-scatters inside, against eight eager steps bit for
+bit in fp32 and bf16 at dropout 0.1 with an EMA, K1-K5 counted from the
+replays, its step time and memory beside dp's; then dp's ``--remat true
+--fuse_steps 4`` step on bert-base at 32 x 128: two replays against eight
+eager remat steps and eight eager steps without remat, bit for bit, K1 24
+and K2 12 a replayed step, step times and peak memory with and without
+remat; then the kernels' times at every shape these paths give them.
+Phases 13 and 14 run as processes beside 10-12 (with 15c's and 15d's
+processes), 16 and 17a as processes beside 15 (``--phase 13|14|16|17a``
+runs one alone); their step times are printed, not claimed.
 
 ``python3 chip_smoke.py --phase 17`` (four cards; a development run with
 no result line, exit 1 on fewer cards) runs phases 1, 2 and 17b: one rank
@@ -813,36 +819,50 @@ def time_ms(torch, fn, iters=100, warmup=10):
 
 def device_ms(torch, fn, n=50, attempts=4):
     """Mean device time per call of ``fn``: every kernel it launched, by
-    ``torch.profiler`` over ``n`` calls after a warm-up call, without the
-    host's pacing that back-to-back CUDA events also time.  A window in
-    which the profiler saw no device kernel is profiled again, with twice
-    the calls, up to ``attempts`` windows; None if none saw one."""
+    ``torch.profiler`` over ``n`` calls after a warm-up call and a
+    warm-up window, without the host's pacing that back-to-back CUDA
+    events also time.  A window in which the profiler saw fewer kernels
+    than calls (none, or a window that lost records: every call launches
+    at least one) is profiled again, with twice the calls, up to
+    ``attempts`` windows; None if none saw them all."""
     from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
+    from torch.profiler import ProfilerActivity, profile, schedule
 
     fn()
     torch.cuda.synchronize()
     for attempt in range(attempts):
         calls = n << attempt
-        with profile(activities=[ProfilerActivity.CUDA]) as prof:
-            for _ in range(calls):
-                fn()
-            torch.cuda.synchronize()
-        total = 0.0
-        for ev in prof.key_averages():
+        # a warm-up window first: the records of a window's first kernels
+        # can be lost while the profiler starts
+        read = []
+        with profile(activities=[ProfilerActivity.CUDA],
+                     schedule=schedule(wait=0, warmup=1, active=1),
+                     on_trace_ready=lambda p: read.append(
+                         p.key_averages())) as prof:
+            for _ in range(2):
+                for _ in range(calls):
+                    fn()
+                torch.cuda.synchronize()
+                prof.step()
+        total, kernels = 0.0, 0
+        for ev in (read[0] if read else []):
             if ev.device_type != DeviceType.CUDA or \
                     getattr(ev, "is_user_annotation", False):
                 continue
             dev = getattr(ev, "self_device_time_total", None)
             if dev is None:
                 dev = getattr(ev, "self_cuda_time_total", 0)
-            total += dev
-        if total:
+            if dev:
+                total += dev
+                kernels += ev.count
+        if total and kernels >= calls:
             if attempt:
-                print(f"[time] device_ms: the profiler saw no kernel in "
-                      f"{attempt} window(s); read window {attempt + 1} "
-                      f"({calls} calls)")
+                print(f"[time] device_ms: the profiler saw fewer kernels "
+                      f"than calls in {attempt} window(s); read window "
+                      f"{attempt + 1} ({calls} calls)")
             return total / 1e3 / calls
+        print(f"[time] device_ms: {kernels} kernel(s) in a window of "
+              f"{calls} calls: profiled again")
     return None
 
 
@@ -1088,6 +1108,7 @@ def train_route(torch, flash, fused_ce, args, vocab_size, batches, device,
             torch.cuda.synchronize()
             t0 = time.perf_counter()
         before = launch_counts(flash, fused_ce)
+        # torchlint: disable=R7 — the route is timed as the sync pipeline runs it, upload and step
         m = step(state, put(host))
         after = launch_counts(flash, fused_ce)
         per_step.append({k: after[k] - before[k] for k in after})
@@ -1325,6 +1346,7 @@ def length_route(torch, flash, fused_ce, args, vocab_size, batches, device,
                 torch.cuda.synchronize()
                 t0 = time.perf_counter()
             before = launch_counts(flash, fused_ce)
+            # torchlint: disable=R7 — the route is timed as the sync pipeline runs it, upload and step
             m = step(state, put(batches[i]))
             after = launch_counts(flash, fused_ce)
             per_step[i] = {k: after[k] - before[k] for k in after}
@@ -1554,6 +1576,10 @@ WANT_DP_STEP = {"flash_fwd": 12, "flash_bwd_dq": 12, "flash_bwd_dkv": 12,
                 "fused_ce_fwd": 1, "fused_ce_bwd": 1}
 #: remat runs each layer's forward again in the backward: K1 twice
 WANT_REMAT_STEP = {**WANT_DP_STEP, "flash_fwd": 24}
+#: 17a: remat against no remat at dropout 0.1 in the same step, where the
+#: recompute replays the forward's masks: bit for bit expected, any gap
+#: printed and held under this relative bound
+REMAT_OFF_RTOL = 1e-6
 #: 7c: bf16 on the wire against the fp32 all-reduce (tests/test_parallel.py
 #: :338's bound) and the uncompressed explicit all-reduce against DDP
 SHARDMAP_BF16_RTOL = 1e-3
@@ -1575,6 +1601,7 @@ def single_reference(torch, args, vocab_size, batches, device):
         if i == 1:
             torch.cuda.synchronize()
             t0 = time.perf_counter()
+        # torchlint: disable=R7 — the one-process reference, as the sync pipeline runs it
         losses.append(step(state, to_device(host, device))["loss"])
     torch.cuda.synchronize()
     ms = (time.perf_counter() - t0) / (len(batches) - 1) * 1e3
@@ -1652,6 +1679,7 @@ def data_parallel_runs(torch, base, vocab_size, full, packed, device, card,
                            {"runs": runs, "vocab_size": vocab_size,
                             "batches": batches, "out_dir": out_dir,
                             "allreduce_numel": numel}, timeout=600)
+    # torchlint: disable=R4 — the gang's wall time: its ranks exit after their own syncs
     gang_s = time.monotonic() - t0
     by_name = {rec["name"]: [r[i] for r in ranks]
                for i, rec in enumerate(ranks[0])}
@@ -2477,6 +2505,7 @@ def tier_engine_run(torch, flash, InferenceEngine, args, ckpt, short,
         t0 = time.monotonic()
         bat.warmup()                      # packed 128, long 256 and 512
         eng.warmup(BUCKETS, 8)            # the padded buckets
+        # torchlint: disable=R4 — warm-up captures end in a stream sync inside the engine
         rec["warmup_s"] = time.monotonic() - t0
         rec["captures"] = eng.metrics.retraces.value
         rec["graphs"] = eng.graph_stats()
@@ -2732,6 +2761,7 @@ def router_run(torch, flash, InferenceEngine, args, ckpt, ckpt2, work,
         ready = r.wait_ready(600)
         while r.states[0] != "healthy" and time.monotonic() - t0 < 600:
             time.sleep(0.05)
+        # torchlint: disable=R4 — relaunch to healthy: a host wait on the replica's state
         rec["relaunch_s"] = time.monotonic() - t0
         got = [f.result(timeout=300) for f in futs]
         futs = [r.submit(t, deadline_ms=300_000) for t in texts]
@@ -3031,6 +3061,7 @@ def decode_times(torch, eng, ps, dtype, card, label):
         t0 = time.perf_counter()
         for _ in range(10):
             fns[name]()
+        # torchlint: disable=R4 — the decode call's host wall, printed beside its device_ms
         wall[name].append((time.perf_counter() - t0) / 10 * 1e3)
     dev = {name: device_ms(torch, fn, n=10) for name, fn in fns.items()}
     prof = profile_calls(torch, fns["captured"], 5, card,
@@ -3044,6 +3075,7 @@ def decode_times(torch, eng, ps, dtype, card, label):
         t0 = time.perf_counter()
         for _ in range(5):
             eng.prefill_ids(ids, slots)
+        # torchlint: disable=R4 — prefill returns host tokens: each call ends in a device read
         prefill_ms[b] = (time.perf_counter() - t0) / 5 * 1e3
     eng.reset_cache()
     rec = {"step_wall_ms": wall, "step_device_ms": dev, "profile": prof,
@@ -3113,6 +3145,7 @@ def decode_config_run(torch, flash, args, ckpt, label, ps, mixed, burst,
         held_to_eager(eng, seen)
         t0 = time.monotonic()
         eng.warmup_decode()
+        # torchlint: disable=R4 — warm-up captures end in a stream sync inside the engine
         rec[f"{layout}_warmup_s"] = time.monotonic() - t0
         rec[f"{layout}_captures"] = eng.metrics.retraces.value
         engines[layout] = eng
@@ -3604,6 +3637,7 @@ def verify_times(torch, eng, ps, card, label):
         t0 = time.perf_counter()
         for _ in range(10):
             fns[name]()
+        # torchlint: disable=R4 — the verify call's host wall, printed beside its device_ms
         wall[name].append((time.perf_counter() - t0) / 10 * 1e3)
     dev = {name: device_ms(torch, fn, n=10) for name, fn in fns.items()}
     eng.reset_cache()
@@ -5146,6 +5180,7 @@ def managed_phase(torch, flash, fused_ce, work, vocab_path, profile_path,
     t0 = time.perf_counter()
     first_losses = []
     at, m = _auto_run(torch, targs, first_losses)
+    # torchlint: disable=R4 — AutoTrainer's run ends in its host-read metrics and saves
     wall = time.perf_counter() - t0
     auto_launches = launch_counts(flash, fused_ce)
     dirs = sorted(d for d in os.listdir(out) if d.startswith("checkpoint-"))
@@ -5183,6 +5218,7 @@ def managed_phase(torch, flash, fused_ce, work, vocab_path, profile_path,
     rt, m2 = _auto_run(torch, dataclasses.replace(
         targs, output_dir=out2,
         resume_from_checkpoint=os.path.join(out2, mid)), resumed_losses)
+    # torchlint: disable=R4 — AutoTrainer's run ends in its host-read metrics and saves
     wall2 = time.perf_counter() - t0
     del rt
     torch.cuda.empty_cache()
@@ -5514,6 +5550,7 @@ def moe_runs(torch, flash, fused_ce, work, vocab_path, corpus_path,
                 r["dispatch_err"] = moe_dispatch_check(torch, state.model,
                                                        device, card)
                 ckpt_path = os.path.join(work, "moe", "ep-cls.pt")
+                # torchlint: disable=R9 — one save of the checkpoint 14e serves, not a step-loop save
                 save_params(ckpt_path, state.model.state_dict(),
                             model_name="bert-base-moe",
                             vocab_size=cfg.vocab_size)
@@ -5550,6 +5587,7 @@ def moe_capture(torch, flash, fused_ce, vocab_path, vocab_size, batches,
                     dropout=0.1, attn_dropout=0.0, learning_rate=MOE_LR)
         _, se = setup_model(args, vocab_size, total_steps=len(feed))
         step = build_train_step(args, device)
+        # torchlint: disable=R7 — the eager reference of a captured group; nothing is timed
         eager = [step(se, to_device(b, device))["loss"] for b in feed]
         pe = {k: v.detach().clone() for k, v in se.model.state_dict().items()}
         del se, step
@@ -5598,7 +5636,7 @@ MODEL_AXIS_RUNS = (
 
 def model_axis_start(base, vocab_size, batches, work):
     """14c's gang, started on a thread (its two ranks are processes on the
-    card beside 14d and 14e): two gloo ranks train tp ``{"data": 1,
+    card beside 14a-14e): two gloo ranks train tp ``{"data": 1,
     "model": 2}`` on bert-base and ep ``{"data": 1, "expert": 2}`` on
     bert-base-moe, fp32, on ``batches``."""
     import threading
@@ -6133,7 +6171,8 @@ def _p2p_rank(rank, payload):
         y = collectives.exchange(x, peer, x, peer)
         torch.cuda.synchronize()
         out[f"port {dtype}"] = bool(torch.equal(y, want))
-    a = torch.randn(8, 128, 768, device=device)
+    a = torch.randn(8, 128, 768, device=device, generator=torch.Generator(
+        device=device).manual_seed(SEED + rank))
     times = []
     for _ in range(6):
         dist.barrier()
@@ -6753,14 +6792,21 @@ def entry15_check(started, work, card):
     return rec
 
 
+def side15_start(work, corpus_path, vocab_path):
+    """15c's and 15d's processes, started (the default run starts them
+    beside phases 10-14)."""
+    return (elastic_start(work, corpus_path, vocab_path),
+            entry15_start(work, corpus_path, vocab_path))
+
+
 def parallel_phase(torch, work, vocab_path, corpus_path, base, vocab_size,
-                   batches, texts, device, card, lap):
+                   batches, texts, device, card, lap, side=None):
     """Phase 15: one gang of two gloo ranks on the card runs pp at
     ``{"stage": 2}`` (15a), sp at ``{"data": 1, "seq": 2}`` (15b) and the
     transport probe (15t), while this process computes their one-process
     references; the elastic gang (15c) and the pp and sp entry points (15d)
-    run as processes beside them; then ``serve.cli`` on 15d's pp
-    checkpoint."""
+    run as processes (``side``: started earlier by the caller); then
+    ``serve.cli`` on 15d's pp checkpoint."""
     import numpy as np
 
     from pdnlp_tpu_torch.serve import score_texts
@@ -6768,8 +6814,8 @@ def parallel_phase(torch, work, vocab_path, corpus_path, base, vocab_size,
 
     steps = batches[:PP_STEPS]
     probe = gloo_cuda_start(base)
-    el = elastic_start(work, corpus_path, vocab_path)
-    entry = entry15_start(work, corpus_path, vocab_path)
+    el, entry = side if side is not None else side15_start(
+        work, corpus_path, vocab_path)
     gang = parallel_start(base, vocab_size, steps, work)
     try:
         refs = {d: single_reference(torch, base.replace(dtype=d), vocab_size,
@@ -6883,6 +6929,7 @@ def world1_run(torch, flash, fused_ce, args, mode, vocab_size, batches,
             torch.cuda.synchronize()
             torch.cuda.reset_peak_memory_stats(device)
             t0 = time.perf_counter()
+        # torchlint: disable=R7 — the offload case is timed as the sync pipeline runs it
         losses.append(step(state, to_device(batches[i], device))["loss"])
         if args.offload_opt_state:
             moments = [v for st in state.optimizer.state.values()
@@ -6892,6 +6939,7 @@ def world1_run(torch, flash, fused_ce, args, mode, vocab_size, batches,
                               for v in moments) and len(moments) > 0)
         if save_at == i + 1:
             snapshot = os.path.join(args.output_dir, f"{mode}-step{i + 1}.pt")
+            # torchlint: disable=R9 — the resume snapshot under test, saved once mid-run
             trainer.save_resume(snapshot)
     torch.cuda.synchronize()
     rec = {"losses": [float(x) for x in losses],
@@ -7002,6 +7050,7 @@ def offload_phase(torch, flash, fused_ce, base, vocab_size, batches, device,
             if off["launches"] != {k: v * OFFLOAD_STEPS
                                    for k, v in WANT_DP_STEP.items()}:
                 fail(f"16a {mode} {dtype}: launches {off['launches']}")
+        # torchlint: disable=R4 — the phase's host seconds; each case ends in a sync
         rec["seconds"] = {"16a": time.monotonic() - t0}
         # 16b: the EMA (16a's on-device runs) and bf16 compute under zero
         # against dp
@@ -7227,6 +7276,7 @@ def _timed_steps(torch, step, state, batches, device):
     torch.cuda.reset_peak_memory_stats(device)
     t0 = time.perf_counter()
     for b in batches[1:]:
+        # torchlint: disable=R7 — the step is timed as the sync pipeline runs it
         losses.append(step(state, to_device(b, device))["loss"])
     torch.cuda.synchronize()
     ms = (time.perf_counter() - t0) / max(1, len(batches) - 1) * 1e3
@@ -7271,7 +7321,7 @@ def zero_capture_check(torch, flash, fused_ce, base, vocab_size, batches,
         for dtype in ("float32", "bfloat16"):
             t0 = time.monotonic()
             args = base.replace(dtype=dtype, dropout=0.1, attn_dropout=0.0,
-                                fuse_steps=FUSE, ema_decay=0.999)
+                                fuse_steps=FUSE, ema_decay=0.999, remat=True)
 
             def fresh(mode="zero", a=args):
                 _, state = setup_sharded_model(a, vocab_size, mesh, mode,
@@ -7319,7 +7369,7 @@ def zero_capture_check(torch, flash, fused_ce, base, vocab_size, batches,
                 and all(torch.equal(ee[k], sf.ema[k]) for k in ee) \
                 and torch.equal(ge, sf.generator.get_state())
             g0 = next(iter(multi.graphs.values()))
-            want = {k: v * n for k, v in WANT_DP_STEP.items()}
+            want = {k: v * n for k, v in WANT_REMAT_STEP.items()}
             r = {"bitwise": same, "objective": kind, "shard_fraction": frac,
                  "capturable": capturable, "graphs": len(multi.graphs),
                  "captures_after_warmup": len(multi.graphs) - graphs,
@@ -7334,7 +7384,8 @@ def zero_capture_check(torch, flash, fused_ce, base, vocab_size, batches,
             torch.cuda.empty_cache()
             if dtype == "float32":
                 # dp's eager step over the same batches
-                st, stp = fresh("dp", args.replace(fuse_steps=1))
+                st, stp = fresh("dp", args.replace(fuse_steps=1,
+                                                   remat=False))
                 ms, pk, hd, _ = _timed_steps(
                     torch, stp, st, batches[:ZERO_TIMED + 1], device)
                 r["dp_step_ms"], r["dp_peak_bytes"] = ms, pk
@@ -7345,8 +7396,9 @@ def zero_capture_check(torch, flash, fused_ce, base, vocab_size, batches,
             r["seconds"] = time.monotonic() - t0
             rec[dtype] = r
             nccl_names = " ".join(nccl or ["none"])
-            print(f"[zero] 17a {dtype} {kind} (--fuse_steps {FUSE}) at world"
-                  f" 1 over NCCL, dropout 0.1, EMA: {ZERO_GROUPS} replays vs "
+            print(f"[zero] 17a {dtype} {kind} (--fuse_steps {FUSE}, --remat "
+                  f"true) at world 1 over NCCL, dropout 0.1, EMA: "
+                  f"{ZERO_GROUPS} replays vs "
                   f"{n} eager steps bit for bit {same} (losses, params, EMA,"
                   f" dropout stream); graphs {r['graphs']}, captures after "
                   f"warmup {r['captures_after_warmup']}, replays "
@@ -7367,51 +7419,192 @@ def zero_capture_check(torch, flash, fused_ce, base, vocab_size, batches,
             if not same or r["captures_after_warmup"] or \
                     g0.replays != ZERO_GROUPS or launched != want or \
                     kind != "ZeroObjective" or not capturable or \
-                    frac >= 1.5:
+                    frac >= 1.5 or len(g0.remat) != FUSE * 12:
                 fail(f"17a {dtype}: {r}")
     finally:
         runtime.shutdown()
     return rec, launches
 
 
-def zero17a_start(work):
-    """17a as a process (``chip_smoke.py --phase 17a``) on the card, its
-    output to a file: started beside phases 15 and 16."""
-    log = open(os.path.join(work, "phase17a.log"), "w")
+def _max_rel(got, want):
+    """The largest ``|got - want| / max|want|`` over paired tensors."""
+    return max(float((g.float() - w.float()).abs().max()
+                     / w.float().abs().max().clamp_min(1e-30))
+               for g, w in zip(got, want))
+
+
+def remat_capture_check(torch, flash, fused_ce, base, vocab_size, batches,
+                        device, card):
+    """Phase 17a's remat cases, single-device dp on bert-base at 32 x 128,
+    dropout 0.1 (attention dropout 0: the flash route), an EMA, in fp32
+    and bf16: ``ZERO_GROUPS`` replays of a ``FUSE``-step ``--remat true``
+    graph against as many eager remat steps (losses, params, EMA and the
+    dropout stream bit for bit: each replay's recompute draws its
+    forward's masks, ``models.bert.RematRng``), and against as many eager
+    steps without remat (bit for bit, or the largest relative gap printed
+    and held under ``REMAT_OFF_RTOL``); K1 launched twice per layer per
+    replayed step (forward and recompute), K2 once.  The eager steps'
+    times and peak memory with and without remat are printed beside the
+    card.  Returns the record and the launches."""
+    from pdnlp_tpu_torch.data.pipeline import to_device
+    from pdnlp_tpu_torch.train.setup import setup_model
+    from pdnlp_tpu_torch.train.steps import build_multi_step, build_train_step
+
+    import gc
+
+    import numpy as np
+
+    n = FUSE * ZERO_GROUPS
+    batches = batches[:n]
+    rec, launches = {}, {}
+    groups = [to_device({k: np.stack(
+        [b[k] for b in batches[g * FUSE:(g + 1) * FUSE]])
+        for k in batches[0]}, device) for g in range(ZERO_GROUPS)]
+    for dtype in ("float32", "bfloat16"):
+        t0 = time.monotonic()
+        args = base.replace(dtype=dtype, dropout=0.1, attn_dropout=0.0,
+                            fuse_steps=FUSE, ema_decay=0.999, remat=True)
+        runs = {}
+        for remat in (True, False):
+            a = args.replace(remat=remat)
+            _, st = setup_model(a, vocab_size, total_steps=n)
+            ms, peak, held, losses = _timed_steps(
+                torch, build_train_step(a, device), st, batches, device)
+            runs[remat] = {
+                "ms": ms, "peak": peak, "held": held,
+                "losses": torch.stack(losses).cpu(),
+                "params": {k: v.detach().clone()
+                           for k, v in st.model.state_dict().items()},
+                "ema": {k: v.detach().clone() for k, v in st.ema.items()},
+                "generator": st.generator.get_state()}
+            del st
+            gc.collect()
+            torch.cuda.empty_cache()
+        _, sf = setup_model(args, vocab_size, total_steps=n)
+        multi = build_multi_step(build_train_step(args, device), device)
+        multi.capture(sf, groups[0])
+        torch.cuda.synchronize()
+        reset_counts(flash, fused_ce)
+        fused = []
+        for g, batch in enumerate(groups):
+            torch.cuda.synchronize()
+            t1 = time.perf_counter()
+            fused += list(multi(sf, batch)["loss"])
+            torch.cuda.synchronize()
+            replay_ms = (time.perf_counter() - t1) * 1e3
+        launched = launch_counts(flash, fused_ce)
+        fused = torch.stack(fused).cpu()
+        pf = sf.model.state_dict()
+        g0 = next(iter(multi.graphs.values()))
+        same = {}
+        for remat, run in runs.items():
+            same[remat] = torch.equal(run["losses"], fused) \
+                and all(torch.equal(run["params"][k], pf[k]) for k in pf) \
+                and all(torch.equal(run["ema"][k], sf.ema[k])
+                        for k in sf.ema) \
+                and torch.equal(run["generator"], sf.generator.get_state())
+        on, off = runs[True], runs[False]
+        gap = 0.0 if same[False] else _max_rel(
+            [on["losses"], *on["params"].values()],
+            [off["losses"], *off["params"].values()])
+        want = {k: v * n for k, v in WANT_REMAT_STEP.items()}
+        r = {"captured_vs_eager_remat_bitwise": same[True],
+             "remat_vs_no_remat_bitwise": same[False],
+             "remat_vs_no_remat_max_rel": gap, "launches": launched,
+             "graphs": len(multi.graphs), "replays": g0.replays,
+             "recompute_states": len(g0.remat),
+             "eager_remat_step_ms": on["ms"], "eager_step_ms": off["ms"],
+             "captured_remat_step_ms": replay_ms / FUSE,
+             "eager_remat_peak_bytes": on["peak"],
+             "eager_peak_bytes": off["peak"], "held_bytes": on["held"],
+             "pool_bytes": multi.pool_bytes}
+        launches[f"17a dp remat captured {dtype}"] = launched
+        del sf, multi
+        gc.collect()
+        torch.cuda.empty_cache()
+        r["seconds"] = time.monotonic() - t0
+        rec[dtype] = r
+        print(f"[remat] 17a {dtype} dp bert-base 32 x 128 --remat true "
+              f"--fuse_steps {FUSE}, dropout 0.1, EMA: {ZERO_GROUPS} "
+              f"replays vs {n} eager remat steps bit for bit {same[True]}; "
+              f"vs {n} eager steps without remat bit for bit {same[False]}"
+              f" (largest relative gap {gap:.3e}); launches from the "
+              f"replays {launched} (K1 {launched['flash_fwd'] // n} a step, "
+              f"K2 {launched['flash_bwd_dq'] // n}); recompute states "
+              f"{len(g0.remat)} — {card}")
+        print(f"[remat] 17a {dtype} step times (host clock to a sync; "
+              f"printed, not claimed): eager with remat {on['ms']:.1f} ms, "
+              f"without {off['ms']:.1f} ms, captured with remat "
+              f"{r['captured_remat_step_ms']:.1f} ms a step; "
+              f"max_memory_allocated over the {on['held'] / 2**20:.1f} MiB "
+              f"held: "
+              f"+{on['peak'] / 2**20:.1f} MiB with remat, "
+              f"+{off['peak'] / 2**20:.1f} MiB without — {card}")
+        if not same[True] or gap > REMAT_OFF_RTOL or launched != want or \
+                launched["flash_fwd"] != 2 * launched["flash_bwd_dq"] or \
+                r["graphs"] != 1 or r["replays"] != ZERO_GROUPS or \
+                r["recompute_states"] != FUSE * 12:
+            fail(f"17a remat {dtype}: {r}")
+    return rec, launches
+
+
+def phase_start(work, phase, extra=()):
+    """``chip_smoke.py --phase <phase>`` as a process on the card, in a
+    session of its own (its processes are stopped with it), its output to
+    a file: a phase run beside others."""
+    log = open(os.path.join(work, f"phase{phase}.log"), "w")
     env = {k: v for k, v in os.environ.items()
            if k not in ("COORDINATOR_ADDRESS", "NUM_PROCESSES", "PROCESS_ID",
                         "MASTER_ADDR", "WORLD_SIZE", "RANK", "LOCAL_RANK")}
     p = subprocess.Popen([sys.executable, os.path.join(REPO, "chip_smoke.py"),
-                          "--phase", "17a"], cwd=REPO, env=env, stdout=log,
-                         stderr=subprocess.STDOUT, text=True)
-    return p, log, time.monotonic()
+                          "--phase", phase, *extra], cwd=REPO, env=env,
+                         stdout=log, stderr=subprocess.STDOUT, text=True,
+                         start_new_session=True)
+    return p, log, time.monotonic(), phase
 
 
-def zero17a_join(started, card):
-    """17a's process, waited for: its ``[zero]`` lines printed here, its
-    record and launches (its ``[summary]`` and ``[launches]`` lines); it
-    fails unless the process exits 0 (17a's checks run in it)."""
-    p, log, t0 = started
-    try:
-        p.wait(timeout=600)
-    except subprocess.TimeoutExpired:
-        p.kill()
+def phase_stop(started):
+    """Kill a started phase and every process of its session."""
+    import signal
+
+    p = started[0]
+    if p.poll() is None:
+        try:
+            os.killpg(p.pid, signal.SIGKILL)
+        except ProcessLookupError:
+            pass
         p.wait()
+
+
+def phase_join(started, card, beside, timeout=900):
+    """A started phase, waited for: its output printed here (but its build
+    lines, which repeat this run's), its record and launches (its
+    ``[summary]`` and ``[launches]`` lines); it fails unless the process
+    exits 0 (the phase's checks run in it)."""
+    p, log, t0, phase = started
+    try:
+        p.wait(timeout=timeout)
+    except subprocess.TimeoutExpired:
+        phase_stop(started)
     log.close()
     with open(log.name) as f:
         lines = f.read().splitlines()
     for ln in lines:
-        if ln.startswith(("[zero]", "[clock] 17a")):
+        if ln.startswith("[clock] "):
+            print(f"[clock] ({phase} process) {ln[len('[clock] '):]}")
+        elif not ln.startswith(("[summary] ", "[launches] ", "[build] ",
+                                "[device] ")):
             print(ln)
     rec = next((json.loads(ln[len("[summary] "):]) for ln in lines
                 if ln.startswith("[summary] ")), None)
     launches = next((json.loads(ln[len("[launches] "):]) for ln in lines
                      if ln.startswith("[launches] ")), None)
-    print(f"[zero] 17a ran as a process beside phases 15 and 16 in "
+    print(f"[phase] {phase} ran as a process beside {beside} in "
           f"{time.monotonic() - t0:.1f} s (its times printed, not claimed):"
           f" exit {p.returncode} — {card}")
     if p.returncode != 0 or rec is None or launches is None:
-        fail("17a: exit {}\n{}".format(p.returncode, "\n".join(lines[-40:])))
+        fail("{}: exit {}\n{}".format(phase, p.returncode,
+                                      "\n".join(lines[-40:])))
     return rec, launches
 
 
@@ -7510,10 +7703,12 @@ def four_card_plan(world=FOUR_WORLD, size="base", long_len=SP_LEN):
     case("dp fused captured", "dp", data, "g128", "g128", fuse=FUSE,
          explicit=True, captured=True, pair="dp fused eager")
     case("zero", "zero", data, "g128", "g128", profile="nccl")
+    # zero's strategy default --remat true holds under --fuse_steps K
+    remat = {"remat": True}
     case("zero fused eager", "zero", data, "g128", "g128", fuse=FUSE,
-         profile="nccl")
+         profile="nccl", extra=remat)
     case("zero fused captured", "zero", data, "g128", "g128", fuse=FUSE,
-         captured=True, pair="zero fused eager")
+         captured=True, pair="zero fused eager", extra=remat)
     case("dp DDP offload", "dp", data, "g128", "g128", pair="dp DDP",
          extra={"offload_opt_state": True})
     case("zero offload", "zero", data, "g128", "g128", pair="zero",
@@ -7523,10 +7718,10 @@ def four_card_plan(world=FOUR_WORLD, size="base", long_len=SP_LEN):
     case("zero compute bf16", "zero", data, "g128", "g128 compute",
          extra=bf16)
     case("zero compute bf16 fused eager", "zero", data, "g128",
-         "g128 compute", fuse=FUSE, extra=bf16)
+         "g128 compute", fuse=FUSE, extra={**bf16, **remat})
     case("zero compute bf16 fused captured", "zero", data, "g128",
          "g128 compute", fuse=FUSE, captured=True,
-         pair="zero compute bf16 fused eager", extra=bf16)
+         pair="zero compute bf16 fused eager", extra={**bf16, **remat})
     tp = {**half, "model": 2}
     case("tp eager", "tp", tp, "g64", "g64", fuse=FUSE)
     case("tp captured", "tp", tp, "g64", "g64", fuse=FUSE, captured=True,
@@ -7604,6 +7799,7 @@ def _profiled(torch, fn, device):
     if device.type != "cuda":
         t0 = time.perf_counter()
         out = fn()
+        # torchlint: disable=R4 — the CPU rehearsal's wall: no card, nothing is launched
         return out, {"wall_ms": (time.perf_counter() - t0) * 1e3}
     torch.cuda.synchronize(device)
     with profile(activities=[ProfilerActivity.CPU,
@@ -7656,6 +7852,7 @@ def _reference_runs(torch, args, payload, device):
             if i == 1:
                 _sync(torch, device)
                 t0 = time.perf_counter()
+            # torchlint: disable=R7 — the one-process reference, as the sync pipeline runs it
             losses.append(float(step(st, to_device(b, device))["loss"]))
         _sync(torch, device)
         ms = (time.perf_counter() - t0) / (len(batches) - 1) * 1e3
@@ -7787,6 +7984,7 @@ def four_card_gang(rank, world, args, payload):
                 if i == timed + 1:
                     _sync(torch, device)
                     rec["step_ms"] = (time.perf_counter() - t2) / timed * 1e3
+                # torchlint: disable=R7 — each rank's case is timed as the sync pipeline runs it
                 tb = to_device(b, device)
                 if case["profile"] and i == len(mine) - 1:
                     m, prof = _profiled(torch, lambda: step(state, tb),
@@ -8141,7 +8339,8 @@ def elastic17(torch, work, corpus_path, vocab_path, card, device_type,
 
 def _want_launches(case, steps):
     """K1-K5 launches a rank makes over a case's steps: dp, zero, tp (each
-    rank its 6 heads, one launch a layer) and ep as the single step; a pp
+    rank its 6 heads, one launch a layer) and ep as the single step (K1
+    twice a layer under remat: the forward and the recompute); a pp
     stage its layers once per microbatch and no K4/K5 (pp's CE is plain);
     sp's ring is plain (None: printed, not checked)."""
     if case["mode"] == "sp":
@@ -8151,7 +8350,8 @@ def _want_launches(case, steps):
         return {"flash_fwd": n * steps, "flash_bwd_dq": n * steps,
                 "flash_bwd_dkv": n * steps, "fused_ce_fwd": 0,
                 "fused_ce_bwd": 0}
-    return {k: v * steps for k, v in WANT_DP_STEP.items()}
+    want = WANT_REMAT_STEP if case["extra"].get("remat") else WANT_DP_STEP
+    return {k: v * steps for k, v in want.items()}
 
 
 def four_card_check(ranks, plan, card, cuda=True):
@@ -8341,6 +8541,145 @@ def _four_gang(torch, base, vocab_size, card, world, size, long_len,
     return rec
 
 
+def pretrain_phases(torch, flash, fused_ce, work, vocab_path, profile_path,
+                    corpus_path, device, card, lap, on_artifact):
+    """Phase 13 (``chip_smoke.py --phase 13``, a process of the default
+    run beside phases 10-12): pretraining and the managed trainers;
+    ``on_artifact(path)`` is called with 13a's MLM artifact as soon as it
+    is written.  Returns the record, the launches per path and 13a's
+    packed segment ids (6 times' shape)."""
+    from pdnlp_tpu_torch.parallel.runtime import shutdown
+
+    # 13. pretraining and the managed trainers: the MLM run (13a), the
+    # supervised stage and train.single warm-started from it (13b, the
+    # process beside 13c), AutoTrainer and Accelerator (13c)
+    torch.cuda.empty_cache()
+    pre, mlm_path, mlm_seg = pretrain_phase(
+        torch, flash, fused_ce, work, vocab_path, profile_path, device, card)
+    lap("13a")
+    on_artifact(mlm_path)
+    sft, sft_path = supervised_phase(torch, flash, fused_ce, work,
+                                     vocab_path, profile_path, mlm_path,
+                                     card)
+    torch.cuda.empty_cache()
+    lap("13b")
+    warm = warm_start_start(work, vocab_path, profile_path, sft_path)
+    try:
+        managed = managed_phase(torch, flash, fused_ce, work, vocab_path,
+                                profile_path, corpus_path, card)
+        lap("13c")
+        sft["train_single"] = warm_start_check(torch, warm, vocab_path,
+                                               profile_path, sft_path, card)
+    except BaseException:
+        stop_all([warm[0]])
+        raise
+    finally:
+        shutdown()      # the process group 13b's and 13c's runners joined
+    lap("13b train.single")
+    launches = {
+        "13a pretraining": pre["launches"],
+        "13b supervised stage": sft["launches"],
+        "13c AutoTrainer": managed["auto"]["launches"],
+        "13c Accelerator": managed["accelerator"]["launches"]}
+    rec = {"pretraining": {"mlm": pre, "supervised": sft, "managed": managed}}
+    return rec, launches, mlm_seg
+
+
+def moe_phases(torch, flash, fused_ce, InferenceEngine, base, train_args,
+               vocab_size, batches, texts, work, vocab_path, profile_path,
+               corpus_path, data_limit, device, card, lap, mlm_artifact):
+    """Phase 14 (``chip_smoke.py --phase 14``, a process of the default
+    run beside phases 10-12 and 13): the MoE model and the model-axis
+    strategies; ``mlm_artifact()`` gives 13a's artifact for 14d (waiting
+    for it).  Returns the record and the launches per path."""
+    from pdnlp_tpu_torch.parallel.runtime import shutdown
+
+    # 14. the MoE model and the model-axis strategies: bert-base-moe under
+    # train.multi --strategy ep (14a), its captured steps (14b), tp and ep
+    # over two gloo ranks on the card (14c), upcycling 13a's artifact (14d),
+    # MoE serving with serve.cli beside 14c (14e).  14c's gang runs as
+    # processes beside 14a-14e (their times printed, not claimed)
+    axis_args = train_args.replace(learning_rate=LEARNING_RATE)
+    axis_batches = batches[:MODEL_AXIS_STEPS]
+    gang14 = model_axis_start(axis_args, vocab_size, axis_batches, work)
+    torch.cuda.empty_cache()
+    try:
+        moe, moe_ckpt, moe_batches = moe_runs(
+            torch, flash, fused_ce, work, vocab_path, corpus_path,
+            data_limit, profile_path, device, card)
+        lap("14a")
+        moe_cap = moe_capture(torch, flash, fused_ce, vocab_path, vocab_size,
+                              moe_batches, device, card)
+        lap("14b")
+        gloo_bf16 = gloo_bf16_probe(torch, card)
+    finally:
+        shutdown()      # the process group 14a's runner joined
+    # serve.cli on 14a's checkpoint runs as a process beside 14d and 14e
+    moe_texts = [t for t in texts if len(t) <= 126]
+    cli14 = cli_start(vocab_path, moe_ckpt, moe_texts, model="bert-base-moe")
+    try:
+        upcycle = upcycle_check(torch, flash, fused_ce, vocab_path,
+                                vocab_size, mlm_artifact(), batches[0],
+                                device, card)
+        lap("14d")
+        moe_serve = moe_serving(torch, flash, InferenceEngine, base,
+                                moe_ckpt, moe_texts, card)
+        lap("14e")
+        cli_check(cli14, moe_serve.pop("cli_want")[:6])
+        axis, axis_launches = model_axis_runs(torch, gang14, axis_args,
+                                              vocab_size, axis_batches,
+                                              device, card)
+        lap("14c")
+    except BaseException:
+        stop_all([cli14[0]])
+        raise
+    moe_launches = {f"14a {n}": r["launches"] for n, r in moe.items()}
+    launches = {
+        **moe_launches,
+        **{f"14b fuse_steps {d}": r["launches"] for d, r in moe_cap.items()},
+        **axis_launches,
+        "14d upcycled step": upcycle["launches"],
+        **{f"14e serving {d}": {"flash_fwd": r["launches_flash_fwd"]}
+           for d, r in moe_serve.items() if isinstance(r, dict)
+           and "launches_flash_fwd" in r}}
+    rec = {"moe": {"ep_world1": moe, "capture": moe_cap, "model_axis": axis,
+                   "gloo_bf16": gloo_bf16, "upcycle": upcycle,
+                   "serving": moe_serve}}
+    return rec, launches
+
+
+def kernel_times(torch, F, flash, fused_ce, mask_bias, device, card,
+                 shapes):
+    """Phase 6's times: K1-K3 at every training shape of the paths, K4/K5
+    at the train step's rows and the pack route's segment rows
+    (``shapes``: the run's masks, segment ids and rows)."""
+    key_mask = shapes["key_mask"]
+    bwd_times = time_backward(torch, F, flash, mask_bias, device, card,
+                              key_mask=key_mask)
+    shape_times = {}
+    for w, mask in shapes["bucket"].items():
+        shape_times[f"32x{w} bucket"] = time_backward(
+            torch, F, flash, mask_bias, device, card, key_mask=mask)
+    for w, seg in shapes["packed_segs"].items():
+        shape_times[f"32x{w} packed"] = time_backward(
+            torch, F, flash, mask_bias, device, card, seg=seg)
+    # 13a's shape: the packed 64 x 128 rows of its first batch
+    shape_times["64x128 packed (13a)"] = time_backward(
+        torch, F, flash, mask_bias, device, card, seg=shapes["mlm_seg"])
+    # 14c's tp shape: each rank's 6 of the 12 heads at 32 x 128
+    shape_times["32x128 6 heads (14c tp)"] = time_backward(
+        torch, F, flash, mask_bias, device, card, key_mask=key_mask, N=6)
+    # 15a's microbatch: 8 rows of the 32 x 128 batch, 12 heads
+    shape_times["8x128 pp microbatch (15a)"] = time_backward(
+        torch, F, flash, mask_bias, device, card, key_mask=key_mask[:8])
+    ce_times = time_fused_ce(torch, F, fused_ce, device, card)
+    ce_pack_times = {name: time_fused_ce(torch, F, fused_ce, device, card,
+                                         rows=rows)
+                     for name, rows in shapes["pack_rows"].items()}
+    return {"bwd_times": bwd_times, "shape_times": shape_times,
+            "ce_times": ce_times, "ce_pack_times": ce_pack_times}
+
+
 def main():
     import torch
 
@@ -8396,6 +8735,7 @@ def main():
     took = cuda_lib.build_all()
     kls = [flash.build(), flash.build_bwd(), fused_ce.build()]
     print(f"[build] {sorted(cuda_lib.SOURCES)} in "
+          # torchlint: disable=R4 — times the nvcc builds: host processes, nothing launched
           f"{time.monotonic() - t0:.2f} s, one nvcc each, in parallel "
           f"(compiled now: {sorted(took)})")
     for kl in kls:
@@ -8410,6 +8750,7 @@ def main():
     # the length-aware routes' data, on the host: a corpus with the length
     # profile of the JAX package's synthetic corpus, and one with long
     # documents for the multi-width pack route
+    # torchlint: disable=L1 — the run's scratch directory is kept: a failed phase's logs stay there
     work = tempfile.mkdtemp(prefix="pdnlp_chip_smoke_")
     rng = np.random.RandomState(SEED)
     vocab_path = os.path.join(work, "vocab.txt")
@@ -8438,9 +8779,61 @@ def main():
             else ("gang", "elastic", "entry"))
         print(f"[summary] {json.dumps(four)}")
         return
+    if sys.argv[1:3] in (["--phase", "13"], ["--phase", "14"]):
+        # phase 13 or 14 on the files of the run in ``--work`` (the default
+        # run starts both as processes beside phases 10-12; 14d waits for
+        # 13a's artifact, which phase 13 announces in ``--work``; a
+        # development run: no result line)
+        src = dict(zip(sys.argv[3::2], sys.argv[4::2]))["--work"]
+        ready = os.path.join(src, "mlm_artifact.txt")
+        vocab_path = os.path.join(src, "vocab.txt")
+        profile_path = os.path.join(src, "profile.json")
+        corpus_path = os.path.join(src, "train.json")
+        if sys.argv[2] == "13":
+            def announce(path):
+                with open(ready + ".tmp", "w") as f:
+                    f.write(path)
+                os.replace(ready + ".tmp", ready)
+
+            rec, launches, mlm_seg = pretrain_phases(
+                torch, flash, fused_ce, work, vocab_path, profile_path,
+                corpus_path, device, card, lap, announce)
+            rec["mlm_seg"] = mlm_seg.tolist()
+        else:
+            def artifact():
+                deadline = time.monotonic() + 600
+                while not os.path.exists(ready):
+                    if time.monotonic() > deadline:
+                        fail("14d: phase 13 announced no MLM artifact")
+                    time.sleep(0.5)
+                with open(ready) as f:
+                    return f.read()
+
+            with open(vocab_path, encoding="utf-8") as f:
+                vocab_size = sum(1 for _ in f)
+            with open(os.path.join(src, "texts.json")) as f:
+                texts = json.load(f)
+            train_args = Args(model="bert-base", device="cuda", seed=SEED,
+                              vocab_path=vocab_path, data_path=corpus_path,
+                              data_limit=700, dropout=0.0, attn_dropout=0.0,
+                              learning_rate=LEARNING_RATE)
+            loader = setup_data(train_args)[0]
+            loader.set_epoch(0)
+            from pdnlp_tpu_torch.serve.engine import InferenceEngine
+
+            rec, launches = moe_phases(
+                torch, flash, fused_ce, InferenceEngine,
+                Args(model="bert-base", vocab_path=vocab_path,
+                     device="cuda", seed=SEED), train_args, vocab_size,
+                list(loader)[:TRAIN_STEPS], texts, work, vocab_path,
+                profile_path, corpus_path, 700, device, card, lap, artifact)
+        print(f"[launches] {json.dumps(launches)}")
+        print(f"[summary] {json.dumps(rec)}")
+        return
     if sys.argv[1:3] == ["--phase", "17a"]:
-        # phase 17a alone on one card (the default run starts it as a
-        # process beside phase 16; a development run: no result line)
+        # phase 17a on one card (the default run starts it as a process
+        # beside phases 15 and 16; alone, a development run: no result
+        # line)
         corpus_path = os.path.join(work, "train.json")
         write_corpus(corpus_path, rng, 700)
         train_args = Args(model="bert-base", device="cuda", seed=SEED,
@@ -8453,13 +8846,18 @@ def main():
         zc, zc_launches = zero_capture_check(
             torch, flash, fused_ce, train_args, vocab_size, batches, device,
             card)
+        zc["remat"], remat_launches = remat_capture_check(
+            torch, flash, fused_ce, train_args, vocab_size, batches, device,
+            card)
+        zc_launches.update(remat_launches)
         lap("17a")
         print(f"[launches] {json.dumps(zc_launches)}")
         print(f"[summary] {json.dumps(zc)}")
         return
     if sys.argv[1:] == ["--phase", "16"]:
-        # phase 16 alone, on phase 6a's corpus (a development run: it
-        # prints no result line)
+        # phase 16 on a corpus of its own (the default run starts it as a
+        # process beside phase 15; alone, a development run: no result
+        # line)
         corpus_path = os.path.join(work, "train.json")
         write_corpus(corpus_path, rng, 700)
         train_args = Args(model="bert-base", device="cuda", seed=SEED,
@@ -8683,6 +9081,7 @@ def main():
         dp = data_parallel_runs(torch, train_args, vocab_size, dp_full,
                                 dp_packed, device, card, work, texts,
                                 vocab_path, full_ms)
+        lap("7a-7c")
         # serve.cli on zero's checkpoint as a process beside 7d and 7e
         cli7 = cli_start(vocab_path, dp["zero_checkpoint"], texts)
         dp["entry_points"] = entry_points_7de_check(started_7de)
@@ -8694,12 +9093,13 @@ def main():
         stop_all([cli4[0], *(st[0] for st in started_6b),
                   *started_7de[1].values(), *started_8["procs"].values()])
         raise
+    lap("6b, 7d, 7e joined")
     # the serve engine loads 6b's two checkpoints and 7e's
     serves(build_engine, base, ckpt_trained, texts)
     serves(build_engine, base, ckpt_packed, texts)
     serves(build_engine, base, dp["entry_points"]["7e train.spawn"][
         "checkpoint"], texts)
-    lap("6b, 7")
+    lap("6b, 7e served")
     # 8. the training loop: captured K-step groups against eager steps,
     # their times, the entry point with every loop flag, resume, the tools
     # (8c and 8d's first runs started beside phase 7, the resumed runs and
@@ -8720,11 +9120,31 @@ def main():
     torch.cuda.empty_cache()
     tier = serving_tier(torch, F, flash, mask_bias, InferenceEngine, base,
                         ckpt_path, work, vocab_path, rng, card, lap)
+    # phases 13 and 14 run as processes (``--phase 13`` / ``--phase 14``:
+    # pretraining and the managed trainers, MoE and the model-axis
+    # strategies, on this run's files), and 15c's and 15d's processes
+    # start, beside phases 10-12, which leave most of the host's cores
+    # idle (their times printed, not claimed)
+    with open(os.path.join(work, "texts.json"), "w") as f:
+        json.dump(texts, f)
+    lanes = [phase_start(work, n, ("--work", work)) for n in ("13", "14")]
+    side15 = side15_start(work, corpus_path, vocab_path)
+
+    def stop_sides():
+        for lane in lanes:
+            phase_stop(lane)
+        for st in (*side15[0].values(), *side15[1].values()):
+            _timed_finish(st, timeout=0)
+
     # 10. generative decoding: slot and paged engines, fp32, bf16 and int8
     # KV, the router through a kill, serve.cli --decode
     torch.cuda.empty_cache()
-    decode, spec_cli, ctl_cli, primaries = decode_phase(
-        torch, flash, base, ckpt_path, work, vocab_path, card, lap)
+    try:
+        decode, spec_cli, ctl_cli, primaries = decode_phase(
+            torch, flash, base, ckpt_path, work, vocab_path, card, lap)
+    except BaseException:
+        stop_sides()
+        raise
     # 11. speculative decoding and the disaggregated pools: three drafters,
     # the split pools over both transports, serve.cli --speculate and
     # --disagg against 10c's tokens
@@ -8734,6 +9154,7 @@ def main():
                                 spec_cli, decode["cli"]["pieces"], primaries)
     except BaseException:
         stop_all(p for p, _, _ in ctl_cli.values())
+        stop_sides()
         raise
     del primaries
     # 12. the serving control plane: the fleet with the controller's laws
@@ -8751,100 +9172,45 @@ def main():
         lap("12b")
     except BaseException:
         stop_all(p for p, _, _ in ctl_cli.values())   # 12c is not checked
+        stop_sides()
         raise
-    ctl_cli_rec = cli_12c_check(ctl_cli, fleet_want, decode["cli"]["pieces"],
-                                card)
-    lap("12c")
-    # 13. pretraining and the managed trainers: the MLM run (13a), the
-    # supervised stage and train.single warm-started from it (13b, the
-    # process beside 13c), AutoTrainer and Accelerator (13c)
-    torch.cuda.empty_cache()
-    pre, mlm_path, mlm_seg = pretrain_phase(
-        torch, flash, fused_ce, work, vocab_path, profile_path, device, card)
-    lap("13a")
-    sft, sft_path = supervised_phase(torch, flash, fused_ce, work,
-                                     vocab_path, profile_path, mlm_path,
-                                     card)
-    torch.cuda.empty_cache()
-    lap("13b")
-    warm = warm_start_start(work, vocab_path, profile_path, sft_path)
     try:
-        managed = managed_phase(torch, flash, fused_ce, work, vocab_path,
-                                profile_path, corpus_path, card)
-        lap("13c")
-        sft["train_single"] = warm_start_check(torch, warm, vocab_path,
-                                               profile_path, sft_path, card)
+        ctl_cli_rec = cli_12c_check(ctl_cli, fleet_want,
+                                    decode["cli"]["pieces"], card)
+        lap("12c")
+        lane_rec, lane_launches = {}, {}
+        for lane in lanes:
+            rec, launches = phase_join(lane, card, "phases 10-12")
+            lane_rec.update(rec)
+            lane_launches.update(launches)
     except BaseException:
-        stop_all([warm[0]])
+        stop_sides()
         raise
-    finally:
-        shutdown()      # the process group 13b's and 13c's runners joined
-    lap("13b train.single")
-    # 14. the MoE model and the model-axis strategies: bert-base-moe under
-    # train.multi --strategy ep (14a), its captured steps (14b), tp and ep
-    # over two gloo ranks on the card (14c), upcycling 13a's artifact (14d),
-    # MoE serving with serve.cli beside 14c (14e)
-    torch.cuda.empty_cache()
-    try:
-        moe, moe_ckpt, moe_batches = moe_runs(
-            torch, flash, fused_ce, work, vocab_path, corpus_path,
-            data_limit, profile_path, device, card)
-        lap("14a")
-        moe_cap = moe_capture(torch, flash, fused_ce, vocab_path, vocab_size,
-                              moe_batches, device, card)
-        lap("14b")
-        gloo_bf16 = gloo_bf16_probe(torch, card)
-    finally:
-        shutdown()      # the process group 14a's runner joined
-    # 14c's gang and serve.cli on 14a's checkpoint run as processes beside
-    # 14d and 14e (their times printed, not claimed)
-    moe_texts = [t for t in texts if len(t) <= 126]
-    axis_args = train_args.replace(learning_rate=LEARNING_RATE)
-    axis_batches = batches[:MODEL_AXIS_STEPS]
-    gang14 = model_axis_start(axis_args, vocab_size, axis_batches, work)
-    cli14 = cli_start(vocab_path, moe_ckpt, moe_texts, model="bert-base-moe")
-    try:
-        upcycle = upcycle_check(torch, flash, fused_ce, vocab_path,
-                                vocab_size, mlm_path, batches[0], device,
-                                card)
-        lap("14d")
-        moe_serve = moe_serving(torch, flash, InferenceEngine, base,
-                                moe_ckpt, moe_texts, card)
-        lap("14e")
-        cli_check(cli14, moe_serve.pop("cli_want")[:6])
-        axis, axis_launches = model_axis_runs(torch, gang14, axis_args,
-                                              vocab_size, axis_batches,
-                                              device, card)
-        lap("14c")
-    except BaseException:
-        stop_all([cli14[0]])
-        raise
+    mlm_seg = np.asarray(lane_rec.pop("mlm_seg"))
+    lap("13, 14 joined")
     # 15. pipeline and sequence parallelism and the elastic gang: the
     # transport probe (15t), pp and sp over two gloo ranks (15a, 15b), the
     # elastic gang and the pp / sp entry points as processes beside them
     # (15c, 15d)
     torch.cuda.empty_cache()
-    # 17a, zero's explicit ZeRO-3 step captured at world 1 over NCCL, runs
-    # as a process (its own NCCL group of one on the card) beside 15 and 16
-    zc_started = zero17a_start(work)
+    # 16, the configurations the port refused before (offloaded moments,
+    # the EMA and bf16 compute under zero, a captured step with its NCCL
+    # all-reduce, resumes across modes), and 17a, zero's and dp's remat
+    # steps captured, run as processes (each its own NCCL group of one on
+    # the card) beside 15
+    zc_started = phase_start(work, "17a")
+    off_started = phase_start(work, "16")
     try:
         par, par_launches = parallel_phase(
             torch, work, vocab_path, corpus_path, train_args, vocab_size,
-            batches, texts, device, card, lap)
-        # 16. the configurations the port refused before: offloaded
-        # moments (16a), the EMA and bf16 compute under zero (16b), a
-        # captured step with its NCCL all-reduce (16c), resumes across
-        # modes (16d)
-        torch.cuda.empty_cache()
-        off, off_launches = offload_phase(torch, flash, fused_ce,
-                                          train_args, vocab_size, batches,
-                                          device, card, work)
+            batches, texts, device, card, lap, side=side15)
+        off, off_launches = phase_join(off_started, card, "phase 15")
         lap("16")
-        zc, zc_launches = zero17a_join(zc_started, card)
+        zc, zc_launches = phase_join(zc_started, card, "phases 15 and 16")
     finally:
-        stop_all([zc_started[0]])
+        phase_stop(zc_started)
+        phase_stop(off_started)
     lap("17a")
-    moe_launches = {f"14a {n}": r["launches"] for n, r in moe.items()}
     launches_by_path = {
         "serving packed (K1)": {"flash_fwd": main_launches},
         "6a fixed width fp32": train_launches,
@@ -8867,51 +9233,23 @@ def main():
                                                 spec["launches"]},
         "12a fleet": {"flash_fwd": fleet_rec["launches"]},
         "12b decode laws": {"flash_fwd": laws["launches"]},
-        "13a pretraining": pre["launches"],
-        "13b supervised stage": sft["launches"],
-        "13c AutoTrainer": managed["auto"]["launches"],
-        "13c Accelerator": managed["accelerator"]["launches"],
-        **moe_launches,
-        **{f"14b fuse_steps {d}": r["launches"] for d, r in moe_cap.items()},
-        **axis_launches,
-        "14d upcycled step": upcycle["launches"],
+        **lane_launches,
         **par_launches,
         **off_launches,
-        **zc_launches,
-        **{f"14e serving {d}": {"flash_fwd": r["launches_flash_fwd"]}
-           for d, r in moe_serve.items() if isinstance(r, dict)
-           and "launches_flash_fwd" in r}}
+        **zc_launches}
     print(f"[launches] per path (counts set to 0 just before each, read "
           f"just after): {json.dumps(launches_by_path)}")
     # 6 times: K1-K3 at every training shape of the paths, K4/K5 at the
     # train step's rows and the pack route's segment rows
-    bwd_times = time_backward(torch, F, flash, mask_bias, device, card,
-                              key_mask=batches[0]["attention_mask"])
-    shape_times = {}
-    for w in (32, 64):
-        b = next(b for b in routes["bucket"][1]
-                 if b["input_ids"].shape[1] == w)
-        shape_times[f"32x{w} bucket"] = time_backward(
-            torch, F, flash, mask_bias, device, card,
-            key_mask=b["attention_mask"])
-    for w, seg in packed_segs.items():
-        shape_times[f"32x{w} packed"] = time_backward(
-            torch, F, flash, mask_bias, device, card, seg=seg)
-    # 13a's shape: the packed 64 x 128 rows of its first batch
-    shape_times["64x128 packed (13a)"] = time_backward(
-        torch, F, flash, mask_bias, device, card, seg=mlm_seg)
-    # 14c's tp shape: each rank's 6 of the 12 heads at 32 x 128
-    shape_times["32x128 6 heads (14c tp)"] = time_backward(
-        torch, F, flash, mask_bias, device, card,
-        key_mask=batches[0]["attention_mask"], N=6)
-    # 15a's microbatch: 8 rows of the 32 x 128 batch, 12 heads
-    shape_times["8x128 pp microbatch (15a)"] = time_backward(
-        torch, F, flash, mask_bias, device, card,
-        key_mask=batches[0]["attention_mask"][:8])
-    ce_times = time_fused_ce(torch, F, fused_ce, device, card)
-    ce_pack_times = {name: time_fused_ce(torch, F, fused_ce, device, card,
-                                         rows=rows)
-                     for name, rows in pack_rows.items()}
+    timed = kernel_times(torch, F, flash, fused_ce, mask_bias, device, card, {
+        "key_mask": batches[0]["attention_mask"],
+        "bucket": {w: next(b for b in routes["bucket"][1]
+                           if b["input_ids"].shape[1] == w)["attention_mask"]
+                   for w in (32, 64)},
+        "packed_segs": packed_segs, "mlm_seg": mlm_seg,
+        "pack_rows": pack_rows})
+    bwd_times, shape_times = timed["bwd_times"], timed["shape_times"]
+    ce_times, ce_pack_times = timed["ce_times"], timed["ce_pack_times"]
     lap("6 times")
     summary = {
         "card": card, "runs": runs, "forward_ms": fwd_times,
@@ -8929,10 +9267,7 @@ def main():
         "speculation": spec,
         "control_plane": {"fleet": fleet_rec, "decode_laws": laws,
                           "cli": ctl_cli_rec},
-        "pretraining": {"mlm": pre, "supervised": sft, "managed": managed},
-        "moe": {"ep_world1": moe, "capture": moe_cap, "model_axis": axis,
-                "gloo_bf16": gloo_bf16, "upcycle": upcycle,
-                "serving": moe_serve},
+        **lane_rec,
         "parallel": par,
         "offload": off,
         "zero_capture": zc,

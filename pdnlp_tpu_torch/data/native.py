@@ -39,8 +39,6 @@ GEN_TABLES = _REPO / "csrc" / "gen_tables.py"
 BUILD_DIR = Path(__file__).resolve().parents[1] / "build"
 CXX_FLAGS = ("-O3", "-std=c++17", "-fPIC", "-Wall", "-shared")
 
-_LOCK = threading.Lock()
-
 
 def _target() -> Path:
     digest = hashlib.sha256(
@@ -52,38 +50,43 @@ def _target() -> Path:
 
 def build() -> Optional[str]:
     """Compile the shared library if it is not built yet; its path, or
-    None when the source or ``g++`` is missing or the build fails."""
-    with _LOCK:
-        if not (SOURCE.exists() and GEN_TABLES.exists()):
-            return None
-        target = _target()
-        if target.exists():
-            return str(target)
-        # the source is compiled from a private copy, so its quoted
-        # ``#include "tables.h"`` finds the tables generated here
-        work = BUILD_DIR / f"{target.stem}.{os.getpid()}.src"
-        work.mkdir(parents=True, exist_ok=True)
-        tmp = target.with_name(f"{target.name}.{os.getpid()}.tmp")
-        try:
-            tables = subprocess.run([sys.executable, str(GEN_TABLES)],
-                                    capture_output=True, text=True)
-            if tables.returncode != 0:
-                return None
-            (work / "tables.h").write_text(tables.stdout)
-            shutil.copyfile(SOURCE, work / SOURCE.name)
-            cxx = os.environ.get("CXX", "g++")
-            r = subprocess.run([cxx, *CXX_FLAGS, "-o", str(tmp),
-                                str(work / SOURCE.name)],
-                               capture_output=True, text=True)
-        except OSError:
-            return None
-        finally:
-            shutil.rmtree(work, ignore_errors=True)
-        if r.returncode != 0:
-            tmp.unlink(missing_ok=True)
-            return None
-        os.replace(tmp, target)
+    None when the source or ``g++`` is missing or the build fails.
+
+    No lock is held while it compiles: each caller builds from a private
+    copy into a file of its own and publishes it with one rename, so two
+    threads or processes building at once publish the same bytes (as
+    ``ops.cuda_lib.build_all`` does)."""
+    if not (SOURCE.exists() and GEN_TABLES.exists()):
+        return None
+    target = _target()
+    if target.exists():
         return str(target)
+    # the source is compiled from a private copy, so its quoted
+    # ``#include "tables.h"`` finds the tables generated here
+    tag = f"{os.getpid()}.{threading.get_ident()}"
+    work = BUILD_DIR / f"{target.stem}.{tag}.src"
+    work.mkdir(parents=True, exist_ok=True)
+    tmp = target.with_name(f"{target.name}.{tag}.tmp")
+    try:
+        tables = subprocess.run([sys.executable, str(GEN_TABLES)],
+                                capture_output=True, text=True)
+        if tables.returncode != 0:
+            return None
+        (work / "tables.h").write_text(tables.stdout)
+        shutil.copyfile(SOURCE, work / SOURCE.name)
+        cxx = os.environ.get("CXX", "g++")
+        r = subprocess.run([cxx, *CXX_FLAGS, "-o", str(tmp),
+                            str(work / SOURCE.name)],
+                           capture_output=True, text=True)
+    except OSError:
+        return None
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+    if r.returncode != 0:
+        tmp.unlink(missing_ok=True)
+        return None
+    os.replace(tmp, target)
+    return str(target)
 
 
 class NativeEncoder:

@@ -25,7 +25,8 @@ the plain path.  The masks are drawn from an explicit ``torch.Generator``
 through every part, the flash and fused-CE kernels included.
 
 Rematerialization (``remat``, the ``jax.checkpoint`` twin) recomputes each
-layer in the backward, with the dropout generator replayed (:func:`_remat`).
+layer in the backward, with the dropout generator replayed (:func:`_remat`),
+eager or inside a captured CUDA graph (:class:`RematRng`).
 
 Int8 weight-only serving swaps each dense layer for a :class:`QuantLinear`
 and each expert stack for a :class:`QuantExperts` (:func:`quantize_linears`),
@@ -62,8 +63,10 @@ unchanged; its decoder is tied to ``embeddings.word``.
 """
 from __future__ import annotations
 
+import contextlib
 import math
-from typing import Dict, NamedTuple, Optional
+import threading
+from typing import Dict, List, NamedTuple, Optional
 
 import torch
 import torch.distributed as dist
@@ -571,6 +574,43 @@ class EncoderLayer(nn.Module):
         return x if aux is None else (x, aux)
 
 
+class RematRng:
+    """The recompute's dropout streams for one captured graph.
+
+    Eager, :func:`_remat` saves the generator's state on the host and puts
+    it back for the recompute.  A captured graph cannot do that: the
+    generator's offset under capture is a device value read at each replay,
+    and a host read or write of it would be frozen into the capture.  So
+    the captured step draws each layer's recompute from a state of its own
+    (``states``, one per remat call in the graph, each registered with the
+    graph before the capture), switched in and out with the graph-safe
+    generator API; before every replay the capturer sets each one to the
+    offset the main generator will have at that layer's forward
+    (``train.steps._MultiStep``), which an eager recording step measured
+    (``offsets``: the main generator's offset at each remat forward).
+    Each replay's recompute then draws the masks its forward drew."""
+
+    def __init__(self, states=()):
+        self.states = list(states)
+        self.offsets: List[int] = []
+
+
+#: ``.rng``: the :class:`RematRng` of the capture or recording step under
+#: way on this thread (a gang's ranks may be threads of one process)
+_REMAT = threading.local()
+
+
+@contextlib.contextmanager
+def remat_rng(rng: RematRng):
+    """Route :func:`_remat`'s dropout bookkeeping through ``rng`` while the
+    block runs (a capture, or the eager step that records the offsets)."""
+    prev, _REMAT.rng = getattr(_REMAT, "rng", None), rng
+    try:
+        yield rng
+    finally:
+        _REMAT.rng = prev
+
+
 def _remat(layer: EncoderLayer, x: torch.Tensor, *args,
            generator: Optional[torch.Generator], **kw) -> torch.Tensor:
     """``layer(x, ...)`` under ``torch.utils.checkpoint``: its activations
@@ -579,18 +619,34 @@ def _remat(layer: EncoderLayer, x: torch.Tensor, *args,
     ``checkpoint``'s ``preserve_rng_state`` restores only the default CPU
     and CUDA streams, and dropout draws from the explicit ``generator``:
     left alone, the recompute would draw other masks and the gradient would
-    be silently wrong.  So the generator's state is saved here, restored
-    at the start of the recompute, and the stream put back where the
-    backward found it afterwards (``jax.checkpoint`` replays its keys for
-    free).  Nothing on this path draws from the default streams.
+    be silently wrong.  So the recompute replays the forward's masks
+    (``jax.checkpoint`` replays its keys for free): eager, the generator's
+    state is saved here, restored at the start of the recompute, and the
+    stream put back where the backward found it afterwards; under a CUDA
+    graph capture the recompute draws from the next state of the capture's
+    :class:`RematRng`, which each replay starts at this forward's offset.
+    Nothing on this path draws from the default streams.
 
     The recompute reads the weights the forward read: the layer's own, or
     the tensors a ``torch.func.functional_call`` put in their place for
     the forward (zero's gathered weights, ``parallel.sharding.
-    ZeroObjective``), which are gone from the module by the backward."""
+    ZeroObjective``; the bf16 casts of ``--grads_dtype compute``), which
+    are gone from the module by the backward."""
     from torch.utils.checkpoint import checkpoint
 
-    saved = generator.get_state() if generator is not None else None
+    saved = replay = None
+    rng = getattr(_REMAT, "rng", None)
+    if generator is not None and generator.device.type == "cuda" \
+            and torch.cuda.is_current_stream_capturing():
+        if rng is None or not rng.states:
+            raise RuntimeError(
+                "remat in a captured region needs the recompute's dropout "
+                "states (train.steps.build_multi_step captures it)")
+        replay = rng.states.pop(0)
+    elif generator is not None:
+        saved = generator.get_state()
+        if rng is not None:
+            rng.offsets.append(generator.get_offset())
     weights = dict(layer.named_parameters())
     ran = []
 
@@ -599,14 +655,19 @@ def _remat(layer: EncoderLayer, x: torch.Tensor, *args,
             ran.append(True)
             return layer(x, *args, generator=generator, **kw)
         now = None                        # the recompute: replay the masks
-        if saved is not None:
+        if replay is not None:
+            now = generator.graphsafe_get_state()
+            generator.graphsafe_set_state(replay)
+        elif saved is not None:
             now = generator.get_state()
             generator.set_state(saved)
         try:
             return torch.func.functional_call(
                 layer, weights, (x, *args), {"generator": generator, **kw})
         finally:
-            if now is not None:
+            if replay is not None:
+                generator.graphsafe_set_state(now)
+            elif now is not None:
                 generator.set_state(now)
 
     return checkpoint(body, x, use_reentrant=False, preserve_rng_state=False)

@@ -291,8 +291,7 @@ def make_parallel_train_step(args, mesh, device, mode: str = "dp",
     if mode in MODE_AXIS or explicit_reduce:
         after = _grad_reduce(group, None, compute_grads(args))
     return build_train_step(args, device, after_backward=after,
-                            reduce_metrics=_metric_sum(group),
-                            sharded=sharded)
+                            reduce_metrics=_metric_sum(group))
 
 
 def make_parallel_eval_step(args, state: TrainState):

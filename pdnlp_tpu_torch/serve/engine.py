@@ -279,6 +279,7 @@ class InferenceEngine:
                     inputs[k].copy_(torch.from_numpy(
                         np.ascontiguousarray(batch[k])))
                 fn(inputs)
+            # torchlint: disable=T3 — captures are serialized: the warm-up must finish first
             stream.synchronize()
             # the capture empties the allocator's cache first; so does
             # this, so the reserved bytes' growth is the graph's pool
@@ -291,6 +292,7 @@ class InferenceEngine:
                     torch.cuda.graph(graph, pool=self._pool, stream=stream,
                                      capture_error_mode="thread_local"):
                 logits = fn(inputs)
+            # torchlint: disable=R4 — times the capture's recording: a capture launches nothing
             seconds = time.perf_counter() - t0
             if self._pool is None:
                 self._pool = graph.pool()

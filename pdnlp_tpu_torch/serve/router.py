@@ -797,7 +797,7 @@ class ReplicaRouter:
                 # by design: a wedged worker exists to SIMULATE a stuck
                 # device stream, and flag writes are atomic under the
                 # GIL — the monitor ejects this replica either way
-                # jaxlint: disable=T1
+                # torchlint: disable=T1
                 self._execute(rep, batch)
                 with self._lock:
                     rep.inflight = []

@@ -18,8 +18,8 @@ rank:
 - ``dataparallel``: one ``train_batch_size``-row global batch split over
   the ranks (288 steps at any width);
 - ``zero``: ZeRO-3 (``parallel.sharding.ZeroObjective``) with ``--remat
-  true``, or ``false`` under ``--fuse_steps`` above 1, whose captured
-  step cannot replay the recompute's generator state;
+  true`` at every ``--fuse_steps`` (the captured step replays the
+  recompute's dropout masks, ``models.bert.RematRng``);
 - ``shardmap``: the hand-written bf16 gradient all-reduce;
 - ``amp``: DDP with ``--dtype bfloat16`` (bf16 needs no loss scaler);
 - ``tp``: heads and MLP features split over a ``model`` axis, default
@@ -117,11 +117,6 @@ def parse(argv, prog: str = "train.multi"):
     defaults, knobs = STRATEGIES[strategy]
     argv = refuse_not_ported(argv, MULTI_NOT_PORTED, prog=prog)
     args = parse_cli(argv, base=Args(strategy=strategy, **defaults))
-    if defaults.get("remat") and args.fuse_steps > 1 and not any(
-            a == "--remat" or a.startswith("--remat=") for a in argv):
-        # a strategy's remat default gives way to --fuse_steps: the
-        # captured step refuses the recompute (train.trainer.Trainer)
-        args = args.replace(remat=False)
     try:
         check_mode(args.mode)
         check_strategy(args, args.mode,

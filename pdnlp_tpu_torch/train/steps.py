@@ -37,7 +37,7 @@ from typing import Callable, Dict, List, Optional
 import numpy as np
 import torch
 
-from pdnlp_tpu_torch.models.bert import BertClassifier
+from pdnlp_tpu_torch.models.bert import BertClassifier, RematRng, remat_rng
 from pdnlp_tpu_torch.ops.fused_ce import fused_weighted_ce, resolve_fused_ce
 from pdnlp_tpu_torch.parallel.sharding import ZeroObjective, local_shard
 from pdnlp_tpu_torch.train.precision import resolve_dtype
@@ -256,8 +256,8 @@ def ema_coefficients(decay: float):
     return float(d), float(np.float32(1.0) - d)
 
 
-def build_train_step(args, device, after_backward=None, reduce_metrics=None,
-                     sharded: bool = False) -> Callable[..., Metrics]:
+def build_train_step(args, device, after_backward=None, reduce_metrics=None
+                     ) -> Callable[..., Metrics]:
     """The train step for ``args``: ``step(state, batch)`` calls
     ``state.objective`` (which resolved the routes for ``device``), runs
     ``backward``, then ``after_backward(state)`` (the explicit gradient
@@ -275,14 +275,11 @@ def build_train_step(args, device, after_backward=None, reduce_metrics=None,
     gradients to the shards after the backward itself, before
     ``after_backward``.
 
-    ``sharded``: the objective is zero's, which gathers the matmul weights
-    in bf16 for ``--grads_dtype compute`` itself, so the recompute of
-    ``--remat`` sees the bf16 weights too."""
+    Under ``--grads_dtype compute`` the forward reads the bf16 casts of the
+    matmul weights (zero's objective gathers them in bf16 itself), and so
+    does ``--remat``'s recompute (``models.bert._remat``)."""
     d, one_minus_d = ema_coefficients(args.ema_decay)
     compute = compute_grads(args)
-    if compute and getattr(args, "remat", False) and not sharded:
-        raise ValueError("--grads_dtype compute with --remat true: the "
-                         "recompute would run on the fp32 weights")
     dtype = resolve_dtype(args.dtype)
 
     def loss_and_backward(state: TrainState, batch: Batch):
@@ -441,6 +438,9 @@ class _Graph:
         self.replays = 0
         #: the collectives' call and byte counts its capture recorded
         self.collectives: Dict[str, int] = {}
+        #: (recompute dropout state, offset past the main generator's at
+        #: the replay's start) per remat call (models.bert.RematRng)
+        self.remat: List[tuple] = []
 
 
 class _MultiStep:
@@ -469,7 +469,12 @@ class _MultiStep:
     - before the first capture one eager step runs on the capture stream
       (the kernels' libraries load, cuBLAS sets up its workspace) from a
       copy of the state, which is then put back bit for bit: capturing
-      never changes the trained state.
+      never changes the trained state;
+    - under ``--remat`` that step also records the generator's offset at
+      each layer's forward, and again before every later capture of
+      another shape: the graph's recomputes draw from states of their own
+      (``models.bert.RematRng``), set from those offsets before each
+      replay, so each recompute replays its forward's masks.
 
     A capture or a replay that fails raises; nothing falls back to eager
     steps.  On the CPU the K steps run one by one."""
@@ -484,6 +489,7 @@ class _MultiStep:
         self._pool = None
         self._stream = None
         self._warmed = False
+        self._remat = False
 
     def reset(self) -> None:
         """Drop every captured graph (after the state's tensors were
@@ -511,20 +517,26 @@ class _MultiStep:
         return tuple(sorted((key, tuple(v.shape), str(v.dtype))
                             for key, v in inputs.items()))
 
-    def _warm(self, state: TrainState, inputs: Batch) -> None:
+    def _warm(self, state: TrainState, inputs: Batch) -> tuple:
         """One eager step on the capture stream, undone after (its
-        launches are not counted: it trains nothing)."""
+        launches are not counted: it trains nothing).  Returns the
+        generator's offsets at the step's remat forwards and over the
+        whole step, from its offset at the step's start."""
         snap = snapshot_state(state)
         before = _counts()
+        start = state.generator.get_offset()
         self._stream.wait_stream(torch.cuda.current_stream(self.device))
-        with torch.cuda.stream(self._stream):
+        with torch.cuda.stream(self._stream), remat_rng(RematRng()) as rec:
             self.train_step(state, {key: v[0] for key, v in inputs.items()})
+        period = state.generator.get_offset() - start
         torch.cuda.current_stream(self.device).wait_stream(self._stream)
         torch.cuda.synchronize(self.device)
         restore_state(state, snap)
         after = _counts()
         _add_counts({n: after[n] - before[n] for n in after}, -1)
         self._warmed = True
+        self._remat = bool(rec.offsets)
+        return [o - start for o in rec.offsets], period
 
     def capture(self, state: TrainState, batches: Batch) -> _Graph:
         """Capture the K-step graph of ``batches``' shape (``batches`` are
@@ -539,8 +551,9 @@ class _MultiStep:
                              "(train.optim.build_optimizer)")
         if self._stream is None:
             self._stream = torch.cuda.Stream(self.device)
-        if not self._warmed:
-            self._warm(state, inputs)
+        offsets, period = [], 0
+        if not self._warmed or self._remat:
+            offsets, period = self._warm(state, inputs)
         k = int(inputs["input_ids"].shape[0])
         groups = state.optimizer.param_groups
         lrs = None
@@ -549,20 +562,31 @@ class _MultiStep:
                               device=self.device)
         graph = torch.cuda.CUDAGraph()
         graph.register_generator_state(state.generator)
+        remat = [(state.generator.clone_state(), i * period + o)
+                 for i in range(k) for o in offsets]
+        for r, _ in remat:
+            graph.register_generator_state(r)
+        rng = RematRng(r for r, _ in remat)
         state.optimizer.zero_grad(set_to_none=True)
         torch.cuda.synchronize(self.device)
         torch.cuda.empty_cache()
         reserved = torch.cuda.memory_reserved(self.device)
         before, step0 = _counts(), state.step
         t0 = time.perf_counter()
-        with torch.cuda.graph(graph, pool=self._pool, stream=self._stream):
+        with remat_rng(rng), torch.cuda.graph(graph, pool=self._pool,
+                                              stream=self._stream):
             ms = [self.train_step(
                 state, {key_: v[i] for key_, v in inputs.items()},
                 next_lr=None if lrs is None else list(lrs[i + 1]))
                 for i in range(k)]
             outputs = {m: torch.stack([x[m] for x in ms]) for m in ms[0]}
+        # torchlint: disable=R4 — times the capture's recording: a capture launches nothing
         seconds = time.perf_counter() - t0
         state.step = step0                   # the capture ran nothing
+        if rng.states:
+            raise RuntimeError(
+                f"the capture ran {len(remat) - len(rng.states)} remat "
+                f"layers of the {len(remat)} its eager step recorded")
         after = _counts()
         counted = {n: after[n] - before[n] for n in after}
         _add_counts(counted, -1)
@@ -573,6 +597,7 @@ class _MultiStep:
         g = _Graph(graph, k, inputs, lrs, outputs, launches, seconds,
                    torch.cuda.memory_reserved(self.device) - reserved)
         g.collectives = {n: v for n, v in counted.items() if "." in n}
+        g.remat = remat
         self.graphs[key] = g
         return g
 
@@ -583,6 +608,14 @@ class _MultiStep:
 
             rows = torch.tensor(group_lrs(sched, g.k), dtype=torch.float32)
             g.lrs.copy_(rows.pin_memory(), non_blocking=True)
+        if g.remat:
+            # each recompute's state at its forward's offset (host values:
+            # the replay's prologue fills the device copies from them)
+            seed = state.generator.initial_seed()
+            base = state.generator.get_offset()
+            for r, offset in g.remat:
+                r.manual_seed(seed)
+                r.set_offset(base + offset)
         g.graph.replay()
         g.replays += 1
         state.step += g.k

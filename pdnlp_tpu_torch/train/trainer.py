@@ -195,12 +195,6 @@ class Trainer:
         self.pipeline = pipeline
         self.fuse = max(1, int(getattr(args, "fuse_steps", 1))) \
             if fusable else 1
-        if self.fuse > 1 and device.type == "cuda" \
-                and getattr(args, "remat", False):
-            raise ValueError(
-                "--remat true with --fuse_steps > 1 on cuda: the recompute "
-                "saves the dropout generator's state on the host, which a "
-                "captured graph cannot replay — use --fuse_steps 1")
         if multi_step is None and self.fuse > 1 and train_step is not None:
             multi_step = build_multi_step(train_step, device)
         self.multi_step = multi_step

@@ -833,6 +833,31 @@ def test_captured_steps_equal_eager_bit_for_bit(cuda_device, dropout):
     assert len(multi.graphs) == 1 and sf.step == se.step == 6
 
 
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_captured_remat_steps_equal_eager_bit_for_bit(cuda_device, dtype):
+    """``--remat true`` inside a captured group of four and two eager steps
+    at dropout 0.1: against six eager remat steps and six eager steps without remat, losses,
+    params, EMA and the dropout generator bit for bit (each replay's
+    recompute draws its forward's masks, ``models.bert.RematRng``); K1
+    runs twice per layer per step (the forward and the recompute), K2
+    once."""
+    se, sf, eager, fused, multi = _fused_vs_eager(cuda_device, 0.1,
+                                                  remat=True, dtype=dtype)
+    launched = flash.launch_counts()
+    so, _, plain, _, _ = _fused_vs_eager(cuda_device, 0.1, dtype=dtype)
+    assert torch.equal(eager, fused) and torch.equal(plain, fused)
+    pe, pf, po = (s.model.state_dict() for s in (se, sf, so))
+    assert all(torch.equal(pe[k], pf[k]) and torch.equal(po[k], pf[k])
+               for k in pe)
+    assert all(torch.equal(se.ema[k], sf.ema[k]) for k in pe)
+    assert torch.equal(se.generator.get_state(), sf.generator.get_state())
+    assert torch.equal(so.generator.get_state(), sf.generator.get_state())
+    g = next(iter(multi.graphs.values()))
+    assert len(multi.graphs) == 1 and len(g.remat) == 4 * 2
+    # the group's four steps and the two eager ones after it, two layers
+    assert launched["flash_fwd"] == 2 * launched["flash_bwd_dq"] == 6 * 2 * 2
+
+
 def test_world1_nccl_captured_dp_step_equals_eager(cuda_device):
     """dp in a world-1 NCCL group with ``--fuse_steps`` 4 and the
     gradient all-reduce built into the step (``explicit_reduce``: at data

@@ -21,7 +21,7 @@ version of the captured graph (held against it on the card in
   ``eff_k``), ending where their K = 1 runs end; a gloo group on a card
   would be refused at startup (``parallel.execution.
   check_capture_backend``), zero's step at any width; zero's strategy
-  default ``--remat true`` gives way to ``--fuse_steps`` above 1;
+  default ``--remat true`` holds under ``--fuse_steps`` above 1;
 - the collectives' counters credit a replay with what its capture
   recorded (``parallel.collectives.add_stats``).
 
@@ -235,20 +235,20 @@ def test_fused_dp_matches_jax_multi_step(gang, mode):
 def test_zero_refuses_fused_steps_and_gloo_capture():
     """zero with ``--fuse_steps`` above 1 is taken at the entry point and
     in the assembly (refused before, ROADMAP A7), its strategy's
-    ``--remat true`` default then resolved to false (the captured step
-    refuses the recompute) unless ``--remat`` is given; offload with fused
-    steps stays refused; a captured step on a card over gloo is refused
-    at startup — zero's at world 1 too, whose step always holds
-    collectives."""
+    ``--remat true`` default kept (the captured step replays the
+    recompute's masks, ``models.bert.RematRng``) unless ``--remat false``
+    is given; offload with fused steps stays refused; a captured step on
+    a card over gloo is refused at startup — zero's at world 1 too, whose
+    step always holds collectives."""
     from pdnlp_tpu_torch.parallel import execution
     from pdnlp_tpu_torch.train import multi
 
     args, knobs = multi.parse(["--strategy", "zero", "--fuse_steps", "2"])
     assert args.fuse_steps == 2 and knobs["mode"] == "zero"
-    assert args.remat is False
+    assert args.remat is True
     assert multi.parse(["--strategy", "zero"])[0].remat is True
     assert multi.parse(["--strategy", "zero", "--fuse_steps", "2",
-                        "--remat", "true"])[0].remat is True
+                        "--remat", "false"])[0].remat is False
     assert multi.parse(["--mode", "zero", "--fuse_steps", "2"])[0].remat \
         is False
     for mode in ("zero", "dp", "pp", "sp", "tp", "ep"):

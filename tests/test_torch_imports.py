@@ -106,6 +106,27 @@ def test_importing_every_module_loads_no_jax():
     assert r.returncode == 0, r.stderr
 
 
+def test_the_analyzer_imports_neither_jax_nor_torch():
+    """``pdnlp_tpu_torch.analysis`` is pure ``ast``: importing it (and
+    running it on a file) loads neither JAX, the JAX package nor torch —
+    it runs on any machine — and no module of it names one."""
+    paths = sorted((PORT / "analysis").rglob("*.py"))
+    assert len(paths) > 25
+    bad = {f"{p.relative_to(REPO)}: {root}" for p in paths
+           for root in _imported_roots(p) if root in FORBIDDEN + ("torch",)}
+    assert not bad, sorted(bad)
+    code = ("import sys\n"
+            "from pdnlp_tpu_torch.analysis import analyze_paths\n"
+            "analyze_paths(['pdnlp_tpu_torch/models/bert.py'])\n"
+            "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
+            f"{FORBIDDEN + ('torch',)!r})\n"
+            "assert not bad, bad\n")
+    r = subprocess.run([sys.executable, "-c", code], capture_output=True,
+                       text=True, timeout=120, cwd=str(REPO),
+                       env={**os.environ, "PYTHONPATH": str(REPO)})
+    assert r.returncode == 0, r.stderr
+
+
 def test_kernel_build_is_content_addressed_and_lazy(monkeypatch):
     """Importing builds nothing; the library name hashes the source and the
     flags, so an edited kernel never loads a stale build; without nvcc the

@@ -95,6 +95,13 @@ def test_four_card_plan_holds_every_case(smoke):
     assert want["flash_fwd"] == 12 // 4 * 4 * 2 and want["fused_ce_fwd"] == 0
     assert smoke._want_launches(by["sp"], 2) is None
     assert smoke._want_launches(by["dp DDP"], 2)["flash_bwd_dq"] == 24
+    # zero's fused cases run at its strategy default, --remat true: K1
+    # twice a layer
+    for c in plan:
+        if c["mode"] == "zero" and c["fuse"] > 1:
+            assert c["extra"]["remat"] is True
+            want = smoke._want_launches(c, 2)
+            assert want["flash_fwd"] == 2 * want["flash_bwd_dq"] == 48
 
 
 def test_four_card_batches_concatenate_to_the_global_batch(smoke, tmp_path):

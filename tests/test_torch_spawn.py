@@ -156,14 +156,15 @@ def test_refusals_name_the_missing_path(argv, match):
 def test_zero_takes_fused_steps(argv, fuse):
     """zero with ``--fuse_steps`` above 1, refused before (ROADMAP A7), is
     taken as ``train.spawn`` is typed, the strategy's ``--remat true``
-    default resolved to false (a captured step refuses the recompute on
-    the card, ``train.trainer.Trainer``), and the zero step it builds on
-    the CPU runs its K steps."""
+    default kept under ``--strategy`` (the captured step replays the
+    recompute's masks on the card, ``models.bert.RematRng``; ``--mode
+    zero`` has no remat default), and the zero step it builds on the CPU
+    runs its K steps."""
     from pdnlp_tpu_torch.parallel.execution import check_capture_backend
 
     args, knobs = multi.parse(argv, prog="train.spawn")
     assert knobs["mode"] == "zero" and args.fuse_steps == fuse
-    assert args.remat is False
+    assert args.remat is (argv[0] == "--strategy")
     check_capture_backend(args, knobs["mode"], torch.device("cpu"))
 
 
