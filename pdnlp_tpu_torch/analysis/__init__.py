@@ -29,6 +29,28 @@ R8   plain-attention-in-hot-path    attention pinned to the plain path or
 R9   blocking-ckpt-in-step-loop     ``torch.save`` / ``checkpoint.save*`` in
                                     a step loop (``train.async_ckpt`` is the
                                     saver)
+R10  unspanned-serve-block          a serve path reads a forward's, a
+                                    replay's or a step's result on the host
+                                    (or syncs after one) outside any tracer
+                                    span
+R11  unpacked-serve-forward         a ``segmented=True`` route fed a batch
+                                    without ``segment_ids`` /
+                                    ``cls_positions``
+R12  device-value-in-span-attr      a device tensor, or a sync of one, as a
+                                    ``span`` / ``record`` attribute
+R13  unrecorded-actuation           a serving knob written outside the
+                                    controller's ``_actuate`` / ``_apply``
+R14  quadratic-bias-at-width        a ``[B, 1, S, S]`` bias built on a hot
+                                    path (``segment_bias``, the ID outer
+                                    product, a literal S >= 512 buffer)
+R15  unrecorded-traffic-shift       a canary / shadow fraction or a
+                                    rollback written outside ``_actuate``
+R16  kv-cache-realloc-in-decode-    ``torch.cat`` / ``stack`` (or a stacked
+     loop                           list) of KV state in a decode loop
+R17  per-k-retrace-in-speculation   a draft / verify dispatch sliced to a
+                                    runtime length in a decode loop
+R18  per-stream-handoff-retrace     a handoff export / import index sized
+                                    to the live page count
 ===  =============================  ==========================================
 
 The captured set (:meth:`~pdnlp_tpu_torch.analysis.core.ModuleInfo.

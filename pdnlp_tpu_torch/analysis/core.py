@@ -19,6 +19,7 @@ from __future__ import annotations
 import ast
 import dataclasses
 import re
+from collections import deque
 from typing import Dict, Iterable, Iterator, List, Optional, Set, Tuple
 
 # --------------------------------------------------------------------- finding
@@ -100,6 +101,10 @@ GRAPH_CONTEXTS = {"torch.cuda.graph", "torch.cuda.graphs.graph"}
 
 _FUNCS = (ast.FunctionDef, ast.AsyncFunctionDef, ast.Lambda)
 
+#: the port's serving package, by module name and by path
+SERVE_PACKAGE = "pdnlp_tpu_torch.serve"
+SERVE_PATH = "pdnlp_tpu_torch/serve/"
+
 
 def dotted_name(node: ast.AST) -> Optional[str]:
     """``a.b.c`` for a Name/Attribute chain, else None."""
@@ -126,6 +131,7 @@ class ModuleInfo:
         self._captured: Optional[Set[ast.AST]] = None
         self._blocks: Optional[List[ast.With]] = None
         self._parents: Optional[Dict[ast.AST, ast.AST]] = None
+        self._own: Optional[Dict[ast.AST, List[ast.AST]]] = None
 
     # ------------------------------------------------------------- imports
     @staticmethod
@@ -517,6 +523,40 @@ class ModuleInfo:
             p = self.parents.get(p)
         return None
 
+    def own_nodes(self, scope: ast.AST) -> List[ast.AST]:
+        """The nodes whose nearest enclosing def is ``scope`` (the module
+        for top-level code), in walk order — one walk of the tree serves
+        every scope (the per-scope rules R10-R12)."""
+        if self._own is None:
+            self._own = {}
+            for node in ast.walk(self.tree):
+                fn = self.enclosing_function(node)
+                self._own.setdefault(self.tree if fn is None else fn,
+                                     []).append(node)
+        return self._own.get(scope, [])
+
+    def inside_span(self, node: ast.AST) -> bool:
+        """Is ``node`` lexically under a ``with <x>.span(...)`` block?"""
+        p = self.parents.get(node)
+        while p is not None:
+            if isinstance(p, (ast.With, ast.AsyncWith)) and any(
+                    isinstance(it.context_expr, ast.Call)
+                    and isinstance(it.context_expr.func, ast.Attribute)
+                    and it.context_expr.func.attr == "span"
+                    for it in p.items):
+                return True
+            p = self.parents.get(p)
+        return False
+
+    def in_serve_scope(self) -> bool:
+        """A module of the port's serving package or one that imports from
+        it (``chip_smoke.py`` drives the serving tier): R10 and R11's
+        scope."""
+        if SERVE_PATH in self.path or self.path.endswith("chip_smoke.py"):
+            return True
+        return any(v == SERVE_PACKAGE or v.startswith(SERVE_PACKAGE + ".")
+                   for v in self.aliases.values())
+
 
 #: (abspath, display_path) -> (stat key, ModuleInfo-or-None).  One
 #: shared parse per file across the three suites and across repeated
@@ -795,21 +835,17 @@ def loop_body_calls(mod: ModuleInfo, loop: ast.AST) -> List[ast.Call]:
     inside the loop are excluded (they do not run per iteration of this
     loop; their own loops are judged separately); nested loops' bodies are
     included (still per-iteration work)."""
-    body = list(loop.body) + list(getattr(loop, "orelse", []))
-    nested = {n for stmt in body for n in ast.walk(stmt)
-              if isinstance(n, (ast.FunctionDef, ast.AsyncFunctionDef,
-                                ast.Lambda))}
-
-    def under_nested(node: ast.AST) -> bool:
-        p = mod.parents.get(node)
-        while p is not None and p is not loop:
-            if p in nested:
-                return True
-            p = mod.parents.get(p)
-        return False
-
-    return [n for stmt in body for n in ast.walk(stmt)
-            if isinstance(n, ast.Call) and not under_nested(n)]
+    out: List[ast.Call] = []
+    for stmt in list(loop.body) + list(getattr(loop, "orelse", [])):
+        todo = deque([stmt])           # ast.walk's order, minus nested defs
+        while todo:
+            node = todo.popleft()
+            if isinstance(node, _FUNCS):
+                continue
+            if isinstance(node, ast.Call):
+                out.append(node)
+            todo.extend(ast.iter_child_nodes(node))
+    return out
 
 
 #: a step's builder (``build_train_step``, ``make_parallel_train_step``)
@@ -820,11 +856,41 @@ _STEP_BUILDER_RE = re.compile(r"^(build|make)_\w*$")
 def is_step_call(call: ast.Call) -> bool:
     """Does this call run a train step, by the naming convention?"""
     name = dotted_name(call.func)
-    if not name:
-        return False
-    last = name.split(".")[-1]
-    return bool(STEP_CALL_RE.fullmatch(last)) \
-        and not _STEP_BUILDER_RE.fullmatch(last)
+    return bool(name) and is_step_name(name.split(".")[-1])
+
+
+def is_step_name(name: str) -> bool:
+    """A step's name by the convention, not its builder's."""
+    return bool(STEP_CALL_RE.fullmatch(name)) \
+        and not _STEP_BUILDER_RE.fullmatch(name)
+
+
+def call_last_name(call: ast.Call) -> str:
+    """The called name: a method's (``self.g[k].replay()`` -> ``replay``)
+    or a function's; ``""`` for a call of a call or a subscript."""
+    f = call.func
+    return f.attr if isinstance(f, ast.Attribute) \
+        else f.id if isinstance(f, ast.Name) else ""
+
+
+def has_runtime_slice(call: ast.Call) -> bool:
+    """Does an argument subscript with a slice whose bound names a value
+    (``w[:, : a + 1]``, ``dst[:n_live]``) — an extent only the run knows,
+    so a program keyed on the argument's shape gets a new key with it?
+    (R17, R18)"""
+    for arg in list(call.args) + [kw.value for kw in call.keywords]:
+        for node in ast.walk(arg):
+            if not isinstance(node, ast.Subscript):
+                continue
+            sl = node.slice
+            dims = [sl] if isinstance(sl, ast.Slice) else [
+                d for d in getattr(sl, "elts", []) if isinstance(d, ast.Slice)]
+            for dim in dims:
+                for bound in (dim.lower, dim.upper, dim.step):
+                    if bound is not None and any(
+                            isinstance(n, ast.Name) for n in ast.walk(bound)):
+                        return True
+    return False
 
 
 # -------------------------------------------------------------------- registry

@@ -28,7 +28,7 @@ import queue
 import tempfile
 import time
 import traceback
-from typing import Callable, Dict, List
+from typing import Callable, Dict, List, Optional
 
 import numpy as np
 import torch
@@ -51,21 +51,23 @@ def _rank_main(fn, rank, world, args, payload, rdzv, results, threads):
 
 
 def run_gang(fn: Callable, world: int, args, payload=None,
-             timeout: float = 600.0) -> List:
+             timeout: float = 600.0, threads: Optional[int] = None) -> List:
     """``[fn(rank, world, args, payload) for each rank]``, computed by
     ``world`` processes that form one process group (``args.device`` and
     ``args.dist_backend`` pick the device and the backend).  On ``cuda``
     rank ``r`` takes card ``r % device_count`` (``runtime.init_runtime``):
     one rank per card over NCCL where there are ``world`` cards.  On the
-    CPU the ranks split the cores between them (a tp/ep placement then
-    takes its ranks down to one thread each: ``execution.
-    setup_sharded_model``)."""
+    CPU the ranks split the cores between them, or take ``threads``
+    intra-op threads each (a tp/ep placement then takes its ranks down to
+    one thread each: ``execution.setup_sharded_model``)."""
     import multiprocessing as mp
 
     ctx = mp.get_context("spawn")
     results = ctx.Queue()
-    threads = 0 if args.device.startswith("cuda") \
-        else max(1, (os.cpu_count() or 1) // world)
+    if args.device.startswith("cuda"):
+        threads = 0
+    elif threads is None:
+        threads = max(1, (os.cpu_count() or 1) // world)
     with tempfile.TemporaryDirectory(prefix="pdnlp_gang_") as tmp:
         procs = [ctx.Process(target=_rank_main,
                              args=(fn, r, world, args, payload,

@@ -7,7 +7,8 @@ the CPU: pure ``ast``, no card, no torch import in the package.
   same files with ``pdnlp_tpu`` imports and ``# jaxlint:`` markers
   renamed), and give the same (rule id, line) findings;
 - each of R1-R9 fires on its positive fixture (``tests/fixtures/
-  torchlint/``) at the marked lines and stays quiet on its negative;
+  torchlint/``) at the marked lines and stays quiet on its negative
+  (R10-R18: ``tests/test_torch_analysis_serve.py``);
   R3 flags the port's remat as it was before its recompute became
   graph-safe, and the repaired ``models.bert`` / ``train.steps`` carry
   no capture hazard;
@@ -242,11 +243,11 @@ def test_suite_selection_partitions_rules():
 
 
 def test_rule_registry():
-    """R1-R9, T1-T3 and L1-L4 (R10-R18 are not ported yet), each in its
-    suite."""
+    """R1-R18, T1-T3 and L1-L4, each in its suite."""
     rules = all_rules()
-    assert list(rules) == ["L1", "L2", "L3", "L4", "R1", "R2", "R3", "R4",
-                           "R5", "R6", "R7", "R8", "R9", "T1", "T2", "T3"]
+    assert list(rules) == sorted(
+        ["L1", "L2", "L3", "L4"] + [f"R{i}" for i in range(1, 19)]
+        + ["T1", "T2", "T3"])
     want = {"L": "lifecycle", "R": "tracing", "T": "concurrency"}
     assert all(r.suite == want[rid[0]] for rid, r in rules.items())
     assert all(r.hint and r.name for r in rules.values())
