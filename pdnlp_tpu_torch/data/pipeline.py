@@ -431,10 +431,9 @@ class DeviceResidentPipeline(InputPipeline):
         for i, (c, _seq) in enumerate(chunks):
             perm[i, : len(c)] = c
         t0 = time.perf_counter()
-        tr0 = _tracer().now()
-        perm_dev = torch.from_numpy(perm).to(self.device)
-        _tracer().record("h2d_put", tr0, _tracer().now(), bytes=perm.nbytes,
-                         in_loop=False, what="epoch_indices")
+        with _tracer().span("h2d_put", bytes=perm.nbytes, in_loop=False,
+                            what="epoch_indices"):
+            perm_dev = torch.from_numpy(perm).to(self.device)
         # torchlint: disable=R4 — InputStats records the host seconds of the upload call
         self.stats.record_upload(perm.nbytes, time.perf_counter() - t0,
                                  in_loop=False)
@@ -450,8 +449,9 @@ class DeviceResidentPipeline(InputPipeline):
             groups = [steps[g * k:(g + 1) * k] for g in range(n_fused)]                 + [[i] for i in steps[n_fused * k:]]
             for g in groups:
                 n = len(g)
-                idx = perm_dev[g[0]:g[-1] + 1].reshape(-1)
-                batch = self._gather(idx, seq, n, stage)
+                with _tracer().span("gather"):
+                    idx = perm_dev[g[0]:g[-1] + 1].reshape(-1)
+                    batch = self._gather(idx, seq, n, stage)
                 cs = [chunks[i][0] for i in g]
                 ex = sum(len(c) if self._row_examples is None
                          else int(self._row_examples[c].sum()) for c in cs)

@@ -74,6 +74,8 @@ import torch.nn.functional as F
 from torch import nn
 
 from pdnlp_tpu_torch.models.config import BertConfig
+from pdnlp_tpu_torch.obs.device import traced_call
+from pdnlp_tpu_torch.obs.trace import get_tracer
 from pdnlp_tpu_torch.ops.attention import dot_product_attention, mask_bias
 
 
@@ -506,6 +508,8 @@ class EncoderLayer(nn.Module):
             self.up = nn.Linear(H, I, device=device)
             self.down = nn.Linear(I, H, device=device)
         self.mlp_ln = LayerNorm(H, device)
+        #: the layer's place in the encoder: its device spans' ``layer``
+        self.index: Optional[int] = None
         self.shards = None
         #: the data group whose global batch the routing's statistics and
         #: capacity are over (the jit strategies; ``train.steps.
@@ -548,22 +552,31 @@ class EncoderLayer(nn.Module):
         if seq_group is not None:
             from pdnlp_tpu_torch.ops.ring import ring_attention
 
-            attn = ring_attention(q, k, v, bias, seq_group,
-                                  dropout_rate=attn_drop,
-                                  generator=generator,
-                                  segment_ids=segment_ids)
+            def attend(q, k, v):
+                return ring_attention(q, k, v, bias, seq_group,
+                                      dropout_rate=attn_drop,
+                                      generator=generator,
+                                      segment_ids=segment_ids)
         else:
-            attn = dot_product_attention(q, k, v, bias, impl=attn_impl,
-                                         segment_ids=segment_ids,
-                                         dropout_rate=attn_drop,
-                                         generator=generator)
+            def attend(q, k, v):
+                return dot_product_attention(q, k, v, bias, impl=attn_impl,
+                                             segment_ids=segment_ids,
+                                             dropout_rate=attn_drop,
+                                             generator=generator)
+        tracer = get_tracer()
+        attn = traced_call(tracer, "attn", attend, (q, k, v),
+                           layer=self.index)
         attn = _row_dense(attn.reshape(B, S, N * D), self.o, sh)
         x = _layer_norm(x + _dropout(attn, drop, generator),
                         self.attn_ln.scale, self.attn_ln.bias,
                         cfg.layer_norm_eps)
         aux = None
         if self.moe:
-            h, aux = moe_mlp(x, self, cfg, mask)
+            # x feeds the residual too: the backward ends once its whole
+            # gradient is in
+            h, aux = traced_call(tracer, "moe",
+                                 lambda x: moe_mlp(x, self, cfg, mask), (x,),
+                                 end_on=x, layer=self.index)
         else:
             xin = copy_to_group(x, sh.group) if tp else x
             h = _row_dense(_gelu(_dense(xin, self.up), cfg.gelu), self.down,
@@ -728,6 +741,8 @@ class BertClassifier(nn.Module):
         self.embeddings = Embeddings(cfg, device)
         self.layers = nn.ModuleList(
             EncoderLayer(cfg, device) for _ in range(cfg.num_layers))
+        for i, layer in enumerate(self.layers):
+            layer.index = i
         self.pooler = nn.Linear(H, H, device=device)
         self.classifier = nn.Linear(H, cfg.num_labels, device=device)
         self.init_weights(generator)
@@ -757,7 +772,17 @@ class BertClassifier(nn.Module):
         (with a ``generator``).  Explicit ``position_ids`` (packed rows
         restart per segment) carry their own bound; row positions must fit
         the table.  ``shard_offset`` is the first row position of a
-        sequence slice (sequence parallelism)."""
+        sequence slice (sequence parallelism).  Traced on the card: the
+        device spans ``embed.fwd`` and ``embed.bwd`` (to the word table's
+        gradient)."""
+        return traced_call(
+            get_tracer(), "embed",
+            lambda: self._embed(input_ids, token_type_ids, dtype,
+                                position_ids, generator, shard_offset),
+            end_on=self.embeddings.word)
+
+    def _embed(self, input_ids, token_type_ids, dtype, position_ids,
+               generator, shard_offset) -> torch.Tensor:
         emb = self.embeddings
         S = input_ids.shape[1]
         if position_ids is None:

@@ -4,7 +4,8 @@ and Chrome-trace exporters (``export``), device memory accounting
 (``memory``), the step-time regression detector (``regress``), the
 per-request hop tracer (``request``) and the live ``/metrics`` exporter
 and flight recorder (``exporter``).  The JAX package's ``pdnlp_tpu.obs``
-twins, record schema included.
+twins, record schema included; ``device`` (imported on its own: it needs
+torch) adds the card's own spans, inside captured CUDA graphs too.
 
 Off by default: ``--trace`` turns it on (spans land under
 ``<output_dir>/trace/trace_proc<i>.jsonl``).

@@ -104,7 +104,8 @@ class StepBreakdown:
     may contain several spans of one phase) are closed by the
     ``device_block`` record and become one observation per phase.  Spans
     whose name is not a known phase are ignored — serve traces flow through
-    the same tracer with their own vocabulary.  Phase seconds are SELF
+    the same tracer with their own vocabulary — and so are device spans
+    (``device=True``: the card's time, not the host's).  Phase seconds are SELF
     time: a phase span nested inside another phase span (same thread,
     contained interval) has its duration subtracted from the enclosing
     one, so sync mode's in-``next`` upload counts as ``h2d_put``, not as
@@ -161,6 +162,8 @@ class StepBreakdown:
 
     # ------------------------------------------------------------- feeding
     def feed(self, record: Dict) -> None:
+        if record.get("device"):        # the card's own time: not a phase
+            return
         name = record.get("name")
         attrs = record.get("attrs") or {}
         if name == "hbm":  # memory sample (obs.memory.MemorySampler)

@@ -35,6 +35,13 @@ SOURCES: Dict[str, str] = {
     "fused_ce": "fused_ce.cu",
 }
 
+#: libraries built only when asked for, never by :func:`build_all`'s
+#: default: the obs tracer's device span marks (``obs.device``), which an
+#: untraced run neither builds nor loads
+ON_DEMAND: Dict[str, str] = {
+    "trace_mark": "trace_mark.cu",
+}
+
 #: Hopper's full feature set (wgmma, setmaxnreg) exists only for sm_90a
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
@@ -73,8 +80,12 @@ def nvcc() -> str:
     return found
 
 
+def _source(name: str) -> str:
+    return SOURCES[name] if name in SOURCES else ON_DEMAND[name]
+
+
 def _target(name: str) -> Path:
-    text = (CSRC_DIR / SOURCES[name]).read_bytes()
+    text = (CSRC_DIR / _source(name)).read_bytes()
     for header in sorted(CSRC_DIR.glob("*.cuh")):
         text += header.read_bytes()
     digest = hashlib.sha256(text + " ".join(NVCC_FLAGS).encode()
@@ -87,8 +98,9 @@ def _log_path(target: Path) -> Path:
 
 
 def build_all(names: Optional[Sequence[str]] = None) -> Dict[str, float]:
-    """Compile every library not yet built, one ``nvcc`` per source, all
-    started together.  Returns ``{name: seconds}`` for the ones compiled
+    """Compile every library not yet built (``names``, default the
+    kernels of :data:`SOURCES`), one ``nvcc`` per source, all started
+    together.  Returns ``{name: seconds}`` for the ones compiled
     now; raises with the compiler's output if any build fails."""
     names = list(names or SOURCES)
     todo = [n for n in names if not _target(n).exists()]
@@ -102,7 +114,7 @@ def build_all(names: Optional[Sequence[str]] = None) -> Dict[str, float]:
         tmp = _target(n).with_name(f"{_target(n).name}.{os.getpid()}."
                                    f"{threading.get_ident()}.tmp")
         procs[n] = (tmp, subprocess.Popen(
-            [compiler, *NVCC_FLAGS, "-o", str(tmp), str(CSRC_DIR / SOURCES[n])],
+            [compiler, *NVCC_FLAGS, "-o", str(tmp), str(CSRC_DIR / _source(n))],
             stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))
     took: Dict[str, float] = {}
     failed = []

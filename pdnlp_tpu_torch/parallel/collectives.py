@@ -127,21 +127,18 @@ def barrier(group=None) -> None:
 
 
 #: the step's counted collectives in this process — the Megatron pair's
-#: all-reduces and zero's all-gathers and reduce-scatters: calls, bytes
-#: (each call's input) and host seconds (the call to its return), for the
-#: step's collective record.  A replayed CUDA
+#: all-reduces and zero's all-gathers and reduce-scatters: calls and bytes
+#: (each call's input), for the step's collective record.  A replayed CUDA
 #: graph runs no host code: :func:`add_stats` credits each replay with the
-#: calls and bytes its capture recorded.  On gloo a call returns when its
-#: collective is done, so ``seconds`` is the collectives' wall time; on
-#: NCCL a call only enqueues the collective on the card and returns, so
-#: ``seconds`` is the host's enqueue time, not the collective's: read the
-#: collectives' device time from ``torch.profiler``'s NCCL kernels
-#: (``chip_smoke.py`` phase 17b does)
-STATS = {"calls": 0, "bytes": 0, "seconds": 0.0}
+#: calls and bytes its capture recorded.  Their time is not kept here (on
+#: NCCL a call only enqueues the collective): read the collectives' device
+#: time from ``torch.profiler``'s NCCL kernels (``chip_smoke.py`` phase
+#: 17b does)
+STATS = {"calls": 0, "bytes": 0}
 
 
 def reset_stats() -> None:
-    STATS.update(calls=0, bytes=0, seconds=0.0)
+    STATS.update(calls=0, bytes=0)
 
 
 def stats_counts() -> dict:
@@ -160,17 +157,11 @@ def add_stats(counts: dict, times: int = 1) -> None:
 
 
 def _counted(call, t: torch.Tensor) -> None:
-    """Run the collective ``call`` and count it in :data:`STATS`: one call,
-    ``t``'s bytes, the host seconds to its return (on NCCL the enqueue
-    time: :data:`STATS`)."""
-    import time
-
-    t0 = time.perf_counter()
+    """Run the collective ``call`` and count it in :data:`STATS`: one call
+    and ``t``'s bytes."""
     call()
     STATS["calls"] += 1
     STATS["bytes"] += t.numel() * t.element_size()
-    # torchlint: disable=R4 — STATS keeps host seconds to return (NCCL: the enqueue)
-    STATS["seconds"] += time.perf_counter() - t0
 
 
 def _all_reduce(t: torch.Tensor, group) -> None:
@@ -256,7 +247,7 @@ GLOO_CUDA_P2P = "host"
 #: the point-to-point exchanges in this process: calls, bytes sent and host
 #: seconds (the call to its return, the wait for the peer included), for
 #: the ring's and the pipeline's exchange records; on NCCL the wait ends
-#: when the transfer is enqueued on the card, as :data:`STATS`' seconds
+#: when the transfer is enqueued on the card
 P2P_STATS = {"calls": 0, "bytes": 0, "seconds": 0.0}
 
 

@@ -38,6 +38,7 @@ import numpy as np
 import torch
 
 from pdnlp_tpu_torch.models.bert import BertClassifier, RematRng, remat_rng
+from pdnlp_tpu_torch.obs.trace import get_tracer
 from pdnlp_tpu_torch.ops.fused_ce import fused_weighted_ce, resolve_fused_ce
 from pdnlp_tpu_torch.parallel.sharding import ZeroObjective, local_shard
 from pdnlp_tpu_torch.train.precision import resolve_dtype
@@ -322,19 +323,22 @@ def build_train_step(args, device, after_backward=None, reduce_metrics=None
 
     def train_step(state: TrainState, batch: Batch,
                    next_lr: Optional[List[torch.Tensor]] = None) -> Metrics:
-        loss, correct, weight = loss_and_backward(state, batch)
-        if isinstance(state.objective, ZeroObjective):
-            state.objective.reduce_grads()
-        if after_backward is not None:
-            after_backward(state)
-        state.optimizer.step()
-        if next_lr is not None:
-            for group, rate in zip(state.optimizer.param_groups, next_lr):
-                group["lr"].copy_(rate)
-        elif state.scheduler is not None:
-            state.scheduler.step()
-        if state.ema is not None:
-            ema_update(state.ema, state.model, d, one_minus_d)
+        tracer = get_tracer()
+        with tracer.device_span("step", step=state.step):
+            loss, correct, weight = loss_and_backward(state, batch)
+            if isinstance(state.objective, ZeroObjective):
+                state.objective.reduce_grads()
+            if after_backward is not None:
+                after_backward(state)
+            with tracer.device_span("optimizer"):
+                state.optimizer.step()
+            if next_lr is not None:
+                for group, rate in zip(state.optimizer.param_groups, next_lr):
+                    group["lr"].copy_(rate)
+            elif state.scheduler is not None:
+                state.scheduler.step()
+            if state.ema is not None:
+                ema_update(state.ema, state.model, d, one_minus_d)
         state.step += 1
         loss, correct = loss.detach(), correct.detach()
         if reduce_metrics is not None:
@@ -441,6 +445,9 @@ class _Graph:
         #: (recompute dropout state, offset past the main generator's at
         #: the replay's start) per remat call (models.bert.RematRng)
         self.remat: List[tuple] = []
+        #: the device span marks the capture recorded (obs.device.
+        #: Recording; None untraced), logged at each replay
+        self.marks = None
 
 
 class _MultiStep:
@@ -470,6 +477,10 @@ class _MultiStep:
       (the kernels' libraries load, cuBLAS sets up its workspace) from a
       copy of the state, which is then put back bit for bit: capturing
       never changes the trained state;
+    - with the tracer's device spans on (``obs.trace``), the marks a
+      capture records are logged at each replay with its first step, so
+      each of the K steps has its own ``step`` span; the warm step runs
+      without marks;
     - under ``--remat`` that step also records the generator's offset at
       each layer's forward, and again before every later capture of
       another shape: the graph's recomputes draw from states of their own
@@ -508,7 +519,8 @@ class _MultiStep:
                                           batches.items()})
                   for i in range(k)]
             return {m: torch.stack([x[m] for x in ms]) for m in ms[0]}
-        inputs = self.stage.fill(batches)
+        with get_tracer().span("stage_fill"):
+            inputs = self.stage.fill(batches)
         g = self.graphs.get(self._key(inputs)) or self.capture(state, inputs)
         return self._replay(state, g)
 
@@ -526,7 +538,8 @@ class _MultiStep:
         before = _counts()
         start = state.generator.get_offset()
         self._stream.wait_stream(torch.cuda.current_stream(self.device))
-        with torch.cuda.stream(self._stream), remat_rng(RematRng()) as rec:
+        with torch.cuda.stream(self._stream), remat_rng(RematRng()) as rec, \
+                get_tracer().device_suspended():
             self.train_step(state, {key: v[0] for key, v in inputs.items()})
         period = state.generator.get_offset() - start
         torch.cuda.current_stream(self.device).wait_stream(self._stream)
@@ -573,8 +586,8 @@ class _MultiStep:
         reserved = torch.cuda.memory_reserved(self.device)
         before, step0 = _counts(), state.step
         t0 = time.perf_counter()
-        with remat_rng(rng), torch.cuda.graph(graph, pool=self._pool,
-                                              stream=self._stream):
+        with remat_rng(rng), get_tracer().device_capture(step0) as marks, \
+                torch.cuda.graph(graph, pool=self._pool, stream=self._stream):
             ms = [self.train_step(
                 state, {key_: v[i] for key_, v in inputs.items()},
                 next_lr=None if lrs is None else list(lrs[i + 1]))
@@ -598,16 +611,19 @@ class _MultiStep:
                    torch.cuda.memory_reserved(self.device) - reserved)
         g.collectives = {n: v for n, v in counted.items() if "." in n}
         g.remat = remat
+        g.marks = marks
         self.graphs[key] = g
         return g
 
     def _replay(self, state: TrainState, g: _Graph) -> Metrics:
+        tracer = get_tracer()
         sched = state.scheduler
         if g.lrs is not None:
             from pdnlp_tpu_torch.train.optim import advance_schedule, group_lrs
 
-            rows = torch.tensor(group_lrs(sched, g.k), dtype=torch.float32)
-            g.lrs.copy_(rows.pin_memory(), non_blocking=True)
+            with tracer.span("lr_rows"):
+                rows = torch.tensor(group_lrs(sched, g.k), dtype=torch.float32)
+                g.lrs.copy_(rows.pin_memory(), non_blocking=True)
         if g.remat:
             # each recompute's state at its forward's offset (host values:
             # the replay's prologue fills the device copies from them)
@@ -616,7 +632,9 @@ class _MultiStep:
             for r, offset in g.remat:
                 r.manual_seed(seed)
                 r.set_offset(base + offset)
-        g.graph.replay()
+        with tracer.span("graph_replay"):
+            tracer.device_replay(g.marks, state.step)
+            g.graph.replay()
         g.replays += 1
         state.step += g.k
         if sched is not None:
@@ -624,7 +642,8 @@ class _MultiStep:
         _add_counts({**g.launches, **g.collectives}, 1)
         # copied out now: a later replay of another graph of the shared
         # pool may reuse this one's output memory
-        return {m: v.clone() for m, v in g.outputs.items()}
+        with tracer.span("outputs"):
+            return {m: v.clone() for m, v in g.outputs.items()}
 
 
 def build_multi_step(train_step: Callable, device, stage=None

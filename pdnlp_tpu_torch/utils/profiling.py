@@ -4,8 +4,10 @@
   ``torch.profiler`` trace (host and, on the card, CUDA activity) written
   as a Chrome trace under ``--profile_dir``; the window skips the first
   steps, so the trace shows steady state, not the kernels' build.  A
-  captured step's replay shows as one graph launch: its device time is the
-  graph's, not split kernel by kernel.
+  captured group's replay is one graph launch on the host, and its
+  kernels appear in the device trace one by one, by name; which step or
+  layer each belongs to, the tracer's device spans say (``--trace``,
+  ``obs.device``).
 - :class:`StepStats` turns the epoch's wall clock into the rates line.
 """
 from __future__ import annotations
